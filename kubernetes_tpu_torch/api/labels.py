@@ -5,8 +5,9 @@ Re-implements the matching semantics of staging/src/k8s.io/apimachinery/pkg/labe
 (matchLabels + matchExpressions) — the predicate language every affinity /
 spread / selector feature in the scheduler is written in.
 
-The device path never evaluates these structures directly: node selectors
-are evaluated host-side into a per-node mask (ops/features.py sel_match).
+The device path never evaluates these structures directly: selectors are
+evaluated host-side into per-node masks and per-domain count tables
+(ops/features.py build_batch).
 """
 
 from __future__ import annotations
@@ -87,3 +88,6 @@ class LabelSelector:
             if not req.matches(labels):
                 return False
         return True
+
+    def is_empty(self) -> bool:
+        return not self.match_labels and not self.match_expressions

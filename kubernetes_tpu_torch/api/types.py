@@ -1,16 +1,17 @@
 """The API object model — the subset of staging/src/k8s.io/api/core/v1 the
-fit-only scheduling slice consumes, flattened into plain dataclasses.
+port's scheduling slices consume, flattened into plain dataclasses.
 
-Fields for features outside the slice (topology spread, pod affinity,
-host ports, volumes, claims, gates, pod groups, images) stay on the objects
-so that a caller who sets them is refused loudly by the scope guard
-(core/scope.py) instead of having the field silently dropped.
+Fields for features outside the port (host ports, volumes, claims, gates,
+pod groups, images) stay on the objects so that a caller who sets them is
+refused loudly by the scope guard (core/scope.py) instead of having the
+field silently dropped.
 
 Reference anchors:
 - Pod/PodSpec/Container:    staging/src/k8s.io/api/core/v1/types.go
 - Taint/Toleration:         same file; matching helpers in
                             staging/src/k8s.io/component-helpers/scheduling/corev1
 - Affinity/NodeSelector:    same file; matching in component-helpers nodeaffinity
+- TopologySpreadConstraint: same file (v1.TopologySpreadConstraint)
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import itertools
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from .labels import LabelSelector
 from .resource import Resource
 
 _uid_counter = itertools.count(1)
@@ -129,15 +131,73 @@ class PreferredSchedulingTerm:
 @dataclass(frozen=True)
 class NodeAffinity:
     required: Optional[NodeSelector] = None
-    preferred: tuple = ()  # PreferredSchedulingTerm (refused by the scope guard)
+    preferred: tuple = ()  # PreferredSchedulingTerm
+
+
+# ---------------------------------------------------------------------------
+# Pod affinity
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PodAffinityTerm:
+    """v1.PodAffinityTerm: labelSelector over pods, in namespaces, grouped by
+    topologyKey. namespace_selector selects namespaces by their labels."""
+
+    label_selector: Optional[LabelSelector] = None
+    namespaces: tuple = ()
+    topology_key: str = ""
+    namespace_selector: Optional[LabelSelector] = None
+    match_label_keys: tuple = ()
+    mismatch_label_keys: tuple = ()
+
+
+@dataclass(frozen=True)
+class WeightedPodAffinityTerm:
+    weight: int
+    term: PodAffinityTerm
+
+
+@dataclass(frozen=True)
+class PodAffinity:
+    required: tuple = ()  # PodAffinityTerm
+    preferred: tuple = ()  # WeightedPodAffinityTerm
+
+
+@dataclass(frozen=True)
+class PodAntiAffinity:
+    required: tuple = ()
+    preferred: tuple = ()
 
 
 @dataclass(frozen=True)
 class Affinity:
     node_affinity: Optional[NodeAffinity] = None
-    # Inter-pod (anti-)affinity: outside the slice, refused when non-empty.
-    pod_affinity: Optional[object] = None
-    pod_anti_affinity: Optional[object] = None
+    pod_affinity: Optional[PodAffinity] = None
+    pod_anti_affinity: Optional[PodAntiAffinity] = None
+
+
+# ---------------------------------------------------------------------------
+# Topology spread
+# ---------------------------------------------------------------------------
+
+DO_NOT_SCHEDULE = "DoNotSchedule"
+SCHEDULE_ANYWAY = "ScheduleAnyway"
+
+HONOR = "Honor"
+IGNORE = "Ignore"
+
+
+@dataclass(frozen=True)
+class TopologySpreadConstraint:
+    max_skew: int
+    topology_key: str
+    when_unsatisfiable: str  # DoNotSchedule | ScheduleAnyway
+    label_selector: Optional[LabelSelector] = None
+    min_domains: Optional[int] = None
+    node_affinity_policy: str = HONOR
+    node_taints_policy: str = IGNORE
+    match_label_keys: tuple = ()
 
 
 # ---------------------------------------------------------------------------
@@ -190,7 +250,7 @@ class Pod:
     node_selector: Dict[str, str] = field(default_factory=dict)
     affinity: Optional[Affinity] = None
     tolerations: List[Toleration] = field(default_factory=list)
-    topology_spread_constraints: list = field(default_factory=list)
+    topology_spread_constraints: List[TopologySpreadConstraint] = field(default_factory=list)
     priority: int = 0
     scheduling_gates: List[str] = field(default_factory=list)
     pod_group: str = ""
@@ -317,3 +377,9 @@ class Node:
             self.uid = _next_uid("node")
         if not self.labels.get(LABEL_HOSTNAME):
             self.labels[LABEL_HOSTNAME] = self.name
+
+
+@dataclass
+class Namespace:
+    name: str = ""
+    labels: Dict[str, str] = field(default_factory=dict)

@@ -1,19 +1,36 @@
-"""SchedulingBasic benchmark of the port: `python -m kubernetes_tpu_torch.bench`.
+"""Benchmark of the port: `python -m kubernetes_tpu_torch.bench [--workload NAME]`.
 
-The shape of the JAX package's bench.py `main` (SchedulingBasic/
-5000Nodes_10000Pods): 5000 nodes of 32 cpu / 256Gi / 110 pods across 50
-zones, identical 100m/128Mi pods, a same-shape warm-up (kernel build and a
-1024-pod block) outside the measured window, then the measured pods
-through TorchScheduler. Prints one JSON line with the same keys as
-bench.py (`metric`, `value`, `unit`, `vs_baseline`, `detail`), `platform`
-naming the card.
+The upstream scheduler_perf shapes that the JAX package carries in
+kubernetes_tpu/perf/configs/performance-config.yaml, all on 5000 nodes of
+32 cpu / 256Gi / 110 pods across 50 zones with 100m pods:
 
-Environment: BENCH_NODES, BENCH_PODS, BENCH_WARMUP, BENCH_MAX_BATCH;
-`--device cpu` runs the kernels' plain versions on the CPU. `--profile`
-runs the measured window under torch.profiler and adds `detail.profile`:
-the device's busy time (the union of its kernel and copy intervals), its
-busy share of the window, and the time and count of each device kernel.
-The profiler slows the host, so pods/s comes from a run without it.
+  SchedulingBasic/5000Nodes_10000Pods        (the default) 1024 warm-up pods
+                                             of the measured shape, then
+                                             10000 identical 100m/128Mi pods;
+  TopologySpreading/5000Nodes_5000Pods       1000 `app: warm` pods, then 5000
+                                             pods under a hard zone spread
+                                             (maxSkew 1, DoNotSchedule);
+  PreferredTopologySpreading/5000Nodes_5000Pods   5000 pods, ScheduleAnyway;
+  SchedulingPodAntiAffinity/5000Nodes_2000Pods    2000 pods, required
+                                             anti-affinity on the hostname;
+  SchedulingPodAffinity/5000Nodes_5000Pods   5000 pods, required affinity on
+                                             the zone (the bootstrap case).
+
+The kernels are built and every plan of the measured shape is dispatched
+once with no active pod (TorchScheduler.warm_for) before the warm-up pods,
+outside the measured window. Prints one JSON line with the keys of the JAX
+package's bench.py (`metric`, `value`, `unit`, `vs_baseline`, `detail`);
+`vs_baseline` divides by the upstream threshold of the shape (the
+reference's own pods/s floor, no target of the port), `detail.platform`
+names the card.
+
+Environment: BENCH_NODES, BENCH_PODS, BENCH_WARMUP (the warm-up or init
+pods), BENCH_MAX_BATCH; `--device cpu` runs the kernels' plain versions on
+the CPU. `--profile` runs the measured window under torch.profiler and adds
+`detail.profile`: the device's busy time (the union of its kernel and copy
+intervals), its busy share of the window, and the time and count of each
+device kernel. The profiler slows the host, so pods/s comes from a run
+without it.
 """
 
 from __future__ import annotations
@@ -22,6 +39,7 @@ import json
 import os
 import sys
 import time
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -29,11 +47,46 @@ from .models import TorchScheduler
 from .ops import kernel
 from .testing import make_node, make_pod
 
-BASELINE_PODS_PER_SEC = 680.0  # SchedulingBasic/5000Nodes_10000Pods upstream threshold
+ZONE = "topology.kubernetes.io/zone"
+HOSTNAME = "kubernetes.io/hostname"
 
 WINDOW_COUNTERS = ("scheduled", "failures", "device_batches", "device_scheduled",
                    "host_path_pods", "plan_build_s", "collect_s", "dispatch_s",
                    "device_wait_s", "host_commit_s", "session_end_s")
+
+
+class Workload(NamedTuple):
+    """One scheduler_perf shape: the measured pods' template (a builder
+    step over make_pod), their count, the warm-up/init pods and the
+    upstream pods/s threshold."""
+
+    measure_pods: int
+    build: Callable
+    init_pods: int
+    init_app: Optional[str]  # init pods' `app` label; None: the measured shape
+    threshold: float
+
+
+def _basic(b):
+    return b.req({"cpu": "100m", "memory": "128Mi"})
+
+
+WORKLOADS = {
+    "SchedulingBasic/5000Nodes_10000Pods": Workload(10000, _basic, 1024, None, 680.0),
+    "TopologySpreading/5000Nodes_5000Pods": Workload(
+        5000, lambda b: b.req({"cpu": "100m"}).labels({"app": "spread"})
+        .spread_constraint(1, ZONE, "DoNotSchedule", {"app": "spread"}), 1000, "warm", 460.0),
+    "PreferredTopologySpreading/5000Nodes_5000Pods": Workload(
+        5000, lambda b: b.req({"cpu": "100m"}).labels({"app": "soft-spread"})
+        .spread_constraint(1, ZONE, "ScheduleAnyway", {"app": "soft-spread"}), 0, None, 340.0),
+    "SchedulingPodAntiAffinity/5000Nodes_2000Pods": Workload(
+        2000, lambda b: b.req({"cpu": "100m"}).labels({"app": "exclusive"})
+        .pod_affinity(HOSTNAME, {"app": "exclusive"}, anti=True), 0, None, 180.0),
+    "SchedulingPodAffinity/5000Nodes_5000Pods": Workload(
+        5000, lambda b: b.req({"cpu": "100m"}).labels({"app": "pack"})
+        .pod_affinity(ZONE, {"app": "pack"}), 0, None, 70.0),
+}
+DEFAULT_WORKLOAD = "SchedulingBasic/5000Nodes_10000Pods"
 
 
 def build_cluster(n_nodes: int, device="cuda", max_batch=None, zones: int = 50) -> TorchScheduler:
@@ -46,11 +99,19 @@ def build_cluster(n_nodes: int, device="cuda", max_batch=None, zones: int = 50) 
     return sched
 
 
-def make_pods(n: int, prefix: str):
-    """N clones of one template (shared spec and signature memo)."""
-    proto = (make_pod().name("proto").req({"cpu": "100m", "memory": "128Mi"})
-             .labels({"app": prefix}).obj())
+def make_pods(n: int, prefix: str, workload: str = DEFAULT_WORKLOAD):
+    """N clones of the workload's measured template (shared spec and
+    signature memo). SchedulingBasic pods carry `app: <prefix>`."""
+    b = WORKLOADS[workload].build(make_pod().name("proto"))
+    if workload == DEFAULT_WORKLOAD:
+        b = b.labels({"app": prefix})
+    proto = b.obj()
     return [proto.clone_from_template(f"{prefix}-{i}") for i in range(n)]
+
+
+def _init_pods(n: int, app: str):
+    proto = make_pod().name("proto").req({"cpu": "100m"}).labels({"app": app}).obj()
+    return [proto.clone_from_template(f"{app}-{i}") for i in range(n)]
 
 
 def platform_name(sched: TorchScheduler) -> str:
@@ -59,18 +120,26 @@ def platform_name(sched: TorchScheduler) -> str:
     return "cpu"
 
 
-def warm(sched: TorchScheduler, warmup: int) -> None:
-    """Kernel build + inert dispatches, then one real warm block."""
-    sched.warm_for(make_pods(1, "warmshape")[0])
-    for p in make_pods(warmup, "warm"):
+def warm(sched: TorchScheduler, warmup: int, workload: str = DEFAULT_WORKLOAD) -> None:
+    """Kernel build and inert dispatches of the measured shape, then the
+    workload's warm-up (or init) pods, scheduled."""
+    w = WORKLOADS[workload]
+    sched.warm_for(make_pods(1, "warmshape", workload)[0])
+    if w.init_app is not None:
+        pods = _init_pods(warmup, w.init_app)
+    else:
+        pods = make_pods(warmup, "warm", workload)
+    for p in pods:
         sched.clientset.create_pod(p)
     sched.run_until_idle()
 
 
-def measure(sched: TorchScheduler, n_pods: int, prefix: str = "bench") -> dict:
-    """Schedule n_pods identical pods; returns the window's result line."""
+def measure(sched: TorchScheduler, n_pods: int, prefix: str = "bench",
+            workload: str = DEFAULT_WORKLOAD) -> dict:
+    """Schedule n_pods pods of the workload's measured shape; returns the
+    window's result line."""
     win0 = {a: getattr(sched, a) for a in WINDOW_COUNTERS}
-    for p in make_pods(n_pods, prefix):
+    for p in make_pods(n_pods, prefix, workload):
         sched.clientset.create_pod(p)
     t0 = time.perf_counter()
     sched.run_until_idle()
@@ -79,19 +148,19 @@ def measure(sched: TorchScheduler, n_pods: int, prefix: str = "bench") -> dict:
     elapsed = time.perf_counter() - t0
     detail = {a: getattr(sched, a) - win0[a] for a in WINDOW_COUNTERS}
     pods_per_sec = detail["scheduled"] / elapsed if elapsed > 0 else 0.0
-    detail.update(elapsed_s=elapsed, platform=platform_name(sched),
+    detail.update(workload=workload, elapsed_s=elapsed, platform=platform_name(sched),
                   launches={w.__name__: w.launches for w in kernel.WRAPPERS})
     return {
-        "metric": (f"pods scheduled/sec ({sched.snapshot.num_nodes()} nodes, {n_pods} pods, "
-                   "device batch path)"),
+        "metric": (f"pods scheduled/sec ({workload}: {sched.snapshot.num_nodes()} nodes, "
+                   f"{n_pods} pods, device batch path)"),
         "value": pods_per_sec,
         "unit": "pods/s",
-        "vs_baseline": pods_per_sec / BASELINE_PODS_PER_SEC,
+        "vs_baseline": pods_per_sec / WORKLOADS[workload].threshold,
         "detail": detail,
     }
 
 
-def profile(sched: TorchScheduler, n_pods: int) -> dict:
+def profile(sched: TorchScheduler, n_pods: int, workload: str = DEFAULT_WORKLOAD) -> dict:
     """measure() under torch.profiler, with the device timeline summarized."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -101,7 +170,7 @@ def profile(sched: TorchScheduler, n_pods: int) -> dict:
     if sched.device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     with torch_profile(activities=acts) as prof:
-        result = measure(sched, n_pods, prefix="profiled")
+        result = measure(sched, n_pods, prefix="profiled", workload=workload)
     spans, kernels = [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -127,17 +196,22 @@ def profile(sched: TorchScheduler, n_pods: int) -> dict:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     device = argv[argv.index("--device") + 1] if "--device" in argv else "cuda"
+    workload = argv[argv.index("--workload") + 1] if "--workload" in argv else DEFAULT_WORKLOAD
+    if workload not in WORKLOADS:
+        print(f"unknown workload {workload!r}; one of: {', '.join(WORKLOADS)}", file=sys.stderr)
+        return 2
+    w = WORKLOADS[workload]
     n_nodes = int(os.environ.get("BENCH_NODES", 5000))
-    n_pods = int(os.environ.get("BENCH_PODS", 10000))
-    warmup = int(os.environ.get("BENCH_WARMUP", 1024))
+    n_pods = int(os.environ.get("BENCH_PODS", w.measure_pods))
+    warmup = int(os.environ.get("BENCH_WARMUP", w.init_pods))
     max_batch = int(os.environ.get("BENCH_MAX_BATCH", 0)) or None
     sched = build_cluster(n_nodes, device=device, max_batch=max_batch)
-    warm(sched, warmup)
+    warm(sched, warmup, workload)
     kernel.reset_launch_counts()
     if "--profile" in argv:
-        print(json.dumps(profile(sched, n_pods)))
+        print(json.dumps(profile(sched, n_pods, workload)))
     else:
-        print(json.dumps(measure(sched, n_pods)))
+        print(json.dumps(measure(sched, n_pods, workload=workload)))
     return 0
 
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Set
 
-from ..api.types import Node, Pod
+from ..api.types import Namespace, Node, Pod
 from .node_info import NodeInfo, PodInfo, next_generation
 from .node_tree import NodeTree
 
@@ -25,6 +25,11 @@ class Snapshot:
     def __init__(self):
         self.node_info_map: Dict[str, NodeInfo] = {}
         self.node_info_list: List[NodeInfo] = []
+        # Nodes hosting pods with (anti-)affinity terms resp. required
+        # anti-affinity terms, in list order (snapshot.go
+        # havePodsWithAffinityNodeInfoList): InterPodAffinity walks only these.
+        self.have_pods_with_affinity_list: List[NodeInfo] = []
+        self.have_pods_with_required_anti_affinity_list: List[NodeInfo] = []
         self.generation: int = 0
         self._index: Dict[str, int] = {}
 
@@ -51,6 +56,16 @@ class Cache:
         self.pod_states: Dict[str, Pod] = {}
         self._dirty: Set[str] = set()
         self._removed_since_snapshot = False
+        self.namespaces: Dict[str, Namespace] = {}
+
+    # -- namespaces (read by namespaceSelector matching) -------------------
+
+    def add_namespace(self, ns: Namespace) -> None:
+        self.namespaces[ns.name] = ns
+
+    def namespace_labels(self, name: str) -> Optional[Dict[str, str]]:
+        ns = self.namespaces.get(name)
+        return ns.labels if ns else None
 
     # -- nodes -------------------------------------------------------------
 
@@ -183,6 +198,11 @@ class Cache:
                 idx = snapshot._index.get(name)
                 if idx is not None and clone.node is not None:
                     snapshot.node_info_list[idx] = clone
+        if structural or replaced:
+            snapshot.have_pods_with_affinity_list = [
+                ni for ni in snapshot.node_info_list if ni.pods_with_affinity]
+            snapshot.have_pods_with_required_anti_affinity_list = [
+                ni for ni in snapshot.node_info_list if ni.pods_with_required_anti_affinity]
         snapshot.generation = next_generation()
         self._dirty.clear()
         self._removed_since_snapshot = False

@@ -12,7 +12,7 @@ import copy
 import itertools
 from typing import Callable, Dict, List, Optional
 
-from ..api.types import Node, Pod
+from ..api.types import Namespace, Node, Pod
 from .scope import check_node, check_pod
 
 
@@ -21,8 +21,10 @@ class FakeClientset:
         self.pods: Dict[str, Pod] = {}
         self.nodes: Dict[str, Node] = {}
         self.bindings: Dict[str, str] = {}  # pod uid -> node name
+        self.namespaces: Dict[str, Namespace] = {"default": Namespace(name="default")}
         self._pod_handlers: List = []
         self._node_handlers: List = []
+        self._namespace_handlers: List = []
         self._rv_counter = itertools.count(1)
 
     # -- informer-ish registration ----------------------------------------
@@ -34,7 +36,20 @@ class FakeClientset:
     def on_node_event(self, handler: Callable[[str, Optional[Node], Node], None]) -> None:
         self._node_handlers.append(handler)
 
+    def on_namespace_event(self, handler: Callable[[Namespace], None]) -> None:
+        """handler(namespace) on every create; existing namespaces replay
+        at registration (an informer's initial list)."""
+        self._namespace_handlers.append(handler)
+        for ns in self.namespaces.values():
+            handler(ns)
+
     # -- writes ------------------------------------------------------------
+
+    def create_namespace(self, ns: Namespace) -> Namespace:
+        self.namespaces[ns.name] = ns
+        for h in self._namespace_handlers:
+            h(ns)
+        return ns
 
     def create_node(self, node: Node) -> Node:
         check_node(node)

@@ -1,7 +1,7 @@
 """The scheduler framework: extension-point vocabulary, Status codes,
 CycleState, and the plugin-dispatch runtime, trimmed to the extension points
-the fit-only slice's plugins implement (QueueSort, PreFilter, Filter,
-PreScore, Score, Bind, Sign).
+the port's plugins implement (QueueSort, PreFilter, Filter, PreScore, Score,
+NormalizeScore, Bind, Sign).
 
 Re-expresses staging/src/k8s.io/kube-scheduler/framework interface.go and
 pkg/scheduler/framework/runtime/framework.go (frameworkImpl :58). Plugins are
@@ -247,7 +247,7 @@ class Framework:
             scores = [NodeScore(ni.name, p.score(state, pod, ni)) for ni in nodes]
             normalize = getattr(p, "normalize_score", None)
             if normalize is not None:
-                normalize(scores)
+                normalize(state, pod, scores)
             for ns in scores:
                 if ns.score > MAX_NODE_SCORE or ns.score < MIN_NODE_SCORE:
                     raise RuntimeError(

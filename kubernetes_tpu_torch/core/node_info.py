@@ -1,7 +1,8 @@
 """NodeInfo / PodInfo — the per-node aggregate the scheduler filters against.
 
 Re-expresses pkg/scheduler/framework/types.go (NodeInfo struct at types.go:173),
-trimmed to the fit-only slice: each node carries its pod list, the summed
+trimmed to the port's slices: each node carries its pod list, the sublists
+of pods with (anti-)affinity terms that InterPodAffinity walks, the summed
 `requested` vector, the non-zero-default aggregate that scoring reads, and a
 monotonically increasing `generation` that drives incremental snapshotting
 (backend/cache/cache.go:206 UpdateSnapshot) and the device mirror's re-encode.
@@ -25,21 +26,44 @@ def next_generation() -> int:
 
 @dataclass
 class PodInfo:
-    """A Pod with its precomputed request (framework/types.go PodInfo)."""
+    """A Pod with its precomputed request and its affinity term lists
+    (framework/types.go PodInfo)."""
 
     pod: Pod
     request: Resource
+    required_affinity_terms: tuple = ()
+    required_anti_affinity_terms: tuple = ()
+    preferred_affinity_terms: tuple = ()
+    preferred_anti_affinity_terms: tuple = ()
 
     @classmethod
     def of(cls, pod: Pod) -> "PodInfo":
-        return cls(pod=pod, request=pod.resource_request())
+        aff = pod.affinity
+        req_aff = req_anti = pref_aff = pref_anti = ()
+        if aff is not None:
+            if aff.pod_affinity is not None:
+                req_aff = tuple(aff.pod_affinity.required)
+                pref_aff = tuple(aff.pod_affinity.preferred)
+            if aff.pod_anti_affinity is not None:
+                req_anti = tuple(aff.pod_anti_affinity.required)
+                pref_anti = tuple(aff.pod_anti_affinity.preferred)
+        return cls(pod=pod, request=pod.resource_request(),
+                   required_affinity_terms=req_aff, required_anti_affinity_terms=req_anti,
+                   preferred_affinity_terms=pref_aff,
+                   preferred_anti_affinity_terms=pref_anti)
+
+    @property
+    def has_affinity(self) -> bool:
+        return bool(self.required_affinity_terms or self.preferred_affinity_terms
+                    or self.required_anti_affinity_terms
+                    or self.preferred_anti_affinity_terms)
 
 
 class NodeInfo:
     """Aggregated node state. Mutable; every mutation bumps `generation`."""
 
-    __slots__ = ("node", "pods", "requested", "non_zero_requested",
-                 "allocatable", "generation")
+    __slots__ = ("node", "pods", "pods_with_affinity", "pods_with_required_anti_affinity",
+                 "requested", "non_zero_requested", "allocatable", "generation")
 
     # Default requests for the "non-zero" aggregate used by scoring
     # (reference framework/types.go DefaultMilliCPURequest/DefaultMemoryRequest).
@@ -49,6 +73,8 @@ class NodeInfo:
     def __init__(self, node: Optional[Node] = None):
         self.node: Optional[Node] = node
         self.pods: List[PodInfo] = []
+        self.pods_with_affinity: List[PodInfo] = []
+        self.pods_with_required_anti_affinity: List[PodInfo] = []
         self.requested = Resource()
         self.non_zero_requested = Resource()
         self.allocatable = node.allocatable.clone() if node else Resource()
@@ -61,6 +87,10 @@ class NodeInfo:
 
     def add_pod(self, pi: PodInfo) -> None:
         self.pods.append(pi)
+        if pi.has_affinity:
+            self.pods_with_affinity.append(pi)
+        if pi.required_anti_affinity_terms:
+            self.pods_with_required_anti_affinity.append(pi)
         req = pi.request
         self.requested.add(req)
         self.non_zero_requested.milli_cpu += req.milli_cpu or self.DEFAULT_MILLI_CPU
@@ -71,6 +101,10 @@ class NodeInfo:
         for i, pi in enumerate(self.pods):
             if pi.pod.uid == pod.uid:
                 self.pods.pop(i)
+                self.pods_with_affinity = [p for p in self.pods_with_affinity
+                                           if p.pod.uid != pod.uid]
+                self.pods_with_required_anti_affinity = [
+                    p for p in self.pods_with_required_anti_affinity if p.pod.uid != pod.uid]
                 req = pi.request
                 self.requested.sub(req)
                 self.non_zero_requested.milli_cpu -= req.milli_cpu or self.DEFAULT_MILLI_CPU
@@ -88,6 +122,8 @@ class NodeInfo:
         c = NodeInfo.__new__(NodeInfo)
         c.node = self.node
         c.pods = list(self.pods)
+        c.pods_with_affinity = list(self.pods_with_affinity)
+        c.pods_with_required_anti_affinity = list(self.pods_with_required_anti_affinity)
         c.requested = self.requested.clone()
         c.non_zero_requested = self.non_zero_requested.clone()
         c.allocatable = self.allocatable.clone()

@@ -1,5 +1,5 @@
-"""PriorityQueue: the three-stage pending-pod store, trimmed to the fit-only
-slice (no gates, no pod groups, no composite groups, no nominator).
+"""PriorityQueue: the three-stage pending-pod store, trimmed to the port
+(no gates, no pod groups, no composite groups, no nominator).
 
 Re-expresses pkg/scheduler/backend/queue/scheduling_queue.go (:186-269):
 - activeQ   — heap ordered by the QueueSort plugin (priority, FIFO);

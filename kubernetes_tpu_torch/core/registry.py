@@ -1,9 +1,10 @@
-"""The slice's default profile: the in-scope plugins of
+"""The port's default profile: the in-scope plugins of
 pkg/scheduler/apis/config/v1/default_plugins.go:32-60, in the reference's
 order (filter order decides which plugin a node's failure is charged to)
-and with its weights (TaintToleration 3, NodeResourcesFit 1,
-NodeResourcesBalancedAllocation 1). NodeAffinity scores only preferred terms,
-which are outside the slice, so it takes part as PreFilter/Filter only."""
+and with its weights (TaintToleration 3, NodeAffinity 2, NodeResourcesFit 1,
+PodTopologySpread 2, InterPodAffinity 2, NodeResourcesBalancedAllocation 1).
+`handle` gives the plugins the clientset, the scheduler's snapshot and the
+namespaces' labels (framework.Handle)."""
 
 from __future__ import annotations
 
@@ -15,11 +16,13 @@ from ..plugins.basic import (
     PrioritySort,
     TaintToleration,
 )
+from ..plugins.interpodaffinity import InterPodAffinity
 from ..plugins.noderesources import BalancedAllocation, Fit
+from ..plugins.podtopologyspread import PodTopologySpread
 from .framework import Framework
 
 
-def default_profile(clientset, profile_name: str = "default-scheduler") -> Framework:
+def default_profile(handle, profile_name: str = "default-scheduler") -> Framework:
     return Framework(profile_name=profile_name, plugins=[
         (PrioritySort(), 0),
         (NodeName(), 0),
@@ -27,6 +30,8 @@ def default_profile(clientset, profile_name: str = "default-scheduler") -> Frame
         (TaintToleration(), 3),
         (NodeAffinity(), 2),
         (Fit(), 1),
+        (PodTopologySpread(handle), 2),
+        (InterPodAffinity(handle), 2),
         (BalancedAllocation(), 1),
-        (DefaultBinder(clientset), 0),
+        (DefaultBinder(handle.clientset), 0),
     ])

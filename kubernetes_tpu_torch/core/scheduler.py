@@ -1,5 +1,5 @@
 """The scheduler: run loop + the one-pod host scheduling cycle, trimmed to
-the fit-only slice.
+the port's plugins.
 
 Re-expresses pkg/scheduler/schedule_one.go — the host path that the device
 session (models/tpu_scheduler.py) also uses for pods it hands back:
@@ -70,6 +70,20 @@ class ScheduleResult:
     feasible_nodes: int = 0
 
 
+class Handle:
+    """framework.Handle (interface.go:844), the subset the plugins read."""
+
+    def __init__(self, scheduler: "Scheduler"):
+        self._scheduler = scheduler
+        self.clientset = scheduler.clientset
+
+    def snapshot(self) -> Snapshot:
+        return self._scheduler.snapshot
+
+    def namespace_labels(self, name: str):
+        return self._scheduler.cache.namespace_labels(name)
+
+
 class Scheduler:
     def __init__(self, clientset: Optional[FakeClientset] = None,
                  percentage_of_nodes_to_score: int = 0,
@@ -80,7 +94,7 @@ class Scheduler:
         self.now = now
         self.percentage_of_nodes_to_score = percentage_of_nodes_to_score
         self.next_start_node_index = 0
-        fw = default_profile(self.clientset)
+        fw = default_profile(Handle(self))
         self.profiles = {fw.profile_name: fw}
         self.queue = PriorityQueue(fw, now=now)
         self.attempts = 0
@@ -92,6 +106,7 @@ class Scheduler:
         self.cluster_event_seq = 0
         self.clientset.on_pod_event(self._on_pod_event)
         self.clientset.on_node_event(self._on_node_event)
+        self.clientset.on_namespace_event(self._on_namespace_event)
 
     # -- event handlers (eventhandlers.go:624 addAllEventHandlers) ---------
 
@@ -135,6 +150,11 @@ class Scheduler:
             self.queue.move_all_to_active_or_backoff(EVENT_NODE_UPDATE, old, new)
         elif kind == "delete":
             self.cache.remove_node(new.name)
+
+    def _on_namespace_event(self, ns) -> None:
+        # Namespace labels feed namespaceSelector matching.
+        self.cluster_event_seq += 1
+        self.cache.add_namespace(ns)
 
     def framework_for_pod(self, pod: Pod) -> Framework:
         return self.profiles[pod.scheduler_name]

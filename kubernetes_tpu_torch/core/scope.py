@@ -1,23 +1,20 @@
-"""The port's scope guard: the fit-only slice knows only the plugins in
+"""The port's scope guard: the port knows only the plugins in
 core/registry.py, so an object that needs anything else is refused with
 NotImplementedError naming the feature — never scheduled while ignoring a
 constraint. Called by FakeClientset on every pod/node write and by the
-queue on admission."""
+queue on admission.
+
+In scope: resources, taints and tolerations (PreferNoSchedule included),
+node selectors and node affinity (required and preferred), topology spread
+and pod (anti-)affinity."""
 
 from __future__ import annotations
 
-from ..api.types import PREFER_NO_SCHEDULE, Node, Pod
+from ..api.types import Node, Pod
 
 
 def pod_unsupported(pod: Pod) -> str:
-    """The first out-of-slice feature `pod` uses, or "" when it is in scope."""
-    aff = pod.affinity
-    if pod.topology_spread_constraints:
-        return "topology spread constraints"
-    if aff is not None and (aff.pod_affinity or aff.pod_anti_affinity):
-        return "pod (anti-)affinity"
-    if aff is not None and aff.node_affinity is not None and aff.node_affinity.preferred:
-        return "preferred node affinity"
+    """The first out-of-scope feature `pod` uses, or "" when it is in scope."""
     if pod.host_ports():
         return "host ports"
     if pod.volumes:
@@ -29,14 +26,12 @@ def pod_unsupported(pod: Pod) -> str:
     if pod.pod_group:
         return "pod groups"
     if pod.priority != 0:
-        return "non-zero priority (no preemption in this slice)"
+        return "non-zero priority (no preemption in the port yet)"
     return ""
 
 
 def node_unsupported(node: Node) -> str:
-    """The first out-of-slice feature `node` uses, or "" when it is in scope."""
-    if any(t.effect == PREFER_NO_SCHEDULE for t in node.taints):
-        return "PreferNoSchedule taints"
+    """The first out-of-scope feature `node` uses, or "" when it is in scope."""
     if node.images:
         return "node images (ImageLocality)"
     return ""
@@ -46,13 +41,13 @@ def check_pod(pod: Pod) -> None:
     reason = pod_unsupported(pod)
     if reason:
         raise NotImplementedError(
-            f"pod {pod.namespace}/{pod.name}: {reason} is outside the "
-            "kubernetes_tpu_torch fit-only slice")
+            f"pod {pod.namespace}/{pod.name}: {reason} is outside what "
+            "kubernetes_tpu_torch covers")
 
 
 def check_node(node: Node) -> None:
     reason = node_unsupported(node)
     if reason:
         raise NotImplementedError(
-            f"node {node.name}: {reason} is outside the "
-            "kubernetes_tpu_torch fit-only slice")
+            f"node {node.name}: {reason} is outside what "
+            "kubernetes_tpu_torch covers")

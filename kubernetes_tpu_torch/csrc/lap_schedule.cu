@@ -16,6 +16,13 @@
 //   5. applies the landings and emits (row, start_after) per window.
 // After the loop the carry's fit/score lanes are evaluated once more.
 //
+// Required anti-affinity on a singleton-per-node axis (hostname) rides the
+// lap too (:818-820, :847-849, :891-899): a row is infeasible while its own
+// value's count in anti_counts [A1, V] is positive, and each landing adds
+// the term's anti_self at the landed row's value. No two windows share a
+// row, and on such an axis no two rows share a value, so a lap's landings
+// never block a window of the same lap; the counts are read afresh each lap.
+//
 // Bound: the laps are a dependent sequence (~B*to_find/N of them); per lap
 // the block streams the node tensors (~80 B per row at R=7) from L2. One
 // block keeps every lap's reductions inside shared memory with no grid
@@ -29,7 +36,9 @@ __global__ void __launch_bounds__(KTT_BLOCK) lap_schedule_kernel(
     const uint8_t* __restrict__ static_ok, const int64_t* __restrict__ il_score,
     const int64_t* __restrict__ weights, const int32_t* __restrict__ num_nodes_p,
     const int32_t* __restrict__ to_find_p, const int32_t* __restrict__ start_p,
-    int NP, int B, int n_act, uint8_t* okd_s, int32_t* F_s, int64_t* total_s,
+    int NP, int B, int n_act, int A1, int V, const int32_t* __restrict__ topo,
+    const int32_t* __restrict__ anti_axis, const int32_t* __restrict__ anti_self,
+    int32_t* anti_counts, uint8_t* okd_s, int32_t* F_s, int64_t* total_s,
     int32_t* out, uint8_t* fit_ok_out, int64_t* fit_sc_out, int64_t* ba_out,
     int32_t* start_out) {
   __shared__ int scan_sm[KTT_BLOCK];
@@ -58,7 +67,11 @@ __global__ void __launch_bounds__(KTT_BLOCK) lap_schedule_kernel(
       int64_t sc, ba;
       resource_eval_row(f, alloc_r + (int64_t)i * f.R, alloc_pods[i], req_r + (int64_t)i * f.R,
                         nonzero + 2 * (int64_t)i, pod_count[i], nullptr, 0, ok, sc, ba);
-      const bool okd = static_ok[i] && ok && i < num;
+      bool okd = static_ok[i] && ok && i < num;
+      for (int c = 0; c < A1 && okd; ++c) {
+        const int v = topo[(int64_t)anti_axis[c] * NP + i];
+        if (v > 0 && anti_counts[(int64_t)c * V + v] > 0) okd = false;
+      }
       okd_s[i] = okd;
       total_s[i] = w_tt * MAX_NODE_SCORE + w_fit * sc + w_ba * ba + w_il * il_score[i];
       cnt += okd;
@@ -111,6 +124,10 @@ __global__ void __launch_bounds__(KTT_BLOCK) lap_schedule_kernel(
         nonzero[2 * (int64_t)row] += f.nz_request[0];
         nonzero[2 * (int64_t)row + 1] += f.nz_request[1];
         pod_count[row] += 1;
+        for (int c = 0; c < A1; ++c) {
+          const int v = topo[(int64_t)anti_axis[c] * NP + row];
+          if (v > 0) atomicAdd(&anti_counts[(int64_t)c * V + v], anti_self[c]);
+        }
       }
       if (w == L - 1) s_start = start_w;
       if (w == 0) s_done = done + L;
@@ -131,19 +148,23 @@ __global__ void __launch_bounds__(KTT_BLOCK) lap_schedule_kernel(
 }
 
 extern "C" int launch_lap_schedule(
-    int NP, int R, int FR, int fit_strategy, int B, int n_act, const int64_t* request,
+    int NP, int R, int FR, int fit_strategy, int B, int n_act, int A1, int V,
+    const int64_t* request,
     const int64_t* nz_request, const int64_t* has_request, const int64_t* ba_skip,
     const int32_t* enable, const int32_t* fit_slots, const int64_t* fit_weights,
     const int64_t* alloc_r, const int64_t* alloc_pods, int64_t* req_r, int64_t* nonzero,
     int32_t* pod_count, const bool* static_ok, const int64_t* il_score,
     const int64_t* weights, const int32_t* num_nodes, const int32_t* to_find,
-    const int32_t* start, uint8_t* okd_s, int32_t* F_s, int64_t* total_s, int32_t* out,
-    bool* fit_ok, int64_t* fit_sc, int64_t* ba, int32_t* start_out, cudaStream_t stream) {
+    const int32_t* start, const int32_t* topo, const int32_t* anti_axis,
+    const int32_t* anti_self, int32_t* anti_counts, uint8_t* okd_s, int32_t* F_s,
+    int64_t* total_s, int32_t* out, bool* fit_ok, int64_t* fit_sc, int64_t* ba,
+    int32_t* start_out, cudaStream_t stream) {
   ResFeat f{request, nz_request, has_request, ba_skip, enable, fit_slots, fit_weights,
             R, FR, fit_strategy};
   lap_schedule_kernel<<<1, KTT_BLOCK, 0, stream>>>(
       f, alloc_r, alloc_pods, req_r, nonzero, pod_count, (const uint8_t*)static_ok,
-      il_score, weights, num_nodes, to_find, start, NP, B, n_act, okd_s, F_s, total_s, out,
-      (uint8_t*)fit_ok, fit_sc, ba, start_out);
+      il_score, weights, num_nodes, to_find, start, NP, B, n_act, A1, V, topo, anti_axis,
+      anti_self, anti_counts, okd_s, F_s, total_s, out, (uint8_t*)fit_ok, fit_sc, ba,
+      start_out);
   return (int)cudaGetLastError();
 }

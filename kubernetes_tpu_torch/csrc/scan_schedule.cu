@@ -1,6 +1,6 @@
 // scan_schedule: the JAX package's schedule_batch scan `step` +
-// `feasibility_proj` (ops/kernel.py:314-523), specialised to the plan of
-// the fit-only slice — no spread, pod-affinity or landing-delta tables
+// `feasibility_proj` (ops/kernel.py:314-523), specialised to the row-local
+// plan with no count tables — no spread, pod-affinity or landing-delta tables
 // (C1 = C2 = A1 = A2 = KD = 0), no PreferNoSchedule, preferred-affinity or
 // base inter-pod terms — so feasibility changes only at the landed row
 // (incremental_feas) and the total score rides the carry (scores_carried).

@@ -1,5 +1,5 @@
-"""TorchScheduler — the scheduler with the fit-only hot path on an NVIDIA
-GPU (the port of the JAX package's TPUScheduler, trimmed to the slice).
+"""TorchScheduler — the scheduler with its hot path on an NVIDIA GPU (the
+port of the JAX package's TPUScheduler, trimmed to the port's slices).
 
 Control flow:
 
@@ -12,10 +12,15 @@ Control flow:
           emulation, selection, carry updates)
         → per pod: assume → bind (host, unchanged semantics)
 
-Consecutive batches of one session chain through the device carry, and up
-to `pipeline_depth` batches are in flight: the host commits batch N while
-the device computes batch N+1. Each batch's results come back through a
-non-blocking copy into pinned host memory, fenced by a CUDA event.
+Consecutive batches of one session chain through the device carry — count
+tables included, so identical spread or affinity pods (one signature: the
+PodTopologySpread and InterPodAffinity Sign parts cover their labels,
+namespace and terms) share one plan — and up to `pipeline_depth` batches
+are in flight: the host commits batch N while the device computes batch
+N+1. Each batch's results come back through a non-blocking copy into pinned
+host memory, fenced by a CUDA event. Any foreign pod, node or namespace
+event ends the session: the next one rebuilds its plan from the snapshot
+(the JAX package delta-patches pod-local plans instead; not ported yet).
 
 Pods the kernels do not cover (matchFields narrowing) and pods a session
 hands back take the host path in core/scheduler.py, which produces the same
@@ -24,6 +29,7 @@ assignments.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import List, Optional, Tuple
 
@@ -156,24 +162,32 @@ class TorchScheduler(Scheduler):
         (device state, BatchPlan)."""
         self.cache.update_snapshot(self.snapshot)
         self.mirror.sync(self.snapshot.node_info_list)
+        ipa = fw.plugin("InterPodAffinity")
         plan = build_batch(
-            pod, batch_size, self.mirror, self.snapshot,
+            pod, batch_size, self.mirror, self.snapshot, self.cache.namespace_labels,
             percentage_of_nodes_to_score=self.percentage_of_nodes_to_score,
             start_index=self.next_start_node_index,
             weights=self._profile_weights(fw), filters_on=self._profile_filters(fw),
+            hard_pod_affinity_weight=ipa.hard_pod_affinity_weight,
+            ignore_preferred_terms_of_existing_pods=ipa.ignore_preferred_terms_of_existing_pods,
             fit_plugin=fw.plugin("NodeResourcesFit"))
         return self.mirror.flush(), plan
 
     def _dispatch(self, state, plan, n_active: int, carry):
         """The only kernel call site (warm and live dispatches alike)."""
         return schedule_batch(state, plan.features, plan.batch_pad, plan.fit_strategy,
-                              plan.vmax, n_active=n_active, carry_in=carry,
-                              has_pns=plan.has_pns, has_ipa_base=False)
+                              plan.vmax, plan.facts, n_active=n_active, carry_in=carry)
 
     def warm_for(self, pod) -> None:
         """Build the kernels and run both the fresh-carry and the chained
         dispatch of a `pod`-shaped session with no active pods (fully
-        inert), so that set-up lands outside a measured window."""
+        inert), so that set-up lands outside a measured window. A plan
+        whose anti-affinity is row-local also launches its conservative
+        fallback (`anti_rowlocal` off: the general scan) once, inert, so
+        that a later plan that takes it (once a node shares a value of the
+        axis) does not pay the kernel's first load (the JAX package's
+        warm_for, :1119-1165, which warms both carries of it because each
+        is an XLA compile; here one library holds every kernel)."""
         fw = self.framework_for_pod(pod)
         if batch_supported(pod) is not None:
             return
@@ -181,6 +195,11 @@ class TorchScheduler(Scheduler):
         _results, carry = self._dispatch(state, plan, 0, None)
         results, _ = self._dispatch(state, plan, 0, carry)
         _Fetch(results).wait()
+        if plan.facts.anti_rowlocal:
+            fallback = dataclasses.replace(
+                plan, facts=plan.facts._replace(anti_rowlocal=False))
+            results, _ = self._dispatch(state, fallback, 0, None)
+            _Fetch(results).wait()
 
     # -- device session ------------------------------------------------------
 

@@ -9,6 +9,9 @@ are dirty, a full upload otherwise.
 
 Row order == snapshot list order, so the kernels' rotation arithmetic
 (schedule_one.go:816 nextStartNodeIndex) operates directly on row indices.
+Topology keys that a batch's spread constraints or affinity terms name are
+registered as axes (`ensure_axis`): row `ax.index` of `topo` holds each
+node's interned value id for that key, 0 where the node lacks it.
 Capacities grow in powers of two, as in the JAX mirror, so the port's
 tensors have the reference's shapes.
 
@@ -53,6 +56,29 @@ class DeviceNodeState(NamedTuple):
     topo: torch.Tensor         # [K, NP] i32 per-axis topology value ids (0 = absent)
 
 
+class TopoAxis:
+    """One registered topology key (e.g. topology.kubernetes.io/zone): its
+    value codebook and its row in the mirror's `topo` tensor. Value id 0
+    means "key absent"; a label present with an EMPTY value (a real domain
+    for topology spreading) is interned under a private token so that it
+    gets a distinct non-zero id."""
+
+    __slots__ = ("key", "index", "values")
+
+    _EMPTY_TOKEN = "\x00empty"
+
+    def __init__(self, key: str, index: int):
+        self.key = key
+        self.index = index
+        self.values = Codebook()
+
+    def intern_value(self, val: str) -> int:
+        return self.values.intern(val if val != "" else self._EMPTY_TOKEN)
+
+    def lookup_value(self, val: str) -> int:
+        return self.values.lookup(val if val != "" else self._EMPTY_TOKEN)
+
+
 def state_from_jax_numpy(arrays: Sequence[np.ndarray], device="cpu") -> DeviceNodeState:
     """The JAX package's DeviceNodeState, fetched field by field with
     np.asarray, as the port's tensors (same layout, same dtypes)."""
@@ -86,6 +112,7 @@ class NodeStateMirror:
         self.vals = Codebook()        # taint values
         self.names = Codebook()       # node names
         self.scalar_slots: Dict[str, int] = {}  # scalar resource -> slot >= BASE_RESOURCES
+        self.axes: Dict[str, TopoAxis] = {}
         self._alloc_storage()
         self._row_names: List[str] = []
         self._row_gen: List[int] = []
@@ -93,6 +120,7 @@ class NodeStateMirror:
         self._full_flush = True
         self._device: Optional[DeviceNodeState] = None
         self.num_nodes = 0
+        self.scatter_flushes = 0  # flushes that took the dirty-row scatter
 
     # -- storage -----------------------------------------------------------
 
@@ -113,21 +141,41 @@ class NodeStateMirror:
         self.h_unsched = np.zeros(npc, bool)
         self.h_valid = np.zeros(npc, bool)
         self.h_name_id = np.zeros(npc, np.int32)
-        # The slice registers no topology axes (spread and pod affinity are
-        # outside it); the tensor keeps the reference's [K, NP] shape.
         self.h_topo = np.zeros((k, npc), np.int32)
 
-    def _grow(self, node_capacity=None, taint_capacity=None, scalar_capacity=None) -> None:
+    def _grow(self, node_capacity=None, taint_capacity=None, scalar_capacity=None,
+              axis_capacity=None) -> None:
         """Capacity tier change: reallocate staging and force a full
         re-encode + full upload."""
         self.np_cap = node_capacity or self.np_cap
         self.t_cap = taint_capacity or self.t_cap
         self.s_cap = scalar_capacity or self.s_cap
+        self.k_cap = axis_capacity or self.k_cap
         self._alloc_storage()
         self._row_names = []
         self._row_gen = []
         self._full_flush = True
         self._device = None
+
+    def ensure_axis(self, key: str) -> TopoAxis:
+        """The axis of topology key `key`, registering it on first use: a new
+        axis re-encodes every row at the next sync (a full upload)."""
+        ax = self.axes.get(key)
+        if ax is not None:
+            return ax
+        if len(self.axes) >= self.k_cap:
+            self._grow(axis_capacity=self.k_cap * 2)
+        ax = TopoAxis(key, len(self.axes))
+        self.axes[key] = ax
+        self._full_flush = True
+        self._row_gen = [-1] * len(self._row_gen)
+        return ax
+
+    @property
+    def vmax(self) -> int:
+        """The count tables' value tier: every axis' value ids (plus the
+        absent id 0) fit, at least 64, a power of two."""
+        return _pow2(max((len(ax.values) for ax in self.axes.values()), default=1) + 1, 64)
 
     def scalar_slot(self, resource_name: str) -> int:
         slot = self.scalar_slots.get(resource_name)
@@ -175,6 +223,10 @@ class NodeStateMirror:
         self.h_unsched[i] = bool(node and node.unschedulable)
         self.h_valid[i] = node is not None
         self.h_name_id[i] = self.names.intern(node.name) if node else 0
+        labels = node.labels if node else {}
+        for ax in self.axes.values():
+            val = labels.get(ax.key)
+            self.h_topo[ax.index, i] = ax.intern_value(val) if val is not None else 0
 
     # -- sync --------------------------------------------------------------
 
@@ -239,13 +291,12 @@ class NodeStateMirror:
     def flush(self) -> DeviceNodeState:
         """Upload pending changes and return the device state: a row
         scatter when the dirty fraction is small, a full upload otherwise."""
-        if self._device is None or self._full_flush:
+        if (self._device is None or self._full_flush
+                or len(self._dirty) > self.scatter_threshold * self.np_cap):
             self._device = self._upload()
         elif self._dirty:
-            if len(self._dirty) > self.scatter_threshold * self.np_cap:
-                self._device = self._upload()
-            else:
-                self._device = self._scatter_dirty(sorted(self._dirty))
+            self._device = self._scatter_dirty(sorted(self._dirty))
+            self.scatter_flushes += 1
         self._dirty.clear()
         self._full_flush = False
         return self._device

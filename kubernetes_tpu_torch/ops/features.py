@@ -8,26 +8,42 @@ taints) are computed once here on the host; the sequential dependence —
 each placement changing the node the next pod sees — runs on the device in
 the kernels' carry (ops/kernel.py).
 
+The expensive O(all pods) PreFilter aggregations of PodTopologySpread
+(filtering.go:241 calPreFilterState) and InterPodAffinity (filtering.go:287)
+are computed once per batch here, as per-domain count tables over the
+mirror's topology axes; each landing's effect on them runs in the kernels'
+carry.
+
 `BatchFeatures` keeps every field of the JAX package's BatchFeatures, in its
-order and dtypes, so the two can be fed identical inputs. Lanes this slice
-never fills (spread, pod affinity, preferred terms, images, host ports,
-counted claims, nominated pods) are zero-length tables or zero vectors.
+order and dtypes, so the two can be fed identical inputs. Lanes the port
+never fills (images, host ports, counted claims, nominated pods) are zero
+vectors or zero-length tables.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..api import resource as res
-from ..api.types import Pod, find_matching_untolerated_taint
+from ..api.types import (
+    DO_NOT_SCHEDULE,
+    HONOR,
+    LABEL_HOSTNAME,
+    SCHEDULE_ANYWAY,
+    Pod,
+    find_matching_untolerated_taint,
+)
 from ..core.framework import Diagnosis, Status
-from ..core.node_info import NodeInfo
+from ..core.node_info import NodeInfo, PodInfo
 from ..core.scheduler import num_feasible_nodes_to_find
 from ..plugins.basic import UNSCHED_TAINT
+from ..plugins.helpers import compile_terms
+from ..plugins.podtopologyspread import _compile_constraints, _count_pods_matching
 from .codebook import EFFECT_IDS, EFFECT_PREFER_NO_SCHEDULE, OP_EQUAL, OP_EXISTS
 from .device_state import NodeStateMirror
 
@@ -59,40 +75,40 @@ class BatchFeatures(NamedTuple):
     node_name_id: torch.Tensor     # i32 (0 = unset)
     tolerates_unsched: torch.Tensor  # i32
     sel_match: torch.Tensor        # [NP] bool node selector + required affinity
-    extra_ok: torch.Tensor         # [NP] bool (all true in the slice)
-    # static score inputs (zero in the slice)
-    il_score: torch.Tensor         # [NP] i64
-    na_raw: torch.Tensor           # [NP] i64
-    # PodTopologySpread DoNotSchedule (zero-length in the slice)
-    dns_axis: torch.Tensor         # [C1] i32
-    dns_active: torch.Tensor       # [C1] i32
+    extra_ok: torch.Tensor         # [NP] bool (all true in the port)
+    # static score inputs
+    il_score: torch.Tensor         # [NP] i64 ImageLocality (zero in the port)
+    na_raw: torch.Tensor           # [NP] i64 preferred-node-affinity raw sum
+    # PodTopologySpread DoNotSchedule
+    dns_axis: torch.Tensor         # [C1] i32 axis row in state.topo
+    dns_active: torch.Tensor       # [C1] i32 (0 = padding row, never rejects)
     dns_max_skew: torch.Tensor     # [C1] i64
-    dns_self: torch.Tensor         # [C1] i32
-    dns_forced0: torch.Tensor      # [C1] i32
-    dns_honor_aff: torch.Tensor    # [C1] i32
-    dns_honor_taints: torch.Tensor  # [C1] i32
+    dns_self: torch.Tensor         # [C1] i32 selector matches the batch pod itself
+    dns_forced0: torch.Tensor      # [C1] i32 min-match forced to 0 (minDomains)
+    dns_honor_aff: torch.Tensor    # [C1] i32 nodeAffinityPolicy == Honor
+    dns_honor_taints: torch.Tensor  # [C1] i32 nodeTaintsPolicy == Honor
     dns_counts: torch.Tensor       # [C1, V] i32
-    dns_dom: torch.Tensor          # [C1, V] bool
-    # PodTopologySpread ScheduleAnyway (zero-length in the slice)
+    dns_dom: torch.Tensor          # [C1, V] bool eligible-domain mask
+    # PodTopologySpread ScheduleAnyway
     sa_axis: torch.Tensor          # [C2] i32
-    sa_wq: torch.Tensor            # [C2] i64
+    sa_wq: torch.Tensor            # [C2] i64 round(log(size+2)*1024)
     sa_skew: torch.Tensor          # [C2] i64
     sa_self: torch.Tensor          # [C2] i32
     sa_counts: torch.Tensor        # [C2, V] i32
-    # InterPodAffinity required (zero-length in the slice)
+    # InterPodAffinity required
     anti_axis: torch.Tensor        # [A1] i32
     anti_self: torch.Tensor        # [A1] i32
-    anti_counts: torch.Tensor      # [A1, V] i32
-    exist_anti: torch.Tensor       # [NP] i32
+    anti_counts: torch.Tensor      # [A1, V] i32 (own anti terms vs existing pods)
+    exist_anti: torch.Tensor       # [NP] i32 existing pods' anti-affinity hits
     aff_axis: torch.Tensor         # [A2] i32
     aff_self: torch.Tensor         # [A2] i32
-    aff_active: torch.Tensor       # [A2] i32
+    aff_active: torch.Tensor       # [A2] i32 (0 = padding row, auto-pass)
     aff_counts: torch.Tensor       # [A2, V] i32
-    aff_own_all: torch.Tensor      # i32
-    # InterPodAffinity scoring (zero in the slice)
-    ipa_base: torch.Tensor         # [NP] i64
+    aff_own_all: torch.Tensor      # i32 the pod matches all its own terms
+    # InterPodAffinity scoring
+    ipa_base: torch.Tensor         # [NP] i64 preferred/existing-term base score
     ipa_axis: torch.Tensor         # [KD] i32
-    ipa_wland: torch.Tensor        # [KD] i64
+    ipa_wland: torch.Tensor        # [KD] i64 score delta per landing at axis value
     # Fit / BalancedAllocation scoring config
     fit_slots: torch.Tensor        # [FR] i32 resource slot per scored resource
     fit_weights: torch.Tensor      # [FR] i64
@@ -101,10 +117,10 @@ class BatchFeatures(NamedTuple):
     # filter enablement:
     # [NodeName, NodeUnschedulable, TaintToleration, NodeAffinity, NodeResourcesFit]
     enable: torch.Tensor           # [5] i32
-    # counted aux constraint (unused in the slice)
+    # counted aux constraint (not ported: inert)
     aux_room: torch.Tensor         # [NP] i32
     aux_inc: torch.Tensor          # i32
-    # nominated-pod lane (empty in the slice)
+    # nominated-pod lane (not ported: empty)
     nom_req: torch.Tensor          # [0, R] i64
     nom_pods: torch.Tensor         # [0] i32
     # sampling / loop
@@ -119,16 +135,32 @@ def features_from_jax_numpy(arrays: Sequence[np.ndarray], device="cpu") -> Batch
     return BatchFeatures(*[torch.from_numpy(np.array(a)).to(device) for a in arrays])
 
 
+class PlanFacts(NamedTuple):
+    """The host-known batch facts that pick the kernel path and its lanes
+    (ops/kernel.py schedule_batch; the JAX package's static arguments of
+    the same names)."""
+
+    has_pns: bool = False         # any PreferNoSchedule taint staged
+    has_ipa_base: bool = False    # any nonzero inter-pod-affinity base score
+    # Every required anti-affinity term is keyed to a singleton-per-node
+    # axis (kubernetes.io/hostname-like): a landing blocks only its own row.
+    anti_rowlocal: bool = False
+    has_na_pref: bool = False     # the pod has preferred node-affinity terms
+
+
 @dataclass
 class BatchPlan:
-    """A built batch: kernel inputs + the host-known plan facts that pick
-    the kernel path (ops/kernel.py schedule_batch)."""
+    """A built batch: kernel inputs + the host-known plan facts."""
 
     features: BatchFeatures
     batch_pad: int                # steps (>= len(pods))
     fit_strategy: int             # 0 = LeastAllocated, 1 = MostAllocated
     vmax: int
-    has_pns: bool = False         # any PreferNoSchedule taint staged
+    facts: PlanFacts = PlanFacts()
+    # No pod-derived coupling anywhere in the plan (no count tables, landing
+    # deltas, base scores or existing-pod anti hits): a pod arriving on or
+    # leaving node n changes only row n's aggregates.
+    pod_local: bool = False
 
 
 class Unsupported(Exception):
@@ -167,13 +199,16 @@ def _batch_tier(n: int) -> int:
     return _pow2(n, 512)
 
 
-def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot, *,
-                percentage_of_nodes_to_score: int = 0, start_index: int = 0,
-                weights: Tuple[int, ...] = (3, 1, 0, 0, 1, 0, 0),
+def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
+                ns_labels_fn=None, *, percentage_of_nodes_to_score: int = 0,
+                start_index: int = 0, weights: Tuple[int, ...] = (3, 1, 2, 2, 1, 2, 0),
                 filters_on: Tuple[bool, ...] = (True, True, True, True, True),
+                hard_pod_affinity_weight: int = 1,
+                ignore_preferred_terms_of_existing_pods: bool = False,
                 fit_plugin=None) -> BatchPlan:
     """Build kernel inputs for a batch of `batch_size` pods identical to
-    `pod`. `mirror` must already be synced to `snapshot`."""
+    `pod`. `mirror` must already be synced to `snapshot`; `ns_labels_fn(ns)`
+    gives a namespace's labels for namespaceSelector matching."""
     reason = batch_supported(pod)
     if reason:
         raise Unsupported(reason)
@@ -182,8 +217,9 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot, *,
     i32, i64 = np.int32, np.int64
     dev = mirror.device
 
-    # Scalar-resource slots intern before any vector is built: interning can
-    # grow the slot tier, which resets staging (re-synced below).
+    # Scalar-resource slots and topology axes intern before any vector is
+    # built: interning can grow a capacity tier, which resets staging
+    # (re-synced below).
     req = pod.resource_request()
     for name in req.scalar_resources:
         mirror.scalar_slot(name)
@@ -197,6 +233,26 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot, *,
     for spec in specs:
         if spec["name"] not in slot_of and spec["name"] != res.PODS:
             mirror.scalar_slot(spec["name"])
+
+    dns = _compile_constraints(pod, DO_NOT_SCHEDULE)
+    sa = _compile_constraints(pod, SCHEDULE_ANYWAY)
+    pi = PodInfo.of(pod)
+    aff_terms = compile_terms(pi.required_affinity_terms, pod)
+    anti_terms = compile_terms(pi.required_anti_affinity_terms, pod)
+    pref_aff = [(w.weight, compile_terms((w.term,), pod)[0]) for w in pi.preferred_affinity_terms]
+    pref_anti = [(w.weight, compile_terms((w.term,), pod)[0])
+                 for w in pi.preferred_anti_affinity_terms]
+    for key in ([c.topology_key for c in dns + sa]
+                + [t.topology_key for t in list(aff_terms) + list(anti_terms)]
+                + [t.topology_key for _, t in pref_aff + pref_anti]):
+        mirror.ensure_axis(key)
+    # Existing pods' terms name axes too.
+    for ni in nodes:
+        for epi in ni.pods_with_affinity:
+            for t in epi.required_anti_affinity_terms + epi.required_affinity_terms:
+                mirror.ensure_axis(t.topology_key)
+            for w in epi.preferred_affinity_terms + epi.preferred_anti_affinity_terms:
+                mirror.ensure_axis(w.term.topology_key)
     if mirror._full_flush:
         mirror.sync(nodes)
 
@@ -216,8 +272,12 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot, *,
     node_name_id = mirror.names.lookup(pod.node_name) if pod.node_name else 0
     if pod.node_name and node_name_id == -1:
         node_name_id = -2  # requested node not in the snapshot: nothing matches
+    # Host-side per-node predicates, shared with the topology aggregations.
+    sel_host = [pod.required_node_selector_matches(ni.node) for ni in nodes]
+    taint_ok_host = [find_matching_untolerated_taint(ni.node.taints, tols) is None
+                     for ni in nodes]
     sel_match = np.zeros(npc, bool)
-    sel_match[:n] = [pod.required_node_selector_matches(ni.node) for ni in nodes]
+    sel_match[:n] = sel_host
 
     fr = _pow2(len(specs))
     fit_slots = np.zeros(fr, i32)
@@ -227,10 +287,207 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot, *,
         fit_slots[j] = slot_of[name] if name in slot_of else mirror.scalar_slot(name)
         fit_weights[j] = spec.get("weight", 1)
 
-    vmax = 64  # the JAX tier floor: the slice registers no topology axes
-    z32 = np.zeros(0, i32)
-    z64 = np.zeros(0, i64)
-    ztab = np.zeros((0, vmax), i32)
+    # -- preferred node affinity raw score (node_affinity.go Score) ---------
+    na_raw = np.zeros(npc, i64)
+    na_spec = pod.affinity.node_affinity if pod.affinity else None
+    has_na_pref = bool(na_spec is not None and na_spec.preferred and weights[5])
+    if has_na_pref:
+        for r_i, ni in enumerate(nodes):
+            na_raw[r_i] = sum(p.weight for p in na_spec.preferred if p.preference.matches(ni.node))
+
+    vmax = mirror.vmax
+    topo = mirror.h_topo
+
+    # -- PodTopologySpread DoNotSchedule (filtering.go:241) ----------------
+    c1 = _pow2(len(dns))
+    dns_axis = np.zeros(c1, i32)
+    dns_active = np.zeros(c1, i32)            # pad rows: inert
+    dns_max_skew = np.full(c1, 1 << 40, i64)  # pad: never rejects
+    dns_self = np.zeros(c1, i32)
+    dns_forced0 = np.ones(c1, i32)            # pad: min 0
+    dns_honor_aff = np.zeros(c1, i32)
+    dns_honor_taints = np.zeros(c1, i32)
+    dns_counts = np.zeros((c1, vmax), i32)
+    dns_dom = np.zeros((c1, vmax), bool)
+    for ci, c in enumerate(dns):
+        ax = mirror.axes[c.topology_key]
+        dns_axis[ci] = ax.index
+        dns_active[ci] = 1
+        dns_max_skew[ci] = c.max_skew
+        dns_self[ci] = 1 if c.selector.matches(pod.labels) else 0
+        dns_honor_aff[ci] = 1 if c.node_affinity_policy == HONOR else 0
+        dns_honor_taints[ci] = 1 if c.node_taints_policy == HONOR else 0
+        domains = set()
+        for r_i, ni in enumerate(nodes):
+            if c.topology_key not in ni.node.labels:
+                continue
+            if (dns_honor_aff[ci] and not sel_host[r_i]) or (
+                    dns_honor_taints[ci] and not taint_ok_host[r_i]):
+                continue
+            vid = topo[ax.index, r_i]
+            dns_dom[ci, vid] = True
+            domains.add(vid)
+            dns_counts[ci, vid] += _count_pods_matching(ni, c.selector, pod.namespace)
+        forced = c.min_domains is not None and len(domains) < c.min_domains
+        dns_forced0[ci] = 1 if (forced or not domains) else 0
+
+    # -- PodTopologySpread ScheduleAnyway (scoring.go initPreScoreState) ---
+    c2 = _pow2(len(sa))
+    sa_axis = np.zeros(c2, i32)
+    sa_wq = np.zeros(c2, i64)
+    sa_skew = np.ones(c2, i64)
+    sa_self = np.zeros(c2, i32)
+    sa_counts = np.zeros((c2, vmax), i32)
+    if sa:
+        # A node is ignored when it misses any constraint's key or fails the
+        # pod's required node affinity.
+        sa_ignored = [not all(c.topology_key in ni.node.labels for c in sa) or not sel_host[r_i]
+                      for r_i, ni in enumerate(nodes)]
+        for ci, c in enumerate(sa):
+            ax = mirror.axes[c.topology_key]
+            sa_axis[ci] = ax.index
+            sa_skew[ci] = c.max_skew
+            sa_self[ci] = 1 if c.selector.matches(pod.labels) else 0
+            domains = set()
+            live = 0
+            for r_i, ni in enumerate(nodes):
+                if sa_ignored[r_i]:
+                    continue
+                vid = topo[ax.index, r_i]
+                sa_counts[ci, vid] += _count_pods_matching(ni, c.selector, pod.namespace)
+                domains.add(vid)
+                live += 1
+            size = live if c.topology_key == LABEL_HOSTNAME else len(domains)
+            sa_wq[ci] = int(round(math.log(size + 2) * 1024))
+
+    # -- InterPodAffinity required (filtering.go:217-284) ------------------
+    a1 = _pow2(len(anti_terms))
+    anti_axis = np.zeros(a1, i32)
+    anti_self = np.zeros(a1, i32)
+    anti_counts = np.zeros((a1, vmax), i32)
+    a2 = _pow2(len(aff_terms))
+    aff_axis = np.zeros(a2, i32)
+    aff_self = np.zeros(a2, i32)
+    aff_active = np.zeros(a2, i32)
+    aff_counts = np.zeros((a2, vmax), i32)
+    exist_anti = np.zeros(npc, i32)
+    anti_rowlocal = bool(anti_terms)
+    for ti, t in enumerate(anti_terms):
+        ax = mirror.axes[t.topology_key]
+        anti_axis[ti] = ax.index
+        anti_self[ti] = 1 if t.matches(pod, ns_labels_fn) else 0
+        vids = topo[ax.index, :n]
+        nz = vids[vids > 0]
+        if anti_rowlocal and nz.size and np.bincount(nz).max() > 1:
+            anti_rowlocal = False  # shared domains: cross-window coupling
+    for ti, t in enumerate(aff_terms):
+        aff_axis[ti] = mirror.axes[t.topology_key].index
+        aff_self[ti] = 1 if t.matches(pod, ns_labels_fn) else 0
+        aff_active[ti] = 1
+    aff_own_all = 1 if aff_terms and all(t.matches(pod, ns_labels_fn) for t in aff_terms) else 0
+
+    term_cache: Dict[tuple, tuple] = {}
+
+    def existing_terms(epi: PodInfo, which: str) -> tuple:
+        key = (epi.pod.uid, which)
+        if key not in term_cache:
+            term_cache[key] = compile_terms(getattr(epi, which), epi.pod)
+        return term_cache[key]
+
+    # Existing pods' required anti-affinity vs the incoming pod, per
+    # (axis, value), broadcast to a per-row hit count.
+    exist_pairs: Dict[Tuple[int, int], int] = {}
+    for ni in nodes:
+        for epi in ni.pods_with_required_anti_affinity:
+            for term in existing_terms(epi, "required_anti_affinity_terms"):
+                tp_val = ni.node.labels.get(term.topology_key)
+                if tp_val is not None and term.matches(pod, ns_labels_fn):
+                    ax = mirror.axes[term.topology_key]
+                    key = (ax.index, ax.lookup_value(tp_val))
+                    exist_pairs[key] = exist_pairs.get(key, 0) + 1
+    for (ax_i, vid), cnt in exist_pairs.items():
+        if cnt > 0 and vid >= 0:
+            exist_anti[:n] += (topo[ax_i, :n] == vid).astype(i32)
+    # The incoming pod's required terms vs every existing pod.
+    if aff_terms or anti_terms:
+        for r_i, ni in enumerate(nodes):
+            for epi in ni.pods:
+                for ti, term in enumerate(aff_terms):
+                    vid = topo[aff_axis[ti], r_i]
+                    if vid > 0 and term.matches(epi.pod, ns_labels_fn):
+                        aff_counts[ti, vid] += 1
+                for ti, term in enumerate(anti_terms):
+                    vid = topo[anti_axis[ti], r_i]
+                    if vid > 0 and term.matches(epi.pod, ns_labels_fn):
+                        anti_counts[ti, vid] += 1
+
+    # -- InterPodAffinity scoring (scoring.go PreScore) ---------------------
+    topology_score: Dict[str, Dict[str, int]] = {}
+
+    def add_score(tp_key: str, tp_val: str, w: int) -> None:
+        if w:
+            vals = topology_score.setdefault(tp_key, {})
+            vals[tp_val] = vals.get(tp_val, 0) + w
+
+    has_pref = bool(pref_aff or pref_anti)
+    for ni in (nodes if has_pref else snapshot.have_pods_with_affinity_list):
+        node = ni.node
+        for epi in (ni.pods if has_pref else ni.pods_with_affinity):
+            ep = epi.pod
+            for weight, term in pref_aff:
+                tp_val = node.labels.get(term.topology_key)
+                if tp_val is not None and term.matches(ep, ns_labels_fn):
+                    add_score(term.topology_key, tp_val, weight)
+            for weight, term in pref_anti:
+                tp_val = node.labels.get(term.topology_key)
+                if tp_val is not None and term.matches(ep, ns_labels_fn):
+                    add_score(term.topology_key, tp_val, -weight)
+            if hard_pod_affinity_weight > 0:
+                for term in existing_terms(epi, "required_affinity_terms"):
+                    tp_val = node.labels.get(term.topology_key)
+                    if tp_val is not None and term.matches(pod, ns_labels_fn):
+                        add_score(term.topology_key, tp_val, hard_pod_affinity_weight)
+            if not ignore_preferred_terms_of_existing_pods:
+                for sign, wts in ((1, epi.preferred_affinity_terms),
+                                  (-1, epi.preferred_anti_affinity_terms)):
+                    for wt in wts:
+                        term = compile_terms((wt.term,), ep)[0]
+                        tp_val = node.labels.get(term.topology_key)
+                        if tp_val is not None and term.matches(pod, ns_labels_fn):
+                            add_score(term.topology_key, tp_val, sign * wt.weight)
+    ipa_base = np.zeros(npc, i64)
+    for tp_key, vals in topology_score.items():
+        ax = mirror.axes.get(tp_key)
+        if ax is None:
+            continue  # key only on deleted nodes: no live node can match
+        col = np.zeros(vmax, i64)
+        for v, w in vals.items():
+            vid = ax.lookup_value(v)
+            if vid >= 0:
+                col[vid] = w
+        ipa_base[:n] += col[np.clip(topo[ax.index, :n], 0, vmax - 1)]
+        ipa_base[:n][topo[ax.index, :n] == 0] -= col[0]  # an absent key adds nothing
+    # Landing deltas: what a landed batch pod adds to the next batch pod's
+    # topology score, per axis (both directions of each preferred term).
+    land: Dict[int, int] = {}
+    mult = 1 if ignore_preferred_terms_of_existing_pods else 2
+    for sign, terms in ((1, pref_aff), (-1, pref_anti)):
+        for weight, term in terms:
+            if term.matches(pod, ns_labels_fn):
+                ax_i = mirror.axes[term.topology_key].index
+                land[ax_i] = land.get(ax_i, 0) + sign * weight * mult
+    if hard_pod_affinity_weight > 0:
+        for term in aff_terms:
+            if term.matches(pod, ns_labels_fn):
+                ax_i = mirror.axes[term.topology_key].index
+                land[ax_i] = land.get(ax_i, 0) + hard_pod_affinity_weight
+    kd = _pow2(len(land))
+    ipa_axis = np.zeros(kd, i32)
+    ipa_wland = np.zeros(kd, i64)
+    for j, (ax_i, w) in enumerate(sorted(land.items())):
+        ipa_axis[j] = ax_i
+        ipa_wland[j] = w
+
     host = dict(
         request=_resource_vec(mirror, req),
         nz_request=np.array([req.milli_cpu or NodeInfo.DEFAULT_MILLI_CPU,
@@ -243,37 +500,48 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot, *,
             1 if any(t.tolerates(UNSCHED_TAINT) for t in tols) else 0, i32),
         sel_match=sel_match,
         extra_ok=np.ones(npc, bool),
-        il_score=np.zeros(npc, i64), na_raw=np.zeros(npc, i64),
-        dns_axis=z32, dns_active=z32, dns_max_skew=z64, dns_self=z32,
-        dns_forced0=z32, dns_honor_aff=z32, dns_honor_taints=z32,
-        dns_counts=ztab, dns_dom=np.zeros((0, vmax), bool),
-        sa_axis=z32, sa_wq=z64, sa_skew=z64, sa_self=z32, sa_counts=ztab,
-        anti_axis=z32, anti_self=z32, anti_counts=ztab,
-        exist_anti=np.zeros(npc, i32),
-        aff_axis=z32, aff_self=z32, aff_active=z32, aff_counts=ztab,
-        aff_own_all=np.array(0, i32),
-        ipa_base=np.zeros(npc, i64), ipa_axis=z32, ipa_wland=z64,
+        il_score=np.zeros(npc, i64), na_raw=na_raw,
+        dns_axis=dns_axis, dns_active=dns_active, dns_max_skew=dns_max_skew,
+        dns_self=dns_self, dns_forced0=dns_forced0, dns_honor_aff=dns_honor_aff,
+        dns_honor_taints=dns_honor_taints, dns_counts=dns_counts, dns_dom=dns_dom,
+        sa_axis=sa_axis, sa_wq=sa_wq, sa_skew=sa_skew, sa_self=sa_self, sa_counts=sa_counts,
+        anti_axis=anti_axis, anti_self=anti_self, anti_counts=anti_counts,
+        exist_anti=exist_anti,
+        aff_axis=aff_axis, aff_self=aff_self, aff_active=aff_active, aff_counts=aff_counts,
+        aff_own_all=np.array(aff_own_all, i32),
+        ipa_base=ipa_base, ipa_axis=ipa_axis, ipa_wland=ipa_wland,
         fit_slots=fit_slots, fit_weights=fit_weights,
         weights=np.array(weights, i64),
         enable=np.array([1 if b else 0 for b in filters_on], i32),
         aux_room=np.full(npc, 1 << 30, i32), aux_inc=np.array(0, i32),
-        nom_req=np.zeros((0, r), i64), nom_pods=z32,
+        nom_req=np.zeros((0, r), i64), nom_pods=np.zeros(0, i32),
         num_nodes=np.array(n, i32),
         start_index=np.array(start_index % max(1, n), i32),
         to_find=np.array(num_feasible_nodes_to_find(n, percentage_of_nodes_to_score), i32),
     )
     feats = BatchFeatures(**{k: torch.from_numpy(v).to(dev) for k, v in host.items()})
+    has_ipa_base = bool((ipa_base != 0).any())
     return BatchPlan(
         features=feats, batch_pad=_batch_tier(batch_size), fit_strategy=strategy,
         vmax=vmax,
-        has_pns=bool((mirror.h_taint_eff[:n] == EFFECT_PREFER_NO_SCHEDULE).any()))
+        facts=PlanFacts(
+            has_pns=bool((mirror.h_taint_eff[:n] == EFFECT_PREFER_NO_SCHEDULE).any()),
+            has_ipa_base=has_ipa_base, anti_rowlocal=anti_rowlocal, has_na_pref=has_na_pref),
+        pod_local=bool(c1 == 0 and c2 == 0 and a1 == 0 and a2 == 0 and kd == 0
+                       and not has_ipa_base and not (exist_anti != 0).any()))
 
 
 def diagnose_unschedulable(pod: Pod, mirror: NodeStateMirror, snapshot, fw) -> Optional[Diagnosis]:
     """Per-node failure Diagnosis for a pod the device found infeasible
     everywhere, vectorized over the mirror's staging arrays instead of the
     per-node Python filter loop. Verdicts and plugin attributions match the
-    host plugins in profile filter order."""
+    host plugins in profile filter order. Pods with topology spread or pod
+    (anti-)affinity return None: their verdicts depend on the count tables,
+    and the exact host rerun owns them (the JAX package's :1050)."""
+    if (pod.topology_spread_constraints
+            or (pod.affinity is not None
+                and (pod.affinity.pod_affinity or pod.affinity.pod_anti_affinity))):
+        return None
     nodes: List[NodeInfo] = snapshot.node_info_list
     n = len(nodes)
     if n == 0:

@@ -2,16 +2,22 @@
 (schedule_one.go findNodesThatFitPod :630 / prioritizeNodes :945) for a batch
 of identical pods, with the greedy sequential assignment on the device.
 
-Four hand-written CUDA kernels (csrc/) carry the fit-only slice, each
-beside a plain PyTorch version of the same function in this module:
+Five hand-written CUDA kernels (csrc/), each beside a plain PyTorch version
+of the same function in this module:
 
 - static_masks   <- the JAX package's _static_masks + _tolerates
                     (ops/kernel.py:105-150), once per batch;
 - resource_eval  <- _resource_eval (:160-208), the fresh-carry seed;
-- lap_schedule   <- _lap_schedule (:799-925), batches of more than 64 steps;
+- lap_schedule   <- _lap_schedule (:799-925): plans whose landings change
+                    only their own row (fit-only, hostname anti-affinity),
+                    batches of more than 64 steps;
 - scan_schedule  <- the schedule_batch scan step (:314-523) specialised to
-                    the slice's row-local, carried-score plan, batches of at
-                    most 64 steps.
+                    the row-local, carried-score plan with no count tables,
+                    batches of at most 64 steps;
+- scan_general   <- the schedule_batch scan step and feasibility_proj
+                    (:314-523) with its prologue (:545-575) for every other
+                    plan: spread and affinity count tables, kept-set
+                    normalized score lanes, full or incremental feasibility.
 
 A wrapper runs the plain version only because the tensors it was given lie
 on the CPU; on CUDA tensors it launches its kernel (building it at first
@@ -20,6 +26,8 @@ use) or raises. Each wrapper counts its launches in `<wrapper>.launches`.
 Semantics are the JAX package's, bit for bit: exact int64 score math,
 floored division and modulo, `ScanCarry`'s lane dtypes (cumsums pinned to
 int32), inert padded steps, and the dump lane LAP_MAX that never lands.
+Padded steps land nothing and keep the rotation start, so the plain
+versions and the kernels stop at the last active step and fill the rest.
 """
 
 from __future__ import annotations
@@ -37,9 +45,11 @@ from .codebook import (
     OP_EXISTS,
 )
 from .device_state import DeviceNodeState
-from .features import BatchFeatures
+from .features import BatchFeatures, PlanFacts
 
 MAX_NODE_SCORE = 100
+BIG = 1 << 30      # the JAX package's _BIG: "no eligible domain" minimum (i32)
+INF64 = 1 << 60    # _INF64: the empty side of a min/max score lane
 LAP_MAX = 32  # max pods placed per lap; window LAP_MAX is the dump lane
 SCAN_MAX_STEPS = 64  # batches up to this many steps take the scan path (:273)
 
@@ -281,25 +291,34 @@ resource_eval.launches = 0
 
 
 def _total(f: BatchFeatures, fit_sc, ba):
-    """The carried total score of the slice's plan: TaintToleration at its
-    maximum (no PreferNoSchedule terms), Fit, BalancedAllocation and the
-    static ImageLocality term."""
+    """The carried total score of a plan with no kept-set normalization:
+    TaintToleration at its maximum (no PreferNoSchedule terms), Fit,
+    BalancedAllocation and the static ImageLocality term."""
     w = f.weights
     return w[0] * MAX_NODE_SCORE + w[1] * fit_sc + w[4] * ba + w[6] * f.il_score
+
+
+def _vids(state: DeviceNodeState, axis: torch.Tensor) -> torch.Tensor:
+    """[C, NP] i32 topology value ids of each table row's axis."""
+    return state.topo[axis.to(i64)]
 
 
 def _lap_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int,
                         fit_strategy: int, ext0: ScanCarry, static_ok, n_act: int,
                         stats: Optional[dict] = None) -> Tuple[torch.Tensor, ScanCarry]:
     """Plain PyTorch version of the lap_schedule kernel (the lap-vectorized
-    greedy assignment). `stats`, when given, receives the lap count."""
+    greedy assignment, with the required anti-affinity lanes of a
+    singleton-per-node axis). `stats`, when given, receives the lap count."""
     dev = static_ok.device
     NP = static_ok.shape[0]
+    A1 = f.anti_axis.shape[0]
     idx = torch.arange(NP, dtype=i32, device=dev)
     num = f.num_nodes.clamp_min(1)
     tf = f.to_find.clamp_min(1)
     lanes = torch.arange(LAP_MAX, dtype=i32, device=dev)
+    anti_vid = _vids(state, f.anti_axis)
     req_r, nonzero, pod_count, start = ext0.req_r, ext0.nonzero, ext0.pod_count, ext0.start
+    anti_counts = ext0.anti_counts.clone()
     out = torch.full((2, batch_pad + LAP_MAX), -1, dtype=i32, device=dev)
     done = laps = 0
     while done < n_act:
@@ -307,6 +326,9 @@ def _lap_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
         fit_ok, fit_sc, ba = _resource_eval_plain(
             f, fit_strategy, state.alloc_r, state.alloc_pods, req_r, nonzero, pod_count)
         okd = static_ok & fit_ok & (idx < num)
+        if A1:
+            acnt = torch.gather(anti_counts, 1, anti_vid.to(i64))
+            okd &= ~((anti_vid > 0) & (acnt > 0)).any(dim=0)
         F = torch.cumsum(okd.to(i32), 0, dtype=i32)
         total = _total(f, fit_sc, ba)
         total_feas = F[-1]
@@ -332,6 +354,13 @@ def _lap_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
         req_r = req_r + f.request[None, :] * c64[:, None]
         nonzero = nonzero + f.nz_request[None, :] * c64[:, None]
         pod_count = pod_count + cnt.to(i32)
+        if A1:
+            # +anti_self at each landed row's own value (the axis is
+            # singleton per node, so no two windows share a value).
+            vid_w = anti_vid[:, row_w.clamp_min(0).to(i64)]               # [A1, LAP_MAX]
+            upd = f.anti_self[:, None] * (vid_w > 0).to(i32) * has_w[None, :].to(i32)
+            rows = torch.arange(A1, device=dev)[:, None].expand_as(vid_w)
+            anti_counts.index_put_((rows, vid_w.to(i64)), upd, accumulate=True)
         out[:, done:done + LAP_MAX] = torch.stack([torch.where(has_w, row_w, -1),
                                                    start_w.to(i32)])
         start = start_w[L - 1].to(i32)
@@ -341,7 +370,8 @@ def _lap_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
     fit_ok, fit_sc, ba = _resource_eval_plain(
         f, fit_strategy, state.alloc_r, state.alloc_pods, req_r, nonzero, pod_count)
     carry = ext0._replace(req_r=req_r, nonzero=nonzero, pod_count=pod_count,
-                          fit_ok=fit_ok, fit_sc=fit_sc, ba=ba, start=start)
+                          fit_ok=fit_ok, fit_sc=fit_sc, ba=ba, anti_counts=anti_counts,
+                          start=start)
     return out[:, :batch_pad], carry
 
 
@@ -349,6 +379,7 @@ def _lap_schedule_cuda(state, f, batch_pad, fit_strategy, ext0, static_ok, n_act
     dev = static_ok.device
     NP = static_ok.shape[0]
     req_r, nonzero, pod_count = (t.clone() for t in ext0[:3])
+    anti_counts = ext0.anti_counts.clone()
     fit_ok = torch.empty(NP, dtype=torch.bool, device=dev)
     fit_sc = torch.empty(NP, dtype=i64, device=dev)
     ba = torch.empty(NP, dtype=i64, device=dev)
@@ -358,12 +389,14 @@ def _lap_schedule_cuda(state, f, batch_pad, fit_strategy, ext0, static_ok, n_act
     total_s = torch.empty(NP, dtype=i64, device=dev)
     out = torch.full((2, batch_pad), -1, dtype=i32, device=dev)
     ints, feats = _res_args(f, fit_strategy)
-    _launch("lap_schedule", dev, NP, *ints, batch_pad, n_act, *feats, state.alloc_r,
+    _launch("lap_schedule", dev, NP, *ints, batch_pad, n_act, anti_counts.shape[0],
+            anti_counts.shape[1], *feats, state.alloc_r,
             state.alloc_pods, req_r, nonzero, pod_count, static_ok, f.il_score, f.weights,
-            f.num_nodes, f.to_find, ext0.start, okd_s, F_s, total_s, out, fit_ok, fit_sc,
-            ba, start)
+            f.num_nodes, f.to_find, ext0.start, state.topo, f.anti_axis, f.anti_self,
+            anti_counts, okd_s, F_s, total_s, out, fit_ok, fit_sc, ba, start)
     carry = ext0._replace(req_r=req_r, nonzero=nonzero, pod_count=pod_count,
-                          fit_ok=fit_ok, fit_sc=fit_sc, ba=ba, start=start)
+                          fit_ok=fit_ok, fit_sc=fit_sc, ba=ba, anti_counts=anti_counts,
+                          start=start)
     return out, carry
 
 
@@ -475,7 +508,228 @@ def scan_schedule(state: DeviceNodeState, f: BatchFeatures, batch_pad: int,
 
 scan_schedule.launches = 0
 
-WRAPPERS = (static_masks, resource_eval, lap_schedule, scan_schedule)
+# ---------------------------------------------------------------------------
+# scan_general
+# ---------------------------------------------------------------------------
+
+
+def plan_modes(f: BatchFeatures, facts: PlanFacts) -> Tuple[bool, bool]:
+    """(incremental_feas, scores_carried) of the JAX package's
+    schedule_batch (:262-266): feasibility can change only at the landed
+    row when no cross-window topology filter is live, and the total score
+    rides the carry when no kept-set normalization term is live."""
+    C1, C2 = f.dns_axis.shape[0], f.sa_axis.shape[0]
+    A1, A2, KD = f.anti_axis.shape[0], f.aff_axis.shape[0], f.ipa_axis.shape[0]
+    incremental = C1 == 0 and A2 == 0 and (A1 == 0 or facts.anti_rowlocal)
+    carried = (C2 == 0 and KD == 0 and not facts.has_pns and not facts.has_ipa_base
+               and not facts.has_na_pref)
+    return incremental, carried
+
+
+def _scan_general_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int,
+                        fit_strategy: int, ext0: ScanCarry, masks: StaticMasks, n_act: int,
+                        facts: PlanFacts) -> Tuple[torch.Tensor, ScanCarry]:
+    """Plain PyTorch version of the scan_general kernel: the JAX package's
+    scan step and feasibility_proj (:314-523) with its prologue (:545-575),
+    one pod per step, the count tables' per-node projections kept fresh
+    elementwise."""
+    dev = masks.static_ok.device
+    NP = masks.static_ok.shape[0]
+    C1, C2 = f.dns_axis.shape[0], f.sa_axis.shape[0]
+    A1, A2, KD = f.anti_axis.shape[0], f.aff_axis.shape[0], f.ipa_axis.shape[0]
+    incremental, carried = plan_modes(f, facts)
+    idx = torch.arange(NP, dtype=i32, device=dev)
+    num = f.num_nodes.clamp_min(1)
+    static_ok, sel_ok, taint_ok = masks.static_ok, masks.sel_ok, masks.taint_ok
+    dns_vid, sa_vid = _vids(state, f.dns_axis), _vids(state, f.sa_axis)
+    anti_vid, aff_vid = _vids(state, f.anti_axis), _vids(state, f.aff_axis)
+    ipa_vid = _vids(state, f.ipa_axis)
+    dns_elig = ((dns_vid > 0) & torch.where(f.dns_honor_aff[:, None] == 1, sel_ok[None, :], True)
+                & torch.where(f.dns_honor_taints[:, None] == 1, taint_ok[None, :], True))
+    sa_ignored = (~(sa_vid > 0).all(dim=0) | ~sel_ok) if C2 else torch.zeros(
+        NP, dtype=torch.bool, device=dev)
+    aff_has_keys = ((f.aff_active[:, None] == 0) | (aff_vid > 0)).all(dim=0)
+    w = f.weights
+    il_term = w[6] * f.il_score
+    big = torch.tensor(BIG, dtype=i32, device=dev)
+
+    req_r, nonzero, pod_count, fit_ok, fit_sc, ba = (t.clone() for t in ext0[:6])
+    dns_counts, sa_counts, anti_counts, aff_counts, ipa_delta = (
+        t.clone() for t in ext0[6:11])
+    start = ext0.start
+    # prologue: per-node projections of the count tables, okd/F seeds
+    mnum = torch.gather(dns_counts, 1, dns_vid.to(i64))
+    scnt = torch.gather(sa_counts, 1, sa_vid.to(i64))
+    acnt = torch.gather(anti_counts, 1, anti_vid.to(i64))
+    fcnt = torch.gather(aff_counts, 1, aff_vid.to(i64))
+    dproj = torch.gather(ipa_delta, 1, ipa_vid.to(i64)) * (ipa_vid > 0)
+    aff_total = (aff_counts.to(i64) * (f.aff_active[:, None] == 1)).sum()
+
+    def feasibility():
+        ok = static_ok & fit_ok & (idx < num)
+        if C1:
+            min_match = torch.where(f.dns_dom, dns_counts, big).amin(dim=1)
+            min_match = torch.where(f.dns_forced0 == 1, 0, min_match)
+            skew_bad = ((mnum + f.dns_self[:, None] - min_match[:, None]).to(i64)
+                        > f.dns_max_skew.clamp_max(BIG)[:, None])
+            reject = (f.dns_active[:, None] == 1) & (~(dns_vid > 0) | skew_bad)
+            ok &= ~reject.any(dim=0)
+        if A1:
+            ok &= ~((anti_vid > 0) & (acnt > 0)).any(dim=0)
+        if A2:
+            term_ok = (f.aff_active[:, None] == 0) | ((aff_vid > 0) & (fcnt > 0))
+            bootstrap = (aff_total == 0) & (f.aff_own_all == 1) & aff_has_keys
+            ok &= term_ok.all(dim=0) | bootstrap
+        return ok
+
+    okd = feasibility()
+    F = torch.cumsum(okd.to(i32), 0, dtype=i32)
+    total = _total(f, fit_sc, ba) if carried else None
+    out = torch.full((2, batch_pad), -1, dtype=i32, device=dev)
+    neg_inf = torch.tensor(-INF64, dtype=i64, device=dev)
+    for t in range(n_act):
+        if not incremental:
+            okd = feasibility()
+            F = torch.cumsum(okd.to(i32), 0, dtype=i32)
+        total_feas = F[-1]
+        f_start = torch.where(start > 0, F[(start - 1).clamp_min(0).to(i64)], 0)
+        rank = torch.where(idx >= start, F - f_start, F + total_feas - f_start)
+        kept = okd & (rank <= f.to_find)
+        rot = (idx - start) % num
+        bound = torch.where(okd & (rank == f.to_find), (num - 1 - rot).to(i64), 0).amax()
+        evaluated = (num - bound).to(i32)
+        if not carried:
+            tt = torch.tensor(MAX_NODE_SCORE, dtype=i64, device=dev)
+            if facts.has_pns:
+                mx = torch.where(kept, masks.pns_cnt, 0).amax()
+                tt = torch.where(mx > 0, MAX_NODE_SCORE - MAX_NODE_SCORE * masks.pns_cnt
+                                 // mx.clamp_min(1), MAX_NODE_SCORE)
+            pts = ipa = na = 0
+            if C2:
+                raw_sa = (scnt.to(i64) * f.sa_wq[:, None] + (f.sa_skew[:, None] - 1) * 1024).sum(0)
+                live = kept & ~sa_ignored
+                mx = torch.where(live, raw_sa, 0).amax()
+                mn = -torch.where(live, -raw_sa, neg_inf).amax()
+                norm = torch.where(mx > 0, MAX_NODE_SCORE * (mx + torch.minimum(mn, mx) - raw_sa)
+                                   // mx.clamp_min(1), MAX_NODE_SCORE)
+                pts = torch.where(sa_ignored, 0, norm)
+            if KD or facts.has_ipa_base:
+                raw_ipa = f.ipa_base + dproj.sum(dim=0) if KD else f.ipa_base
+                mx = torch.where(kept, raw_ipa, neg_inf).amax()
+                mn = -torch.where(kept, -raw_ipa, neg_inf).amax()
+                diff = mx - mn
+                ipa = torch.where(diff > 0, MAX_NODE_SCORE * (raw_ipa - mn)
+                                  // diff.clamp_min(1), 0)
+            if facts.has_na_pref:
+                mx = torch.where(kept, f.na_raw, 0).amax()
+                na = torch.where(mx > 0, MAX_NODE_SCORE * f.na_raw // mx.clamp_min(1), 0)
+            total = (w[0] * tt + w[1] * fit_sc + w[4] * ba + w[2] * pts + w[3] * ipa
+                     + w[5] * na + il_term)
+        key = total * NP + ((NP - 1) - rot)
+        best_key = torch.where(kept, key, -1).amax()
+        any_kept = bool(best_key >= 0)
+        chosen_rot = (NP - 1) - (best_key % NP).to(i32)
+        chosen = ((start + chosen_rot) % num).to(i32) if any_kept else torch.tensor(
+            -1, dtype=i32, device=dev)
+        if any_kept:
+            row = int(chosen)
+            req_r[row] += f.request
+            nonzero[row] += f.nz_request
+            pod_count[row] += 1
+            r_ok, r_fit, r_ba = _resource_eval_plain(
+                f, fit_strategy, state.alloc_r[row], state.alloc_pods[row],
+                req_r[row], nonzero[row], pod_count[row])
+            fit_ok[row], fit_sc[row], ba[row] = r_ok, r_fit, r_ba
+            if C1:
+                upd = f.dns_self * dns_elig[:, row].to(i32)
+                dns_counts[torch.arange(C1, device=dev), dns_vid[:, row].to(i64)] += upd
+                mnum += upd[:, None] * (dns_vid == dns_vid[:, row][:, None])
+            if C2:
+                upd = f.sa_self * int(not bool(sa_ignored[row]))
+                sa_counts[torch.arange(C2, device=dev), sa_vid[:, row].to(i64)] += upd
+                scnt += upd[:, None] * (sa_vid == sa_vid[:, row][:, None])
+            if A1:
+                upd = f.anti_self * (anti_vid[:, row] > 0).to(i32)
+                anti_counts[torch.arange(A1, device=dev), anti_vid[:, row].to(i64)] += upd
+                acnt += upd[:, None] * (anti_vid == anti_vid[:, row][:, None])
+            if A2:
+                upd = f.aff_self * (aff_vid[:, row] > 0).to(i32)
+                aff_counts[torch.arange(A2, device=dev), aff_vid[:, row].to(i64)] += upd
+                fcnt += upd[:, None] * (aff_vid == aff_vid[:, row][:, None])
+                aff_total = aff_total + upd.sum()
+            if KD:
+                upd = f.ipa_wland * (ipa_vid[:, row] > 0)
+                ipa_delta[torch.arange(KD, device=dev), ipa_vid[:, row].to(i64)] += upd
+                dproj += upd[:, None] * (ipa_vid == ipa_vid[:, row][:, None])
+            if incremental:
+                new_ok = bool(static_ok[row] & r_ok) and row < int(num)
+                if A1:
+                    new_ok &= not bool(((anti_vid[:, row] > 0) & (acnt[:, row] > 0)).any())
+                delta = int(new_ok) - int(okd[row])
+                okd[row] = new_ok
+                F[row:] += delta
+            if carried:
+                total[row] = (w[0] * MAX_NODE_SCORE + w[1] * r_fit + w[4] * r_ba
+                              + il_term[row])
+        start = ((start + evaluated) % num).to(i32)
+        out[0, t] = chosen
+        out[1, t] = start
+    out[1, n_act:] = start  # padded steps: nothing lands, the start stays
+    carry = ext0._replace(req_r=req_r, nonzero=nonzero, pod_count=pod_count, fit_ok=fit_ok,
+                          fit_sc=fit_sc, ba=ba, dns_counts=dns_counts, sa_counts=sa_counts,
+                          anti_counts=anti_counts, aff_counts=aff_counts,
+                          ipa_delta=ipa_delta, start=start)
+    return out, carry
+
+
+def _scan_general_cuda(state, f, batch_pad, fit_strategy, ext0, masks, n_act, facts):
+    dev = masks.static_ok.device
+    NP = masks.static_ok.shape[0]
+    incremental, carried = plan_modes(f, facts)
+    req_r, nonzero, pod_count, fit_ok, fit_sc, ba = (t.clone() for t in ext0[:6])
+    dns_counts, sa_counts, anti_counts, aff_counts, ipa_delta = (
+        t.clone() for t in ext0[6:11])
+    start = torch.empty((), dtype=i32, device=dev)
+    okd_s = torch.empty(NP, dtype=torch.uint8, device=dev)
+    F_s = torch.empty(NP, dtype=i32, device=dev)
+    total_s = torch.empty(NP, dtype=i64, device=dev)
+    out = torch.empty((2, batch_pad), dtype=i32, device=dev)
+    ints, feats = _res_args(f, fit_strategy)
+    _launch("scan_general", dev, NP, *ints, batch_pad, n_act, dns_counts.shape[1],
+            dns_counts.shape[0], sa_counts.shape[0],
+            anti_counts.shape[0], aff_counts.shape[0], ipa_delta.shape[0], int(incremental),
+            int(carried), int(facts.has_pns), int(facts.has_ipa_base),
+            int(facts.has_na_pref), *feats, state.alloc_r, state.alloc_pods, req_r, nonzero,
+            pod_count, fit_ok, fit_sc, ba, masks.static_ok, masks.sel_ok, masks.taint_ok,
+            masks.pns_cnt, state.topo, f.il_score, f.na_raw, f.ipa_base, f.weights,
+            f.num_nodes, f.to_find, ext0.start, f.dns_axis, f.dns_active, f.dns_max_skew,
+            f.dns_self, f.dns_forced0, f.dns_honor_aff, f.dns_honor_taints, f.dns_dom,
+            dns_counts, f.sa_axis, f.sa_wq, f.sa_skew, f.sa_self, sa_counts, f.anti_axis,
+            f.anti_self, anti_counts, f.aff_axis, f.aff_self, f.aff_active, f.aff_own_all,
+            aff_counts, f.ipa_axis, f.ipa_wland, ipa_delta, okd_s, F_s, total_s, out, start)
+    carry = ext0._replace(req_r=req_r, nonzero=nonzero, pod_count=pod_count, fit_ok=fit_ok,
+                          fit_sc=fit_sc, ba=ba, dns_counts=dns_counts, sa_counts=sa_counts,
+                          anti_counts=anti_counts, aff_counts=aff_counts,
+                          ipa_delta=ipa_delta, start=start)
+    return out, carry
+
+
+def scan_general(state: DeviceNodeState, f: BatchFeatures, batch_pad: int, fit_strategy: int,
+                 ext0: ScanCarry, masks: StaticMasks, n_act: int,
+                 facts: PlanFacts) -> Tuple[torch.Tensor, ScanCarry]:
+    """One-pod-per-step greedy assignment for every plan the lap and
+    scan_schedule do not cover: returns the [2, batch_pad] results and the
+    final carry, every count table included."""
+    if _on_cpu(masks.static_ok):
+        return _scan_general_plain(state, f, batch_pad, fit_strategy, ext0, masks, n_act, facts)
+    out = _scan_general_cuda(state, f, batch_pad, fit_strategy, ext0, masks, n_act, facts)
+    scan_general.launches += 1
+    return out
+
+
+scan_general.launches = 0
+
+WRAPPERS = (static_masks, resource_eval, lap_schedule, scan_schedule, scan_general)
 
 
 def reset_launch_counts() -> None:
@@ -502,29 +756,25 @@ def fresh_carry(state: DeviceNodeState, f: BatchFeatures, vmax: int, fit) -> Sca
 
 
 def schedule_batch(state: DeviceNodeState, f: BatchFeatures, batch_pad: int,
-                   fit_strategy: int, vmax: int, n_active: Optional[int] = None,
-                   carry_in: Optional[ScanCarry] = None, has_pns: bool = True,
-                   has_ipa_base: bool = True) -> Tuple[torch.Tensor, ScanCarry]:
+                   fit_strategy: int, vmax: int, facts: PlanFacts,
+                   n_active: Optional[int] = None,
+                   carry_in: Optional[ScanCarry] = None) -> Tuple[torch.Tensor, ScanCarry]:
     """Greedy-assign up to `batch_pad` identical pods (`n_active` of them
     real; padded steps are inert so the returned carry stays exact) — the
-    JAX package's schedule_batch with the same arguments and results:
+    JAX package's schedule_batch, its four static plan arguments given as
+    one `facts`, with the same results:
     (the [2, batch_pad] array of (chosen row or -1, start index after),
     the final ScanCarry). Passing the carry back as `carry_in` chains the
     next batch of the same plan.
 
-    The port covers the plan of the fit-only slice: no count tables and no
-    kept-set normalization terms, so a landing changes feasibility and score
-    only at its own row. Such a plan takes the lap kernel above 64 steps and
-    the scan kernel at or below (:262-273); any other plan raises."""
-    C1, C2 = f.dns_axis.shape[0], f.sa_axis.shape[0]
-    A1, A2, KD = f.anti_axis.shape[0], f.aff_axis.shape[0], f.ipa_axis.shape[0]
-    general = [name for name, on in (
-        ("spread count tables", C1 or C2), ("pod-affinity count tables", A1 or A2),
-        ("landing score deltas", KD), ("PreferNoSchedule scoring", has_pns),
-        ("inter-pod affinity base scores", has_ipa_base)) if on]
-    if general:
-        raise NotImplementedError(
-            "the general scan plan (" + ", ".join(general) + ") is not ported yet")
+    The plan picks the kernel (:262-273): a plan whose landings change only
+    their own row and score takes the lap above 64 steps; at or below 64
+    steps such a plan without count tables takes scan_schedule; every other
+    plan takes scan_general. Features that carry a nominated-pod lane
+    (`nom_req` rows) are refused: no kernel reads that lane yet."""
+    if f.nom_req.shape[0]:
+        raise NotImplementedError("the nominated-pod lane is not ported yet")
+    incremental, carried = plan_modes(f, facts)
     n_act = batch_pad if n_active is None else int(n_active)
     masks = static_masks(state, f)
     if carry_in is None:
@@ -533,5 +783,8 @@ def schedule_batch(state: DeviceNodeState, f: BatchFeatures, batch_pad: int,
             state.nonzero, state.pod_count))
     else:
         ext0 = carry_in
-    kernel = lap_schedule if batch_pad > SCAN_MAX_STEPS else scan_schedule
-    return kernel(state, f, batch_pad, fit_strategy, ext0, masks.static_ok, n_act)
+    if incremental and carried and batch_pad > SCAN_MAX_STEPS:
+        return lap_schedule(state, f, batch_pad, fit_strategy, ext0, masks.static_ok, n_act)
+    if incremental and carried and f.anti_axis.shape[0] == 0:
+        return scan_schedule(state, f, batch_pad, fit_strategy, ext0, masks.static_ok, n_act)
+    return scan_general(state, f, batch_pad, fit_strategy, ext0, masks, n_act, facts)

@@ -1,6 +1,6 @@
-"""The in-tree plugins of the fit-only slice besides the resource ones:
-NodeName, NodeUnschedulable, TaintToleration, NodeAffinity (required terms
-and nodeSelector), PrioritySort and DefaultBinder.
+"""The in-tree plugins of the port besides the resource and topology ones:
+NodeName, NodeUnschedulable, TaintToleration, NodeAffinity (required and
+preferred terms, nodeSelector), PrioritySort and DefaultBinder.
 
 Each class mirrors one reference plugin package under
 pkg/scheduler/framework/plugins/. Methods follow the duck-typed
@@ -138,7 +138,7 @@ class TaintToleration:
                    if taint.effect == PREFER_NO_SCHEDULE
                    and not any(t.tolerates(taint) for t in tolerations))
 
-    def normalize_score(self, scores: List[NodeScore]) -> None:
+    def normalize_score(self, state: CycleState, pod: Pod, scores: List[NodeScore]) -> None:
         default_normalize_score(MAX_NODE_SCORE, True, scores)
 
     def sign(self, pod: Pod):
@@ -146,11 +146,11 @@ class TaintToleration:
 
 
 class NodeAffinity:
-    """plugins/nodeaffinity (node_affinity.go), required terms and
-    nodeSelector. PreFilter narrows to named nodes when every term pins
-    metadata.name, and Skips when the pod expresses no node affinity.
-    Preferred terms are outside the slice (refused by the scope guard), so
-    the plugin scores nothing."""
+    """plugins/nodeaffinity (node_affinity.go). Filter: nodeSelector AND
+    required node affinity terms. PreFilter narrows to named nodes when
+    every term pins metadata.name, and Skips when the pod expresses no node
+    affinity. Score: the sum of matching preferred term weights,
+    default-normalized (:337-411 of the JAX package's plugins/basic.py)."""
 
     name = "NodeAffinity"
 
@@ -189,6 +189,21 @@ class NodeAffinity:
         if not pod.required_node_selector_matches(node_info.node):
             return Status.unresolvable("node(s) didn't match Pod's node affinity/selector")
         return OK
+
+    def pre_score(self, state: CycleState, pod: Pod, nodes) -> Status:
+        na = pod.affinity.node_affinity if pod.affinity else None
+        if na is None or not na.preferred:
+            return Status.skip()
+        return OK
+
+    def score(self, state: CycleState, pod: Pod, node_info: NodeInfo) -> int:
+        na = pod.affinity.node_affinity if pod.affinity else None
+        if na is None:
+            return 0
+        return sum(pref.weight for pref in na.preferred if pref.preference.matches(node_info.node))
+
+    def normalize_score(self, state: CycleState, pod: Pod, scores: List[NodeScore]) -> None:
+        default_normalize_score(MAX_NODE_SCORE, False, scores)
 
     def sign(self, pod: Pod):
         na = pod.affinity.node_affinity if pod.affinity else None

@@ -1,0 +1,332 @@
+"""InterPodAffinity (plugins/interpodaffinity/: plugin.go, filtering.go,
+scoring.go).
+
+PreFilter (filtering.go:287) builds three topology-pair count maps:
+  1. existingAntiAffinityCounts — existing pods' REQUIRED anti-affinity terms
+     that match the incoming pod, keyed by (topologyKey, node's topologyValue)
+     (filtering.go:217-241);
+  2. affinityCounts — incoming pod's required affinity terms vs existing pods;
+  3. antiAffinityCounts — incoming pod's required anti-affinity terms vs
+     existing pods (filtering.go:247-284).
+Filter (filtering.go:428) is then O(constraints) per node via the maps.
+
+PreScore/Score (scoring.go): weighted preferred-term matches accumulated per
+(topologyKey, topologyValue); existing pods' required affinity terms count with
+hardPodAffinityWeight. Normalize maps [min,max] -> [0,100] (scoring.go:258-289).
+
+The host oracle behind the device session's diagnosis and the host path;
+ops/features.py builds the same counts as the kernels' tables.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from ..api.types import Pod
+from ..core.framework import MAX_NODE_SCORE, OK, CycleState, NodeScore, PreFilterResult, Status
+from ..core.node_info import NodeInfo, PodInfo
+from ..core.queue import (
+    EVENT_ASSIGNED_POD_ADD,
+    EVENT_ASSIGNED_POD_DELETE,
+    EVENT_NODE_ADD,
+    EVENT_NODE_UPDATE,
+    EVENT_POD_DELETE,
+)
+from .helpers import compile_terms
+
+ERR_EXISTING_ANTI = "node(s) didn't satisfy existing pods anti-affinity rules"
+ERR_ANTI = "node(s) didn't match pod anti-affinity rules"
+ERR_AFFINITY = "node(s) didn't match pod affinity rules"
+
+
+@dataclass
+class _PreFilterState:
+    affinity_terms: tuple = ()
+    anti_affinity_terms: tuple = ()
+    # (topology_key, topology_value) -> count
+    existing_anti_counts: Dict[Tuple[str, str], int] = field(default_factory=dict)
+    affinity_counts: List[Dict[str, int]] = field(default_factory=list)  # per-term: tpVal->count
+    anti_counts: Dict[Tuple[str, str], int] = field(default_factory=dict)
+
+
+class InterPodAffinity:
+    name = "InterPodAffinity"
+    _FKEY = "PreFilterInterPodAffinity"
+    _SKEY = "PreScoreInterPodAffinity"
+
+    def __init__(self, handle=None, hard_pod_affinity_weight: int = 1,
+                 ignore_preferred_terms_of_existing_pods: bool = False):
+        self.handle = handle
+        self.hard_pod_affinity_weight = hard_pod_affinity_weight
+        self.ignore_preferred_terms_of_existing_pods = ignore_preferred_terms_of_existing_pods
+
+    def _ns_labels(self, ns: str):
+        if self.handle is not None:
+            fn = getattr(self.handle, "namespace_labels", None)
+            if fn is not None:
+                return fn(ns)
+        return None
+
+    # -- QueueingHints (interpodaffinity EventsToRegister /
+    # isSchedulableAfterPodChange) ------------------------------------------
+
+    def events_to_register(self):
+        return [
+            (EVENT_ASSIGNED_POD_ADD, self._hint_pod),
+            (EVENT_ASSIGNED_POD_DELETE, self._hint_pod),
+            (EVENT_POD_DELETE, self._hint_pod),
+            (EVENT_NODE_ADD, None),     # topology domains may appear
+            (EVENT_NODE_UPDATE, None),  # (label changes) — always queue
+        ]
+
+    @staticmethod
+    def _hint_terms(pod: Pod):
+        """Per-pod memo of compiled required terms: hint fns run once per
+        parked pod per cluster event (O(events x pods)), and the compiled
+        terms are constant per pod spec."""
+        cached = pod.__dict__.get("_ipa_hint_terms")
+        if cached is None:
+            pi = PodInfo.of(pod)
+            cached = pod._ipa_hint_terms = (
+                compile_terms(pi.required_affinity_terms, pod),
+                compile_terms(pi.required_anti_affinity_terms, pod),
+            )
+        return cached
+
+    def _hint_pod(self, pod: Pod, old, new) -> bool:
+        """A pod add can satisfy a required affinity term; a pod delete can
+        clear an anti-affinity conflict (in either direction). Queue only
+        when the other pod matches one of this pod's required terms, or this
+        pod matches the other's anti terms (isSchedulableAfterPodChange)."""
+        other = new if new is not None else old
+        if other is None:
+            return True
+        aff_terms, anti_terms = self._hint_terms(pod)
+        for term in aff_terms:
+            if term.matches(other, self._ns_labels):
+                return True
+        for term in anti_terms:
+            if term.matches(other, self._ns_labels):
+                return True
+        o_aff, o_anti = self._hint_terms(other)
+        for term in o_anti:
+            if term.matches(pod, self._ns_labels):
+                return True
+        return False
+
+    # -- PreFilter ---------------------------------------------------------
+
+    def pre_filter(self, state: CycleState, pod: Pod, nodes: Sequence[NodeInfo]) -> Tuple[Optional[PreFilterResult], Status]:
+        pi = PodInfo.of(pod)
+        aff_terms = compile_terms(pi.required_affinity_terms, pod)
+        anti_terms = compile_terms(pi.required_anti_affinity_terms, pod)
+        s = _PreFilterState(affinity_terms=aff_terms, anti_affinity_terms=anti_terms)
+        s.affinity_counts = [dict() for _ in aff_terms]
+
+        # 1. existing pods' required anti-affinity vs incoming pod — only
+        #    nodes that host such pods need scanning (filtering.go uses the
+        #    HavePodsWithRequiredAntiAffinityList sublist). When `nodes` IS
+        #    the snapshot's full list, use its maintained sublist instead of
+        #    an O(all nodes) scan per pod — at 15k nodes with zero
+        #    anti-affinity pods the scan alone dominated the daemonset
+        #    workload's cycle time.
+        anti_nodes = nodes
+        if self.handle is not None:
+            snap_fn = getattr(self.handle, "snapshot", None)
+            if snap_fn is not None:
+                snap = snap_fn()
+                if snap.node_info_list is nodes:
+                    anti_nodes = snap.have_pods_with_required_anti_affinity_list
+        for ni in anti_nodes:
+            if not ni.pods_with_required_anti_affinity:
+                continue
+            node = ni.node
+            if node is None:
+                continue
+            for epi in ni.pods_with_required_anti_affinity:
+                for term in compile_terms(epi.required_anti_affinity_terms, epi.pod):
+                    tp_val = node.labels.get(term.topology_key)
+                    if tp_val is None:
+                        continue
+                    if term.matches(pod, self._ns_labels):
+                        key = (term.topology_key, tp_val)
+                        s.existing_anti_counts[key] = s.existing_anti_counts.get(key, 0) + 1
+
+        # 2+3. incoming pod's required terms vs all existing pods.
+        if aff_terms or anti_terms:
+            for ni in nodes:
+                node = ni.node
+                if node is None or not ni.pods:
+                    continue
+                for epi in ni.pods:
+                    ep = epi.pod
+                    for i, term in enumerate(aff_terms):
+                        tp_val = node.labels.get(term.topology_key)
+                        if tp_val is not None and term.matches(ep, self._ns_labels):
+                            s.affinity_counts[i][tp_val] = s.affinity_counts[i].get(tp_val, 0) + 1
+                    for term in anti_terms:
+                        tp_val = node.labels.get(term.topology_key)
+                        if tp_val is not None and term.matches(ep, self._ns_labels):
+                            key = (term.topology_key, tp_val)
+                            s.anti_counts[key] = s.anti_counts.get(key, 0) + 1
+
+        if not aff_terms and not anti_terms and not s.existing_anti_counts:
+            state.write(self._FKEY, s)
+            return None, Status.skip()
+        state.write(self._FKEY, s)
+        return None, OK
+
+    # -- Filter ------------------------------------------------------------
+
+    def filter(self, state: CycleState, pod: Pod, node_info: NodeInfo) -> Status:
+        s: _PreFilterState = state.read(self._FKEY)
+        if s is None:
+            return OK
+        node = node_info.node
+        # existing pods' anti-affinity (filtering.go:368).
+        for (tp_key, tp_val), count in s.existing_anti_counts.items():
+            if count > 0 and node.labels.get(tp_key) == tp_val:
+                return Status.unschedulable(ERR_EXISTING_ANTI)
+        # incoming pod's anti-affinity.
+        for term in s.anti_affinity_terms:
+            tp_val = node.labels.get(term.topology_key)
+            if tp_val is None:
+                continue
+            if s.anti_counts.get((term.topology_key, tp_val), 0) > 0:
+                return Status.unschedulable(ERR_ANTI)
+        # incoming pod's affinity (filtering.go:398 satisfyPodAffinity).
+        if s.affinity_terms:
+            all_matched = True
+            has_all_keys = True
+            for i, term in enumerate(s.affinity_terms):
+                tp_val = node.labels.get(term.topology_key)
+                if tp_val is None:
+                    # satisfyPodAffinity (interpodaffinity/filtering.go:398):
+                    # a node missing any term's topology key can never satisfy
+                    # the term — not even via the bootstrap case below. Keep
+                    # walking all terms so has_all_keys reflects every key.
+                    has_all_keys = False
+                    all_matched = False
+                elif s.affinity_counts[i].get(tp_val, 0) == 0:
+                    all_matched = False
+            if not all_matched:
+                # Bootstrap special case: no pod anywhere matches any term and
+                # the incoming pod matches its own terms => allow (on nodes
+                # that carry every requested topology key).
+                no_matches_anywhere = all(not c for c in s.affinity_counts)
+                if has_all_keys and no_matches_anywhere and all(
+                    term.matches(pod, self._ns_labels) for term in s.affinity_terms
+                ):
+                    return OK
+                return Status.unschedulable(ERR_AFFINITY)
+        return OK
+
+    # -- PreScore / Score --------------------------------------------------
+
+    def pre_score(self, state: CycleState, pod: Pod, nodes: Sequence[NodeInfo]) -> Status:
+        pi = PodInfo.of(pod)
+        has_preferred = bool(pi.preferred_affinity_terms or pi.preferred_anti_affinity_terms)
+        all_nodes = nodes
+        affinity_only = False
+        if self.handle is not None:
+            snap = self.handle.snapshot()
+            if has_preferred:
+                all_nodes = snap.node_info_list
+            else:
+                all_nodes = snap.have_pods_with_affinity_list
+                affinity_only = True
+        if not has_preferred and not any(ni.pods_with_affinity for ni in all_nodes):
+            return Status.skip()
+
+        pref_aff = tuple(
+            (w.weight, t) for w, t in
+            ((w, compile_terms((w.term,), pod)[0]) for w in pi.preferred_affinity_terms)
+        )
+        pref_anti = tuple(
+            (w.weight, t) for w, t in
+            ((w, compile_terms((w.term,), pod)[0]) for w in pi.preferred_anti_affinity_terms)
+        )
+
+        topology_score: Dict[str, Dict[str, int]] = {}
+
+        def add(tp_key: str, tp_val: str, w: int) -> None:
+            if w == 0:
+                return
+            topology_score.setdefault(tp_key, {})
+            topology_score[tp_key][tp_val] = topology_score[tp_key].get(tp_val, 0) + w
+
+        for ni in all_nodes:
+            node = ni.node
+            if node is None:
+                continue
+            pods = ni.pods_with_affinity if affinity_only else ni.pods
+            for epi in pods:
+                ep = epi.pod
+                # incoming pod's preferred terms vs existing pod
+                for weight, term in pref_aff:
+                    tp_val = node.labels.get(term.topology_key)
+                    if tp_val is not None and term.matches(ep, self._ns_labels):
+                        add(term.topology_key, tp_val, weight)
+                for weight, term in pref_anti:
+                    tp_val = node.labels.get(term.topology_key)
+                    if tp_val is not None and term.matches(ep, self._ns_labels):
+                        add(term.topology_key, tp_val, -weight)
+                # existing pod's terms vs incoming pod (symmetry)
+                if self.hard_pod_affinity_weight > 0:
+                    for term in compile_terms(epi.required_affinity_terms, ep):
+                        tp_val = node.labels.get(term.topology_key)
+                        if tp_val is not None and term.matches(pod, self._ns_labels):
+                            add(term.topology_key, tp_val, self.hard_pod_affinity_weight)
+                if not self.ignore_preferred_terms_of_existing_pods:
+                    for wt in epi.preferred_affinity_terms:
+                        term = compile_terms((wt.term,), ep)[0]
+                        tp_val = node.labels.get(term.topology_key)
+                        if tp_val is not None and term.matches(pod, self._ns_labels):
+                            add(term.topology_key, tp_val, wt.weight)
+                    for wt in epi.preferred_anti_affinity_terms:
+                        term = compile_terms((wt.term,), ep)[0]
+                        tp_val = node.labels.get(term.topology_key)
+                        if tp_val is not None and term.matches(pod, self._ns_labels):
+                            add(term.topology_key, tp_val, -wt.weight)
+
+        if not topology_score:
+            return Status.skip()
+        state.write(self._SKEY, topology_score)
+        return OK
+
+    def score(self, state: CycleState, pod: Pod, node_info: NodeInfo) -> int:
+        topology_score = state.read(self._SKEY)
+        if not topology_score:
+            return 0
+        node = node_info.node
+        score = 0
+        for tp_key, vals in topology_score.items():
+            v = node.labels.get(tp_key)
+            if v is not None:
+                score += vals.get(v, 0)
+        return score
+
+    def normalize_score(self, state: CycleState, pod: Pod, scores: List[NodeScore]) -> None:
+        topology_score = state.read(self._SKEY)
+        if not topology_score:
+            return
+        min_count = min(s.score for s in scores)
+        max_count = max(s.score for s in scores)
+        diff = max_count - min_count
+        for s in scores:
+            if diff > 0:
+                # floor division: identical to the reference's float-then-trunc
+                # for the non-negative numerator, and exact on device int64.
+                s.score = MAX_NODE_SCORE * (s.score - min_count) // diff
+            else:
+                s.score = 0
+
+    def sign(self, pod: Pod):
+        aff = pod.affinity
+        return (
+            tuple(sorted(pod.labels.items())),
+            pod.namespace,
+            repr(aff.pod_affinity) if aff and aff.pod_affinity else "",
+            repr(aff.pod_anti_affinity) if aff and aff.pod_anti_affinity else "",
+        )

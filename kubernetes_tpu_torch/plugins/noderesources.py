@@ -81,8 +81,8 @@ class Fit:
                  resources: Sequence[Dict] = DEFAULT_RESOURCES):
         if scoring_strategy not in (LEAST_ALLOCATED, MOST_ALLOCATED):
             raise NotImplementedError(
-                f"NodeResourcesFit strategy {scoring_strategy!r} is outside "
-                "the kubernetes_tpu_torch fit-only slice")
+                f"NodeResourcesFit strategy {scoring_strategy!r} is outside what "
+                "kubernetes_tpu_torch covers")
         self.scoring_strategy = scoring_strategy
         self.resources = tuple(resources)
 

@@ -7,12 +7,14 @@ The draw is a cluster of `num_nodes` live rows padded to `np_cap`, with
 random allocatable/requested vectors, taints, tolerations, unschedulable
 flags and selector verdicts; the keyword arguments pick the cases the
 parity checks need (rotation start past a row, truncation on or off,
-zero-request pods, no feasible row at all).
+zero-request pods, no feasible row at all). `general_inputs` adds topology
+axes and the count-table and score lanes of spread and inter-pod affinity.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -90,3 +92,128 @@ def random_inputs(seed: int, np_cap: int, num_nodes: int, *, r_slots: int = 7,
         np.array(num_feasible_nodes_to_find(n) if to_find is None else to_find, i32),
     )
     return state, feats
+
+
+# Field positions in BatchFeatures (the JAX package's order).
+_F = ("request nz_request has_request ba_skip tol_key tol_val tol_eff tol_op node_name_id "
+      "tolerates_unsched sel_match extra_ok il_score na_raw dns_axis dns_active dns_max_skew "
+      "dns_self dns_forced0 dns_honor_aff dns_honor_taints dns_counts dns_dom sa_axis sa_wq "
+      "sa_skew sa_self sa_counts anti_axis anti_self anti_counts exist_anti aff_axis aff_self "
+      "aff_active aff_counts aff_own_all ipa_base ipa_axis ipa_wland fit_slots fit_weights "
+      "weights enable aux_room aux_inc nom_req nom_pods num_nodes start_index to_find").split()
+
+# Topology axes of a general draw: a zone-like axis (a few values, some
+# rows without the key), a hostname-like one (one value per live row) and a
+# rack-like one.
+ZONE_AXIS, HOST_AXIS, RACK_AXIS = 0, 1, 2
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length() if n > 0 else 0
+
+
+def general_inputs(seed: int, np_cap: int, num_nodes: int, *, vmax: int = 256,
+                   dns: int = 0, sa: int = 0, anti: int = 0, aff: int = 0, kd: int = 0,
+                   pns: bool = False, ipa_base: bool = False, na: bool = False,
+                   anti_axis: Optional[int] = None, bootstrap: bool = False,
+                   **kw) -> Tuple[tuple, tuple, Dict[str, bool]]:
+    """(state arrays, feature arrays, plan facts) for one batch whose plan
+    has `dns`/`sa` spread constraints, `anti`/`aff` required terms and `kd`
+    landing-delta axes (each table padded to a power of two with inert
+    rows), and optionally PreferNoSchedule scoring (`pns`), base
+    inter-pod-affinity scores and preferred node-affinity raw scores.
+    `anti_axis` pins every anti term to one axis (HOST_AXIS makes the plan
+    row-local); `bootstrap` leaves the affinity tables empty with the pod
+    matching its own terms. The hostname-like axis needs `vmax` above
+    `num_nodes`; below, its row stays empty (no node has the key) and no
+    table may name it. The facts are a dict of PlanFacts' fields (the JAX
+    package's schedule_batch keyword flags)."""
+    rng = np.random.default_rng(seed + 7919)
+    state, feats = random_inputs(seed, np_cap, num_nodes, vmax=vmax, **kw)
+    state, feats = list(state), dict(zip(_F, feats))
+    n, npc = num_nodes, np_cap
+    i32, i64 = np.int32, np.int64
+    live = np.arange(npc) < n
+    hosts = vmax > n
+    assert hosts or anti_axis != HOST_AXIS, "a hostname-like axis needs vmax > num_nodes"
+    topo = np.zeros((4, npc), i32)
+    topo[ZONE_AXIS] = np.where(rng.random(npc) < 0.95, rng.integers(1, 7, npc), 0)
+    topo[HOST_AXIS] = np.arange(npc) + 1 if hosts else 0
+    topo[RACK_AXIS] = rng.integers(1, 21, npc)
+    topo[:, ~live] = 0
+    state[11] = topo
+    taint_eff = state[7]
+    if not pns:
+        taint_eff[taint_eff == 2] = 0
+    elif not (taint_eff[live] == 2).any():
+        taint_eff[0, 0] = 2
+
+    def axes(rows: int, pinned: Optional[int] = None) -> np.ndarray:
+        out = np.zeros(_pow2(rows), i32)
+        if pinned is not None:
+            out[:rows] = pinned
+        else:
+            out[:rows] = rng.choice([ZONE_AXIS, HOST_AXIS, RACK_AXIS] if hosts
+                                    else [ZONE_AXIS, RACK_AXIS], rows)
+        return out
+
+    def counts(ax: np.ndarray, rows: int, hi: int, p: float) -> np.ndarray:
+        t = np.zeros((ax.shape[0], vmax), i32)
+        for c in range(rows):
+            present = np.unique(topo[ax[c], :n])
+            present = present[present > 0]
+            hit = present[rng.random(present.size) < p]
+            t[c, hit] = rng.integers(1, hi + 1, hit.size)
+        return t
+
+    c1 = _pow2(dns)
+    f = feats
+    f["dns_axis"] = axes(dns)
+    f["dns_active"] = (np.arange(c1) < dns).astype(i32)
+    f["dns_max_skew"] = np.where(np.arange(c1) < dns, rng.integers(1, 4, c1), 1 << 40).astype(i64)
+    f["dns_self"] = ((np.arange(c1) < dns) & (rng.random(c1) < 0.8)).astype(i32)
+    f["dns_forced0"] = np.where(np.arange(c1) < dns, rng.random(c1) < 0.25, 1).astype(i32)
+    f["dns_honor_aff"] = ((np.arange(c1) < dns) & (rng.random(c1) < 0.5)).astype(i32)
+    f["dns_honor_taints"] = ((np.arange(c1) < dns) & (rng.random(c1) < 0.5)).astype(i32)
+    f["dns_counts"] = counts(f["dns_axis"], dns, 2, 0.5)
+    dom = np.zeros((c1, vmax), bool)
+    for c in range(dns):
+        vids = topo[f["dns_axis"][c], :n]
+        dom[c, vids[vids > 0]] = rng.random((vids > 0).sum()) < 0.97
+    f["dns_dom"] = dom
+
+    c2 = _pow2(sa)
+    f["sa_axis"] = axes(sa)
+    f["sa_wq"] = np.array([int(round(math.log(rng.integers(2, 60) + 2) * 1024)) if c < sa else 0
+                           for c in range(c2)], i64)
+    f["sa_skew"] = np.where(np.arange(c2) < sa, rng.integers(1, 3, c2), 1).astype(i64)
+    f["sa_self"] = ((np.arange(c2) < sa) & (rng.random(c2) < 0.8)).astype(i32)
+    f["sa_counts"] = counts(f["sa_axis"], sa, 6, 0.6)
+
+    a1 = _pow2(anti)
+    f["anti_axis"] = axes(anti, anti_axis)
+    f["anti_self"] = ((np.arange(a1) < anti) & (rng.random(a1) < 0.8)).astype(i32)
+    f["anti_counts"] = counts(f["anti_axis"], anti, 1,
+                              0.02 if anti_axis == HOST_AXIS else 0.15)
+    f["exist_anti"] = (live & (rng.random(npc) < 0.03)).astype(i32)
+
+    a2 = _pow2(aff)
+    f["aff_axis"] = axes(aff)
+    f["aff_self"] = ((np.arange(a2) < aff) & (rng.random(a2) < 0.8)).astype(i32)
+    f["aff_active"] = (np.arange(a2) < aff).astype(i32)
+    f["aff_counts"] = (np.zeros((a2, vmax), i32) if bootstrap
+                       else counts(f["aff_axis"], aff, 3, 0.5))
+    if bootstrap:
+        f["aff_self"] = f["aff_active"].copy()
+    f["aff_own_all"] = np.array(1 if aff and (bootstrap or rng.random() < 0.5) else 0, i32)
+
+    k = _pow2(kd)
+    f["ipa_axis"] = axes(kd)
+    f["ipa_wland"] = np.where(np.arange(k) < kd, rng.integers(-6, 11, k), 0).astype(i64)
+    f["ipa_base"] = (np.where(live & (rng.random(npc) < 0.4), rng.integers(-20, 60, npc), 0)
+                     if ipa_base else np.zeros(npc)).astype(i64)
+    f["na_raw"] = (np.where(live, rng.integers(0, 4, npc) * rng.integers(1, 8, npc), 0)
+                   if na else np.zeros(npc)).astype(i64)
+    facts = dict(has_pns=pns, has_ipa_base=ipa_base, has_na_pref=na,
+                 anti_rowlocal=anti_axis == HOST_AXIS)
+    return tuple(state), tuple(f[name] for name in _F), facts

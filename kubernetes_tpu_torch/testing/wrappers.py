@@ -1,15 +1,16 @@
 """Fluent Pod/Node builders — the pkg/scheduler/testing/wrappers.go analogue
-(st.MakePod().Name("p").Req(...).Obj() style).
+(st.MakePod().Name("p").Req(...).Obj() style), with the JAX package's
+builder names and arguments so that one test body can drive both packages.
 
-Builders for features outside the fit-only slice (spread, pod affinity,
-host ports, volumes, gates, pod groups, priority, preferred affinity, node
-images) exist so that tests can show the scope guard refusing them."""
+Builders for features outside the port (host ports, volumes, gates, pod
+groups, priority, node images) exist so that tests can show the scope
+guard refusing them."""
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
-from ..api.labels import IN, Requirement
+from ..api.labels import IN, LabelSelector, Requirement
 from ..api.resource import Resource
 from ..api.types import (
     Affinity,
@@ -21,10 +22,15 @@ from ..api.types import (
     NodeSelector,
     NodeSelectorTerm,
     Pod,
+    PodAffinity,
+    PodAffinityTerm,
+    PodAntiAffinity,
     PreferredSchedulingTerm,
     Taint,
     Toleration,
+    TopologySpreadConstraint,
     Volume,
+    WeightedPodAffinityTerm,
 )
 
 
@@ -84,37 +90,69 @@ class MakePod:
             match_expressions=(Requirement(key, IN, tuple(values)),))
         na = self._node_affinity()
         existing = na.required.terms if na.required else ()
-        self._pod.affinity = Affinity(node_affinity=NodeAffinity(
-            required=NodeSelector(existing + (term,)), preferred=na.preferred))
+        self._pod.affinity = Affinity(
+            node_affinity=NodeAffinity(required=NodeSelector(existing + (term,)),
+                                       preferred=na.preferred),
+            pod_affinity=self._affinity().pod_affinity,
+            pod_anti_affinity=self._affinity().pod_anti_affinity)
         return self
-
-    # -- features the scope guard refuses ----------------------------------
 
     def preferred_node_affinity(self, weight: int, key: str,
                                 values: Sequence[str]) -> "MakePod":
         term = PreferredSchedulingTerm(weight=weight, preference=NodeSelectorTerm(
             match_expressions=(Requirement(key, IN, tuple(values)),)))
         na = self._node_affinity()
-        self._pod.affinity = Affinity(node_affinity=NodeAffinity(
-            required=na.required, preferred=na.preferred + (term,)))
+        self._pod.affinity = Affinity(
+            node_affinity=NodeAffinity(required=na.required, preferred=na.preferred + (term,)),
+            pod_affinity=self._affinity().pod_affinity,
+            pod_anti_affinity=self._affinity().pod_anti_affinity)
         return self
 
+    def _affinity(self) -> Affinity:
+        return self._pod.affinity or Affinity()
+
     def pod_affinity(self, topology_key: str, match_labels: Dict[str, str],
-                     anti: bool = False) -> "MakePod":
-        term = {"topologyKey": topology_key, "matchLabels": dict(match_labels)}
-        a = self._pod.affinity or Affinity()
-        self._pod.affinity = Affinity(
-            node_affinity=a.node_affinity,
-            pod_affinity=a.pod_affinity if anti else (term,),
-            pod_anti_affinity=(term,) if anti else a.pod_anti_affinity)
+                     anti: bool = False, weight: int = 0,
+                     ns_labels: Optional[Dict[str, str]] = None) -> "MakePod":
+        """A required term, or a preferred one when `weight` > 0; `anti` puts
+        it under podAntiAffinity; `ns_labels` adds a namespaceSelector."""
+        term = PodAffinityTerm(
+            label_selector=LabelSelector.of(match_labels=match_labels),
+            topology_key=topology_key,
+            namespace_selector=(LabelSelector.of(match_labels=dict(ns_labels))
+                                if ns_labels is not None else None))
+        a = self._affinity()
+        pa = a.pod_affinity or PodAffinity()
+        paa = a.pod_anti_affinity or PodAntiAffinity()
+        if weight > 0:
+            wterm = WeightedPodAffinityTerm(weight=weight, term=term)
+            if anti:
+                paa = PodAntiAffinity(required=paa.required, preferred=paa.preferred + (wterm,))
+            else:
+                pa = PodAffinity(required=pa.required, preferred=pa.preferred + (wterm,))
+        elif anti:
+            paa = PodAntiAffinity(required=paa.required + (term,), preferred=paa.preferred)
+        else:
+            pa = PodAffinity(required=pa.required + (term,), preferred=pa.preferred)
+        self._pod.affinity = Affinity(node_affinity=a.node_affinity, pod_affinity=pa,
+                                      pod_anti_affinity=paa)
         return self
 
     def spread_constraint(self, max_skew: int, topology_key: str,
-                          when_unsatisfiable: str = "DoNotSchedule") -> "MakePod":
-        self._pod.topology_spread_constraints.append(
-            {"maxSkew": max_skew, "topologyKey": topology_key,
-             "whenUnsatisfiable": when_unsatisfiable})
+                          when_unsatisfiable: str = "DoNotSchedule",
+                          match_labels: Optional[Dict[str, str]] = None,
+                          min_domains: Optional[int] = None,
+                          node_affinity_policy: str = "Honor",
+                          node_taints_policy: str = "Ignore") -> "MakePod":
+        self._pod.topology_spread_constraints.append(TopologySpreadConstraint(
+            max_skew=max_skew, topology_key=topology_key,
+            when_unsatisfiable=when_unsatisfiable,
+            label_selector=LabelSelector.of(match_labels=match_labels or {}),
+            min_domains=min_domains, node_affinity_policy=node_affinity_policy,
+            node_taints_policy=node_taints_policy))
         return self
+
+    # -- features the scope guard refuses ----------------------------------
 
     def host_port(self, port: int, protocol: str = "TCP") -> "MakePod":
         c = self._pod.containers[0]

@@ -23,9 +23,10 @@ from kubernetes_tpu_torch.ops import kernel as K
 from kubernetes_tpu_torch.ops.device_state import state_from_jax_numpy
 from kubernetes_tpu_torch.ops.features import features_from_jax_numpy
 from kubernetes_tpu_torch.ops.kernel import carry_from_jax_numpy
-from kubernetes_tpu_torch.testing.kernel_inputs import random_inputs
+from kubernetes_tpu_torch.testing.kernel_inputs import HOST_AXIS, general_inputs, random_inputs
 
 VMAX = 64
+GVMAX = 256  # the general draws' value tier: a hostname-like axis of 200 rows
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -41,6 +42,10 @@ def _one_torch_thread():
 def _both(seed, np_cap=256, num_nodes=200, **kw):
     """(JAX state, JAX features, port state, port features) from one draw."""
     s, f = random_inputs(seed, np_cap, num_nodes, vmax=VMAX, **kw)
+    return _convert(s, f)
+
+
+def _convert(s, f):
     js = JaxState(*[jnp.asarray(a) for a in s])
     jf = JaxFeatures(*[jnp.asarray(a) for a in f])
     ts = state_from_jax_numpy([np.asarray(a) for a in js])
@@ -86,21 +91,20 @@ def test_resource_eval(case, fit_strategy):
     _same(want, got, "resource_eval")
 
 
-def _chain(js, jf, ts, tf, batch_pad, fit_strategy, n_active):
+def _chain(js, jf, ts, tf, batch_pad, fit_strategy, n_active, vmax=VMAX, facts=None):
     """Fresh batch, then a second one chained through carry_in; both
     packages. Returns [(jax results, jax carry, port results, port carry)]."""
+    facts = facts or dict(has_pns=False, has_ipa_base=False)
     out = []
     jc = tc = None
     for _ in range(2):
-        jr, jc_new = jax_schedule_batch(js, jf, batch_pad, fit_strategy, VMAX,
-                                        n_active=np.int32(n_active), carry_in=jc,
-                                        has_pns=False, has_ipa_base=False)
+        jr, jc_new = jax_schedule_batch(js, jf, batch_pad, fit_strategy, vmax,
+                                        n_active=np.int32(n_active), carry_in=jc, **facts)
         # Fetch before the next call: JAX donates carry_in.
         jr = np.asarray(jr)
         jc_np = [np.asarray(a) for a in jc_new]
-        tr, tc = K.schedule_batch(ts, tf, batch_pad, fit_strategy, VMAX,
-                                  n_active=n_active, carry_in=tc,
-                                  has_pns=False, has_ipa_base=False)
+        tr, tc = K.schedule_batch(ts, tf, batch_pad, fit_strategy, vmax, K.PlanFacts(**facts),
+                                  n_active=n_active, carry_in=tc)
         out.append((jr, jc_np, tr, tc))
         jc = JaxCarry(*[jnp.asarray(a) for a in jc_np])
     return out
@@ -120,6 +124,78 @@ def test_schedule_batch(case, batch_pad, n_active, fit_strategy):
         _same(jc, tc, f"carry, batch {step}")
 
 
+# Plans with count tables and normalized score lanes: (general_inputs
+# arguments, the kernel the plan takes at 64 steps, fit strategy).
+GENERAL = {
+    "spread-dns": (dict(dns=2), "scan_general", 0),              # full feasibility, carried
+    "spread-sa-pns": (dict(sa=2, pns=True), "scan_general", 1),  # incremental, normalized
+    "anti-aff-landing": (dict(anti=1, aff=2, kd=2), "scan_general", 0),
+    "aff-bootstrap": (dict(aff=1, kd=1, bootstrap=True), "scan_general", 1),
+    "ipa-base-na": (dict(ipa_base=True, na=True), "scan_general", 0),
+    "all-lanes": (dict(dns=1, sa=1, anti=1, aff=1, kd=1, pns=True, ipa_base=True, na=True),
+                  "scan_general", 1),
+    "hostname-anti": (dict(anti=1, anti_axis=HOST_AXIS), "scan_general", 0),
+}
+
+
+@pytest.fixture
+def paths(monkeypatch):
+    """The plain kernel versions schedule_batch ran."""
+    seen = []
+    for name in ("_lap_schedule_plain", "_scan_schedule_plain", "_scan_general_plain"):
+        fn = getattr(K, name)
+        monkeypatch.setattr(K, name, lambda *a, _fn=fn, _n=name[1:-6], **kw:
+                            seen.append(_n) or _fn(*a, **kw))
+    return seen
+
+
+def _general(seed, case, **kw):
+    lanes, _path, _strategy = GENERAL[case]
+    s, f, facts = general_inputs(seed, 256, 200, vmax=GVMAX, **lanes, **kw)
+    return _convert(s, f) + (facts,)
+
+
+@pytest.mark.parametrize("case", list(GENERAL))
+def test_scan_general(case, paths):
+    """The plain general scan equals JAX schedule_batch on every result and
+    ScanCarry lane, fresh and chained, with padded steps."""
+    js, jf, ts, tf, facts = _general(31, case)
+    _lanes, path, strategy = GENERAL[case]
+    placed = 0
+    for step, (jr, jc, tr, tc) in enumerate(_chain(js, jf, ts, tf, 64, strategy, 40,
+                                                   vmax=GVMAX, facts=facts)):
+        np.testing.assert_array_equal(jr, tr.numpy(), err_msg=f"results, batch {step}")
+        assert len(tc) == 14
+        _same(jc, tc, f"carry, batch {step}")
+        placed += int((jr[0, :40] >= 0).sum())
+    assert paths == [path, path]
+    assert placed > 0, "the draw must place pods"
+
+
+def test_lap_with_anti_lanes(paths):
+    """Hostname anti-affinity (row-local) above 64 steps takes the lap; its
+    anti lanes equal JAX's _lap_schedule, fresh and chained."""
+    js, jf, ts, tf, facts = _general(32, "hostname-anti")
+    for step, (jr, jc, tr, tc) in enumerate(_chain(js, jf, ts, tf, 512, 1, 150,
+                                                   vmax=GVMAX, facts=facts)):
+        np.testing.assert_array_equal(jr, tr.numpy(), err_msg=f"results, batch {step}")
+        _same(jc, tc, f"carry, batch {step}")
+    assert paths == ["lap_schedule", "lap_schedule"]
+    assert int(tc.anti_counts.sum()) > int(tf.anti_counts.sum())
+
+
+def test_general_converters_carry_every_table():
+    """features_from_jax_numpy / state_from_jax_numpy / carry_from_jax_numpy
+    bring the topology rows, count tables and score lanes across exactly."""
+    js, jf, ts, tf, facts = _general(33, "all-lanes")
+    _same(js, ts, "state")
+    _same(jf, tf, "features")
+    _jr, jc = jax_schedule_batch(js, jf, 64, 0, GVMAX, n_active=np.int32(30), **facts)
+    jc_np = [np.asarray(a) for a in jc]
+    _same(jc_np, carry_from_jax_numpy(jc_np), "carry")
+    assert int(np.abs(jc_np[10]).sum()) > 0  # ipa_delta moved
+
+
 def test_carry_across_round_trips_a_jax_carry():
     js, jf, ts, tf = _both(14)
     _jr, jc = jax_schedule_batch(js, jf, 512, 0, VMAX, n_active=np.int32(100),
@@ -131,24 +207,28 @@ def test_carry_across_round_trips_a_jax_carry():
     jr2, jc2 = jax_schedule_batch(js, jf, 512, 0, VMAX, n_active=np.int32(100),
                                   carry_in=JaxCarry(*[jnp.asarray(a) for a in jc_np]),
                                   has_pns=False, has_ipa_base=False)
-    tr2, tc2 = K.schedule_batch(ts, tf, 512, 0, VMAX, n_active=100, carry_in=tc,
-                                has_pns=False, has_ipa_base=False)
+    tr2, tc2 = K.schedule_batch(ts, tf, 512, 0, VMAX, K.PlanFacts(), n_active=100,
+                                carry_in=tc)
     np.testing.assert_array_equal(np.asarray(jr2), tr2.numpy())
     _same(jc2, tc2, "chained from a JAX carry")
 
 
 def test_general_plan_is_refused():
+    # A lane no kernel reads yet (the nominated pods of preemption) is
+    # refused, never silently ignored.
     _js, _jf, ts, tf = _both(15)
-    with pytest.raises(NotImplementedError, match="PreferNoSchedule"):
-        K.schedule_batch(ts, tf, 512, 0, VMAX, has_pns=True, has_ipa_base=False)
+    nom = tf._replace(nom_req=torch.zeros_like(ts.req_r),
+                      nom_pods=torch.zeros_like(ts.pod_count))
+    with pytest.raises(NotImplementedError, match="nominated-pod lane"):
+        K.schedule_batch(ts, nom, 512, 0, VMAX, K.PlanFacts())
 
 
 def test_wrappers_count_only_kernel_launches():
     # CPU tensors take the plain versions: no launch is counted.
     _js, _jf, ts, tf = _both(16)
     K.reset_launch_counts()
-    K.schedule_batch(ts, tf, 64, 0, VMAX, n_active=10, has_pns=False, has_ipa_base=False)
-    assert [w.launches for w in K.WRAPPERS] == [0, 0, 0, 0]
+    K.schedule_batch(ts, tf, 64, 0, VMAX, K.PlanFacts(), n_active=10)
+    assert [w.launches for w in K.WRAPPERS] == [0] * 5
     # Neither CPU nor CUDA: refused, never silently computed elsewhere.
     meta = ts._replace(valid=ts.valid.to("meta"))
     with pytest.raises(RuntimeError, match="cuda or cpu"):
@@ -171,7 +251,9 @@ def test_launcher_signatures_are_read_from_the_sources():
         sig = K._build.signature(name)
         assert sig[0] == K._build.Param("NP", None)
         assert all(p.dtype is not None for p in sig if p.name not in
-                   ("NP", "T", "L", "R", "FR", "fit_strategy", "B", "n_act"))
+                   ("NP", "T", "L", "R", "FR", "fit_strategy", "B", "n_act", "V",
+                    "C1", "C2", "A1", "A2", "KD", "incremental", "carried", "has_pns",
+                    "has_ipa_base", "has_na_pref"))
         optional = {p.name for p in sig if p.optional}
         assert optional == ({"nom_req", "nom_pods"} if name == "resource_eval" else set())
 
@@ -186,12 +268,54 @@ def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches):
     K._resource_eval_cuda(tf, 1, ts.alloc_r, ts.alloc_pods, ts.req_r, ts.nonzero, ts.pod_count)
     K._lap_schedule_cuda(ts, tf, 512, 0, ext0, static_ok, 300)
     K._scan_schedule_cuda(ts, tf, 64, 0, ext0, static_ok, 40)
+    K._scan_general_cuda(ts, tf, 64, 0, ext0, K._static_masks_plain(ts, tf), 40,
+                         K.PlanFacts(has_pns=True))
     assert [name for name, _ in recorded_launches] == list(K._build.KERNELS)
     for name, args in recorded_launches:
         sig = K._build.signature(name)
         assert len(args) == len(sig) + 1  # and the stream
         for p, a in zip(sig, args):
             assert (a is None) if p.optional else isinstance(a, int), (name, p)
+
+
+@pytest.mark.parametrize("case", ["all-lanes", "hostname-anti", "aff-bootstrap"])
+def test_scan_general_wrapper_marshals_every_table(recorded_launches, case):
+    """The scan_general wrapper passes each table, flag and scratch buffer
+    in its launcher's order: the recorded arguments are the data pointers
+    of the tensors the plan holds (cloned carry lanes excepted), the table
+    sizes are the features' own, and the flags are the plan's modes."""
+    _js, _jf, ts, tf, facts = _general(34, case)
+    facts = K.PlanFacts(**facts)
+    masks = K._static_masks_plain(ts, tf)
+    fit = K._resource_eval_plain(tf, 1, ts.alloc_r, ts.alloc_pods, ts.req_r, ts.nonzero,
+                                 ts.pod_count)
+    ext0 = K.fresh_carry(ts, tf, GVMAX, fit)
+    _out, carry = K._scan_general_cuda(ts, tf, 64, 1, ext0, masks, 40, facts)
+    [(name, args)] = recorded_launches
+    sig = {p.name: a for p, a in zip(K._build.signature(name), args)}
+    incremental, carried = K.plan_modes(tf, facts)
+    assert (sig["NP"], sig["B"], sig["n_act"], sig["V"], sig["fit_strategy"]) == (256, 64, 40,
+                                                                                 GVMAX, 1)
+    assert (sig["C1"], sig["C2"], sig["A1"], sig["A2"], sig["KD"]) == tuple(
+        t.shape[0] for t in (tf.dns_axis, tf.sa_axis, tf.anti_axis, tf.aff_axis, tf.ipa_axis))
+    assert (sig["incremental"], sig["carried"], sig["has_pns"], sig["has_ipa_base"],
+            sig["has_na_pref"]) == (int(incremental), int(carried), int(facts.has_pns),
+                                    int(facts.has_ipa_base), int(facts.has_na_pref))
+    for field in ("dns_axis", "dns_dom", "sa_wq", "anti_self", "aff_own_all", "ipa_wland",
+                  "na_raw", "ipa_base", "weights", "to_find"):
+        assert sig[field] == getattr(tf, field).data_ptr(), field
+    for field in ("topo", "alloc_r"):
+        assert sig[field] == getattr(ts, field).data_ptr(), field
+    assert sig["static_ok"] == masks.static_ok.data_ptr()
+    assert sig["taint_ok"] == masks.taint_ok.data_ptr()
+    assert sig["pns_cnt"] == masks.pns_cnt.data_ptr()
+    # The carry's lanes are fresh copies the kernel updates in place.
+    for lane in ("dns_counts", "sa_counts", "anti_counts", "aff_counts", "ipa_delta",
+                 "req_r", "fit_ok"):
+        assert sig[lane] == getattr(carry, lane).data_ptr(), lane
+        assert sig[lane] != getattr(ext0, lane).data_ptr() or getattr(ext0, lane).numel() == 0
+    assert sig["start"] == ext0.start.data_ptr()
+    assert sig["start_out"] == carry.start.data_ptr()
 
 
 def _wrong_dtype(ts, tf):
@@ -225,7 +349,7 @@ def _not_an_int(ts, tf):
     (_wrong_dtype, TypeError, "enable must be a torch.int32"),
     (_wrong_feature_dtype, TypeError, "fit_weights must be a torch.int64"),
     (_null_pointer, TypeError, "taint_key may not be null"),
-    (_wrong_count, TypeError, "takes 32 arguments"),
+    (_wrong_count, TypeError, "takes 38 arguments"),
     (_wrong_device, ValueError, "request on meta, expected cpu"),
     (_not_an_int, TypeError, "NP must be an int"),
 ], ids=["dtype", "feature-dtype", "null", "count", "device", "int"])

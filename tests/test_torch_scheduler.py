@@ -3,7 +3,7 @@ the same cluster and pod stream through kubernetes_tpu's TPUScheduler
 (CPU JAX, no mesh) and through kubernetes_tpu_torch's TorchScheduler on
 the CPU (the kernels' plain versions) must give identical pod→node
 assignments and identical failure counts — the scores are exact integers,
-so there is no tolerance. Also: the scope guard refuses what the slice
+so there is no tolerance. Also: the scope guard refuses what the port
 does not cover, and the port never imports JAX or the JAX package."""
 
 import ast
@@ -166,19 +166,45 @@ class TestSliceParity:
 
 
 class TestScope:
+    @pytest.mark.parametrize("build,taint", [
+        (lambda b: b.spread_constraint(1, "topology.kubernetes.io/zone"), False),
+        (lambda b: b.pod_affinity("kubernetes.io/hostname", {"app": "a"}), False),
+        (lambda b: b.pod_affinity("kubernetes.io/hostname", {"app": "a"}, anti=True), False),
+        (lambda b: b.preferred_node_affinity(5, "disk", ["ssd"]), False),
+        (lambda b: b, True),
+    ], ids=["spread", "affinity", "anti-affinity", "preferred-node-affinity",
+            "prefer-no-schedule"])
+    def test_lifted_refusals_admit_and_schedule_like_jax(self, build, taint):
+        """What the first slice refused is admitted now and lands exactly
+        where the JAX package puts it: a few pods labelled `app: a` on a
+        cluster whose nodes carry PreferNoSchedule taints in the last case."""
+        jax_s = TPUScheduler(mesh=None)
+        port = TorchScheduler(device="cpu")
+        for mk, s in ((jax_make_node, jax_s), (make_node, port)):
+            for i in range(8):
+                b = (mk().name(f"n{i}").capacity({"cpu": 4, "memory": "8Gi", "pods": 110})
+                     .zone(f"z{i % 2}").label("disk", "ssd" if i % 3 else "hdd"))
+                if taint and i % 2:
+                    b = b.taint("soft", "", "PreferNoSchedule")
+                s.clientset.create_node(b.obj())
+        for mk, s in ((jax_make_pod, jax_s), (make_pod, port)):
+            for i in range(5):
+                s.clientset.create_pod(build(mk().name(f"p{i}").req({"cpu": "1"})
+                                             .label("app", "a")).obj())
+            s.run_until_idle()
+        _assert_same(jax_s, port)
+        # Every placement came from the device (a pod that fits nowhere is
+        # re-run on the host for its diagnosis).
+        assert port.scheduled > 0 and port.device_scheduled == port.scheduled
+
     @pytest.mark.parametrize("build", [
-        lambda b: b.spread_constraint(1, "topology.kubernetes.io/zone"),
-        lambda b: b.pod_affinity("kubernetes.io/hostname", {"app": "a"}),
-        lambda b: b.pod_affinity("kubernetes.io/hostname", {"app": "a"}, anti=True),
-        lambda b: b.preferred_node_affinity(5, "disk", ["ssd"]),
         lambda b: b.host_port(8080),
         lambda b: b.volume("claim"),
         lambda b: b.resource_claim("gpu"),
         lambda b: b.scheduling_gate("wait"),
         lambda b: b.pod_group("gang"),
         lambda b: b.priority(10),
-    ], ids=["spread", "affinity", "anti-affinity", "preferred-node-affinity",
-            "host-ports", "volumes", "claims", "gates", "pod-groups", "priority"])
+    ], ids=["host-ports", "volumes", "claims", "gates", "pod-groups", "priority"])
     def test_out_of_scope_pod_refused(self, build):
         s = TorchScheduler(device="cpu")
         with pytest.raises(NotImplementedError):
@@ -186,9 +212,8 @@ class TestScope:
         assert not s.clientset.pods and s.queue.pending_counts() == (0, 0, 0)
 
     @pytest.mark.parametrize("build", [
-        lambda b: b.taint("soft", "", "PreferNoSchedule"),
         lambda b: b.image("nginx", 100 << 20),
-    ], ids=["prefer-no-schedule", "images"])
+    ], ids=["images"])
     def test_out_of_scope_node_refused(self, build):
         s = TorchScheduler(device="cpu")
         with pytest.raises(NotImplementedError):
