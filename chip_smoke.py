@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, in order; any error or mismatch exits non-zero before the result:
-  1. build   — compile the five CUDA kernels from csrc/ (one nvcc each, in
+  1. build   — compile the seven CUDA kernels from csrc/ (one nvcc each, in
                parallel, linked into one library) and print the build
                seconds;
   2. kernels — hold each kernel against its plain PyTorch version on the
@@ -20,17 +20,22 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                and full feasibility; carried and normalized scores) at the
                zone tier V = 64 and the hostname tier V = 8192, B = 1024
                and 64; and the lap with hostname anti-affinity lanes. Both
-               fit strategies, fresh and chained carries. Results must be
-               exactly equal on every output and carry lane. It also times
-               scan_general's first launch in the process against the next;
-  3. paths   — each through TorchScheduler on cuda at full width (5000
-               nodes of 32 cpu / 256Gi / 110 pods across 50 zones), the
+               fit strategies, fresh and chained carries. The three schedule
+               kernels again with a live nominated-pod lane; dry_run_preemption
+               on seeded victim draws at K = 8, 32 and 256 (rows with no
+               victim, invalid slots, scalar-resource victims) and with no
+               row that any removal can fit; scatter_rows with 1, 64 and 4096
+               dirty rows. Results must be exactly equal on every output and
+               carry lane. It also times scan_general's first launch in the
+               process against the next;
+  3. paths   — each through TorchScheduler on cuda at full width, the
                launch counts zeroed just before each drive and read just
                after:
-               TopologySpreading/5000Nodes_5000Pods, the main path (1000
-               warm pods, then 5000 pods under a hard zone spread): every
-               pod bound, zone skew of the spread pods <= 1, no host-path
-               pod, scan_general launched;
+               TopologySpreading/5000Nodes_5000Pods, the main path of the
+               first slices (5000 nodes of 32 cpu / 256Gi / 110 pods across
+               50 zones, 1000 warm pods, then 5000 pods under a hard zone
+               spread): every pod bound, zone skew of the spread pods <= 1,
+               no host-path pod, scan_general launched;
                SchedulingBasic/5000Nodes_10000Pods (1024 warm-up pods,
                10000 measured): every pod bound, the lap launched, and a
                small-batch drive (max_batch 64: 40 pods) that must launch
@@ -41,13 +46,41 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                bound, at most one per node, the lap (anti lanes) launched;
                SchedulingPodAffinity/5000Nodes_5000Pods: every pod bound,
                all in one zone;
+               PreemptionAsync/5000Nodes (5000 nodes of 4 cpu, 2000
+               priority-1 pods, 1000 priority-100 pods, which find empty
+               nodes: nothing is preempted in this shape): every pod bound,
+               the lap launched, no host-path pod;
+               Unschedulable/5kNodes/100Init/10kPods with the churner run
+               for CHURN_PODS 900-cpu priority-1000 pods: all 10000 measured
+               pods bound, every churn pod unschedulable and not nominated,
+               dry_run_preemption launched once per churn pod's attempt;
+               the preempting case (PreemptionAsync's templates with one
+               priority-1 4-cpu pod on each of the 5000 nodes, then 256
+               priority-100 4-cpu preemptors): every preemptor bound on the
+               node its preemption nominated, one victim each, no
+               verification divergence, dry_run_preemption and scatter_rows
+               launched; the nominated-lane drive (the same templates, 64
+               preemptors nominated, then, with the queue's clock held so
+               that they wait out their backoff, 512 priority-1 pods deleted
+               elsewhere and 544 priority-1 pods created): the lap with the
+               live lane lands 512 on the freed nodes and none on a
+               nominated one, 32 stay unschedulable, and every preemptor
+               then binds on its nominated node;
   4. timing  — on the main paths' own next-batch inputs (exactness checked
                there too): each kernel's device time per launch from
-               torch.profiler, its wrapper's wall time per call (host work
-               included) and its plain version's, from CUDA events, beside
-               the least time the card could take; scan_general on
-               scan_schedule's own inputs (it must agree exactly); and the
-               mirror's dirty-row scatter (index_copy_, a library call);
+               torch.profiler (a warm-up step, then at least 19 of 20
+               launches seen, the count kept in the row), its wrapper's wall
+               time per call (host work included) and its plain version's,
+               from CUDA events, beside the least time the card could take
+               for what the run's data needs; the three schedule kernels
+               also with a random nominated-pod lane on the same inputs, and
+               the lap on the nominated-lane drive's own session with and
+               without its lane;
+               scan_general on scan_schedule's own inputs (it must agree
+               exactly); dry_run_preemption on Unschedulable's own dry-run
+               inputs (a churn pod against the 10000 bound pods); and
+               scatter_rows at the preempting case's rows per flush, with
+               index_copy_ per field (a library call) beside it;
   5. parity  — a 500-node cluster with NoSchedule and PreferNoSchedule
                taints, unschedulable nodes, node selectors, pods that fit no
                node, zone and hostname spread, required and preferred
@@ -55,9 +88,13 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                assignments and failure counts must equal the port's
                device="cpu" run (the plain versions, which the repository's
                tests hold equal to the JAX package), at max_batch 1024 and
-               64; and TopologySpreading's first measured batch (1024 pods
-               after the 1000 warm pods) at the full 5000 nodes — cut from
-               the 5000 measured pods so that the CPU run stays short;
+               64; TopologySpreading's first measured batch (1024 pods after
+               the 1000 warm pods) at the full 5000 nodes — cut from the
+               5000 measured pods so that the CPU run stays short;
+               PreemptionAsync/50Nodes (10 preemptions), the preempting
+               case and the nominated-lane drive of phase 3: the cuda runs'
+               victims, nominations and assignments must equal the
+               device="cpu" runs', with no verification divergence;
   6. output  — a `{"kernels": [...]}` line, the card's name and power limit
                as nvidia-smi prints them, and last
                `{"ok": true, "device": {...}}`.
@@ -82,6 +119,10 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
 PEAK_OPS_PER_S = 67e12      # H100 SXM fp32 rate outside the tensor cores; the
                             # integer ALU rate is no higher, so ops/this rate
                             # stays a lower bound on the time
+CHURN_PODS = 10             # churn pods of the Unschedulable drive
+PREEMPTORS = 256            # preemptors of the full-width preempting case
+PREEMPT = "PreemptionAsync/5000Nodes"
+UNSCHED = "Unschedulable/5kNodes/100Init/10kPods"
 
 
 def fail(msg: str) -> None:
@@ -116,23 +157,47 @@ def wall_ms(fn, reps: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, kernel: str, reps: int = 20) -> float:
-    """Mean device time of one launch of the `<kernel>_kernel` that `fn`
-    launches, from torch.profiler's CUDA kernel events: the kernel alone,
-    without the host work of its wrapper."""
+def traced(fn, reps: int) -> list:
+    """(name, µs) of every CUDA event of `reps` calls of `fn`, from
+    torch.profiler. The calls are traced in the schedule's active step,
+    after a warm-up step of the same calls: launches in the first moments
+    of a trace can go unrecorded."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    got = []
+
+    def keep(prof):
+        got.extend((e.name, e.time_range.end - e.time_range.start) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA and f"{kernel}_kernel" in e.name]
-    check(len(spans) == reps, f"the profiler saw {len(spans)} of {reps} {kernel} launches")
-    return sum(spans) / reps / 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=keep) as prof:
+        for _step in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return got
+
+
+def device_ms(fn, kernel: str, reps: int = 20) -> tuple:
+    """(mean device ms of one launch, launches the profiler saw) of the
+    `<kernel>_kernel` that `fn` launches, from torch.profiler's CUDA kernel
+    events: the kernel alone, without the host work of its wrapper. At
+    least reps - 1 of the reps launches must be seen; a trace that saw
+    fewer is taken again once."""
+    for attempt in range(2):
+        spans = [us for name, us in traced(fn, reps) if f"{kernel}_kernel" in name]
+        if len(spans) >= reps - 1:
+            break
+        print(f"device_ms: trace {attempt + 1} saw {len(spans)} of {reps} {kernel} launches",
+              flush=True)
+    check(len(spans) >= reps - 1, f"the profiler saw {len(spans)} of {reps} {kernel} launches")
+    return sum(spans) / len(spans) / 1e3, len(spans)
 
 
 def max_abs_err(a, b) -> int:
@@ -277,11 +342,80 @@ def kernel_phase(dev, np_cap: int, n_nodes: int) -> dict:
                                        max_abs_err((o_k,) + tuple(ck), (o_p,) + tuple(cp)))
     check(int(cp.anti_counts.sum()) > int(ft.anti_counts.sum()),
           "the anti-lane lap draw landed no anti-affinity pod")
+    lane_phase(K, dev, np_cap, n_nodes, errs)
+    dry_run_phase(K, dev, np_cap, n_nodes, errs)
+    scatter_phase(K, dev, np_cap, n_nodes, errs)
     torch.cuda.synchronize()
     print(f"kernels vs plain: max_abs_err {errs}", flush=True)
     for name, e in errs.items():
         check(e == 0, f"{name} disagrees with its plain version (max_abs_err {e})")
     return errs
+
+
+def lane_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
+    """The three schedule kernels with a live nominated-pod lane, both fit
+    strategies, fresh and chained."""
+    from kubernetes_tpu_torch.testing.kernel_inputs import (general_inputs, nominated_lane,
+                                                            random_inputs, with_nominated_lane)
+
+    s, f = random_inputs(400, np_cap, n_nodes)
+    st, ft = to_device(dev, s, with_nominated_lane(f, nominated_lane(400, np_cap, n_nodes)))
+    lane = compare(K, st, ft)
+    s, f, facts = general_inputs(401, np_cap, n_nodes, vmax=64, dns=1)
+    st, ft = to_device(dev, s, with_nominated_lane(f, nominated_lane(401, np_cap, n_nodes)))
+    lane["scan_general"], placed = compare_general(K, st, ft, K.PlanFacts(**facts), 64)
+    check(placed > 0, "the nominated-lane scan_general draw placed nothing")
+    print(f"schedule kernels with a nominated-pod lane vs plain: max_abs_err {lane}", flush=True)
+    for name, e in lane.items():
+        errs[name] = max(errs[name], e)
+
+
+def dry_run_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
+    """dry_run_preemption against its plain version on seeded victim draws."""
+    from kubernetes_tpu_torch.testing.kernel_inputs import victim_inputs
+
+    for k, kw in ((8, {}), (32, {}), (256, {}), (8, dict(infeasible=True))):
+        s, f, vr, vv = victim_inputs(500 + k, np_cap, n_nodes, k, **kw)
+        st, ft = to_device(dev, s, f)
+        args = (st, ft, torch.from_numpy(vr).to(dev), torch.from_numpy(vv).to(dev), k)
+        got, want = K.dry_run_preemption(*args), K._dry_run_preemption_plain(*args)
+        e = max_abs_err((got,), (want,))
+        errs["dry_run_preemption"] = max(errs["dry_run_preemption"], e)
+        cands, empty = int(want[:, 0].sum()), int((vv[:n_nodes].sum(axis=1) == 0).sum())
+        print(f"dry_run_preemption K {k}{' no-fit' if kw else ''}: max_abs_err {e}, "
+              f"{cands} candidate rows, {int(want[:, 1:].sum())} victims, "
+              f"{empty} rows without a victim", flush=True)
+        check(empty > 0, "the victim draw has no row without a victim")
+        check((cands == 0) if kw else (cands > 0), f"dry run K {k}: {cands} candidate rows")
+
+
+def scatter_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
+    """scatter_rows against its plain version (index_copy_ per field)."""
+    from kubernetes_tpu_torch.testing.kernel_inputs import random_inputs
+
+    def state_on(seed):
+        arrays = random_inputs(seed, np_cap, n_nodes)[0]
+        return K.DeviceNodeState(*[torch.from_numpy(a).to(dev) for a in arrays])
+
+    gen = torch.Generator().manual_seed(600)
+    st, src = state_on(600), state_on(601)
+    st = st._replace(topo=torch.randint(0, 50, st.topo.shape, generator=gen,
+                                        dtype=torch.int32).to(dev))
+    src = src._replace(topo=torch.randint(0, 50, st.topo.shape, generator=gen,
+                                          dtype=torch.int32).to(dev))
+    for d in (1, 64, 4096):
+        at = torch.randperm(np_cap, generator=gen)[:d].to(dev)
+        rows = K.DeviceNodeState(*[t[at] for t in src[:-1]], src.topo[:, at])
+        packs = K.pack_rows(rows)
+        a = K.DeviceNodeState(*[t.clone() for t in st])
+        b = K.DeviceNodeState(*[t.clone() for t in st])
+        K.scatter_rows(a, at.to(torch.int32), *packs)
+        K._scatter_rows_plain(b, at.to(torch.int32), *packs)
+        e = max_abs_err(tuple(a), tuple(b))
+        changed = sum(int((x != y).sum()) for x, y in zip(a, st))
+        print(f"scatter_rows {d} rows: max_abs_err {e}, {changed} elements changed", flush=True)
+        check(changed > 0, f"the {d}-row scatter changed nothing")
+        errs["scatter_rows"] = max(errs["scatter_rows"], e)
 
 
 # ---------------------------------------------------------------------------
@@ -292,22 +426,36 @@ def zone_of(node: str) -> int:
     return int(node.split("-")[1]) % 50
 
 
-def drive(dev, workload: str, max_batch=None):
-    """Build the 5000-node cluster, warm the workload, then run its measured
-    pods with the launch counts zeroed just before and read just after."""
+def run_path(dev, workload: str, n_init=None, n_measure=None, max_batch=None,
+             churn_limit=None, label=None):
+    """Build the workload's 5000-node cluster, warm it (n_init init or
+    warm-up pods), then run n_measure measured pods with the launch counts
+    zeroed just before and read just after. A `label` names a run that is
+    not the workload itself (bench.measure)."""
     from kubernetes_tpu_torch import bench
     from kubernetes_tpu_torch.ops import kernel as K
 
     w = bench.WORKLOADS[workload]
-    sched = bench.build_cluster(5000, device=dev, max_batch=max_batch)
-    bench.warm(sched, w.init_pods, workload)
+    sched = bench.build_cluster(5000, device=dev, max_batch=max_batch, node=w.node)
+    bench.warm(sched, w.init_pods if n_init is None else n_init, workload)
     flushes0 = sched.mirror.scatter_flushes
     K.reset_launch_counts()
-    result = bench.measure(sched, w.measure_pods, workload=workload)
+    result = bench.measure(sched, w.measure_pods if n_measure is None else n_measure,
+                           workload=workload, churn_limit=churn_limit, label=label)
     launches = {k.__name__: k.launches for k in K.WRAPPERS}
     launches["scatter_flushes"] = sched.mirror.scatter_flushes - flushes0
+    print(f"path {label or workload}: {json.dumps(result)}", flush=True)
+    return sched, result, launches
+
+
+def drive(dev, workload: str, max_batch=None):
+    """run_path with the workload's own counts; every pod bound on the
+    device, none through the host path."""
+    from kubernetes_tpu_torch import bench
+
+    w = bench.WORKLOADS[workload]
+    sched, result, launches = run_path(dev, workload, max_batch=max_batch)
     d = result["detail"]
-    print(f"path {workload}: {json.dumps(result)}", flush=True)
     total = w.init_pods + w.measure_pods
     bound = len(sched.clientset.bindings)
     check(bound == len(sched.clientset.pods) == total, f"{workload}: {bound} of {total} pods bound")
@@ -315,6 +463,108 @@ def drive(dev, workload: str, max_batch=None):
           f"{workload}: failures {d['failures']}, host_path_pods {d['host_path_pods']}")
     check(d["device_batches"] > 0, f"{workload}: no device batch in the measured window")
     return sched, result, launches
+
+
+def outcome(sched) -> dict:
+    """{pod: (node, nominated node)} over the surviving pods."""
+    return {p.name: (p.node_name, p.nominated_node_name) for p in sched.clientset.pods.values()}
+
+
+PREEMPTING = f"preempting case ({PREEMPTORS} preemptors, 5000 full nodes)"
+LANE = "nominated-lane drive (lower-priority pods while nominations stand)"
+
+
+def preempting_case(dev):
+    """PreemptionAsync's templates with every node full: 5000 priority-1
+    4-cpu pods on the 5000 nodes of 4 cpu, then PREEMPTORS priority-100
+    4-cpu pods, each of which must evict one."""
+    return run_path(dev, PREEMPT, n_init=5000, n_measure=PREEMPTORS, label=PREEMPTING)
+
+
+def lane_drive(dev, n_nodes: int = 5000, n_pre: int = 64, n_free: int = 512, n_over: int = 32):
+    """Lower-priority pods scheduled on the device while nominations stand.
+    PreemptionAsync's templates with every node full (n_nodes priority-1
+    4-cpu pods); n_pre priority-100 preemptors each evict one and are
+    nominated in one session, then wait out their backoff. Meanwhile
+    n_free priority-1 pods on other nodes are deleted and n_free + n_over
+    priority-1 4-cpu pods arrive (the queue's clock stands still meanwhile,
+    so the preemptors' 1 s backoff outlasts the host work of the drive, as
+    a victim's graceful termination would on a cluster, and the
+    higher-priority preemptors do not go first): their session's lap carries the
+    nominated lane, which must land n_free of them on the freed nodes, none
+    on a nominated node (each is empty, so only the lane keeps them off),
+    and leave n_over unschedulable. Then every preemptor binds on its
+    nominated node. The launch counts are zeroed just before the
+    lower-priority session and read just after it. Returns the scheduler,
+    the counts and (device state, plan) of the lower-priority session."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    w = bench.WORKLOADS[PREEMPT]
+    sched = bench.build_cluster(n_nodes, device=dev, node=w.node)
+    bench.warm(sched, n_nodes, PREEMPT)
+    clock, t_hold = sched.queue.now, sched.queue.now()
+    sched.queue.now = lambda: t_hold
+    pre = bench.make_pods(n_pre, "pre", PREEMPT)
+    for p in pre:
+        sched.clientset.create_pod(p)
+    check(sched.schedule_one(), f"{LANE}: no session for the preemptors")
+    nominated = {p.nominated_node_name for p in pre}
+    check(len(nominated) == n_pre and "" not in nominated and not any(p.node_name for p in pre),
+          f"{LANE}: the preemptors are not each nominated to a node of their own")
+    freed = [p for p in sched.clientset.pods.values()
+             if p.priority == 1 and p.node_name not in nominated][:n_free]
+    for p in freed:
+        sched.clientset.delete_pod(p)
+    freed_nodes = {p.node_name for p in freed}
+    low = bench._clones(w.init_build, n_free + n_over, "low")
+    for p in low:
+        sched.clientset.create_pod(p)
+    sched.cache.update_snapshot(sched.snapshot)
+    lane = sched._nominated_lane(low[0])
+    check(lane is not None and len(lane) == n_pre,
+          f"{LANE}: the lower-priority pods' plan does not carry the {n_pre} nominations")
+    state, plan = sched.build_plan(sched.framework_for_pod(low[0]), low[0], sched.max_batch)
+    inputs = (K.DeviceNodeState(*[t.clone() for t in state]), plan, len(low), n_free)
+    flushes0 = sched.mirror.scatter_flushes
+    K.reset_launch_counts()
+    check(sched.schedule_one(), f"{LANE}: no session for the lower-priority pods")
+    launches = {k.__name__: k.launches for k in K.WRAPPERS}
+    launches["scatter_flushes"] = sched.mirror.scatter_flushes - flushes0
+    on = [p.node_name for p in low if p.node_name]
+    print(f"{LANE}: {n_pre} nominations, {len(on)} of {len(low)} lower-priority pods bound, "
+          f"{sum(n in nominated for n in on)} on a nominated node, launches {launches}",
+          flush=True)
+    check(sched.queue.nominator.has_nominated_pods()
+          and all(p.nominated_node_name and not p.node_name for p in pre),
+          f"{LANE}: the nominations did not stand through the lower-priority session")
+    check(len(on) == n_free and set(on) == freed_nodes,
+          f"{LANE}: {len(on)} lower-priority pods bound, not {n_free} on the freed nodes")
+    check(not any(p.nominated_node_name for p in low),
+          f"{LANE}: a lower-priority pod was nominated")
+    check(torch.device(dev).type == "cpu" or launches["lap_schedule"] > 0,
+          f"{LANE}: the lap was not launched with the lane")
+    sched.queue.now = clock
+    sched.run_until_idle()
+    check(all(p.node_name and p.node_name == p.nominated_node_name for p in pre)
+          and not sched.queue.nominator.has_nominated_pods(),
+          f"{LANE}: not every preemptor bound on its nominated node")
+    check(sum(1 for p in low if p.node_name) == n_free,
+          f"{LANE}: the unschedulable lower-priority pods changed")
+    return sched, launches, inputs
+
+
+def check_preempting(sched, result, what: str) -> None:
+    pre = result["detail"]["preemption"]
+    pods = list(sched.clientset.pods.values())
+    hi = [p for p in pods if p.priority == 100]
+    check(len(hi) == PREEMPTORS and all(p.node_name and p.node_name == p.nominated_node_name
+                                        for p in hi),
+          f"{what}: not every preemptor bound on its nominated node")
+    check(pre["victims"] == PREEMPTORS and len(pods) == 5000,
+          f"{what}: {pre['victims']} victims, {len(pods)} pods left")
+    check(pre["verify_divergences"] == 0, f"{what}: {pre['verify_divergences']} divergences")
+    check(not sched.queue.nominator.has_nominated_pods(), f"{what}: nominations left")
 
 
 def paths_phase(dev) -> dict:
@@ -376,7 +626,44 @@ def paths_phase(dev) -> dict:
     check(len(zones_used) == 1, f"the affinity pods span {len(zones_used)} zones")
     check(launches["scan_general"] > 0, f"scan_general was not launched on the {name} path")
     out[name] = (sched, result, launches)
-    return out
+
+    sched, result, launches = drive(dev, PREEMPT)
+    for k in ("static_masks", "resource_eval", "lap_schedule"):
+        check(launches[k] > 0, f"{k} was not launched on the {PREEMPT} path")
+    check(result["detail"]["preemption"]["attempts"] == 0, f"{PREEMPT} preempted")
+    out[PREEMPT] = (sched, result, launches)
+
+    sched, result, launches = run_path(dev, UNSCHED, churn_limit=CHURN_PODS)
+    d = result["detail"]
+    pods = list(sched.clientset.pods.values())
+    measured = [p for p in pods if p.name.startswith("bench-")]
+    churn = [p for p in pods if p.name.startswith("churn-")]
+    check(len(measured) == 10000 and all(p.node_name for p in measured),
+          f"{UNSCHED}: not every measured pod bound")
+    check(len(churn) == CHURN_PODS == d["churn_pods"]
+          and not any(p.node_name or p.nominated_node_name for p in churn),
+          f"{UNSCHED}: a churn pod was bound or nominated")
+    tries = d["preemption"]["attempts"]
+    print(f"{UNSCHED}: {CHURN_PODS} churn pods, {tries} PostFilter attempts, "
+          f"{launches['dry_run_preemption']} dry_run_preemption launches", flush=True)
+    check(tries == CHURN_PODS == launches["dry_run_preemption"] == d["preemption"]["device_evals"],
+          f"{UNSCHED}: dry_run_preemption not launched once per churn pod's attempt")
+    for k in ("static_masks", "resource_eval", "lap_schedule"):
+        check(launches[k] > 0, f"{k} was not launched on the {UNSCHED} path")
+    out[UNSCHED] = (sched, result, launches)
+
+    sched, result, launches = preempting_case(dev)
+    check_preempting(sched, result, PREEMPTING)
+    for k in ("static_masks", "resource_eval", "lap_schedule", "dry_run_preemption",
+              "scatter_rows"):
+        check(launches[k] > 0, f"{k} was not launched on the {PREEMPTING} path")
+    out[PREEMPTING] = (sched, result, launches)
+
+    sched, launches, lane_inputs = lane_drive(dev)
+    for k in ("static_masks", "resource_eval", "lap_schedule"):
+        check(launches[k] > 0, f"{k} was not launched on the {LANE} path")
+    out[LANE] = (sched, None, launches)
+    return out, lane_inputs
 
 
 # ---------------------------------------------------------------------------
@@ -407,11 +694,13 @@ def general_cost(f, facts, K, n_act: int):
     return n_act * step_bytes, n_act * (NP * ops_row + C1 * V)
 
 
-def timing_phase(paths: dict, errs: dict) -> dict:
+def timing_phase(paths: dict, errs: dict, lane_inputs) -> dict:
     """Each kernel and its plain version timed on its main path's own
     inputs: the next batch's device state and features of the path's
     cluster after its measured run, at the path's shapes. The kernels are
-    first held exactly equal to their plain versions on these inputs too."""
+    first held exactly equal to their plain versions on these inputs too.
+    The lap also on the nominated-lane drive's own session, with its lane
+    and with the lane taken out."""
     from kubernetes_tpu_torch import bench
     from kubernetes_tpu_torch.ops import kernel as K
 
@@ -481,20 +770,66 @@ def timing_phase(paths: dict, errs: dict) -> dict:
                 "scan_general": "kubernetes_tpu/ops/kernel.py:314"}
     rows = {}
     for kname, (k_fn, p_fn, nbytes, ops) in calls.items():
-        ms = device_ms(k_fn, kname)
-        host_ms = wall_ms(k_fn, reps=20 if kname != "scan_general" else 5)
-        plain_ms = wall_ms(p_fn, reps=2 if kname != "scan_general" else 1, warmup=1)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS_PER_S * 1e3
-        rows[kname] = dict(name=kname, route="cuda",
-                           source=f"kubernetes_tpu_torch/csrc/{kname}.cu",
-                           replaces=replaces[kname], launches=0, max_abs_err=errs[kname],
-                           exact=errs[kname] == 0, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
-                           bound_ms=max(t_bytes, t_ops),
-                           bound_by="bytes" if t_bytes >= t_ops else "operations",
-                           library_ms=None, bytes=nbytes, ops=ops)
+        slow = kname == "scan_general"  # 29 ms a launch, its plain version seconds
+        rows[kname] = kernel_row(kname, replaces[kname], errs[kname], k_fn, p_fn, nbytes, ops,
+                                 reps=5 if slow else 20, plain_reps=1 if slow else 2)
     rows["lap_schedule"]["laps"] = laps
     rows["scan_general"]["steps"] = gB
+    # The three schedule kernels with a nominated-pod lane on the same
+    # inputs (held exact for the lap and scan_schedule here too).
+    from kubernetes_tpu_torch.testing.kernel_inputs import nominated_lane
+
+    def with_lane(f):
+        nom_req, nom_pods = nominated_lane(700, NP, int(st.valid.sum()), R)
+        return f._replace(nom_req=torch.from_numpy(nom_req).to(st.valid.device),
+                          nom_pods=torch.from_numpy(nom_pods).to(st.valid.device))
+
+    ft_l, gf_l = with_lane(ft), with_lane(gf)
+    lane_calls = {
+        "lap_schedule": (lambda: K.lap_schedule(st, ft_l, 1024, strat, ext0, static_ok, 1024),
+                         lambda: K._lap_schedule_plain(st, ft_l, 1024, strat, ext0, static_ok,
+                                                       1024)),
+        "scan_schedule": (lambda: K.scan_schedule(st, ft_l, 64, strat, ext0, static_ok, 64),
+                          lambda: K._scan_schedule_plain(st, ft_l, 64, strat, ext0, static_ok,
+                                                         64)),
+        "scan_general": (lambda: K.scan_general(gst, gf_l, gB, gplan.fit_strategy, gext0, gmasks,
+                                                gB, facts), None),
+    }
+    for kname, (k_fn, p_fn) in lane_calls.items():
+        if p_fn is not None:
+            (o_k, c_k), (o_p, c_p) = k_fn(), p_fn()
+            check(max_abs_err((o_k,) + tuple(c_k), (o_p,) + tuple(c_p)) == 0,
+                  f"{kname} with the nominated lane disagrees with its plain version")
+        rows[kname]["ms_lane"], rows[kname]["ms_lane_launches_seen"] = device_ms(k_fn, kname)
+    # The lap on the nominated-lane drive's session: its nominations keep
+    # the pods off the nominated rows, so only the freed rows take them;
+    # without the lane the same call lands every pod.
+    lst, lplan, l_act, l_free = lane_inputs
+    lf = lplan.features
+    l_ok = K._static_masks_plain(lst, lf).static_ok
+    no_lane = lf._replace(nom_req=lf.nom_req[:0], nom_pods=lf.nom_pods[:0])
+    lane_rows = {}
+    for what, f_ in (("with_lane", lf), ("without_lane", no_lane)):
+        l_ext0 = K.fresh_carry(lst, f_, lplan.vmax, K._resource_eval_plain(
+            f_, lplan.fit_strategy, lst.alloc_r, lst.alloc_pods, lst.req_r, lst.nonzero,
+            lst.pod_count, *K._nom_lane(f_)))
+        args = (lst, f_, lplan.batch_pad, lplan.fit_strategy, l_ext0, l_ok, l_act)
+        stats = {}
+        (o_k, c_k), (o_p, c_p) = K.lap_schedule(*args), K._lap_schedule_plain(*args, stats=stats)
+        check(max_abs_err((o_k,) + tuple(c_k), (o_p,) + tuple(c_p)) == 0,
+              f"lap_schedule disagrees with its plain version on the {LANE} ({what})")
+        placed = int((o_p[0] >= 0).sum())
+        ms, seen = device_ms(lambda: K.lap_schedule(*args), "lap_schedule")
+        lane_rows[what] = dict(ms=ms, launches_seen=seen, placed=placed, laps=stats["laps"])
+    check(lane_rows["with_lane"]["placed"] == l_free
+          and lane_rows["without_lane"]["placed"] == l_act,
+          f"the {LANE}'s lap placed {lane_rows['with_lane']['placed']} with the lane and "
+          f"{lane_rows['without_lane']['placed']} without, of {l_act}")
+    rows["lap_schedule"]["lane_drive"] = lane_rows
+    print(f"lap on the {LANE} session ({l_act} pods, {int(lf.nom_pods.sum())} nominations): "
+          + ", ".join(f"{r['ms']:.4f} ms on the device {what.replace('_', ' ')} "
+                      f"({r['placed']} placed, {r['laps']} laps)"
+                      for what, r in lane_rows.items()), flush=True)
     # scan_general on scan_schedule's own inputs: the plan scan_schedule
     # takes (incremental feasibility, carried score, no table) is one of
     # scan_general's modes, so the two must agree there exactly.
@@ -503,65 +838,130 @@ def timing_phase(paths: dict, errs: dict) -> dict:
     o_g, c_g = K.scan_general(st, ft, 64, strat, ext0, masks, 64, plan.facts)
     check(max_abs_err((o_s,) + tuple(c_s), (o_g,) + tuple(c_g)) == 0,
           "scan_general disagrees with scan_schedule on scan_schedule's plan")
-    g_ms = device_ms(lambda: K.scan_general(st, ft, 64, strat, ext0, masks, 64, plan.facts),
-                     "scan_general")
+    g_ms, _seen = device_ms(
+        lambda: K.scan_general(st, ft, 64, strat, ext0, masks, 64, plan.facts), "scan_general")
     rows["scan_schedule"]["scan_general_ms_same_inputs"] = g_ms
     print(f"scan_schedule's plan (64 steps, NP {NP}): scan_schedule "
           f"{rows['scan_schedule']['ms']:.4f} ms on the device, scan_general {g_ms:.4f} ms, "
           "identical results", flush=True)
     print(f"kernel times on the main paths' inputs (NP {NP}, R {R}, T {T}, L {L}, "
           f"{laps} laps per 1024-pod batch; scan_general {gB} steps, V {gplan.vmax}): "
-          + ", ".join(f"{n} {r['ms']:.4f} ms on the device, {r['host_ms']:.4f} ms a call "
-                      f"(plain {r['plain_ms']:.3f})" for n, r in rows.items()),
+          + ", ".join(f"{n} {r['ms']:.4f} ms on the device"
+                      + (f" ({r['ms_lane']:.4f} with a nominated lane)" if "ms_lane" in r else "")
+                      + f", {r['host_ms']:.4f} ms a call (plain {r['plain_ms']:.3f})"
+                      for n, r in rows.items()),
           flush=True)
     return rows
 
 
-def scatter_timing(paths: dict) -> dict:
-    """The mirror's dirty-row scatter (one index_copy_ per DeviceNodeState
-    field, a library call): its flushes on the main path, and its device
-    time and bytes bound for 64 dirty rows of the main path's mirror."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def kernel_row(kname, replaces, err, k_fn, p_fn, nbytes, ops, library_ms=None, reps=20,
+               plain_reps=2):
+    """A `kernels` line row: device ms (torch.profiler, over the
+    `ms_launches_seen` of 20 launches it saw), wall ms a call and the plain
+    version's (CUDA events), and the bound."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    ms, seen = device_ms(k_fn, kname)
+    return dict(name=kname, route="cuda", source=f"kubernetes_tpu_torch/csrc/{kname}.cu",
+                replaces=replaces, launches=0, max_abs_err=err, exact=err == 0,
+                ms=ms, ms_launches_seen=seen, host_ms=wall_ms(k_fn, reps=reps),
+                plain_ms=wall_ms(p_fn, reps=plain_reps, warmup=1), bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=library_ms,
+                bytes=nbytes, ops=ops)
 
-    sched = paths["TopologySpreading/5000Nodes_5000Pods"][0]
-    mirror = sched.mirror
-    rows = list(range(0, 5000, 5000 // 64))[:64]
-    mirror._scatter_dirty(rows)
-    torch.cuda.synchronize()
-    reps = 20
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            mirror._scatter_dirty(rows)
-        torch.cuda.synchronize()
-    kern_us = copy_us = 0.0
-    names = set()
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        span = e.time_range.end - e.time_range.start
-        if "memcpy" in e.name.lower():
-            copy_us += span
-        else:
-            kern_us += span
-            names.add(e.name[:60])
-    row_bytes = sum(a[0].nbytes for a in mirror._arrays()) + mirror.h_topo[:, 0].nbytes
-    nbytes = 2 * len(rows) * row_bytes  # rows read from the upload, written into the state
-    out = dict(name="dirty-row scatter (index_copy_)", rows=len(rows),
-               flushes_on_main_path=paths["TopologySpreading/5000Nodes_5000Pods"][2].get(
-                   "scatter_flushes", 0),
-               library_ms=kern_us / reps / 1e3, copy_ms=copy_us / reps / 1e3,
-               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes,
-               device_kernels=sorted(names))
-    print(f"scatter: {json.dumps(out)}", flush=True)
-    return out
+
+def library_device_ms(fn, reps: int = 20) -> float:
+    """Device time per call of `fn`'s kernels (copies excluded), from
+    torch.profiler."""
+    us = sum(t for name, t in traced(fn, reps)
+             if "memcpy" not in name.lower() and "memset" not in name.lower())
+    return us / reps / 1e3
+
+
+def preemption_timing(paths: dict, errs: dict) -> dict:
+    """dry_run_preemption on Unschedulable's own dry-run inputs (a churn pod
+    against the cluster after the 10000 measured pods) and scatter_rows at
+    the preempting case's dirty rows per flush, each held exact first."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.ops import kernel as K
+    from kubernetes_tpu_torch.ops.features import build_preemption_victims
+    from kubernetes_tpu_torch.testing import make_pod
+
+    rows = {}
+    sched = paths[UNSCHED][0]
+    pod = bench.WORKLOADS[UNSCHED].churn.build(make_pod().name("timed-churn")).obj()
+    sched.cache.update_snapshot(sched.snapshot)
+    sched.mirror.sync(sched.snapshot.node_info_list)
+    vic_req, vic_valid, _potential = build_preemption_victims(pod, sched.snapshot, sched.mirror)
+    st, plan = sched.build_plan(sched.framework_for_pod(pod), pod, 1)
+    dev = st.valid.device
+    NP, R = st.alloc_r.shape
+    k = vic_valid.shape[1]
+    T, L = st.taint_key.shape[1], plan.features.tol_key.shape[0]
+    args = (st, plan.features, torch.from_numpy(vic_req).to(dev),
+            torch.from_numpy(vic_valid).to(dev), k)
+    check(max_abs_err((K.dry_run_preemption(*args),), (K._dry_run_preemption_plain(*args),)) == 0,
+          "dry_run_preemption disagrees with its plain version on Unschedulable's inputs")
+    # What this run's data needs, read once: the [NP, K] victim flags, the
+    # R requests of each valid victim (an invalid slot's are never read),
+    # and the allocatable, requested, count and static-filter inputs of
+    # the live rows (below num_nodes); the [NP, 1 + K] verdicts written
+    # once. Ops: each live row's static filter and fit test, and per valid
+    # victim its removal and a fit test over R slots.
+    live, victims = int(plan.features.num_nodes), int(vic_valid.sum())
+    nbytes = NP * k + victims * R * 8 + live * (R * 16 + 12 + 12 * T + 12) + NP * (1 + k)
+    ops = live * (T * (10 * L + 6) + 4 * R + 12) + victims * (5 * R + 12)
+    rows["dry_run_preemption"] = kernel_row(
+        "dry_run_preemption", "kubernetes_tpu/ops/kernel.py:727", errs["dry_run_preemption"],
+        lambda: K.dry_run_preemption(*args), lambda: K._dry_run_preemption_plain(*args),
+        nbytes, ops)
+    rows["dry_run_preemption"].update(k=k, victims=victims, live_rows=live)
+
+    mirror = paths[PREEMPTING][0].mirror
+    d = max(1, round(mirror.scatter_rows / max(1, mirror.scatter_flushes)))
+    at = list(range(0, 5000, 5000 // d))[:d]
+    state = mirror.flush()
+    rows_d = K.DeviceNodeState(*[torch.from_numpy(a[at]) for a in mirror._arrays()],
+                               torch.from_numpy(mirror.h_topo[:, at]))
+    packs = [t.to(dev) for t in K.pack_rows(rows_d)]
+    idx = torch.tensor(at, dtype=torch.int32, device=dev)
+    a = K.DeviceNodeState(*[t.clone() for t in state])
+    b = K.DeviceNodeState(*[t.clone() for t in state])
+    K.scatter_rows(a, idx, *packs)
+    K._scatter_rows_plain(b, idx, *packs)
+    check(max_abs_err(tuple(a), tuple(b)) == 0,
+          "scatter_rows disagrees with its plain version on the preempting case's rows")
+    at64 = idx.to(torch.int64)
+    unpacked = K._unpack_rows(a, *packs)
+    unpacked = [t.contiguous() for t in unpacked[:-1]] + [unpacked.topo.contiguous()]
+
+    def index_copy():
+        for field, r in zip(a[:-1], unpacked[:-1]):
+            field.index_copy_(0, at64, r)
+        a.topo.index_copy_(1, at64, unpacked[-1])
+
+    # Bytes: each dirty row read once from the packs and written once into
+    # the fields, and its index; ops: one move per element.
+    row_bytes = sum(x[0].nbytes for x in mirror._arrays()) + mirror.h_topo[:, 0].nbytes
+    elements = sum(int(t.shape[1]) for t in packs)
+    rows["scatter_rows"] = kernel_row(
+        "scatter_rows", "kubernetes_tpu/ops/device_state.py:128", errs["scatter_rows"],
+        lambda: K.scatter_rows(a, idx, *packs), lambda: K._scatter_rows_plain(b, idx, *packs),
+        2 * d * row_bytes + 4 * d, d * elements, library_ms=library_device_ms(index_copy))
+    rows["scatter_rows"].update(rows_per_flush=d, flushes=mirror.scatter_flushes)
+    print("preemption kernels: " + ", ".join(
+        f"{n} {r['ms']:.4f} ms on the device, {r['host_ms']:.4f} ms a call, plain "
+        f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), library "
+        f"{r['library_ms']}" for n, r in rows.items())
+        + f" (dry run: NP {NP}, K {k}, R {R}; scatter: {d} rows)", flush=True)
+    return rows
 
 
 # ---------------------------------------------------------------------------
 # Phase 5: cuda/cpu parity
 # ---------------------------------------------------------------------------
 
-def parity_phase(dev):
+def parity_phase(dev, paths: dict):
     from kubernetes_tpu_torch import bench
     from kubernetes_tpu_torch.models import TorchScheduler
     from kubernetes_tpu_torch.testing import make_node, make_pod
@@ -634,6 +1034,35 @@ def parity_phase(dev):
         runs.append(s)
     same(runs[0], runs[1], f"{name}, first measured batch of 1024 pods at 5000 nodes")
 
+    # Preemption: the victims (the surviving pods), nominations and
+    # assignments of the cuda runs equal the device="cpu" runs'.
+    def same_preemption(a, b, what):
+        diffs = {k: (v, outcome(a).get(k)) for k, v in outcome(b).items()
+                 if outcome(a).get(k) != v}
+        check(outcome(a) == outcome(b), f"cuda/cpu preemption divergence ({what}): "
+                                        f"{list(diffs.items())[:5]}")
+        pa, pb = a.preemption_counts(), b.preemption_counts()
+        check(pa == pb and pa["verify_divergences"] == 0, f"{what}: counts {pa} vs {pb}")
+        check(a.preemption_device_evals == b.preemption_device_evals > 0,
+              f"{what}: device dry runs {a.preemption_device_evals} vs "
+              f"{b.preemption_device_evals}")
+        print(f"parity ({what}): {len(outcome(b))} pods, {pb['victims']} victims, "
+              f"{pb['attempts']} PostFilter attempts, {a.preemption_device_evals} device dry "
+              "runs, identical", flush=True)
+
+    runs = []
+    for device in (dev, "cpu"):
+        s = bench.build_cluster(50, device=device, node=bench.WORKLOADS[PREEMPT].node)
+        bench.warm(s, 40, PREEMPT)
+        bench.measure(s, 20, workload=PREEMPT)
+        runs.append(s)
+    check(runs[1].preemption_counts()["victims"] == 10, "PreemptionAsync/50Nodes: not 10 victims")
+    same_preemption(runs[0], runs[1], "PreemptionAsync/50Nodes")
+    cpu_sched, cpu_result, _l = preempting_case("cpu")
+    check_preempting(cpu_sched, cpu_result, f"{PREEMPTING} on the cpu")
+    same_preemption(paths[PREEMPTING][0], cpu_sched, PREEMPTING)
+    same_preemption(paths[LANE][0], lane_drive("cpu")[0], LANE)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -659,11 +1088,11 @@ def main() -> int:
     print(f"kernels phase: {time.perf_counter() - t1:.1f} s", flush=True)
 
     t1 = time.perf_counter()
-    paths = paths_phase(dev)
+    paths, lane_inputs = paths_phase(dev)
     print(f"paths phase: {time.perf_counter() - t1:.1f} s", flush=True)
     t1 = time.perf_counter()
-    rows = timing_phase(paths, errs)
-    scatter_timing(paths)
+    rows = timing_phase(paths, errs, lane_inputs)
+    rows.update(preemption_timing(paths, errs))
     print(f"timing phase: {time.perf_counter() - t1:.1f} s", flush=True)
     for name, (_s, result, _l) in paths.items():
         if result is not None:
@@ -675,7 +1104,7 @@ def main() -> int:
         row["launches_by_path"] = by_path
 
     t1 = time.perf_counter()
-    parity_phase(dev)
+    parity_phase(dev, paths)
     print(f"parity phase: {time.perf_counter() - t1:.1f} s", flush=True)
 
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

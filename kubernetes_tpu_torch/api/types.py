@@ -252,6 +252,7 @@ class Pod:
     tolerations: List[Toleration] = field(default_factory=list)
     topology_spread_constraints: List[TopologySpreadConstraint] = field(default_factory=list)
     priority: int = 0
+    preemption_policy: str = "PreemptLowerPriority"  # or "Never"
     scheduling_gates: List[str] = field(default_factory=list)
     pod_group: str = ""
     resource_claims: List[str] = field(default_factory=list)

@@ -1,8 +1,8 @@
 """Benchmark of the port: `python -m kubernetes_tpu_torch.bench [--workload NAME]`.
 
 The upstream scheduler_perf shapes that the JAX package carries in
-kubernetes_tpu/perf/configs/performance-config.yaml, all on 5000 nodes of
-32 cpu / 256Gi / 110 pods across 50 zones with 100m pods:
+kubernetes_tpu/perf/configs/performance-config.yaml. Five run on 5000 nodes
+of 32 cpu / 256Gi / 110 pods across 50 zones with 100m pods:
 
   SchedulingBasic/5000Nodes_10000Pods        (the default) 1024 warm-up pods
                                              of the measured shape, then
@@ -14,7 +14,21 @@ kubernetes_tpu/perf/configs/performance-config.yaml, all on 5000 nodes of
   SchedulingPodAntiAffinity/5000Nodes_2000Pods    2000 pods, required
                                              anti-affinity on the hostname;
   SchedulingPodAffinity/5000Nodes_5000Pods   5000 pods, required affinity on
-                                             the zone (the bootstrap case).
+                                             the zone (the bootstrap case);
+  Unschedulable/5kNodes/100Init/10kPods      100 pending 900-cpu init pods,
+                                             then 10000 100m/128Mi pods while
+                                             a churner creates a 900-cpu,
+                                             priority-1000 pod every 200 ms
+                                             (each runs DefaultPreemption and
+                                             finds no candidate).
+
+  PreemptionAsync/5000Nodes                  5000 nodes of 4 cpu / 16Gi / 32
+                                             pods, no zones: 2000 priority-1
+                                             4-cpu init pods, then 1000
+                                             priority-100 4-cpu pods. In this
+                                             shape nothing is preempted: the
+                                             measured pods find 3000 empty
+                                             nodes.
 
 The kernels are built and every plan of the measured shape is dispatched
 once with no active pod (TorchScheduler.warm_for) before the warm-up pods,
@@ -22,7 +36,9 @@ outside the measured window. Prints one JSON line with the keys of the JAX
 package's bench.py (`metric`, `value`, `unit`, `vs_baseline`, `detail`);
 `vs_baseline` divides by the upstream threshold of the shape (the
 reference's own pods/s floor, no target of the port), `detail.platform`
-names the card.
+names the card, `detail.preemption` counts the window's PostFilter
+attempts, device dry runs, victims and verification divergences, and
+`detail.churn_pods` the churner's pods.
 
 Environment: BENCH_NODES, BENCH_PODS, BENCH_WARMUP (the warm-up or init
 pods), BENCH_MAX_BATCH; `--device cpu` runs the kernels' plain versions on
@@ -55,27 +71,53 @@ WINDOW_COUNTERS = ("scheduled", "failures", "device_batches", "device_scheduled"
                    "device_wait_s", "host_commit_s", "session_end_s")
 
 
+class NodeTemplate(NamedTuple):
+    """createNodes' nodeTemplate: capacity and the zone count (0: no zone
+    label)."""
+
+    cpu: int = 32
+    memory: str = "256Gi"
+    pods: int = 110
+    zones: int = 50
+
+
+class Churn(NamedTuple):
+    """The churn opcode in `create` mode (scheduler_perf.go:72): a pod of
+    the template every `interval_s` while the measured window runs."""
+
+    build: Callable
+    interval_s: float
+
+
 class Workload(NamedTuple):
     """One scheduler_perf shape: the measured pods' template (a builder
-    step over make_pod), their count, the warm-up/init pods and the
-    upstream pods/s threshold."""
+    step over make_pod), their count, the warm-up/init pods (`init_build`
+    their template; None: the measured shape), the upstream pods/s
+    threshold, the nodes, and the churn during the window."""
 
     measure_pods: int
     build: Callable
     init_pods: int
-    init_app: Optional[str]  # init pods' `app` label; None: the measured shape
+    init_build: Optional[Callable]
     threshold: float
+    node: NodeTemplate = NodeTemplate()
+    churn: Optional[Churn] = None
 
 
 def _basic(b):
     return b.req({"cpu": "100m", "memory": "128Mi"})
 
 
+def _big(b):
+    return b.req({"cpu": 900, "memory": "128Mi"})
+
+
 WORKLOADS = {
     "SchedulingBasic/5000Nodes_10000Pods": Workload(10000, _basic, 1024, None, 680.0),
     "TopologySpreading/5000Nodes_5000Pods": Workload(
         5000, lambda b: b.req({"cpu": "100m"}).labels({"app": "spread"})
-        .spread_constraint(1, ZONE, "DoNotSchedule", {"app": "spread"}), 1000, "warm", 460.0),
+        .spread_constraint(1, ZONE, "DoNotSchedule", {"app": "spread"}), 1000,
+        lambda b: b.req({"cpu": "100m"}).labels({"app": "warm"}), 460.0),
     "PreferredTopologySpreading/5000Nodes_5000Pods": Workload(
         5000, lambda b: b.req({"cpu": "100m"}).labels({"app": "soft-spread"})
         .spread_constraint(1, ZONE, "ScheduleAnyway", {"app": "soft-spread"}), 0, None, 340.0),
@@ -85,33 +127,84 @@ WORKLOADS = {
     "SchedulingPodAffinity/5000Nodes_5000Pods": Workload(
         5000, lambda b: b.req({"cpu": "100m"}).labels({"app": "pack"})
         .pod_affinity(ZONE, {"app": "pack"}), 0, None, 70.0),
+    "PreemptionAsync/5000Nodes": Workload(
+        1000, lambda b: b.req({"cpu": 4}).priority(100), 2000,
+        lambda b: b.req({"cpu": 4}).priority(1), 570.0,
+        node=NodeTemplate(cpu=4, memory="16Gi", pods=32, zones=0)),
+    "Unschedulable/5kNodes/100Init/10kPods": Workload(
+        10000, _basic, 100, _big, 590.0,
+        churn=Churn(lambda b: b.req({"cpu": 900, "memory": "1Gi"}).priority(1000), 0.2)),
 }
 DEFAULT_WORKLOAD = "SchedulingBasic/5000Nodes_10000Pods"
 
 
-def build_cluster(n_nodes: int, device="cuda", max_batch=None, zones: int = 50) -> TorchScheduler:
+def build_cluster(n_nodes: int, device="cuda", max_batch=None,
+                  node: NodeTemplate = NodeTemplate()) -> TorchScheduler:
     sched = TorchScheduler(device=device, max_batch=max_batch)
     for i in range(n_nodes):
-        sched.clientset.create_node(
-            make_node().name(f"node-{i}")
-            .capacity({"cpu": 32, "memory": "256Gi", "pods": 110})
-            .zone(f"zone-{i % zones}").obj())
+        b = (make_node().name(f"node-{i}")
+             .capacity({"cpu": node.cpu, "memory": node.memory, "pods": node.pods}))
+        if node.zones:
+            b = b.zone(f"zone-{i % node.zones}")
+        sched.clientset.create_node(b.obj())
     return sched
+
+
+def _clones(build: Callable, n: int, prefix: str):
+    proto = build(make_pod().name("proto")).obj()
+    return [proto.clone_from_template(f"{prefix}-{i}") for i in range(n)]
 
 
 def make_pods(n: int, prefix: str, workload: str = DEFAULT_WORKLOAD):
     """N clones of the workload's measured template (shared spec and
     signature memo). SchedulingBasic pods carry `app: <prefix>`."""
-    b = WORKLOADS[workload].build(make_pod().name("proto"))
+    build = WORKLOADS[workload].build
     if workload == DEFAULT_WORKLOAD:
-        b = b.labels({"app": prefix})
-    proto = b.obj()
-    return [proto.clone_from_template(f"{prefix}-{i}") for i in range(n)]
+        return _clones(lambda b: build(b).labels({"app": prefix}), n, prefix)
+    return _clones(build, n, prefix)
 
 
-def _init_pods(n: int, app: str):
-    proto = make_pod().name("proto").req({"cpu": "100m"}).labels({"app": app}).obj()
-    return [proto.clone_from_template(f"{app}-{i}") for i in range(n)]
+class Churner:
+    """Creates the workload's churn pods, the first one interval into the
+    window (a Go ticker's first tick); `tick()` runs between scheduling
+    cycles, as the JAX package's perf harness drives its churner
+    (kubernetes_tpu/perf/harness.py:376-411). With a `limit` it creates
+    exactly that many, and the window lasts until it has."""
+
+    def __init__(self, sched: TorchScheduler, churn: Churn, limit: Optional[int] = None):
+        self.sched = sched
+        self.churn = churn
+        self.limit = limit
+        self.pods: list = []
+        self._next = time.perf_counter() + churn.interval_s
+
+    def tick(self) -> None:
+        while (time.perf_counter() >= self._next
+               and (self.limit is None or len(self.pods) < self.limit)):
+            self._next += self.churn.interval_s
+            p = self.churn.build(make_pod().name(f"churn-{len(self.pods)}")).obj()
+            self.sched.clientset.create_pod(p)
+            self.pods.append(p)
+
+    def pending(self) -> bool:
+        """A limited churner that has pods still to create."""
+        return self.limit is not None and len(self.pods) < self.limit
+
+
+def drain(sched: TorchScheduler, churner: Optional[Churner] = None) -> None:
+    """Schedule until the queue stops yielding (and a limited churner has
+    created all its pods), the churner ticking between cycles."""
+    if churner is None:
+        sched.run_until_idle()
+        return
+    while True:
+        churner.tick()
+        if not sched.schedule_one():
+            sched.queue.flush_backoff_completed()
+            if not sched.schedule_one():
+                if not churner.pending():
+                    break
+                time.sleep(0.001)
 
 
 def platform_name(sched: TorchScheduler) -> str:
@@ -122,11 +215,11 @@ def platform_name(sched: TorchScheduler) -> str:
 
 def warm(sched: TorchScheduler, warmup: int, workload: str = DEFAULT_WORKLOAD) -> None:
     """Kernel build and inert dispatches of the measured shape, then the
-    workload's warm-up (or init) pods, scheduled."""
+    workload's warm-up (or init) pods, scheduled (or tried)."""
     w = WORKLOADS[workload]
     sched.warm_for(make_pods(1, "warmshape", workload)[0])
-    if w.init_app is not None:
-        pods = _init_pods(warmup, w.init_app)
+    if w.init_build is not None:
+        pods = _clones(w.init_build, warmup, "init")
     else:
         pods = make_pods(warmup, "warm", workload)
     for p in pods:
@@ -135,27 +228,38 @@ def warm(sched: TorchScheduler, warmup: int, workload: str = DEFAULT_WORKLOAD) -
 
 
 def measure(sched: TorchScheduler, n_pods: int, prefix: str = "bench",
-            workload: str = DEFAULT_WORKLOAD) -> dict:
-    """Schedule n_pods pods of the workload's measured shape; returns the
-    window's result line."""
+            workload: str = DEFAULT_WORKLOAD, churn_limit: Optional[int] = None,
+            label: Optional[str] = None) -> dict:
+    """Schedule n_pods pods of the workload's measured shape, with its
+    churn; returns the window's result line. A `label` names a run that is
+    not the workload itself (other init pods, say): it heads the metric, and
+    `vs_baseline` is None, since the upstream threshold is the workload's."""
+    w = WORKLOADS[workload]
     win0 = {a: getattr(sched, a) for a in WINDOW_COUNTERS}
+    pre0 = sched.preemption_counts()
+    evals0 = sched.preemption_device_evals
     for p in make_pods(n_pods, prefix, workload):
         sched.clientset.create_pod(p)
+    churner = Churner(sched, w.churn, churn_limit) if w.churn is not None else None
     t0 = time.perf_counter()
-    sched.run_until_idle()
+    drain(sched, churner)
     if sched.device.type == "cuda":
         torch.cuda.synchronize(sched.device)
     elapsed = time.perf_counter() - t0
     detail = {a: getattr(sched, a) - win0[a] for a in WINDOW_COUNTERS}
     pods_per_sec = detail["scheduled"] / elapsed if elapsed > 0 else 0.0
+    preemption = {k: v - pre0[k] for k, v in sched.preemption_counts().items()}
+    preemption["device_evals"] = sched.preemption_device_evals - evals0
     detail.update(workload=workload, elapsed_s=elapsed, platform=platform_name(sched),
-                  launches={w.__name__: w.launches for w in kernel.WRAPPERS})
+                  launches={w.__name__: w.launches for w in kernel.WRAPPERS},
+                  preemption=preemption,
+                  churn_pods=len(churner.pods) if churner is not None else 0)
     return {
-        "metric": (f"pods scheduled/sec ({workload}: {sched.snapshot.num_nodes()} nodes, "
-                   f"{n_pods} pods, device batch path)"),
+        "metric": (f"pods scheduled/sec ({label or workload}: {sched.snapshot.num_nodes()} "
+                   f"nodes, {n_pods} pods, device batch path)"),
         "value": pods_per_sec,
         "unit": "pods/s",
-        "vs_baseline": pods_per_sec / WORKLOADS[workload].threshold,
+        "vs_baseline": None if label else pods_per_sec / w.threshold,
         "detail": detail,
     }
 
@@ -205,7 +309,7 @@ def main(argv=None) -> int:
     n_pods = int(os.environ.get("BENCH_PODS", w.measure_pods))
     warmup = int(os.environ.get("BENCH_WARMUP", w.init_pods))
     max_batch = int(os.environ.get("BENCH_MAX_BATCH", 0)) or None
-    sched = build_cluster(n_nodes, device=device, max_batch=max_batch)
+    sched = build_cluster(n_nodes, device=device, max_batch=max_batch, node=w.node)
     warm(sched, warmup, workload)
     kernel.reset_launch_counts()
     if "--profile" in argv:

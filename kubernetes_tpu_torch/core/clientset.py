@@ -103,6 +103,13 @@ class FakeClientset:
             for h in self._pod_handlers:
                 h("delete", p, p)
 
+    def patch_pod_status(self, pod: Pod, nominated_node_name: str = "") -> None:
+        """PATCH pods/{name}/status: records a preemptor's nominated node
+        (no watch event, as in the JAX package's fake)."""
+        stored = self.pods.get(pod.uid)
+        if stored is not None and nominated_node_name:
+            stored.nominated_node_name = nominated_node_name
+
     def bind(self, pod: Pod, node_name: str) -> None:
         """POST pods/{name}/binding (DefaultBinder target)."""
         stored = self.pods.get(pod.uid)

@@ -1,7 +1,7 @@
 """The scheduler framework: extension-point vocabulary, Status codes,
 CycleState, and the plugin-dispatch runtime, trimmed to the extension points
-the port's plugins implement (QueueSort, PreFilter, Filter, PreScore, Score,
-NormalizeScore, Bind, Sign).
+the port's plugins implement (QueueSort, PreFilter with its AddPod/RemovePod
+extensions, Filter, PostFilter, PreScore, Score, NormalizeScore, Bind, Sign).
 
 Re-expresses staging/src/k8s.io/kube-scheduler/framework interface.go and
 pkg/scheduler/framework/runtime/framework.go (frameworkImpl :58). Plugins are
@@ -84,6 +84,15 @@ class CycleState:
     def read(self, key: str) -> Any:
         return self._data.get(key)
 
+    def clone(self) -> "CycleState":
+        """cycle_state.go Clone(): values with a clone() are deep-copied, so
+        a what-if simulation cannot change the real cycle's plugin state."""
+        c = CycleState()
+        c._data = {k: (v.clone() if hasattr(v, "clone") else v) for k, v in self._data.items()}
+        c.skip_filter_plugins = set(self.skip_filter_plugins)
+        c.skip_score_plugins = set(self.skip_score_plugins)
+        return c
+
 
 @dataclass
 class Diagnosis:
@@ -151,6 +160,7 @@ class Framework:
         self.queue_sort_plugins = self._having("less")
         self.pre_filter_plugins = self._having("pre_filter")
         self.filter_plugins = self._having("filter")
+        self.post_filter_plugins = self._having("post_filter")
         self.pre_score_plugins = self._having("pre_score")
         self.score_plugins = [(p, w) for p, w in self._plugins if hasattr(p, "score")]
         self.bind_plugins = self._having("bind")
@@ -219,6 +229,44 @@ class Framework:
                 st.plugin = p.name
                 return st
         return OK
+
+    def run_filter_plugins_with_nominated_pods(self, state: CycleState, pod: Pod,
+                                               node_info: NodeInfo, nominator=None) -> Status:
+        """runtime/framework.go:1275, the two-pass filter: the first pass
+        counts the node's nominated pods of equal or higher priority as if
+        they ran there, the second filters without them."""
+        nominated = []
+        if nominator is not None and node_info.node is not None:
+            nominated = [pi for pi in nominator.nominated_pods_for_node(node_info.node.name)
+                         if pi.pod.uid != pod.uid and pi.pod.priority >= pod.priority]
+        if nominated:
+            state_with = state.clone()
+            ni_with = node_info.snapshot_clone()
+            for pi in nominated:
+                ni_with.add_pod(pi)
+                for p in self.pre_filter_plugins:
+                    if p.name in state.skip_filter_plugins:
+                        continue
+                    add_pod = getattr(p, "add_pod", None)
+                    if add_pod is not None:
+                        st = add_pod(state_with, pod, pi, ni_with)
+                        if not st.is_success():
+                            st.plugin = p.name
+                            return st
+            st = self.run_filter_plugins(state_with, pod, ni_with)
+            if not st.is_success():
+                return st
+        return self.run_filter_plugins(state, pod, node_info)
+
+    def run_post_filter_plugins(self, state: CycleState, pod: Pod,
+                                filtered_status_map: Dict[str, Status]):
+        """runtime/framework.go:1152: the first plugin that succeeds or
+        declares the pod unresolvable decides."""
+        for p in self.post_filter_plugins:
+            result, st = p.post_filter(state, pod, filtered_status_map)
+            if st.is_success() or st.code == UNSCHEDULABLE_AND_UNRESOLVABLE:
+                return result, Status(st.code, st.reasons, p.name)
+        return None, Status.unschedulable("no postFilter plugin made progress")
 
     # -- scoring -----------------------------------------------------------
 

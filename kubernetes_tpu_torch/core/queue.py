@@ -1,5 +1,5 @@
-"""PriorityQueue: the three-stage pending-pod store, trimmed to the port
-(no gates, no pod groups, no composite groups, no nominator).
+"""PriorityQueue: the three-stage pending-pod store and the Nominator,
+trimmed to the port (no gates, no pod groups, no composite groups).
 
 Re-expresses pkg/scheduler/backend/queue/scheduling_queue.go (:186-269):
 - activeQ   — heap ordered by the QueueSort plugin (priority, FIFO);
@@ -107,6 +107,49 @@ class _Heap:
         return len(self._by_uid)
 
 
+class Nominator:
+    """backend/queue/nominator.go — preemption-nominated pods per node. A
+    pod leaves the set when it binds or is deleted."""
+
+    def __init__(self):
+        self._node_to_pods: Dict[str, List[PodInfo]] = {}
+        self._pod_to_node: Dict[str, str] = {}
+        # Bumped on every change: a device session keys on the nomination
+        # SET (a changed set changes two-pass filter outcomes).
+        self.version = 0
+
+    def add_nominated_pod(self, pi: PodInfo, node_name: str) -> None:
+        self.delete_nominated_pod(pi.pod)
+        if not node_name:
+            return
+        self._node_to_pods.setdefault(node_name, []).append(pi)
+        self._pod_to_node[pi.pod.uid] = node_name
+        self.version += 1
+
+    def delete_nominated_pod(self, pod: Pod) -> None:
+        node = self._pod_to_node.pop(pod.uid, None)
+        if node is None:
+            return
+        rest = [p for p in self._node_to_pods[node] if p.pod.uid != pod.uid]
+        if rest:
+            self._node_to_pods[node] = rest
+        else:
+            del self._node_to_pods[node]
+        self.version += 1
+
+    def all_nominated_pod_infos(self) -> List[PodInfo]:
+        return [pi for pis in self._node_to_pods.values() for pi in pis]
+
+    def nominated_pods_for_node(self, node_name: str) -> List[PodInfo]:
+        return self._node_to_pods.get(node_name, [])
+
+    def nominated_nodes(self) -> Dict[str, List[PodInfo]]:
+        return self._node_to_pods
+
+    def has_nominated_pods(self) -> bool:
+        return bool(self._pod_to_node)
+
+
 class PriorityQueue:
     def __init__(self, framework, now: Callable[[], float] = time.monotonic,
                  initial_backoff: float = DEFAULT_POD_INITIAL_BACKOFF,
@@ -118,6 +161,7 @@ class PriorityQueue:
         self.active_q = _Heap(framework.queue_sort_key)
         self.backoff_q = _Heap(lambda qpi: (self.backoff_expiry(qpi),))
         self.unschedulable: Dict[str, QueuedPodInfo] = {}
+        self.nominator = Nominator()
         # In-flight entities + the shared event log (scheduling_queue.go
         # inFlightEvents): each popped entity records the log position; a
         # failure consults only the events that arrived while it was out.
@@ -168,6 +212,7 @@ class PriorityQueue:
         self.active_q.delete(pod.uid)
         self.backoff_q.delete(pod.uid)
         self.unschedulable.pop(pod.uid, None)
+        self.nominator.delete_nominated_pod(pod)
 
     def pop(self) -> Optional[QueuedPodInfo]:
         """Pop (scheduling_queue.go:1320) with SchedulerPopFromBackoffQ."""

@@ -2,9 +2,10 @@
 pkg/scheduler/apis/config/v1/default_plugins.go:32-60, in the reference's
 order (filter order decides which plugin a node's failure is charged to)
 and with its weights (TaintToleration 3, NodeAffinity 2, NodeResourcesFit 1,
-PodTopologySpread 2, InterPodAffinity 2, NodeResourcesBalancedAllocation 1).
-`handle` gives the plugins the clientset, the scheduler's snapshot and the
-namespaces' labels (framework.Handle)."""
+PodTopologySpread 2, InterPodAffinity 2, NodeResourcesBalancedAllocation 1),
+and DefaultPreemption as the PostFilter. `handle` gives the plugins the
+clientset, the scheduler's snapshot, the namespaces' labels, the nominator
+and the device dry run (framework.Handle)."""
 
 from __future__ import annotations
 
@@ -19,11 +20,13 @@ from ..plugins.basic import (
 from ..plugins.interpodaffinity import InterPodAffinity
 from ..plugins.noderesources import BalancedAllocation, Fit
 from ..plugins.podtopologyspread import PodTopologySpread
+from ..plugins.preemption import DefaultPreemption
 from .framework import Framework
 
 
 def default_profile(handle, profile_name: str = "default-scheduler") -> Framework:
-    return Framework(profile_name=profile_name, plugins=[
+    preemption = DefaultPreemption(handle)
+    fw = Framework(profile_name=profile_name, plugins=[
         (PrioritySort(), 0),
         (NodeName(), 0),
         (NodeUnschedulable(), 0),
@@ -32,6 +35,9 @@ def default_profile(handle, profile_name: str = "default-scheduler") -> Framewor
         (Fit(), 1),
         (PodTopologySpread(handle), 2),
         (InterPodAffinity(handle), 2),
+        (preemption, 0),
         (BalancedAllocation(), 1),
         (DefaultBinder(handle.clientset), 0),
     ])
+    preemption.set_framework(fw)
+    return fw

@@ -8,20 +8,24 @@ session (models/tpu_scheduler.py) also uses for pods it hands back:
         Cache.update_snapshot                      (cache.go:206)
         find_nodes_that_fit_pod                    (schedule_one.go:630)
             run_pre_filter_plugins
+            nominated-node fast path               (:722)
             find_nodes_that_pass_filters           (:779, adaptive sampling
-                                                    :866 + rotation :816)
+                                                    :866 + rotation :816;
+                                                    two-pass filter with the
+                                                    nominated pods)
         prioritize_nodes                           (:945)
         select_host      (first max in evaluation order: deterministic ties)
         assume                                     (:1060)
     binding cycle → bind                           (:141)
-    failure → handle_scheduling_failure → requeue  (:1152)
+    failure → PostFilter (DefaultPreemption) → nomination
+            → handle_scheduling_failure → requeue  (:169, :1152)
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..api.types import Pod
 from .cache import Cache, Snapshot
@@ -82,6 +86,20 @@ class Handle:
 
     def namespace_labels(self, name: str):
         return self._scheduler.cache.namespace_labels(name)
+
+    @property
+    def nominator(self):
+        return self._scheduler.queue.nominator
+
+    def device_dry_run_preemption(self, fw, state, pod, node_to_status,
+                                  num_candidates: int, start: int):
+        """The batched DryRunPreemption where the scheduler has a device
+        (models/tpu_scheduler.py); None sends the Evaluator to its exact
+        per-node host loop."""
+        fn = getattr(self._scheduler, "device_dry_run_preemption", None)
+        if fn is None:
+            return None
+        return fn(fw, state, pod, node_to_status, num_candidates, start)
 
 
 class Scheduler:
@@ -159,6 +177,17 @@ class Scheduler:
     def framework_for_pod(self, pod: Pod) -> Framework:
         return self.profiles[pod.scheduler_name]
 
+    def preemption_counts(self) -> Dict[str, int]:
+        """DefaultPreemption's counters over the profiles: PostFilter
+        attempts, victims evicted, and device dry-run candidates that the
+        host verification refuted."""
+        out = {"attempts": 0, "victims": 0, "verify_divergences": 0}
+        for fw in self.profiles.values():
+            p = fw.plugin("DefaultPreemption")
+            for k in out:
+                out[k] += getattr(p, k)
+        return out
+
     # -- run loop ----------------------------------------------------------
 
     def run_until_idle(self, max_cycles: int = 1_000_000) -> int:
@@ -192,7 +221,7 @@ class Scheduler:
         try:
             result = self.scheduling_cycle(fw, state, qpi)
         except FitError as fe:
-            self.handle_fit_error(fw, qpi, fe)
+            self.handle_fit_error(fw, state, qpi, fe)
             return
         except Exception as e:  # noqa: BLE001 - a failed cycle requeues the pod
             self.error_log.append(f"{pod.namespace}/{pod.name}: {e!r}")
@@ -202,9 +231,19 @@ class Scheduler:
         self.run_binding_cycle(fw, state, qpi, result.suggested_host)
         self.queue.done(pod.uid)
 
-    def handle_fit_error(self, fw: Framework, qpi: QueuedPodInfo, fe: FitError) -> None:
-        """The scheduling-cycle FitError tail (schedule_one.go:1152). The
-        slice has no PostFilter plugin: preemption is out of scope."""
+    def handle_fit_error(self, fw: Framework, state: CycleState, qpi: QueuedPodInfo,
+                         fe: FitError) -> None:
+        """The scheduling-cycle FitError tail (schedule_one.go:169, :1152):
+        PostFilter (DefaultPreemption) with the diagnosis, the nomination it
+        makes recorded in the pod, its status and the nominator, then the
+        requeue."""
+        pod = qpi.pod
+        result, st = fw.run_post_filter_plugins(state, pod, fe.diagnosis.node_to_status)
+        nominated = result.nominating_info if result is not None else None
+        if st.is_success() and nominated:
+            pod.nominated_node_name = nominated
+            self.clientset.patch_pod_status(pod, nominated_node_name=nominated)
+            self.queue.nominator.add_nominated_pod(qpi.pod_info, nominated)
         self.handle_scheduling_failure(fw, qpi, Status(UNSCHEDULABLE, (str(fe),)), fe.diagnosis)
         self.queue.done(qpi.pod.uid)
 
@@ -240,6 +279,13 @@ class Scheduler:
                 diagnosis.unschedulable_plugins.add(st.plugin)
                 return [], diagnosis
             raise RuntimeError(f"prefilter failed: {st.message()}")
+        if pod.nominated_node_name:
+            # Nominated-node fast path (schedule_one.go:722): the node a
+            # preemption nominated is evaluated first.
+            ni = self.snapshot.get(pod.nominated_node_name)
+            if ni is not None and fw.run_filter_plugins_with_nominated_pods(
+                    state, pod, ni, self.queue.nominator).is_success():
+                return [ni], diagnosis
         nodes = all_nodes
         if pre_res is not None and not pre_res.all_nodes():
             # Preserve snapshot order (rotation parity over the narrowed list).
@@ -257,7 +303,7 @@ class Scheduler:
         for i in range(num_nodes):
             ni = nodes[(start + i) % num_nodes]
             evaluated += 1
-            st = fw.run_filter_plugins(state, pod, ni)
+            st = fw.run_filter_plugins_with_nominated_pods(state, pod, ni, self.queue.nominator)
             if st.is_success():
                 feasible.append(ni)
                 if len(feasible) >= to_find:
@@ -304,6 +350,7 @@ class Scheduler:
             self.queue.move_all_to_active_or_backoff(EVENT_ASSIGNED_POD_DELETE, pod, None)
             self.handle_scheduling_failure(fw, qpi, st, None)
             return False
+        self.queue.nominator.delete_nominated_pod(pod)
         self.scheduled += 1
         return True
 

@@ -6,7 +6,7 @@ queue on admission.
 
 In scope: resources, taints and tolerations (PreferNoSchedule included),
 node selectors and node affinity (required and preferred), topology spread
-and pod (anti-)affinity."""
+and pod (anti-)affinity, and pod priority with DefaultPreemption."""
 
 from __future__ import annotations
 
@@ -25,8 +25,6 @@ def pod_unsupported(pod: Pod) -> str:
         return "scheduling gates"
     if pod.pod_group:
         return "pod groups"
-    if pod.priority != 0:
-        return "non-zero priority (no preemption in the port yet)"
     return ""
 
 

@@ -58,15 +58,12 @@ struct ResFeat {
   int fit_strategy;            // 0 = LeastAllocated, 1 = MostAllocated
 };
 
-// _resource_eval (ops/kernel.py of the JAX package, :160-208) for one node
-// row: the fit filter (with the nominated lane; nom_row may be null), the
-// LeastAllocated/MostAllocated score over fit_slots, and BalancedAllocation
-// quantized at BA_SCALE.
-__device__ __forceinline__ void resource_eval_row(
+// The fit filter of _resource_eval (ops/kernel.py of the JAX package,
+// :175-179) for one node row, with the nominated lane (nom_row may be null:
+// no lane) counted against the filter only.
+__device__ __forceinline__ bool fit_ok_row(
     const ResFeat& f, const int64_t* alloc_row, int64_t alloc_pods,
-    const int64_t* req_row, const int64_t* nz_row, int32_t pod_count,
-    const int64_t* nom_row, int32_t nom_pods,
-    bool& fit_ok, int64_t& fit_sc, int64_t& ba) {
+    const int64_t* req_row, int32_t pod_count, const int64_t* nom_row, int32_t nom_pods) {
   const bool pods_ok = (int64_t)(pod_count + nom_pods + 1) <= alloc_pods;
   bool viol = false;
   for (int r = 0; r < f.R; ++r) {
@@ -74,7 +71,18 @@ __device__ __forceinline__ void resource_eval_row(
     const int64_t q = f.request[r];
     viol |= (q > 0) && (q > avail);
   }
-  fit_ok = (pods_ok && (!viol || *f.has_request == 0)) || f.enable[4] == 0;
+  return (pods_ok && (!viol || *f.has_request == 0)) || f.enable[4] == 0;
+}
+
+// _resource_eval (:160-208) for one node row: the fit filter, the
+// LeastAllocated/MostAllocated score over fit_slots, and BalancedAllocation
+// quantized at BA_SCALE.
+__device__ __forceinline__ void resource_eval_row(
+    const ResFeat& f, const int64_t* alloc_row, int64_t alloc_pods,
+    const int64_t* req_row, const int64_t* nz_row, int32_t pod_count,
+    const int64_t* nom_row, int32_t nom_pods,
+    bool& fit_ok, int64_t& fit_sc, int64_t& ba) {
+  fit_ok = fit_ok_row(f, alloc_row, alloc_pods, req_row, pod_count, nom_row, nom_pods);
   const int64_t used0 = nz_row[0] + f.nz_request[0];
   const int64_t used1 = nz_row[1] + f.nz_request[1];
   int64_t num = 0, den = 0;
@@ -106,6 +114,65 @@ __device__ __forceinline__ void resource_eval_row(
       ? floor_div(MAX_NODE_SCORE * BA_SCALE - 50 * diff, BA_SCALE)
       : (int64_t)MAX_NODE_SCORE;
   ba = *f.ba_skip == 1 ? 0 : ba_val;
+}
+
+// The batch's static-filter inputs (_static_masks + _tolerates, :105-150):
+// per-node taints [NP, T] and flags, the pod's tolerations [L] and gates.
+struct StaticFeat {
+  int T, L;
+  const int32_t* taint_key;
+  const int32_t* taint_val;
+  const int32_t* taint_eff;
+  const int32_t* tol_key;
+  const int32_t* tol_val;
+  const int32_t* tol_eff;
+  const int32_t* tol_op;
+  const uint8_t* sel_match;
+  const int32_t* node_name_id;  // scalar
+  const int32_t* name_id;
+  const uint8_t* unsched;
+  const int32_t* tolerates_unsched;  // scalar
+  const int32_t* exist_anti;
+  const int32_t* enable;
+  const uint8_t* valid;
+  const uint8_t* extra_ok;
+};
+
+struct StaticRow {
+  bool taint_ok, sel_ok, name_ok, unsched_ok, exist_anti_ok, static_ok;
+  int64_t pns_cnt;
+};
+
+// Row n's static verdicts and the folded static_ok (:304).
+__device__ __forceinline__ StaticRow static_row(const StaticFeat& s, int n) {
+  bool untolerated = false;
+  int64_t pns = 0;
+  for (int t = 0; t < s.T; ++t) {
+    const int32_t k = s.taint_key[(int64_t)n * s.T + t];
+    const int32_t v = s.taint_val[(int64_t)n * s.T + t];
+    const int32_t e = s.taint_eff[(int64_t)n * s.T + t];
+    bool tolerated = false, pns_tolerated = false;
+    for (int l = 0; l < s.L; ++l) {
+      const int32_t te = s.tol_eff[l];
+      const bool match = (te == 0 || te == e) && (s.tol_key[l] == 0 || s.tol_key[l] == k) &&
+                         (s.tol_op[l] == OP_EXISTS || s.tol_val[l] == v);
+      tolerated |= match;
+      pns_tolerated |= match && (te == 0 || te == EFFECT_PREFER_NO_SCHEDULE);
+    }
+    if ((e == EFFECT_NO_SCHEDULE || e == EFFECT_NO_EXECUTE) && !tolerated) untolerated = true;
+    if (e == EFFECT_PREFER_NO_SCHEDULE && !pns_tolerated) ++pns;
+  }
+  const int32_t want = *s.node_name_id;
+  StaticRow r;
+  r.taint_ok = !untolerated || s.enable[2] == 0;
+  r.sel_ok = s.sel_match[n] || s.enable[3] == 0;
+  r.name_ok = want == 0 || s.name_id[n] == want || s.enable[0] == 0;
+  r.unsched_ok = !s.unsched[n] || *s.tolerates_unsched == 1 || s.enable[1] == 0;
+  r.exist_anti_ok = s.exist_anti[n] == 0;
+  r.static_ok = s.valid[n] && r.name_ok && r.unsched_ok && r.taint_ok && r.sel_ok &&
+                r.exist_anti_ok && s.extra_ok[n];
+  r.pns_cnt = pns;
+  return r;
 }
 
 // Inclusive prefix sum over the block (Hillis-Steele in shared memory);

@@ -15,6 +15,8 @@
 //      shared-memory atomics;
 //   5. applies the landings and emits (row, start_after) per window.
 // After the loop the carry's fit/score lanes are evaluated once more.
+// With a nominated-pod lane (nom_req non-null) every evaluation counts the
+// row's nominated pods against the fit filter (:840, :919).
 //
 // Required anti-affinity on a singleton-per-node axis (hostname) rides the
 // lap too (:818-820, :847-849, :891-899): a row is infeasible while its own
@@ -33,6 +35,7 @@
 __global__ void __launch_bounds__(KTT_BLOCK) lap_schedule_kernel(
     ResFeat f, const int64_t* __restrict__ alloc_r, const int64_t* __restrict__ alloc_pods,
     int64_t* req_r, int64_t* nonzero, int32_t* pod_count,
+    const int64_t* __restrict__ nom_req, const int32_t* __restrict__ nom_pods,
     const uint8_t* __restrict__ static_ok, const int64_t* __restrict__ il_score,
     const int64_t* __restrict__ weights, const int32_t* __restrict__ num_nodes_p,
     const int32_t* __restrict__ to_find_p, const int32_t* __restrict__ start_p,
@@ -66,7 +69,9 @@ __global__ void __launch_bounds__(KTT_BLOCK) lap_schedule_kernel(
       bool ok;
       int64_t sc, ba;
       resource_eval_row(f, alloc_r + (int64_t)i * f.R, alloc_pods[i], req_r + (int64_t)i * f.R,
-                        nonzero + 2 * (int64_t)i, pod_count[i], nullptr, 0, ok, sc, ba);
+                        nonzero + 2 * (int64_t)i, pod_count[i],
+                        nom_req ? nom_req + (int64_t)i * f.R : nullptr,
+                        nom_req ? nom_pods[i] : 0, ok, sc, ba);
       bool okd = static_ok[i] && ok && i < num;
       for (int c = 0; c < A1 && okd; ++c) {
         const int v = topo[(int64_t)anti_axis[c] * NP + i];
@@ -139,7 +144,9 @@ __global__ void __launch_bounds__(KTT_BLOCK) lap_schedule_kernel(
     bool ok;
     int64_t sc, ba;
     resource_eval_row(f, alloc_r + (int64_t)i * f.R, alloc_pods[i], req_r + (int64_t)i * f.R,
-                      nonzero + 2 * (int64_t)i, pod_count[i], nullptr, 0, ok, sc, ba);
+                      nonzero + 2 * (int64_t)i, pod_count[i],
+                        nom_req ? nom_req + (int64_t)i * f.R : nullptr,
+                        nom_req ? nom_pods[i] : 0, ok, sc, ba);
     fit_ok_out[i] = ok;
     fit_sc_out[i] = sc;
     ba_out[i] = ba;
@@ -153,7 +160,8 @@ extern "C" int launch_lap_schedule(
     const int64_t* nz_request, const int64_t* has_request, const int64_t* ba_skip,
     const int32_t* enable, const int32_t* fit_slots, const int64_t* fit_weights,
     const int64_t* alloc_r, const int64_t* alloc_pods, int64_t* req_r, int64_t* nonzero,
-    int32_t* pod_count, const bool* static_ok, const int64_t* il_score,
+    int32_t* pod_count, OPTIONAL const int64_t* nom_req, OPTIONAL const int32_t* nom_pods,
+    const bool* static_ok, const int64_t* il_score,
     const int64_t* weights, const int32_t* num_nodes, const int32_t* to_find,
     const int32_t* start, const int32_t* topo, const int32_t* anti_axis,
     const int32_t* anti_self, int32_t* anti_counts, uint8_t* okd_s, int32_t* F_s,
@@ -162,7 +170,8 @@ extern "C" int launch_lap_schedule(
   ResFeat f{request, nz_request, has_request, ba_skip, enable, fit_slots, fit_weights,
             R, FR, fit_strategy};
   lap_schedule_kernel<<<1, KTT_BLOCK, 0, stream>>>(
-      f, alloc_r, alloc_pods, req_r, nonzero, pod_count, (const uint8_t*)static_ok,
+      f, alloc_r, alloc_pods, req_r, nonzero, pod_count, nom_req, nom_pods,
+      (const uint8_t*)static_ok,
       il_score, weights, num_nodes, to_find, start, NP, B, n_act, A1, V, topo, anti_axis,
       anti_self, anti_counts, okd_s, F_s, total_s, out, (uint8_t*)fit_ok, fit_sc, ba,
       start_out);

@@ -20,7 +20,9 @@
 //      carried — the packed key total*NP + (NP-1-rot);
 //   3. (normalized scores) a second pass assembles each kept row's total
 //      and a second reduction selects the packed key;
-//   4. one thread lands the pod: the row's aggregates and fit/score lanes,
+//   4. one thread lands the pod: the row's aggregates and fit/score lanes
+//      (the fit filter counting the row's nominated pods when the plan has
+//      a nominated-pod lane, :448),
 //      the +1 (or +weight) at the row's value of every table, the carried
 //      total and the next rotation start.
 // Padded steps land nothing and keep the start, so the loop ends at n_act
@@ -61,6 +63,8 @@ struct GenPlan {
   int64_t* req_r;
   int64_t* nonzero;
   int32_t* pod_count;
+  const int64_t* nom_req;  // the nominated-pod lane, or null
+  const int32_t* nom_pods;
   uint8_t* fit_ok;
   int64_t* fit_sc;
   int64_t* ba;
@@ -344,7 +348,9 @@ __global__ void __launch_bounds__(GEN_BLOCK) scan_general_kernel(
         int64_t sc, b;
         resource_eval_row(f, p.alloc_r + (int64_t)row * f.R, p.alloc_pods[row],
                           p.req_r + (int64_t)row * f.R, p.nonzero + 2 * (int64_t)row,
-                          p.pod_count[row], nullptr, 0, ok, sc, b);
+                          p.pod_count[row],
+                          p.nom_req ? p.nom_req + (int64_t)row * f.R : nullptr,
+                          p.nom_req ? p.nom_pods[row] : 0, ok, sc, b);
         p.fit_ok[row] = ok;
         p.fit_sc[row] = sc;
         p.ba[row] = b;
@@ -413,6 +419,7 @@ extern "C" int launch_scan_general(
     const int64_t* has_request, const int64_t* ba_skip, const int32_t* enable,
     const int32_t* fit_slots, const int64_t* fit_weights, const int64_t* alloc_r,
     const int64_t* alloc_pods, int64_t* req_r, int64_t* nonzero, int32_t* pod_count,
+    OPTIONAL const int64_t* nom_req, OPTIONAL const int32_t* nom_pods,
     bool* fit_ok, int64_t* fit_sc, int64_t* ba, const bool* static_ok, const bool* sel_ok,
     const bool* taint_ok, const int64_t* pns_cnt, const int32_t* topo, const int64_t* il_score,
     const int64_t* na_raw, const int64_t* ipa_base, const int64_t* weights,
@@ -432,13 +439,14 @@ extern "C" int launch_scan_general(
             R, FR, fit_strategy};
   GenPlan p{NP, B, n_act, V, C1, C2, A1, A2, KD, incremental, carried, has_pns,
             has_ipa_base, has_na_pref, alloc_r, alloc_pods, req_r, nonzero, pod_count,
-            (uint8_t*)fit_ok, fit_sc, ba, (const uint8_t*)static_ok, (const uint8_t*)sel_ok,
-            (const uint8_t*)taint_ok, pns_cnt, topo, il_score, na_raw, ipa_base, weights,
+            nom_req, nom_pods, (uint8_t*)fit_ok, fit_sc, ba, (const uint8_t*)static_ok,
+            (const uint8_t*)sel_ok, (const uint8_t*)taint_ok, pns_cnt, topo, il_score, na_raw,
+            ipa_base, weights,
             dns_axis, dns_active, dns_max_skew, dns_self, dns_forced0, dns_honor_aff,
             dns_honor_taints, (const uint8_t*)dns_dom, dns_counts, sa_axis, sa_wq, sa_skew,
             sa_self, sa_counts, anti_axis, anti_self, anti_counts, aff_axis, aff_self,
-            aff_active, aff_own_all, aff_counts, ipa_axis, ipa_wland, ipa_delta, okd_s, F_s, total_s,
-            out};
+            aff_active, aff_own_all, aff_counts, ipa_axis, ipa_wland, ipa_delta, okd_s, F_s,
+            total_s, out};
   scan_general_kernel<<<1, GEN_BLOCK, 0, stream>>>(f, p, num_nodes, to_find, start, start_out);
   return (int)cudaGetLastError();
 }

@@ -12,6 +12,8 @@
 // key, the window boundary, then — in one thread — the landed row's carry
 // update and re-evaluation, and the prefix-sum shift of the rows after it.
 // Padded steps (t >= n_active) land nothing and keep `start` (:348, :506).
+// With a nominated-pod lane (nom_req non-null) the landed row's
+// re-evaluation counts its nominated pods against the fit filter (:448).
 //
 // Bound: a dependent sequence of steps, each a pass over the node rows
 // (~13 B per row from L2) and two block reductions; single block for the
@@ -20,7 +22,8 @@
 
 __global__ void __launch_bounds__(KTT_BLOCK) scan_schedule_kernel(
     ResFeat f, const int64_t* __restrict__ alloc_r, const int64_t* __restrict__ alloc_pods,
-    int64_t* req_r, int64_t* nonzero, int32_t* pod_count, uint8_t* fit_ok,
+    int64_t* req_r, int64_t* nonzero, int32_t* pod_count,
+    const int64_t* __restrict__ nom_req, const int32_t* __restrict__ nom_pods, uint8_t* fit_ok,
     int64_t* fit_sc, int64_t* ba, const uint8_t* __restrict__ static_ok,
     const int64_t* __restrict__ il_score, const int64_t* __restrict__ weights,
     const int32_t* __restrict__ num_nodes_p, const int32_t* __restrict__ to_find_p,
@@ -86,7 +89,8 @@ __global__ void __launch_bounds__(KTT_BLOCK) scan_schedule_kernel(
       int64_t sc, b;
       resource_eval_row(f, alloc_r + (int64_t)row * f.R, alloc_pods[row],
                         req_r + (int64_t)row * f.R, nonzero + 2 * (int64_t)row,
-                        pod_count[row], nullptr, 0, ok, sc, b);
+                        pod_count[row], nom_req ? nom_req + (int64_t)row * f.R : nullptr,
+                        nom_req ? nom_pods[row] : 0, ok, sc, b);
       fit_ok[row] = ok;
       fit_sc[row] = sc;
       ba[row] = b;
@@ -115,14 +119,16 @@ extern "C" int launch_scan_schedule(
     const int64_t* nz_request, const int64_t* has_request, const int64_t* ba_skip,
     const int32_t* enable, const int32_t* fit_slots, const int64_t* fit_weights,
     const int64_t* alloc_r, const int64_t* alloc_pods, int64_t* req_r, int64_t* nonzero,
-    int32_t* pod_count, bool* fit_ok, int64_t* fit_sc, int64_t* ba, const bool* static_ok,
+    int32_t* pod_count, OPTIONAL const int64_t* nom_req, OPTIONAL const int32_t* nom_pods,
+    bool* fit_ok, int64_t* fit_sc, int64_t* ba, const bool* static_ok,
     const int64_t* il_score, const int64_t* weights, const int32_t* num_nodes,
     const int32_t* to_find, const int32_t* start, uint8_t* okd_s, int32_t* F_s,
     int64_t* total_s, int32_t* out, int32_t* start_out, cudaStream_t stream) {
   ResFeat f{request, nz_request, has_request, ba_skip, enable, fit_slots, fit_weights,
             R, FR, fit_strategy};
   scan_schedule_kernel<<<1, KTT_BLOCK, 0, stream>>>(
-      f, alloc_r, alloc_pods, req_r, nonzero, pod_count, (uint8_t*)fit_ok, fit_sc, ba,
+      f, alloc_r, alloc_pods, req_r, nonzero, pod_count, nom_req, nom_pods, (uint8_t*)fit_ok,
+      fit_sc, ba,
       (const uint8_t*)static_ok, il_score, weights, num_nodes, to_find, start, NP, B, n_act,
       okd_s, F_s, total_s, out, start_out);
   return (int)cudaGetLastError();

@@ -4,8 +4,8 @@ The device form of the reference's incremental snapshot refresh
 (pkg/scheduler/backend/cache/cache.go:206 UpdateSnapshot): the mirror keeps
 one row per node in `snapshot.node_info_list` order, re-encodes only rows
 whose NodeInfo.generation advanced (or whose list position changed), and
-flushes them to the device with an `index_copy_` row scatter when few rows
-are dirty, a full upload otherwise.
+flushes them to the device with the scatter_rows kernel (ops/kernel.py)
+when few rows are dirty, a full upload otherwise.
 
 Row order == snapshot list order, so the kernels' rotation arithmetic
 (schedule_one.go:816 nextStartNodeIndex) operates directly on row indices.
@@ -121,6 +121,7 @@ class NodeStateMirror:
         self._device: Optional[DeviceNodeState] = None
         self.num_nodes = 0
         self.scatter_flushes = 0  # flushes that took the dirty-row scatter
+        self.scatter_rows = 0     # rows those flushes wrote
 
     # -- storage -----------------------------------------------------------
 
@@ -277,16 +278,19 @@ class NodeStateMirror:
                                  for a in self._arrays() + (self.h_topo,)])
 
     def _scatter_dirty(self, dirty: List[int]) -> DeviceNodeState:
-        """Dirty-row scatter into the resident device state (a fresh
-        tensor per field: a dispatched batch may still read the old one)."""
-        idx = torch.as_tensor(dirty, dtype=torch.int64).to(self.device)
-        fields = []
-        for arr, a in zip(self._device[:-1], self._arrays()):
-            rows = torch.from_numpy(a[dirty]).to(self.device)
-            fields.append(arr.index_copy(0, idx, rows))
-        topo = self._device.topo.index_copy(
-            1, idx, torch.from_numpy(self.h_topo[:, dirty]).to(self.device))
-        return DeviceNodeState(*fields, topo)
+        """Dirty-row scatter into a copy of the resident device state (a
+        dispatched batch may still read the old one): the rows packed by
+        element type on the host, three uploads, one scatter_rows launch."""
+        # ops/kernel.py imports this module for DeviceNodeState.
+        from .kernel import pack_rows, scatter_rows
+
+        rows = DeviceNodeState(*[torch.from_numpy(a[dirty]) for a in self._arrays()],
+                               torch.from_numpy(self.h_topo[:, dirty]))
+        packs = [t.to(self.device) for t in pack_rows(rows)]
+        idx = torch.tensor(dirty, dtype=torch.int32).to(self.device)
+        state = DeviceNodeState(*[t.clone() for t in self._device])
+        scatter_rows(state, idx, *packs)
+        return state
 
     def flush(self) -> DeviceNodeState:
         """Upload pending changes and return the device state: a row
@@ -297,6 +301,7 @@ class NodeStateMirror:
         elif self._dirty:
             self._device = self._scatter_dirty(sorted(self._dirty))
             self.scatter_flushes += 1
+            self.scatter_rows += len(self._dirty)
         self._dirty.clear()
         self._full_flush = False
         return self._device

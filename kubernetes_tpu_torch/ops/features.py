@@ -14,10 +14,16 @@ are computed once per batch here, as per-domain count tables over the
 mirror's topology axes; each landing's effect on them runs in the kernels'
 carry.
 
+The nominated-pod lane (`nom_req`/`nom_pods`) holds, per row, the requests
+and count of the pods a preemption nominated there with a priority at least
+the batch pod's: pass one of the two-pass filter, for resources only. It is
+zero-length when no such pod exists. `build_preemption_victims` builds the
+preemption dry run's victim tensors.
+
 `BatchFeatures` keeps every field of the JAX package's BatchFeatures, in its
 order and dtypes, so the two can be fed identical inputs. Lanes the port
-never fills (images, host ports, counted claims, nominated pods) are zero
-vectors or zero-length tables.
+never fills (images, host ports, counted claims) are zero vectors or
+zero-length tables.
 """
 
 from __future__ import annotations
@@ -120,9 +126,9 @@ class BatchFeatures(NamedTuple):
     # counted aux constraint (not ported: inert)
     aux_room: torch.Tensor         # [NP] i32
     aux_inc: torch.Tensor          # i32
-    # nominated-pod lane (not ported: empty)
-    nom_req: torch.Tensor          # [0, R] i64
-    nom_pods: torch.Tensor         # [0] i32
+    # nominated-pod lane ([0, R] and [0] when no pod is nominated)
+    nom_req: torch.Tensor          # [NP, R] i64
+    nom_pods: torch.Tensor         # [NP] i32
     # sampling / loop
     num_nodes: torch.Tensor        # i32
     start_index: torch.Tensor      # i32
@@ -133,6 +139,16 @@ def features_from_jax_numpy(arrays: Sequence[np.ndarray], device="cpu") -> Batch
     """The JAX package's BatchFeatures, fetched field by field with
     np.asarray, as the port's tensors (same layout, same dtypes)."""
     return BatchFeatures(*[torch.from_numpy(np.array(a)).to(device) for a in arrays])
+
+
+def victims_from_jax_numpy(vic_req: np.ndarray, vic_valid: np.ndarray,
+                          device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's dry-run victim arrays (build_preemption_victims'
+    vic_req [NP, K, R] i64 and vic_valid [NP, K] bool) as the port's
+    tensors. The nominated-pod lane rides BatchFeatures
+    (features_from_jax_numpy)."""
+    return (torch.from_numpy(np.array(vic_req)).to(device),
+            torch.from_numpy(np.array(vic_valid)).to(device))
 
 
 class PlanFacts(NamedTuple):
@@ -168,10 +184,13 @@ class Unsupported(Exception):
 
 
 def batch_supported(pod: Pod) -> Optional[str]:
-    """A reason string when the pod must take the host path, else None.
+    """A reason string when the pod must take the host path, else None: a
+    pod with a nominated node takes the host's fast path to it, and
     matchFields metadata.name pins narrow the node list in PreFilter
     (node_affinity.go), which the kernels' full-cluster rotation cannot
     reproduce — and the narrowed universe is tiny."""
+    if pod.nominated_node_name:
+        return "nominated node fast path"
     na = pod.affinity.node_affinity if pod.affinity is not None else None
     if na is not None and na.required is not None:
         if any(t.match_fields for t in na.required.terms):
@@ -205,10 +224,13 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
                 filters_on: Tuple[bool, ...] = (True, True, True, True, True),
                 hard_pod_affinity_weight: int = 1,
                 ignore_preferred_terms_of_existing_pods: bool = False,
-                fit_plugin=None) -> BatchPlan:
+                fit_plugin=None, nominated=None) -> BatchPlan:
     """Build kernel inputs for a batch of `batch_size` pods identical to
     `pod`. `mirror` must already be synced to `snapshot`; `ns_labels_fn(ns)`
-    gives a namespace's labels for namespaceSelector matching."""
+    gives a namespace's labels for namespaceSelector matching.
+    `nominated`: [(snapshot row, PodInfo)] of the nominated pods whose
+    priority is at least `pod`'s (the caller filters them, and sends pods
+    that a nominated pod could affect beyond resources to the host)."""
     reason = batch_supported(pod)
     if reason:
         raise Unsupported(reason)
@@ -223,6 +245,10 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
     req = pod.resource_request()
     for name in req.scalar_resources:
         mirror.scalar_slot(name)
+    nom_reqs = [(row, pi.pod.resource_request()) for row, pi in (nominated or ())]
+    for _row, nr in nom_reqs:
+        for name in nr.scalar_resources:
+            mirror.scalar_slot(name)
     if fit_plugin is not None:
         specs = fit_plugin.resources
         strategy = {"LeastAllocated": 0, "MostAllocated": 1}[fit_plugin.scoring_strategy]
@@ -488,6 +514,14 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
         ipa_axis[j] = ax_i
         ipa_wland[j] = w
 
+    # -- nominated-pod lane (two-pass filter pass one, resources only) -----
+    nom_rows = npc if nom_reqs else 0
+    nom_req = np.zeros((nom_rows, r), i64)
+    nom_pods = np.zeros(nom_rows, i32)
+    for row, nr in nom_reqs:
+        nom_req[row] += _resource_vec(mirror, nr)
+        nom_pods[row] += 1
+
     host = dict(
         request=_resource_vec(mirror, req),
         nz_request=np.array([req.milli_cpu or NodeInfo.DEFAULT_MILLI_CPU,
@@ -514,7 +548,7 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
         weights=np.array(weights, i64),
         enable=np.array([1 if b else 0 for b in filters_on], i32),
         aux_room=np.full(npc, 1 << 30, i32), aux_inc=np.array(0, i32),
-        nom_req=np.zeros((0, r), i64), nom_pods=np.zeros(0, i32),
+        nom_req=nom_req, nom_pods=nom_pods,
         num_nodes=np.array(n, i32),
         start_index=np.array(start_index % max(1, n), i32),
         to_find=np.array(num_feasible_nodes_to_find(n, percentage_of_nodes_to_score), i32),
@@ -529,6 +563,43 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
             has_ipa_base=has_ipa_base, anti_rowlocal=anti_rowlocal, has_na_pref=has_na_pref),
         pod_local=bool(c1 == 0 and c2 == 0 and a1 == 0 and a2 == 0 and kd == 0
                        and not has_ipa_base and not (exist_anti != 0).any()))
+
+
+PREEMPT_K_CAP = 256  # victims per node beyond which the host dry run decides
+
+
+def build_preemption_victims(pod: Pod, snapshot, mirror: NodeStateMirror):
+    """The dry-run kernel's victim tensors: per node, every pod of lower
+    priority than `pod`, in the reprieve order (MoreImportantPod:
+    higher priority, then the earlier start). Returns (vic_req [npc, K, R]
+    i64, vic_valid [npc, K] bool, the victims' PodInfos per snapshot row in
+    the same order), K a power of two of at least 8; or None when no node
+    has a victim or one has more than PREEMPT_K_CAP (the host dry run
+    decides)."""
+    potential = []
+    kmax = 0
+    for ni in snapshot.node_info_list:
+        pis = sorted((pi for pi in ni.pods if pi.pod.priority < pod.priority),
+                     key=lambda pi: (-pi.pod.priority, pi.pod.creation_ts))
+        potential.append(pis)
+        kmax = max(kmax, len(pis))
+    if kmax == 0 or kmax > PREEMPT_K_CAP:
+        return None
+    k = _pow2(kmax, 8)
+    # Every victim's scalar slot interns before the arrays are allocated:
+    # interning can grow the resource tier.
+    reqs = [[pi.pod.resource_request() for pi in pis] for pis in potential]
+    for rs in reqs:
+        for r in rs:
+            for name in r.scalar_resources:
+                mirror.scalar_slot(name)
+    vic_req = np.zeros((mirror.np_cap, k, mirror.r_slots), np.int64)
+    vic_valid = np.zeros((mirror.np_cap, k), bool)
+    for row, rs in enumerate(reqs):
+        for j, r in enumerate(rs):
+            vic_req[row, j] = _resource_vec(mirror, r)
+            vic_valid[row, j] = True
+    return vic_req, vic_valid, potential
 
 
 def diagnose_unschedulable(pod: Pod, mirror: NodeStateMirror, snapshot, fw) -> Optional[Diagnosis]:

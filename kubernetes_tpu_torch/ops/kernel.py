@@ -2,7 +2,7 @@
 (schedule_one.go findNodesThatFitPod :630 / prioritizeNodes :945) for a batch
 of identical pods, with the greedy sequential assignment on the device.
 
-Five hand-written CUDA kernels (csrc/), each beside a plain PyTorch version
+Seven hand-written CUDA kernels (csrc/), each beside a plain PyTorch version
 of the same function in this module:
 
 - static_masks   <- the JAX package's _static_masks + _tolerates
@@ -17,7 +17,15 @@ of the same function in this module:
 - scan_general   <- the schedule_batch scan step and feasibility_proj
                     (:314-523) with its prologue (:545-575) for every other
                     plan: spread and affinity count tables, kept-set
-                    normalized score lanes, full or incremental feasibility.
+                    normalized score lanes, full or incremental feasibility;
+- dry_run_preemption <- dry_run_preemption (:726-789): DefaultPreemption's
+                    per-node victim selection for every row at once;
+- scatter_rows   <- the mirror's dirty-row scatter, _scatter_rows
+                    (ops/device_state.py:128-135).
+
+The three schedule kernels take the nominated-pod lane (features whose
+`nom_req` has rows): the fit filter of every re-evaluated row counts the
+row's nominated pods, as the JAX package's `has_nom` plans do.
 
 A wrapper runs the plain version only because the tensors it was given lie
 on the CPU; on CUDA tensors it launches its kernel (building it at first
@@ -257,6 +265,16 @@ def _resource_eval_plain(f: BatchFeatures, fit_strategy: int, alloc_r, alloc_pod
     return fit_ok, fit_sc, ba
 
 
+def _nom_lane(f: BatchFeatures, row=None):
+    """(nom_r, nom_p) of the nominated-pod lane, at `row` or for all rows,
+    or (None, None) when the features carry no lane."""
+    if not f.nom_req.shape[0]:
+        return None, None
+    if row is None:
+        return f.nom_req, f.nom_pods
+    return f.nom_req[row], f.nom_pods[row]
+
+
 def _resource_eval_cuda(f, fit_strategy, alloc_r, alloc_pods, req_r, nonzero,
                         pod_count, nom_r=None, nom_p=None):
     dev = alloc_r.device
@@ -321,10 +339,12 @@ def _lap_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
     anti_counts = ext0.anti_counts.clone()
     out = torch.full((2, batch_pad + LAP_MAX), -1, dtype=i32, device=dev)
     done = laps = 0
+    nom_r, nom_p = _nom_lane(f)
     while done < n_act:
         laps += 1
         fit_ok, fit_sc, ba = _resource_eval_plain(
-            f, fit_strategy, state.alloc_r, state.alloc_pods, req_r, nonzero, pod_count)
+            f, fit_strategy, state.alloc_r, state.alloc_pods, req_r, nonzero, pod_count,
+            nom_r, nom_p)
         okd = static_ok & fit_ok & (idx < num)
         if A1:
             acnt = torch.gather(anti_counts, 1, anti_vid.to(i64))
@@ -368,7 +388,8 @@ def _lap_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
     if stats is not None:
         stats["laps"] = laps
     fit_ok, fit_sc, ba = _resource_eval_plain(
-        f, fit_strategy, state.alloc_r, state.alloc_pods, req_r, nonzero, pod_count)
+        f, fit_strategy, state.alloc_r, state.alloc_pods, req_r, nonzero, pod_count,
+        nom_r, nom_p)
     carry = ext0._replace(req_r=req_r, nonzero=nonzero, pod_count=pod_count,
                           fit_ok=fit_ok, fit_sc=fit_sc, ba=ba, anti_counts=anti_counts,
                           start=start)
@@ -391,8 +412,8 @@ def _lap_schedule_cuda(state, f, batch_pad, fit_strategy, ext0, static_ok, n_act
     ints, feats = _res_args(f, fit_strategy)
     _launch("lap_schedule", dev, NP, *ints, batch_pad, n_act, anti_counts.shape[0],
             anti_counts.shape[1], *feats, state.alloc_r,
-            state.alloc_pods, req_r, nonzero, pod_count, static_ok, f.il_score, f.weights,
-            f.num_nodes, f.to_find, ext0.start, state.topo, f.anti_axis, f.anti_self,
+            state.alloc_pods, req_r, nonzero, pod_count, *_nom_lane(f), static_ok, f.il_score,
+            f.weights, f.num_nodes, f.to_find, ext0.start, state.topo, f.anti_axis, f.anti_self,
             anti_counts, okd_s, F_s, total_s, out, fit_ok, fit_sc, ba, start)
     carry = ext0._replace(req_r=req_r, nonzero=nonzero, pod_count=pod_count,
                           fit_ok=fit_ok, fit_sc=fit_sc, ba=ba, anti_counts=anti_counts,
@@ -457,7 +478,7 @@ def _scan_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: in
         pod_count[row] += apply.to(i32)
         r_ok, r_fit, r_ba = _resource_eval_plain(
             f, fit_strategy, state.alloc_r[row], state.alloc_pods[row],
-            req_r[row], nonzero[row], pod_count[row])
+            req_r[row], nonzero[row], pod_count[row], *_nom_lane(f, row))
         fit_ok[row] = r_ok
         fit_sc[row] = r_fit
         ba[row] = r_ba
@@ -486,9 +507,9 @@ def _scan_schedule_cuda(state, f, batch_pad, fit_strategy, ext0, static_ok, n_ac
     out = torch.full((2, batch_pad), -1, dtype=i32, device=dev)
     ints, feats = _res_args(f, fit_strategy)
     _launch("scan_schedule", dev, NP, *ints, batch_pad, n_act, *feats, state.alloc_r,
-            state.alloc_pods, req_r, nonzero, pod_count, fit_ok, fit_sc, ba, static_ok,
-            f.il_score, f.weights, f.num_nodes, f.to_find, ext0.start, okd_s, F_s, total_s,
-            out, start)
+            state.alloc_pods, req_r, nonzero, pod_count, *_nom_lane(f), fit_ok, fit_sc, ba,
+            static_ok, f.il_score, f.weights, f.num_nodes, f.to_find, ext0.start, okd_s, F_s,
+            total_s, out, start)
     carry = ext0._replace(req_r=req_r, nonzero=nonzero, pod_count=pod_count,
                           fit_ok=fit_ok, fit_sc=fit_sc, ba=ba, start=start)
     return out, carry
@@ -638,7 +659,7 @@ def _scan_general_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
             pod_count[row] += 1
             r_ok, r_fit, r_ba = _resource_eval_plain(
                 f, fit_strategy, state.alloc_r[row], state.alloc_pods[row],
-                req_r[row], nonzero[row], pod_count[row])
+                req_r[row], nonzero[row], pod_count[row], *_nom_lane(f, row))
             fit_ok[row], fit_sc[row], ba[row] = r_ok, r_fit, r_ba
             if C1:
                 upd = f.dns_self * dns_elig[:, row].to(i32)
@@ -700,8 +721,8 @@ def _scan_general_cuda(state, f, batch_pad, fit_strategy, ext0, masks, n_act, fa
             anti_counts.shape[0], aff_counts.shape[0], ipa_delta.shape[0], int(incremental),
             int(carried), int(facts.has_pns), int(facts.has_ipa_base),
             int(facts.has_na_pref), *feats, state.alloc_r, state.alloc_pods, req_r, nonzero,
-            pod_count, fit_ok, fit_sc, ba, masks.static_ok, masks.sel_ok, masks.taint_ok,
-            masks.pns_cnt, state.topo, f.il_score, f.na_raw, f.ipa_base, f.weights,
+            pod_count, *_nom_lane(f), fit_ok, fit_sc, ba, masks.static_ok, masks.sel_ok,
+            masks.taint_ok, masks.pns_cnt, state.topo, f.il_score, f.na_raw, f.ipa_base, f.weights,
             f.num_nodes, f.to_find, ext0.start, f.dns_axis, f.dns_active, f.dns_max_skew,
             f.dns_self, f.dns_forced0, f.dns_honor_aff, f.dns_honor_taints, f.dns_dom,
             dns_counts, f.sa_axis, f.sa_wq, f.sa_skew, f.sa_self, sa_counts, f.anti_axis,
@@ -729,7 +750,137 @@ def scan_general(state: DeviceNodeState, f: BatchFeatures, batch_pad: int, fit_s
 
 scan_general.launches = 0
 
-WRAPPERS = (static_masks, resource_eval, lap_schedule, scan_schedule, scan_general)
+# ---------------------------------------------------------------------------
+# dry_run_preemption
+# ---------------------------------------------------------------------------
+
+
+def _dry_run_preemption_plain(state: DeviceNodeState, f: BatchFeatures, vic_req: torch.Tensor,
+                              vic_valid: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain PyTorch version of the dry_run_preemption kernel."""
+    NP = state.valid.shape[0]
+    idx = torch.arange(NP, dtype=i32, device=state.valid.device)
+    static_ok = _static_masks_plain(state, f).static_ok & (idx < f.num_nodes.clamp_min(1))
+    n_pot = vic_valid.sum(dim=1).to(i32)
+    base_req = state.req_r - (vic_req * vic_valid[:, :, None]).sum(dim=1)
+    cnt0 = state.pod_count - n_pot
+    zero_nz = torch.zeros_like(base_req[:, :2])
+
+    def fit(req_r, pod_cnt):
+        # No nominated lane: the host dry run ignores nominations too.
+        return _resource_eval_plain(f, 0, state.alloc_r, state.alloc_pods, req_r, zero_nz,
+                                    pod_cnt)[0]
+
+    feasible0 = static_ok & fit(base_req, cnt0) & (n_pot > 0)
+    kept_req = torch.zeros_like(base_req)
+    kept_cnt = torch.zeros(NP, dtype=i32, device=idx.device)
+    victims = []
+    for i in range(k):
+        vr, valid = vic_req[:, i], vic_valid[:, i]
+        keep = valid & feasible0 & fit(base_req + kept_req + vr, cnt0 + kept_cnt + 1)
+        kept_req = kept_req + vr * keep[:, None]
+        kept_cnt = kept_cnt + keep.to(i32)
+        victims.append(valid & feasible0 & ~keep)
+    mask = torch.stack(victims, dim=1)
+    return torch.cat([(feasible0 & mask.any(dim=1))[:, None], mask], dim=1)
+
+
+def _dry_run_preemption_cuda(state, f, vic_req, vic_valid, k):
+    dev = state.valid.device
+    NP, R = state.alloc_r.shape
+    if vic_req.shape != (NP, k, R) or vic_valid.shape != (NP, k):
+        raise ValueError(f"dry_run_preemption: victims {tuple(vic_req.shape)} and "
+                         f"{tuple(vic_valid.shape)} for {NP} rows, K {k}, R {R}")
+    out = torch.empty((NP, 1 + k), dtype=torch.bool, device=dev)
+    ints, feats = _res_args(f, 0)
+    _launch("dry_run_preemption", dev, NP, *ints[:2], state.taint_key.shape[1],
+            f.tol_key.shape[0], k, *feats, state.taint_key, state.taint_val, state.taint_eff,
+            f.tol_key, f.tol_val, f.tol_eff, f.tol_op, f.sel_match, f.node_name_id,
+            state.name_id, state.unsched, f.tolerates_unsched, f.exist_anti, state.valid,
+            f.extra_ok, f.num_nodes, state.alloc_r, state.alloc_pods, state.req_r,
+            state.pod_count, vic_req, vic_valid, out)
+    return out
+
+
+def dry_run_preemption(state: DeviceNodeState, f: BatchFeatures, vic_req: torch.Tensor,
+                       vic_valid: torch.Tensor, k: int) -> torch.Tensor:
+    """Batched DryRunPreemption (preemption.go:425 SelectVictimsOnNode on
+    every row): per row, remove every lower-priority pod (the K columns of
+    `vic_req` [NP, K, R], in MoreImportantPod order, `vic_valid` [NP, K]),
+    test that the pod fits, then reprieve the victims most important first.
+    Returns [NP, 1 + K] bool: column 0 the row is a candidate (feasible with
+    a non-empty victim set), columns 1..K its victims. The pod's other
+    filters are static per row here: the caller keeps topology-coupled
+    preemptors and clusters with anti-affinity pods on the host."""
+    if _on_cpu(state.valid):
+        return _dry_run_preemption_plain(state, f, vic_req, vic_valid, k)
+    out = _dry_run_preemption_cuda(state, f, vic_req, vic_valid, k)
+    dry_run_preemption.launches += 1
+    return out
+
+
+dry_run_preemption.launches = 0
+
+# ---------------------------------------------------------------------------
+# scatter_rows
+# ---------------------------------------------------------------------------
+
+
+def pack_rows(rows: DeviceNodeState) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dirty rows of every field ([D, ...] each, `topo` as [K, D]) packed
+    by element type, as scatter_rows takes them: [D, 2R + 3] i64
+    (alloc_r, alloc_pods, req_r, nonzero), [D, 3T + 2 + K] i32 (pod_count,
+    taint_key, taint_val, taint_eff, name_id, topo), [D, 2] bool (unsched,
+    valid)."""
+    src64 = torch.cat([rows.alloc_r, rows.alloc_pods[:, None], rows.req_r, rows.nonzero], dim=1)
+    src32 = torch.cat([rows.pod_count[:, None], rows.taint_key, rows.taint_val, rows.taint_eff,
+                       rows.name_id[:, None], rows.topo.T], dim=1)
+    srcb = torch.stack([rows.unsched, rows.valid], dim=1)
+    return src64, src32, srcb
+
+
+def _unpack_rows(state: DeviceNodeState, src64, src32, srcb) -> DeviceNodeState:
+    R, T = state.alloc_r.shape[1], state.taint_key.shape[1]
+    return DeviceNodeState(
+        src64[:, :R], src64[:, R], src64[:, R + 1:2 * R + 1], src64[:, 2 * R + 1:],
+        src32[:, 0], src32[:, 1:1 + T], src32[:, 1 + T:1 + 2 * T], src32[:, 1 + 2 * T:1 + 3 * T],
+        srcb[:, 0], srcb[:, 1], src32[:, 1 + 3 * T], src32[:, 2 + 3 * T:].T)
+
+
+def _scatter_rows_plain(state: DeviceNodeState, idx: torch.Tensor, src64, src32, srcb) -> None:
+    """Plain PyTorch version of the scatter_rows kernel: one index_copy_
+    per field."""
+    rows = _unpack_rows(state, src64, src32, srcb)
+    at = idx.to(i64)
+    for field, r in zip(state[:-1], rows[:-1]):
+        field.index_copy_(0, at, r)
+    state.topo.index_copy_(1, at, rows.topo)
+
+
+def _scatter_rows_cuda(state, idx, src64, src32, srcb) -> None:
+    dev = state.valid.device
+    (NP, R), T, K = state.alloc_r.shape, state.taint_key.shape[1], state.topo.shape[0]
+    D = idx.shape[0]
+    if src64.shape != (D, 2 * R + 3) or src32.shape != (D, 3 * T + 2 + K) or srcb.shape != (D, 2):
+        raise ValueError("scatter_rows: packed rows do not match the state's widths")
+    _launch("scatter_rows", dev, NP, D, R, T, K, idx, src64, src32, srcb, *state)
+
+
+def scatter_rows(state: DeviceNodeState, idx: torch.Tensor, src64: torch.Tensor,
+                 src32: torch.Tensor, srcb: torch.Tensor) -> None:
+    """Write the packed dirty rows (pack_rows) into `state`'s tensors, in
+    place, at the rows `idx` [D] i32."""
+    if _on_cpu(state.valid):
+        _scatter_rows_plain(state, idx, src64, src32, srcb)
+        return
+    _scatter_rows_cuda(state, idx, src64, src32, srcb)
+    scatter_rows.launches += 1
+
+
+scatter_rows.launches = 0
+
+WRAPPERS = (static_masks, resource_eval, lap_schedule, scan_schedule, scan_general,
+            dry_run_preemption, scatter_rows)
 
 
 def reset_launch_counts() -> None:
@@ -745,7 +896,8 @@ def reset_launch_counts() -> None:
 def fresh_carry(state: DeviceNodeState, f: BatchFeatures, vmax: int, fit) -> ScanCarry:
     """The carry a batch starts from when none is chained in (the JAX
     package's :525-536): the resident node aggregates and `fit`, the
-    (fit_ok, fit_sc, ba) that resource_eval gives for them."""
+    (fit_ok, fit_sc, ba) that resource_eval gives for them (with the
+    nominated-pod lane, where the features carry one)."""
     NP = state.valid.shape[0]
     dev = state.valid.device
     return ScanCarry(state.req_r, state.nonzero, state.pod_count, *fit,
@@ -770,17 +922,16 @@ def schedule_batch(state: DeviceNodeState, f: BatchFeatures, batch_pad: int,
     The plan picks the kernel (:262-273): a plan whose landings change only
     their own row and score takes the lap above 64 steps; at or below 64
     steps such a plan without count tables takes scan_schedule; every other
-    plan takes scan_general. Features that carry a nominated-pod lane
-    (`nom_req` rows) are refused: no kernel reads that lane yet."""
-    if f.nom_req.shape[0]:
-        raise NotImplementedError("the nominated-pod lane is not ported yet")
+    plan takes scan_general. Features whose `nom_req` has rows carry the
+    nominated-pod lane (the JAX package's `has_nom`): every kernel counts a
+    row's nominated pods against the fit filter of that row."""
     incremental, carried = plan_modes(f, facts)
     n_act = batch_pad if n_active is None else int(n_active)
     masks = static_masks(state, f)
     if carry_in is None:
         ext0 = fresh_carry(state, f, vmax, resource_eval(
             f, fit_strategy, state.alloc_r, state.alloc_pods, state.req_r,
-            state.nonzero, state.pod_count))
+            state.nonzero, state.pod_count, *_nom_lane(f)))
     else:
         ext0 = carry_in
     if incremental and carried and batch_pad > SCAN_MAX_STEPS:

@@ -49,6 +49,12 @@ class _PreFilterState:
     affinity_counts: List[Dict[str, int]] = field(default_factory=list)  # per-term: tpVal->count
     anti_counts: Dict[Tuple[str, str], int] = field(default_factory=dict)
 
+    def clone(self) -> "_PreFilterState":
+        """Deep copy for CycleState.clone() (what-if simulations)."""
+        return _PreFilterState(self.affinity_terms, self.anti_affinity_terms,
+                               dict(self.existing_anti_counts),
+                               [dict(m) for m in self.affinity_counts], dict(self.anti_counts))
+
 
 class InterPodAffinity:
     name = "InterPodAffinity"
@@ -176,6 +182,38 @@ class InterPodAffinity:
             return None, Status.skip()
         state.write(self._FKEY, s)
         return None, OK
+
+    # AddPod/RemovePod PreFilterExtensions (filtering.go updateWithPod), for
+    # the two-pass filter and the preemption dry run.
+    def add_pod(self, state: CycleState, pod: Pod, added: PodInfo, node_info: NodeInfo) -> Status:
+        self._update(state, pod, added, node_info, +1)
+        return OK
+
+    def remove_pod(self, state: CycleState, pod: Pod, removed: PodInfo,
+                   node_info: NodeInfo) -> Status:
+        self._update(state, pod, removed, node_info, -1)
+        return OK
+
+    def _update(self, state: CycleState, pod: Pod, other: PodInfo, node_info: NodeInfo,
+                delta: int) -> None:
+        s: _PreFilterState = state.read(self._FKEY)
+        if s is None or node_info.node is None:
+            return
+        labels = node_info.node.labels
+        for term in compile_terms(other.required_anti_affinity_terms, other.pod):
+            tp_val = labels.get(term.topology_key)
+            if tp_val is not None and term.matches(pod, self._ns_labels):
+                key = (term.topology_key, tp_val)
+                s.existing_anti_counts[key] = s.existing_anti_counts.get(key, 0) + delta
+        for i, term in enumerate(s.affinity_terms):
+            tp_val = labels.get(term.topology_key)
+            if tp_val is not None and term.matches(other.pod, self._ns_labels):
+                s.affinity_counts[i][tp_val] = s.affinity_counts[i].get(tp_val, 0) + delta
+        for term in s.anti_affinity_terms:
+            tp_val = labels.get(term.topology_key)
+            if tp_val is not None and term.matches(other.pod, self._ns_labels):
+                key = (term.topology_key, tp_val)
+                s.anti_counts[key] = s.anti_counts.get(key, 0) + delta
 
     # -- Filter ------------------------------------------------------------
 

@@ -31,7 +31,7 @@ from ..api.types import (
     find_matching_untolerated_taint,
 )
 from ..core.framework import MAX_NODE_SCORE, OK, CycleState, NodeScore, PreFilterResult, Status
-from ..core.node_info import NodeInfo
+from ..core.node_info import NodeInfo, PodInfo
 from ..core.queue import (
     EVENT_ASSIGNED_POD_ADD,
     EVENT_ASSIGNED_POD_DELETE,
@@ -93,6 +93,12 @@ class _CriticalPaths:
         self.min2_val: Optional[str] = None
         self.min2_num: int = 1 << 62
 
+    def clone(self) -> "_CriticalPaths":
+        c = _CriticalPaths()
+        c.min1_val, c.min1_num = self.min1_val, self.min1_num
+        c.min2_val, c.min2_num = self.min2_val, self.min2_num
+        return c
+
     def update(self, tp_val: str, num: int) -> None:
         if tp_val == self.min1_val:
             self.min1_num = num
@@ -117,6 +123,13 @@ class _PreFilterState:
     tp_val_to_match_num: List[Dict[str, int]]  # per constraint: domain -> count
     critical_paths: List[_CriticalPaths]
     tp_domains_num: List[int]
+
+    def clone(self) -> "_PreFilterState":
+        """Deep copy for CycleState.clone(): a what-if simulation (nominated
+        pods, a preemption dry run) must not change the cycle's counts."""
+        return _PreFilterState(self.constraints, [dict(m) for m in self.tp_val_to_match_num],
+                               [cp.clone() for cp in self.critical_paths],
+                               list(self.tp_domains_num))
 
 
 class PodTopologySpread:
@@ -203,6 +216,33 @@ class PodTopologySpread:
         state.write(self._FKEY, _PreFilterState(constraints, tp_maps, cps,
                                                 [len(m) for m in tp_maps]))
         return None, OK
+
+    # AddPod/RemovePod PreFilterExtensions (filtering.go updateWithPod): the
+    # two-pass filter and the preemption dry run add or remove a pod on a
+    # node and keep the counts in step.
+    def add_pod(self, state: CycleState, pod: Pod, added: PodInfo, node_info: NodeInfo) -> Status:
+        self._update(state, pod, added.pod, node_info, +1)
+        return OK
+
+    def remove_pod(self, state: CycleState, pod: Pod, removed: PodInfo,
+                   node_info: NodeInfo) -> Status:
+        self._update(state, pod, removed.pod, node_info, -1)
+        return OK
+
+    def _update(self, state: CycleState, pod: Pod, other: Pod, node_info: NodeInfo,
+                delta: int) -> None:
+        s: _PreFilterState = state.read(self._FKEY)
+        if s is None or not s.constraints:
+            return
+        for i, c in enumerate(s.constraints):
+            if not self._node_eligible(pod, node_info, c):
+                continue
+            if other.namespace != pod.namespace or not c.selector.matches(other.labels):
+                continue
+            tp_val = node_info.node.labels[c.topology_key]
+            n = s.tp_val_to_match_num[i].get(tp_val, 0) + delta
+            s.tp_val_to_match_num[i][tp_val] = n
+            s.critical_paths[i].update(tp_val, n)
 
     def filter(self, state: CycleState, pod: Pod, node_info: NodeInfo) -> Status:
         s: _PreFilterState = state.read(self._FKEY)

@@ -8,7 +8,9 @@ random allocatable/requested vectors, taints, tolerations, unschedulable
 flags and selector verdicts; the keyword arguments pick the cases the
 parity checks need (rotation start past a row, truncation on or off,
 zero-request pods, no feasible row at all). `general_inputs` adds topology
-axes and the count-table and score lanes of spread and inter-pod affinity.
+axes and the count-table and score lanes of spread and inter-pod affinity;
+`nominated_lane` draws the nominated-pod lane and `victim_inputs` the
+preemption dry run's victim tensors.
 """
 
 from __future__ import annotations
@@ -217,3 +219,70 @@ def general_inputs(seed: int, np_cap: int, num_nodes: int, *, vmax: int = 256,
     facts = dict(has_pns=pns, has_ipa_base=ipa_base, has_na_pref=na,
                  anti_rowlocal=anti_axis == HOST_AXIS)
     return tuple(state), tuple(f[name] for name in _F), facts
+
+
+def nominated_lane(seed: int, np_cap: int, num_nodes: int, r_slots: int = 7,
+                   share: float = 0.15) -> Tuple[np.ndarray, np.ndarray]:
+    """(nom_req [np_cap, R] i64, nom_pods [np_cap] i32): about `share` of
+    the live rows hold one to three nominated pods, some with a scalar
+    resource."""
+    rng = np.random.default_rng(seed + 31337)
+    nom_req = np.zeros((np_cap, r_slots), np.int64)
+    nom_pods = np.zeros(np_cap, np.int32)
+    for row in np.nonzero(rng.random(num_nodes) < share)[0]:
+        for _ in range(int(rng.integers(1, 4))):
+            nom_req[row, 0] += rng.choice([250, 1000, 4000])
+            nom_req[row, 1] += rng.choice([256, 1024, 4096]) * 1024 * 1024
+            if rng.random() < 0.2:
+                nom_req[row, 3] += 1
+            nom_pods[row] += 1
+    return nom_req, nom_pods
+
+
+def with_nominated_lane(feats: tuple, lane: Tuple[np.ndarray, np.ndarray]) -> tuple:
+    """`feats` (a feature-array tuple) with its nominated-pod lane set."""
+    f = dict(zip(_F, feats))
+    f["nom_req"], f["nom_pods"] = lane
+    return tuple(f[name] for name in _F)
+
+
+def victim_inputs(seed: int, np_cap: int, num_nodes: int, k: int, *, r_slots: int = 7,
+                  **kw) -> Tuple[tuple, tuple, np.ndarray, np.ndarray]:
+    """(state arrays, feature arrays, vic_req [np_cap, k, R] i64, vic_valid
+    [np_cap, k] bool) for one preemption dry run: a large pod and, per live
+    row, up to `k` lower-priority pods
+    whose requests are part of the row's requested vector and count. Some
+    rows have no victim, some slots inside a row's victims are invalid (with
+    non-zero requests that must not count), some victims carry a scalar
+    resource, and the random_inputs draw adds tainted, unschedulable and
+    unselected rows (`infeasible=True`: a pod no removal can fit)."""
+    state, feats = random_inputs(seed, np_cap, num_nodes, r_slots=r_slots, **kw)
+    rng = np.random.default_rng(seed + 104729)
+    state, f = list(state), dict(zip(_F, feats))
+    alloc_r, alloc_pods = state[0], state[1]
+    live = np.arange(np_cap) < num_nodes
+    n_vic = np.where(live & (rng.random(np_cap) < 0.85), rng.integers(1, k + 1, np_cap), 0)
+    vic_req = np.zeros((np_cap, k, r_slots), np.int64)
+    vic_req[:, :, 0] = rng.choice([250, 500, 1000, 2000], (np_cap, k))
+    vic_req[:, :, 1] = rng.choice([256, 512, 1024, 2048], (np_cap, k)) * 1024 * 1024
+    scalar = (rng.random((np_cap, k)) < 0.2) & (alloc_r[:, None, 3] > 0)
+    vic_req[:, :, 3] = scalar * rng.integers(1, 3, (np_cap, k))
+    vic_valid = np.arange(k)[None, :] < n_vic[:, None]
+    vic_req[~vic_valid] = 0
+    holes = vic_valid & (rng.random((np_cap, k)) < 0.08)
+    vic_valid &= ~holes  # invalid slots keep their (non-zero) requests
+    other = (alloc_r * rng.random((np_cap, 1)) * 0.5).astype(np.int64)
+    req_r = other + (vic_req * vic_valid[:, :, None]).sum(axis=1)
+    pod_count = (rng.integers(0, 4, np_cap) + vic_valid.sum(axis=1)).astype(np.int32) * live
+    state[2] = req_r * live[:, None]
+    state[3] = np.stack([req_r[:, 0] + 100 * pod_count,
+                         req_r[:, 1] + 200 * 1024 * 1024 * pod_count], 1).astype(np.int64)
+    state[4] = pod_count
+    state[1] = np.maximum(alloc_pods, np.where(live & (rng.random(np_cap) < 0.9),
+                                               pod_count + 1, 0)).astype(np.int64)
+    if not kw.get("infeasible") and not kw.get("zero_request"):
+        f["request"] = f["request"].copy()
+        f["request"][0] = rng.choice([1000, 2000, 4000])
+        f["request"][1] = rng.choice([1, 2, 4]) * GI
+        f["nz_request"] = f["request"][:2].copy()
+    return tuple(state), tuple(f[name] for name in _F), vic_req, vic_valid

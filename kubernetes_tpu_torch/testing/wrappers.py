@@ -3,8 +3,8 @@
 builder names and arguments so that one test body can drive both packages.
 
 Builders for features outside the port (host ports, volumes, gates, pod
-groups, priority, node images) exist so that tests can show the scope
-guard refusing them."""
+groups, node images) exist so that tests can show the scope guard refusing
+them."""
 
 from __future__ import annotations
 

@@ -21,9 +21,16 @@ from kubernetes_tpu.ops.kernel import _static_masks as jax_static_masks
 from kubernetes_tpu.ops.kernel import schedule_batch as jax_schedule_batch
 from kubernetes_tpu_torch.ops import kernel as K
 from kubernetes_tpu_torch.ops.device_state import state_from_jax_numpy
-from kubernetes_tpu_torch.ops.features import features_from_jax_numpy
+from kubernetes_tpu_torch.ops.features import features_from_jax_numpy, victims_from_jax_numpy
 from kubernetes_tpu_torch.ops.kernel import carry_from_jax_numpy
-from kubernetes_tpu_torch.testing.kernel_inputs import HOST_AXIS, general_inputs, random_inputs
+from kubernetes_tpu_torch.testing.kernel_inputs import (
+    HOST_AXIS,
+    general_inputs,
+    nominated_lane,
+    random_inputs,
+    victim_inputs,
+    with_nominated_lane,
+)
 
 VMAX = 64
 GVMAX = 256  # the general draws' value tier: a hostname-like axis of 200 rows
@@ -103,8 +110,9 @@ def _chain(js, jf, ts, tf, batch_pad, fit_strategy, n_active, vmax=VMAX, facts=N
         # Fetch before the next call: JAX donates carry_in.
         jr = np.asarray(jr)
         jc_np = [np.asarray(a) for a in jc_new]
-        tr, tc = K.schedule_batch(ts, tf, batch_pad, fit_strategy, vmax, K.PlanFacts(**facts),
-                                  n_active=n_active, carry_in=tc)
+        port_facts = {k: v for k, v in facts.items() if k != "has_nom"}
+        tr, tc = K.schedule_batch(ts, tf, batch_pad, fit_strategy, vmax,
+                                  K.PlanFacts(**port_facts), n_active=n_active, carry_in=tc)
         out.append((jr, jc_np, tr, tc))
         jc = JaxCarry(*[jnp.asarray(a) for a in jc_np])
     return out
@@ -214,13 +222,18 @@ def test_carry_across_round_trips_a_jax_carry():
 
 
 def test_general_plan_is_refused():
-    # A lane no kernel reads yet (the nominated pods of preemption) is
-    # refused, never silently ignored.
-    _js, _jf, ts, tf = _both(15)
-    nom = tf._replace(nom_req=torch.zeros_like(ts.req_r),
-                      nom_pods=torch.zeros_like(ts.pod_count))
-    with pytest.raises(NotImplementedError, match="nominated-pod lane"):
-        K.schedule_batch(ts, nom, 512, 0, VMAX, K.PlanFacts())
+    # The nominated-pod lane (preemption's nominations) is read, not
+    # refused: with a lane drawn on the features, the lap's results and
+    # every carry lane equal the JAX package's has_nom plan, fresh and
+    # chained, and differ from the plan without the lane.
+    s, f = random_inputs(15, 256, 200, vmax=VMAX)
+    js, jf, ts, tf = _convert(s, with_nominated_lane(f, nominated_lane(15, 256, 200)))
+    facts = dict(has_pns=False, has_ipa_base=False, has_nom=True)
+    for jr, jc, tr, tc in _chain(js, jf, ts, tf, 512, 0, 300, facts=facts):
+        np.testing.assert_array_equal(jr, tr.numpy())
+        _same(jc, tc, "lap with the nominated lane")
+    plain, _ = K.schedule_batch(*_both(15)[2:], 512, 0, VMAX, K.PlanFacts(), n_active=300)
+    assert not torch.equal(plain, tr)
 
 
 def test_wrappers_count_only_kernel_launches():
@@ -228,7 +241,12 @@ def test_wrappers_count_only_kernel_launches():
     _js, _jf, ts, tf = _both(16)
     K.reset_launch_counts()
     K.schedule_batch(ts, tf, 64, 0, VMAX, K.PlanFacts(), n_active=10)
-    assert [w.launches for w in K.WRAPPERS] == [0] * 5
+    s, f, vr, vv = victim_inputs(16, 256, 200, 8)
+    vs, vf = state_from_jax_numpy(s), features_from_jax_numpy(f)
+    K.dry_run_preemption(vs, vf, *victims_from_jax_numpy(vr, vv), 8)
+    K.scatter_rows(ts, torch.tensor([3], dtype=torch.int32), *K.pack_rows(
+        K.DeviceNodeState(*[t[:1] for t in ts[:-1]], ts.topo[:, :1])))
+    assert [w.launches for w in K.WRAPPERS] == [0] * len(K.WRAPPERS)
     # Neither CPU nor CUDA: refused, never silently computed elsewhere.
     meta = ts._replace(valid=ts.valid.to("meta"))
     with pytest.raises(RuntimeError, match="cuda or cpu"):
@@ -253,9 +271,10 @@ def test_launcher_signatures_are_read_from_the_sources():
         assert all(p.dtype is not None for p in sig if p.name not in
                    ("NP", "T", "L", "R", "FR", "fit_strategy", "B", "n_act", "V",
                     "C1", "C2", "A1", "A2", "KD", "incremental", "carried", "has_pns",
-                    "has_ipa_base", "has_na_pref"))
+                    "has_ipa_base", "has_na_pref", "K", "D"))
         optional = {p.name for p in sig if p.optional}
-        assert optional == ({"nom_req", "nom_pods"} if name == "resource_eval" else set())
+        lane = name in ("resource_eval", "lap_schedule", "scan_schedule", "scan_general")
+        assert optional == ({"nom_req", "nom_pods"} if lane else set())
 
 
 def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches):
@@ -270,12 +289,29 @@ def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches):
     K._scan_schedule_cuda(ts, tf, 64, 0, ext0, static_ok, 40)
     K._scan_general_cuda(ts, tf, 64, 0, ext0, K._static_masks_plain(ts, tf), 40,
                          K.PlanFacts(has_pns=True))
+    s, f, vr, vv = victim_inputs(17, 256, 200, 16)
+    K._dry_run_preemption_cuda(state_from_jax_numpy(s), features_from_jax_numpy(f),
+                               *victims_from_jax_numpy(vr, vv), 16)
+    rows = K.DeviceNodeState(*[t[:2] for t in ts[:-1]], ts.topo[:, :2])
+    K._scatter_rows_cuda(ts, torch.tensor([5, 9], dtype=torch.int32), *K.pack_rows(rows))
     assert [name for name, _ in recorded_launches] == list(K._build.KERNELS)
     for name, args in recorded_launches:
         sig = K._build.signature(name)
         assert len(args) == len(sig) + 1  # and the stream
         for p, a in zip(sig, args):
             assert (a is None) if p.optional else isinstance(a, int), (name, p)
+    # With a nominated lane the schedule kernels get its two pointers.
+    lane = tf._replace(nom_req=torch.zeros_like(ts.req_r),
+                       nom_pods=torch.zeros_like(ts.pod_count))
+    recorded_launches.clear()
+    K._lap_schedule_cuda(ts, lane, 512, 0, ext0, static_ok, 300)
+    K._scan_schedule_cuda(ts, lane, 64, 0, ext0, static_ok, 40)
+    K._scan_general_cuda(ts, lane, 64, 0, ext0, K._static_masks_plain(ts, tf), 40,
+                         K.PlanFacts(has_pns=True))
+    for name, args in recorded_launches:
+        sig = {p.name: a for p, a in zip(K._build.signature(name), args)}
+        assert (sig["nom_req"], sig["nom_pods"]) == (lane.nom_req.data_ptr(),
+                                                     lane.nom_pods.data_ptr()), name
 
 
 @pytest.mark.parametrize("case", ["all-lanes", "hostname-anti", "aff-bootstrap"])
@@ -349,7 +385,7 @@ def _not_an_int(ts, tf):
     (_wrong_dtype, TypeError, "enable must be a torch.int32"),
     (_wrong_feature_dtype, TypeError, "fit_weights must be a torch.int64"),
     (_null_pointer, TypeError, "taint_key may not be null"),
-    (_wrong_count, TypeError, "takes 38 arguments"),
+    (_wrong_count, TypeError, "takes 40 arguments"),
     (_wrong_device, ValueError, "request on meta, expected cpu"),
     (_not_an_int, TypeError, "NP must be an int"),
 ], ids=["dtype", "feature-dtype", "null", "count", "device", "int"])

@@ -203,13 +203,21 @@ class TestScope:
         lambda b: b.resource_claim("gpu"),
         lambda b: b.scheduling_gate("wait"),
         lambda b: b.pod_group("gang"),
-        lambda b: b.priority(10),
-    ], ids=["host-ports", "volumes", "claims", "gates", "pod-groups", "priority"])
+    ], ids=["host-ports", "volumes", "claims", "gates", "pod-groups"])
     def test_out_of_scope_pod_refused(self, build):
         s = TorchScheduler(device="cpu")
         with pytest.raises(NotImplementedError):
             s.clientset.create_pod(build(make_pod().name("p").req({"cpu": "1"})).obj())
         assert not s.clientset.pods and s.queue.pending_counts() == (0, 0, 0)
+
+    def test_priority_pod_accepted(self):
+        # Pod priority is in scope (DefaultPreemption is ported): a pod of
+        # non-zero priority is admitted and scheduled on the device.
+        s = TorchScheduler(device="cpu")
+        s.clientset.create_node(make_node().name("n").capacity({"cpu": 4}).obj())
+        s.clientset.create_pod(make_pod().name("p").req({"cpu": "1"}).priority(10).obj())
+        s.run_until_idle()
+        assert s.clientset.bindings and s.device_scheduled == 1
 
     @pytest.mark.parametrize("build", [
         lambda b: b.image("nginx", 100 << 20),

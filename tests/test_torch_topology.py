@@ -214,14 +214,15 @@ class TestScoring:
 
 class TestSessions:
     def test_warm_for_is_inert_and_launches_the_rowlocal_fallback(self, paths):
-        # A row-local anti-affinity plan warms its two carries on the lap
+        # A row-local anti-affinity plan warms its two carries on the lap,
+        # the two of its nominated-lane variant (an empty lane) on the lap,
         # and its fallback (anti_rowlocal off) once on the general scan;
         # nothing binds, and the pods then land exactly as on an unwarmed
         # JAX scheduler.
         anti = lambda b: b.pod_affinity(HOSTNAME, {"app": "x"}, anti=True)  # noqa: E731
         p = Pair(20, max_batch=1024)
         p.port.warm_for(_pods(make_pod, 1, prefix="warm", labels={"app": "x"}, build=anti)[0])
-        assert dict(paths) == {"lap_schedule": 2, "scan_general": 1}
+        assert dict(paths) == {"lap_schedule": 4, "scan_general": 1}
         assert not p.port.clientset.bindings and p.port.scheduled == 0
         p.pods(26, labels={"app": "x"}, build=anti).run()
 
