@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, in order; any error or mismatch exits non-zero before the result:
-  1. build   — compile the seven CUDA kernels from csrc/ (one nvcc each, in
+  1. build   — compile the eight CUDA kernels from csrc/ (one nvcc each, in
                parallel, linked into one library) and print the build
                seconds;
   2. kernels — hold each kernel against its plain PyTorch version on the
@@ -25,8 +25,11 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                on seeded victim draws at K = 8, 32 and 256 (rows with no
                victim, invalid slots, scalar-resource victims) and with no
                row that any removal can fit; scatter_rows with 1, 64 and 4096
-               dirty rows. Results must be exactly equal on every output and
-               carry lane. It also times scan_general's first launch in the
+               dirty rows; patch_carry_rows at K = 32, 256 and 2048 (tiers
+               padded with duplicate indices) on a carry chained through two
+               schedule_batch calls, with and without a nominated-pod lane,
+               its input carry left unchanged. Results must be exactly equal
+               on every output and carry lane. It also times scan_general's first launch in the
                process against the next;
   3. paths   — each through TorchScheduler on cuda at full width, the
                launch counts zeroed just before each drive and read just
@@ -66,6 +69,24 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                live lane lands 512 on the freed nodes and none on a
                nominated one, 32 stay unschedulable, and every preemptor
                then binds on its nominated node;
+               the completion waves (incremental resume): SchedulingBasic's
+               cluster and 1024 warm pods, then 10 waves of 1000 pods, each
+               after 100 bound pods are deleted; a NoSchedule taint added in
+               wave 3 and lifted in wave 5, a bound-pod delete and 512 pods
+               parked in the inbox during wave 7's session, a
+               PreferNoSchedule taint in wave 9 and a node added in wave 10:
+               every pod bound, exactly 3 full plan rebuilds (the warm pods,
+               waves 9 and 10), every other wave a row patch or a resume,
+               wave 7 one session, wave 9 on scan_general, patch_carry_rows
+               and scatter_rows launched; then the same drive with resume
+               off (a TorchScheduler argument), which must give the same
+               assignments;
+               SchedulingRequiredPodAntiAffinityWithNSSelector/5000Nodes_2000Pods
+               (6000 nodes, 101 team: devops namespaces, 100 x 40 init pods,
+               2000 pods with hostname anti-affinity under a
+               namespaceSelector): the init phase in at most 2 plan
+               acquisitions (and the count with resume off), every measured
+               pod bound on a node of its own that holds no init pod;
   4. timing  — on the main paths' own next-batch inputs (exactness checked
                there too): each kernel's device time per launch from
                torch.profiler (a warm-up step, then at least 19 of 20
@@ -81,6 +102,10 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                inputs (a churn pod against the 10000 bound pods); and
                scatter_rows at the preempting case's rows per flush, with
                index_copy_ per field (a library call) beside it;
+               patch_carry_rows on the completion waves' own patches (each
+               tier the drive used), with the drive's plan acquisition
+               seconds by kind (row patch, resume, full rebuild; and full
+               rebuilds with resume off) beside it;
   5. parity  — a 500-node cluster with NoSchedule and PreferNoSchedule
                taints, unschedulable nodes, node selectors, pods that fit no
                node, zone and hostname spread, required and preferred
@@ -94,7 +119,10 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                PreemptionAsync/50Nodes (10 preemptions), the preempting
                case and the nominated-lane drive of phase 3: the cuda runs'
                victims, nominations and assignments must equal the
-               device="cpu" runs', with no verification divergence;
+               device="cpu" runs', with no verification divergence; the
+               completion waves and the NSSelector drive: the cuda runs'
+               assignments and plan-acquisition counters must equal the
+               device="cpu" runs';
   6. output  — a `{"kernels": [...]}` line, the card's name and power limit
                as nvidia-smi prints them, and last
                `{"ok": true, "device": {...}}`.
@@ -345,6 +373,7 @@ def kernel_phase(dev, np_cap: int, n_nodes: int) -> dict:
     lane_phase(K, dev, np_cap, n_nodes, errs)
     dry_run_phase(K, dev, np_cap, n_nodes, errs)
     scatter_phase(K, dev, np_cap, n_nodes, errs)
+    patch_phase(K, dev, np_cap, n_nodes, errs)
     torch.cuda.synchronize()
     print(f"kernels vs plain: max_abs_err {errs}", flush=True)
     for name, e in errs.items():
@@ -416,6 +445,39 @@ def scatter_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
         print(f"scatter_rows {d} rows: max_abs_err {e}, {changed} elements changed", flush=True)
         check(changed > 0, f"the {d}-row scatter changed nothing")
         errs["scatter_rows"] = max(errs["scatter_rows"], e)
+
+
+def patch_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
+    """patch_carry_rows against its plain version on a carry chained
+    through two real schedule_batch calls: K = 32, 256 and 2048 (tiers
+    padded with copies of their last real row), with and without a random
+    nominated-pod lane, both fit strategies."""
+    from kubernetes_tpu_torch.testing.kernel_inputs import (nominated_lane, patch_inputs,
+                                                            random_inputs, with_nominated_lane)
+
+    for lane in (False, True):
+        s, f = random_inputs(800 + lane, np_cap, n_nodes)
+        if lane:
+            f = with_nominated_lane(f, nominated_lane(800, np_cap, n_nodes))
+        st, ft = to_device(dev, s, f)
+        for strat in (0, 1):
+            carry = None
+            for _chain in range(2):
+                _out, carry = K.schedule_batch(st, ft, 1024, strat, 64, K.PlanFacts(),
+                                               n_active=1024, carry_in=carry)
+            for k, tier in ((20, 32), (200, 256), (1500, 2048)):
+                args = (st, ft, carry) + tuple(
+                    torch.from_numpy(a).to(dev)
+                    for a in patch_inputs(810 + k + strat, s, n_nodes, k, tier)) + (strat,)
+                before = [t.clone() for t in carry[:6]]
+                got, want = K.patch_carry_rows(*args), K._patch_carry_rows_plain(*args)
+                e = max_abs_err(tuple(got), tuple(want))
+                moved = int((want.fit_ok != carry.fit_ok).sum())
+                print(f"patch_carry_rows K {tier} ({k} rows){' lane' if lane else ''} strategy "
+                      f"{strat}: max_abs_err {e}, {moved} fit verdicts moved", flush=True)
+                check(moved > 0, f"the {tier}-row carry patch moved no fit verdict")
+                check(max_abs_err(before, carry[:6]) == 0, "patch_carry_rows wrote into its input")
+                errs["patch_carry_rows"] = max(errs["patch_carry_rows"], e)
 
 
 # ---------------------------------------------------------------------------
@@ -554,6 +616,216 @@ def lane_drive(dev, n_nodes: int = 5000, n_pre: int = 64, n_free: int = 512, n_o
     return sched, launches, inputs
 
 
+WAVES = "completion waves (SchedulingBasic's 5000 nodes, 10 waves of 1000 pods)"
+NSSEL = "SchedulingRequiredPodAntiAffinityWithNSSelector/5000Nodes_2000Pods"
+REBUILDS = ("plan_rebuilds_full", "plan_rebuilds_delta", "plan_rebuilds_resume",
+            "delta_dirty_rows")
+
+
+def snapshot_counts(sched) -> dict:
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    out = {c: getattr(sched, c) for c in REBUILDS + ("plan_acquire_s", "plan_build_s",
+                                                      "host_path_pods", "failures")}
+    out.update({k.__name__: k.launches for k in K.WRAPPERS})
+    out["scatter_flushes"] = sched.mirror.scatter_flushes
+    return out
+
+
+def wave_drive(dev, resume: bool = True, n_nodes: int = 5000, warm_pods: int = 1024,
+               waves: int = 10, wave_pods: int = 1000, deletes: int = 100,
+               parked_adds: int = 512, capture=None):
+    """Jobs completing and new ones arriving. SchedulingBasic's cluster and
+    warm pods, then `waves` waves of `wave_pods` 100m/128Mi pods; before
+    each wave `deletes` bound pods of earlier waves are deleted (seeded).
+    Wave 3 puts a NoSchedule taint on a node and wave 5 lifts it; in wave 7
+    a bound-pod delete and `parked_adds` pod creations are parked in the
+    inbox at the session's first dispatch (the session must take them in);
+    wave 9 puts a PreferNoSchedule taint on a node (the plan lacks the lane:
+    a full rebuild, then the general scan) and wave 10 adds a node (a full
+    rebuild). `resume=False` runs the same drive with incremental resume
+    off. The launch counts are zeroed after the warm pods and read after
+    the last wave. `capture`, a dict, receives the first patch_carry_rows
+    call of each tier (its arguments)."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.models import tpu_scheduler as TS
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    rng = random.Random(2024)
+    sched = bench.build_cluster(n_nodes, device=dev, resume=resume)
+    bench.warm(sched, warm_pods)
+    check(sched.plan_rebuilds_full == 1, f"{WAVES}: the warm pods took {sched.plan_rebuilds_full} "
+          "full rebuilds, not 1")
+    wave_of, kinds = [0], []
+    acquire = sched._resume_or_rebuild
+
+    def recorded_acquire(*args):
+        out = acquire(*args)
+        kinds.append((wave_of[0], out[4]))
+        return out
+    sched._resume_or_rebuild = recorded_acquire
+    patch = TS.patch_carry_rows
+
+    def recorded_patch(*args):
+        if capture is not None and args[3].shape[0] not in capture:
+            capture[args[3].shape[0]] = args
+        return patch(*args)
+    TS.patch_carry_rows = recorded_patch
+    taint_node, pns_node = n_nodes // 3, 2 * n_nodes // 3
+    per_wave = []
+    K.reset_launch_counts()
+    c0 = snapshot_counts(sched)
+    try:
+        for w in range(1, waves + 1):
+            wave_of[0] = w
+            before = snapshot_counts(sched)
+            done = sorted(p.name for p in sched.clientset.pods.values() if p.node_name)
+            by_name = {p.name: p for p in sched.clientset.pods.values()}
+            for name in rng.sample(done, deletes):
+                sched.clientset.delete_pod(by_name[name])
+            if w == 3:
+                sched.clientset.update_node(bench.cluster_node(
+                    taint_node, taint=("dedicated", "infra", "NoSchedule")))
+            elif w == 5:
+                sched.clientset.update_node(bench.cluster_node(taint_node))
+            elif w == 9:
+                sched.clientset.update_node(bench.cluster_node(
+                    pns_node, taint=("soft", "", "PreferNoSchedule")))
+            elif w == 10:
+                sched.clientset.create_node(bench.cluster_node(n_nodes))
+            for p in bench.make_pods(wave_pods, f"wave{w}"):
+                sched.clientset.create_pod(p)
+            if w == 7:
+                done = sorted(p.name for p in sched.clientset.pods.values() if p.node_name)
+                parked_victim = by_name[rng.choice(done)]
+
+                def parked():
+                    sched.clientset.delete_pod(parked_victim)
+                    for p in bench.make_pods(parked_adds, "wave7-parked"):
+                        sched.clientset.create_pod(p)
+                dispatch = sched._dispatch
+
+                def first_dispatch(*args):
+                    del sched._dispatch
+                    sched._event_inbox.append((parked, ()))
+                    return dispatch(*args)
+                sched._dispatch = first_dispatch
+            sched.run_until_idle()
+            after = snapshot_counts(sched)
+            d = {k: after[k] - before[k] for k in after}
+            per_wave.append(dict(wave=w, sessions=[k for ww, k in kinds if ww == w],
+                                 has_pns=bool(sched._resume and sched._resume[2][1].facts.has_pns),
+                                 **d))
+    finally:
+        TS.patch_carry_rows = patch
+        del sched._resume_or_rebuild
+    total = {k: v - c0[k] for k, v in snapshot_counts(sched).items()}
+    launches = {k: total[k] for k in [w.__name__ for w in K.WRAPPERS] + ["scatter_flushes"]}
+    label = WAVES if resume else f"{WAVES}, resume off"
+    for r in per_wave:
+        print(f"{label} wave {r['wave']}: sessions {r['sessions']}, full/delta/resume "
+              f"{r['plan_rebuilds_full']}/{r['plan_rebuilds_delta']}/{r['plan_rebuilds_resume']}, "
+              f"{r['delta_dirty_rows']} dirty rows, plan acquisition {r['plan_acquire_s']:.6f} s "
+              f"(full rebuilds {r['plan_build_s']:.6f} s), patch_carry_rows "
+              f"{r['patch_carry_rows']}, scatter_rows {r['scatter_rows']}, scan_general "
+              f"{r['scan_general']}, lap_schedule {r['lap_schedule']}", flush=True)
+    pods = list(sched.clientset.pods.values())
+    n_all = warm_pods + waves * (wave_pods - deletes) + parked_adds - 1
+    check(len(pods) == n_all and all(p.node_name for p in pods),
+          f"{label}: {sum(1 for p in pods if p.node_name)} of {len(pods)} pods bound "
+          f"({n_all} expected)")
+    check(total["host_path_pods"] == 0 and total["failures"] == 0,
+          f"{label}: {total['host_path_pods']} host-path pods, {total['failures']} failures")
+    if resume:
+        check(sched.plan_rebuilds_full == 3,
+              f"{label}: {sched.plan_rebuilds_full} full rebuilds, not 3 (warm, waves 9, 10)")
+        for r in per_wave:
+            first = r["sessions"][0] if r["sessions"] else None
+            want = ("full",) if r["wave"] in (9, 10) else ("delta", "resume")
+            check(first in want, f"{label}: wave {r['wave']} began with {first}, not {want}")
+        w7 = per_wave[6]
+        check(len(w7["sessions"]) == 1 and w7["plan_rebuilds_delta"] > (w7["sessions"][0] == "delta"),
+              f"{label}: wave 7 took sessions {w7['sessions']} and "
+              f"{w7['plan_rebuilds_delta']} delta patches, not one session that patched "
+              "its parked delete")
+        check(per_wave[8]["has_pns"], f"{label}: wave 9's plan lacks the PreferNoSchedule lane")
+        if torch.device(dev).type == "cuda":
+            check(per_wave[8]["scan_general"] > 0, f"{label}: wave 9 did not take scan_general")
+            for k in ("patch_carry_rows", "scatter_rows", "lap_schedule", "static_masks"):
+                check(launches[k] > 0, f"{k} was not launched on the {label} path")
+    else:
+        check(total["plan_rebuilds_delta"] == total["plan_rebuilds_resume"] == 0,
+              f"{label}: a plan was resumed with resume off")
+    return sched, launches, per_wave
+
+
+def nsselector_drive(dev, n_nodes: int = 6000, resume: bool = True, init_only: bool = False,
+                     n_init=None, n_measure=None):
+    """SchedulingRequiredPodAntiAffinityWithNSSelector/5000Nodes_2000Pods:
+    101 team: devops namespaces, 100 x 40 init pods that differ only in
+    their namespace (one session under the namespace-erased signature,
+    where the exact signature gives one a namespace), then 2000 pods with
+    hostname anti-affinity to color: green pods of those namespaces, one on
+    each node left free. Launch counts zeroed just before the measured
+    pods. Returns (scheduler, result, launches, init plan acquisitions)."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    w = bench.WORKLOADS[NSSEL]
+    n_init = w.init_pods if n_init is None else n_init
+    n_measure = w.measure_pods if n_measure is None else n_measure
+    sched = bench.build_cluster(n_nodes, device=dev, resume=resume)
+    bench.warm(sched, n_init, NSSEL)
+    init_plans = sched.plan_rebuilds_full + sched.plan_rebuilds_delta + sched.plan_rebuilds_resume
+    init = [p for p in sched.clientset.pods.values() if p.namespace.startswith("init-ns-")]
+    print(f"{NSSEL}{'' if resume else ' (resume off)'}: init phase {len(init)} pods in "
+          f"{len({p.namespace for p in init})} namespaces, {init_plans} plan acquisitions, "
+          f"{sum(1 for p in init if p.node_name)} bound", flush=True)
+    check(len(init) == n_init and all(p.node_name for p in init),
+          f"{NSSEL}: not every init pod bound")
+    if init_only:
+        return sched, None, None, init_plans
+    check(init_plans <= 2, f"{NSSEL}: the init phase took {init_plans} plan acquisitions")
+    flushes0 = sched.mirror.scatter_flushes
+    K.reset_launch_counts()
+    result = bench.measure(sched, n_measure, workload=NSSEL)
+    launches = {k.__name__: k.launches for k in K.WRAPPERS}
+    launches["scatter_flushes"] = sched.mirror.scatter_flushes - flushes0
+    print(f"path {NSSEL}: {json.dumps(result)}", flush=True)
+    pods = list(sched.clientset.pods.values())
+    measured = [p for p in pods if p.namespace == "measure-ns-0"]
+    check(len(measured) == n_measure and all(p.node_name for p in measured),
+          f"{NSSEL}: {sum(1 for p in measured if p.node_name)} of {n_measure} measured "
+          "pods bound")
+    # Every pod is color: green in a team: devops namespace, so a measured
+    # pod's node holds no other pod. (The init pods, which carry no term,
+    # share nodes: their scores tie on empty and lightly used nodes.)
+    init_nodes = {p.node_name for p in pods if p.namespace != "measure-ns-0"}
+    m_nodes = [p.node_name for p in measured]
+    print(f"{NSSEL}: init pods on {len(init_nodes)} nodes, measured pods on {len(set(m_nodes))} "
+          f"nodes, {len(init_nodes & set(m_nodes))} shared", flush=True)
+    check(len(set(m_nodes)) == len(m_nodes) and not init_nodes & set(m_nodes),
+          f"{NSSEL}: a node holds a measured pod and another color: green pod")
+    d = result["detail"]
+    check(d["host_path_pods"] == 0 and d["failures"] == 0,
+          f"{NSSEL}: {d['host_path_pods']} host-path pods, {d['failures']} failures")
+    if torch.device(dev).type == "cuda":
+        check(launches["lap_schedule"] > 0, f"the anti-lane lap was not launched on {NSSEL}")
+    return sched, result, launches, init_plans
+
+
+def check_launched(name: str, launches: dict, detail: dict, kernels) -> None:
+    """Each kernel of `kernels` was launched on the path. A measured window
+    whose sessions all resumed the warm-up session's plan chains its carry
+    and launches no resource_eval (the fresh-carry seed): that window shows
+    its resumes instead."""
+    for k in kernels:
+        if (k == "resource_eval" and detail["plan_rebuilds_full"] == 0
+                and detail["plan_rebuilds_resume"] + detail["plan_rebuilds_delta"] > 0):
+            continue
+        check(launches[k] > 0, f"{k} was not launched on the {name} path")
+
+
 def check_preempting(sched, result, what: str) -> None:
     pre = result["detail"]["preemption"]
     pods = list(sched.clientset.pods.values())
@@ -587,8 +859,8 @@ def paths_phase(dev) -> dict:
 
     name = "SchedulingBasic/5000Nodes_10000Pods"
     sched, result, launches = drive(dev, name)
-    for k in ("static_masks", "resource_eval", "lap_schedule"):
-        check(launches[k] > 0, f"{k} was not launched on the {name} path")
+    check_launched(name, launches, result["detail"], ("static_masks", "resource_eval",
+                                                      "lap_schedule"))
     out[name] = (sched, result, launches)
 
     small = bench.build_cluster(5000, device=dev, max_batch=64)
@@ -628,8 +900,8 @@ def paths_phase(dev) -> dict:
     out[name] = (sched, result, launches)
 
     sched, result, launches = drive(dev, PREEMPT)
-    for k in ("static_masks", "resource_eval", "lap_schedule"):
-        check(launches[k] > 0, f"{k} was not launched on the {PREEMPT} path")
+    check_launched(PREEMPT, launches, result["detail"], ("static_masks", "resource_eval",
+                                                         "lap_schedule"))
     check(result["detail"]["preemption"]["attempts"] == 0, f"{PREEMPT} preempted")
     out[PREEMPT] = (sched, result, launches)
 
@@ -654,16 +926,37 @@ def paths_phase(dev) -> dict:
 
     sched, result, launches = preempting_case(dev)
     check_preempting(sched, result, PREEMPTING)
-    for k in ("static_masks", "resource_eval", "lap_schedule", "dry_run_preemption",
-              "scatter_rows"):
-        check(launches[k] > 0, f"{k} was not launched on the {PREEMPTING} path")
+    check_launched(PREEMPTING, launches, result["detail"],
+                   ("static_masks", "resource_eval", "lap_schedule", "dry_run_preemption",
+                    "scatter_rows"))
     out[PREEMPTING] = (sched, result, launches)
 
     sched, launches, lane_inputs = lane_drive(dev)
     for k in ("static_masks", "resource_eval", "lap_schedule"):
         check(launches[k] > 0, f"{k} was not launched on the {LANE} path")
     out[LANE] = (sched, None, launches)
-    return out, lane_inputs
+
+    capture = {}
+    sched, launches, per_wave = wave_drive(dev, capture=capture)
+    out[WAVES] = (sched, None, launches)
+    # The same drive with incremental resume off: every session rebuilds
+    # its plan; the assignments must not change.
+    base, _l, base_waves = wave_drive(dev, resume=False)
+    check(assignments(base) == assignments(sched),
+          f"{WAVES}: the assignments with resume off differ from those with resume")
+    print(f"{WAVES}: the same assignments with resume off ({len(assignments(base))} pods)",
+          flush=True)
+    waves = dict(per_wave=per_wave, per_wave_without_resume=base_waves, capture=capture)
+
+    sched, result, launches, init_plans = nsselector_drive(dev)
+    out[NSSEL] = (sched, result, launches)
+    _s, _r, _l, base_plans = nsselector_drive(dev, resume=False, init_only=True)
+    waves["nsselector_init_plans"] = (init_plans, base_plans)
+    return out, lane_inputs, waves
+
+
+def assignments(sched) -> dict:
+    return {p.name: p.node_name for p in sched.clientset.pods.values()}
 
 
 # ---------------------------------------------------------------------------
@@ -957,6 +1250,58 @@ def preemption_timing(paths: dict, errs: dict) -> dict:
     return rows
 
 
+def patch_timing(waves: dict, errs: dict) -> dict:
+    """patch_carry_rows on the wave drive's own patches (the first call of
+    each tier the drive used), held exact first, with the drive's plan
+    acquisition seconds by kind beside it: delta and resume acquisitions
+    against full rebuilds, with resume and in the same drive without it."""
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    tiers = {}
+    for tier, args in sorted(waves["capture"].items()):
+        state, f, carry, idx, req_rows, nz_rows, cnt_rows, strat = args
+        check(max_abs_err(tuple(K.patch_carry_rows(*args)),
+                          tuple(K._patch_carry_rows_plain(*args))) == 0,
+              f"patch_carry_rows disagrees with its plain version on the {WAVES}' {tier}-row patch")
+        R, FR = state.alloc_r.shape[1], f.fit_slots.shape[0]
+        lane = f.nom_req.shape[0] > 0
+        d = int(torch.unique(idx).numel())
+        # What the patch needs, each distinct row once: its index, new
+        # aggregates, allocatable (and lane) read; six lanes written. Ops:
+        # one resource_eval of the row.
+        nbytes = d * (4 + 8 * R + 16 + 4 + 8 * R + 8 + (8 * R + 4 if lane else 0)) \
+            + d * (8 * R + 16 + 4 + 1 + 8 + 8)
+        ops = d * (4 * R + 12 * FR + 24)
+        tiers[tier] = kernel_row("patch_carry_rows", "kubernetes_tpu/ops/kernel.py:584",
+                                 errs["patch_carry_rows"], lambda a=args: K.patch_carry_rows(*a),
+                                 lambda a=args: K._patch_carry_rows_plain(*a), nbytes, ops)
+        tiers[tier].update(tier=tier, rows=d)
+    check(tiers, f"the {WAVES} made no carry patch")
+    row = dict(tiers[max(tiers)])  # the between-session patch of a wave's deletes
+    row["tiers"] = {t: {k: r[k] for k in ("ms", "ms_launches_seen", "host_ms", "plain_ms",
+                                           "bound_ms", "bound_by", "rows")}
+                    for t, r in tiers.items()}
+    plan_s = {}
+    for key, per_wave in (("with_resume", waves["per_wave"]),
+                          ("without_resume", waves["per_wave_without_resume"])):
+        by_kind = {}
+        for r in per_wave:
+            if r["plan_rebuilds_full"] + r["plan_rebuilds_delta"] + r["plan_rebuilds_resume"] == 1:
+                # one acquisition in the wave: its seconds are the wave's
+                by_kind.setdefault(r["sessions"][0], []).append(r["plan_acquire_s"])
+        plan_s[key] = {k: dict(sessions=len(v), mean_s=sum(v) / len(v), max_s=max(v))
+                       for k, v in by_kind.items()}
+    row["wave_drive_plan_s"] = plan_s
+    row["nsselector_init_plans"] = dict(zip(("with_resume", "without_resume"),
+                                            waves["nsselector_init_plans"]))
+    print("patch_carry_rows on the wave drive's patches: " + ", ".join(
+        f"K {t} ({r['rows']} rows) {r['ms']:.6f} ms on the device, {r['host_ms']:.4f} ms a call, "
+        f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.8f} ms" for t, r in tiers.items())
+        + f"; plan acquisition s by kind {json.dumps(plan_s)}; NSSelector init plans "
+        f"{row['nsselector_init_plans']}", flush=True)
+    return {"patch_carry_rows": row}
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: cuda/cpu parity
 # ---------------------------------------------------------------------------
@@ -1063,6 +1408,18 @@ def parity_phase(dev, paths: dict):
     same_preemption(paths[PREEMPTING][0], cpu_sched, PREEMPTING)
     same_preemption(paths[LANE][0], lane_drive("cpu")[0], LANE)
 
+    # Incremental resume: the same assignments and plan acquisitions.
+    def same_resume(a, b, what):
+        got, want = assignments(a), assignments(b)
+        diffs = {k: (v, got.get(k)) for k, v in want.items() if got.get(k) != v}
+        check(not diffs, f"cuda/cpu divergence ({what}): {list(diffs.items())[:5]}")
+        ca, cb = ({c: getattr(x, c) for c in REBUILDS} for x in (a, b))
+        check(ca == cb, f"{what}: counters {ca} vs {cb}")
+        print(f"parity ({what}): {len(want)} pods, {cb}, identical", flush=True)
+
+    same_resume(paths[WAVES][0], wave_drive("cpu")[0], WAVES)
+    same_resume(paths[NSSEL][0], nsselector_drive("cpu")[0], NSSEL)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1088,11 +1445,12 @@ def main() -> int:
     print(f"kernels phase: {time.perf_counter() - t1:.1f} s", flush=True)
 
     t1 = time.perf_counter()
-    paths, lane_inputs = paths_phase(dev)
+    paths, lane_inputs, waves = paths_phase(dev)
     print(f"paths phase: {time.perf_counter() - t1:.1f} s", flush=True)
     t1 = time.perf_counter()
     rows = timing_phase(paths, errs, lane_inputs)
     rows.update(preemption_timing(paths, errs))
+    rows.update(patch_timing(waves, errs))
     print(f"timing phase: {time.perf_counter() - t1:.1f} s", flush=True)
     for name, (_s, result, _l) in paths.items():
         if result is not None:

@@ -29,6 +29,15 @@ of 32 cpu / 256Gi / 110 pods across 50 zones with 100m pods:
                                              shape nothing is preempted: the
                                              measured pods find 3000 empty
                                              nodes.
+  SchedulingRequiredPodAntiAffinityWithNSSelector/5000Nodes_2000Pods
+                                             6000 of the 32-cpu nodes, 101
+                                             namespaces labelled team: devops,
+                                             100 x 40 init pods (100m, color:
+                                             green, one namespace each 40),
+                                             then 2000 pods in measure-ns-0
+                                             with hostname anti-affinity to
+                                             color: green pods of team: devops
+                                             namespaces.
 
 The kernels are built and every plan of the measured shape is dispatched
 once with no active pod (TorchScheduler.warm_for) before the warm-up pods,
@@ -37,8 +46,11 @@ package's bench.py (`metric`, `value`, `unit`, `vs_baseline`, `detail`);
 `vs_baseline` divides by the upstream threshold of the shape (the
 reference's own pods/s floor, no target of the port), `detail.platform`
 names the card, `detail.preemption` counts the window's PostFilter
-attempts, device dry runs, victims and verification divergences, and
-`detail.churn_pods` the churner's pods.
+attempts, device dry runs, victims and verification divergences,
+`detail.churn_pods` the churner's pods, and the plan acquisitions by kind
+(`plan_rebuilds_full` / `_delta` / `_resume`), the rows the delta patches
+wrote (`delta_dirty_rows`) and the seconds of full rebuilds (`plan_build_s`)
+and of every acquisition and in-session patch (`plan_acquire_s`).
 
 Environment: BENCH_NODES, BENCH_PODS, BENCH_WARMUP (the warm-up or init
 pods), BENCH_MAX_BATCH; `--device cpu` runs the kernels' plain versions on
@@ -59,6 +71,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from .api.types import Namespace
 from .models import TorchScheduler
 from .ops import kernel
 from .testing import make_node, make_pod
@@ -67,8 +80,10 @@ ZONE = "topology.kubernetes.io/zone"
 HOSTNAME = "kubernetes.io/hostname"
 
 WINDOW_COUNTERS = ("scheduled", "failures", "device_batches", "device_scheduled",
-                   "host_path_pods", "plan_build_s", "collect_s", "dispatch_s",
-                   "device_wait_s", "host_commit_s", "session_end_s")
+                   "host_path_pods", "plan_build_s", "plan_acquire_s", "collect_s",
+                   "dispatch_s", "device_wait_s", "host_commit_s", "session_end_s",
+                   "plan_rebuilds_full", "plan_rebuilds_delta", "plan_rebuilds_resume",
+                   "delta_dirty_rows")
 
 
 class NodeTemplate(NamedTuple):
@@ -89,11 +104,21 @@ class Churn(NamedTuple):
     interval_s: float
 
 
+class Namespaces(NamedTuple):
+    """createNamespaces + createPodSets: `init` namespaces `init-ns-<i>`
+    share the init pods evenly (in namespace order), the measured pods go
+    to `measure-ns-0`; all carry `labels`."""
+
+    init: int
+    labels: dict
+
+
 class Workload(NamedTuple):
     """One scheduler_perf shape: the measured pods' template (a builder
     step over make_pod), their count, the warm-up/init pods (`init_build`
     their template; None: the measured shape), the upstream pods/s
-    threshold, the nodes, and the churn during the window."""
+    threshold, the nodes, the churn during the window, and the namespaces
+    the pods are created in (None: `default`)."""
 
     measure_pods: int
     build: Callable
@@ -102,6 +127,7 @@ class Workload(NamedTuple):
     threshold: float
     node: NodeTemplate = NodeTemplate()
     churn: Optional[Churn] = None
+    namespaces: Optional[Namespaces] = None
 
 
 def _basic(b):
@@ -134,34 +160,73 @@ WORKLOADS = {
     "Unschedulable/5kNodes/100Init/10kPods": Workload(
         10000, _basic, 100, _big, 590.0,
         churn=Churn(lambda b: b.req({"cpu": 900, "memory": "1Gi"}).priority(1000), 0.2)),
+    "SchedulingRequiredPodAntiAffinityWithNSSelector/5000Nodes_2000Pods": Workload(
+        2000, lambda b: b.req({"cpu": "100m"}).labels({"color": "green"})
+        .pod_affinity(HOSTNAME, {"color": "green"}, anti=True, ns_labels={"team": "devops"}),
+        4000, lambda b: b.req({"cpu": "100m"}).labels({"color": "green"}), 140.0,
+        namespaces=Namespaces(100, {"team": "devops"})),
 }
+NODES = {"SchedulingRequiredPodAntiAffinityWithNSSelector/5000Nodes_2000Pods": 6000}
 DEFAULT_WORKLOAD = "SchedulingBasic/5000Nodes_10000Pods"
 
 
+def cluster_node(i: int, node: NodeTemplate = NodeTemplate(), taint=None):
+    """createNodes' node `node-<i>` of the template (`taint`: a (key, value,
+    effect) to add)."""
+    b = make_node().name(f"node-{i}").capacity({"cpu": node.cpu, "memory": node.memory,
+                                                 "pods": node.pods})
+    if node.zones:
+        b = b.zone(f"zone-{i % node.zones}")
+    if taint is not None:
+        b = b.taint(*taint)
+    return b.obj()
+
+
 def build_cluster(n_nodes: int, device="cuda", max_batch=None,
-                  node: NodeTemplate = NodeTemplate()) -> TorchScheduler:
-    sched = TorchScheduler(device=device, max_batch=max_batch)
+                  node: NodeTemplate = NodeTemplate(), resume: bool = True) -> TorchScheduler:
+    sched = TorchScheduler(device=device, max_batch=max_batch, resume=resume)
     for i in range(n_nodes):
-        b = (make_node().name(f"node-{i}")
-             .capacity({"cpu": node.cpu, "memory": node.memory, "pods": node.pods}))
-        if node.zones:
-            b = b.zone(f"zone-{i % node.zones}")
-        sched.clientset.create_node(b.obj())
+        sched.clientset.create_node(cluster_node(i, node))
     return sched
 
 
-def _clones(build: Callable, n: int, prefix: str):
-    proto = build(make_pod().name("proto")).obj()
+def _clones(build: Callable, n: int, prefix: str, namespace: str = "default"):
+    proto = build(make_pod().name("proto").namespace(namespace)).obj()
     return [proto.clone_from_template(f"{prefix}-{i}") for i in range(n)]
 
 
 def make_pods(n: int, prefix: str, workload: str = DEFAULT_WORKLOAD):
     """N clones of the workload's measured template (shared spec and
-    signature memo). SchedulingBasic pods carry `app: <prefix>`."""
-    build = WORKLOADS[workload].build
+    signature memo), in its measured namespace. SchedulingBasic pods carry
+    `app: <prefix>`."""
+    w = WORKLOADS[workload]
+    ns = "measure-ns-0" if w.namespaces is not None else "default"
     if workload == DEFAULT_WORKLOAD:
-        return _clones(lambda b: build(b).labels({"app": prefix}), n, prefix)
-    return _clones(build, n, prefix)
+        return _clones(lambda b: w.build(b).labels({"app": prefix}), n, prefix)
+    return _clones(w.build, n, prefix, ns)
+
+
+def init_pods(n: int, workload: str):
+    """The workload's init pods (its warm-up pods of the measured shape
+    where it has no init template), spread evenly over its init
+    namespaces in namespace order (createPodSets), one template each."""
+    w = WORKLOADS[workload]
+    if w.init_build is None:
+        return make_pods(n, "warm", workload)
+    if w.namespaces is None:
+        return _clones(w.init_build, n, "init")
+    k = w.namespaces.init
+    return [p for i in range(k)
+            for p in _clones(w.init_build, n // k + (i < n % k), f"init-{i}", f"init-ns-{i}")]
+
+
+def create_namespaces(sched: TorchScheduler, workload: str) -> None:
+    """createNamespaces: the init namespaces, then measure-ns-0."""
+    ns = WORKLOADS[workload].namespaces
+    if ns is None:
+        return
+    for name in [f"init-ns-{i}" for i in range(ns.init)] + ["measure-ns-0"]:
+        sched.clientset.create_namespace(Namespace(name=name, labels=dict(ns.labels)))
 
 
 class Churner:
@@ -214,15 +279,12 @@ def platform_name(sched: TorchScheduler) -> str:
 
 
 def warm(sched: TorchScheduler, warmup: int, workload: str = DEFAULT_WORKLOAD) -> None:
-    """Kernel build and inert dispatches of the measured shape, then the
-    workload's warm-up (or init) pods, scheduled (or tried)."""
-    w = WORKLOADS[workload]
+    """The workload's namespaces, kernel build and inert dispatches of the
+    measured shape, then the workload's warm-up (or init) pods, scheduled
+    (or tried)."""
+    create_namespaces(sched, workload)
     sched.warm_for(make_pods(1, "warmshape", workload)[0])
-    if w.init_build is not None:
-        pods = _clones(w.init_build, warmup, "init")
-    else:
-        pods = make_pods(warmup, "warm", workload)
-    for p in pods:
+    for p in init_pods(warmup, workload):
         sched.clientset.create_pod(p)
     sched.run_until_idle()
 
@@ -305,7 +367,7 @@ def main(argv=None) -> int:
         print(f"unknown workload {workload!r}; one of: {', '.join(WORKLOADS)}", file=sys.stderr)
         return 2
     w = WORKLOADS[workload]
-    n_nodes = int(os.environ.get("BENCH_NODES", 5000))
+    n_nodes = int(os.environ.get("BENCH_NODES", NODES.get(workload, 5000)))
     n_pods = int(os.environ.get("BENCH_PODS", w.measure_pods))
     warmup = int(os.environ.get("BENCH_WARMUP", w.init_pods))
     max_batch = int(os.environ.get("BENCH_MAX_BATCH", 0)) or None

@@ -8,15 +8,116 @@ only NodeInfos whose generation advanced since the last UpdateSnapshot are
 re-cloned (cache.go:206,236-262). The snapshot's list order is the
 zone-interleaved NodeTree order, which the device kernels' rotation
 arithmetic operates on directly (row index == list position).
+
+Beside it, the typed cluster-event journal (the JAX package's
+core/cache.py:30-145): the cluster-event version a device session keys on,
+with what each bump was, so that a session can patch the node rows an event
+dirtied instead of rebuilding its plan.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Set
+from collections import deque
+from typing import Dict, List, NamedTuple, Optional, Set
 
 from ..api.types import Namespace, Node, Pod
 from .node_info import NodeInfo, PodInfo, next_generation
 from .node_tree import NodeTree
+
+# ---------------------------------------------------------------------------
+# Typed cluster-event journal
+# ---------------------------------------------------------------------------
+
+# Queue-only change (a pending pod's update or delete): dirties nothing
+# node-side, so a live session's state, plan and carry stay exact.
+EV_QUEUE = "queue"
+# Namespace created or relabelled: only namespaceSelector matching reads
+# namespace labels, so it is benign for plans with no inter-pod affinity
+# anywhere in play.
+EV_NAMESPACE = "namespace"
+# A pod appeared on, left or changed on a node (key = node name): dirties the
+# node's resource aggregates, and pod-derived feature tables unless the pod
+# is `plain` (pod_event_flags) and the plan carries none.
+EV_POD_ADD = "pod_add"
+EV_POD_REMOVE = "pod_remove"
+EV_POD_UPDATE = "pod_update"
+# Node object replaced with its labels and images intact (key = node name):
+# dirties that row's taint, allocatable and unschedulable tensors only.
+EV_NODE_UPDATE = "node_update"
+# Node added or removed: the row order changes, never delta-patchable.
+EV_STRUCTURAL = "structural"
+# Everything else (a node's labels changed): full rebuild.
+EV_OTHER = "other"
+
+
+class ClusterEvent(NamedTuple):
+    seq: int
+    kind: str
+    key: str = ""            # node name (pod and node kinds) or namespace name
+    pod_plain: bool = False  # no affinity or spread terms, no PVCs or claims
+    pod_ports: bool = False  # requests host ports
+    # The event can only enlarge feasibility (a pod removed, a taint lifted,
+    # capacity grown): device results computed before it stay feasible, so
+    # in-flight batches may still commit while the patch waits for the
+    # pipeline to drain.
+    shrink: bool = False
+
+
+def pod_event_flags(pod: Pod) -> tuple:
+    """(pod_plain, pod_ports) for a journal record. `plain`: the pod cannot
+    dirty any pod-derived feature table (no affinity or anti-affinity terms,
+    no topology spread constraints, no PVC-backed volumes, no claims)."""
+    aff = pod.affinity
+    plain = not (
+        pod.topology_spread_constraints
+        or (aff is not None and (aff.pod_affinity or aff.pod_anti_affinity))
+        or any(v.pvc_name for v in pod.volumes)
+        or pod.resource_claims
+    )
+    return plain, bool(pod.host_ports())
+
+
+class EventJournal:
+    """Bounded journal of node-state-relevant cluster events. `seq` is the
+    cluster-event version; `since(S)` answers what changed after S, or None
+    when S has fallen off the retention window (treat as "anything may have
+    changed": full rebuild)."""
+
+    __slots__ = ("cap", "seq", "_events")
+
+    def __init__(self, capacity: int = 4096):
+        self.cap = capacity
+        self.seq = 0
+        self._events: deque = deque()
+
+    def record(self, kind: str, key: str = "", pod_plain: bool = False,
+               pod_ports: bool = False, shrink: bool = False) -> int:
+        self.seq += 1
+        self._events.append(ClusterEvent(self.seq, kind, key, pod_plain, pod_ports, shrink))
+        if len(self._events) > self.cap:
+            self._events.popleft()
+        return self.seq
+
+    def since(self, seq: int) -> Optional[List[ClusterEvent]]:
+        """Events with .seq > seq in order, [] when nothing happened, or None
+        when the window was truncated. Walks from the right, so a check costs
+        O(new events)."""
+        if seq >= self.seq:
+            return []
+        if not self._events or self._events[0].seq > seq + 1:
+            return None
+        out: List[ClusterEvent] = []
+        for e in reversed(self._events):
+            if e.seq <= seq:
+                break
+            out.append(e)
+        out.reverse()
+        return out
+
+
+def _has_pod_affinity(pod: Pod) -> bool:
+    aff = pod.affinity
+    return aff is not None and bool(aff.pod_affinity or aff.pod_anti_affinity)
 
 
 class Snapshot:
@@ -57,6 +158,10 @@ class Cache:
         self._dirty: Set[str] = set()
         self._removed_since_snapshot = False
         self.namespaces: Dict[str, Namespace] = {}
+        # Pods (assumed or bound) that carry inter-pod (anti-)affinity terms:
+        # the live gate of the namespace-erased session signature and of the
+        # namespace-event delta classification (models/tpu_scheduler.py).
+        self.affinity_pod_refs = 0
 
     # -- namespaces (read by namespaceSelector matching) -------------------
 
@@ -154,9 +259,13 @@ class Cache:
         if pod_info is None or pod_info.pod is not pod:
             pod_info = PodInfo.of(pod)
         ni.add_pod(pod_info)
+        if _has_pod_affinity(pod):
+            self.affinity_pod_refs += 1
         self._dirty.add(pod.node_name)
 
     def _remove_pod_from_node(self, pod: Pod) -> None:
+        if _has_pod_affinity(pod):
+            self.affinity_pod_refs = max(0, self.affinity_pod_refs - 1)
         ni = self.nodes.get(pod.node_name)
         if ni is not None:
             ni.remove_pod(pod)

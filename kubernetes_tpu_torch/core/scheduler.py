@@ -23,12 +23,27 @@ session (models/tpu_scheduler.py) also uses for pods it hands back:
 
 from __future__ import annotations
 
+import threading
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..api.types import Pod
-from .cache import Cache, Snapshot
+from .cache import (
+    EV_NAMESPACE,
+    EV_NODE_UPDATE,
+    EV_OTHER,
+    EV_POD_ADD,
+    EV_POD_REMOVE,
+    EV_POD_UPDATE,
+    EV_QUEUE,
+    EV_STRUCTURAL,
+    Cache,
+    EventJournal,
+    Snapshot,
+    pod_event_flags,
+)
 from .clientset import FakeClientset
 from .framework import (
     UNSCHEDULABLE,
@@ -119,23 +134,61 @@ class Scheduler:
         self.scheduled = 0
         self.failures = 0
         self.error_log: List[str] = []
-        # Versions node-state-relevant cluster changes: a device session's
-        # carry is only valid while this stays where the session began.
-        self.cluster_event_seq = 0
-        self.clientset.on_pod_event(self._on_pod_event)
-        self.clientset.on_node_event(self._on_node_event)
-        self.clientset.on_namespace_event(self._on_namespace_event)
+        # The typed journal of node-state-relevant cluster changes; its seq
+        # is the cluster-event version (cluster_event_seq) that a device
+        # session's plan and carry are valid against.
+        self.journal = EventJournal()
+        # Watch events raised off the scheduling thread wait here until the
+        # loop replays them (_threaded): deque append/popleft are atomic.
+        self._event_inbox: deque = deque()
+        self.clientset.on_pod_event(self._threaded(self._on_pod_event))
+        self.clientset.on_node_event(self._threaded(self._on_node_event))
+        self.clientset.on_namespace_event(self._threaded(self._on_namespace_event))
+
+    @property
+    def cluster_event_seq(self) -> int:
+        return self.journal.seq
 
     # -- event handlers (eventhandlers.go:624 addAllEventHandlers) ---------
 
+    def _record_event(self, kind: str, key: str = "", pod_plain: bool = False,
+                      pod_ports: bool = False, shrink: bool = False) -> None:
+        """Journal one typed event (advances cluster_event_seq)."""
+        self.journal.record(kind, key, pod_plain=pod_plain, pod_ports=pod_ports, shrink=shrink)
+
+    def _threaded(self, handler):
+        """Watch events raised off the scheduling thread are parked in an
+        inbox and replayed by the scheduling loop (the DeltaFIFO seam of
+        client-go delta_fifo.go): cache and queue mutation stay on one
+        thread. Events raised on the scheduling thread dispatch inline."""
+        loop_ident = threading.get_ident()
+
+        def dispatch(*args):
+            if threading.get_ident() == loop_ident:
+                handler(*args)
+            else:
+                self._event_inbox.append((handler, args))
+        return dispatch
+
+    def drain_event_inbox(self) -> int:
+        """Replay parked off-thread watch events on the scheduling loop."""
+        n = 0
+        while self._event_inbox:
+            try:
+                handler, args = self._event_inbox.popleft()
+            except IndexError:
+                break
+            handler(*args)
+            n += 1
+        return n
+
     def _on_pod_event(self, kind: str, old: Optional[Pod], new: Pod) -> None:
+        # Pending-pod adds are queue-only and our own bind confirms are
+        # already in the carry (via the assume): neither is journaled.
         own_confirm = (kind == "update" and new.node_name
                        and self.cache.is_assumed_pod(new))
         if not own_confirm and not (kind == "add" and not new.node_name):
-            # Pending-pod adds are queue-only and our own bind confirms are
-            # already in the carry (via the assume); everything else moves
-            # node state under a live device session.
-            self.cluster_event_seq += 1
+            self._record_pod_event(kind, old, new)
         if kind == "add":
             if new.node_name:
                 self.cache.add_pod(new)
@@ -158,8 +211,66 @@ class Scheduler:
             else:
                 self.queue.delete(new)
 
+    def _record_pod_event(self, kind: str, old: Optional[Pod], new: Pod) -> None:
+        """Journal classification of a pod event that moves node state (or
+        a pending pod's queue entry)."""
+        plain, ports = pod_event_flags(new)
+        if old is not None and old is not new:
+            oplain, oports = pod_event_flags(old)
+            plain, ports = plain and oplain, ports or oports
+        if kind == "add":
+            self._record_event(EV_POD_ADD, new.node_name, pod_plain=plain, pod_ports=ports)
+        elif kind == "update":
+            old_node = old.node_name if old is not None else ""
+            if not new.node_name:
+                # A pending pod's spec update: queue-only.
+                self._record_event(EV_QUEUE, new.uid)
+            elif not old_node:
+                # Someone else's bind: load appears on the node as an add.
+                self._record_event(EV_POD_ADD, new.node_name, pod_plain=plain, pod_ports=ports)
+            elif old_node == new.node_name:
+                self._record_event(EV_POD_UPDATE, new.node_name, pod_plain=plain,
+                                   pod_ports=ports)
+            else:  # moved: the old row shrinks, the new row grows
+                self._record_event(EV_POD_REMOVE, old_node, pod_plain=plain, pod_ports=ports,
+                                   shrink=True)
+                self._record_event(EV_POD_ADD, new.node_name, pod_plain=plain, pod_ports=ports)
+        elif kind == "delete":
+            if new.node_name:
+                self._record_event(EV_POD_REMOVE, new.node_name, pod_plain=plain,
+                                   pod_ports=ports, shrink=True)
+            else:
+                self._record_event(EV_QUEUE, new.uid)
+        else:
+            self._record_event(EV_OTHER, new.uid)
+
+    @staticmethod
+    def _node_shrink_only(old, new) -> bool:
+        """True when `new` can only enlarge feasibility against `old`: no
+        taint added, allocatable not reduced, unschedulable not switched on."""
+        if new.unschedulable and not old.unschedulable:
+            return False
+        o_t = {(t.key, t.value, t.effect) for t in old.taints}
+        if any((t.key, t.value, t.effect) not in o_t for t in new.taints):
+            return False
+        oa, na = old.allocatable, new.allocatable
+        if (na.milli_cpu < oa.milli_cpu or na.memory < oa.memory
+                or na.ephemeral_storage < oa.ephemeral_storage
+                or na.allowed_pod_number < oa.allowed_pod_number):
+            return False
+        return all(na.scalar_resources.get(k, 0) >= v for k, v in oa.scalar_resources.items())
+
     def _on_node_event(self, kind: str, old, new) -> None:
-        self.cluster_event_seq += 1
+        if (kind == "update" and old is not None and old.name == new.name
+                and old.labels == new.labels and old.images == new.images):
+            # Taints, allocatable or the unschedulable flag only: one row's
+            # non-feature tensors, delta-patchable by a live session.
+            self._record_event(EV_NODE_UPDATE, new.name,
+                               shrink=self._node_shrink_only(old, new))
+        elif kind == "update":
+            self._record_event(EV_OTHER, new.name)
+        else:
+            self._record_event(EV_STRUCTURAL, new.name)
         if kind == "add":
             self.cache.add_node(new)
             self.queue.move_all_to_active_or_backoff(EVENT_NODE_ADD, None, new)
@@ -171,7 +282,7 @@ class Scheduler:
 
     def _on_namespace_event(self, ns) -> None:
         # Namespace labels feed namespaceSelector matching.
-        self.cluster_event_seq += 1
+        self._record_event(EV_NAMESPACE, ns.name)
         self.cache.add_namespace(ns)
 
     def framework_for_pod(self, pod: Pod) -> Framework:
@@ -196,6 +307,7 @@ class Scheduler:
         while n < max_cycles:
             if not self.schedule_one():
                 self.queue.flush_backoff_completed()
+                self.drain_event_inbox()
                 if not self.schedule_one():
                     break
             n += 1

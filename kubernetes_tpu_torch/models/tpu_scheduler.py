@@ -18,10 +18,29 @@ PodTopologySpread and InterPodAffinity Sign parts cover their labels,
 namespace and terms) share one plan — and up to `pipeline_depth` batches
 are in flight: the host commits batch N while the device computes batch
 N+1. Each batch's results come back through a non-blocking copy into pinned
-host memory, fenced by a CUDA event. Any foreign pod, node or namespace
-event, and any change to the set of nominated pods, ends the session: the
-next one rebuilds its plan from the snapshot (the JAX package delta-patches
-pod-local plans instead; not ported yet).
+host memory, fenced by a CUDA event. Pods that differ only in labels and
+namespace join one session under their namespace-erased signature
+(_neutral_sig) while no pod in the cluster carries affinity terms.
+
+Incremental resume (the JAX package's journal protocol). Cluster events go
+into the typed journal (core/cache.py EventJournal). A session consumes the
+events since its watermark at each commit (_note_session_events):
+queue-only events and, for plans without inter-pod affinity, namespace
+events are benign; pod events of plain pods and taint/allocatable node
+updates on a pod-local plan are row patches — the mirror's rows re-encoded
+and scattered (NodeStateMirror.patch_rows, the scatter_rows kernel) and the
+carry's rows re-evaluated (the patch_carry_rows kernel) — applied once no
+dispatched batch is in flight (a patch from host staging would erase the
+in-flight placements): an event that only enlarges feasibility waits for
+the pipeline to drain, one that may shrink it ends the session. Anything
+else, a truncated journal, a patch that cannot apply (a regrown tier, a
+pending full upload, a PreferNoSchedule taint under a plan compiled
+without that lane) and any change to the set of nominated pods end it. A
+clean session leaves its plan and carry for the next one
+(_resume_or_rebuild): the same signature (exact or neutral), no host
+attempt and the same nominations since resume it as it is or after the
+journal's row patches; otherwise the plan is rebuilt from the snapshot.
+plan_rebuilds_full / _delta / _resume count each acquisition.
 
 Priorities and preemption. While pods are nominated (a preemption reserved
 room for them), a session's plan carries the nominated-pod lane: the
@@ -51,10 +70,19 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.cache import (
+    EV_NAMESPACE,
+    EV_NODE_UPDATE,
+    EV_POD_ADD,
+    EV_POD_REMOVE,
+    EV_POD_UPDATE,
+    EV_QUEUE,
+)
 from ..core.framework import UNSCHEDULABLE_AND_UNRESOLVABLE, CycleState, FitError, Framework
 from ..core.queue import QueuedPodInfo
 from ..core.scheduler import Scheduler
-from ..ops.device_state import NodeStateMirror
+from ..ops.codebook import EFFECT_PREFER_NO_SCHEDULE
+from ..ops.device_state import NodeStateMirror, patch_tier
 from ..ops.features import (
     Unsupported,
     batch_supported,
@@ -62,7 +90,7 @@ from ..ops.features import (
     build_preemption_victims,
     diagnose_unschedulable,
 )
-from ..ops.kernel import dry_run_preemption, schedule_batch
+from ..ops.kernel import dry_run_preemption, patch_carry_rows, schedule_batch
 from ..plugins.preemption import Candidate
 
 DEFAULT_MAX_BATCH = 1024  # the JAX package's config.max_batch
@@ -88,12 +116,29 @@ class _Fetch:
         return self._host.numpy()
 
 
+class _SessionDelta:
+    """A live session's journal-patchable view: the device state and carry
+    that delta patches rewrite, the journal seq already consumed, and
+    whether a patch waits for the pipeline to drain."""
+
+    __slots__ = ("state", "carry", "start_seq", "patch_pending")
+
+    def __init__(self, state, carry, start_seq: int):
+        self.state = state
+        self.carry = carry
+        self.start_seq = start_seq
+        self.patch_pending = False
+
+
 class TorchScheduler(Scheduler):
     """Scheduler with the hot path on the device. `device` is "cuda" unless
-    the caller asks for "cpu", where the kernels' plain PyTorch versions run."""
+    the caller asks for "cpu", where the kernels' plain PyTorch versions run.
+    `resume=False` turns incremental resume off, as the port ran before it:
+    every session rebuilds its plan, any journaled event ends it, and only
+    pods of one exact signature share it (a baseline to measure against)."""
 
     def __init__(self, clientset=None, device="cuda", max_batch: Optional[int] = None,
-                 percentage_of_nodes_to_score: int = 0):
+                 percentage_of_nodes_to_score: int = 0, resume: bool = True):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TorchScheduler: CUDA is not available "
@@ -107,6 +152,20 @@ class TorchScheduler(Scheduler):
         self.device_scheduled = 0
         self.host_path_pods = 0
         self.preemption_device_evals = 0  # dry runs that took the kernel
+        self.resume = resume
+        # Plan acquisitions by kind: a full snapshot→features rebuild, the
+        # previous session's plan resumed as it is, or resumed (or kept
+        # live) after a journal row patch; and the rows those patches wrote.
+        self.plan_rebuilds_full = 0
+        self.plan_rebuilds_delta = 0
+        self.plan_rebuilds_resume = 0
+        self.delta_dirty_rows = 0
+        # The previous clean session's (key, seq, payload, nomination key).
+        self._resume = None
+        # The live session's namespace-erased signature (None: exact only),
+        # and its node-name → row map for delta patches.
+        self._session_neutral_sig = None
+        self._session_row_of = None
         # The priority of the session's pods while pods are nominated (the
         # nominated lane is priority-thresholded), else None.
         self._session_nom_priority: Optional[int] = None
@@ -115,6 +174,7 @@ class TorchScheduler(Scheduler):
         # on a result fetch, the host commit tails, and the session's end
         # (snapshot refresh and adopting the final carry into the mirror).
         self.plan_build_s = 0.0
+        self.plan_acquire_s = 0.0  # every acquisition and in-session patch
         self.collect_s = 0.0
         self.dispatch_s = 0.0
         self.device_wait_s = 0.0
@@ -153,7 +213,7 @@ class TorchScheduler(Scheduler):
                 break
             if (nxt.pod.scheduler_name in self.profiles
                     and self.framework_for_pod(nxt.pod) is fw
-                    and fw.sign_pod(nxt.pod) == sig and batch_supported(nxt.pod) is None
+                    and self._sig_joins(fw, nxt.pod, sig) and batch_supported(nxt.pod) is None
                     and self._session_nom_priority in (None, nxt.pod.priority)):
                 batch.append(nxt)
             else:
@@ -178,7 +238,45 @@ class TorchScheduler(Scheduler):
         # need another lane, so it waits for the next session.
         nom = self.queue.nominator
         self._session_nom_priority = head.pod.priority if nom.has_nominated_pods() else None
+        self._session_neutral_sig = self._neutral_sig(fw, head.pod, sig)
         return fw, self._collect_session_batch(fw, sig, [head]), None
+
+    def _sig_joins(self, fw: Framework, pod, sig) -> bool:
+        """`pod` may join the session of signature `sig`: the same
+        signature, or the same namespace-erased one (_session_compatible of
+        the JAX package, :1715-1735) while that is live."""
+        psig = fw.sign_pod(pod)
+        if psig == sig:
+            return True
+        return (psig is not None and self._session_neutral_sig is not None
+                and self._neutral_sig(fw, pod, psig) == self._session_neutral_sig)
+
+    def _neutral_sig(self, fw: Framework, pod, sig):
+        """The session signature with labels and namespace erased, or None
+        when they may matter. The InterPodAffinity and PodTopologySpread
+        Sign parts carry (labels, namespace) in [0:2] because affinity terms
+        and spread selectors read them, which splits pods that build the
+        same plan (a namespace sweep) into one session each. For a pod with
+        no affinity or spread terms, no volumes or claims, while no pod in
+        the cluster carries affinity terms (cache.affinity_pod_refs, live
+        state, not the snapshot), they are scheduling-inert. The erased
+        tuple is pure spec, memoized on the template's shared holder."""
+        if sig is None or self.cache.affinity_pod_refs or not self.resume:
+            return None
+        shared = pod.__dict__.get("_sig_shared")
+        key = ("_nsig", id(fw), pod.node_name)
+        if shared is not None and key in shared:
+            return shared[key]
+        aff = pod.affinity
+        if (pod.topology_spread_constraints or pod.volumes or pod.resource_claims
+                or (aff is not None and (aff.pod_affinity or aff.pod_anti_affinity))):
+            out = None
+        else:
+            out = tuple((name, part[2:] if name in ("InterPodAffinity", "PodTopologySpread")
+                         else part) for name, part in sig)
+        if shared is not None:
+            shared[key] = out
+        return out
 
     def _nominated_device_block(self, pod) -> Optional[str]:
         """Why `pod` cannot take the device while pods are nominated (None:
@@ -290,32 +388,224 @@ class TorchScheduler(Scheduler):
             results, _ = self._dispatch(state, fallback, 0, None)
             _Fetch(results).wait()
 
+    # -- incremental session resume (typed event journal) --------------------
+
+    def _count_rebuild(self, kind: str) -> None:
+        if kind == "full":
+            self.plan_rebuilds_full += 1
+        elif kind == "delta":
+            self.plan_rebuilds_delta += 1
+        else:
+            self.plan_rebuilds_resume += 1
+
+    def _nom_resume_key(self, priority: int):
+        """The nomination part of the resume key: the nominated set's
+        version, and the lane's priority threshold while a lane is live."""
+        nom = self.queue.nominator
+        return (nom.version, priority if nom.has_nominated_pods() else None)
+
+    def _classify_delta(self, events, plan):
+        """Map journal events onto what they dirty under `plan`: (level,
+        dirty node names) with level 'benign' (nothing node-side moved),
+        'safe' (row patches whose events only enlarge feasibility, so
+        in-flight results stay committable) or 'strict' (row patches that
+        may shrink it: applied with an empty pipeline only), or None when an
+        event needs the full rebuild."""
+        level = 0
+        names = set()
+        for ev in events:
+            if ev.kind == EV_QUEUE:
+                continue
+            if ev.kind == EV_NAMESPACE:
+                # Namespace labels feed only affinity namespaceSelector
+                # matching: inert while no term exists on either side.
+                if plan.pod_local and self.cache.affinity_pod_refs == 0:
+                    continue
+                return None
+            if ev.kind in (EV_POD_ADD, EV_POD_REMOVE, EV_POD_UPDATE):
+                # pod_local: a pod on node n dirties only row n's aggregates;
+                # pod_plain: it brings no term a feature table would count.
+                # (The JAX package also refuses pod_ports events under a
+                # plan that blocks host ports; the port has no such plan.)
+                if not (plan.pod_local and ev.pod_plain):
+                    return None
+            elif ev.kind == EV_NODE_UPDATE:
+                if not plan.pod_local:
+                    return None  # the spread tables' Honor policies read taints
+            else:
+                return None
+            names.add(ev.key)
+            level = max(level, 1 if ev.shrink else 2)
+        return ("benign", "safe", "strict")[level], names
+
+    def _note_session_events(self, sd: _SessionDelta, plan, node_names, busy: bool) -> bool:
+        """Consume the journal since the session's watermark. True when the
+        session stays valid (a benign advance, a patch applied, or a patch
+        deferred until the pipeline drains), False when it must end. `busy`:
+        dispatched batches whose results are not committed yet."""
+        if self.cluster_event_seq == sd.start_seq and not sd.patch_pending:
+            return True
+        if not self.resume:
+            return False
+        events = self.journal.since(sd.start_seq)
+        cls = self._classify_delta(events, plan) if events is not None else None
+        if cls is None:
+            return False
+        level, names = cls
+        if not names:
+            sd.start_seq = self.cluster_event_seq
+            sd.patch_pending = False
+            return True
+        if busy:
+            if level == "strict":
+                return False  # in-flight results may no longer fit
+            # The in-flight placements are in the carry but not yet in host
+            # staging: patch once they are committed.
+            sd.patch_pending = True
+            return True
+        t0 = time.perf_counter()
+        patched = self._apply_delta_patch(plan, node_names, names, sd.state, sd.carry)
+        self.plan_acquire_s += time.perf_counter() - t0
+        if patched is None:
+            return False
+        sd.state, sd.carry = patched
+        sd.start_seq = self.cluster_event_seq
+        sd.patch_pending = False
+        self._count_rebuild("delta")
+        return True
+
+    def _apply_delta_patch(self, plan, node_names, names, state, carry):
+        """Patch the dirty rows of `names` into host staging, the device
+        state (NodeStateMirror.patch_rows) and the carry (patch_carry_rows).
+        Returns (state, carry), or None when the patch cannot apply; the
+        caller then rebuilds in full, which recovers from every such case."""
+        if not names:
+            return state, carry
+        row_of = self._session_row_of
+        if row_of is None or row_of[0] is not node_names:
+            row_of = (node_names, {n: i for i, n in enumerate(node_names)})
+            self._session_row_of = row_of
+        updates = []
+        for nm in sorted(names):
+            row = row_of[1].get(nm)
+            ni = self.cache.nodes.get(nm)
+            if row is None or ni is None or ni.node is None:
+                return None  # the row set changed shape: structural after all
+            updates.append((row, ni))
+        new_state = self.mirror.patch_rows(updates)
+        if new_state is None:
+            return None
+        m = self.mirror
+        rows = sorted({r for r, _ in updates})
+        if not plan.facts.has_pns and (m.h_taint_eff[rows] == EFFECT_PREFER_NO_SCHEDULE).any():
+            # The plan was built without the PreferNoSchedule lane; staging
+            # is patched already, so the full rebuild starts from truth.
+            return None
+        if carry is not None:
+            prows = rows + [rows[-1]] * (patch_tier(len(rows)) - len(rows))
+            dev = self.device
+            carry = patch_carry_rows(
+                new_state, plan.features, carry,
+                torch.tensor(prows, dtype=torch.int32).to(dev),
+                torch.from_numpy(m.h_req_r[prows]).to(dev),
+                torch.from_numpy(m.h_nonzero[prows]).to(dev),
+                torch.from_numpy(m.h_pod_count[prows]).to(dev), plan.fit_strategy)
+        self.delta_dirty_rows += len(rows)
+        return new_state, carry
+
+    def _resume_or_rebuild(self, fw: Framework, head_pod, sig, nsig):
+        """A session's plan: the previous clean session's, resumed as it is
+        or after the journal's row patches, else a full rebuild. Returns
+        (state, plan, carry, node_names, kind)."""
+        t0 = time.perf_counter()
+        resume, self._resume = self._resume, None
+        kind = "full"
+        state = plan = carry = node_names = None
+        if resume is not None and self.resume:
+            rkey, rseq, payload, rnom = resume
+            sig_ok = rkey[1] == (sig if rkey[0] == "exact" else nsig)
+            if (sig_ok and rkey[2:] == (id(fw), self.attempts)
+                    and rnom == self._nom_resume_key(head_pod.priority)):
+                state, plan, carry, node_names = payload
+                if rseq == self.cluster_event_seq:
+                    kind = "resume"
+                else:
+                    events = self.journal.since(rseq)
+                    cls = self._classify_delta(events, plan) if events is not None else None
+                    if cls is not None:
+                        # No batch is in flight at a session's start: every
+                        # level may patch here.
+                        patched = self._apply_delta_patch(plan, node_names, cls[1], state, carry)
+                        if patched is not None:
+                            state, carry = patched
+                            kind = "delta"
+                if kind == "full":
+                    carry = None
+        if kind == "full":
+            t1 = time.perf_counter()
+            state, plan = self.build_plan(fw, head_pod, self.max_batch)
+            self.plan_build_s += time.perf_counter() - t1
+            node_names = [ni.name for ni in self.snapshot.node_info_list]
+        self._count_rebuild(kind)
+        self.plan_acquire_s += time.perf_counter() - t0
+        return state, plan, carry, node_names, kind
+
+    def _save_resume(self, fw: Framework, head_pod, sig, state, plan, carry, node_names) -> None:
+        """Keep a clean session's end state for the next session's resume
+        check, under the neutral signature where it is eligible."""
+        nsig = self._neutral_sig(fw, head_pod, sig)
+        mode = ("neutral", nsig) if nsig is not None else ("exact", sig)
+        self._resume = (mode + (id(fw), self.attempts), self.cluster_event_seq,
+                        (state, plan, carry, node_names),
+                        self._nom_resume_key(head_pod.priority))
+
     # -- device session ------------------------------------------------------
 
     def _run_device_session(self, fw: Framework, first_batch: List[QueuedPodInfo]) -> None:
-        sig = fw.sign_pod(first_batch[0].pod)
-        t0 = time.perf_counter()
-        state, plan = self.build_plan(fw, first_batch[0].pod, self.max_batch)
-        self.plan_build_s += time.perf_counter() - t0
-        node_names = [ni.name for ni in self.snapshot.node_info_list]
-        start_seq = self.cluster_event_seq
+        head = first_batch[0].pod
+        sig = fw.sign_pod(head)
+        nsig = self._neutral_sig(fw, head, sig)
+        self._session_neutral_sig = nsig
+        state, plan, carry, node_names, _kind = self._resume_or_rebuild(fw, head, sig, nsig)
+        sd = _SessionDelta(state, carry, self.cluster_event_seq)
+        del state, carry
         start_nom = self.queue.nominator.version
-        carry = None
         inflight: List[Tuple[List[QueuedPodInfo], _Fetch]] = []
         ok_rows: List[int] = []
+        dirty_rows: List[int] = []
         invalidated = False
         batch: Optional[List[QueuedPodInfo]] = first_batch
         while True:
             # Refill the pipeline: dispatch enqueues device work and returns.
             while not invalidated and len(inflight) < PIPELINE_DEPTH:
+                if sd.patch_pending:
+                    if inflight:
+                        break  # retire the dispatched batches before patching
+                    if not self._note_session_events(sd, plan, node_names, busy=False):
+                        invalidated = True
+                        break
                 if batch is None:
                     t1 = time.perf_counter()
                     batch = self._collect_session_batch(fw, sig) or None
+                    if batch is None and self._event_inbox and self.resume:
+                        # Events parked while the session ran (pod creations
+                        # among them): replay them here, so that a creation
+                        # burst does not end the session, and patch or end
+                        # it on what they changed. (Without resume they wait
+                        # for the next session.)
+                        self.drain_event_inbox()
+                        if not self._note_session_events(sd, plan, node_names,
+                                                         busy=bool(inflight)):
+                            invalidated = True
+                        elif not sd.patch_pending:
+                            batch = self._collect_session_batch(fw, sig) or None
                     self.collect_s += time.perf_counter() - t1
+                    if sd.patch_pending and batch is None and not invalidated:
+                        continue  # patch (or drain) before collecting
                     if batch is None:
                         break
                 t1 = time.perf_counter()
-                results, carry = self._dispatch(state, plan, len(batch), carry)
+                results, sd.carry = self._dispatch(sd.state, plan, len(batch), sd.carry)
                 inflight.append((batch, _Fetch(results)))
                 self.dispatch_s += time.perf_counter() - t1
                 self.device_batches += 1
@@ -329,15 +619,21 @@ class TorchScheduler(Scheduler):
             t2 = time.perf_counter()
             self.device_wait_s += t2 - t1
             if not invalidated:
-                invalidated = self._commit_batch(b, res, fw, node_names, ok_rows)
-                # Any cluster change the carry does not hold, and any change
-                # to the nominated set, ends the chain.
-                invalidated = (invalidated or self.cluster_event_seq != start_seq
-                               or self.queue.nominator.version != start_nom)
+                invalidated = self._commit_batch(b, res, fw, node_names, ok_rows, dirty_rows)
+                # A change to the nominated set, or a cluster event the
+                # journal cannot patch in, ends the chain.
+                if not invalidated and (
+                        self.queue.nominator.version != start_nom
+                        or not self._note_session_events(sd, plan, node_names,
+                                                         busy=bool(inflight))):
+                    invalidated = True
                 self.host_commit_s += time.perf_counter() - t2
             else:
-                # A previous batch diverged: every later device choice is stale.
-                for qpi in b:
+                # A previous batch diverged: every later device choice is
+                # stale. Host-path the pods and charge their rows dirty.
+                for i, qpi in enumerate(b):
+                    if int(res[0, i]) >= 0:
+                        dirty_rows.append(int(res[0, i]))
                     self.host_path_pods += 1
                     self.process_one(qpi)
         if batch:  # popped but never dispatched (invalidated mid-refill)
@@ -349,20 +645,27 @@ class TorchScheduler(Scheduler):
         if invalidated:
             # Staging is the authority again: full re-encode + upload.
             self.mirror.invalidate()
-        elif carry is not None:
-            # The final carry holds every placement: keep it resident.
-            self.mirror.adopt(self.snapshot.node_info_list, ok_rows,
-                              carry.req_r, carry.nonzero, carry.pod_count)
+        elif sd.carry is not None:
+            # The final carry holds every placement: keep it resident, and
+            # keep the session's plan for the next one.
+            self.mirror.adopt(self.snapshot.node_info_list, ok_rows, sd.carry.req_r,
+                              sd.carry.nonzero, sd.carry.pod_count, dirty_rows=dirty_rows)
+            if not dirty_rows:
+                self._save_resume(fw, head, sig, sd.state, plan, sd.carry, node_names)
         self.session_end_s += time.perf_counter() - t3
 
-    def _commit_batch(self, b, res, fw, node_names, ok_rows) -> bool:
+    def _commit_batch(self, b, res, fw, node_names, ok_rows, dirty_rows) -> bool:
         """Host tail for one retired batch. Returns True when the session
-        must invalidate (host/device divergence or host-path interleaving)."""
+        must invalidate (host/device divergence or host-path interleaving);
+        rows the carry charged but the host did not are added to
+        `dirty_rows`."""
         invalidated = False
         for i, qpi in enumerate(b):
             row = int(res[0, i])
             self.next_start_node_index = int(res[1, i])
             if invalidated:
+                if row >= 0:
+                    dirty_rows.append(row)
                 self.host_path_pods += 1
                 self.process_one(qpi)
                 continue
@@ -380,6 +683,7 @@ class TorchScheduler(Scheduler):
             if self._commit(fw, qpi, node_names[row]):
                 ok_rows.append(row)
             else:
+                dirty_rows.append(row)
                 invalidated = True  # the host rejected what the carry applied
         return invalidated
 
@@ -474,6 +778,9 @@ class TorchScheduler(Scheduler):
     # -- run loop ------------------------------------------------------------
 
     def schedule_one(self) -> bool:
+        # Events parked off the scheduling thread land before the next
+        # session collects its pods.
+        self.drain_event_inbox()
         t0 = time.perf_counter()
         fw, batch, fallback_reason = self._collect_batch()
         self.collect_s += time.perf_counter() - t0

@@ -92,6 +92,18 @@ def _pow2(n: int, floor: int) -> int:
     return c
 
 
+def patch_tier(n: int) -> int:
+    """Padded length of a delta patch's dirty-row index (the JAX package's
+    patch_tier, ops/device_state.py:83-96): 32, 256, then powers of two from
+    2048. Padding repeats the last real row, whose duplicates write
+    identical values, so a coarse tier is exact."""
+    if n <= 32:
+        return 32
+    if n <= 256:
+        return 256
+    return _pow2(n, 2048)
+
+
 class _Regrown(Exception):
     """Internal: a capacity tier changed mid-encode; re-walk the snapshot."""
 
@@ -306,6 +318,41 @@ class NodeStateMirror:
         self._full_flush = False
         return self._device
 
+    def patch_rows(self, updates: Sequence) -> Optional[DeviceNodeState]:
+        """Event-delta row flush (the JAX package's NodeStateMirror.patch_rows,
+        ops/device_state.py:431-492, single device): re-encode the given
+        (row, NodeInfo) pairs from the live cache's NodeInfos and scatter
+        them into the resident device state without a snapshot refresh.
+        Returns the patched state, or None where a row patch cannot apply (no
+        resident copy or a full upload pending, a capacity tier grown
+        mid-encode, a row out of range or holding another node): the caller
+        then rebuilds its plan in full.
+
+        The scatter writes into a copy (_scatter_dirty): the state a resumed
+        session or a queued kernel holds keeps its values, and the returned
+        state becomes the resident."""
+        if self._device is None or self._full_flush:
+            return None
+        # Validate every row before encoding any: a late failure after
+        # earlier rows were encoded with current generations would leave
+        # them stale on the device, unseen by the next sync.
+        for row, ni in updates:
+            if (row >= self.np_cap or row >= len(self._row_names)
+                    or ni.name != self._row_names[row]):
+                return None
+        try:
+            for row, ni in updates:
+                self._encode_row(row, ni)
+                self._row_gen[row] = ni.generation
+        except _Regrown:
+            return None  # staging reset: the next flush uploads everything
+        dirty = sorted({row for row, _ in updates})
+        self._device = self._scatter_dirty(dirty)
+        self._dirty.difference_update(dirty)
+        self.scatter_flushes += 1
+        self.scatter_rows += len(dirty)
+        return self._device
+
     def invalidate(self) -> None:
         """Force a full staging re-encode + full upload on the next
         sync/flush (a device session diverged from the host)."""
@@ -313,12 +360,15 @@ class NodeStateMirror:
         self._row_gen = [-1] * len(self._row_gen)
 
     def adopt(self, node_info_list: Sequence[NodeInfo], rows: Sequence[int],
-              req_r: torch.Tensor, nonzero: torch.Tensor, pod_count: torch.Tensor) -> None:
+              req_r: torch.Tensor, nonzero: torch.Tensor, pod_count: torch.Tensor,
+              dirty_rows: Sequence[int] = ()) -> None:
         """After a clean device session: the final carry already holds the
         updated per-node aggregates, so install those tensors directly and
         bring host staging + generations in line without marking rows
         dirty — the next flush uploads nothing (the device-resident
-        analogue of cache.go's incremental UpdateSnapshot)."""
+        analogue of cache.go's incremental UpdateSnapshot). `dirty_rows`
+        (rows whose host commit diverged from the carry) go through the
+        normal dirty path."""
         if self._device is None or self._full_flush:
             return  # a full upload from (authoritative) staging is pending
         try:
@@ -333,3 +383,4 @@ class NodeStateMirror:
             return  # staging reset; the full flush rebuilds everything
         self._device = self._device._replace(
             req_r=req_r, nonzero=nonzero, pod_count=pod_count)
+        self._dirty.update(dirty_rows)

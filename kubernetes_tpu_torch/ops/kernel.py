@@ -2,7 +2,7 @@
 (schedule_one.go findNodesThatFitPod :630 / prioritizeNodes :945) for a batch
 of identical pods, with the greedy sequential assignment on the device.
 
-Seven hand-written CUDA kernels (csrc/), each beside a plain PyTorch version
+Eight hand-written CUDA kernels (csrc/), each beside a plain PyTorch version
 of the same function in this module:
 
 - static_masks   <- the JAX package's _static_masks + _tolerates
@@ -21,7 +21,10 @@ of the same function in this module:
 - dry_run_preemption <- dry_run_preemption (:726-789): DefaultPreemption's
                     per-node victim selection for every row at once;
 - scatter_rows   <- the mirror's dirty-row scatter, _scatter_rows
-                    (ops/device_state.py:128-135).
+                    (ops/device_state.py:128-135);
+- patch_carry_rows <- patch_carry_rows (:584-621): a journal delta patch of
+                    a live session's carry, the dirty rows' aggregates
+                    installed and their resource lanes re-evaluated.
 
 The three schedule kernels take the nominated-pod lane (features whose
 `nom_req` has rows): the fit filter of every re-evaluated row counts the
@@ -879,8 +882,65 @@ def scatter_rows(state: DeviceNodeState, idx: torch.Tensor, src64: torch.Tensor,
 
 scatter_rows.launches = 0
 
+# ---------------------------------------------------------------------------
+# patch_carry_rows
+# ---------------------------------------------------------------------------
+
+
+def _patch_carry_rows_plain(state: DeviceNodeState, f: BatchFeatures, carry: ScanCarry,
+                            idx: torch.Tensor, req_rows: torch.Tensor, nz_rows: torch.Tensor,
+                            cnt_rows: torch.Tensor, fit_strategy: int) -> ScanCarry:
+    """Plain PyTorch version of the patch_carry_rows kernel."""
+    at = idx.to(i64)
+    ok, sc, ba = _resource_eval_plain(f, fit_strategy, state.alloc_r[at], state.alloc_pods[at],
+                                      req_rows, nz_rows, cnt_rows, *_nom_lane(f, at))
+    lanes = [t.clone() for t in carry[:6]]
+    for lane, rows in zip(lanes, (req_rows, nz_rows, cnt_rows, ok, sc, ba)):
+        lane[at] = rows
+    return carry._replace(req_r=lanes[0], nonzero=lanes[1], pod_count=lanes[2],
+                          fit_ok=lanes[3], fit_sc=lanes[4], ba=lanes[5])
+
+
+def _patch_carry_rows_cuda(state, f, carry, idx, req_rows, nz_rows, cnt_rows, fit_strategy):
+    dev = idx.device
+    NP, R = state.alloc_r.shape
+    K = idx.shape[0]
+    if req_rows.shape != (K, R) or nz_rows.shape != (K, 2) or cnt_rows.shape != (K,):
+        raise ValueError(f"patch_carry_rows: rows {tuple(req_rows.shape)}, "
+                         f"{tuple(nz_rows.shape)}, {tuple(cnt_rows.shape)} for K {K}, R {R}")
+    lanes = [t.clone() for t in carry[:6]]
+    ints, feats = _res_args(f, fit_strategy)
+    _launch("patch_carry_rows", dev, NP, K, *ints, *feats, idx, req_rows, nz_rows, cnt_rows,
+            state.alloc_r, state.alloc_pods, *_nom_lane(f), *lanes)
+    return carry._replace(req_r=lanes[0], nonzero=lanes[1], pod_count=lanes[2],
+                          fit_ok=lanes[3], fit_sc=lanes[4], ba=lanes[5])
+
+
+def patch_carry_rows(state: DeviceNodeState, f: BatchFeatures, carry: ScanCarry,
+                     idx: torch.Tensor, req_rows: torch.Tensor, nz_rows: torch.Tensor,
+                     cnt_rows: torch.Tensor, fit_strategy: int = 0) -> ScanCarry:
+    """Event-delta patch of a live session's carry: install the post-event
+    aggregates of the rows `idx` [K] i32 (`req_rows` [K, R] i64, `nz_rows`
+    [K, 2] i64, `cnt_rows` [K] i32) and re-evaluate those rows' fit_ok,
+    fit_sc and ba against `state` (already patched), with the nominated-pod
+    lane where the features carry one. Valid only for pod-local plans (no
+    count table to touch). Duplicate indices must carry identical rows (the
+    padding of patch_tier). Returns a new carry: the six patched lanes are
+    copies, so the carry given — which may be the mirror's adopted state
+    or a queued kernel's input — keeps its values; the other lanes are
+    shared."""
+    if _on_cpu(idx):
+        return _patch_carry_rows_plain(state, f, carry, idx, req_rows, nz_rows, cnt_rows,
+                                       fit_strategy)
+    out = _patch_carry_rows_cuda(state, f, carry, idx, req_rows, nz_rows, cnt_rows, fit_strategy)
+    patch_carry_rows.launches += 1
+    return out
+
+
+patch_carry_rows.launches = 0
+
 WRAPPERS = (static_masks, resource_eval, lap_schedule, scan_schedule, scan_general,
-            dry_run_preemption, scatter_rows)
+            dry_run_preemption, scatter_rows, patch_carry_rows)
 
 
 def reset_launch_counts() -> None:

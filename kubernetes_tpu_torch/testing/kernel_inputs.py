@@ -286,3 +286,28 @@ def victim_inputs(seed: int, np_cap: int, num_nodes: int, k: int, *, r_slots: in
         f["request"][1] = rng.choice([1, 2, 4]) * GI
         f["nz_request"] = f["request"][:2].copy()
     return tuple(state), tuple(f[name] for name in _F), vic_req, vic_valid
+
+
+def patch_inputs(seed: int, state: tuple, num_nodes: int, k: int,
+                 tier: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """(idx [tier] i32, req_rows [tier, R] i64, nz_rows [tier, 2] i64,
+    cnt_rows [tier] i32) of one carry delta patch: `k` distinct live rows of
+    `state` (the random_inputs arrays) with post-event aggregates — pods
+    removed from some rows, added to others, some rows emptied or filled to
+    their pod cap — padded to `tier` with copies of the last real row, as
+    the scheduler pads a patch tier."""
+    rng = np.random.default_rng(seed + 7919)
+    alloc_r, alloc_pods, req_r, pod_count = state[0], state[1], state[2], state[4]
+    rows = np.sort(rng.choice(num_nodes, size=k, replace=False))
+    scale = rng.choice([0.0, 0.3, 1.0, 1.4], (k, 1))
+    req_rows = np.minimum((req_r[rows] * scale).astype(np.int64) + rng.integers(0, 2, (k, 1))
+                          * (alloc_r[rows] // 8), alloc_r[rows] * 2)
+    cnt_rows = np.where(scale[:, 0] == 1.4, alloc_pods[rows],
+                        (pod_count[rows] * scale[:, 0]).astype(np.int64)).astype(np.int32)
+    nz_rows = np.stack([req_rows[:, 0] + 100 * cnt_rows,
+                        req_rows[:, 1] + 200 * 1024 * 1024 * cnt_rows], 1).astype(np.int64)
+    pad = tier - k
+    return (np.concatenate([rows, np.full(pad, rows[-1])]).astype(np.int32),
+            np.concatenate([req_rows, np.repeat(req_rows[-1:], pad, 0)]),
+            np.concatenate([nz_rows, np.repeat(nz_rows[-1:], pad, 0)]),
+            np.concatenate([cnt_rows, np.repeat(cnt_rows[-1:], pad)]))

@@ -273,7 +273,8 @@ def test_launcher_signatures_are_read_from_the_sources():
                     "C1", "C2", "A1", "A2", "KD", "incremental", "carried", "has_pns",
                     "has_ipa_base", "has_na_pref", "K", "D"))
         optional = {p.name for p in sig if p.optional}
-        lane = name in ("resource_eval", "lap_schedule", "scan_schedule", "scan_general")
+        lane = name in ("resource_eval", "lap_schedule", "scan_schedule", "scan_general",
+                        "patch_carry_rows")
         assert optional == ({"nom_req", "nom_pods"} if lane else set())
 
 
@@ -294,6 +295,8 @@ def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches):
                                *victims_from_jax_numpy(vr, vv), 16)
     rows = K.DeviceNodeState(*[t[:2] for t in ts[:-1]], ts.topo[:, :2])
     K._scatter_rows_cuda(ts, torch.tensor([5, 9], dtype=torch.int32), *K.pack_rows(rows))
+    K._patch_carry_rows_cuda(ts, tf, ext0, torch.tensor([5, 9], dtype=torch.int32),
+                             ts.req_r[:2], ts.nonzero[:2], ts.pod_count[:2], 0)
     assert [name for name, _ in recorded_launches] == list(K._build.KERNELS)
     for name, args in recorded_launches:
         sig = K._build.signature(name)
@@ -308,6 +311,8 @@ def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches):
     K._scan_schedule_cuda(ts, lane, 64, 0, ext0, static_ok, 40)
     K._scan_general_cuda(ts, lane, 64, 0, ext0, K._static_masks_plain(ts, tf), 40,
                          K.PlanFacts(has_pns=True))
+    K._patch_carry_rows_cuda(ts, lane, ext0, torch.tensor([5, 9], dtype=torch.int32),
+                             ts.req_r[:2], ts.nonzero[:2], ts.pod_count[:2], 0)
     for name, args in recorded_launches:
         sig = {p.name: a for p, a in zip(K._build.signature(name), args)}
         assert (sig["nom_req"], sig["nom_pods"]) == (lane.nom_req.data_ptr(),
