@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, in order; any error or mismatch exits non-zero before the result:
-  1. build   — compile the eight CUDA kernels from csrc/ (one nvcc each, in
+  1. build   — compile the nine CUDA kernels from csrc/ (one nvcc each, in
                parallel, linked into one library) and print the build
                seconds;
   2. kernels — hold each kernel against its plain PyTorch version on the
@@ -28,7 +28,12 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                dirty rows; patch_carry_rows at K = 32, 256 and 2048 (tiers
                padded with duplicate indices) on a carry chained through two
                schedule_batch calls, with and without a nominated-pod lane,
-               its input carry left unchanged. Results must be exactly equal
+               its input carry left unchanged; schedule_placements at P = 1,
+               16 and 64 lanes (an empty padded lane, a one-row, a 100-row
+               and an every-row lane), without spread tables, with the
+               plan's and with per-lane overrides, at V = 64 and 8192, no
+               active member and a gang of 4, some lane placing only part of
+               its gang, its inputs left unchanged. Results must be exactly equal
                on every output and carry lane. It also times scan_general's first launch in the
                process against the next;
   3. paths   — each through TorchScheduler on cuda at full width, the
@@ -87,6 +92,16 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                namespaceSelector): the init phase in at most 2 plan
                acquisitions (and the count with resume off), every measured
                pod bound on a node of its own that holds no init pod;
+               SchedulingGangs/1000Nodes_250Groups (1000 nodes over 10 zones,
+               250 pod groups of 4 500m/256Mi members): every pod bound by
+               gang device sessions, none on the host path, the lap or
+               scan_schedule launched;
+               SchedulingGangsPlacement/5000Nodes_250Groups (the same groups
+               constrained to one zone, under the placement plugins, on
+               TopologySpreading's 5000 nodes over 50 zones): every pod
+               bound, each group in one zone, 250 device placement
+               evaluations and 250 schedule_placements launches, none on the
+               host path;
   4. timing  — on the main paths' own next-batch inputs (exactness checked
                there too): each kernel's device time per launch from
                torch.profiler (a warm-up step, then at least 19 of 20
@@ -105,7 +120,9 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                patch_carry_rows on the completion waves' own patches (each
                tier the drive used), with the drive's plan acquisition
                seconds by kind (row patch, resume, full rebuild; and full
-               rebuilds with resume off) beside it;
+               rebuilds with resume off) beside it; schedule_placements on
+               the placement drive's first group cycle (its 64 lanes and
+               plan), its bound summed over the real lanes;
   5. parity  — a 500-node cluster with NoSchedule and PreferNoSchedule
                taints, unschedulable nodes, node selectors, pods that fit no
                node, zone and hostname spread, required and preferred
@@ -122,7 +139,14 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                device="cpu" runs', with no verification divergence; the
                completion waves and the NSSelector drive: the cuda runs'
                assignments and plan-acquisition counters must equal the
-               device="cpu" runs';
+               device="cpu" runs'; pod groups: a 60-node, 3-zone cluster
+               under the placement plugins (groups that fit, a group too
+               big for one zone's min_count, one that fits nowhere, groups
+               with hostname DoNotSchedule and zone ScheduleAnyway spread
+               members), pod-group preemption on 8 full nodes, the gang
+               drive at full size and the placement drive at its 5000 nodes
+               with PLACE_PARITY_GROUPS groups: bindings, victims and
+               counters equal;
   6. output  — a `{"kernels": [...]}` line, the card's name and power limit
                as nvidia-smi prints them, and last
                `{"ok": true, "device": {...}}`.
@@ -151,6 +175,9 @@ CHURN_PODS = 10             # churn pods of the Unschedulable drive
 PREEMPTORS = 256            # preemptors of the full-width preempting case
 PREEMPT = "PreemptionAsync/5000Nodes"
 UNSCHED = "Unschedulable/5kNodes/100Init/10kPods"
+GANGS = "SchedulingGangs/1000Nodes_250Groups"
+PLACE = "SchedulingGangsPlacement/5000Nodes_250Groups"
+PLACE_PARITY_GROUPS = 50    # depth of the placement drive's cuda/cpu parity runs
 
 
 def fail(msg: str) -> None:
@@ -374,6 +401,7 @@ def kernel_phase(dev, np_cap: int, n_nodes: int) -> dict:
     dry_run_phase(K, dev, np_cap, n_nodes, errs)
     scatter_phase(K, dev, np_cap, n_nodes, errs)
     patch_phase(K, dev, np_cap, n_nodes, errs)
+    placement_phase(K, dev, np_cap, n_nodes, errs)
     torch.cuda.synchronize()
     print(f"kernels vs plain: max_abs_err {errs}", flush=True)
     for name, e in errs.items():
@@ -478,6 +506,45 @@ def patch_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
                 check(moved > 0, f"the {tier}-row carry patch moved no fit verdict")
                 check(max_abs_err(before, carry[:6]) == 0, "patch_carry_rows wrote into its input")
                 errs["patch_carry_rows"] = max(errs["patch_carry_rows"], e)
+
+
+def placement_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
+    """schedule_placements against its plain version: P = 1, 16 and 64
+    lanes (a multi-lane draw has an empty padded lane, a one-row lane, a
+    100-row lane and an every-row lane), no spread table, the plan's shared
+    tables and per-lane overrides, at V = 64 and 8192, both fit strategies,
+    no active member and a gang of 4; the inputs left unchanged. Some lane
+    must place only part of its gang (PlacementFeasible decides there)."""
+    from kubernetes_tpu_torch.testing.kernel_inputs import placement_inputs
+
+    partial = placed = cases = 0
+    for lanes in (1, 16, 64):
+        for vmax, tables in ((64, {}), (64, dict(dns=1, sa=1)),
+                             (64, dict(dns=1, sa=1, overrides=True)),
+                             (8192, dict(dns=2, sa=1)), (8192, dict(dns=1, sa=2, overrides=True))):
+            s, f, facts, masks, ov = placement_inputs(900 + lanes + vmax + len(tables), np_cap,
+                                                      n_nodes, lanes, vmax=vmax, **tables)
+            st, ft = to_device(dev, s, f)
+            m = torch.from_numpy(masks).to(dev)
+            t_ov = None if ov is None else tuple(torch.from_numpy(a).to(dev) for a in ov)
+            inputs = list(st) + list(ft) + [m] + list(t_ov or ())
+            before = [t.clone() for t in inputs]
+            for strat in (0, 1):
+                for n_act in (0, 4):
+                    args = (st, ft, 8, strat, vmax, K.PlanFacts(**facts), m, n_act, t_ov)
+                    got, want = K.schedule_placements(*args), K._schedule_placements_plain(*args)
+                    e = max_abs_err((got,), (want,))
+                    errs["schedule_placements"] = max(errs["schedule_placements"], e)
+                    per_lane = (want[:, 0, :n_act] >= 0).sum(dim=1)
+                    partial += int(((per_lane > 0) & (per_lane < n_act)).sum())
+                    placed += int(per_lane.sum())
+                    cases += 1
+            check(max_abs_err(before, inputs) == 0, "schedule_placements wrote into an input")
+    torch.cuda.synchronize()
+    print(f"schedule_placements vs plain: max_abs_err {errs['schedule_placements']} over "
+          f"{cases} cases, {placed} members placed, {partial} lanes placing part of a gang",
+          flush=True)
+    check(placed > 0 and partial > 0, "the placement draws placed nothing, or no lane only part")
 
 
 # ---------------------------------------------------------------------------
@@ -814,6 +881,90 @@ def nsselector_drive(dev, n_nodes: int = 6000, resume: bool = True, init_only: b
     return sched, result, launches, init_plans
 
 
+def gang_drive(dev, n_groups: int = 250, n_nodes: int = 1000):
+    """SchedulingGangs/1000Nodes_250Groups: 1000 nodes over 10 zones, then
+    n_groups pod groups of 4 500m/256Mi members, each created before its
+    members: every pod bound by gang device sessions, none on the host
+    path. Launch counts zeroed just before the groups."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    w = bench.WORKLOADS[GANGS]
+    sched = bench.build_cluster(n_nodes, device=dev, node=w.node)
+    bench.warm(sched, 0, GANGS)
+    flushes0 = sched.mirror.scatter_flushes
+    K.reset_launch_counts()
+    result = bench.measure(sched, 4 * n_groups, workload=GANGS)
+    launches = {k.__name__: k.launches for k in K.WRAPPERS}
+    launches["scatter_flushes"] = sched.mirror.scatter_flushes - flushes0
+    print(f"path {GANGS} ({dev}): {json.dumps(result)}", flush=True)
+    d = result["detail"]
+    pods = list(sched.clientset.pods.values())
+    check(len(pods) == 4 * n_groups and all(p.node_name for p in pods),
+          f"{GANGS}: {sum(1 for p in pods if p.node_name)} of {len(pods)} pods bound")
+    check(d["host_path_pods"] == 0 and d["failures"] == 0 and d["device_scheduled"] == len(pods),
+          f"{GANGS}: host_path_pods {d['host_path_pods']}, failures {d['failures']}, "
+          f"device_scheduled {d['device_scheduled']}")
+    if torch.device(dev).type == "cuda":
+        check(launches["lap_schedule"] + launches["scan_schedule"] > 0,
+              f"neither the lap nor scan_schedule was launched on the {GANGS} path")
+    return sched, result, launches
+
+
+def placement_drive(dev, n_groups: int = 250, capture=None, n_nodes: int = 5000):
+    """SchedulingGangsPlacement/5000Nodes_250Groups: TopologySpreading's
+    5000 nodes over 50 zones under the placement plugins, then n_groups
+    pod groups of 4 500m/256Mi members with the topology constraint on the
+    zone: every pod bound, each group in one zone, each group cycle's 50
+    candidate placements in one schedule_placements launch, no host-path
+    pod. `capture`, a dict, receives the first launch's arguments and its
+    placement count. Launch counts zeroed just before the groups."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.models import tpu_scheduler as TS
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    w = bench.WORKLOADS[PLACE]
+    sched = bench.build_cluster(n_nodes, device=dev, node=w.node,
+                                profile_factory=bench.profile_for(PLACE))
+    bench.warm(sched, 0, PLACE)
+    launch = TS.schedule_placements
+
+    def recorded(*args):
+        if capture is not None and not capture:
+            capture["args"] = args
+            capture["placements"] = int(args[6].any(dim=1).sum())
+        return launch(*args)
+    TS.schedule_placements = recorded
+    flushes0 = sched.mirror.scatter_flushes
+    K.reset_launch_counts()
+    try:
+        result = bench.measure(sched, 4 * n_groups, workload=PLACE)
+    finally:
+        TS.schedule_placements = launch
+    launches = {k.__name__: k.launches for k in K.WRAPPERS}
+    launches["scatter_flushes"] = sched.mirror.scatter_flushes - flushes0
+    print(f"path {PLACE} ({dev}, {n_groups} groups): {json.dumps(result)}", flush=True)
+    d = result["detail"]
+    pods = list(sched.clientset.pods.values())
+    check(len(pods) == 4 * n_groups and all(p.node_name for p in pods),
+          f"{PLACE}: {sum(1 for p in pods if p.node_name)} of {len(pods)} pods bound")
+    zones = {}
+    for p in pods:
+        zones.setdefault(p.pod_group, set()).add(zone_of(p.node_name))
+    check(all(len(z) == 1 for z in zones.values()), f"{PLACE}: a group spans several zones")
+    check(d["placement_device_evals"] == n_groups and d["host_path_pods"] == 0,
+          f"{PLACE}: {d['placement_device_evals']} device placement evaluations, "
+          f"{d['host_path_pods']} host-path pods")
+    if torch.device(dev).type == "cuda":
+        check(launches["schedule_placements"] == n_groups,
+              f"{PLACE}: schedule_placements launched {launches['schedule_placements']} times, "
+              f"not once a group")
+    print(f"{PLACE} ({dev}): {len({min(z) for z in zones.values()})} zones used, "
+          f"{d['placement_eval_s'] / max(1, d['placement_device_evals']) * 1e3:.3f} ms a "
+          f"placement evaluation (plan, masks, launch, fetch)", flush=True)
+    return sched, result, launches
+
+
 def check_launched(name: str, launches: dict, detail: dict, kernels) -> None:
     """Each kernel of `kernels` was launched on the path. A measured window
     whose sessions all resumed the warm-up session's plan chains its carry
@@ -952,6 +1103,11 @@ def paths_phase(dev) -> dict:
     out[NSSEL] = (sched, result, launches)
     _s, _r, _l, base_plans = nsselector_drive(dev, resume=False, init_only=True)
     waves["nsselector_init_plans"] = (init_plans, base_plans)
+
+    out[GANGS] = gang_drive(dev)
+    capture = {}
+    out[PLACE] = placement_drive(dev, capture=capture)
+    waves["placement_capture"] = capture
     return out, lane_inputs, waves
 
 
@@ -963,7 +1119,7 @@ def assignments(sched) -> dict:
 # Phase 4: timing on the main paths' inputs
 # ---------------------------------------------------------------------------
 
-def general_cost(f, facts, K, n_act: int):
+def general_cost(f, facts, K, n_act: int, rows=None):
     """(bytes, ops) the general scan needs for n_act steps on these inputs:
     per step one pass over the rows for the plan's live lanes, each read
     once (a row's count in a table is the table at the row's value id, so
@@ -971,8 +1127,8 @@ def general_cost(f, facts, K, n_act: int):
     [C1, V] minimum of every spread table, and the landing's one-row
     update. The kernel's own scratch (feasibility, its prefix sum, the
     carried totals between steps) is no input or output and is not
-    counted."""
-    NP = f.sel_match.shape[0]
+    counted. `rows`: the rows a step passes over (all of them by default)."""
+    NP = f.sel_match.shape[0] if rows is None else rows
     C1, C2 = f.dns_axis.shape[0], f.sa_axis.shape[0]
     A1, A2, KD = f.anti_axis.shape[0], f.aff_axis.shape[0], f.ipa_axis.shape[0]
     V = f.dns_counts.shape[1]
@@ -1250,6 +1406,41 @@ def preemption_timing(paths: dict, errs: dict) -> dict:
     return rows
 
 
+def placement_timing(waves: dict, errs: dict) -> dict:
+    """schedule_placements on the placement drive's first group cycle (its
+    own masks and plan), held exact first. Bound: summed over the real
+    lanes (the candidate placements), each the fresh carry of its rows and
+    general_cost's steps over its rows, and its row mask read once."""
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    cap = waves["placement_capture"]
+    check(cap, f"the {PLACE} made no placement evaluation")
+    args = cap["args"]
+    state, f, _B, _strat, _vmax, facts, masks, n_act = args[:8]
+    check(max_abs_err((K.schedule_placements(*args),), (K._schedule_placements_plain(*args),))
+          == 0, f"schedule_placements disagrees with its plain version on the {PLACE}' inputs")
+    NP, R = state.alloc_r.shape
+    FR = f.fit_slots.shape[0]
+    lane_facts = facts._replace(has_ipa_base=False, anti_rowlocal=False)
+    nbytes = ops = 0
+    for rows in masks.sum(dim=1).tolist():
+        if not rows:
+            continue  # a padded lane
+        b, o = general_cost(f, lane_facts, K, n_act, rows=rows)
+        nbytes += NP + rows * (16 * R + 28) + b
+        ops += rows * (4 * R + 12 * FR + 24) + o
+    row = kernel_row("schedule_placements", "kubernetes_tpu/ops/kernel.py:655",
+                     errs["schedule_placements"], lambda: K.schedule_placements(*args),
+                     lambda: K._schedule_placements_plain(*args), nbytes, ops, plain_reps=1)
+    row.update(lanes=int(masks.shape[0]), placements=cap["placements"], members=n_act,
+               plan_path=K.plan_path(f, lane_facts, args[2]))
+    print(f"schedule_placements on the {PLACE}' first group ({row['lanes']} lanes, "
+          f"{row['placements']} placements, {n_act} members, NP {NP}): {row['ms']:.4f} ms on the "
+          f"device, {row['host_ms']:.4f} ms a call, plain {row['plain_ms']:.3f} ms, bound "
+          f"{row['bound_ms']:.6f} ms ({row['bound_by']})", flush=True)
+    return {"schedule_placements": row}
+
+
 def patch_timing(waves: dict, errs: dict) -> dict:
     """patch_carry_rows on the wave drive's own patches (the first call of
     each tier the drive used), held exact first, with the drive's plan
@@ -1419,6 +1610,100 @@ def parity_phase(dev, paths: dict):
 
     same_resume(paths[WAVES][0], wave_drive("cpu")[0], WAVES)
     same_resume(paths[NSSEL][0], nsselector_drive("cpu")[0], NSSEL)
+    gang_parity(dev, paths)
+
+
+GANG_COUNTERS = ("scheduled", "failures", "device_scheduled", "host_path_pods",
+                 "device_batches", "placement_device_evals", "plan_rebuilds_full",
+                 "plan_rebuilds_delta", "plan_rebuilds_resume")
+
+
+def gang_parity(dev, paths: dict) -> None:
+    """Pod groups: each cuda run's bindings, victims and counters equal the
+    device="cpu" run's."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.api.types import PodGroup
+    from kubernetes_tpu_torch.core.registry import gang_placement_profile
+    from kubernetes_tpu_torch.models import TorchScheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+
+    zone, host = "topology.kubernetes.io/zone", "kubernetes.io/hostname"
+
+    def same_gangs(a, b, what):
+        got, want = outcome(a), outcome(b)
+        diffs = {k: (v, got.get(k)) for k, v in want.items() if got.get(k) != v}
+        check(not diffs and set(got) == set(want),
+              f"cuda/cpu divergence ({what}): {list(diffs.items())[:5]}")
+        ca, cb = ({c: getattr(x, c) for c in GANG_COUNTERS} for x in (a, b))
+        check(ca == cb and a.preemption_counts() == b.preemption_counts(),
+              f"{what}: counters {ca} vs {cb}")
+        print(f"parity ({what}): {len(want)} pods, {cb}, victims "
+              f"{b.preemption_counts()['victims']}, identical", flush=True)
+
+    def group(s, name, n, cpu, keys=(zone,), min_count=None, build=None, prio=0):
+        s.clientset.create_pod_group(PodGroup(name=name, topology_keys=keys,
+                                              min_count=n if min_count is None else min_count))
+        for j in range(n):
+            b = make_pod().name(f"{name}-{j}").req({"cpu": cpu, "memory": "1Gi"}).priority(prio)
+            p = (build(b) if build is not None else b).obj()
+            p.pod_group = name
+            s.clientset.create_pod(p)
+
+    def placement_cluster(device):
+        """60 nodes over 3 zones (z2 five small nodes) under the placement
+        plugins: groups that fit, one that fits z0 and z1 but not z2 (its
+        min_count exceeds what z2 holds), one that fits nowhere, and groups
+        whose members carry a hostname DoNotSchedule spread and a zone
+        ScheduleAnyway spread (per-placement spread tables)."""
+        s = TorchScheduler(device=device, profile_factory=gang_placement_profile)
+        for i in range(60):
+            z, cpu = (("z0", 8) if i < 30 else ("z1", 8)) if i < 55 else ("z2", 2)
+            s.clientset.create_node(make_node().name(f"n{i}").capacity(
+                {"cpu": cpu, "memory": "32Gi", "pods": 110}).zone(z).obj())
+        for g in range(6):
+            group(s, f"fit{g}", 4, "1")
+        group(s, "wide", 6, "2")
+        group(s, "nofit", 2, "64")
+        for g in range(3):
+            group(s, f"spread{g}", 4, "1", build=lambda b, g=g: b.labels({"gang": f"s{g}"})
+                  .spread_constraint(1, host, "DoNotSchedule", {"gang": f"s{g}"})
+                  .spread_constraint(1, zone, "ScheduleAnyway", {"gang": f"s{g}"}))
+        s.run_until_idle()
+        return s
+
+    def preemption_cluster(device):
+        """8 full nodes of 4 cpu over 2 zones (priority-1 pods), then two
+        priority-100 groups of 2 four-cpu members, one constrained to a
+        zone: each fits only after lower-priority pods go."""
+        s = TorchScheduler(device=device, profile_factory=gang_placement_profile)
+        for i in range(8):
+            s.clientset.create_node(make_node().name(f"n{i}").capacity(
+                {"cpu": 4, "memory": "32Gi", "pods": 110}).zone(f"z{i % 2}").obj())
+        for i in range(8):
+            p = make_pod().name(f"low-{i}").req({"cpu": "4"}).priority(1).obj()
+            p.node_name = f"n{i}"
+            s.clientset.create_pod(p)
+        group(s, "train", 2, "4", keys=(), prio=100)
+        group(s, "zoned", 2, "4", prio=100)
+        s.run_until_idle()
+        return s
+
+    a, b = placement_cluster(dev), placement_cluster("cpu")
+    same_gangs(a, b, "placement groups, 60 nodes over 3 zones")
+    check(a.placement_device_evals > 0 and a.failures > 0
+          and not any(p.node_name for p in a.clientset.pods.values() if p.pod_group == "nofit")
+          and all(p.node_name and int(p.node_name[1:]) < 55
+                  for p in a.clientset.pods.values() if p.pod_group == "wide"),
+          "the 60-node placement case did not place, park and fail as built")
+    a, b = preemption_cluster(dev), preemption_cluster("cpu")
+    same_gangs(a, b, "pod-group preemption, 8 full nodes")
+    check(a.preemption_counts()["victims"] == 4
+          and all(p.node_name for p in a.clientset.pods.values() if p.priority == 100),
+          "pod-group preemption did not evict 4 pods and bind both groups")
+    same_gangs(paths[GANGS][0], gang_drive("cpu")[0], GANGS)
+    same_gangs(placement_drive(dev, PLACE_PARITY_GROUPS)[0],
+               placement_drive("cpu", PLACE_PARITY_GROUPS)[0],
+               f"{PLACE}, {PLACE_PARITY_GROUPS} groups")
 
 
 def main() -> int:
@@ -1451,6 +1736,7 @@ def main() -> int:
     rows = timing_phase(paths, errs, lane_inputs)
     rows.update(preemption_timing(paths, errs))
     rows.update(patch_timing(waves, errs))
+    rows.update(placement_timing(waves, errs))
     print(f"timing phase: {time.perf_counter() - t1:.1f} s", flush=True)
     for name, (_s, result, _l) in paths.items():
         if result is not None:

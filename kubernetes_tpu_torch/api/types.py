@@ -2,7 +2,7 @@
 port's scheduling slices consume, flattened into plain dataclasses.
 
 Fields for features outside the port (host ports, volumes, claims, gates,
-pod groups, images) stay on the objects so that a caller who sets them is
+images, a pod group's parent composite group) stay on the objects so that a caller who sets them is
 refused loudly by the scope guard (core/scope.py) instead of having the
 field silently dropped.
 
@@ -384,3 +384,31 @@ class Node:
 class Namespace:
     name: str = ""
     labels: Dict[str, str] = field(default_factory=dict)
+
+
+# ---------------------------------------------------------------------------
+# PodGroup (gang scheduling)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PodGroup:
+    """An all-or-nothing scheduling unit (the JAX package's
+    api/types.py:433-455; the reference's schedule_one_podgroup.go)."""
+
+    name: str = ""
+    namespace: str = "default"
+    uid: str = ""
+    min_count: int = 0  # members that must schedule together
+    priority: int = 0
+    labels: Dict[str, str] = field(default_factory=dict)
+    # spec.schedulingConstraints.topology[*].key: the placement algorithm
+    # groups candidate node subsets by the domains of the first key.
+    topology_keys: tuple = ()
+    # spec.parentCompositePodGroupName: membership in a composite tree
+    # (refused by the scope guard: composite trees are not ported).
+    parent_name: str = ""
+
+    def __post_init__(self):
+        if not self.uid:
+            self.uid = _next_uid("pg")

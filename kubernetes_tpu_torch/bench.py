@@ -38,16 +38,34 @@ of 32 cpu / 256Gi / 110 pods across 50 zones with 100m pods:
                                              with hostname anti-affinity to
                                              color: green pods of team: devops
                                              namespaces.
+  SchedulingGangs/1000Nodes_250Groups        1000 of the 32-cpu nodes over 10
+                                             zones, 250 pod groups of 4
+                                             500m/256Mi members (min_count 4):
+                                             gang device sessions.
+  SchedulingGangsPlacement/5000Nodes_250Groups
+                                             the same groups with the
+                                             harness's topology constraint
+                                             (topologyKey
+                                             topology.kubernetes.io/zone) under
+                                             the placement plugins, on the
+                                             5000 nodes of 50 zones: each
+                                             group's 50 candidate placements
+                                             in one schedule_placements
+                                             launch. No upstream shape (no
+                                             threshold: vs_baseline is null).
 
 The kernels are built and every plan of the measured shape is dispatched
-once with no active pod (TorchScheduler.warm_for) before the warm-up pods,
-outside the measured window. Prints one JSON line with the keys of the JAX
+once with no active pod (TorchScheduler.warm_for, and warm_for_placements
+for a placement workload) before the warm-up pods, outside the measured
+window. Prints one JSON line with the keys of the JAX
 package's bench.py (`metric`, `value`, `unit`, `vs_baseline`, `detail`);
 `vs_baseline` divides by the upstream threshold of the shape (the
 reference's own pods/s floor, no target of the port), `detail.platform`
 names the card, `detail.preemption` counts the window's PostFilter
 attempts, device dry runs, victims and verification divergences,
-`detail.churn_pods` the churner's pods, and the plan acquisitions by kind
+`detail.churn_pods` the churner's pods, `detail.placement_device_evals`
+and `placement_eval_s` the group cycles whose placements the kernel
+evaluated and their seconds, and the plan acquisitions by kind
 (`plan_rebuilds_full` / `_delta` / `_resume`), the rows the delta patches
 wrote (`delta_dirty_rows`) and the seconds of full rebuilds (`plan_build_s`)
 and of every acquisition and in-session patch (`plan_acquire_s`).
@@ -71,7 +89,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from .api.types import Namespace
+from .api.types import Namespace, PodGroup
+from .core.registry import default_profile, gang_placement_profile
 from .models import TorchScheduler
 from .ops import kernel
 from .testing import make_node, make_pod
@@ -83,7 +102,7 @@ WINDOW_COUNTERS = ("scheduled", "failures", "device_batches", "device_scheduled"
                    "host_path_pods", "plan_build_s", "plan_acquire_s", "collect_s",
                    "dispatch_s", "device_wait_s", "host_commit_s", "session_end_s",
                    "plan_rebuilds_full", "plan_rebuilds_delta", "plan_rebuilds_resume",
-                   "delta_dirty_rows")
+                   "delta_dirty_rows", "placement_device_evals", "placement_eval_s")
 
 
 class NodeTemplate(NamedTuple):
@@ -113,21 +132,32 @@ class Namespaces(NamedTuple):
     labels: dict
 
 
+class Gang(NamedTuple):
+    """createPodGroups: the measured pods in groups of `size` (min_count
+    `size`), each group created before its members; a `topology_key`
+    constrains each group to one of its domains (the placement plugins)."""
+
+    size: int
+    topology_key: str = ""
+
+
 class Workload(NamedTuple):
     """One scheduler_perf shape: the measured pods' template (a builder
     step over make_pod), their count, the warm-up/init pods (`init_build`
     their template; None: the measured shape), the upstream pods/s
-    threshold, the nodes, the churn during the window, and the namespaces
-    the pods are created in (None: `default`)."""
+    threshold (None: no upstream shape), the nodes, the churn during the
+    window, the namespaces the pods are created in (None: `default`), and
+    the pod groups they form (None: none)."""
 
     measure_pods: int
     build: Callable
     init_pods: int
     init_build: Optional[Callable]
-    threshold: float
+    threshold: Optional[float]
     node: NodeTemplate = NodeTemplate()
     churn: Optional[Churn] = None
     namespaces: Optional[Namespaces] = None
+    gang: Optional[Gang] = None
 
 
 def _basic(b):
@@ -136,6 +166,10 @@ def _basic(b):
 
 def _big(b):
     return b.req({"cpu": 900, "memory": "128Mi"})
+
+
+def _gang_member(b):
+    return b.req({"cpu": "500m", "memory": "256Mi"})
 
 
 WORKLOADS = {
@@ -165,8 +199,13 @@ WORKLOADS = {
         .pod_affinity(HOSTNAME, {"color": "green"}, anti=True, ns_labels={"team": "devops"}),
         4000, lambda b: b.req({"cpu": "100m"}).labels({"color": "green"}), 140.0,
         namespaces=Namespaces(100, {"team": "devops"})),
+    "SchedulingGangs/1000Nodes_250Groups": Workload(
+        1000, _gang_member, 0, None, 200.0, node=NodeTemplate(zones=10), gang=Gang(4)),
+    "SchedulingGangsPlacement/5000Nodes_250Groups": Workload(
+        1000, _gang_member, 0, None, None, gang=Gang(4, ZONE)),
 }
-NODES = {"SchedulingRequiredPodAntiAffinityWithNSSelector/5000Nodes_2000Pods": 6000}
+NODES = {"SchedulingRequiredPodAntiAffinityWithNSSelector/5000Nodes_2000Pods": 6000,
+         "SchedulingGangs/1000Nodes_250Groups": 1000}
 DEFAULT_WORKLOAD = "SchedulingBasic/5000Nodes_10000Pods"
 
 
@@ -182,9 +221,18 @@ def cluster_node(i: int, node: NodeTemplate = NodeTemplate(), taint=None):
     return b.obj()
 
 
+def profile_for(workload: str):
+    """The profile a workload's scheduler runs: the placement plugins for
+    topology-constrained groups (GenericWorkload-gated in the reference)."""
+    gang = WORKLOADS[workload].gang
+    return gang_placement_profile if gang is not None and gang.topology_key else default_profile
+
+
 def build_cluster(n_nodes: int, device="cuda", max_batch=None,
-                  node: NodeTemplate = NodeTemplate(), resume: bool = True) -> TorchScheduler:
-    sched = TorchScheduler(device=device, max_batch=max_batch, resume=resume)
+                  node: NodeTemplate = NodeTemplate(), resume: bool = True,
+                  profile_factory=default_profile) -> TorchScheduler:
+    sched = TorchScheduler(device=device, max_batch=max_batch, resume=resume,
+                           profile_factory=profile_factory)
     for i in range(n_nodes):
         sched.clientset.create_node(cluster_node(i, node))
     return sched
@@ -198,12 +246,31 @@ def _clones(build: Callable, n: int, prefix: str, namespace: str = "default"):
 def make_pods(n: int, prefix: str, workload: str = DEFAULT_WORKLOAD):
     """N clones of the workload's measured template (shared spec and
     signature memo), in its measured namespace. SchedulingBasic pods carry
-    `app: <prefix>`."""
+    `app: <prefix>`; a gang workload's pods name their group,
+    `<prefix>-group-<i>`, `size` consecutive pods a group."""
     w = WORKLOADS[workload]
     ns = "measure-ns-0" if w.namespaces is not None else "default"
     if workload == DEFAULT_WORKLOAD:
         return _clones(lambda b: w.build(b).labels({"app": prefix}), n, prefix)
-    return _clones(w.build, n, prefix, ns)
+    pods = _clones(w.build, n, prefix, ns)
+    if w.gang is not None:
+        for i, p in enumerate(pods):
+            p.pod_group = f"{prefix}-group-{i // w.gang.size}"
+    return pods
+
+
+def create_pods(sched: TorchScheduler, pods, workload: str) -> None:
+    """Create `pods`; in a gang workload each group is created before its
+    first member (createPodGroups)."""
+    gang = WORKLOADS[workload].gang
+    made = set()
+    for p in pods:
+        if gang is not None and p.pod_group not in made:
+            made.add(p.pod_group)
+            sched.clientset.create_pod_group(PodGroup(
+                name=p.pod_group, namespace=p.namespace, min_count=gang.size,
+                topology_keys=(gang.topology_key,) if gang.topology_key else ()))
+        sched.clientset.create_pod(p)
 
 
 def init_pods(n: int, workload: str):
@@ -283,9 +350,12 @@ def warm(sched: TorchScheduler, warmup: int, workload: str = DEFAULT_WORKLOAD) -
     measured shape, then the workload's warm-up (or init) pods, scheduled
     (or tried)."""
     create_namespaces(sched, workload)
-    sched.warm_for(make_pods(1, "warmshape", workload)[0])
-    for p in init_pods(warmup, workload):
-        sched.clientset.create_pod(p)
+    w = WORKLOADS[workload]
+    shape = make_pods(1, "warmshape", workload)[0]
+    sched.warm_for(shape)
+    if w.gang is not None and w.gang.topology_key:
+        sched.warm_for_placements(shape, w.gang.size, max(1, w.node.zones))
+    create_pods(sched, init_pods(warmup, workload), workload)
     sched.run_until_idle()
 
 
@@ -300,8 +370,7 @@ def measure(sched: TorchScheduler, n_pods: int, prefix: str = "bench",
     win0 = {a: getattr(sched, a) for a in WINDOW_COUNTERS}
     pre0 = sched.preemption_counts()
     evals0 = sched.preemption_device_evals
-    for p in make_pods(n_pods, prefix, workload):
-        sched.clientset.create_pod(p)
+    create_pods(sched, make_pods(n_pods, prefix, workload), workload)
     churner = Churner(sched, w.churn, churn_limit) if w.churn is not None else None
     t0 = time.perf_counter()
     drain(sched, churner)
@@ -321,7 +390,7 @@ def measure(sched: TorchScheduler, n_pods: int, prefix: str = "bench",
                    f"nodes, {n_pods} pods, device batch path)"),
         "value": pods_per_sec,
         "unit": "pods/s",
-        "vs_baseline": None if label else pods_per_sec / w.threshold,
+        "vs_baseline": None if label or w.threshold is None else pods_per_sec / w.threshold,
         "detail": detail,
     }
 
@@ -371,7 +440,8 @@ def main(argv=None) -> int:
     n_pods = int(os.environ.get("BENCH_PODS", w.measure_pods))
     warmup = int(os.environ.get("BENCH_WARMUP", w.init_pods))
     max_batch = int(os.environ.get("BENCH_MAX_BATCH", 0)) or None
-    sched = build_cluster(n_nodes, device=device, max_batch=max_batch, node=w.node)
+    sched = build_cluster(n_nodes, device=device, max_batch=max_batch, node=w.node,
+                          profile_factory=profile_for(workload))
     warm(sched, warmup, workload)
     kernel.reset_launch_counts()
     if "--profile" in argv:

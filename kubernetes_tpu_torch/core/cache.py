@@ -140,6 +140,65 @@ class Snapshot:
     def num_nodes(self) -> int:
         return len(self.node_info_list)
 
+    def _rebuild_lists(self) -> None:
+        self.have_pods_with_affinity_list = [
+            ni for ni in self.node_info_list if ni.pods_with_affinity]
+        self.have_pods_with_required_anti_affinity_list = [
+            ni for ni in self.node_info_list if ni.pods_with_required_anti_affinity]
+        self._index = {ni.name: i for i, ni in enumerate(self.node_info_list)}
+
+    # -- in-cycle what-if mutation (gang simulation, snapshot.go:545/:599;
+    # the JAX package's core/cache.py:184-222) ------------------------------
+
+    def assume_pod(self, pod: Pod) -> None:
+        """Place `pod` on its node in this snapshot only, keeping the
+        affinity sublists in step (PreFilter reads them mid-simulation)."""
+        ni = self.node_info_map.get(pod.node_name)
+        if ni is None:
+            return
+        had_aff = bool(ni.pods_with_affinity)
+        had_anti = bool(ni.pods_with_required_anti_affinity)
+        ni.add_pod(PodInfo.of(pod))
+        if not had_aff and ni.pods_with_affinity:
+            self.have_pods_with_affinity_list.append(ni)
+        if not had_anti and ni.pods_with_required_anti_affinity:
+            self.have_pods_with_required_anti_affinity_list.append(ni)
+
+    def forget_pod(self, pod: Pod) -> None:
+        ni = self.node_info_map.get(pod.node_name)
+        if ni is None:
+            return
+        had_aff = bool(ni.pods_with_affinity)
+        had_anti = bool(ni.pods_with_required_anti_affinity)
+        ni.remove_pod(pod)
+        if had_aff and not ni.pods_with_affinity:
+            self.have_pods_with_affinity_list = [
+                x for x in self.have_pods_with_affinity_list if x is not ni]
+        if had_anti and not ni.pods_with_required_anti_affinity:
+            self.have_pods_with_required_anti_affinity_list = [
+                x for x in self.have_pods_with_required_anti_affinity_list if x is not ni]
+
+    # -- placement session (snapshot.go:708 AssumePlacement; the JAX
+    # package's :225-240): the visible node list restricted to a candidate
+    # placement while a pod group is simulated against it. The NodeInfos are
+    # the full list's, so in-simulation assume/forget stay visible after the
+    # placement is forgotten.
+
+    def assume_placement(self, node_names) -> None:
+        assert not self.placement_active(), "placement already assumed"
+        wanted = set(node_names)
+        self._placement_saved = self.node_info_list
+        self.node_info_list = [ni for ni in self._placement_saved if ni.name in wanted]
+        self._rebuild_lists()
+
+    def forget_placement(self) -> None:
+        self.node_info_list = self._placement_saved
+        del self._placement_saved
+        self._rebuild_lists()
+
+    def placement_active(self) -> bool:
+        return hasattr(self, "_placement_saved")
+
 
 class Cache:
     """cacheImpl (backend/cache/cache.go:61)."""
@@ -162,6 +221,9 @@ class Cache:
         # the live gate of the namespace-erased session signature and of the
         # namespace-event delta classification (models/tpu_scheduler.py).
         self.affinity_pod_refs = 0
+        # The scheduler's placed-group-members index (core/podgroupstate.py),
+        # fed from the add and remove flow below.
+        self.pod_group_state = None
 
     # -- namespaces (read by namespaceSelector matching) -------------------
 
@@ -259,11 +321,15 @@ class Cache:
         if pod_info is None or pod_info.pod is not pod:
             pod_info = PodInfo.of(pod)
         ni.add_pod(pod_info)
+        if self.pod_group_state is not None:
+            self.pod_group_state.record_bound(pod)
         if _has_pod_affinity(pod):
             self.affinity_pod_refs += 1
         self._dirty.add(pod.node_name)
 
     def _remove_pod_from_node(self, pod: Pod) -> None:
+        if self.pod_group_state is not None:
+            self.pod_group_state.remove(pod)
         if _has_pod_affinity(pod):
             self.affinity_pod_refs = max(0, self.affinity_pod_refs - 1)
         ni = self.nodes.get(pod.node_name)

@@ -12,8 +12,8 @@ import copy
 import itertools
 from typing import Callable, Dict, List, Optional
 
-from ..api.types import Namespace, Node, Pod
-from .scope import check_node, check_pod
+from ..api.types import Namespace, Node, Pod, PodGroup
+from .scope import check_node, check_pod, check_pod_group
 
 
 class FakeClientset:
@@ -22,9 +22,11 @@ class FakeClientset:
         self.nodes: Dict[str, Node] = {}
         self.bindings: Dict[str, str] = {}  # pod uid -> node name
         self.namespaces: Dict[str, Namespace] = {"default": Namespace(name="default")}
+        self.pod_groups: Dict[str, PodGroup] = {}  # "ns/name" -> group
         self._pod_handlers: List = []
         self._node_handlers: List = []
         self._namespace_handlers: List = []
+        self._pod_group_handlers: List = []
         self._rv_counter = itertools.count(1)
 
     # -- informer-ish registration ----------------------------------------
@@ -43,6 +45,13 @@ class FakeClientset:
         for ns in self.namespaces.values():
             handler(ns)
 
+    def on_pod_group_event(self, handler: Callable[[PodGroup], None]) -> None:
+        """handler(group) on every create; existing groups replay at
+        registration."""
+        self._pod_group_handlers.append(handler)
+        for g in self.pod_groups.values():
+            handler(g)
+
     # -- writes ------------------------------------------------------------
 
     def create_namespace(self, ns: Namespace) -> Namespace:
@@ -50,6 +59,17 @@ class FakeClientset:
         for h in self._namespace_handlers:
             h(ns)
         return ns
+
+    def create_pod_group(self, group: PodGroup) -> PodGroup:
+        check_pod_group(group)
+        self.pod_groups[f"{group.namespace}/{group.name}"] = group
+        for h in self._pod_group_handlers:
+            h(group)
+        return group
+
+    def create_composite_pod_group(self, cpg) -> None:
+        """The JAX package's CompositePodGroup feed: always refused."""
+        check_pod_group(cpg)
 
     def create_node(self, node: Node) -> Node:
         check_node(node)

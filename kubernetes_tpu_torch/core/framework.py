@@ -1,7 +1,9 @@
 """The scheduler framework: extension-point vocabulary, Status codes,
 CycleState, and the plugin-dispatch runtime, trimmed to the extension points
 the port's plugins implement (QueueSort, PreFilter with its AddPod/RemovePod
-extensions, Filter, PostFilter, PreScore, Score, NormalizeScore, Bind, Sign).
+extensions, Filter, PostFilter, PreScore, Score, NormalizeScore, Reserve,
+Unreserve, Permit, Bind, Sign, and the pod-group points PlacementGenerate,
+PlacementFeasible, PlacementScore and PodGroupPostFilter).
 
 Re-expresses staging/src/k8s.io/kube-scheduler/framework interface.go and
 pkg/scheduler/framework/runtime/framework.go (frameworkImpl :58). Plugins are
@@ -24,6 +26,7 @@ SUCCESS = 0
 ERROR = 1
 UNSCHEDULABLE = 2
 UNSCHEDULABLE_AND_UNRESOLVABLE = 3
+WAIT = 4
 SKIP = 5
 
 
@@ -135,6 +138,36 @@ class NodeScore:
     score: int
 
 
+@dataclass
+class Placement:
+    """A named candidate node subset for pod-group scheduling (one per
+    topology domain, topology_placement.go)."""
+
+    name: str
+    node_names: List[str]
+
+
+@dataclass
+class PlacementProgress:
+    """A group simulation's outcome handed to PlacementFeasible plugins
+    (framework.go:2160)."""
+
+    scheduled: int = 0
+    failed: int = 0
+    total: int = 0
+
+
+@dataclass
+class PodGroupAssignments:
+    """One feasible placement simulation: the proposed member -> node
+    assignments and the placement's NodeInfos, which PlacementScore plugins
+    score."""
+
+    placement: Placement
+    proposed: List[Tuple[Pod, str]] = field(default_factory=list)
+    nodes: List[Any] = field(default_factory=list)  # NodeInfo
+
+
 def default_normalize_score(max_priority: int, reverse: bool, scores: List[NodeScore]) -> None:
     """plugins/helper/normalize_score.go DefaultNormalizeScore."""
     max_count = max((s.score for s in scores), default=0)
@@ -163,8 +196,17 @@ class Framework:
         self.post_filter_plugins = self._having("post_filter")
         self.pre_score_plugins = self._having("pre_score")
         self.score_plugins = [(p, w) for p, w in self._plugins if hasattr(p, "score")]
+        self.reserve_plugins = self._having("reserve")
+        self.unreserve_plugins = self._having("unreserve")
+        self.permit_plugins = self._having("permit")
         self.bind_plugins = self._having("bind")
         self.sign_plugins = self._having("sign")
+        # Pod-group extension points (framework.go:2208, :2160, :1625, :1212).
+        self.placement_generate_plugins = self._having("generate_placements")
+        self.placement_feasible_plugins = self._having("placement_feasible")
+        self.placement_score_plugins = [(p, w) for p, w in self._plugins
+                                        if hasattr(p, "score_placement")]
+        self.pod_group_post_filter_plugins = self._having("pod_group_post_filter")
         # Per-plugin QueueingHintFn registrations (EventsToRegister):
         # plugin name -> {event: [hint fn or None]}. Plugins without
         # events_to_register fall back to the queue's static event map.
@@ -304,7 +346,87 @@ class Framework:
             all_scores[p.name] = scores
         return all_scores
 
-    # -- bind ----------------------------------------------------------------
+    # -- pod-group extension points ------------------------------------------
+
+    def run_placement_generate_plugins(self, state: CycleState, group, members,
+                                       parent: Placement) -> Tuple[List[Placement], Status]:
+        """RunPlacementGeneratePlugins: each plugin refines the previous
+        plugin's placements."""
+        placements = [parent]
+        for p in self.placement_generate_plugins:
+            nxt: List[Placement] = []
+            for parent_pl in placements:
+                out, st = p.generate_placements(state, group, members, parent_pl)
+                if not st.is_success():
+                    st.plugin = p.name
+                    return [], st
+                nxt.extend(out)
+            placements = nxt
+        return placements, OK
+
+    def run_placement_feasible_plugins(self, state: CycleState, group,
+                                       progress: PlacementProgress) -> Status:
+        """RunPlacementFeasiblePlugins: the group-level gate on a simulation
+        (GangScheduling: scheduled >= min_count)."""
+        for p in self.placement_feasible_plugins:
+            st = p.placement_feasible(state, group, progress)
+            if not st.is_success():
+                st.plugin = p.name
+                return st
+        return OK
+
+    def run_placement_score_plugins(self, state: CycleState, group,
+                                    assignments: List[PodGroupAssignments]) -> List[int]:
+        """RunPlacementScorePlugins: score, normalize, weight and sum per
+        candidate placement."""
+        totals = [0] * len(assignments)
+        for p, weight in self.placement_score_plugins:
+            scores = []
+            for pga in assignments:
+                sc, st = p.score_placement(state, group, pga)
+                if not st.is_success():
+                    raise RuntimeError(f"placement score {p.name} failed: {st.message()}")
+                scores.append(sc)
+            norm = getattr(p, "normalize_placement_score", None)
+            if norm is not None:
+                scores = norm(group, scores)
+            for i, sc in enumerate(scores):
+                totals[i] += weight * sc
+        return totals
+
+    def run_pod_group_post_filter_plugins(self, state: CycleState, group, members, diagnosis):
+        """RunPodGroupPostFilterPlugins (framework.go:1212): a chance to make
+        room for the whole group (pod-group preemption)."""
+        for p in self.pod_group_post_filter_plugins:
+            result, st = p.pod_group_post_filter(state, group, members, diagnosis)
+            if st.is_success() or st.code not in (UNSCHEDULABLE, UNSCHEDULABLE_AND_UNRESOLVABLE):
+                st.plugin = p.name
+                return result, st
+        return None, Status.unschedulable("no pod-group post filter made room")
+
+    # -- reserve / permit / bind ---------------------------------------------
+
+    def run_reserve_plugins_reserve(self, state: CycleState, pod: Pod, node_name: str) -> Status:
+        for p in self.reserve_plugins:
+            st = p.reserve(state, pod, node_name)
+            if not st.is_success():
+                st.plugin = p.name
+                return st
+        return OK
+
+    def run_reserve_plugins_unreserve(self, state: CycleState, pod: Pod, node_name: str) -> None:
+        for p in reversed(self.unreserve_plugins):
+            p.unreserve(state, pod, node_name)
+
+    def run_permit_plugins(self, state: CycleState, pod: Pod, node_name: str) -> Status:
+        """The first plugin that does not allow decides (a rejection, WAIT or
+        an error)."""
+        for p in self.permit_plugins:
+            st = p.permit(state, pod, node_name)
+            if not st.is_success():
+                st.plugin = p.name
+                return st
+        return OK
 
     def run_bind_plugins(self, state: CycleState, pod: Pod, node_name: str) -> Status:
         for p in self.bind_plugins:

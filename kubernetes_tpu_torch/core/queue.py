@@ -1,5 +1,5 @@
 """PriorityQueue: the three-stage pending-pod store and the Nominator,
-trimmed to the port (no gates, no pod groups, no composite groups).
+trimmed to the port (no gates, no composite groups).
 
 Re-expresses pkg/scheduler/backend/queue/scheduling_queue.go (:186-269):
 - activeQ   — heap ordered by the QueueSort plugin (priority, FIFO);
@@ -8,6 +8,11 @@ Re-expresses pkg/scheduler/backend/queue/scheduling_queue.go (:186-269):
 - unschedulable — tried-and-failed pods, moved to active/backoff on cluster
   events (MoveAllToActiveOrBackoffQueue :1817) filtered by per-plugin
   QueueingHints (isPodWorthRequeuing :582).
+
+Gang scheduling (workload_forest.go / pod_group_member_pods.go, the JAX
+package's core/queue.py:596-948, reduced to flat groups): a pod naming a
+pod group is buffered until `min_count` members have arrived, then the
+whole group enters the activeQ as one QueuedPodGroupInfo entity.
 
 Single-threaded: `pop` returns None when empty instead of blocking. With
 SchedulerPopFromBackoffQ (on by default in the reference), an empty activeQ
@@ -20,7 +25,7 @@ import heapq
 import itertools
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Set, Tuple
+from typing import Callable, Dict, List, Optional, Set, Tuple, Union
 
 from ..api.types import Pod
 from .node_info import PodInfo
@@ -42,6 +47,9 @@ EVENT_NODE_UPDATE = "Node/Update"
 QUEUEING_HINTS: Dict[str, Set[str]] = {
     "NodeName": {EVENT_NODE_ADD, EVENT_NODE_UPDATE},
     "NodeUnschedulable": {EVENT_NODE_ADD, EVENT_NODE_UPDATE},
+    # A topology-constrained group with no feasible placement is charged to
+    # no plugin it registered events for: nothing requeues it early.
+    "TopologyPlacementGenerator": set(),
 }
 
 
@@ -61,6 +69,32 @@ class QueuedPodInfo:
     @property
     def uid(self) -> str:
         return self.pod_info.pod.uid
+
+
+@dataclass
+class QueuedPodGroupInfo:
+    """The gang-scheduling queue entity (scheduling_queue.go
+    QueuedPodGroupInfo): a PodGroup whose members have arrived pops as one
+    unit and is scheduled all-or-nothing."""
+
+    group: object  # api.types.PodGroup
+    members: List[QueuedPodInfo] = field(default_factory=list)
+    timestamp: float = 0.0
+    attempts: int = 0
+    unschedulable_plugins: Set[str] = field(default_factory=set)
+
+    @property
+    def pod(self) -> Pod:
+        """Queue-ordering shim: a group sorts by its first member's priority
+        and its own arrival."""
+        return self.members[0].pod if self.members else Pod(name="(empty-group)")
+
+    @property
+    def uid(self) -> str:
+        return f"pg:{self.group.namespace}/{self.group.name}"
+
+
+Entity = Union[QueuedPodInfo, QueuedPodGroupInfo]
 
 
 class _Heap:
@@ -167,6 +201,10 @@ class PriorityQueue:
         # failure consults only the events that arrived while it was out.
         self._in_flight: Dict[str, int] = {}
         self._event_log: List[Tuple] = []
+        # Gang scheduling: the groups seen, and each group's buffered
+        # members (arrived, not yet scheduled).
+        self.pod_groups: Dict[Tuple[str, str], object] = {}
+        self._group_members: Dict[Tuple[str, str], List[QueuedPodInfo]] = {}
 
     # -- backoff (backoff_queue.go:249) ------------------------------------
 
@@ -187,13 +225,86 @@ class PriorityQueue:
     # -- add / pop ---------------------------------------------------------
 
     def add(self, pod: Pod) -> None:
-        """Add (scheduling_queue.go:858) — admission of a new pending pod."""
+        """Add (scheduling_queue.go:858) — admission of a new pending pod; a
+        gang member joins its group's buffer."""
         check_pod(pod)
-        self.active_q.push(QueuedPodInfo(pod_info=PodInfo.of(pod), timestamp=self.now()))
+        qpi = QueuedPodInfo(pod_info=PodInfo.of(pod), timestamp=self.now())
+        if pod.pod_group:
+            self._add_group_member(qpi)
+            return
+        self.active_q.push(qpi)
+
+    # -- gang scheduling ---------------------------------------------------
+
+    def register_pod_group(self, group) -> None:
+        """PodGroup informer event: record it and activate the group if
+        enough members are buffered."""
+        key = (group.namespace, group.name)
+        self.pod_groups[key] = group
+        self._maybe_activate_group(key)
+
+    def _add_group_member(self, qpi: QueuedPodInfo) -> None:
+        key = (qpi.pod.namespace, qpi.pod.pod_group)
+        members = self._group_members.setdefault(key, [])
+        members.append(qpi)
+        existing = self._group_entity(key)
+        if existing is not None:
+            existing.members = list(members)  # a late joiner widens the gang
+            return
+        self._maybe_activate_group(key)
+
+    def _group_entity(self, key) -> Optional[QueuedPodGroupInfo]:
+        if key not in self.pod_groups:
+            return None
+        uid = f"pg:{key[0]}/{key[1]}"
+        return self.active_q.get(uid) or self.backoff_q.get(uid) or self.unschedulable.get(uid)
+
+    def _maybe_activate_group(self, key) -> None:
+        """PodGroupPodsCount gate: the group enters the activeQ once
+        min_count members have arrived (and it is not queued or in flight
+        already)."""
+        group = self.pod_groups.get(key)
+        if group is None:
+            return
+        members = self._group_members.get(key, [])
+        if len(members) < max(1, group.min_count):
+            return
+        if self._group_entity(key) is not None or f"pg:{key[0]}/{key[1]}" in self._in_flight:
+            return
+        self.active_q.push(QueuedPodGroupInfo(group=group, members=list(members),
+                                              timestamp=self.now()))
+
+    def remove_group_member(self, pod: Pod) -> None:
+        """A buffered member is deleted: it leaves the buffer and any queued
+        entity, which leaves the queue once below min_count."""
+        key = (pod.namespace, pod.pod_group)
+        members = self._group_members.get(key)
+        if not members:
+            return
+        self._group_members[key] = [m for m in members if m.pod.uid != pod.uid]
+        ent = self._group_entity(key)
+        if ent is not None:
+            ent.members = [m for m in ent.members if m.pod.uid != pod.uid]
+            if len(ent.members) < max(1, self.pod_groups[key].min_count):
+                self.active_q.delete(ent.uid)
+                self.backoff_q.delete(ent.uid)
+                self.unschedulable.pop(ent.uid, None)
+
+    def clear_group_members(self, group_key: Tuple[str, str], uids) -> None:
+        """Members a group cycle attempted leave the buffer."""
+        members = self._group_members.get(group_key)
+        if members:
+            self._group_members[group_key] = [m for m in members if m.pod.uid not in uids]
 
     def update(self, old: Optional[Pod], new: Pod) -> None:
         check_pod(new)
         uid = new.uid
+        if new.pod_group:
+            # A buffered gang member updates in place.
+            for m in self._group_members.get((new.namespace, new.pod_group), ()):
+                if m.pod.uid == uid:
+                    m.pod_info = PodInfo.of(new)
+                    return
         if uid in self.unschedulable:
             qpi = self.unschedulable.pop(uid)
             qpi.pod_info = PodInfo.of(new)
@@ -209,12 +320,14 @@ class PriorityQueue:
             self.add(new)
 
     def delete(self, pod: Pod) -> None:
+        if pod.pod_group:
+            self.remove_group_member(pod)
         self.active_q.delete(pod.uid)
         self.backoff_q.delete(pod.uid)
         self.unschedulable.pop(pod.uid, None)
         self.nominator.delete_nominated_pod(pod)
 
-    def pop(self) -> Optional[QueuedPodInfo]:
+    def pop(self) -> Optional[Entity]:
         """Pop (scheduling_queue.go:1320) with SchedulerPopFromBackoffQ."""
         self.flush_backoff_completed()
         qpi = self.active_q.pop() or self.backoff_q.pop()
@@ -235,10 +348,11 @@ class PriorityQueue:
 
     # -- requeue on failure ------------------------------------------------
 
-    def add_unschedulable_if_not_present(self, qpi: QueuedPodInfo) -> None:
+    def add_unschedulable_if_not_present(self, qpi: Entity) -> None:
         """AddUnschedulablePodIfNotPresent (scheduling_queue.go:1058): when a
-        relevant event arrived while the pod was in flight, skip the
-        unschedulable pool."""
+        relevant event arrived while the entity was in flight, skip the
+        unschedulable pool. Entities key by their uid (a pod's, or
+        "pg:ns/name" for a group)."""
         start = self._in_flight.get(qpi.uid)
         events = self._event_log[start:] if start is not None else []
         qpi.timestamp = self.now()
@@ -247,7 +361,7 @@ class PriorityQueue:
             return
         self.unschedulable[qpi.uid] = qpi
 
-    def _events_relevant(self, qpi: QueuedPodInfo, events: List[Tuple]) -> bool:
+    def _events_relevant(self, qpi: Entity, events: List[Tuple]) -> bool:
         """isPodWorthRequeuing (scheduling_queue.go:582): does any event
         plausibly resolve one of the plugins that rejected this pod?"""
         plugins = qpi.unschedulable_plugins
@@ -267,7 +381,7 @@ class PriorityQueue:
                         return True
         return False
 
-    def _move_to_active_or_backoff(self, qpi: QueuedPodInfo) -> None:
+    def _move_to_active_or_backoff(self, qpi: Entity) -> None:
         if self.is_backing_off(qpi):
             self.backoff_q.push(qpi)
         else:

@@ -3,9 +3,15 @@ pkg/scheduler/apis/config/v1/default_plugins.go:32-60, in the reference's
 order (filter order decides which plugin a node's failure is charged to)
 and with its weights (TaintToleration 3, NodeAffinity 2, NodeResourcesFit 1,
 PodTopologySpread 2, InterPodAffinity 2, NodeResourcesBalancedAllocation 1),
-and DefaultPreemption as the PostFilter. `handle` gives the plugins the
-clientset, the scheduler's snapshot, the namespaces' labels, the nominator
-and the device dry run (framework.Handle)."""
+and DefaultPreemption as the PostFilter (and PodGroupPostFilter).
+`gang_placement_profile` adds the pod-group plugins the reference gates
+behind GenericWorkload (the JAX package's GANG_PLACEMENT_PLUGINS,
+core/registry.py:141-153): GangScheduling (the Permit barrier and the
+PlacementFeasible gate), TopologyPlacementGenerator and PodGroupPodsCount
+(weight 1); NodeResourcesFit scores placements too. `handle` gives the
+plugins the clientset, the scheduler's snapshot, the namespaces' labels,
+the nominator, the placed-group-members index, the waiting pods and the
+device dry run (framework.Handle)."""
 
 from __future__ import annotations
 
@@ -17,15 +23,20 @@ from ..plugins.basic import (
     PrioritySort,
     TaintToleration,
 )
+from ..plugins.gang import GangScheduling
 from ..plugins.interpodaffinity import InterPodAffinity
 from ..plugins.noderesources import BalancedAllocation, Fit
 from ..plugins.podtopologyspread import PodTopologySpread
 from ..plugins.preemption import DefaultPreemption
+from ..plugins.topologyaware import PodGroupPodsCount, TopologyPlacementGenerator
 from .framework import Framework
 
 
-def default_profile(handle, profile_name: str = "default-scheduler") -> Framework:
+def default_profile(handle, profile_name: str = "default-scheduler",
+                    gang_placement: bool = False) -> Framework:
     preemption = DefaultPreemption(handle)
+    extra = [(GangScheduling(handle), 0), (TopologyPlacementGenerator(handle), 0),
+             (PodGroupPodsCount(handle), 1)] if gang_placement else []
     fw = Framework(profile_name=profile_name, plugins=[
         (PrioritySort(), 0),
         (NodeName(), 0),
@@ -38,6 +49,11 @@ def default_profile(handle, profile_name: str = "default-scheduler") -> Framewor
         (preemption, 0),
         (BalancedAllocation(), 1),
         (DefaultBinder(handle.clientset), 0),
-    ])
+    ] + extra)
     preemption.set_framework(fw)
     return fw
+
+
+def gang_placement_profile(handle) -> Framework:
+    """The default profile with the pod-group placement plugins."""
+    return default_profile(handle, gang_placement=True)

@@ -16,9 +16,20 @@ session (models/tpu_scheduler.py) also uses for pods it hands back:
         prioritize_nodes                           (:945)
         select_host      (first max in evaluation order: deterministic ties)
         assume                                     (:1060)
+        Reserve → Permit (WAIT parks the pod)       (:315-340)
     binding cycle → bind                           (:141)
     failure → PostFilter (DefaultPreemption) → nomination
             → handle_scheduling_failure → requeue  (:169, :1152)
+
+and the pod-group cycle (schedule_one_podgroup.go; the JAX package's
+core/scheduler.py:1020-1400): a group scheduled by the default algorithm
+places its members one by one against the snapshot (assumed into the
+snapshot only) and commits all or none; a topology-constrained group under
+a profile with placement plugins runs the placement algorithm — candidate
+placements generated, the group simulated against each with the visible
+node list restricted to it, the feasible ones scored and the best
+committed. A group that cannot schedule gets PodGroupPostFilter (pod-group
+preemption) and parks.
 """
 
 from __future__ import annotations
@@ -48,20 +59,26 @@ from .clientset import FakeClientset
 from .framework import (
     UNSCHEDULABLE,
     UNSCHEDULABLE_AND_UNRESOLVABLE,
+    WAIT,
     CycleState,
     Diagnosis,
     FitError,
     Framework,
     NodeScore,
+    Placement,
+    PlacementProgress,
+    PodGroupAssignments,
     Status,
 )
 from .node_info import NodeInfo
+from .podgroupstate import PodGroupState
 from .queue import (
     EVENT_ASSIGNED_POD_ADD,
     EVENT_ASSIGNED_POD_DELETE,
     EVENT_NODE_ADD,
     EVENT_NODE_UPDATE,
     PriorityQueue,
+    QueuedPodGroupInfo,
     QueuedPodInfo,
 )
 from .registry import default_profile
@@ -87,6 +104,7 @@ class ScheduleResult:
     suggested_host: str = ""
     evaluated_nodes: int = 0
     feasible_nodes: int = 0
+    waiting: bool = False  # a Permit plugin returned WAIT
 
 
 class Handle:
@@ -106,6 +124,19 @@ class Handle:
     def nominator(self):
         return self._scheduler.queue.nominator
 
+    @property
+    def pod_group_state(self):
+        return self._scheduler.pod_group_state
+
+    def allow_waiting_pod(self, uid: str) -> bool:
+        return self._scheduler.allow_waiting_pod(uid)
+
+    def simulate_pod_group(self, group, members) -> bool:
+        """Pod-group preemption's feasibility probe: would the group
+        schedule against the snapshot as it stands, by the algorithm a real
+        cycle would use? Leaves the snapshot unchanged."""
+        return self._scheduler.group_feasible(group, members)
+
     def device_dry_run_preemption(self, fw, state, pod, node_to_status,
                                   num_candidates: int, start: int):
         """The batched DryRunPreemption where the scheduler has a device
@@ -118,16 +149,35 @@ class Handle:
 
 
 class Scheduler:
+    """`profile_factory(handle)` builds the one profile (core/registry.py:
+    default_profile, or gang_placement_profile for the pod-group placement
+    plugins)."""
+
     def __init__(self, clientset: Optional[FakeClientset] = None,
                  percentage_of_nodes_to_score: int = 0,
-                 now: Callable[[], float] = time.monotonic):
+                 now: Callable[[], float] = time.monotonic,
+                 profile_factory: Callable[[Handle], Framework] = default_profile):
         self.clientset = clientset or FakeClientset()
         self.cache = Cache()
         self.snapshot = Snapshot()
         self.now = now
         self.percentage_of_nodes_to_score = percentage_of_nodes_to_score
         self.next_start_node_index = 0
-        fw = default_profile(Handle(self))
+        # Group members the cache holds placed (assumed or bound): placement
+        # generation pins a partly scheduled gang's domain with it.
+        self.pod_group_state = PodGroupState()
+        self.cache.pod_group_state = self.pod_group_state
+        # Pods parked at Permit WAIT: uid -> (fw, state, qpi, result,
+        # deadline); expiry is checked each host cycle (O(1)) and when the
+        # loop idles.
+        self.waiting_pods: Dict[str, tuple] = {}
+        self.permit_wait_timeout = 60.0
+        self._next_wait_deadline = float("inf")
+        # Cache unwinds outside a scheduling attempt (a bind failure, a
+        # waiter rejected): a device session or saved plan from before one
+        # no longer reflects the cache.
+        self.state_unwinds = 0
+        fw = profile_factory(Handle(self))
         self.profiles = {fw.profile_name: fw}
         self.queue = PriorityQueue(fw, now=now)
         self.attempts = 0
@@ -144,6 +194,7 @@ class Scheduler:
         self.clientset.on_pod_event(self._threaded(self._on_pod_event))
         self.clientset.on_node_event(self._threaded(self._on_node_event))
         self.clientset.on_namespace_event(self._threaded(self._on_namespace_event))
+        self.clientset.on_pod_group_event(self._threaded(self._on_pod_group_event))
 
     @property
     def cluster_event_seq(self) -> int:
@@ -285,6 +336,11 @@ class Scheduler:
         self._record_event(EV_NAMESPACE, ns.name)
         self.cache.add_namespace(ns)
 
+    def _on_pod_group_event(self, group) -> None:
+        # Queue-only: a group's arrival can activate its buffered members.
+        self._record_event(EV_QUEUE, f"{group.namespace}/{group.name}")
+        self.queue.register_pod_group(group)
+
     def framework_for_pod(self, pod: Pod) -> Framework:
         return self.profiles[pod.scheduler_name]
 
@@ -307,6 +363,7 @@ class Scheduler:
         while n < max_cycles:
             if not self.schedule_one():
                 self.queue.flush_backoff_completed()
+                self.flush_expired_waiters()
                 self.drain_event_inbox()
                 if not self.schedule_one():
                     break
@@ -314,14 +371,19 @@ class Scheduler:
         return n
 
     def schedule_one(self) -> bool:
+        if self.waiting_pods and self.now() >= self._next_wait_deadline:
+            self.flush_expired_waiters()
         qpi = self.queue.pop()
         if qpi is None:
             return False
         self.process_one(qpi)
         return True
 
-    def process_one(self, qpi: QueuedPodInfo) -> None:
-        """One full scheduling+binding cycle for an already-popped pod."""
+    def process_one(self, qpi) -> None:
+        """One full scheduling+binding cycle for an already-popped entity."""
+        if isinstance(qpi, QueuedPodGroupInfo):
+            self.schedule_pod_group(qpi)
+            return
         pod = qpi.pod
         if pod.deletion_ts is not None or pod.uid in self.cache.pod_states:
             # skipPodSchedule (schedule_one.go:93).
@@ -338,6 +400,12 @@ class Scheduler:
         except Exception as e:  # noqa: BLE001 - a failed cycle requeues the pod
             self.error_log.append(f"{pod.namespace}/{pod.name}: {e!r}")
             self.handle_scheduling_failure(fw, qpi, Status.error(str(e)), None)
+            self.queue.done(pod.uid)
+            return
+        if result.waiting:
+            # WaitOnPermit (framework.go:2097): the pod stays assumed until
+            # a Permit plugin allows or rejects it, or the wait times out.
+            self.park_waiting_pod(fw, state, qpi, result)
             self.queue.done(pod.uid)
             return
         self.run_binding_cycle(fw, state, qpi, result.suggested_host)
@@ -364,9 +432,241 @@ class Scheduler:
         pod = qpi.pod
         self.cache.update_snapshot(self.snapshot)
         result = self.schedule_pod(fw, state, pod)
-        pod.node_name = result.suggested_host
+        pod.node_name = host = result.suggested_host
         self.cache.assume_pod(pod, qpi.pod_info)
+        st = fw.run_reserve_plugins_reserve(state, pod, host)
+        if not st.is_success():
+            fw.run_reserve_plugins_unreserve(state, pod, host)
+            self.cache.forget_pod(pod)
+            pod.node_name = ""
+            raise RuntimeError(f"reserve failed: {st.message()}")
+        st = fw.run_permit_plugins(state, pod, host)
+        if st.is_rejected():
+            fw.run_reserve_plugins_unreserve(state, pod, host)
+            self.cache.forget_pod(pod)
+            pod.node_name = ""
+            raise RuntimeError(f"permit rejected: {st.message()}")
+        if st.code == WAIT:
+            result.waiting = True  # parked in waiting_pods; binds on Allow
         return result
+
+    # -- the pod-group cycle (schedule_one_podgroup.go) ----------------------
+
+    def schedule_pod_group(self, qgpi: QueuedPodGroupInfo) -> None:
+        """scheduleOnePodGroup (:81): the placement algorithm for a
+        topology-constrained group under a profile with placement plugins
+        (:971), else the default algorithm (:556): members placed one by one
+        against the snapshot (assumed into the snapshot only), the snapshot
+        reverted LIFO on any failure, else every member committed with its
+        own simulation CycleState."""
+        self.attempts += 1
+        members = sorted(qgpi.members, key=lambda m: (-m.pod.priority, m.timestamp))
+        if not members:
+            self.queue.done(qgpi.uid)
+            return
+        fw = self.framework_for_pod(members[0].pod)
+        self.cache.update_snapshot(self.snapshot)
+        group = qgpi.group
+        if fw.placement_generate_plugins and group.topology_keys:
+            # Only the placement algorithm may place a constrained group:
+            # member-wise placement would break the constraint.
+            self._schedule_group_with_placements(fw, qgpi, members)
+            return
+        placed: List[Tuple[QueuedPodInfo, CycleState, ScheduleResult]] = []
+        failure: Optional[FitError] = None
+        for m in members:
+            state = CycleState()
+            try:
+                result = self.schedule_pod(fw, state, m.pod)
+            except FitError as fe:
+                failure = fe
+                qgpi.unschedulable_plugins |= fe.diagnosis.unschedulable_plugins
+                break
+            m.pod.node_name = result.suggested_host
+            self.snapshot.assume_pod(m.pod)
+            placed.append((m, state, result))
+        if failure is not None:
+            for m, _state, _result in reversed(placed):
+                self.snapshot.forget_pod(m.pod)
+                m.pod.node_name = ""
+            self._fail_pod_group(fw, qgpi, members, failure.diagnosis)
+            return
+        # submitPodGroupAlgorithmResult (:812): every attempted member leaves
+        # the group buffer; a member whose commit fails requeues on its own.
+        attempted = set()
+        for m, state, result in placed:
+            attempted.add(m.pod.uid)
+            self.cache.assume_pod(m.pod)
+            self._commit_group_member(fw, m, state, result)
+        self.queue.clear_group_members((group.namespace, group.name), attempted)
+        self.queue.done(qgpi.uid)
+
+    def _schedule_group_with_placements(self, fw: Framework, qgpi: QueuedPodGroupInfo,
+                                        members: List[QueuedPodInfo]) -> None:
+        """podGroupSchedulingPlacementAlgorithm (:971) and
+        findBestPodGroupPlacement (:1173): generate the candidate
+        placements, evaluate each, score the feasible ones and commit the
+        best (the first of equal totals), or park the group ("0/N placements
+        are available")."""
+        group = qgpi.group
+        pg_state = CycleState()
+        parent = Placement("", [ni.name for ni in self.snapshot.node_info_list])
+        placements, st = fw.run_placement_generate_plugins(pg_state, group, members, parent)
+        if not st.is_success() or not placements:
+            self._fail_pod_group(fw, qgpi, members, None)
+            return
+        start_save = self.next_start_node_index
+        candidates = self._evaluate_placements(fw, pg_state, group, members, placements)
+        self.next_start_node_index = start_save
+        if not candidates:
+            self._fail_pod_group(fw, qgpi, members, None)
+            return
+        totals = fw.run_placement_score_plugins(pg_state, group,
+                                                [pga for _p, _a, pga in candidates])
+        best = max(range(len(totals)), key=lambda i: (totals[i], -i))
+        best_placement, assignment, _pga = candidates[best]
+        # Commit the winner; members it could not fit requeue one by one.
+        # Each member keeps the CycleState of the winning simulation.
+        attempted = set()
+        for m in members:
+            attempted.add(m.pod.uid)
+            entry = assignment.get(m.pod.uid)
+            if entry is None:
+                self.handle_scheduling_failure(fw, m, Status.unschedulable(
+                    f"did not fit placement {best_placement.name!r}"), None)
+                continue
+            node, m_state = entry
+            m.pod.node_name = node
+            self.cache.assume_pod(m.pod, m.pod_info)
+            self._commit_group_member(fw, m, m_state, ScheduleResult(suggested_host=node))
+        self.queue.clear_group_members((group.namespace, group.name), attempted)
+        self.queue.done(qgpi.uid)
+
+    def _evaluate_placements(self, fw: Framework, pg_state: CycleState, group,
+                             members: List[QueuedPodInfo], placements) -> List[tuple]:
+        """Evaluate every candidate placement one by one; returns the
+        feasible ones as (placement, {uid: (node, CycleState)},
+        PodGroupAssignments). TorchScheduler evaluates them all in one
+        kernel launch instead (ops/kernel.py schedule_placements)."""
+        candidates: List[tuple] = []
+        for placement in placements:
+            assignment = self._evaluate_placement(fw, pg_state, group, members, placement)
+            if assignment is not None:
+                candidates.append((placement, assignment, PodGroupAssignments(
+                    placement,
+                    proposed=[(m.pod, assignment[m.pod.uid][0]) for m in members
+                              if m.pod.uid in assignment],
+                    nodes=[self.snapshot.get(n) for n in placement.node_names])))
+        return candidates
+
+    def _evaluate_placement(self, fw: Framework, pg_state: CycleState, group,
+                            members: List[QueuedPodInfo], placement) -> Optional[Dict[str, tuple]]:
+        """Simulate the group against one placement, the visible node list
+        restricted to it. {uid: (node, CycleState)} when PlacementFeasible
+        passes, else None; the snapshot is always restored. Each simulation
+        evaluates its whole candidate (no adaptive truncation) from rotation
+        origin 0: the spec the device evaluation shares, so the two agree
+        exactly."""
+        self.snapshot.assume_placement(placement.node_names)
+        self.next_start_node_index = 0
+        pct_save = self.percentage_of_nodes_to_score
+        self.percentage_of_nodes_to_score = 100
+        placed: List[Tuple[QueuedPodInfo, CycleState]] = []
+        failed = 0
+        try:
+            for m in members:
+                m_state = CycleState()
+                try:
+                    result = self.schedule_pod(fw, m_state, m.pod)
+                except FitError:
+                    failed += 1
+                    continue
+                m.pod.node_name = result.suggested_host
+                self.snapshot.assume_pod(m.pod)
+                placed.append((m, m_state))
+            progress = PlacementProgress(len(placed), failed, len(members))
+            feasible = bool(placed) and fw.run_placement_feasible_plugins(
+                pg_state, group, progress).is_success()
+            assignment = {m.pod.uid: (m.pod.node_name, st) for m, st in placed}
+        finally:
+            for m, _st in reversed(placed):
+                self.snapshot.forget_pod(m.pod)
+                m.pod.node_name = ""
+            self.snapshot.forget_placement()
+            self.percentage_of_nodes_to_score = pct_save
+        return assignment if feasible else None
+
+    def group_feasible(self, group, members: List[QueuedPodInfo]) -> bool:
+        """Would the group schedule now, by the algorithm a real cycle would
+        use (a constrained group must fit some candidate placement)? The
+        probe behind pod-group preemption; the snapshot is left as it was."""
+        if not members:
+            return False
+        fw = self.framework_for_pod(members[0].pod)
+        start_save = self.next_start_node_index
+        try:
+            if fw.placement_generate_plugins and group.topology_keys:
+                pg_state = CycleState()
+                parent = Placement("", [ni.name for ni in self.snapshot.node_info_list])
+                placements, st = fw.run_placement_generate_plugins(pg_state, group, members,
+                                                                   parent)
+                return st.is_success() and any(
+                    self._evaluate_placement(fw, pg_state, group, members, pl) is not None
+                    for pl in placements)
+            placed: List[QueuedPodInfo] = []
+            try:
+                for m in members:
+                    try:
+                        result = self.schedule_pod(fw, CycleState(), m.pod)
+                    except FitError:
+                        return False
+                    m.pod.node_name = result.suggested_host
+                    self.snapshot.assume_pod(m.pod)
+                    placed.append(m)
+                return True
+            finally:
+                for m in reversed(placed):
+                    self.snapshot.forget_pod(m.pod)
+                    m.pod.node_name = ""
+        finally:
+            self.next_start_node_index = start_save
+
+    def _commit_group_member(self, fw: Framework, m: QueuedPodInfo, state: CycleState,
+                             result: ScheduleResult) -> bool:
+        """Reserve → Permit → binding cycle for a member already assumed
+        into the cache with its node set. True when it is committed (bound,
+        or parked at Permit WAIT)."""
+        node = result.suggested_host
+        st = fw.run_reserve_plugins_reserve(state, m.pod, node)
+        if st.is_success():
+            st = fw.run_permit_plugins(state, m.pod, node)
+        if st.code == WAIT:
+            self.park_waiting_pod(fw, state, m, result)
+            return True
+        if not st.is_success():
+            fw.run_reserve_plugins_unreserve(state, m.pod, node)
+            self.cache.forget_pod(m.pod)
+            m.pod.node_name = ""
+            self.handle_scheduling_failure(fw, m, st, None)
+            return False
+        return self.run_binding_cycle(fw, state, m, node)
+
+    def _fail_pod_group(self, fw: Framework, qgpi: QueuedPodGroupInfo,
+                        members: List[QueuedPodInfo], diagnosis) -> None:
+        """The group-unschedulable tail of both algorithms: PodGroupPostFilter
+        (framework.go:1212, pod-group preemption), then the group parks."""
+        if fw.pod_group_post_filter_plugins:
+            _result, st = fw.run_pod_group_post_filter_plugins(
+                CycleState(), qgpi.group, members, diagnosis)
+            if st.is_success():
+                qgpi.timestamp = self.now()
+                self.queue.add_unschedulable_if_not_present(qgpi)
+                self.queue.done(qgpi.uid)
+                return
+        self.failures += 1
+        qgpi.timestamp = self.now()
+        self.queue.add_unschedulable_if_not_present(qgpi)
+        self.queue.done(qgpi.uid)
 
     def schedule_pod(self, fw: Framework, state: CycleState, pod: Pod) -> ScheduleResult:
         if self.snapshot.num_nodes() == 0:
@@ -457,6 +757,8 @@ class Scheduler:
         st = fw.run_bind_plugins(state, pod, node_name)
         if not st.is_success():
             # handleBindingCycleError (schedule_one.go:507).
+            self.state_unwinds += 1
+            fw.run_reserve_plugins_unreserve(state, pod, node_name)
             self.cache.forget_pod(pod)
             pod.node_name = ""
             self.queue.move_all_to_active_or_backoff(EVENT_ASSIGNED_POD_DELETE, pod, None)
@@ -465,6 +767,45 @@ class Scheduler:
         self.queue.nominator.delete_nominated_pod(pod)
         self.scheduled += 1
         return True
+
+    # -- pods parked at Permit WAIT (framework.go waitingPods) --------------
+
+    def allow_waiting_pod(self, uid: str) -> bool:
+        """A Permit plugin allowed a parked pod: its binding cycle runs."""
+        entry = self.waiting_pods.pop(uid, None)
+        if entry is None:
+            return False
+        fw, state, qpi, result, _deadline = entry
+        self.run_binding_cycle(fw, state, qpi, result.suggested_host)
+        return True
+
+    def reject_waiting_pod(self, uid: str, reason: str = "rejected") -> bool:
+        entry = self.waiting_pods.pop(uid, None)
+        if entry is None:
+            return False
+        fw, state, qpi, result, _deadline = entry
+        self.state_unwinds += 1
+        fw.run_reserve_plugins_unreserve(state, qpi.pod, result.suggested_host)
+        self.cache.forget_pod(qpi.pod)
+        qpi.pod.node_name = ""
+        self.handle_scheduling_failure(fw, qpi, Status.unschedulable(reason), None)
+        return True
+
+    def park_waiting_pod(self, fw: Framework, state: CycleState, qpi: QueuedPodInfo,
+                         result: ScheduleResult) -> None:
+        """Park a WAITing pod and arm the expiry timer (WaitOnPermit)."""
+        deadline = self.now() + self.permit_wait_timeout
+        self.waiting_pods[qpi.pod.uid] = (fw, state, qpi, result, deadline)
+        self._next_wait_deadline = min(self._next_wait_deadline, deadline)
+
+    def flush_expired_waiters(self) -> int:
+        now = self.now()
+        expired = [uid for uid, e in self.waiting_pods.items() if e[4] <= now]
+        for uid in expired:
+            self.reject_waiting_pod(uid, "permit wait timed out")
+        self._next_wait_deadline = min((e[4] for e in self.waiting_pods.values()),
+                                       default=float("inf"))
+        return len(expired)
 
     def handle_scheduling_failure(self, fw: Framework, qpi: QueuedPodInfo,
                                   status: Status, diagnosis: Optional[Diagnosis]) -> None:

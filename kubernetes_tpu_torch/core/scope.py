@@ -1,16 +1,18 @@
 """The port's scope guard: the port knows only the plugins in
 core/registry.py, so an object that needs anything else is refused with
 NotImplementedError naming the feature — never scheduled while ignoring a
-constraint. Called by FakeClientset on every pod/node write and by the
+constraint. Called by FakeClientset on every pod, node and pod-group write and by the
 queue on admission.
 
 In scope: resources, taints and tolerations (PreferNoSchedule included),
 node selectors and node affinity (required and preferred), topology spread
-and pod (anti-)affinity, and pod priority with DefaultPreemption."""
+and pod (anti-)affinity, pod priority with DefaultPreemption, and pod
+groups (gangs, with or without a topology constraint, and pod-group
+preemption). Composite pod-group trees are not."""
 
 from __future__ import annotations
 
-from ..api.types import Node, Pod
+from ..api.types import Node, Pod, PodGroup
 
 
 def pod_unsupported(pod: Pod) -> str:
@@ -23,8 +25,6 @@ def pod_unsupported(pod: Pod) -> str:
         return "resource claims"
     if pod.scheduling_gates:
         return "scheduling gates"
-    if pod.pod_group:
-        return "pod groups"
     return ""
 
 
@@ -49,3 +49,18 @@ def check_node(node: Node) -> None:
         raise NotImplementedError(
             f"node {node.name}: {reason} is outside what "
             "kubernetes_tpu_torch covers")
+
+
+def check_pod_group(group) -> None:
+    """A PodGroup that belongs to a composite tree, or anything other than a
+    PodGroup (a CompositePodGroup), is refused: the composite tree cycle
+    (the JAX package's schedule_composite_group) is not ported."""
+    if not isinstance(group, PodGroup):
+        raise NotImplementedError(
+            f"{type(group).__name__} {getattr(group, 'namespace', '')}/"
+            f"{getattr(group, 'name', '')}: composite pod groups are outside what "
+            "kubernetes_tpu_torch covers")
+    if group.parent_name:
+        raise NotImplementedError(
+            f"pod group {group.namespace}/{group.name}: a parent composite pod group "
+            f"({group.parent_name}) is outside what kubernetes_tpu_torch covers")

@@ -53,17 +53,32 @@ the host re-verifies the chosen candidate and raises where it disagrees.
 The victims' deletions dirty the mirror's rows, which the next plan
 flushes with the scatter_rows kernel.
 
+Pod groups. A group scheduled by the default algorithm (no topology
+constraint) is member-wise greedy placement with an all-or-nothing commit,
+which is the kernels' scan with a group-granular commit barrier: groups of
+identical members ride gang device sessions, whole groups packed into each
+dispatch, the carry chained across packs, each retired group committed at
+once; a group with a member the device finds no node for takes the exact
+host group cycle (its diagnosis and pod-group preemption) and ends the
+session. A topology-constrained group under the placement plugins runs the
+host placement algorithm, whose evaluation of every candidate placement is
+one schedule_placements launch (_evaluate_placements); PlacementFeasible,
+the PlacementScore plugins and the commit stay on the host.
+
 Pods the kernels do not cover (matchFields narrowing, a nominated node's
 fast path, spread or affinity pods while pods are nominated) and pods a
 session hands back take the host path in core/scheduler.py, which produces
 the same assignments; so does the dry run of a preemptor with spread or
 affinity terms, in a cluster with anti-affinity pods, or with more than
-PREEMPT_K_CAP victims on a node.
+PREEMPT_K_CAP victims on a node; so do groups whose members differ or are
+not covered, groups while pods are nominated, placement groups whose plan
+carries inter-pod-affinity tables, and pod-group preemption.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import List, Optional, Tuple
 
@@ -78,23 +93,44 @@ from ..core.cache import (
     EV_POD_UPDATE,
     EV_QUEUE,
 )
-from ..core.framework import UNSCHEDULABLE_AND_UNRESOLVABLE, CycleState, FitError, Framework
-from ..core.queue import QueuedPodInfo
-from ..core.scheduler import Scheduler
+from ..core.framework import (
+    UNSCHEDULABLE_AND_UNRESOLVABLE,
+    WAIT,
+    CycleState,
+    FitError,
+    Framework,
+    PlacementProgress,
+    PodGroupAssignments,
+)
+from ..core.queue import QueuedPodGroupInfo, QueuedPodInfo
+from ..core.registry import default_profile
+from ..core.scheduler import Scheduler, ScheduleResult
 from ..ops.codebook import EFFECT_PREFER_NO_SCHEDULE
 from ..ops.device_state import NodeStateMirror, patch_tier
 from ..ops.features import (
     Unsupported,
+    _pow2,
     batch_supported,
     build_batch,
     build_preemption_victims,
     diagnose_unschedulable,
 )
-from ..ops.kernel import dry_run_preemption, patch_carry_rows, schedule_batch
+from ..ops.kernel import (
+    dry_run_preemption,
+    patch_carry_rows,
+    schedule_batch,
+    schedule_placements,
+)
 from ..plugins.preemption import Candidate
 
 DEFAULT_MAX_BATCH = 1024  # the JAX package's config.max_batch
 PIPELINE_DEPTH = 2        # batches in flight (double buffering)
+
+# _collect_batch's reasons for a group entity: it rides a gang device
+# session, or it is a topology-constrained group whose host cycle evaluates
+# its placements on the device.
+_GANG_SESSION = "gang device session"
+_PLACEMENT_GROUP = "placement group"
 
 
 class _Fetch:
@@ -135,15 +171,19 @@ class TorchScheduler(Scheduler):
     the caller asks for "cpu", where the kernels' plain PyTorch versions run.
     `resume=False` turns incremental resume off, as the port ran before it:
     every session rebuilds its plan, any journaled event ends it, and only
-    pods of one exact signature share it (a baseline to measure against)."""
+    pods of one exact signature share it (a baseline to measure against).
+    `profile_factory` builds the profile (core/registry.py default_profile,
+    or gang_placement_profile for the pod-group placement plugins)."""
 
     def __init__(self, clientset=None, device="cuda", max_batch: Optional[int] = None,
-                 percentage_of_nodes_to_score: int = 0, resume: bool = True):
+                 percentage_of_nodes_to_score: int = 0, resume: bool = True,
+                 profile_factory=default_profile):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TorchScheduler: CUDA is not available "
                                "(pass device='cpu' to run the plain versions)")
-        super().__init__(clientset, percentage_of_nodes_to_score)
+        super().__init__(clientset, percentage_of_nodes_to_score,
+                         profile_factory=profile_factory)
         self.device = device
         self.max_batch = max_batch or DEFAULT_MAX_BATCH
         self.mirror = NodeStateMirror(device)
@@ -152,6 +192,16 @@ class TorchScheduler(Scheduler):
         self.device_scheduled = 0
         self.host_path_pods = 0
         self.preemption_device_evals = 0  # dry runs that took the kernel
+        # Group cycles whose candidate placements were evaluated in one
+        # schedule_placements launch, and their seconds (plan, masks, the
+        # launch and the fetch).
+        self.placement_device_evals = 0
+        self.placement_eval_s = 0.0
+        # Across group cycles: the placement plan (keyed on the cluster-event
+        # version; spread-carrying plans are not kept) and the candidates'
+        # row masks on the device.
+        self._placement_plan_cache = None
+        self._placement_mask_cache = None
         self.resume = resume
         # Plan acquisitions by kind: a full snapshot→features rebuild, the
         # previous session's plan resumed as it is, or resumed (or kept
@@ -196,8 +246,10 @@ class TorchScheduler(Scheduler):
                 qpi = self.queue.pop()
             if qpi is None:
                 return None
-            if qpi.pod.deletion_ts is not None or qpi.pod.uid in self.cache.pod_states:
-                # skipPodSchedule: never dispatch deleting or placed pods.
+            if not isinstance(qpi, QueuedPodGroupInfo) and (
+                    qpi.pod.deletion_ts is not None or qpi.pod.uid in self.cache.pod_states):
+                # skipPodSchedule: never dispatch deleting or placed pods. (A
+                # group is never skipped whole: its .pod is its first member.)
                 self.queue.done(qpi.pod.uid)
                 continue
             return qpi
@@ -211,7 +263,8 @@ class TorchScheduler(Scheduler):
             nxt = self._pop()
             if nxt is None:
                 break
-            if (nxt.pod.scheduler_name in self.profiles
+            if (not isinstance(nxt, QueuedPodGroupInfo)
+                    and nxt.pod.scheduler_name in self.profiles
                     and self.framework_for_pod(nxt.pod) is fw
                     and self._sig_joins(fw, nxt.pod, sig) and batch_supported(nxt.pod) is None
                     and self._session_nom_priority in (None, nxt.pod.priority)):
@@ -228,6 +281,14 @@ class TorchScheduler(Scheduler):
         head = self._pop()
         if head is None:
             return None, [], None
+        if isinstance(head, QueuedPodGroupInfo):
+            fw, _sig = self._gang_device_eligible(head)
+            if fw is not None:
+                return fw, [head], _GANG_SESSION
+            fw = self.framework_for_pod(head.pod)
+            if fw.placement_generate_plugins and head.group.topology_keys:
+                return fw, [head], _PLACEMENT_GROUP
+            return fw, [head], "pod group outside the gang device session"
         fw = self.framework_for_pod(head.pod)
         reason = batch_supported(head.pod) or self._nominated_device_block(head.pod)
         sig = fw.sign_pod(head.pod) if reason is None else None
@@ -524,7 +585,7 @@ class TorchScheduler(Scheduler):
         if resume is not None and self.resume:
             rkey, rseq, payload, rnom = resume
             sig_ok = rkey[1] == (sig if rkey[0] == "exact" else nsig)
-            if (sig_ok and rkey[2:] == (id(fw), self.attempts)
+            if (sig_ok and rkey[2:] == (id(fw), self.attempts, self.state_unwinds)
                     and rnom == self._nom_resume_key(head_pod.priority)):
                 state, plan, carry, node_names = payload
                 if rseq == self.cluster_event_seq:
@@ -550,12 +611,14 @@ class TorchScheduler(Scheduler):
         self.plan_acquire_s += time.perf_counter() - t0
         return state, plan, carry, node_names, kind
 
-    def _save_resume(self, fw: Framework, head_pod, sig, state, plan, carry, node_names) -> None:
+    def _save_resume(self, fw: Framework, head_pod, sig, state, plan, carry, node_names,
+                     neutral: bool = True) -> None:
         """Keep a clean session's end state for the next session's resume
-        check, under the neutral signature where it is eligible."""
-        nsig = self._neutral_sig(fw, head_pod, sig)
+        check, under the neutral signature where it is eligible (and
+        `neutral`: gang sessions stay exact)."""
+        nsig = self._neutral_sig(fw, head_pod, sig) if neutral else None
         mode = ("neutral", nsig) if nsig is not None else ("exact", sig)
-        self._resume = (mode + (id(fw), self.attempts), self.cluster_event_seq,
+        self._resume = (mode + (id(fw), self.attempts, self.state_unwinds), self.cluster_event_seq,
                         (state, plan, carry, node_names),
                         self._nom_resume_key(head_pod.priority))
 
@@ -705,6 +768,364 @@ class TorchScheduler(Scheduler):
                               FitError(qpi.pod, self.snapshot.num_nodes(), diag))
         return True
 
+    # -- gang device sessions ------------------------------------------------
+    #
+    # A pod group of the default algorithm (no topology constraint) is
+    # member-wise greedy placement with an all-or-nothing commit
+    # (schedule_one_podgroup.go:556): the kernels' scan with a group-granular
+    # commit barrier. Groups of identical members ride a session like plain
+    # pods (the JAX package's models/tpu_scheduler.py:302-563): whole groups
+    # pack into each dispatch, the carry chains across packs, and each
+    # retired group commits at once; a group with a member the device placed
+    # nowhere takes the exact host group cycle (diagnosis, PodGroupPostFilter)
+    # and the session ends.
+
+    def _gang_device_eligible(self, qgpi: QueuedPodGroupInfo):
+        """(fw, sig) when the whole group can ride a gang device session:
+        the default algorithm, no nominated pods, members of one profile
+        and one signature that the kernels cover, no more than max_batch of
+        them. Else (None, None)."""
+        if not qgpi.members or len(qgpi.members) > self.max_batch:
+            return None, None
+        if self.queue.nominator.has_nominated_pods():
+            return None, None
+        p0 = qgpi.members[0].pod
+        if p0.scheduler_name not in self.profiles:
+            return None, None
+        fw = self.framework_for_pod(p0)
+        if fw.placement_generate_plugins and qgpi.group.topology_keys:
+            return None, None  # the placement algorithm
+        sig = fw.sign_pod(p0)
+        if sig is None:
+            return None, None
+        for m in qgpi.members:
+            if (m.pod.scheduler_name != p0.scheduler_name or fw.sign_pod(m.pod) != sig
+                    or batch_supported(m.pod) is not None):
+                return None, None
+        return fw, sig
+
+    @staticmethod
+    def _sorted_members(qgpi: QueuedPodGroupInfo) -> List[QueuedPodInfo]:
+        """The host group cycle's member order (schedule_pod_group)."""
+        return sorted(qgpi.members, key=lambda m: (-m.pod.priority, m.timestamp))
+
+    def _run_gang_device_session(self, fw: Framework, first: QueuedPodGroupInfo) -> None:
+        """A gang device session from the group `first`: packs of eligible
+        groups of its signature, up to max_batch members a dispatch, up to
+        PIPELINE_DEPTH dispatches in flight, each retired group committed
+        whole. The journal is consumed as in _run_device_session (patch,
+        defer or end); an event parked in the inbox is replayed when the
+        queue runs dry. A failing kernel raises: there is no host fallback
+        to hide it."""
+        head = first.members[0].pod
+        sig = fw.sign_pod(head)
+        self._session_neutral_sig = None  # gang sessions stay exact-signature
+        state, plan, carry, node_names, _kind = self._resume_or_rebuild(fw, head, sig, None)
+        sd = _SessionDelta(state, carry, self.cluster_event_seq)
+        del state, carry
+        start_unwinds = self.state_unwinds
+        inflight: List[Tuple[List[QueuedPodGroupInfo], _Fetch]] = []
+        ok_rows: List[int] = []
+        dirty_rows: List[int] = []
+        invalidated = False
+        pack: Optional[List[QueuedPodGroupInfo]] = [first]
+
+        def collect_pack() -> List[QueuedPodGroupInfo]:
+            groups, total = [], 0
+            while True:
+                nxt = self._pop()
+                if nxt is None:
+                    break
+                if isinstance(nxt, QueuedPodGroupInfo):
+                    gfw, gsig = self._gang_device_eligible(nxt)
+                    if gfw is fw and gsig == sig and total + len(nxt.members) <= self.max_batch:
+                        groups.append(nxt)
+                        total += len(nxt.members)
+                        continue
+                self._holdover = nxt
+                break
+            return groups
+
+        while True:
+            while not invalidated and len(inflight) < PIPELINE_DEPTH:
+                if sd.patch_pending:
+                    if inflight:
+                        break  # retire the dispatched packs before patching
+                    if not self._note_session_events(sd, plan, node_names, busy=False):
+                        invalidated = True
+                        break
+                if pack is None:
+                    t1 = time.perf_counter()
+                    pack = collect_pack() or None
+                    if pack is None and self._event_inbox and self.resume:
+                        self.drain_event_inbox()
+                        if not self._note_session_events(sd, plan, node_names,
+                                                         busy=bool(inflight)):
+                            invalidated = True
+                        elif not sd.patch_pending:
+                            pack = collect_pack() or None
+                    self.collect_s += time.perf_counter() - t1
+                    if sd.patch_pending and pack is None and not invalidated:
+                        continue
+                    if pack is None:
+                        break
+                members = [m for g in pack for m in self._sorted_members(g)]
+                t1 = time.perf_counter()
+                results, sd.carry = self._dispatch(sd.state, plan, len(members), sd.carry)
+                inflight.append((pack, _Fetch(results)))
+                self.dispatch_s += time.perf_counter() - t1
+                self.device_batches += 1
+                pack = None
+            if not inflight:
+                break
+            groups, fetch = inflight.pop(0)
+            t1 = time.perf_counter()
+            res = fetch.wait()
+            t2 = time.perf_counter()
+            self.device_wait_s += t2 - t1
+            # The pack's placements are not in the cache yet: a patch waits.
+            if (invalidated or self.state_unwinds != start_unwinds
+                    or not self._note_session_events(sd, plan, node_names, busy=True)):
+                invalidated = True
+                for g in groups:
+                    self.host_path_pods += len(g.members)
+                    self.process_one(g)
+                continue
+            i = 0
+            for g in groups:
+                ms = self._sorted_members(g)
+                rows = res[0, i:i + len(ms)]
+                self.next_start_node_index = int(res[1, i + len(ms) - 1])
+                i += len(ms)
+                if invalidated or (rows < 0).any():
+                    # A member placed nowhere (or an earlier group diverged):
+                    # the rows the carry took are dirty, and the exact host
+                    # group cycle owns the group.
+                    dirty_rows.extend(int(r) for r in rows if r >= 0)
+                    self.host_path_pods += len(ms)
+                    self.process_one(g)
+                    invalidated = True
+                    continue
+                if not self._commit_gang_group(fw, g, ms, rows, node_names, ok_rows, dirty_rows):
+                    invalidated = True  # the host rejected a placement the carry applied
+                if (self.state_unwinds != start_unwinds
+                        or not self._note_session_events(sd, plan, node_names, busy=True)):
+                    invalidated = True
+                    sd.start_seq = self.cluster_event_seq
+                    start_unwinds = self.state_unwinds
+            self.host_commit_s += time.perf_counter() - t2
+        if pack:  # popped but never dispatched (invalidated mid-refill)
+            for g in pack:
+                self.host_path_pods += len(g.members)
+                self.process_one(g)
+        t3 = time.perf_counter()
+        self.cache.update_snapshot(self.snapshot)
+        if invalidated:
+            self.mirror.invalidate()
+        elif sd.carry is not None:
+            self.mirror.adopt(self.snapshot.node_info_list, ok_rows, sd.carry.req_r,
+                              sd.carry.nonzero, sd.carry.pod_count, dirty_rows=dirty_rows)
+            if not dirty_rows:
+                self._save_resume(fw, head, sig, sd.state, plan, sd.carry, node_names,
+                                  neutral=False)
+        self.session_end_s += time.perf_counter() - t3
+
+    def _commit_gang_group(self, fw: Framework, qgpi: QueuedPodGroupInfo,
+                           members: List[QueuedPodInfo], rows, node_names,
+                           ok_rows: List[int], dirty_rows: List[int]) -> bool:
+        """Every member placed on the device: the group commit of
+        schedule_pod_group's tail (assume, Reserve → Permit → binding cycle
+        per member, the group's bookkeeping). False when a member's commit
+        failed: the carry holds that placement, so the session must end."""
+        self.attempts += 1
+        committed = 0
+        attempted = set()
+        for m, r in zip(members, rows):
+            attempted.add(m.pod.uid)
+            node = node_names[int(r)]
+            m.pod.node_name = node
+            self.cache.assume_pod(m.pod, m.pod_info)
+            if self._commit_group_member(fw, m, CycleState(), ScheduleResult(suggested_host=node)):
+                committed += 1
+                ok_rows.append(int(r))
+                self.device_scheduled += 1
+            else:
+                dirty_rows.append(int(r))
+        self.queue.clear_group_members((qgpi.group.namespace, qgpi.group.name), attempted)
+        self.queue.done(qgpi.uid)
+        return committed == len(members)
+
+    # -- placement groups: every candidate placement in one launch -------------
+
+    @staticmethod
+    def _placement_plan_restriction_invariant(plan) -> bool:
+        """The plan can be evaluated per placement on the device: restricting
+        the node universe to a placement's rows restricts it exactly. Fit,
+        balance, taints and node-affinity preference are row-local; the
+        spread tables are rebuilt per placement (_placement_spread_overrides).
+        Inter-pod-affinity tables (term matches against the restricted pod
+        sets) and image locality stay on the host."""
+        f = plan.features
+        return (f.anti_axis.shape[0] == 0 and f.aff_axis.shape[0] == 0
+                and f.ipa_axis.shape[0] == 0 and not plan.facts.has_ipa_base
+                and not bool(f.il_score.any()))
+
+    def _placement_spread_overrides(self, plan, placements, index):
+        """Each placement's restricted spread tables (the host's PreFilter
+        and PreScore spread state over assume_placement's node list), from
+        the plan's per-node columns: the spread_overrides of
+        schedule_placements, or None when the plan has no spread table."""
+        f = plan.features
+        c1p, c2p = f.dns_axis.shape[0], f.sa_axis.shape[0]
+        if c1p == 0 and c2p == 0:
+            return None
+        vmax = plan.vmax
+        p_pad = _pow2(len(placements))
+        n = len(self.snapshot.node_info_list)
+        dns_axis = f.dns_axis.cpu().numpy()
+        sa_axis = f.sa_axis.cpu().numpy()
+        dns_counts = np.zeros((p_pad, c1p, vmax), np.int32)
+        dns_dom = np.zeros((p_pad, c1p, vmax), bool)
+        dns_forced0 = np.ones((p_pad, c1p), np.int32)  # padded rows: minimum 0
+        sa_counts = np.zeros((p_pad, c2p, vmax), np.int32)
+        sa_wq = np.zeros((p_pad, c2p), np.int64)
+        nc1 = 0 if plan.dns_node_counts is None else plan.dns_node_counts.shape[0]
+        nc2 = 0 if plan.sa_node_counts is None else plan.sa_node_counts.shape[0]
+        for pi, placement in enumerate(placements):
+            rows = np.array([r for name in placement.node_names
+                             if (r := index.get(name)) is not None and r < n], np.int64)
+            for ci in range(nc1):
+                vids = self.mirror.h_topo[dns_axis[ci], rows]
+                elig = plan.dns_node_elig[ci, rows]
+                ev = vids[elig]
+                np.add.at(dns_counts[pi, ci], ev, plan.dns_node_counts[ci, rows][elig])
+                dns_dom[pi, ci, ev] = True
+                nd = np.unique(ev).size
+                md = plan.dns_min_domains[ci]
+                dns_forced0[pi, ci] = 1 if (nd == 0 or (md is not None and nd < md)) else 0
+            for ci in range(nc2):
+                vids = self.mirror.h_topo[sa_axis[ci], rows]
+                live = plan.sa_node_live[rows]
+                lv = vids[live]
+                np.add.at(sa_counts[pi, ci], lv, plan.sa_node_counts[ci, rows][live])
+                size = int(live.sum()) if plan.sa_hostname_axis[ci] else np.unique(lv).size
+                sa_wq[pi, ci] = int(round(math.log(size + 2) * 1024))
+        dev = self.device
+        return tuple(torch.from_numpy(a).to(dev)
+                     for a in (dns_counts, dns_dom, dns_forced0, sa_counts, sa_wq))
+
+    def _evaluate_placements(self, fw: Framework, pg_state, group, members, placements):
+        """Every candidate placement evaluated in one schedule_placements
+        launch (the JAX package's :635-758), then gated with
+        PlacementFeasible as the host loop does. The host loop evaluates
+        them instead (its members counted as host-path pods) while pods are
+        nominated, for members of differing or uncovered specs, and for a
+        plan outside the restriction invariant."""
+        host = False
+        if self.queue.nominator.has_nominated_pods():
+            host = True
+        p0 = members[0].pod
+        sig = fw.sign_pod(p0)
+        if sig is None or any(fw.sign_pod(m.pod) != sig or batch_supported(m.pod) is not None
+                              for m in members):
+            host = True
+        plan = None
+        if not host:
+            # Across group cycles the plan depends only on node state and
+            # the pod spec, while the cluster-event version stands: our own
+            # commits move per-node aggregates, which reach the device
+            # through the mirror's dirty rows, not the feature tables.
+            cache = self._placement_plan_cache
+            ckey = (id(fw), sig, len(members), self.cluster_event_seq, self.mirror.np_cap)
+            if cache is not None and cache[0] == ckey:
+                plan = cache[1]
+                self.cache.update_snapshot(self.snapshot)
+                self.mirror.sync(self.snapshot.node_info_list)
+                state = self.mirror.flush()
+            else:
+                state, plan = self.build_plan(fw, p0, len(members))
+                host = not self._placement_plan_restriction_invariant(plan)
+                # Spread-carrying plans are not kept: their per-node match
+                # counts move with every commit of a matching pod.
+                keep = (not host and plan.dns_node_counts is None
+                        and plan.sa_node_counts is None)
+                self._placement_plan_cache = ((id(fw), sig, len(members), self.cluster_event_seq,
+                                               self.mirror.np_cap), plan) if keep else None
+        if host:
+            self.host_path_pods += len(members)
+            return super()._evaluate_placements(fw, pg_state, group, members, placements)
+        t0 = time.perf_counter()
+        index = self.snapshot._index
+        if len(index) != len(self.snapshot.node_info_list):
+            index = {ni.name: i for i, ni in enumerate(self.snapshot.node_info_list)}
+        npc = self.mirror.np_cap
+        p_pad = _pow2(len(placements))
+        # The candidates of one topology key repeat across a stream of
+        # identical groups: their row masks stay on the device.
+        mkey = (self.cluster_event_seq, p_pad, npc,
+                tuple(tuple(p.node_names) for p in placements))
+        if self._placement_mask_cache is not None and self._placement_mask_cache[0] == mkey:
+            masks = self._placement_mask_cache[1]
+        else:
+            host_masks = np.zeros((p_pad, npc), bool)
+            for pi, placement in enumerate(placements):
+                for name in placement.node_names:
+                    row = index.get(name)
+                    if row is not None:
+                        host_masks[pi, row] = True
+            masks = torch.from_numpy(host_masks).to(self.device)
+            self._placement_mask_cache = (mkey, masks)
+        res = schedule_placements(
+            state, plan.features, plan.batch_pad, plan.fit_strategy, plan.vmax, plan.facts,
+            masks, len(members), self._placement_spread_overrides(plan, placements, index))
+        res = _Fetch(res).wait()  # [P, 2, B]
+        self.placement_device_evals += 1
+        self.placement_eval_s += time.perf_counter() - t0
+        node_names = [ni.name for ni in self.snapshot.node_info_list]
+        candidates = []
+        for pi, placement in enumerate(placements):
+            placed = [(m, int(r)) for m, r in zip(members, res[pi, 0, :len(members)]) if r >= 0]
+            progress = PlacementProgress(len(placed), len(members) - len(placed), len(members))
+            if not placed or not fw.run_placement_feasible_plugins(
+                    pg_state, group, progress).is_success():
+                continue
+            # Covered members carry no plugin simulation state: a fresh
+            # CycleState is what the host simulation leaves them.
+            assignment = {m.pod.uid: (node_names[r], CycleState()) for m, r in placed}
+            candidates.append((placement, assignment, PodGroupAssignments(
+                placement,
+                proposed=[(m.pod, assignment[m.pod.uid][0]) for m in members
+                          if m.pod.uid in assignment],
+                nodes=[self.snapshot.get(n) for n in placement.node_names])))
+        return candidates
+
+    def warm_for_placements(self, pod, group_size: int, n_placements: int) -> None:
+        """Build the kernels and launch schedule_placements once with no
+        active member (every lane inert) at the tiers a placement workload
+        of `pod`-shaped groups of `group_size` over `n_placements`
+        candidates will use, so that set-up lands outside a measured window
+        (the JAX package's warm_for_placements, :1193-1228)."""
+        fw = self.framework_for_pod(pod)
+        if batch_supported(pod) is not None:
+            return
+        state, plan = self.build_plan(fw, pod, group_size)
+        if not self._placement_plan_restriction_invariant(plan):
+            return
+        p_pad = _pow2(max(1, n_placements))
+        f, dev = plan.features, self.device
+        masks = torch.zeros((p_pad, self.mirror.np_cap), dtype=torch.bool, device=dev)
+        overrides = None
+        if f.dns_axis.shape[0] or f.sa_axis.shape[0]:
+            c1, c2, v = f.dns_axis.shape[0], f.sa_axis.shape[0], plan.vmax
+            overrides = (torch.zeros((p_pad, c1, v), dtype=torch.int32, device=dev),
+                         torch.zeros((p_pad, c1, v), dtype=torch.bool, device=dev),
+                         torch.ones((p_pad, c1), dtype=torch.int32, device=dev),
+                         torch.zeros((p_pad, c2, v), dtype=torch.int32, device=dev),
+                         torch.zeros((p_pad, c2), dtype=torch.int64, device=dev))
+        res = schedule_placements(state, f, plan.batch_pad, plan.fit_strategy, plan.vmax,
+                                  plan.facts, masks, 0, overrides)
+        _Fetch(res).wait()
+
     # -- device preemption dry run -------------------------------------------
 
     def device_dry_run_preemption(self, fw: Framework, state, pod, node_to_status,
@@ -763,13 +1184,31 @@ class TorchScheduler(Scheduler):
         return out
 
     def _commit(self, fw: Framework, qpi: QueuedPodInfo, node_name: str) -> bool:
-        """assume → bind: the host tail of the scheduling cycle
-        (schedule_one.go:315 onward). False when the host rejected it."""
+        """assume → reserve → permit → bind: the host tail of the scheduling
+        cycle (schedule_one.go:315 onward). A pod a Permit plugin holds
+        (a gang member short of its group's count) parks assumed. False
+        when the host rejected the placement."""
         pod = qpi.pod
         self.attempts += 1
         pod.node_name = node_name
         self.cache.assume_pod(pod, qpi.pod_info)
-        bound = self.run_binding_cycle(fw, CycleState(), qpi, node_name)
+        state = CycleState()
+        st = fw.run_reserve_plugins_reserve(state, pod, node_name)
+        if st.is_success():
+            st = fw.run_permit_plugins(state, pod, node_name)
+        if st.code == WAIT:
+            # Parked assumed on the node: the carry stays right.
+            self.park_waiting_pod(fw, state, qpi, ScheduleResult(suggested_host=node_name))
+            self.queue.done(pod.uid)
+            return True
+        if st.is_rejected():
+            fw.run_reserve_plugins_unreserve(state, pod, node_name)
+            self.cache.forget_pod(pod)
+            pod.node_name = ""
+            self.handle_scheduling_failure(fw, qpi, st, None)
+            self.queue.done(pod.uid)
+            return False
+        bound = self.run_binding_cycle(fw, state, qpi, node_name)
         self.queue.done(pod.uid)
         if bound:
             self.device_scheduled += 1
@@ -789,7 +1228,14 @@ class TorchScheduler(Scheduler):
         if fallback_reason is None:
             self._run_device_session(fw, batch)
             return True
+        if fallback_reason is _GANG_SESSION:
+            self._run_gang_device_session(fw, batch[0])
+            return True
         for qpi in batch:
-            self.host_path_pods += 1
+            if fallback_reason is not _PLACEMENT_GROUP:
+                # (A placement group's cycle counts its own host path:
+                # _evaluate_placements.)
+                self.host_path_pods += (len(qpi.members) if isinstance(qpi, QueuedPodGroupInfo)
+                                        else 1)
             self.process_one(qpi)
         return True

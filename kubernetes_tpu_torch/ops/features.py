@@ -177,6 +177,16 @@ class BatchPlan:
     # deltas, base scores or existing-pod anti hits): a pod arriving on or
     # leaving node n changes only row n's aggregates.
     pod_local: bool = False
+    # The spread tables' per-node columns (snapshot rows), from which a
+    # placement evaluation rebuilds each placement's restricted tables
+    # (models/tpu_scheduler.py _placement_spread_overrides); None without
+    # such constraints.
+    dns_node_counts: Optional[np.ndarray] = None   # [C1, n] i32 matching pods
+    dns_node_elig: Optional[np.ndarray] = None     # [C1, n] bool key and policies
+    dns_min_domains: Optional[list] = None         # minDomains per C1 row
+    sa_node_counts: Optional[np.ndarray] = None    # [C2, n] i32
+    sa_node_live: Optional[np.ndarray] = None      # [n] bool (not ignored)
+    sa_hostname_axis: Optional[list] = None        # per C2 row: the hostname key
 
 
 class Unsupported(Exception):
@@ -335,6 +345,8 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
     dns_honor_taints = np.zeros(c1, i32)
     dns_counts = np.zeros((c1, vmax), i32)
     dns_dom = np.zeros((c1, vmax), bool)
+    dns_node_counts = np.zeros((len(dns), n), i32) if dns else None
+    dns_node_elig = np.zeros((len(dns), n), bool) if dns else None
     for ci, c in enumerate(dns):
         ax = mirror.axes[c.topology_key]
         dns_axis[ci] = ax.index
@@ -353,7 +365,10 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
             vid = topo[ax.index, r_i]
             dns_dom[ci, vid] = True
             domains.add(vid)
-            dns_counts[ci, vid] += _count_pods_matching(ni, c.selector, pod.namespace)
+            cnt = _count_pods_matching(ni, c.selector, pod.namespace)
+            dns_counts[ci, vid] += cnt
+            dns_node_counts[ci, r_i] = cnt
+            dns_node_elig[ci, r_i] = True
         forced = c.min_domains is not None and len(domains) < c.min_domains
         dns_forced0[ci] = 1 if (forced or not domains) else 0
 
@@ -364,11 +379,14 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
     sa_skew = np.ones(c2, i64)
     sa_self = np.zeros(c2, i32)
     sa_counts = np.zeros((c2, vmax), i32)
+    sa_node_counts = np.zeros((len(sa), n), i32) if sa else None
+    sa_node_live = None
     if sa:
         # A node is ignored when it misses any constraint's key or fails the
         # pod's required node affinity.
         sa_ignored = [not all(c.topology_key in ni.node.labels for c in sa) or not sel_host[r_i]
                       for r_i, ni in enumerate(nodes)]
+        sa_node_live = ~np.asarray(sa_ignored, bool)
         for ci, c in enumerate(sa):
             ax = mirror.axes[c.topology_key]
             sa_axis[ci] = ax.index
@@ -380,7 +398,9 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
                 if sa_ignored[r_i]:
                     continue
                 vid = topo[ax.index, r_i]
-                sa_counts[ci, vid] += _count_pods_matching(ni, c.selector, pod.namespace)
+                cnt = _count_pods_matching(ni, c.selector, pod.namespace)
+                sa_counts[ci, vid] += cnt
+                sa_node_counts[ci, r_i] = cnt
                 domains.add(vid)
                 live += 1
             size = live if c.topology_key == LABEL_HOSTNAME else len(domains)
@@ -562,7 +582,11 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
             has_pns=bool((mirror.h_taint_eff[:n] == EFFECT_PREFER_NO_SCHEDULE).any()),
             has_ipa_base=has_ipa_base, anti_rowlocal=anti_rowlocal, has_na_pref=has_na_pref),
         pod_local=bool(c1 == 0 and c2 == 0 and a1 == 0 and a2 == 0 and kd == 0
-                       and not has_ipa_base and not (exist_anti != 0).any()))
+                       and not has_ipa_base and not (exist_anti != 0).any()),
+        dns_node_counts=dns_node_counts, dns_node_elig=dns_node_elig,
+        dns_min_domains=[c.min_domains for c in dns] if dns else None,
+        sa_node_counts=sa_node_counts, sa_node_live=sa_node_live,
+        sa_hostname_axis=[c.topology_key == LABEL_HOSTNAME for c in sa] if sa else None)
 
 
 PREEMPT_K_CAP = 256  # victims per node beyond which the host dry run decides

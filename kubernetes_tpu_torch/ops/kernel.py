@@ -2,7 +2,7 @@
 (schedule_one.go findNodesThatFitPod :630 / prioritizeNodes :945) for a batch
 of identical pods, with the greedy sequential assignment on the device.
 
-Eight hand-written CUDA kernels (csrc/), each beside a plain PyTorch version
+Nine hand-written CUDA kernels (csrc/), each beside a plain PyTorch version
 of the same function in this module:
 
 - static_masks   <- the JAX package's _static_masks + _tolerates
@@ -24,7 +24,11 @@ of the same function in this module:
                     (ops/device_state.py:128-135);
 - patch_carry_rows <- patch_carry_rows (:584-621): a journal delta patch of
                     a live session's carry, the dirty rows' aggregates
-                    installed and their resource lanes re-evaluated.
+                    installed and their resource lanes re-evaluated;
+- schedule_placements <- schedule_placements (:655-723): a pod group's
+                    greedy scan against each of P candidate placements at
+                    once, one lane per placement (the general scan step of
+                    scan_general, shared through csrc/scan_general.cuh).
 
 The three schedule kernels take the nominated-pod lane (features whose
 `nom_req` has rows): the fit filter of every re-evaluated row counts the
@@ -460,8 +464,7 @@ def _scan_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: in
     F = torch.cumsum(okd.to(i32), 0, dtype=i32)
     total = _total(f, fit_sc, ba)
     out = torch.full((2, batch_pad), -1, dtype=i32, device=dev)
-    for t in range(batch_pad):
-        active = t < n_act
+    for t in range(n_act):
         total_feas = F[-1]
         f_start = torch.where(start > 0, F[(start - 1).clamp_min(0).to(i64)], 0)
         rank = torch.where(idx >= start, F - f_start, F + total_feas - f_start)
@@ -471,7 +474,7 @@ def _scan_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: in
         key = total * NP + ((NP - 1) - rot)
         best_key = torch.where(kept, key, -1).amax()
         evaluated = (num - bound).to(i32)
-        any_kept = (best_key >= 0) & active
+        any_kept = best_key >= 0
         chosen_rot = (NP - 1) - (best_key % NP).to(i32)
         chosen = torch.where(any_kept, (start + chosen_rot) % num, -1).to(i32)
         row = chosen.clamp_min(0).to(i64)
@@ -491,9 +494,9 @@ def _scan_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: in
         F = F + torch.where(idx >= row, delta, 0)
         total[row] = (f.weights[0] * MAX_NODE_SCORE + f.weights[1] * r_fit
                       + f.weights[4] * r_ba + f.weights[6] * f.il_score[row])
-        if active:
-            start = ((start + evaluated) % num).to(i32)
+        start = ((start + evaluated) % num).to(i32)
         out[:, t] = torch.stack([chosen, start])
+    out[1, n_act:] = start  # padded steps: nothing lands, the start stays
     carry = ext0._replace(req_r=req_r, nonzero=nonzero, pod_count=pod_count,
                           fit_ok=fit_ok, fit_sc=fit_sc, ba=ba, start=start)
     return out, carry
@@ -939,15 +942,6 @@ def patch_carry_rows(state: DeviceNodeState, f: BatchFeatures, carry: ScanCarry,
 
 patch_carry_rows.launches = 0
 
-WRAPPERS = (static_masks, resource_eval, lap_schedule, scan_schedule, scan_general,
-            dry_run_preemption, scatter_rows, patch_carry_rows)
-
-
-def reset_launch_counts() -> None:
-    for w in WRAPPERS:
-        w.launches = 0
-
-
 # ---------------------------------------------------------------------------
 # schedule_batch
 # ---------------------------------------------------------------------------
@@ -985,7 +979,6 @@ def schedule_batch(state: DeviceNodeState, f: BatchFeatures, batch_pad: int,
     plan takes scan_general. Features whose `nom_req` has rows carry the
     nominated-pod lane (the JAX package's `has_nom`): every kernel counts a
     row's nominated pods against the fit filter of that row."""
-    incremental, carried = plan_modes(f, facts)
     n_act = batch_pad if n_active is None else int(n_active)
     masks = static_masks(state, f)
     if carry_in is None:
@@ -994,8 +987,154 @@ def schedule_batch(state: DeviceNodeState, f: BatchFeatures, batch_pad: int,
             state.nonzero, state.pod_count, *_nom_lane(f)))
     else:
         ext0 = carry_in
-    if incremental and carried and batch_pad > SCAN_MAX_STEPS:
+    path = plan_path(f, facts, batch_pad)
+    if path == "lap":
         return lap_schedule(state, f, batch_pad, fit_strategy, ext0, masks.static_ok, n_act)
-    if incremental and carried and f.anti_axis.shape[0] == 0:
+    if path == "scan":
         return scan_schedule(state, f, batch_pad, fit_strategy, ext0, masks.static_ok, n_act)
     return scan_general(state, f, batch_pad, fit_strategy, ext0, masks, n_act, facts)
+
+
+def plan_path(f: BatchFeatures, facts: PlanFacts, batch_pad: int) -> str:
+    """The kernel a plan takes (the JAX package's :262-273): "lap" for a
+    plan whose landings change only their own row and score above 64 steps,
+    "scan" (scan_schedule) for such a plan without count tables at or below
+    64 steps, "general" (scan_general) for every other plan."""
+    incremental, carried = plan_modes(f, facts)
+    if incremental and carried and batch_pad > SCAN_MAX_STEPS:
+        return "lap"
+    if incremental and carried and f.anti_axis.shape[0] == 0:
+        return "scan"
+    return "general"
+
+
+# ---------------------------------------------------------------------------
+# schedule_placements
+# ---------------------------------------------------------------------------
+
+GEN_MAXC = 16  # spread-table rows a general scan takes (csrc/scan_general.cuh)
+
+
+def _lane_features(f: BatchFeatures, mask: torch.Tensor, tables=None) -> BatchFeatures:
+    """One placement lane's features (the JAX package's :705-720): the
+    candidate's rows as the extra filter, rotation start 0, no truncation,
+    and the lane's own spread tables where `tables` gives them."""
+    f2 = f._replace(extra_ok=f.extra_ok & mask,
+                    start_index=torch.zeros((), dtype=i32, device=mask.device),
+                    to_find=f.num_nodes)
+    if tables is not None:
+        dns_counts, dns_dom, dns_forced0, sa_counts, sa_wq = tables
+        f2 = f2._replace(dns_counts=dns_counts, dns_dom=dns_dom, dns_forced0=dns_forced0,
+                         sa_counts=sa_counts, sa_wq=sa_wq)
+    return f2
+
+
+def _schedule_placements_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int,
+                               fit_strategy: int, vmax: int, facts: PlanFacts,
+                               masks: torch.Tensor, n_active: int,
+                               spread_overrides=None) -> torch.Tensor:
+    """Plain PyTorch version of the schedule_placements kernel: per lane,
+    schedule_batch's plain path on the lane's features from a fresh carry
+    (the JAX package's vmap over the lanes), stacked [P, 2, B]. The static
+    masks and the fresh carry's resource lanes do not depend on the lane
+    (its mask only narrows static_ok), so they are computed once."""
+    lane_facts = facts._replace(has_ipa_base=False, anti_rowlocal=False)
+    m = _static_masks_plain(state, f)
+    fit = _resource_eval_plain(f, fit_strategy, state.alloc_r, state.alloc_pods, state.req_r,
+                               state.nonzero, state.pod_count, *_nom_lane(f))
+    out = []
+    for p in range(masks.shape[0]):
+        tables = None if spread_overrides is None else [t[p] for t in spread_overrides]
+        f2 = _lane_features(f, masks[p], tables)
+        ext0 = fresh_carry(state, f2, vmax, fit)
+        lm = m._replace(static_ok=m.static_ok & masks[p])
+        path = plan_path(f2, lane_facts, batch_pad)
+        if path == "lap":
+            res, _ = _lap_schedule_plain(state, f2, batch_pad, fit_strategy, ext0, lm.static_ok,
+                                         n_active)
+        elif path == "scan":
+            res, _ = _scan_schedule_plain(state, f2, batch_pad, fit_strategy, ext0, lm.static_ok,
+                                          n_active)
+        else:
+            res, _ = _scan_general_plain(state, f2, batch_pad, fit_strategy, ext0, lm, n_active,
+                                         lane_facts)
+        out.append(res)
+    return torch.stack(out)
+
+
+def _schedule_placements_cuda(state, f, batch_pad, fit_strategy, vmax, facts, masks, n_active,
+                              spread_overrides=None):
+    dev = masks.device
+    P, NP = masks.shape
+    R = state.alloc_r.shape[1]
+    C1, C2, V = f.dns_axis.shape[0], f.sa_axis.shape[0], f.dns_counts.shape[1]
+    if f.anti_axis.shape[0] or f.aff_axis.shape[0] or f.ipa_axis.shape[0]:
+        raise ValueError("schedule_placements: a plan with inter-pod-affinity tables is "
+                         "outside the placement restriction")
+    if C1 > GEN_MAXC or C2 > GEN_MAXC:
+        raise ValueError(f"schedule_placements: {C1} and {C2} spread-table rows, at most "
+                         f"{GEN_MAXC} each")
+    lane_facts = facts._replace(has_ipa_base=False, anti_rowlocal=False)
+    incremental, carried = plan_modes(f, lane_facts)
+    if spread_overrides is None:
+        tables, per_lane = (f.dns_counts, f.dns_dom, f.dns_forced0, f.sa_counts, f.sa_wq), 0
+    else:
+        tables, per_lane = tuple(spread_overrides), 1
+        want = ((P, C1, V), (P, C1, V), (P, C1), (P, C2, V), (P, C2))
+        if tuple(tuple(t.shape) for t in tables) != want:
+            raise ValueError(f"schedule_placements: spread overrides "
+                             f"{[tuple(t.shape) for t in tables]}, expected {list(want)}")
+    dns_counts, dns_dom, dns_forced0, sa_counts, sa_wq = tables
+    m = static_masks(state, f)
+
+    def scratch(*shape, dtype):
+        return torch.empty((P,) + shape, dtype=dtype, device=dev)
+
+    out = torch.empty((P, 2, batch_pad), dtype=i32, device=dev)
+    ints, feats = _res_args(f, fit_strategy)
+    _launch("schedule_placements", dev, NP, *ints, P, batch_pad, int(n_active), V, C1, C2,
+            int(incremental), int(carried), int(facts.has_pns), int(facts.has_na_pref), per_lane,
+            *feats, state.alloc_r, state.alloc_pods, state.req_r, state.nonzero, state.pod_count,
+            *_nom_lane(f), m.static_ok, m.sel_ok, m.taint_ok, m.pns_cnt, masks, state.topo,
+            f.il_score, f.na_raw, f.weights, f.num_nodes, f.dns_axis, f.dns_active,
+            f.dns_max_skew, f.dns_self, dns_forced0, f.dns_honor_aff, f.dns_honor_taints,
+            dns_dom, dns_counts, f.sa_axis, sa_wq, f.sa_skew, f.sa_self, sa_counts,
+            scratch(NP, R, dtype=i64), scratch(NP, 2, dtype=i64), scratch(NP, dtype=i32),
+            scratch(NP, dtype=torch.bool), scratch(NP, dtype=i64), scratch(NP, dtype=i64),
+            scratch(NP, dtype=torch.bool), scratch(NP, dtype=torch.uint8),
+            scratch(NP, dtype=i32), scratch(NP, dtype=i64), scratch(C1, V, dtype=i32),
+            scratch(C2, V, dtype=i32), out)
+    return out
+
+
+def schedule_placements(state: DeviceNodeState, f: BatchFeatures, batch_pad: int,
+                        fit_strategy: int, vmax: int, facts: PlanFacts, masks: torch.Tensor,
+                        n_active: int, spread_overrides=None) -> torch.Tensor:
+    """Evaluate a pod group against P candidate placements at once (the
+    JAX package's schedule_placements, :655-723): lane p runs the group's
+    `n_active` members through schedule_batch restricted to the rows of
+    `masks[p]` ([P, NP] bool), from a fresh carry of `state`, rotation start
+    0 and no truncation. `spread_overrides`, a tuple (dns_counts [P, C1, V],
+    dns_dom [P, C1, V], dns_forced0 [P, C1], sa_counts [P, C2, V], sa_wq
+    [P, C2]), gives each lane its placement-restricted spread tables.
+    Returns [P, 2, batch_pad] i32 (chosen row or -1, start after). No input
+    is written. The plan must carry no inter-pod-affinity table and no base
+    score (the caller's restriction invariant)."""
+    if _on_cpu(masks):
+        return _schedule_placements_plain(state, f, batch_pad, fit_strategy, vmax, facts,
+                                          masks, n_active, spread_overrides)
+    out = _schedule_placements_cuda(state, f, batch_pad, fit_strategy, vmax, facts, masks,
+                                    n_active, spread_overrides)
+    schedule_placements.launches += 1
+    return out
+
+
+schedule_placements.launches = 0
+
+WRAPPERS = (static_masks, resource_eval, lap_schedule, scan_schedule, scan_general,
+            dry_run_preemption, scatter_rows, patch_carry_rows, schedule_placements)
+
+
+def reset_launch_counts() -> None:
+    for w in WRAPPERS:
+        w.launches = 0

@@ -135,6 +135,43 @@ class Fit:
             weight_sum += weight
         return node_score // weight_sum if weight_sum else 0
 
+    def score_placement(self, state: CycleState, group, pga) -> Tuple[int, Status]:
+        """PlacementScore (resource_allocation.go:505 scorePlacement; the
+        JAX package's :289-310): the strategy formula over the placement's
+        aggregate allocatable and requested, the proposed members'
+        requests included."""
+        node_score = 0
+        weight_sum = 0
+        for spec in self.resources:
+            name, weight = spec["name"], spec.get("weight", 1)
+            used = 0
+            for pod, _node in pga.proposed:
+                req = pod.resource_request()
+                if name == res.CPU:
+                    used += req.milli_cpu or NodeInfo.DEFAULT_MILLI_CPU
+                elif name == res.MEMORY:
+                    used += req.memory or NodeInfo.DEFAULT_MEMORY
+                else:
+                    used += req.get(name)
+            alloc = 0
+            for ni in pga.nodes:
+                alloc += ni.allocatable.get(name)
+                if name == res.CPU:
+                    used += ni.non_zero_requested.milli_cpu
+                elif name == res.MEMORY:
+                    used += ni.non_zero_requested.memory
+                else:
+                    used += ni.requested.get(name)
+            if alloc == 0:
+                continue
+            if self.scoring_strategy == LEAST_ALLOCATED:
+                rscore = least_requested_score(used, alloc)
+            else:
+                rscore = most_requested_score(used, alloc)
+            node_score += rscore * weight
+            weight_sum += weight
+        return (node_score // weight_sum if weight_sum else 0), OK
+
     def sign(self, pod: Pod):
         r = pod.resource_request()
         return (r.milli_cpu, r.memory, r.ephemeral_storage,

@@ -1,5 +1,6 @@
 """Preemption: the DefaultPreemption PostFilter plugin and its dry-run
-Evaluator (the JAX package's plugins/preemption.py, without pod groups).
+Evaluator, and pod-group preemption (PodGroupPostFilter, the
+PodGroupEvaluator) — the JAX package's plugins/preemption.py.
 
 Reference anchors:
 - pkg/scheduler/framework/preemption/preemption.go — Evaluator.Preempt :181,
@@ -8,7 +9,9 @@ Reference anchors:
 - plugins/defaultpreemption/default_preemption.go — PostFilter → Evaluator,
   the victims' reprieve order (MoreImportantPod), PodEligibleToPreemptOthers.
 
-Victims are deleted synchronously. Where the scheduler has a device
+Victims are deleted synchronously. Pod-group preemption is a host
+simulation of the whole group (Handle.simulate_pod_group), as in the JAX
+package. Where the scheduler has a device
 (models/tpu_scheduler.py), the per-node dry run of every candidate node runs
 as one kernel (ops/kernel.py dry_run_preemption) and the candidate it
 selects is verified here by the exact host dry run of that node; a
@@ -178,6 +181,53 @@ class Evaluator:
                 pi.pod.nominated_node_name = ""
 
 
+class PodGroupEvaluator:
+    """Pod-group preemption (podgrouppreemption.go:42 PodGroupEvaluator; the
+    JAX package's :264-313): the preemptor is a whole group and the domain
+    the whole cluster. Remove every lower-priority pod, check that the group
+    schedules, then reprieve the victims most important first while it
+    still does (:139 selectVictimsOnDomain)."""
+
+    def __init__(self, handle):
+        self.handle = handle
+
+    def preempt(self, group, members, simulate_fn) -> Tuple[List[PodInfo], Status]:
+        """(victims, status). `simulate_fn()` tries the whole group against
+        the snapshot and leaves it unchanged. The snapshot's NodeInfos are
+        mutated while it runs and always restored."""
+        snapshot = self.handle.snapshot()
+        preemptor_prio = max((m.pod.priority for m in members), default=0)
+        potential: List[Tuple[NodeInfo, PodInfo]] = []
+        for ni in snapshot.node_info_list:
+            for pi in ni.pods:
+                if pi.pod.priority < preemptor_prio and pi.pod.deletion_ts is None:
+                    potential.append((ni, pi))
+        if not potential:
+            return [], Status.unresolvable("pod-group preemption: no lower-priority pods")
+        removed: List[Tuple[NodeInfo, PodInfo]] = []
+        try:
+            for ni, pi in potential:
+                if ni.remove_pod(pi.pod):
+                    removed.append((ni, pi))
+            if not simulate_fn():
+                return [], Status.unschedulable(
+                    "pod-group preemption: the group does not fit even after removing "
+                    "all lower-priority pods")
+            removed.sort(key=lambda t: more_important_first(t[1]))
+            victims: List[PodInfo] = []
+            for ni, pi in list(removed):
+                ni.add_pod(pi)
+                if simulate_fn():
+                    removed.remove((ni, pi))  # reprieved: stays restored
+                else:
+                    ni.remove_pod(pi.pod)
+                    victims.append(pi)
+            return victims, OK
+        finally:
+            for ni, pi in removed:  # restore every victim still removed
+                ni.add_pod(pi)
+
+
 class DefaultPreemption:
     """plugins/defaultpreemption — the PostFilter extension point."""
 
@@ -222,3 +272,22 @@ class DefaultPreemption:
         ev.prepare_candidate(best, pod)
         self.victims += len(best.victims)
         return PostFilterResult(nominating_info=best.node_name), OK
+
+    def pod_group_post_filter(self, state: CycleState, group, members, diagnosis
+                              ) -> Tuple[Optional[PostFilterResult], Status]:
+        """PodGroupPostFilter (the JAX package's :420-454): evict the
+        minimal set of lower-priority pods that lets the whole group
+        schedule, by the group's own algorithm."""
+        if not members:
+            return None, Status.unschedulable("pod-group preemption unavailable")
+        victims, st = PodGroupEvaluator(self.handle).preempt(
+            group, members, lambda: self.handle.simulate_pod_group(group, members))
+        if not st.is_success():
+            return None, st
+        if not victims:
+            return None, Status.unschedulable("pod-group preemption found no victim set")
+        self.attempts += 1
+        self.victims += len(victims)
+        for pi in victims:
+            self.handle.clientset.delete_pod(pi.pod)
+        return PostFilterResult(), OK

@@ -311,3 +311,56 @@ def patch_inputs(seed: int, state: tuple, num_nodes: int, k: int,
             np.concatenate([req_rows, np.repeat(req_rows[-1:], pad, 0)]),
             np.concatenate([nz_rows, np.repeat(nz_rows[-1:], pad, 0)]),
             np.concatenate([cnt_rows, np.repeat(cnt_rows[-1:], pad)]))
+
+
+def placement_inputs(seed: int, np_cap: int, num_nodes: int, lanes: int, *, vmax: int = 256,
+                     dns: int = 0, sa: int = 0, overrides: bool = False, pns: bool = False,
+                     na: bool = False, **kw):
+    """(state arrays, feature arrays, plan facts, masks [lanes, np_cap]
+    bool, spread overrides or None) for one stacked placement evaluation:
+    a general_inputs draw with `dns`/`sa` spread tables and no inter-pod
+    affinity (the placement restriction), and one row mask per lane — lane
+    0 empty (a padded lane), lane 1 a single row, lane 2 about 100 rows,
+    the last every live row, the others random subsets (a lane count of 1
+    is the every-row lane). `overrides` draws each lane's own dns_counts,
+    dns_dom, dns_forced0, sa_counts and sa_wq over its rows (padded table
+    rows: forced0 1, sa_wq 0)."""
+    state, feats, facts = general_inputs(seed, np_cap, num_nodes, vmax=vmax, dns=dns, sa=sa,
+                                         pns=pns, na=na, **kw)
+    rng = np.random.default_rng(seed + 15485863)
+    n = num_nodes
+    masks = np.zeros((lanes, np_cap), bool)
+    for p in range(lanes):
+        if p == lanes - 1:
+            masks[p, :n] = True
+        elif p == 0:
+            continue
+        elif p == 1:
+            masks[p, rng.integers(0, n)] = True
+        elif p == 2:
+            masks[p, rng.choice(n, size=min(100, n), replace=False)] = True
+        else:
+            masks[p, :n] = rng.random(n) < rng.choice([0.1, 0.3, 0.6])
+    if not overrides:
+        return state, feats, facts, masks, None
+    f = dict(zip(_F, feats))
+    topo = state[11]
+    c1, c2 = f["dns_axis"].shape[0], f["sa_axis"].shape[0]
+    dns_counts = np.zeros((lanes, c1, vmax), np.int32)
+    dns_dom = np.zeros((lanes, c1, vmax), bool)
+    dns_forced0 = np.ones((lanes, c1), np.int32)
+    sa_counts = np.zeros((lanes, c2, vmax), np.int32)
+    sa_wq = np.zeros((lanes, c2), np.int64)
+    for p in range(lanes):
+        rows = np.nonzero(masks[p, :n])[0]
+        for c in range(dns):
+            vids = topo[f["dns_axis"][c], rows]
+            vids = vids[vids > 0]
+            dns_dom[p, c, vids] = rng.random(vids.size) < 0.95
+            np.add.at(dns_counts[p, c], vids, rng.integers(0, 3, vids.size).astype(np.int32))
+            dns_forced0[p, c] = int(rng.random() < 0.2 or not dns_dom[p, c].any())
+        for c in range(sa):
+            vids = topo[f["sa_axis"][c], rows]
+            np.add.at(sa_counts[p, c], vids, rng.integers(0, 4, vids.size).astype(np.int32))
+            sa_wq[p, c] = int(round(math.log(np.unique(vids).size + 2) * 1024))
+    return state, feats, facts, masks, (dns_counts, dns_dom, dns_forced0, sa_counts, sa_wq)

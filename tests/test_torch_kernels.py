@@ -19,6 +19,7 @@ from kubernetes_tpu.ops.kernel import ScanCarry as JaxCarry
 from kubernetes_tpu.ops.kernel import _resource_eval as jax_resource_eval
 from kubernetes_tpu.ops.kernel import _static_masks as jax_static_masks
 from kubernetes_tpu.ops.kernel import schedule_batch as jax_schedule_batch
+from kubernetes_tpu.ops.kernel import schedule_placements as jax_schedule_placements
 from kubernetes_tpu_torch.ops import kernel as K
 from kubernetes_tpu_torch.ops.device_state import state_from_jax_numpy
 from kubernetes_tpu_torch.ops.features import features_from_jax_numpy, victims_from_jax_numpy
@@ -27,6 +28,7 @@ from kubernetes_tpu_torch.testing.kernel_inputs import (
     HOST_AXIS,
     general_inputs,
     nominated_lane,
+    placement_inputs,
     random_inputs,
     victim_inputs,
     with_nominated_lane,
@@ -271,10 +273,10 @@ def test_launcher_signatures_are_read_from_the_sources():
         assert all(p.dtype is not None for p in sig if p.name not in
                    ("NP", "T", "L", "R", "FR", "fit_strategy", "B", "n_act", "V",
                     "C1", "C2", "A1", "A2", "KD", "incremental", "carried", "has_pns",
-                    "has_ipa_base", "has_na_pref", "K", "D"))
+                    "has_ipa_base", "has_na_pref", "K", "D", "P", "per_lane"))
         optional = {p.name for p in sig if p.optional}
         lane = name in ("resource_eval", "lap_schedule", "scan_schedule", "scan_general",
-                        "patch_carry_rows")
+                        "patch_carry_rows", "schedule_placements")
         assert optional == ({"nom_req", "nom_pods"} if lane else set())
 
 
@@ -297,6 +299,8 @@ def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches):
     K._scatter_rows_cuda(ts, torch.tensor([5, 9], dtype=torch.int32), *K.pack_rows(rows))
     K._patch_carry_rows_cuda(ts, tf, ext0, torch.tensor([5, 9], dtype=torch.int32),
                              ts.req_r[:2], ts.nonzero[:2], ts.pod_count[:2], 0)
+    masks = torch.zeros((4, ts.valid.shape[0]), dtype=torch.bool)
+    K._schedule_placements_cuda(ts, tf, 8, 0, VMAX, K.PlanFacts(), masks, 5)
     assert [name for name, _ in recorded_launches] == list(K._build.KERNELS)
     for name, args in recorded_launches:
         sig = K._build.signature(name)
@@ -313,6 +317,7 @@ def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches):
                          K.PlanFacts(has_pns=True))
     K._patch_carry_rows_cuda(ts, lane, ext0, torch.tensor([5, 9], dtype=torch.int32),
                              ts.req_r[:2], ts.nonzero[:2], ts.pod_count[:2], 0)
+    K._schedule_placements_cuda(ts, lane, 8, 0, VMAX, K.PlanFacts(), masks, 5)
     for name, args in recorded_launches:
         sig = {p.name: a for p, a in zip(K._build.signature(name), args)}
         assert (sig["nom_req"], sig["nom_pods"]) == (lane.nom_req.data_ptr(),
@@ -357,6 +362,82 @@ def test_scan_general_wrapper_marshals_every_table(recorded_launches, case):
         assert sig[lane] != getattr(ext0, lane).data_ptr() or getattr(ext0, lane).numel() == 0
     assert sig["start"] == ext0.start.data_ptr()
     assert sig["start_out"] == carry.start.data_ptr()
+
+
+# Placement evaluations: the spread tables of a lane (none, the plan's
+# shared tables, or per-lane overrides), as placement_inputs arguments.
+PLACEMENT_TABLES = {
+    "no-tables": {},
+    "shared-tables": dict(dns=1, sa=1),
+    "overrides": dict(dns=2, sa=1, overrides=True),
+}
+
+
+@pytest.mark.parametrize("fit_strategy", [0, 1], ids=["least", "most"])
+@pytest.mark.parametrize("tables", list(PLACEMENT_TABLES))
+@pytest.mark.parametrize("lanes", [1, 4, 16])
+def test_schedule_placements(lanes, tables, fit_strategy):
+    """The plain stacked placement evaluation equals the JAX package's
+    schedule_placements on every lane, for two seeds (the second with
+    PreferNoSchedule and preferred node-affinity lanes), with no active
+    member (every lane inert) and with six, and leaves its inputs as they
+    were. Lane 0 of a multi-lane draw is a padded lane (no row)."""
+    placed = 0
+    for seed in (41, 42):
+        s, f, facts, masks, ov = placement_inputs(seed, 256, 200, lanes, vmax=GVMAX,
+                                                  pns=seed == 42, na=seed == 42,
+                                                  **PLACEMENT_TABLES[tables])
+        js, jf, ts, tf = _convert(s, f)
+        t_ov = None if ov is None else tuple(torch.from_numpy(a) for a in ov)
+        j_ov = None if ov is None else tuple(jnp.asarray(a) for a in ov)
+        before = [t.clone() for t in list(ts) + list(tf) + list(t_ov or ())]
+        for n_active in (0, 6):
+            want = np.asarray(jax_schedule_placements(
+                js, jf, 8, fit_strategy, GVMAX, jnp.asarray(masks), n_active=np.int32(n_active),
+                has_pns=facts["has_pns"], has_na_pref=facts["has_na_pref"],
+                spread_overrides=j_ov))
+            got = K.schedule_placements(ts, tf, 8, fit_strategy, GVMAX, K.PlanFacts(**facts),
+                                        torch.from_numpy(masks), n_active, t_ov)
+            assert got.dtype == torch.int32 and tuple(got.shape) == (lanes, 2, 8)
+            np.testing.assert_array_equal(want, got.numpy(), err_msg=f"seed {seed}, "
+                                          f"{n_active} members")
+            if n_active == 0 or lanes > 1:
+                inert = got if n_active == 0 else got[:1]
+                assert (inert[:, 0] == -1).all() and (inert[:, 1] == 0).all()
+            placed += int((got[:, 0] >= 0).sum())
+        for a, b in zip(before, list(ts) + list(tf) + list(t_ov or ())):
+            assert torch.equal(a, b), "schedule_placements wrote into an input"
+    assert placed > 0, "the draws must place members"
+
+
+@pytest.mark.parametrize("overrides", [False, True], ids=["shared-tables", "overrides"])
+def test_schedule_placements_wrapper_marshals_lanes(recorded_launches, overrides):
+    """The CUDA wrapper passes the plan's tables (per_lane 0) or the
+    overrides (per_lane 1), the masks, the shared node state and one
+    scratch slice per lane."""
+    s, f, facts, masks, ov = placement_inputs(43, 256, 200, 4, vmax=GVMAX, dns=1, sa=1,
+                                              overrides=overrides)
+    _js, _jf, ts, tf = _convert(s, f)
+    t_ov = None if ov is None else tuple(torch.from_numpy(a) for a in ov)
+    t_masks = torch.from_numpy(masks)
+    out = K._schedule_placements_cuda(ts, tf, 8, 1, GVMAX, K.PlanFacts(**facts), t_masks, 6, t_ov)
+    [(name, args)] = recorded_launches
+    sig = {p.name: a for p, a in zip(K._build.signature(name), args)}
+    assert (sig["NP"], sig["P"], sig["B"], sig["n_act"], sig["V"], sig["C1"], sig["C2"],
+            sig["per_lane"]) == (256, 4, 8, 6, GVMAX, 1, 1, int(overrides))
+    tables = t_ov or (tf.dns_counts, tf.dns_dom, tf.dns_forced0, tf.sa_counts, tf.sa_wq)
+    for field, t in zip(("dns_counts", "dns_dom", "dns_forced0", "sa_counts", "sa_wq"), tables):
+        assert sig[field] == t.data_ptr(), field
+    assert sig["masks"] == t_masks.data_ptr() and sig["out"] == out.data_ptr()
+    for field in ("req_r", "nonzero", "pod_count", "alloc_r", "topo"):
+        assert sig[field] == getattr(ts, field).data_ptr(), field
+    assert tuple(out.shape) == (4, 2, 8)
+    # A plan outside the placement restriction is refused before a launch.
+    s, f, facts = general_inputs(44, 256, 200, vmax=GVMAX, anti=1)
+    _js, _jf, ts, tf = _convert(s, f)
+    with pytest.raises(ValueError, match="placement restriction"):
+        K._schedule_placements_cuda(ts, tf, 8, 0, GVMAX, K.PlanFacts(**facts), t_masks, 6)
+    assert len(recorded_launches) == 1
 
 
 def _wrong_dtype(ts, tf):

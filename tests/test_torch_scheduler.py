@@ -18,6 +18,7 @@ import torch
 from kubernetes_tpu.models.tpu_scheduler import TPUScheduler
 from kubernetes_tpu.testing.wrappers import make_node as jax_make_node
 from kubernetes_tpu.testing.wrappers import make_pod as jax_make_pod
+from kubernetes_tpu_torch.api.types import PodGroup
 from kubernetes_tpu_torch.models import TorchScheduler
 from kubernetes_tpu_torch.testing import make_node, make_pod
 
@@ -205,10 +206,17 @@ class TestScope:
         lambda b: b.pod_group("gang"),
     ], ids=["host-ports", "volumes", "claims", "gates", "pod-groups"])
     def test_out_of_scope_pod_refused(self, build):
+        # Pod groups are in scope since the gang slice; a group inside a
+        # composite tree (a parent composite group) is not, so the
+        # pod-groups case registers its pod's group as such a leaf.
         s = TorchScheduler(device="cpu")
+        pod = build(make_pod().name("p").req({"cpu": "1"})).obj()
         with pytest.raises(NotImplementedError):
-            s.clientset.create_pod(build(make_pod().name("p").req({"cpu": "1"})).obj())
+            if pod.pod_group:
+                s.clientset.create_pod_group(PodGroup(name=pod.pod_group, parent_name="tree"))
+            s.clientset.create_pod(pod)
         assert not s.clientset.pods and s.queue.pending_counts() == (0, 0, 0)
+        assert not s.clientset.pod_groups
 
     def test_priority_pod_accepted(self):
         # Pod priority is in scope (DefaultPreemption is ported): a pod of
