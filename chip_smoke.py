@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, in order; any error or mismatch exits non-zero before the result:
-  1. build   — compile the nine CUDA kernels from csrc/ (one nvcc each, in
+  1. build   — compile the ten CUDA kernels from csrc/ (one nvcc each, in
                parallel, linked into one library) and print the build
                seconds;
   2. kernels — hold each kernel against its plain PyTorch version on the
@@ -33,7 +33,11 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                and an every-row lane), without spread tables, with the
                plan's and with per-lane overrides, at V = 64 and 8192, no
                active member and a gang of 4, some lane placing only part of
-               its gang, its inputs left unchanged. Results must be exactly equal
+               its gang, its inputs left unchanged; whatif_score at the
+               rebalance drive's shape (P 128, N 5000, R 3) and at P 1 /
+               N 3, with 16 TiB nodes (int64 wrap-around), with negative
+               numerators (floored division), both at odd sizes, its inputs
+               left unchanged, and empty batches that launch nothing. Results must be exactly equal
                on every output and carry lane. It also times scan_general's first launch in the
                process against the next;
   3. paths   — each through TorchScheduler on cuda at full width, the
@@ -101,7 +105,20 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                TopologySpreading's 5000 nodes over 50 zones): every pod
                bound, each group in one zone, 250 device placement
                evaluations and 250 schedule_placements launches, none on the
-               host path;
+               host path; and the same groups on the JAX config's own shape,
+               SchedulingGangsPlacement/1000Nodes_250Groups (1000 nodes over
+               10 zones, floor 60 pods/s), pods/s printed beside the floor;
+               ChurnDriftRebalance/5000Nodes_Rebalance, the descheduler
+               (bench.rebalance: 2000 2000m/4Gi pods on 5000 nodes of the
+               hollow plane's default shape over 100 zones, every node's cpu
+               and memory skewed in place by the hollow plane's formula
+               (imbalance 0.4, seed 20) and every 100th tainted NoSchedule,
+               then descheduler ticks of 128 x 5000 what-if batches, each
+               followed by a scheduler round placing the evicted pods, until
+               a tick emits no move): at least one move, no tick with an
+               error, whatif_score launched once a tick with candidates,
+               every pod bound at the end; each tick's split (encode_batch,
+               launch + fetch, best_moves) and scheduler round printed;
   4. timing  — on the main paths' own next-batch inputs (exactness checked
                there too): each kernel's device time per launch from
                torch.profiler (a warm-up step, then at least 19 of 20
@@ -122,7 +139,9 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                seconds by kind (row patch, resume, full rebuild; and full
                rebuilds with resume off) beside it; schedule_placements on
                the placement drive's first group cycle (its 64 lanes and
-               plan), its bound summed over the real lanes;
+               plan), its bound summed over the real lanes; whatif_score on
+               the rebalance drive's first what-if batch (no library call
+               computes it);
   5. parity  — a 500-node cluster with NoSchedule and PreferNoSchedule
                taints, unschedulable nodes, node selectors, pods that fit no
                node, zone and hostname spread, required and preferred
@@ -146,7 +165,9 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                members), pod-group preemption on 8 full nodes, the gang
                drive at full size and the placement drive at its 5000 nodes
                with PLACE_PARITY_GROUPS groups: bindings, victims and
-               counters equal;
+               counters equal; the rebalance drive cut to REBAL_PARITY (1000
+               nodes, 400 pods, at most 5 ticks): planned intents, eviction
+               ledger, counters and final bindings equal;
   6. output  — a `{"kernels": [...]}` line, the card's name and power limit
                as nvidia-smi prints them, and last
                `{"ok": true, "device": {...}}`.
@@ -177,7 +198,10 @@ PREEMPT = "PreemptionAsync/5000Nodes"
 UNSCHED = "Unschedulable/5kNodes/100Init/10kPods"
 GANGS = "SchedulingGangs/1000Nodes_250Groups"
 PLACE = "SchedulingGangsPlacement/5000Nodes_250Groups"
+PLACE1K = "SchedulingGangsPlacement/1000Nodes_250Groups"
 PLACE_PARITY_GROUPS = 50    # depth of the placement drive's cuda/cpu parity runs
+REBAL = "ChurnDriftRebalance/5000Nodes_Rebalance"
+REBAL_PARITY = dict(nodes=1000, pods=400, max_ticks=5)   # the drive's cuda/cpu parity cut
 
 
 def fail(msg: str) -> None:
@@ -402,6 +426,7 @@ def kernel_phase(dev, np_cap: int, n_nodes: int) -> dict:
     scatter_phase(K, dev, np_cap, n_nodes, errs)
     patch_phase(K, dev, np_cap, n_nodes, errs)
     placement_phase(K, dev, np_cap, n_nodes, errs)
+    whatif_phase(dev, n_nodes, errs)
     torch.cuda.synchronize()
     print(f"kernels vs plain: max_abs_err {errs}", flush=True)
     for name, e in errs.items():
@@ -545,6 +570,40 @@ def placement_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
           f"{cases} cases, {placed} members placed, {partial} lanes placing part of a gang",
           flush=True)
     check(placed > 0 and partial > 0, "the placement draws placed nothing, or no lane only part")
+
+
+def whatif_phase(dev, n_nodes: int, errs: dict) -> None:
+    """whatif_score against its plain version: seeded batches at the
+    rebalance drive's shape (P 128, N 5000, R 3) and at P 1 / N 3, a batch
+    with 16 TiB nodes (int64 wrap-around), one with negative numerators
+    (floored division), an empty batch (no launch), the inputs left
+    unchanged. Exactly equal on fit_ok and score."""
+    from kubernetes_tpu_torch.ops import whatif as W
+    from kubernetes_tpu_torch.testing.kernel_inputs import whatif_inputs
+
+    cases = {"drive shape": (1000, 128, n_nodes, {}), "drive shape, 2nd draw": (1001, 128, n_nodes, {}),
+             "P 1 / N 3": (1002, 1, 3, {}), "16 TiB nodes": (1003, 128, n_nodes, dict(huge=True)),
+             "negative numerators": (1004, 37, n_nodes, dict(negative=True)),
+             "both hazards, odd sizes": (1005, 37, 999, dict(huge=True, negative=True))}
+    for case, (seed, P, N, kw) in cases.items():
+        ts = [torch.from_numpy(a).to(dev) for a in whatif_inputs(seed, P, N, **kw)]
+        before = [t.clone() for t in ts]
+        launches = W.whatif_score.launches
+        got, want = W.whatif_score(*ts), W._whatif_score_plain(*ts)
+        e = max_abs_err(got, want)
+        check(W.whatif_score.launches == launches + 1, f"whatif_score {case}: no launch")
+        check(max_abs_err(before, ts) == 0, f"whatif_score wrote into an input ({case})")
+        print(f"whatif_score {case} (P {P}, N {N}): max_abs_err {e}, {int(want[0].sum())} fit "
+              f"cells, scores {int(want[1].min())}..{int(want[1].max())}", flush=True)
+        errs["whatif_score"] = max(errs["whatif_score"], e)
+    for P, N in ((0, n_nodes), (5, 0)):
+        launches = W.whatif_score.launches
+        fit, score = W.whatif_scores(W.WhatIfBatch(*whatif_inputs(1006, P, N)), device=dev)
+        got = W.whatif_score(*[torch.from_numpy(a).to(dev) for a in whatif_inputs(1006, P, N)])
+        check(fit.shape == score.shape == tuple(got[0].shape) == (P, N)
+              and W.whatif_score.launches == launches,
+              f"whatif_score: the empty {P} x {N} batch launched or came back misshapen")
+    print("whatif_score: the empty batches launched nothing", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -911,22 +970,24 @@ def gang_drive(dev, n_groups: int = 250, n_nodes: int = 1000):
     return sched, result, launches
 
 
-def placement_drive(dev, n_groups: int = 250, capture=None, n_nodes: int = 5000):
-    """SchedulingGangsPlacement/5000Nodes_250Groups: TopologySpreading's
-    5000 nodes over 50 zones under the placement plugins, then n_groups
-    pod groups of 4 500m/256Mi members with the topology constraint on the
-    zone: every pod bound, each group in one zone, each group cycle's 50
-    candidate placements in one schedule_placements launch, no host-path
-    pod. `capture`, a dict, receives the first launch's arguments and its
-    placement count. Launch counts zeroed just before the groups."""
+def placement_drive(dev, n_groups: int = 250, capture=None, workload: str = PLACE):
+    """SchedulingGangsPlacement/5000Nodes_250Groups (TopologySpreading's
+    5000 nodes over 50 zones) or /1000Nodes_250Groups (1000 nodes over 10
+    zones, the JAX config's shape) under the placement plugins, then
+    n_groups pod groups of 4 500m/256Mi members with the topology
+    constraint on the zone: every pod bound, each group in one zone, each
+    group cycle's candidate placements (one a zone) in one
+    schedule_placements launch, no host-path pod. `capture`, a dict,
+    receives the first launch's arguments and its placement count. Launch
+    counts zeroed just before the groups."""
     from kubernetes_tpu_torch import bench
     from kubernetes_tpu_torch.models import tpu_scheduler as TS
     from kubernetes_tpu_torch.ops import kernel as K
 
-    w = bench.WORKLOADS[PLACE]
-    sched = bench.build_cluster(n_nodes, device=dev, node=w.node,
-                                profile_factory=bench.profile_for(PLACE))
-    bench.warm(sched, 0, PLACE)
+    w = bench.WORKLOADS[workload]
+    sched = bench.build_cluster(bench.NODES.get(workload, 5000), device=dev, node=w.node,
+                                profile_factory=bench.profile_for(workload))
+    bench.warm(sched, 0, workload)
     launch = TS.schedule_placements
 
     def recorded(*args):
@@ -938,31 +999,87 @@ def placement_drive(dev, n_groups: int = 250, capture=None, n_nodes: int = 5000)
     flushes0 = sched.mirror.scatter_flushes
     K.reset_launch_counts()
     try:
-        result = bench.measure(sched, 4 * n_groups, workload=PLACE)
+        result = bench.measure(sched, 4 * n_groups, workload=workload)
     finally:
         TS.schedule_placements = launch
     launches = {k.__name__: k.launches for k in K.WRAPPERS}
     launches["scatter_flushes"] = sched.mirror.scatter_flushes - flushes0
-    print(f"path {PLACE} ({dev}, {n_groups} groups): {json.dumps(result)}", flush=True)
+    print(f"path {workload} ({dev}, {n_groups} groups): {json.dumps(result)}", flush=True)
     d = result["detail"]
     pods = list(sched.clientset.pods.values())
     check(len(pods) == 4 * n_groups and all(p.node_name for p in pods),
-          f"{PLACE}: {sum(1 for p in pods if p.node_name)} of {len(pods)} pods bound")
+          f"{workload}: {sum(1 for p in pods if p.node_name)} of {len(pods)} pods bound")
     zones = {}
     for p in pods:
-        zones.setdefault(p.pod_group, set()).add(zone_of(p.node_name))
-    check(all(len(z) == 1 for z in zones.values()), f"{PLACE}: a group spans several zones")
+        zones.setdefault(p.pod_group, set()).add(
+            sched.clientset.nodes[p.node_name].labels[bench.ZONE])
+    check(all(len(z) == 1 for z in zones.values()), f"{workload}: a group spans several zones")
     check(d["placement_device_evals"] == n_groups and d["host_path_pods"] == 0,
-          f"{PLACE}: {d['placement_device_evals']} device placement evaluations, "
+          f"{workload}: {d['placement_device_evals']} device placement evaluations, "
           f"{d['host_path_pods']} host-path pods")
     if torch.device(dev).type == "cuda":
         check(launches["schedule_placements"] == n_groups,
-              f"{PLACE}: schedule_placements launched {launches['schedule_placements']} times, "
+              f"{workload}: schedule_placements launched {launches['schedule_placements']} times, "
               f"not once a group")
-    print(f"{PLACE} ({dev}): {len({min(z) for z in zones.values()})} zones used, "
+    floor = f", floor {w.threshold} pods/s" if w.threshold else ", no upstream floor"
+    print(f"{workload} ({dev}): {len({min(z) for z in zones.values()})} zones used, "
           f"{d['placement_eval_s'] / max(1, d['placement_device_evals']) * 1e3:.3f} ms a "
-          f"placement evaluation (plan, masks, launch, fetch)", flush=True)
+          f"placement evaluation (plan, masks, launch, fetch), {result['value']:.1f} pods/s"
+          f"{floor}", flush=True)
     return sched, result, launches
+
+
+def rebalance_drive(dev, capture=None, **cut):
+    """ChurnDriftRebalance/5000Nodes_Rebalance (bench.rebalance): 2000
+    2000m/4Gi pods placed on 5000 hollow-shape nodes over 100 zones, every
+    node skewed in place (imbalance 0.4, seed 20), every 100th tainted, then
+    descheduler ticks (hysteresis 2, margin 0.02, 64 moves: 128 x 5000
+    what-if batches), each followed by a scheduler round, until a tick
+    emits no move or 20 ticks. `cut` overrides the drive's sizes. Fails
+    unless a move was made, no tick counted an error, whatif_score was
+    launched once a tick that had candidates (on cuda) and every pod is
+    bound at the end. `capture`, a dict, receives the first what-if batch.
+    Launch counts zeroed just before the drive."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.ops import kernel as K
+    from kubernetes_tpu_torch.ops import whatif as W
+
+    scores = W.whatif_scores
+
+    def recorded(batch, device="cuda"):
+        if capture is not None and not capture:
+            capture["batch"] = batch
+        return scores(batch, device)
+    W.whatif_scores = recorded
+    K.reset_launch_counts()
+    try:
+        out = bench.rebalance(dev, bench.Rebalance()._replace(**cut))
+    finally:
+        W.whatif_scores = scores
+    launches = {k.__name__: k.launches for k in K.WRAPPERS}
+    ticks, what = out["ticks"], f"{REBAL} ({dev}, {out['nodes']} nodes)"
+    for i, t in enumerate(ticks):
+        print(f"{what} tick {i}: {t['moves']} moves, {t['evicted']} evicted, stddev "
+              f"{t['util_stddev_milli']} milli, tick {t['tick_s'] * 1e3:.1f} ms (encode_batch "
+              f"{t['encode_s'] * 1e3:.1f}, launch + fetch {t['score_s'] * 1e3:.2f}, best_moves "
+              f"{t['best_moves_s'] * 1e3:.1f}), scheduler round {t['round_s'] * 1e3:.1f} ms "
+              f"({t['round_pods_per_s']:.1f} pods/s)", flush=True)
+    print(f"{what}: {len(ticks)} ticks, moves {out['moves']}, blocked {out['blocked']}, "
+          f"no_target {out['no_target']}, drift {out['drift']}, evictions {out['evictions']}, "
+          f"util_stddev_milli {out['util_stddev_milli_before']} -> "
+          f"{out['util_stddev_milli_after']} (the row's ceiling {out['stddev_ceiling']}), "
+          f"initial placement {out['initial_placed']} pods in {out['initial_place_s']:.3f} s",
+          flush=True)
+    check(sum(out["moves"].values()) >= 1, f"{what}: no move (the row's DescheduleMoves floor 1)")
+    check(all(t["errors"] == 0 for t in ticks), f"{what}: a tick counted an error")
+    check(out["bound"] == out["total"] == out["pods"] and out["initial_placed"] == out["pods"],
+          f"{what}: {out['bound']} of {out['total']} pods bound")
+    if torch.device(dev).type == "cuda":
+        check(all(t["launches"] == t["batches"] for t in ticks),
+              f"{what}: whatif_score not launched once a tick with candidates")
+        check(launches["whatif_score"] == sum(t["batches"] for t in ticks) > 0,
+              f"{what}: whatif_score launched {launches['whatif_score']} times")
+    return out, launches
 
 
 def check_launched(name: str, launches: dict, detail: dict, kernels) -> None:
@@ -1108,6 +1225,11 @@ def paths_phase(dev) -> dict:
     capture = {}
     out[PLACE] = placement_drive(dev, capture=capture)
     waves["placement_capture"] = capture
+    out[PLACE1K] = placement_drive(dev, workload=PLACE1K)
+    capture = {}
+    rebal, launches = rebalance_drive(dev, capture=capture)
+    out[REBAL] = (rebal["sched"], None, launches)
+    waves["rebalance"], waves["whatif_capture"] = rebal, capture
     return out, lane_inputs, waves
 
 
@@ -1493,6 +1615,34 @@ def patch_timing(waves: dict, errs: dict) -> dict:
     return {"patch_carry_rows": row}
 
 
+def whatif_timing(waves: dict, errs: dict) -> dict:
+    """whatif_score on the rebalance drive's first what-if batch (its 128
+    candidates x 5000 nodes), held exact first. Bytes: each input read once
+    (the [N, R] and [N] node rows, the candidates' rows, the [P, N] mask)
+    and the [P, N] fit mask and score written once. Ops: per cell the
+    vacate test, the fit filter (4 a slot), the non-zero sums,
+    LeastAllocated over two slots and BalancedAllocation, three divisions
+    among them: 4R + 40. No single PyTorch call computes it."""
+    from kubernetes_tpu_torch.ops import whatif as W
+
+    batch = waves["whatif_capture"].get("batch")
+    check(batch is not None, f"the {REBAL} made no what-if batch")
+    dev = torch.device("cuda", 0)
+    ts = W.batch_tensors(batch, dev)
+    check(max_abs_err(W.whatif_score(*ts), W._whatif_score_plain(*ts)) == 0,
+          f"whatif_score disagrees with its plain version on the {REBAL}' batch")
+    P, N, R = batch.n_pods, batch.n_nodes, batch.alloc_r.shape[1]
+    nbytes = N * (16 * R + 32) + P * (8 * R + 24) + P * N + P * N * 9
+    ops = P * N * (4 * R + 40)
+    row = kernel_row("whatif_score", "kubernetes_tpu/ops/whatif.py:208", errs["whatif_score"],
+                     lambda: W.whatif_score(*ts), lambda: W._whatif_score_plain(*ts), nbytes, ops)
+    row.update(candidates=P, nodes=N, slots=R)
+    print(f"whatif_score on the {REBAL}' first batch (P {P}, N {N}, R {R}): {row['ms']:.5f} ms "
+          f"on the device, {row['host_ms']:.4f} ms a call, plain {row['plain_ms']:.3f} ms, bound "
+          f"{row['bound_ms']:.6f} ms ({row['bound_by']}), library none", flush=True)
+    return {"whatif_score": row}
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: cuda/cpu parity
 # ---------------------------------------------------------------------------
@@ -1611,6 +1761,29 @@ def parity_phase(dev, paths: dict):
     same_resume(paths[WAVES][0], wave_drive("cpu")[0], WAVES)
     same_resume(paths[NSSEL][0], nsselector_drive("cpu")[0], NSSEL)
     gang_parity(dev, paths)
+    rebalance_parity(dev)
+
+
+def rebalance_parity(dev) -> None:
+    """The rebalance drive cut to REBAL_PARITY (1000 nodes, 400 pods, at
+    most 5 ticks), same seed and parameters, on cuda and on the cpu: the
+    same planned intents, eviction ledger, counters and final bindings."""
+    runs = [rebalance_drive(device, **REBAL_PARITY)[0] for device in (dev, "cpu")]
+    keys = ("moves", "blocked", "no_target", "drift", "evictions", "pending_evictions",
+            "util_stddev_milli_before", "util_stddev_milli_after")
+    a, b = ({k: r[k] for k in keys} for r in runs)
+    check(a == b, f"{REBAL} cut: counters {a} vs {b}")
+    ca, cb = runs[0]["ctrl"], runs[1]["ctrl"]
+    check(ca.planned_intents == cb.planned_intents and ca.planned_intents,
+          f"{REBAL} cut: the planned intents differ")
+    check(runs[0]["cs"].eviction_ledger == runs[1]["cs"].eviction_ledger,
+          f"{REBAL} cut: the eviction ledgers differ")
+    check(ca.util_stddev_milli == cb.util_stddev_milli and len(runs[0]["ticks"]) == len(runs[1]["ticks"]),
+          f"{REBAL} cut: the ticks differ")
+    check(assignments(runs[0]["sched"]) == assignments(runs[1]["sched"]),
+          f"{REBAL} cut: the final bindings differ")
+    print(f"parity ({REBAL}, {REBAL_PARITY}): {len(runs[1]['ticks'])} ticks, "
+          f"{len(cb.planned_intents)} planned intents, {b}, identical", flush=True)
 
 
 GANG_COUNTERS = ("scheduled", "failures", "device_scheduled", "host_path_pods",
@@ -1737,6 +1910,7 @@ def main() -> int:
     rows.update(preemption_timing(paths, errs))
     rows.update(patch_timing(waves, errs))
     rows.update(placement_timing(waves, errs))
+    rows.update(whatif_timing(waves, errs))
     print(f"timing phase: {time.perf_counter() - t1:.1f} s", flush=True)
     for name, (_s, result, _l) in paths.items():
         if result is not None:

@@ -42,17 +42,40 @@ of 32 cpu / 256Gi / 110 pods across 50 zones with 100m pods:
                                              zones, 250 pod groups of 4
                                              500m/256Mi members (min_count 4):
                                              gang device sessions.
-  SchedulingGangsPlacement/5000Nodes_250Groups
+  SchedulingGangsPlacement/1000Nodes_250Groups
                                              the same groups with the
                                              harness's topology constraint
                                              (topologyKey
                                              topology.kubernetes.io/zone) under
                                              the placement plugins, on the
-                                             5000 nodes of 50 zones: each
-                                             group's 50 candidate placements
+                                             1000 nodes of 10 zones: each
+                                             group's 10 candidate placements
                                              in one schedule_placements
-                                             launch. No upstream shape (no
+                                             launch (the JAX config's shape,
+                                             floor 60 pods/s).
+  SchedulingGangsPlacement/5000Nodes_250Groups
+                                             the same on the 5000 nodes of 50
+                                             zones: 50 candidate placements a
+                                             group. No upstream shape (no
                                              threshold: vs_baseline is null).
+
+  ChurnDriftRebalance/5000Nodes_Rebalance    the descheduler (`rebalance`):
+                                             5000 nodes of the hollow plane's
+                                             default shape (32 cpu / 256Gi /
+                                             100Gi ephemeral / 110 pods) over
+                                             100 zones, 2000 pods of 2000m/4Gi
+                                             placed by TorchScheduler, then
+                                             every node's cpu and memory
+                                             skewed in place (hollowImbalance
+                                             0.4, hollowSeed 20) and every
+                                             100th node tainted NoSchedule;
+                                             then descheduler ticks
+                                             (hysteresis 2, margin 0.02, 64
+                                             moves a tick: a 128 x 5000
+                                             what-if batch), each followed by
+                                             a scheduler round that places the
+                                             pods it evicted. Prints the moves
+                                             and the ticks' split.
 
 The kernels are built and every plan of the measured shape is dispatched
 once with no active pod (TorchScheduler.warm_for, and warm_for_placements
@@ -83,6 +106,7 @@ from __future__ import annotations
 
 import json
 import os
+import random
 import sys
 import time
 from typing import Callable, NamedTuple, Optional
@@ -90,10 +114,12 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from .api.types import Namespace, PodGroup
+from .controllers.descheduler import DeschedulerController, default_strategies
 from .core.registry import default_profile, gang_placement_profile
 from .models import TorchScheduler
 from .ops import kernel
-from .testing import make_node, make_pod
+from .ops.whatif import whatif_score
+from .testing import EvictingClientset, make_node, make_pod
 
 ZONE = "topology.kubernetes.io/zone"
 HOSTNAME = "kubernetes.io/hostname"
@@ -201,11 +227,14 @@ WORKLOADS = {
         namespaces=Namespaces(100, {"team": "devops"})),
     "SchedulingGangs/1000Nodes_250Groups": Workload(
         1000, _gang_member, 0, None, 200.0, node=NodeTemplate(zones=10), gang=Gang(4)),
+    "SchedulingGangsPlacement/1000Nodes_250Groups": Workload(
+        1000, _gang_member, 0, None, 60.0, node=NodeTemplate(zones=10), gang=Gang(4, ZONE)),
     "SchedulingGangsPlacement/5000Nodes_250Groups": Workload(
         1000, _gang_member, 0, None, None, gang=Gang(4, ZONE)),
 }
 NODES = {"SchedulingRequiredPodAntiAffinityWithNSSelector/5000Nodes_2000Pods": 6000,
-         "SchedulingGangs/1000Nodes_250Groups": 1000}
+         "SchedulingGangs/1000Nodes_250Groups": 1000,
+         "SchedulingGangsPlacement/1000Nodes_250Groups": 1000}
 DEFAULT_WORKLOAD = "SchedulingBasic/5000Nodes_10000Pods"
 
 
@@ -428,12 +457,140 @@ def profile(sched: TorchScheduler, n_pods: int, workload: str = DEFAULT_WORKLOAD
     return result
 
 
+REBALANCE = "ChurnDriftRebalance/5000Nodes_Rebalance"
+
+
+class Rebalance(NamedTuple):
+    """The ChurnDriftRebalance/5000Nodes_Rebalance row's parameters
+    (kubernetes_tpu/perf/configs/performance-config.yaml:199-218) and the
+    hollow plane's default node and 100 zones. The row churns hollow nodes
+    into skewed replacements; here every node is skewed once, in place, by
+    the same formula, with no PodDisruptionBudget and no settle window."""
+
+    nodes: int = 5000
+    pods: int = 2000
+    zones: int = 100
+    imbalance: float = 0.4     # hollowImbalance
+    seed: int = 20             # hollowSeed
+    taint_every: int = 100     # an untolerated NoSchedule taint on every 100th node
+    hysteresis: int = 2        # descheduleHysteresis
+    margin: float = 0.02       # descheduleMargin
+    max_moves: int = 64        # descheduleMaxMoves: 128 candidates a tick
+    tick_s: float = 0.5        # descheduleTickS, on the controller's clock
+    max_ticks: int = 20
+    stddev_ceiling: int = 50   # the row's MaxUtilizationStddevMilli
+
+
+def hollow_node(i: int, cfg: Rebalance, factor: float = 1.0, taint: bool = False):
+    """The hollow plane's default node (kubernetes_tpu/hollow/profile.py:40-43)
+    `node-<i>`, its cpu and memory scaled by `factor` with the plane's floors
+    (kubernetes_tpu/hollow/plane.py:421-436)."""
+    b = make_node().name(f"node-{i}").capacity({
+        "cpu": f"{max(1000, int(32000 * factor))}m",
+        "memory": max(1 << 20, int(256 * 1024 ** 3 * factor)),
+        "ephemeral-storage": "100Gi", "pods": 110}).zone(f"zone-{i % cfg.zones}")
+    if taint:
+        b = b.taint("drift", "true", "NoSchedule")
+    return b.obj()
+
+
+def skew_factor(name: str, cfg: Rebalance) -> float:
+    """The hollow plane's capacity skew of `name`: keyed off the seed and the
+    name alone."""
+    rnd = random.Random(f"{cfg.seed}:{name}")
+    return 1.0 + cfg.imbalance * (2.0 * rnd.random() - 1.0)
+
+
+def _round(sched: TorchScheduler) -> float:
+    t0 = time.perf_counter()
+    sched.run_until_idle()
+    if sched.device.type == "cuda":
+        torch.cuda.synchronize(sched.device)
+    return time.perf_counter() - t0
+
+
+def rebalance(device="cuda", cfg: Rebalance = Rebalance()) -> dict:
+    """The ChurnDriftRebalance drive: place cfg.pods pods on cfg.nodes nodes
+    with TorchScheduler, skew every node in place, then run descheduler
+    ticks, each followed by a scheduler round that places the pods the tick
+    evicted, until a tick emits no move or cfg.max_ticks ticks. Returns the
+    drive's counts and each tick's split; `sched`, `ctrl` and `cs` are the
+    objects it drove."""
+    cs = EvictingClientset()
+    clock = [0.0]
+    cs.lease_now = lambda: clock[0]
+    sched = TorchScheduler(clientset=cs, device=device)
+    for i in range(cfg.nodes):
+        cs.create_node(hollow_node(i, cfg))
+    proto = make_pod().name("proto").req({"cpu": "2000m", "memory": "4Gi"}).obj()
+    sched.warm_for(proto)
+    for i in range(cfg.pods):
+        p = proto.clone_from_template(f"rebalance-{i}")
+        p.uid = p.name    # the same uids on every run: intents are uid@node
+        cs.create_pod(p)
+    place_s = _round(sched)
+    placed = sum(1 for p in cs.pods.values() if p.node_name)
+    for i in range(cfg.nodes):
+        name = f"node-{i}"
+        cs.update_node(hollow_node(i, cfg, skew_factor(name, cfg),
+                                   taint=i % cfg.taint_every == 0))
+    ctrl = DeschedulerController(cs, device=device, hysteresis=cfg.hysteresis,
+                                 strategies=default_strategies(margin=cfg.margin),
+                                 max_moves_per_tick=cfg.max_moves, now=lambda: clock[0])
+    ticks = []
+    for _ in range(cfg.max_ticks):
+        before = (sum(ctrl.moves_total.values()), cs.evictions_committed, ctrl.whatif_batches,
+                  whatif_score.launches, ctrl.whatif_encode_s, ctrl.whatif_score_s,
+                  ctrl.whatif_moves_s)
+        t0 = time.perf_counter()
+        ctrl.tick_once()
+        tick_s = time.perf_counter() - t0
+        clock[0] += cfg.tick_s
+        evicted = cs.evictions_committed - before[1]
+        round_s = _round(sched)
+        ticks.append(dict(
+            moves=sum(ctrl.moves_total.values()) - before[0], evicted=evicted,
+            batches=ctrl.whatif_batches - before[2], launches=whatif_score.launches - before[3],
+            errors=ctrl.errors, util_stddev_milli=ctrl.util_stddev_milli,
+            tick_s=tick_s, encode_s=ctrl.whatif_encode_s - before[4],
+            score_s=ctrl.whatif_score_s - before[5], best_moves_s=ctrl.whatif_moves_s - before[6],
+            round_s=round_s, round_pods_per_s=evicted / round_s if evicted and round_s else 0.0))
+        if not ticks[-1]["moves"]:
+            break
+    stddev_after = ctrl._util_stddev_milli(ctrl._snapshot())
+    pods = list(cs.pods.values())
+    return dict(
+        workload=REBALANCE, nodes=cfg.nodes, pods=cfg.pods, device=str(sched.device),
+        initial_placed=placed, initial_place_s=place_s, ticks=ticks,
+        moves=dict(ctrl.moves_total), blocked=dict(ctrl.blocked_total),
+        no_target=ctrl.no_target, drift=dict(ctrl.drift), errors=ctrl.errors,
+        evictions=cs.evictions_committed, pending_evictions=ctrl.evictor.pending_count(),
+        util_stddev_milli_before=ticks[0]["util_stddev_milli"] if ticks else 0,
+        util_stddev_milli_after=stddev_after, stddev_ceiling=cfg.stddev_ceiling,
+        bound=sum(1 for p in pods if p.node_name), total=len(pods),
+        sched=sched, ctrl=ctrl, cs=cs)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     device = argv[argv.index("--device") + 1] if "--device" in argv else "cuda"
     workload = argv[argv.index("--workload") + 1] if "--workload" in argv else DEFAULT_WORKLOAD
+    if workload == REBALANCE:
+        cfg = Rebalance(nodes=int(os.environ.get("BENCH_NODES", Rebalance.nodes)),
+                        pods=int(os.environ.get("BENCH_PODS", Rebalance.pods)))
+        out = rebalance(device, cfg)
+        moves = sum(out["moves"].values())
+        for key in ("sched", "ctrl", "cs"):
+            del out[key]
+        out["platform"] = torch.cuda.get_device_name() if device != "cpu" else "cpu"
+        print(json.dumps({"metric": f"descheduler moves ({REBALANCE}: {cfg.nodes} nodes, "
+                                    f"{cfg.pods} pods, {len(out['ticks'])} ticks)",
+                          "value": moves, "unit": "moves", "vs_baseline": None,
+                          "detail": out}))
+        return 0
     if workload not in WORKLOADS:
-        print(f"unknown workload {workload!r}; one of: {', '.join(WORKLOADS)}", file=sys.stderr)
+        print(f"unknown workload {workload!r}; one of: "
+              f"{', '.join(list(WORKLOADS) + [REBALANCE])}", file=sys.stderr)
         return 2
     w = WORKLOADS[workload]
     n_nodes = int(os.environ.get("BENCH_NODES", NODES.get(workload, 5000)))

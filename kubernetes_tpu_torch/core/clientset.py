@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import copy
 import itertools
+import time
 from typing import Callable, Dict, List, Optional
 
 from ..api.types import Namespace, Node, Pod, PodGroup
@@ -28,6 +29,11 @@ class FakeClientset:
         self._namespace_handlers: List = []
         self._pod_group_handlers: List = []
         self._rv_counter = itertools.count(1)
+        # The apiserver's /api/v1/leases surface (the descheduler's HA
+        # lease). `lease_now` is injectable so lease-expiry tests need no
+        # real sleeps.
+        self.leases: Dict[str, dict] = {}
+        self.lease_now: Callable[[], float] = time.monotonic
 
     # -- informer-ish registration ----------------------------------------
 
@@ -142,3 +148,39 @@ class FakeClientset:
         self.bindings[pod.uid] = node_name
         for h in self._pod_handlers:
             h("update", stored, new)
+
+    # -- leases (apiserver /api/v1/leases parity) ---------------------------
+
+    def _lease_wire(self, name: str, rec: dict, now: float) -> dict:
+        age = now - rec["renew"]
+        return {"name": name, "holder": rec["holder"],
+                "leaseDurationSeconds": rec["duration"],
+                "ageSeconds": round(age, 3),
+                "transitions": rec["transitions"],
+                "expired": (not rec["holder"]) or age >= rec["duration"]}
+
+    def list_leases(self) -> List[dict]:
+        now = self.lease_now()
+        return [self._lease_wire(n, r, now)
+                for n, r in sorted(self.leases.items())]
+
+    def upsert_lease(self, name: str, holder: str,
+                     duration: float) -> Optional[dict]:
+        """Acquire-or-renew under CAS semantics (the apiserver's PUT
+        /api/v1/leases/<name>): a held, unexpired lease only renews for its
+        current holder; anyone else gets None."""
+        now = self.lease_now()
+        rec = self.leases.get(name)
+        if (rec is not None and rec["holder"] and rec["holder"] != holder
+                and now - rec["renew"] < rec["duration"]):
+            return None
+        if rec is None:
+            rec = {"holder": "", "duration": float(duration),
+                   "renew": now, "transitions": 0}
+            self.leases[name] = rec
+        if rec["holder"] != holder:
+            rec["transitions"] += 1
+        rec["holder"] = holder
+        rec["duration"] = float(duration)
+        rec["renew"] = now
+        return self._lease_wire(name, rec, now)

@@ -8,11 +8,16 @@ In scope: resources, taints and tolerations (PreferNoSchedule included),
 node selectors and node affinity (required and preferred), topology spread
 and pod (anti-)affinity, pod priority with DefaultPreemption, and pod
 groups (gangs, with or without a topology constraint, and pod-group
-preemption). Composite pod-group trees are not."""
+preemption). Composite pod-group trees are not, nor is a pod that requires
+declared node features (`features.k8s.io/required`): the port has no
+NodeDeclaredFeatures filter, and a pod ignoring it would bind a node that
+lacks the feature."""
 
 from __future__ import annotations
 
 from ..api.types import Node, Pod, PodGroup
+
+REQUIRED_FEATURES_ANNOTATION = "features.k8s.io/required"
 
 
 def pod_unsupported(pod: Pod) -> str:
@@ -25,6 +30,8 @@ def pod_unsupported(pod: Pod) -> str:
         return "resource claims"
     if pod.scheduling_gates:
         return "scheduling gates"
+    if any(f.strip() for f in pod.annotations.get(REQUIRED_FEATURES_ANNOTATION, "").split(",")):
+        return "required node features (NodeDeclaredFeatures)"
     return ""
 
 

@@ -33,7 +33,8 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "kernels")
 KERNELS = ("static_masks", "resource_eval", "lap_schedule", "scan_schedule", "scan_general",
-           "dry_run_preemption", "scatter_rows", "patch_carry_rows", "schedule_placements")
+           "dry_run_preemption", "scatter_rows", "patch_carry_rows", "schedule_placements",
+           "whatif_score")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 COMPILE_FLAGS = (ARCH, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = (ARCH, "-shared")

@@ -3,7 +3,9 @@
 of identical pods, with the greedy sequential assignment on the device.
 
 Nine hand-written CUDA kernels (csrc/), each beside a plain PyTorch version
-of the same function in this module:
+of the same function in this module (a tenth, whatif_score, the
+descheduler's what-if rescore, lives in ops/whatif.py and is counted and
+reset with these):
 
 - static_masks   <- the JAX package's _static_masks + _tolerates
                     (ops/kernel.py:105-150), once per batch;
@@ -61,6 +63,7 @@ from .codebook import (
 )
 from .device_state import DeviceNodeState
 from .features import BatchFeatures, PlanFacts
+from .whatif import whatif_score
 
 MAX_NODE_SCORE = 100
 BIG = 1 << 30      # the JAX package's _BIG: "no eligible domain" minimum (i32)
@@ -1132,7 +1135,8 @@ def schedule_placements(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
 schedule_placements.launches = 0
 
 WRAPPERS = (static_masks, resource_eval, lap_schedule, scan_schedule, scan_general,
-            dry_run_preemption, scatter_rows, patch_carry_rows, schedule_placements)
+            dry_run_preemption, scatter_rows, patch_carry_rows, schedule_placements,
+            whatif_score)
 
 
 def reset_launch_counts() -> None:

@@ -10,7 +10,8 @@ parity checks need (rotation start past a row, truncation on or off,
 zero-request pods, no feasible row at all). `general_inputs` adds topology
 axes and the count-table and score lanes of spread and inter-pod affinity;
 `nominated_lane` draws the nominated-pod lane and `victim_inputs` the
-preemption dry run's victim tensors.
+preemption dry run's victim tensors. `whatif_inputs` draws the descheduler's
+what-if batch (the JAX package's WhatIfBatch field order).
 """
 
 from __future__ import annotations
@@ -364,3 +365,40 @@ def placement_inputs(seed: int, np_cap: int, num_nodes: int, lanes: int, *, vmax
             np.add.at(sa_counts[p, c], vids, rng.integers(0, 4, vids.size).astype(np.int32))
             sa_wq[p, c] = int(round(math.log(np.unique(vids).size + 2) * 1024))
     return state, feats, facts, masks, (dns_counts, dns_dom, dns_forced0, sa_counts, sa_wq)
+
+
+TIB = 1024 ** 4
+
+
+def whatif_inputs(seed: int, P: int, N: int, R: int = 3, *, huge: bool = False,
+                  negative: bool = False) -> tuple:
+    """The nine arrays of a what-if batch (alloc_r, alloc_pods, req_r,
+    nonzero, pod_count, request, nz_request, src, mask), drawn as the JAX
+    package's descheduler fuzz draws them (tests/test_descheduler.py:87-104).
+    `huge` gives every third node 16 TiB of memory with 12 TiB or more of it
+    requested, so that `used * BA_SCALE` passes 2^63 and wraps; `negative`
+    negates the non-zero and requested aggregates of every other node,
+    which encode_batch never makes but the function defines (floored
+    division of negative numerators)."""
+    rng = np.random.default_rng(seed)
+    alloc_r = rng.integers(0, 64_000, (N, R)).astype(np.int64)
+    alloc_pods = rng.integers(1, 40, N).astype(np.int64)
+    req_r = np.minimum(rng.integers(0, 48_000, (N, R)).astype(np.int64), alloc_r)
+    nonzero = np.maximum(req_r[:, :2], 1)
+    pod_count = rng.integers(0, 20, N).astype(np.int64)
+    request = rng.integers(0, 8_000, (P, R)).astype(np.int64)
+    nz_request = np.maximum(request[:, :2], 100)
+    src = rng.integers(0, max(N, 1), P).astype(np.int64)
+    mask = rng.random((P, N)) < 0.9
+    if huge:
+        rows = np.arange(0, N, 3)
+        alloc_r[rows, 1] = 16 * TIB
+        req_r[rows, 1] = 12 * TIB + rng.integers(0, 4 * TIB, rows.size)
+        nonzero[rows, 1] = req_r[rows, 1]
+        request[:, 1] = rng.integers(0, 64 << 30, P)
+        nz_request[:, 1] = np.maximum(request[:, 1], 100)
+    if negative:
+        rows = np.arange(0, N, 2)
+        nonzero[rows] = -nonzero[rows]
+        req_r[rows] = -req_r[rows]
+    return alloc_r, alloc_pods, req_r, nonzero, pod_count, request, nz_request, src, mask

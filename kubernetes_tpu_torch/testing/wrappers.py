@@ -46,6 +46,10 @@ class MakePod:
         self._pod.namespace = ns
         return self
 
+    def uid(self, uid: str) -> "MakePod":
+        self._pod.uid = uid
+        return self
+
     def label(self, k: str, v: str) -> "MakePod":
         self._pod.labels[k] = v
         return self

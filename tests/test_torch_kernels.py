@@ -21,6 +21,7 @@ from kubernetes_tpu.ops.kernel import _static_masks as jax_static_masks
 from kubernetes_tpu.ops.kernel import schedule_batch as jax_schedule_batch
 from kubernetes_tpu.ops.kernel import schedule_placements as jax_schedule_placements
 from kubernetes_tpu_torch.ops import kernel as K
+from kubernetes_tpu_torch.ops import whatif as W
 from kubernetes_tpu_torch.ops.device_state import state_from_jax_numpy
 from kubernetes_tpu_torch.ops.features import features_from_jax_numpy, victims_from_jax_numpy
 from kubernetes_tpu_torch.ops.kernel import carry_from_jax_numpy
@@ -31,6 +32,7 @@ from kubernetes_tpu_torch.testing.kernel_inputs import (
     placement_inputs,
     random_inputs,
     victim_inputs,
+    whatif_inputs,
     with_nominated_lane,
 )
 
@@ -269,11 +271,14 @@ def recorded_launches(monkeypatch):
 def test_launcher_signatures_are_read_from_the_sources():
     for name in K._build.KERNELS:
         sig = K._build.signature(name)
-        assert sig[0] == K._build.Param("NP", None)
+        # The batch kernels take the node rows first, the what-if its
+        # candidates x nodes.
+        first = ("P", "N", "R") if name == "whatif_score" else ("NP",)
+        assert sig[:len(first)] == tuple(K._build.Param(n, None) for n in first)
         assert all(p.dtype is not None for p in sig if p.name not in
                    ("NP", "T", "L", "R", "FR", "fit_strategy", "B", "n_act", "V",
                     "C1", "C2", "A1", "A2", "KD", "incremental", "carried", "has_pns",
-                    "has_ipa_base", "has_na_pref", "K", "D", "P", "per_lane"))
+                    "has_ipa_base", "has_na_pref", "K", "D", "P", "per_lane", "N"))
         optional = {p.name for p in sig if p.optional}
         lane = name in ("resource_eval", "lap_schedule", "scan_schedule", "scan_general",
                         "patch_carry_rows", "schedule_placements")
@@ -301,6 +306,7 @@ def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches):
                              ts.req_r[:2], ts.nonzero[:2], ts.pod_count[:2], 0)
     masks = torch.zeros((4, ts.valid.shape[0]), dtype=torch.bool)
     K._schedule_placements_cuda(ts, tf, 8, 0, VMAX, K.PlanFacts(), masks, 5)
+    W._whatif_score_cuda(*[torch.from_numpy(a) for a in whatif_inputs(17, 3, 40)])
     assert [name for name, _ in recorded_launches] == list(K._build.KERNELS)
     for name, args in recorded_launches:
         sig = K._build.signature(name)

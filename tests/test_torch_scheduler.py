@@ -218,6 +218,34 @@ class TestScope:
         assert not s.clientset.pods and s.queue.pending_counts() == (0, 0, 0)
         assert not s.clientset.pod_groups
 
+    def test_required_node_features_refused(self):
+        """NodeDeclaredFeatures: the JAX scheduler binds the one node that
+        declares the pod's required feature; the port has no such filter,
+        so it refuses the pod rather than binding a node without it."""
+        required = {"features.k8s.io/required": "gpu-x"}
+        jax_s = TPUScheduler(mesh=None)
+        for i in range(2):
+            node = jax_make_node().name(f"node-{i}").capacity(
+                {"cpu": 4, "memory": "8Gi", "pods": 110}).obj()
+            if i == 1:
+                node.declared_features = {"gpu-x": True}
+            jax_s.clientset.create_node(node)
+        pod = jax_make_pod().name("p").req({"cpu": "1"}).obj()
+        pod.annotations.update(required)
+        jax_s.clientset.create_pod(pod)
+        jax_s.run_until_idle()
+        assert {p.name: p.node_name for p in jax_s.clientset.pods.values()} == {"p": "node-1"}
+        s = TorchScheduler(device="cpu")
+        for i in range(2):
+            s.clientset.create_node(make_node().name(f"node-{i}").capacity(
+                {"cpu": 4, "memory": "8Gi", "pods": 110}).obj())
+        pod = make_pod().name("p").req({"cpu": "1"}).obj()
+        pod.annotations.update(required)
+        with pytest.raises(NotImplementedError, match="NodeDeclaredFeatures"):
+            s.clientset.create_pod(pod)
+        s.run_until_idle()
+        assert not s.clientset.pods and not s.clientset.bindings
+
     def test_priority_pod_accepted(self):
         # Pod priority is in scope (DefaultPreemption is ported): a pod of
         # non-zero priority is admitted and scheduled on the device.
