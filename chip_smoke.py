@@ -37,9 +37,16 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                rebalance drive's shape (P 128, N 5000, R 3) and at P 1 /
                N 3, with 16 TiB nodes (int64 wrap-around), with negative
                numerators (floored division), both at odd sizes, its inputs
-               left unchanged, and empty batches that launch nothing. Results must be exactly equal
-               on every output and carry lane. It also times scan_general's first launch in the
-               process against the next;
+               left unchanged, and empty batches that launch nothing; the four
+               schedule kernels with the blocked lane of a host-port plan
+               (port_selfblock): a random third of the carry's rows blocked,
+               both fit strategies, fresh and chained, padded steps, draws
+               whose batch outnumbers their feasible rows (every row blocked,
+               the last pods placed nowhere), schedule_placements' lanes at
+               P = 16 and 64 each blocking only their own rows; static_masks
+               with a mixed extra_ok. Results must be exactly equal on every
+               output and carry lane. It also times scan_general's first
+               launch in the process against the next;
   3. paths   — each through TorchScheduler on cuda at full width, the
                launch counts zeroed just before each drive and read just
                after:
@@ -119,6 +126,23 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                error, whatif_score launched once a tick with candidates,
                every pod bound at the end; each tick's split (encode_batch,
                launch + fetch, best_moves) and scheduler round printed;
+               NodeDeclaredFeaturesEnabled/5000Nodes20DeclaredFeatures (the
+               5000 nodes each declaring feature-0..19, 5000 init pods, 50000
+               measured pods): every pod bound, the lap launched;
+               SchedulingWhileGated/1Node_10000GatedPods (one node of 1000
+               cpu / 4Ti / 90000 pods, 10000 gated pods, 20000 pods in
+               `deleting` deleted at 50/s during the window, 20000 measured
+               pods): every measured pod bound, the gated pods parked;
+               HostPorts/5000Nodes_4000Pods (1000 port holders on nodes
+               0-999, 4000 pods with TCP hostPort 8080 and a 600 MiB image
+               that 10 of the 50 zones' nodes report): every pod on a node of
+               its own, the lap with the blocked lane and image scores, and
+               one more pod unschedulable by NodePorts; the host-port drive
+               cut to 1000 nodes at max_batch 64, without and with a zone
+               spread (scan_schedule and scan_general with the lane), and
+               SchedulingGangsPlacement/1000Nodes_250Groups cut to 50 groups
+               whose members hold hostPort 9000 (schedule_placements with the
+               lane);
   4. timing  — on the main paths' own next-batch inputs (exactness checked
                there too): each kernel's device time per launch from
                torch.profiler (a warm-up step, then at least 19 of 20
@@ -141,7 +165,9 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                the placement drive's first group cycle (its 64 lanes and
                plan), its bound summed over the real lanes; whatif_score on
                the rebalance drive's first what-if batch (no library call
-               computes it);
+               computes it); the four schedule kernels with the blocked lane
+               on their own drives' first dispatch (the `blocked` entry of
+               each row);
   5. parity  — a 500-node cluster with NoSchedule and PreferNoSchedule
                taints, unschedulable nodes, node selectors, pods that fit no
                node, zone and hostname spread, required and preferred
@@ -167,7 +193,11 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                with PLACE_PARITY_GROUPS groups: bindings, victims and
                counters equal; the rebalance drive cut to REBAL_PARITY (1000
                nodes, 400 pods, at most 5 ticks): planned intents, eviction
-               ledger, counters and final bindings equal;
+               ledger, counters and final bindings equal; the host-port cuts
+               (scan_schedule, scan_general), the port gangs,
+               SchedulingWhileGated/1Node_10GatedPods and a 1000-node cut
+               whose odd nodes alone declare the feature the pods require:
+               bindings, failure and queue counts equal;
   6. output  — a `{"kernels": [...]}` line, the card's name and power limit
                as nvidia-smi prints them, and last
                `{"ok": true, "device": {...}}`.
@@ -426,6 +456,7 @@ def kernel_phase(dev, np_cap: int, n_nodes: int) -> dict:
     scatter_phase(K, dev, np_cap, n_nodes, errs)
     patch_phase(K, dev, np_cap, n_nodes, errs)
     placement_phase(K, dev, np_cap, n_nodes, errs)
+    blocked_phase(K, dev, np_cap, n_nodes, errs)
     whatif_phase(dev, n_nodes, errs)
     torch.cuda.synchronize()
     print(f"kernels vs plain: max_abs_err {errs}", flush=True)
@@ -624,7 +655,8 @@ def run_path(dev, workload: str, n_init=None, n_measure=None, max_batch=None,
     from kubernetes_tpu_torch.ops import kernel as K
 
     w = bench.WORKLOADS[workload]
-    sched = bench.build_cluster(5000, device=dev, max_batch=max_batch, node=w.node)
+    sched = bench.build_cluster(bench.NODES.get(workload, 5000), device=dev, max_batch=max_batch,
+                                node=w.node)
     bench.warm(sched, w.init_pods if n_init is None else n_init, workload)
     flushes0 = sched.mirror.scatter_flushes
     K.reset_launch_counts()
@@ -1230,6 +1262,14 @@ def paths_phase(dev) -> dict:
     rebal, launches = rebalance_drive(dev, capture=capture)
     out[REBAL] = (rebal["sched"], None, launches)
     waves["rebalance"], waves["whatif_capture"] = rebal, capture
+    out[FEATURES] = features_drive(dev)
+    out[GATED] = gated_drive(dev)
+    caps = {"lap": {}, "scan": {}, "general": {}, "placements": {}}
+    out[HOSTPORTS] = hostport_drive(dev, capture=caps["lap"])
+    out[PORT_SCAN] = port_cut(dev, capture=caps["scan"])
+    out[PORT_SPREAD] = port_cut(dev, spread=True, capture=caps["general"])
+    out[PORT_GANGS] = port_gangs(dev, capture=caps["placements"])
+    waves["blocked_captures"] = caps
     return out, lane_inputs, waves
 
 
@@ -1255,7 +1295,7 @@ def general_cost(f, facts, K, n_act: int, rows=None):
     A1, A2, KD = f.anti_axis.shape[0], f.aff_axis.shape[0], f.ipa_axis.shape[0]
     V = f.dns_counts.shape[1]
     _incremental, carried = K.plan_modes(f, facts)
-    row = 1 + 1                              # static_ok, fit_ok
+    row = 1 + 1 + facts.port_selfblock       # static_ok, fit_ok (and blocked)
     row += 8 if carried else 8 + 8           # the carried total, or fit_sc and ba
     row += 4 * (C1 + C2 + A1 + A2 + KD)      # a value id per table
     row += 8 * (facts.has_pns + facts.has_ipa_base + facts.has_na_pref)
@@ -1528,19 +1568,12 @@ def preemption_timing(paths: dict, errs: dict) -> dict:
     return rows
 
 
-def placement_timing(waves: dict, errs: dict) -> dict:
-    """schedule_placements on the placement drive's first group cycle (its
-    own masks and plan), held exact first. Bound: summed over the real
-    lanes (the candidate placements), each the fresh carry of its rows and
-    general_cost's steps over its rows, and its row mask read once."""
-    from kubernetes_tpu_torch.ops import kernel as K
-
-    cap = waves["placement_capture"]
-    check(cap, f"the {PLACE} made no placement evaluation")
-    args = cap["args"]
+def placement_cost(K, args) -> tuple:
+    """(bytes, ops) of a schedule_placements call: summed over the real
+    lanes (the candidate placements), each the fresh carry of its rows (and
+    its blocked lane) and general_cost's steps over its rows, and its row
+    mask read once."""
     state, f, _B, _strat, _vmax, facts, masks, n_act = args[:8]
-    check(max_abs_err((K.schedule_placements(*args),), (K._schedule_placements_plain(*args),))
-          == 0, f"schedule_placements disagrees with its plain version on the {PLACE}' inputs")
     NP, R = state.alloc_r.shape
     FR = f.fit_slots.shape[0]
     lane_facts = facts._replace(has_ipa_base=False, anti_rowlocal=False)
@@ -1549,8 +1582,25 @@ def placement_timing(waves: dict, errs: dict) -> dict:
         if not rows:
             continue  # a padded lane
         b, o = general_cost(f, lane_facts, K, n_act, rows=rows)
-        nbytes += NP + rows * (16 * R + 28) + b
+        nbytes += NP + rows * (16 * R + 28 + 2 * facts.port_selfblock) + b
         ops += rows * (4 * R + 12 * FR + 24) + o
+    return nbytes, ops
+
+
+def placement_timing(waves: dict, errs: dict) -> dict:
+    """schedule_placements on the placement drive's first group cycle (its
+    own masks and plan), held exact first, with placement_cost's bound."""
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    cap = waves["placement_capture"]
+    check(cap, f"the {PLACE} made no placement evaluation")
+    args = cap["args"]
+    state, f, _B, _strat, _vmax, facts, masks, n_act = args[:8]
+    check(max_abs_err((K.schedule_placements(*args),), (K._schedule_placements_plain(*args),))
+          == 0, f"schedule_placements disagrees with its plain version on the {PLACE}' inputs")
+    NP = state.alloc_r.shape[0]
+    lane_facts = facts._replace(has_ipa_base=False, anti_rowlocal=False)
+    nbytes, ops = placement_cost(K, args)
     row = kernel_row("schedule_placements", "kubernetes_tpu/ops/kernel.py:655",
                      errs["schedule_placements"], lambda: K.schedule_placements(*args),
                      lambda: K._schedule_placements_plain(*args), nbytes, ops, plain_reps=1)
@@ -1762,6 +1812,7 @@ def parity_phase(dev, paths: dict):
     same_resume(paths[NSSEL][0], nsselector_drive("cpu")[0], NSSEL)
     gang_parity(dev, paths)
     rebalance_parity(dev)
+    slice7_parity(dev, paths)
 
 
 def rebalance_parity(dev) -> None:
@@ -1879,6 +1930,462 @@ def gang_parity(dev, paths: dict) -> None:
                f"{PLACE}, {PLACE_PARITY_GROUPS} groups")
 
 
+# ---------------------------------------------------------------------------
+# Host ports, gates, declared features and images (phases 2, 3, 4 and 5)
+# ---------------------------------------------------------------------------
+
+FEATURES = "NodeDeclaredFeaturesEnabled/5000Nodes20DeclaredFeatures"
+GATED = "SchedulingWhileGated/1Node_10000GatedPods"
+HOSTPORTS = "HostPorts/5000Nodes_4000Pods"
+PORT_SCAN = "host ports at 1000 nodes, max_batch 64"
+PORT_SPREAD = "host ports with a zone spread at 1000 nodes, max_batch 64"
+PORT_GANGS = f"{PLACE1K} cut to 50 groups, members holding hostPort 9000"
+
+
+def blocked_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
+    """The four schedule kernels with port_selfblock against their plain
+    versions: a random third of the carry's rows blocked before the first
+    batch, both fit strategies, fresh and chained, padded steps; draws
+    whose batch outnumbers their feasible rows block every row and leave
+    the last pods placed nowhere; schedule_placements' lanes each blocking
+    only their own rows; and static_masks with a mixed extra_ok."""
+    from kubernetes_tpu_torch.testing.kernel_inputs import (general_inputs, placement_inputs,
+                                                            random_inputs)
+
+    gen = torch.Generator().manual_seed(1100)
+
+    def pre_blocked(ext0):
+        return ext0._replace(blocked=(torch.rand(ext0.blocked.shape, generator=gen)
+                                      < 0.3).to(dev))
+
+    def fit(st, ft, strat):
+        return K._resource_eval_plain(ft, strat, st.alloc_r, st.alloc_pods, st.req_r,
+                                      st.nonzero, st.pod_count)
+
+    summary = []
+    # (case, kernel, draw, rows, live rows, steps, active pods)
+    for case, kname, draw, cap, live, B, n_act in (
+            ("lap", "lap_schedule", dict(), np_cap, n_nodes, 1024, 1000),
+            ("lap, every row blocked", "lap_schedule", dict(), 128, 100, 256, 256),
+            ("scan", "scan_schedule", dict(), np_cap, n_nodes, 64, 60),
+            ("scan, every row blocked", "scan_schedule", dict(), 64, 40, 64, 64),
+            ("scan_general, zone spread", "scan_general", dict(dns=1), np_cap, n_nodes, 64, 60),
+            ("scan_general, soft spread", "scan_general", dict(sa=1, pns=True), np_cap, n_nodes,
+             64, 64),
+            ("scan_general, every row blocked", "scan_general", dict(sa=1), 64, 40, 64, 64)):
+        s, f, facts = general_inputs(1100 + len(summary), cap, live, vmax=64, **draw)
+        facts = K.PlanFacts(**dict(facts, port_selfblock=True))
+        st, ft = to_device(dev, s, f)
+        masks = K._static_masks_plain(st, ft)
+        err = placed = 0
+        for strat in (0, 1):
+            ck = cp = pre_blocked(K.fresh_carry(st, ft, 64, fit(st, ft, strat)))
+            for _chain in range(2):
+                if kname == "scan_general":
+                    o_k, ck = K.scan_general(st, ft, B, strat, ck, masks, n_act, facts)
+                    o_p, cp = K._scan_general_plain(st, ft, B, strat, cp, masks, n_act, facts)
+                else:
+                    wrap = K.lap_schedule if kname == "lap_schedule" else K.scan_schedule
+                    plain = getattr(K, f"_{kname}_plain")
+                    o_k, ck = wrap(st, ft, B, strat, ck, masks.static_ok, n_act, True)
+                    o_p, cp = plain(st, ft, B, strat, cp, masks.static_ok, n_act, True)
+                err = max(err, max_abs_err((o_k,) + tuple(ck), (o_p,) + tuple(cp)))
+                placed += int((o_p[0] >= 0).sum())
+            if "every row" in case:
+                left = masks.static_ok & cp.fit_ok & ~cp.blocked
+                check(not bool(left[:live].any()) and int((o_p[0, :n_act] < 0).sum()) > 0,
+                      f"blocked lane, {case}: a feasible row left unblocked, or no pod "
+                      "placed nowhere")
+        torch.cuda.synchronize()
+        check(placed > 0, f"blocked lane, {case}: nothing placed")
+        errs[kname] = max(errs[kname], err)
+        summary.append(f"{case} {err}")
+    # schedule_placements: lanes of one row, ~100 rows and every row.
+    err = placed = 0
+    # (lanes, spread tables, fit strategies, active members): the plain
+    # version walks the lanes one by one, so the 64-lane draw runs once.
+    for lanes, tables, strats, acts in ((16, {}, (0, 1), (0, 8)),
+                                        (16, dict(dns=1, sa=1, overrides=True), (0, 1), (0, 8)),
+                                        (64, dict(dns=1, sa=1, overrides=True), (1,), (8,))):
+        s, f, facts, m, ov = placement_inputs(1120 + lanes + len(tables), np_cap, n_nodes,
+                                              lanes, vmax=64, **tables)
+        st, ft = to_device(dev, s, f)
+        m = torch.from_numpy(m).to(dev)
+        t_ov = None if ov is None else tuple(torch.from_numpy(a).to(dev) for a in ov)
+        facts = K.PlanFacts(**dict(facts, port_selfblock=True))
+        for strat in strats:
+            for n_act in acts:
+                args = (st, ft, 8, strat, 64, facts, m, n_act, t_ov)
+                got, want = K.schedule_placements(*args), K._schedule_placements_plain(*args)
+                err = max(err, max_abs_err((got,), (want,)))
+                for lane in want[:, 0, :n_act]:
+                    rows = lane[lane >= 0]
+                    check(rows.numel() == rows.unique().numel(),
+                          "schedule_placements put two port pods of a lane on one row")
+                    placed += rows.numel()
+    torch.cuda.synchronize()
+    check(placed > 0, "blocked lane: the placement draws placed nothing")
+    errs["schedule_placements"] = max(errs["schedule_placements"], err)
+    summary.append(f"schedule_placements {err}")
+    s, f = random_inputs(1130, np_cap, n_nodes)
+    st, ft = to_device(dev, s, f)
+    ft = ft._replace(extra_ok=(torch.rand(np_cap, generator=gen) < 0.6).to(dev))
+    e = max_abs_err(K.static_masks(st, ft), K._static_masks_plain(st, ft))
+    errs["static_masks"] = max(errs["static_masks"], e)
+    summary.append(f"static_masks with a mixed extra_ok {e}")
+    print("kernels with the blocked lane vs plain (max_abs_err): " + ", ".join(summary),
+          flush=True)
+
+
+def capture_first_dispatch(sched, capture: dict) -> None:
+    """Record the device state (a copy), plan, active pods and carry of
+    `sched`'s first dispatch into `capture`."""
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    dispatch = sched._dispatch
+
+    def first(state, plan, n_active, carry):
+        if not capture:
+            capture.update(state=K.DeviceNodeState(*[t.clone() for t in state]), plan=plan,
+                           n_act=n_active, carry=carry)
+        return dispatch(state, plan, n_active, carry)
+    sched._dispatch = first
+
+
+def features_drive(dev):
+    """NodeDeclaredFeaturesEnabled/5000Nodes20DeclaredFeatures: 5000 nodes
+    of 32 cpu / 256Gi / 110 pods over 50 zones, each declaring
+    feature-0..19, 5000 100m init pods, 50000 100m/128Mi measured pods:
+    every pod bound on the device by the lap."""
+    sched, result, launches = drive(dev, FEATURES)
+    check(all(len(n.declared_features) == 20 for n in sched.clientset.nodes.values()),
+          f"{FEATURES}: a node does not declare its 20 features")
+    if torch.device(dev).type == "cuda":
+        check_launched(FEATURES, launches, result["detail"], ("static_masks", "lap_schedule"))
+    print(f"{FEATURES}: {result['value']:.1f} pods/s, floor {bench_threshold(FEATURES)} pods/s",
+          flush=True)
+    return sched, result, launches
+
+
+def bench_threshold(workload: str):
+    from kubernetes_tpu_torch import bench
+    return bench.WORKLOADS[workload].threshold
+
+
+def gated_drive(dev):
+    """SchedulingWhileGated/1Node_10000GatedPods: one node of 1000 cpu /
+    4Ti / 90000 pods, 10000 gated pods, 20000 pods in namespace `deleting`
+    bound, then 20000 measured pods while the deleting pods are deleted at
+    50/s: every measured pod bound on the device, the gated pods parked
+    (none in the pool's non-gated index), deletes during the window."""
+    sched, result, launches = run_path(dev, GATED)
+    d = result["detail"]
+    pods = list(sched.clientset.pods.values())
+    measured = [p for p in pods if p.name.startswith("bench-")]
+    gated = [p for p in pods if p.scheduling_gates]
+    check(len(measured) == 20000 and all(p.node_name for p in measured),
+          f"{GATED}: {sum(1 for p in measured if p.node_name)} of 20000 measured pods bound")
+    check(len(gated) == 10000 and not any(p.node_name for p in gated)
+          and sched.queue.pending_counts() == (0, 0, 10000)
+          and not sched.queue.unschedulable.non_gated,
+          f"{GATED}: the gated pods left the pool (counts {sched.queue.pending_counts()})")
+    check(d["deleted_pods"] > 0 and d["failures"] == 0 and d["host_path_pods"] == 0,
+          f"{GATED}: deleted {d['deleted_pods']}, failures {d['failures']}, host path "
+          f"{d['host_path_pods']}")
+    if torch.device(dev).type == "cuda":
+        check_launched(GATED, launches, d, ("static_masks", "lap_schedule"))
+    print(f"{GATED}: {result['value']:.1f} pods/s (floor {bench_threshold(GATED)}), "
+          f"{d['deleted_pods']} pods deleted in the window, 10000 gated pods parked", flush=True)
+    return sched, result, launches
+
+
+def hostport_drive(dev, capture=None):
+    """HostPorts/5000Nodes_4000Pods: TopologySpreading's 5000 nodes, those of
+    10 of the 50 zones reporting a 600 MiB image, 1000 init pods bound to
+    nodes 0-999 holding TCP hostPort 8080, then 4000 100m/128Mi pods with
+    that port and image at max_batch 1024: every pod bound, no two holding
+    the port on one node, the lap launched with the blocked lane, and one
+    more such pod unschedulable with a NodePorts diagnosis. `capture`
+    receives the first dispatch's inputs."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    w = bench.WORKLOADS[HOSTPORTS]
+    sched = bench.build_cluster(5000, device=dev, node=w.node)
+    bench.warm(sched, w.init_pods, HOSTPORTS)
+    if capture is not None:
+        capture_first_dispatch(sched, capture)
+    flushes0 = sched.mirror.scatter_flushes
+    K.reset_launch_counts()
+    result = bench.measure(sched, w.measure_pods, workload=HOSTPORTS)
+    launches = {k.__name__: k.launches for k in K.WRAPPERS}
+    launches["scatter_flushes"] = sched.mirror.scatter_flushes - flushes0
+    print(f"path {HOSTPORTS}: {json.dumps(result)}", flush=True)
+    d = result["detail"]
+    pods = list(sched.clientset.pods.values())
+    nodes = [p.node_name for p in pods]
+    check(len(pods) == 5000 and all(nodes) and len(set(nodes)) == 5000,
+          f"{HOSTPORTS}: {sum(1 for n in nodes if n)} of 5000 pods bound on "
+          f"{len(set(n for n in nodes if n))} nodes")
+    check(d["failures"] == 0 and d["host_path_pods"] == 0,
+          f"{HOSTPORTS}: failures {d['failures']}, host path {d['host_path_pods']}")
+    if capture is not None:
+        plan = capture["plan"]
+        check(plan.facts.port_selfblock and bool(plan.features.il_score.any())
+              and not bool(plan.features.extra_ok[:1000].any()),
+              f"{HOSTPORTS}: the plan has no blocked lane, no image score or no port conflicts")
+    extra = bench.make_pods(1, "extra", HOSTPORTS)[0]
+    sched.clientset.create_pod(extra)
+    sched.run_until_idle()
+    qpi = sched.queue.unschedulable.get(extra.uid)
+    check(not extra.node_name and qpi is not None and qpi.unschedulable_plugins == {"NodePorts"},
+          f"{HOSTPORTS}: one more agent pod was not unschedulable by NodePorts")
+    if torch.device(dev).type == "cuda":
+        check_launched(HOSTPORTS, launches, d, ("static_masks", "resource_eval", "lap_schedule"))
+    print(f"{HOSTPORTS}: {result['value']:.1f} pods/s, 5000 port holders on 5000 nodes, the "
+          "next agent pod unschedulable (NodePorts)", flush=True)
+    return sched, result, launches
+
+
+def port_cut(dev, spread: bool = False, n_nodes: int = 1000, n_init: int = 200,
+             n_pods: int = 600, capture=None):
+    """The host-port drive cut to `n_nodes` nodes, `n_init` bound port
+    holders and `n_pods` agent pods at max_batch 64 (scan_schedule), or
+    with a zone spread on the agent pods (scan_general). Launch counts
+    zeroed before the agent pods."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    w = bench.WORKLOADS[HOSTPORTS]
+    sched = bench.build_cluster(n_nodes, device=dev, max_batch=64, node=w.node)
+    bench.warm(sched, n_init, HOSTPORTS)
+    build = bench._agent
+    if spread:
+        def build(b):
+            return bench._agent(b).labels({"app": "agent"}).spread_constraint(
+                1, bench.ZONE, "DoNotSchedule", {"app": "agent"})
+    if capture is not None:
+        capture_first_dispatch(sched, capture)
+    K.reset_launch_counts()
+    for p in bench._clones(build, n_pods, "agent"):
+        sched.clientset.create_pod(p)
+    sched.run_until_idle()
+    launches = {k.__name__: k.launches for k in K.WRAPPERS}
+    nodes = [p.node_name for p in sched.clientset.pods.values() if p.node_name]
+    check(len(nodes) == len(set(nodes)) == n_init + n_pods,
+          f"host-port cut ({dev}, spread {spread}): {len(nodes)} bound on {len(set(nodes))} nodes")
+    kernel = "scan_general" if spread else "scan_schedule"
+    check(torch.device(dev).type == "cpu" or launches[kernel] > 0,
+          f"host-port cut: {kernel} was not launched")
+    return sched, None, launches
+
+
+def port_gangs(dev, n_groups: int = 50, capture=None):
+    """SchedulingGangsPlacement/1000Nodes_250Groups' 1000 nodes over 10
+    zones under the placement plugins, cut to n_groups groups of 4 500m
+    members holding hostPort 9000: every group in one zone, no two members
+    on one node, one schedule_placements launch a group cycle with the
+    blocked lane. `capture` receives the first launch's arguments."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.api.types import PodGroup
+    from kubernetes_tpu_torch.models import tpu_scheduler as TS
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    w = bench.WORKLOADS[PLACE1K]
+    sched = bench.build_cluster(1000, device=dev, node=w.node,
+                                profile_factory=bench.profile_for(PLACE1K))
+    member = lambda b: bench._gang_member(b).host_port(9000)  # noqa: E731
+    sched.warm_for_placements(bench._clones(member, 1, "shape")[0], 4, 10)
+    launch = TS.schedule_placements
+
+    def recorded(*args):
+        if capture is not None and not capture:
+            capture["args"] = args
+            capture["placements"] = int(args[6].any(dim=1).sum())
+        return launch(*args)
+    TS.schedule_placements = recorded
+    K.reset_launch_counts()
+    try:
+        for g in range(n_groups):
+            sched.clientset.create_pod_group(PodGroup(name=f"g{g}", min_count=4,
+                                                      topology_keys=(bench.ZONE,)))
+            for p in bench._clones(member, 4, f"g{g}"):
+                p.pod_group = f"g{g}"
+                sched.clientset.create_pod(p)
+        sched.run_until_idle()
+    finally:
+        TS.schedule_placements = launch
+    launches = {k.__name__: k.launches for k in K.WRAPPERS}
+    pods = list(sched.clientset.pods.values())
+    nodes = [p.node_name for p in pods]
+    zones = {}
+    for p in pods:
+        zones.setdefault(p.pod_group, set()).add(
+            sched.clientset.nodes[p.node_name].labels[bench.ZONE] if p.node_name else None)
+    check(all(nodes) and len(set(nodes)) == len(pods) == 4 * n_groups
+          and all(len(z) == 1 for z in zones.values()),
+          f"{PORT_GANGS} ({dev}): not every member bound, in one zone, on a node of its own")
+    check(sched.placement_device_evals == n_groups
+          and (torch.device(dev).type == "cpu" or launches["schedule_placements"] == n_groups),
+          f"{PORT_GANGS}: {sched.placement_device_evals} device evaluations, "
+          f"{launches['schedule_placements']} launches for {n_groups} groups")
+    return sched, None, launches
+
+
+def gated_short(dev):
+    """SchedulingWhileGated/1Node_10GatedPods, the upstream short shape: 10
+    gated pods, 10 pods in `deleting` bound and then deleted while 10
+    measured pods arrive."""
+    from kubernetes_tpu_torch.models import TorchScheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+
+    s = TorchScheduler(device=dev)
+    s.clientset.create_node(make_node().name("scheduler-perf-node").capacity(
+        {"cpu": 1000, "memory": "4Ti", "pods": 90000}).obj())
+    for i in range(10):
+        s.clientset.create_pod(make_pod().name(f"gated-{i}").req({"cpu": "0", "memory": "0"})
+                               .scheduling_gate("test.k8s.io/hold").obj())
+    deleting = [make_pod().name(f"deleting-{i}").namespace("deleting")
+                .req({"cpu": "0", "memory": "0"}).obj() for i in range(10)]
+    for p in deleting:
+        s.clientset.create_pod(p)
+    s.run_until_idle()
+    for i in range(10):
+        s.clientset.create_pod(make_pod().name(f"measured-{i}")
+                               .req({"cpu": "0", "memory": "0"}).obj())
+        s.clientset.delete_pod(deleting[i])
+    s.run_until_idle()
+    check(s.queue.pending_counts() == (0, 0, 10), f"gated short shape ({dev}): counts "
+                                                  f"{s.queue.pending_counts()}")
+    return s
+
+
+def features_cut(dev):
+    """1000 of the 32-cpu nodes, only the odd ones declaring gpu-x; 1200
+    pods requiring it and 20 requiring gpu-x and a feature no node
+    declares: every gpu-x pod on an odd node, the others unschedulable."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.models import TorchScheduler
+    from kubernetes_tpu_torch.testing import make_pod
+
+    s = TorchScheduler(device=dev)
+    for i in range(1000):
+        n = bench.cluster_node(i)
+        n.declared_features = {"gpu-x": bool(i % 2)}
+        s.clientset.create_node(n)
+    for prefix, n, feats in (("gpu", 1200, "gpu-x"), ("none", 20, "gpu-x,missing")):
+        for i in range(n):
+            p = bench._basic(make_pod().name(f"{prefix}-{i}")).obj()
+            p.annotations["features.k8s.io/required"] = feats
+            s.clientset.create_pod(p)
+        s.run_until_idle()
+    on = [p.node_name for p in s.clientset.pods.values() if p.node_name]
+    check(len(on) == 1200 and all(int(n.split("-")[1]) % 2 for n in on),
+          f"declared-features cut ({dev}): {len(on)} bound, some on an even node")
+    return s
+
+
+def slice7_parity(dev, paths: dict) -> None:
+    """The slice's parity cuts: each cuda run's bindings, failure and queue
+    counts equal the device="cpu" run's."""
+    def same(a, b, what):
+        got, want = assignments(a), assignments(b)
+        diffs = {k: (v, got.get(k)) for k, v in want.items() if got.get(k) != v}
+        check(not diffs and set(got) == set(want),
+              f"cuda/cpu divergence ({what}): {list(diffs.items())[:5]}")
+        check((a.scheduled, a.failures, a.queue.pending_counts())
+              == (b.scheduled, b.failures, b.queue.pending_counts()), f"counts differ ({what})")
+        print(f"parity ({what}): {len(want)} pods, {b.scheduled} bound, {b.failures} failed "
+              f"attempts, pending {b.queue.pending_counts()}, identical", flush=True)
+
+    same(paths[PORT_SCAN][0], port_cut("cpu")[0], PORT_SCAN)
+    same(paths[PORT_SPREAD][0], port_cut("cpu", spread=True)[0], PORT_SPREAD)
+    same(paths[PORT_GANGS][0], port_gangs("cpu")[0], PORT_GANGS)
+    same(gated_short(dev), gated_short("cpu"), "SchedulingWhileGated/1Node_10GatedPods")
+    same(features_cut(dev), features_cut("cpu"), "declared features, odd nodes, 1000 nodes")
+
+
+def blocked_timing(rows: dict, caps: dict, errs: dict) -> None:
+    """Each schedule kernel with the blocked lane on its own drive's first
+    dispatch (the host-port drive for the lap, its cuts for the scans, the
+    port gangs' first group cycle for the placements), held exact first:
+    the `blocked` entry of the kernel's row, with its bound."""
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    for kname, cap, what in (("lap_schedule", caps["lap"], HOSTPORTS),
+                             ("scan_schedule", caps["scan"], PORT_SCAN),
+                             ("scan_general", caps["general"], PORT_SPREAD)):
+        check(cap, f"{what}: no dispatch captured")
+        st, plan, n_act = cap["state"], cap["plan"], cap["n_act"]
+        ft, strat, B, facts = plan.features, plan.fit_strategy, plan.batch_pad, plan.facts
+        path = {"lap_schedule": "lap", "scan_schedule": "scan", "scan_general": "general"}[kname]
+        check(facts.port_selfblock and K.plan_path(ft, facts, B) == path,
+              f"{what}: the captured plan does not take {kname} with the blocked lane")
+        masks = K._static_masks_plain(st, ft)
+        ext0 = cap["carry"] or K.fresh_carry(st, ft, plan.vmax, K._resource_eval_plain(
+            ft, strat, st.alloc_r, st.alloc_pods, st.req_r, st.nonzero, st.pod_count))
+        NP, R = st.alloc_r.shape
+        FR = ft.fit_slots.shape[0]
+        row_ops = 4 * R + 12 * FR + 24
+        if kname == "scan_general":
+            k_fn = lambda: K.scan_general(st, ft, B, strat, ext0, masks, n_act, facts)  # noqa
+            p_fn = lambda: K._scan_general_plain(st, ft, B, strat, ext0, masks, n_act, facts)  # noqa
+            nbytes, ops = general_cost(ft, facts, K, n_act)
+            nbytes += 2 * NP
+            extra = {}
+        else:
+            wrap = K.lap_schedule if kname == "lap_schedule" else K.scan_schedule
+            plain = getattr(K, f"_{kname}_plain")
+            k_fn = lambda: wrap(st, ft, B, strat, ext0, masks.static_ok, n_act, True)  # noqa
+            p_fn = lambda: plain(st, ft, B, strat, ext0, masks.static_ok, n_act, True)  # noqa
+            if kname == "lap_schedule":
+                stats = {}
+                plain(st, ft, B, strat, ext0, masks.static_ok, n_act, True, stats=stats)
+                laps = stats["laps"]
+                nbytes = NP * (16 * R + 37) + NP * (8 * R + 37) + 8 * B + 2 * NP
+                ops = laps * (NP * 24 + K.LAP_MAX * row_ops) + NP * row_ops
+                extra = dict(laps=laps)
+            else:
+                nbytes = NP * (16 * R + 54) + NP * (8 * R + 37) + 8 * B + 2 * NP
+                ops = n_act * NP * 16 + NP * 24 + n_act * row_ops
+                extra = {}
+        (o_k, c_k), (o_p, c_p) = k_fn(), p_fn()
+        check(max_abs_err((o_k,) + tuple(c_k), (o_p,) + tuple(c_p)) == 0,
+              f"{kname} with the blocked lane disagrees with its plain version on the {what}")
+        case = kernel_row(kname, "", errs[kname], k_fn, p_fn, nbytes, ops,
+                          reps=5 if kname == "scan_general" else 20,
+                          plain_reps=1 if kname == "scan_general" else 2)
+        case = {k: case[k] for k in ("ms", "ms_launches_seen", "host_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "bytes", "ops")}
+        case.update(drive=what, pods=n_act, steps=B, placed=int((o_p[0] >= 0).sum()), **extra)
+        rows[kname]["blocked"] = case
+        print(f"{kname} with the blocked lane on the {what}'s first batch ({n_act} pods"
+              + (f", {extra['laps']} laps" if extra else "") + f", NP {NP}): {case['ms']:.4f} ms "
+              f"on the device, {case['host_ms']:.4f} ms a call, plain {case['plain_ms']:.3f} ms, "
+              f"bound {case['bound_ms']:.6f} ms ({case['bound_by']})", flush=True)
+    cap = caps["placements"]
+    check(cap, f"{PORT_GANGS}: no placement evaluation captured")
+    args = cap["args"]
+    state, facts, masks, n_act = args[0], args[5], args[6], args[7]
+    check(facts.port_selfblock, f"{PORT_GANGS}: the placement plan has no blocked lane")
+    check(max_abs_err((K.schedule_placements(*args),), (K._schedule_placements_plain(*args),))
+          == 0, f"schedule_placements with the blocked lane disagrees on the {PORT_GANGS}")
+    NP = state.alloc_r.shape[0]
+    nbytes, ops = placement_cost(K, args)
+    case = kernel_row("schedule_placements", "", errs["schedule_placements"],
+                      lambda: K.schedule_placements(*args),
+                      lambda: K._schedule_placements_plain(*args), nbytes, ops, plain_reps=1)
+    case = {k: case[k] for k in ("ms", "ms_launches_seen", "host_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "bytes", "ops")}
+    case.update(drive=PORT_GANGS, lanes=int(masks.shape[0]), placements=cap["placements"],
+                members=n_act)
+    rows["schedule_placements"]["blocked"] = case
+    print(f"schedule_placements with the blocked lane on the {PORT_GANGS}' first group "
+          f"({case['lanes']} lanes, {case['placements']} placements, NP {NP}): {case['ms']:.4f} "
+          f"ms on the device, {case['host_ms']:.4f} ms a call, plain {case['plain_ms']:.3f} ms, "
+          f"bound {case['bound_ms']:.6f} ms ({case['bound_by']})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -1911,6 +2418,7 @@ def main() -> int:
     rows.update(patch_timing(waves, errs))
     rows.update(placement_timing(waves, errs))
     rows.update(whatif_timing(waves, errs))
+    blocked_timing(rows, waves["blocked_captures"], errs)
     print(f"timing phase: {time.perf_counter() - t1:.1f} s", flush=True)
     for name, (_s, result, _l) in paths.items():
         if result is not None:

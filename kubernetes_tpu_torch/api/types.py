@@ -1,9 +1,9 @@
 """The API object model — the subset of staging/src/k8s.io/api/core/v1 the
 port's scheduling slices consume, flattened into plain dataclasses.
 
-Fields for features outside the port (host ports, volumes, claims, gates,
-images, a pod group's parent composite group) stay on the objects so that a caller who sets them is
-refused loudly by the scope guard (core/scope.py) instead of having the
+Fields for features outside the port (volumes, claims, a pod group's
+parent composite group) stay on the objects so that a caller who sets them
+is refused loudly by the scope guard (core/scope.py) instead of having the
 field silently dropped.
 
 Reference anchors:
@@ -306,8 +306,16 @@ class Pod:
         self._req_cache = total
         return total
 
-    def host_ports(self) -> List[ContainerPort]:
-        return [p for c in self.containers for p in c.ports if p.host_port > 0]
+    def host_ports(self) -> Tuple[ContainerPort, ...]:
+        """The containers' ports with a host port. Plain loops: a pod
+        without one (nearly every pod; NodeInfo asks for each pod it adds
+        or removes) allocates nothing."""
+        out = ()
+        for c in self.containers:
+            for p in c.ports:
+                if p.host_port > 0:
+                    out += (p,)
+        return out
 
     def __copy__(self) -> "Pod":
         new = object.__new__(Pod)
@@ -371,6 +379,8 @@ class Node:
     capacity: Resource = field(default_factory=Resource)
     allocatable: Resource = field(default_factory=Resource)
     images: List[ImageState] = field(default_factory=list)
+    # NodeDeclaredFeatures: the features the node declares (name -> on)
+    declared_features: Dict[str, bool] = field(default_factory=dict)
     resource_version: int = 0
 
     def __post_init__(self):

@@ -59,6 +59,33 @@ of 32 cpu / 256Gi / 110 pods across 50 zones with 100m pods:
                                              group. No upstream shape (no
                                              threshold: vs_baseline is null).
 
+  NodeDeclaredFeaturesEnabled/5000Nodes20DeclaredFeatures
+                                             the 5000 nodes, each declaring
+                                             feature-0..19 (the harness's
+                                             declaredFeatures), 5000 100m init
+                                             pods, then 50000 100m/128Mi pods
+                                             (floor 890 pods/s): the lap under
+                                             the full default profile.
+  SchedulingWhileGated/1Node_10000GatedPods  one node of 1000 cpu / 4Ti /
+                                             90000 pods, 10000 pods held by a
+                                             scheduling gate, 20000 pods in
+                                             namespace `deleting`, then 20000
+                                             measured pods while the deleting
+                                             pods are deleted at 50/s (floor
+                                             910 pods/s): every pod of 0 cpu,
+                                             one pod a lap.
+  HostPorts/5000Nodes_4000Pods               TopologySpreading's 5000 nodes,
+                                             those of the first 10 zones
+                                             reporting the 600 MiB image
+                                             registry.example/agent:1; 1000 init
+                                             pods bound to nodes 0-999, each
+                                             holding TCP hostPort 8080; then
+                                             4000 100m/128Mi pods with that port
+                                             and image: one a node, the lap with
+                                             the blocked lane and ImageLocality
+                                             scores. No upstream shape (no
+                                             threshold): DaemonSet-like agents.
+
   ChurnDriftRebalance/5000Nodes_Rebalance    the descheduler (`rebalance`):
                                              5000 nodes of the hollow plane's
                                              default shape (32 cpu / 256Gi /
@@ -109,7 +136,7 @@ import os
 import random
 import sys
 import time
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -132,13 +159,17 @@ WINDOW_COUNTERS = ("scheduled", "failures", "device_batches", "device_scheduled"
 
 
 class NodeTemplate(NamedTuple):
-    """createNodes' nodeTemplate: capacity and the zone count (0: no zone
-    label)."""
+    """createNodes' nodeTemplate: capacity, the zone count (0: no zone
+    label), the declared features feature-0..features-1 on every node, and
+    an image (name, bytes, zones) that the nodes of the first `zones` zones
+    report."""
 
     cpu: int = 32
     memory: str = "256Gi"
     pods: int = 110
     zones: int = 50
+    features: int = 0
+    image: Optional[Tuple[str, int, int]] = None
 
 
 class Churn(NamedTuple):
@@ -167,13 +198,25 @@ class Gang(NamedTuple):
     topology_key: str = ""
 
 
+class Deleting(NamedTuple):
+    """deletePods with skipWaitToCompletion: the init pods, created in
+    `namespace`, are deleted at `per_second` while the measured window
+    runs."""
+
+    namespace: str = "deleting"
+    per_second: float = 50.0
+
+
 class Workload(NamedTuple):
     """One scheduler_perf shape: the measured pods' template (a builder
     step over make_pod), their count, the warm-up/init pods (`init_build`
     their template; None: the measured shape), the upstream pods/s
     threshold (None: no upstream shape), the nodes, the churn during the
-    window, the namespaces the pods are created in (None: `default`), and
-    the pod groups they form (None: none)."""
+    window, the namespaces the pods are created in (None: `default`), the
+    pod groups they form (None: none), the pods of the measured shape held
+    by a scheduling gate (created first, never released), the init pods'
+    deletion during the window, and whether init pod i is created bound to
+    node i."""
 
     measure_pods: int
     build: Callable
@@ -184,6 +227,13 @@ class Workload(NamedTuple):
     churn: Optional[Churn] = None
     namespaces: Optional[Namespaces] = None
     gang: Optional[Gang] = None
+    gated: int = 0
+    deleting: Optional[Deleting] = None
+    bound_init: bool = False
+
+
+AGENT_IMAGE = "registry.example/agent:1"
+GATE = "test.k8s.io/hold"
 
 
 def _basic(b):
@@ -196,6 +246,14 @@ def _big(b):
 
 def _gang_member(b):
     return b.req({"cpu": "500m", "memory": "256Mi"})
+
+
+def _zero(b):
+    return b.req({"cpu": "0", "memory": "0"})
+
+
+def _agent(b):
+    return _basic(b).host_port(8080).image(AGENT_IMAGE)
 
 
 WORKLOADS = {
@@ -231,10 +289,21 @@ WORKLOADS = {
         1000, _gang_member, 0, None, 60.0, node=NodeTemplate(zones=10), gang=Gang(4, ZONE)),
     "SchedulingGangsPlacement/5000Nodes_250Groups": Workload(
         1000, _gang_member, 0, None, None, gang=Gang(4, ZONE)),
+    "NodeDeclaredFeaturesEnabled/5000Nodes20DeclaredFeatures": Workload(
+        50000, _basic, 5000, lambda b: b.req({"cpu": "100m"}), 890.0,
+        node=NodeTemplate(features=20)),
+    "SchedulingWhileGated/1Node_10000GatedPods": Workload(
+        20000, _zero, 20000, None, 910.0,
+        node=NodeTemplate(cpu=1000, memory="4Ti", pods=90000, zones=0),
+        gated=10000, deleting=Deleting()),
+    "HostPorts/5000Nodes_4000Pods": Workload(
+        4000, _agent, 1000, lambda b: _basic(b).host_port(8080), None,
+        node=NodeTemplate(image=(AGENT_IMAGE, 600 * 1024 ** 2, 10)), bound_init=True),
 }
 NODES = {"SchedulingRequiredPodAntiAffinityWithNSSelector/5000Nodes_2000Pods": 6000,
          "SchedulingGangs/1000Nodes_250Groups": 1000,
-         "SchedulingGangsPlacement/1000Nodes_250Groups": 1000}
+         "SchedulingGangsPlacement/1000Nodes_250Groups": 1000,
+         "SchedulingWhileGated/1Node_10000GatedPods": 1}
 DEFAULT_WORKLOAD = "SchedulingBasic/5000Nodes_10000Pods"
 
 
@@ -247,7 +316,11 @@ def cluster_node(i: int, node: NodeTemplate = NodeTemplate(), taint=None):
         b = b.zone(f"zone-{i % node.zones}")
     if taint is not None:
         b = b.taint(*taint)
-    return b.obj()
+    if node.image is not None and i % max(1, node.zones) < node.image[2]:
+        b = b.image(*node.image[:2])
+    out = b.obj()
+    out.declared_features = {f"feature-{j}": True for j in range(node.features)}
+    return out
 
 
 def profile_for(workload: str):
@@ -307,10 +380,16 @@ def init_pods(n: int, workload: str):
     where it has no init template), spread evenly over its init
     namespaces in namespace order (createPodSets), one template each."""
     w = WORKLOADS[workload]
+    if w.deleting is not None:
+        return _clones(w.init_build or w.build, n, w.deleting.namespace, w.deleting.namespace)
     if w.init_build is None:
         return make_pods(n, "warm", workload)
     if w.namespaces is None:
-        return _clones(w.init_build, n, "init")
+        pods = _clones(w.init_build, n, "init")
+        if w.bound_init:
+            for i, p in enumerate(pods):
+                p.node_name = f"node-{i}"
+        return pods
     k = w.namespaces.init
     return [p for i in range(k)
             for p in _clones(w.init_build, n // k + (i < n % k), f"init-{i}", f"init-ns-{i}")]
@@ -352,18 +431,43 @@ class Churner:
         return self.limit is not None and len(self.pods) < self.limit
 
 
-def drain(sched: TorchScheduler, churner: Optional[Churner] = None) -> None:
+class Deleter:
+    """The init pods deleted at a fixed rate while the window runs, counted
+    from the window's start (the JAX package's perf harness _RateDeleter,
+    kubernetes_tpu/perf/harness.py:355-372); `tick()` runs between
+    scheduling cycles. It never holds the window open."""
+
+    def __init__(self, sched: TorchScheduler, pods, per_second: float):
+        self.sched = sched
+        self.pods = list(pods)
+        self.per_second = per_second
+        self.deleted = 0
+        self._t0 = time.perf_counter()
+
+    def tick(self) -> None:
+        due = min(int((time.perf_counter() - self._t0) * self.per_second), len(self.pods))
+        while self.deleted < due:
+            self.sched.clientset.delete_pod(self.pods[self.deleted])
+            self.deleted += 1
+
+    def pending(self) -> bool:
+        return False
+
+
+def drain(sched: TorchScheduler, tickers=()) -> None:
     """Schedule until the queue stops yielding (and a limited churner has
-    created all its pods), the churner ticking between cycles."""
-    if churner is None:
+    created all its pods), the tickers (a churner, a deleter) ticking
+    between cycles."""
+    if not tickers:
         sched.run_until_idle()
         return
     while True:
-        churner.tick()
+        for t in tickers:
+            t.tick()
         if not sched.schedule_one():
             sched.queue.flush_backoff_completed()
             if not sched.schedule_one():
-                if not churner.pending():
+                if not any(t.pending() for t in tickers):
                     break
                 time.sleep(0.001)
 
@@ -384,6 +488,9 @@ def warm(sched: TorchScheduler, warmup: int, workload: str = DEFAULT_WORKLOAD) -
     sched.warm_for(shape)
     if w.gang is not None and w.gang.topology_key:
         sched.warm_for_placements(shape, w.gang.size, max(1, w.node.zones))
+    if w.gated:
+        create_pods(sched, _clones(lambda b: w.build(b).scheduling_gate(GATE), w.gated,
+                                   "gated"), workload)
     create_pods(sched, init_pods(warmup, workload), workload)
     sched.run_until_idle()
 
@@ -401,8 +508,13 @@ def measure(sched: TorchScheduler, n_pods: int, prefix: str = "bench",
     evals0 = sched.preemption_device_evals
     create_pods(sched, make_pods(n_pods, prefix, workload), workload)
     churner = Churner(sched, w.churn, churn_limit) if w.churn is not None else None
+    deleter = None
+    if w.deleting is not None:
+        ns = w.deleting.namespace
+        deleter = Deleter(sched, [p for p in sched.clientset.pods.values() if p.namespace == ns],
+                          w.deleting.per_second)
     t0 = time.perf_counter()
-    drain(sched, churner)
+    drain(sched, [t for t in (churner, deleter) if t is not None])
     if sched.device.type == "cuda":
         torch.cuda.synchronize(sched.device)
     elapsed = time.perf_counter() - t0
@@ -413,7 +525,8 @@ def measure(sched: TorchScheduler, n_pods: int, prefix: str = "bench",
     detail.update(workload=workload, elapsed_s=elapsed, platform=platform_name(sched),
                   launches={w.__name__: w.launches for w in kernel.WRAPPERS},
                   preemption=preemption,
-                  churn_pods=len(churner.pods) if churner is not None else 0)
+                  churn_pods=len(churner.pods) if churner is not None else 0,
+                  deleted_pods=deleter.deleted if deleter is not None else 0)
     return {
         "metric": (f"pods scheduled/sec ({label or workload}: {sched.snapshot.num_nodes()} "
                    f"nodes, {n_pods} pods, device batch path)"),

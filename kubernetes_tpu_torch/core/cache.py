@@ -41,12 +41,14 @@ EV_NAMESPACE = "namespace"
 EV_POD_ADD = "pod_add"
 EV_POD_REMOVE = "pod_remove"
 EV_POD_UPDATE = "pod_update"
-# Node object replaced with its labels and images intact (key = node name):
-# dirties that row's taint, allocatable and unschedulable tensors only.
+# Node object replaced with its labels, images and declared features intact
+# (key = node name): dirties that row's taint, allocatable and unschedulable
+# tensors only.
 EV_NODE_UPDATE = "node_update"
 # Node added or removed: the row order changes, never delta-patchable.
 EV_STRUCTURAL = "structural"
-# Everything else (a node's labels changed): full rebuild.
+# Everything else (a node's labels, images or declared features changed):
+# full rebuild.
 EV_OTHER = "other"
 
 
@@ -131,6 +133,8 @@ class Snapshot:
         # havePodsWithAffinityNodeInfoList): InterPodAffinity walks only these.
         self.have_pods_with_affinity_list: List[NodeInfo] = []
         self.have_pods_with_required_anti_affinity_list: List[NodeInfo] = []
+        # Image name -> the listed nodes holding it (ImageLocality's spread).
+        self.image_num_nodes: Dict[str, int] = {}
         self.generation: int = 0
         self._index: Dict[str, int] = {}
 
@@ -145,7 +149,14 @@ class Snapshot:
             ni for ni in self.node_info_list if ni.pods_with_affinity]
         self.have_pods_with_required_anti_affinity_list = [
             ni for ni in self.node_info_list if ni.pods_with_required_anti_affinity]
+        self._count_images()
         self._index = {ni.name: i for i, ni in enumerate(self.node_info_list)}
+
+    def _count_images(self) -> None:
+        self.image_num_nodes = {}
+        for ni in self.node_info_list:
+            for img in ni.image_states:
+                self.image_num_nodes[img] = self.image_num_nodes.get(img, 0) + 1
 
     # -- in-cycle what-if mutation (gang simulation, snapshot.go:545/:599;
     # the JAX package's core/cache.py:184-222) ------------------------------
@@ -349,11 +360,16 @@ class Cache:
             self._order_dirty = False
         structural = structural or len(snapshot.node_info_list) != len(self.node_order)
         replaced = []
+        images_moved = structural
         for name in self._dirty:
             ni = self.nodes.get(name)
             if ni is None:
                 continue
             clone = ni.snapshot_clone()
+            old = snapshot.node_info_map.get(name)
+            if old is None or (old.image_states is not clone.image_states
+                               and old.image_states.keys() != clone.image_states.keys()):
+                images_moved = True
             snapshot.node_info_map[name] = clone
             replaced.append((name, clone))
         if structural:
@@ -378,6 +394,8 @@ class Cache:
                 ni for ni in snapshot.node_info_list if ni.pods_with_affinity]
             snapshot.have_pods_with_required_anti_affinity_list = [
                 ni for ni in snapshot.node_info_list if ni.pods_with_required_anti_affinity]
+        if images_moved:
+            snapshot._count_images()
         snapshot.generation = next_generation()
         self._dirty.clear()
         self._removed_since_snapshot = False

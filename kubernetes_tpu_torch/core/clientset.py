@@ -3,7 +3,8 @@
 Plays the role of client-go fake.Clientset + informers in the reference's unit
 layer: scheduler event handlers subscribe, API writes (bind, create, delete)
 synchronously fan out to them — the apiserver watch streams collapsed to
-function calls. Every pod/node write passes the scope guard (core/scope.py).
+function calls. Every pod and pod-group write passes the scope guard
+(core/scope.py).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 from ..api.types import Namespace, Node, Pod, PodGroup
-from .scope import check_node, check_pod, check_pod_group
+from .scope import check_pod, check_pod_group
 
 
 class FakeClientset:
@@ -78,7 +79,6 @@ class FakeClientset:
         check_pod_group(cpg)
 
     def create_node(self, node: Node) -> Node:
-        check_node(node)
         node.resource_version = next(self._rv_counter)
         self.nodes[node.name] = node
         for h in self._node_handlers:
@@ -86,7 +86,6 @@ class FakeClientset:
         return node
 
     def update_node(self, node: Node) -> Node:
-        check_node(node)
         old = self.nodes.get(node.name)
         node.resource_version = next(self._rv_counter)
         self.nodes[node.name] = node

@@ -190,6 +190,7 @@ class Framework:
                  plugins: Optional[Sequence[Tuple[Any, int]]] = None):
         self.profile_name = profile_name
         self._plugins: List[Tuple[Any, int]] = list(plugins or [])
+        self.pre_enqueue_plugins = self._having("pre_enqueue")
         self.queue_sort_plugins = self._having("less")
         self.pre_filter_plugins = self._having("pre_filter")
         self.filter_plugins = self._having("filter")
@@ -228,6 +229,16 @@ class Framework:
             if p.name == name:
                 return p
         return None
+
+    def run_pre_enqueue_plugins(self, pod: Pod) -> Status:
+        """PreEnqueue (framework.go RunPreEnqueuePlugins): the first gate
+        that holds the pod, its plugin named in the status."""
+        for p in self.pre_enqueue_plugins:
+            st = p.pre_enqueue(pod)
+            if not st.is_success():
+                st.plugin = p.name
+                return st
+        return OK
 
     @property
     def queue_sort_key(self):

@@ -3,8 +3,9 @@
 Re-expresses pkg/scheduler/framework/types.go (NodeInfo struct at types.go:173),
 trimmed to the port's slices: each node carries its pod list, the sublists
 of pods with (anti-)affinity terms that InterPodAffinity walks, the summed
-`requested` vector, the non-zero-default aggregate that scoring reads, and a
-monotonically increasing `generation` that drives incremental snapshotting
+`requested` vector, the non-zero-default aggregate that scoring reads, the
+host ports its pods hold (NodePorts), its images' sizes (ImageLocality), and
+a monotonically increasing `generation` that drives incremental snapshotting
 (backend/cache/cache.go:206 UpdateSnapshot) and the device mirror's re-encode.
 """
 
@@ -12,7 +13,8 @@ from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass
-from typing import List, Optional
+from types import MappingProxyType
+from typing import FrozenSet, List, Mapping, Optional, Tuple
 
 from ..api.resource import Resource
 from ..api.types import Node, Pod
@@ -26,8 +28,8 @@ def next_generation() -> int:
 
 @dataclass
 class PodInfo:
-    """A Pod with its precomputed request and its affinity term lists
-    (framework/types.go PodInfo)."""
+    """A Pod with its precomputed request, host ports and affinity term
+    lists (framework/types.go PodInfo)."""
 
     pod: Pod
     request: Resource
@@ -35,6 +37,7 @@ class PodInfo:
     required_anti_affinity_terms: tuple = ()
     preferred_affinity_terms: tuple = ()
     preferred_anti_affinity_terms: tuple = ()
+    host_ports: tuple = ()
 
     @classmethod
     def of(cls, pod: Pod) -> "PodInfo":
@@ -50,7 +53,7 @@ class PodInfo:
         return cls(pod=pod, request=pod.resource_request(),
                    required_affinity_terms=req_aff, required_anti_affinity_terms=req_anti,
                    preferred_affinity_terms=pref_aff,
-                   preferred_anti_affinity_terms=pref_anti)
+                   preferred_anti_affinity_terms=pref_anti, host_ports=pod.host_ports())
 
     @property
     def has_affinity(self) -> bool:
@@ -63,7 +66,8 @@ class NodeInfo:
     """Aggregated node state. Mutable; every mutation bumps `generation`."""
 
     __slots__ = ("node", "pods", "pods_with_affinity", "pods_with_required_anti_affinity",
-                 "requested", "non_zero_requested", "allocatable", "generation")
+                 "requested", "non_zero_requested", "allocatable", "used_ports",
+                 "image_states", "generation")
 
     # Default requests for the "non-zero" aggregate used by scoring
     # (reference framework/types.go DefaultMilliCPURequest/DefaultMemoryRequest).
@@ -78,11 +82,18 @@ class NodeInfo:
         self.requested = Resource()
         self.non_zero_requested = Resource()
         self.allocatable = node.allocatable.clone() if node else Resource()
+        # (protocol, host_ip, port) held by the node's pods, and image name
+        # -> bytes. Both are replaced, never changed in place, so a snapshot
+        # clone shares them, and a node without ports or images allocates
+        # nothing for them.
+        self.used_ports: FrozenSet[Tuple[str, str, int]] = _NO_PORTS
+        self.image_states: Mapping[str, int] = _image_states(node)
         self.generation = next_generation()
 
     def set_node(self, node: Node) -> None:
         self.node = node
         self.allocatable = node.allocatable.clone()
+        self.image_states = _image_states(node)
         self.generation = next_generation()
 
     def add_pod(self, pi: PodInfo) -> None:
@@ -95,6 +106,9 @@ class NodeInfo:
         self.requested.add(req)
         self.non_zero_requested.milli_cpu += req.milli_cpu or self.DEFAULT_MILLI_CPU
         self.non_zero_requested.memory += req.memory or self.DEFAULT_MEMORY
+        if pi.host_ports:
+            self.used_ports = self.used_ports | {(p.protocol, p.host_ip, p.host_port)
+                                                 for p in pi.host_ports}
         self.generation = next_generation()
 
     def remove_pod(self, pod: Pod) -> bool:
@@ -109,6 +123,9 @@ class NodeInfo:
                 self.requested.sub(req)
                 self.non_zero_requested.milli_cpu -= req.milli_cpu or self.DEFAULT_MILLI_CPU
                 self.non_zero_requested.memory -= req.memory or self.DEFAULT_MEMORY
+                if pi.host_ports:
+                    self.used_ports = self.used_ports - {(p.protocol, p.host_ip, p.host_port)
+                                                         for p in pi.host_ports}
                 self.generation = next_generation()
                 return True
         return False
@@ -127,5 +144,19 @@ class NodeInfo:
         c.requested = self.requested.clone()
         c.non_zero_requested = self.non_zero_requested.clone()
         c.allocatable = self.allocatable.clone()
+        c.used_ports = self.used_ports
+        c.image_states = self.image_states
         c.generation = self.generation
         return c
+
+
+_NO_PORTS: FrozenSet[Tuple[str, str, int]] = frozenset()
+_NO_IMAGES: Mapping[str, int] = MappingProxyType({})
+
+
+def _image_states(node: Optional[Node]) -> Mapping[str, int]:
+    """Every name of the node's images -> the image's size in bytes."""
+    if node is None or not node.images:
+        return _NO_IMAGES
+    return MappingProxyType({name: img.size_bytes for img in node.images
+                             for name in img.names})

@@ -1,5 +1,5 @@
 """PriorityQueue: the three-stage pending-pod store and the Nominator,
-trimmed to the port (no gates, no composite groups).
+trimmed to the port (no composite groups).
 
 Re-expresses pkg/scheduler/backend/queue/scheduling_queue.go (:186-269):
 - activeQ   — heap ordered by the QueueSort plugin (priority, FIFO);
@@ -13,6 +13,12 @@ Gang scheduling (workload_forest.go / pod_group_member_pods.go, the JAX
 package's core/queue.py:596-948, reduced to flat groups): a pod naming a
 pod group is buffered until `min_count` members have arrived, then the
 whole group enters the activeQ as one QueuedPodGroupInfo entity.
+
+Scheduling gates (PreEnqueue, scheduling_queue.go:858): a pod that a
+PreEnqueue plugin holds is parked `gated` in the unschedulable pool, which
+keeps an index of its non-gated entries so that cluster events cost
+O(requeue-able pods), never O(gated pods); an update that clears the gates
+releases it (the JAX package's core/queue.py:455-482, :582-587, :746-755).
 
 Single-threaded: `pop` returns None when empty instead of blocking. With
 SchedulerPopFromBackoffQ (on by default in the reference), an empty activeQ
@@ -33,6 +39,7 @@ from .scope import check_pod
 
 DEFAULT_POD_INITIAL_BACKOFF = 1.0
 DEFAULT_POD_MAX_BACKOFF = 10.0
+MAX_IN_UNSCHEDULABLE = 300.0  # podMaxInUnschedulablePodsDuration
 
 # Cluster events (framework/types.go ClusterEvent).
 EVENT_POD_DELETE = "Pod/Delete"
@@ -47,6 +54,7 @@ EVENT_NODE_UPDATE = "Node/Update"
 QUEUEING_HINTS: Dict[str, Set[str]] = {
     "NodeName": {EVENT_NODE_ADD, EVENT_NODE_UPDATE},
     "NodeUnschedulable": {EVENT_NODE_ADD, EVENT_NODE_UPDATE},
+    "NodePorts": {EVENT_NODE_ADD, EVENT_ASSIGNED_POD_DELETE, EVENT_POD_DELETE},
     # A topology-constrained group with no feasible placement is charged to
     # no plugin it registered events for: nothing requeues it early.
     "TopologyPlacementGenerator": set(),
@@ -61,6 +69,7 @@ class QueuedPodInfo:
     timestamp: float = 0.0
     attempts: int = 0
     unschedulable_plugins: Set[str] = field(default_factory=set)
+    gated: bool = False  # held by a PreEnqueue plugin
 
     @property
     def pod(self) -> Pod:
@@ -82,6 +91,7 @@ class QueuedPodGroupInfo:
     timestamp: float = 0.0
     attempts: int = 0
     unschedulable_plugins: Set[str] = field(default_factory=set)
+    gated: bool = False
 
     @property
     def pod(self) -> Pod:
@@ -184,6 +194,32 @@ class Nominator:
         return bool(self._pod_to_node)
 
 
+class _UnschedulableMap(dict):
+    """The unschedulable pool (uid -> entity) with an index of its
+    non-gated uids, in insertion order. Every flow that ungates an entity
+    pops it from the map first (update), so the index, keyed on the
+    insert-time `gated`, cannot go stale while the entity is stored."""
+
+    def __init__(self):
+        super().__init__()
+        self.non_gated: Dict[str, None] = {}
+
+    def __setitem__(self, uid, qpi):
+        super().__setitem__(uid, qpi)
+        if qpi.gated:
+            self.non_gated.pop(uid, None)
+        else:
+            self.non_gated[uid] = None
+
+    def __delitem__(self, uid):
+        super().__delitem__(uid)
+        self.non_gated.pop(uid, None)
+
+    def pop(self, uid, *default):
+        self.non_gated.pop(uid, None)
+        return super().pop(uid, *default)
+
+
 class PriorityQueue:
     def __init__(self, framework, now: Callable[[], float] = time.monotonic,
                  initial_backoff: float = DEFAULT_POD_INITIAL_BACKOFF,
@@ -194,7 +230,7 @@ class PriorityQueue:
         self.max_backoff = max_backoff
         self.active_q = _Heap(framework.queue_sort_key)
         self.backoff_q = _Heap(lambda qpi: (self.backoff_expiry(qpi),))
-        self.unschedulable: Dict[str, QueuedPodInfo] = {}
+        self.unschedulable = _UnschedulableMap()
         self.nominator = Nominator()
         # In-flight entities + the shared event log (scheduling_queue.go
         # inFlightEvents): each popped entity records the log position; a
@@ -225,10 +261,18 @@ class PriorityQueue:
     # -- add / pop ---------------------------------------------------------
 
     def add(self, pod: Pod) -> None:
-        """Add (scheduling_queue.go:858) — admission of a new pending pod; a
-        gang member joins its group's buffer."""
+        """Add (scheduling_queue.go:858) — admission of a new pending pod: a
+        pod a PreEnqueue plugin holds is parked gated; a gang member joins
+        its group's buffer."""
         check_pod(pod)
         qpi = QueuedPodInfo(pod_info=PodInfo.of(pod), timestamp=self.now())
+        if self.framework.pre_enqueue_plugins:
+            st = self.framework.run_pre_enqueue_plugins(pod)
+            if not st.is_success():
+                qpi.gated = True
+                qpi.unschedulable_plugins.add(st.plugin)
+                self.unschedulable[pod.uid] = qpi
+                return
         if pod.pod_group:
             self._add_group_member(qpi)
             return
@@ -308,6 +352,18 @@ class PriorityQueue:
         if uid in self.unschedulable:
             qpi = self.unschedulable.pop(uid)
             qpi.pod_info = PodInfo.of(new)
+            if qpi.gated:
+                # PreEnqueue again: the update may have lifted the gates.
+                if self.framework.run_pre_enqueue_plugins(new).is_success():
+                    qpi.gated = False
+                    qpi.timestamp = self.now()
+                    if new.pod_group:
+                        self._add_group_member(qpi)  # it joins its gang
+                    else:
+                        self.active_q.push(qpi)
+                    return
+                self.unschedulable[uid] = qpi
+                return
             self._move_to_active_or_backoff(qpi)
             return
         for q in (self.active_q, self.backoff_q):
@@ -387,11 +443,25 @@ class PriorityQueue:
         else:
             self.active_q.push(qpi)
 
+    def activate(self, pod: Pod) -> None:
+        """Activate (scheduling_queue.go:955): force a parked or backing-off
+        pod into the activeQ. A gated pod stays parked (the JAX package's
+        activate pops it from the pool and drops it)."""
+        uid = pod.uid
+        parked = self.unschedulable.get(uid)
+        if parked is not None and parked.gated:
+            return
+        qpi = self.unschedulable.pop(uid, None) or self.backoff_q.delete(uid)
+        if qpi is not None:
+            qpi.timestamp = self.now()
+            self.active_q.push(qpi)
+
     def move_all_to_active_or_backoff(self, event: str, old=None, new=None) -> None:
         """MoveAllToActiveOrBackoffQueue (scheduling_queue.go:1817) with
-        per-plugin QueueingHint filtering over the event's (old, new)."""
+        per-plugin QueueingHint filtering over the event's (old, new). It
+        walks the pool's non-gated index: gated pods cost nothing here."""
         ev = (event, old, new)
-        for uid in list(self.unschedulable):
+        for uid in list(self.unschedulable.non_gated):
             qpi = self.unschedulable[uid]
             if self._events_relevant(qpi, [ev]):
                 del self.unschedulable[uid]
@@ -407,3 +477,13 @@ class PriorityQueue:
                 return
             self.backoff_q.pop()
             self.active_q.push(qpi)
+
+    def flush_unschedulable_left_over(self) -> None:
+        """flushUnschedulablePodsLeftover: entities parked longer than
+        MAX_IN_UNSCHEDULABLE move on; gated pods stay."""
+        now = self.now()
+        for uid in list(self.unschedulable):
+            qpi = self.unschedulable[uid]
+            if not qpi.gated and now - qpi.timestamp > MAX_IN_UNSCHEDULABLE:
+                del self.unschedulable[uid]
+                self._move_to_active_or_backoff(qpi)

@@ -2,8 +2,12 @@
 pkg/scheduler/apis/config/v1/default_plugins.go:32-60, in the reference's
 order (filter order decides which plugin a node's failure is charged to)
 and with its weights (TaintToleration 3, NodeAffinity 2, NodeResourcesFit 1,
-PodTopologySpread 2, InterPodAffinity 2, NodeResourcesBalancedAllocation 1),
-and DefaultPreemption as the PostFilter (and PodGroupPostFilter).
+PodTopologySpread 2, InterPodAffinity 2, NodeResourcesBalancedAllocation 1,
+ImageLocality 1), DefaultPreemption as the PostFilter (and
+PodGroupPostFilter), SchedulingGates as the PreEnqueue gate, and
+NodeDeclaredFeatures last: the JAX package adds it while its feature gate
+is on, which is the default (core/registry.py:119-133 there); the port has
+no feature gates and always adds it.
 `gang_placement_profile` adds the pod-group plugins the reference gates
 behind GenericWorkload (the JAX package's GANG_PLACEMENT_PLUGINS,
 core/registry.py:141-153): GangScheduling (the Permit barrier and the
@@ -17,12 +21,16 @@ from __future__ import annotations
 
 from ..plugins.basic import (
     DefaultBinder,
+    ImageLocality,
     NodeAffinity,
     NodeName,
+    NodePorts,
     NodeUnschedulable,
     PrioritySort,
+    SchedulingGates,
     TaintToleration,
 )
+from ..plugins.extras import NodeDeclaredFeatures
 from ..plugins.gang import GangScheduling
 from ..plugins.interpodaffinity import InterPodAffinity
 from ..plugins.noderesources import BalancedAllocation, Fit
@@ -38,18 +46,21 @@ def default_profile(handle, profile_name: str = "default-scheduler",
     extra = [(GangScheduling(handle), 0), (TopologyPlacementGenerator(handle), 0),
              (PodGroupPodsCount(handle), 1)] if gang_placement else []
     fw = Framework(profile_name=profile_name, plugins=[
+        (SchedulingGates(), 0),
         (PrioritySort(), 0),
         (NodeName(), 0),
         (NodeUnschedulable(), 0),
         (TaintToleration(), 3),
         (NodeAffinity(), 2),
+        (NodePorts(), 0),
         (Fit(), 1),
         (PodTopologySpread(handle), 2),
         (InterPodAffinity(handle), 2),
         (preemption, 0),
         (BalancedAllocation(), 1),
+        (ImageLocality(handle), 1),
         (DefaultBinder(handle.clientset), 0),
-    ] + extra)
+    ] + extra + [(NodeDeclaredFeatures(), 0)])
     preemption.set_framework(fw)
     return fw
 

@@ -313,9 +313,11 @@ class Scheduler:
 
     def _on_node_event(self, kind: str, old, new) -> None:
         if (kind == "update" and old is not None and old.name == new.name
-                and old.labels == new.labels and old.images == new.images):
+                and old.labels == new.labels and old.images == new.images
+                and old.declared_features == new.declared_features):
             # Taints, allocatable or the unschedulable flag only: one row's
-            # non-feature tensors, delta-patchable by a live session.
+            # non-feature tensors, delta-patchable by a live session (labels,
+            # images and declared features feed the plan's static tables).
             self._record_event(EV_NODE_UPDATE, new.name,
                                shrink=self._node_shrink_only(old, new))
         elif kind == "update":

@@ -1,44 +1,28 @@
 """The port's scope guard: the port knows only the plugins in
 core/registry.py, so an object that needs anything else is refused with
 NotImplementedError naming the feature — never scheduled while ignoring a
-constraint. Called by FakeClientset on every pod, node and pod-group write and by the
-queue on admission.
+constraint. Called by FakeClientset on every pod and pod-group write and by
+the queue on admission.
 
 In scope: resources, taints and tolerations (PreferNoSchedule included),
-node selectors and node affinity (required and preferred), topology spread
-and pod (anti-)affinity, pod priority with DefaultPreemption, and pod
-groups (gangs, with or without a topology constraint, and pod-group
-preemption). Composite pod-group trees are not, nor is a pod that requires
-declared node features (`features.k8s.io/required`): the port has no
-NodeDeclaredFeatures filter, and a pod ignoring it would bind a node that
-lacks the feature."""
+node selectors and node affinity (required and preferred), host ports
+(NodePorts), scheduling gates, required declared node features
+(NodeDeclaredFeatures), node images (ImageLocality), topology spread and
+pod (anti-)affinity, pod priority with DefaultPreemption, and pod groups
+(gangs, with or without a topology constraint, and pod-group preemption).
+Not in scope: volumes, resource claims and composite pod-group trees."""
 
 from __future__ import annotations
 
-from ..api.types import Node, Pod, PodGroup
-
-REQUIRED_FEATURES_ANNOTATION = "features.k8s.io/required"
+from ..api.types import Pod, PodGroup
 
 
 def pod_unsupported(pod: Pod) -> str:
     """The first out-of-scope feature `pod` uses, or "" when it is in scope."""
-    if pod.host_ports():
-        return "host ports"
     if pod.volumes:
         return "volumes/PVCs"
     if pod.resource_claims:
         return "resource claims"
-    if pod.scheduling_gates:
-        return "scheduling gates"
-    if any(f.strip() for f in pod.annotations.get(REQUIRED_FEATURES_ANNOTATION, "").split(",")):
-        return "required node features (NodeDeclaredFeatures)"
-    return ""
-
-
-def node_unsupported(node: Node) -> str:
-    """The first out-of-scope feature `node` uses, or "" when it is in scope."""
-    if node.images:
-        return "node images (ImageLocality)"
     return ""
 
 
@@ -47,14 +31,6 @@ def check_pod(pod: Pod) -> None:
     if reason:
         raise NotImplementedError(
             f"pod {pod.namespace}/{pod.name}: {reason} is outside what "
-            "kubernetes_tpu_torch covers")
-
-
-def check_node(node: Node) -> None:
-    reason = node_unsupported(node)
-    if reason:
-        raise NotImplementedError(
-            f"node {node.name}: {reason} is outside what "
             "kubernetes_tpu_torch covers")
 
 

@@ -18,6 +18,13 @@
 // With a nominated-pod lane (nom_req non-null) every evaluation counts the
 // row's nominated pods against the fit filter (:840, :919).
 //
+// A plan whose pods request host ports (port_selfblock) passes the carry's
+// `blocked` lane (non-null): a blocked row is infeasible, read once a lap
+// before the prefix sum (:843-844), and each landing blocks its row after
+// the landings are applied (:887-888). No two windows of a lap share a row,
+// so a lap's own landings never block a window of the same lap; the dump
+// lane LAP_MAX never lands and never blocks.
+//
 // Required anti-affinity on a singleton-per-node axis (hostname) rides the
 // lap too (:818-820, :847-849, :891-899): a row is infeasible while its own
 // value's count in anti_counts [A1, V] is positive, and each landing adds
@@ -36,7 +43,8 @@ __global__ void __launch_bounds__(KTT_BLOCK) lap_schedule_kernel(
     ResFeat f, const int64_t* __restrict__ alloc_r, const int64_t* __restrict__ alloc_pods,
     int64_t* req_r, int64_t* nonzero, int32_t* pod_count,
     const int64_t* __restrict__ nom_req, const int32_t* __restrict__ nom_pods,
-    const uint8_t* __restrict__ static_ok, const int64_t* __restrict__ il_score,
+    uint8_t* blocked, const uint8_t* __restrict__ static_ok,
+    const int64_t* __restrict__ il_score,
     const int64_t* __restrict__ weights, const int32_t* __restrict__ num_nodes_p,
     const int32_t* __restrict__ to_find_p, const int32_t* __restrict__ start_p,
     int NP, int B, int n_act, int A1, int V, const int32_t* __restrict__ topo,
@@ -72,7 +80,7 @@ __global__ void __launch_bounds__(KTT_BLOCK) lap_schedule_kernel(
                         nonzero + 2 * (int64_t)i, pod_count[i],
                         nom_req ? nom_req + (int64_t)i * f.R : nullptr,
                         nom_req ? nom_pods[i] : 0, ok, sc, ba);
-      bool okd = static_ok[i] && ok && i < num;
+      bool okd = static_ok[i] && ok && i < num && !(blocked && blocked[i]);
       for (int c = 0; c < A1 && okd; ++c) {
         const int v = topo[(int64_t)anti_axis[c] * NP + i];
         if (v > 0 && anti_counts[(int64_t)c * V + v] > 0) okd = false;
@@ -129,6 +137,7 @@ __global__ void __launch_bounds__(KTT_BLOCK) lap_schedule_kernel(
         nonzero[2 * (int64_t)row] += f.nz_request[0];
         nonzero[2 * (int64_t)row + 1] += f.nz_request[1];
         pod_count[row] += 1;
+        if (blocked) blocked[row] = 1;
         for (int c = 0; c < A1; ++c) {
           const int v = topo[(int64_t)anti_axis[c] * NP + row];
           if (v > 0) atomicAdd(&anti_counts[(int64_t)c * V + v], anti_self[c]);
@@ -161,7 +170,7 @@ extern "C" int launch_lap_schedule(
     const int32_t* enable, const int32_t* fit_slots, const int64_t* fit_weights,
     const int64_t* alloc_r, const int64_t* alloc_pods, int64_t* req_r, int64_t* nonzero,
     int32_t* pod_count, OPTIONAL const int64_t* nom_req, OPTIONAL const int32_t* nom_pods,
-    const bool* static_ok, const int64_t* il_score,
+    OPTIONAL bool* blocked, const bool* static_ok, const int64_t* il_score,
     const int64_t* weights, const int32_t* num_nodes, const int32_t* to_find,
     const int32_t* start, const int32_t* topo, const int32_t* anti_axis,
     const int32_t* anti_self, int32_t* anti_counts, uint8_t* okd_s, int32_t* F_s,
@@ -171,7 +180,7 @@ extern "C" int launch_lap_schedule(
             R, FR, fit_strategy};
   lap_schedule_kernel<<<1, KTT_BLOCK, 0, stream>>>(
       f, alloc_r, alloc_pods, req_r, nonzero, pod_count, nom_req, nom_pods,
-      (const uint8_t*)static_ok,
+      (uint8_t*)blocked, (const uint8_t*)static_ok,
       il_score, weights, num_nodes, to_find, start, NP, B, n_act, A1, V, topo, anti_axis,
       anti_self, anti_counts, okd_s, F_s, total_s, out, (uint8_t*)fit_ok, fit_sc, ba,
       start_out);

@@ -27,6 +27,7 @@ struct GenPlan {
   int32_t* pod_count;
   const int64_t* nom_req;  // the nominated-pod lane, or null
   const int32_t* nom_pods;
+  uint8_t* blocked;        // the blocked lane of a host-port plan, or null
   uint8_t* fit_ok;
   int64_t* fit_sc;
   int64_t* ba;
@@ -79,6 +80,7 @@ __device__ __forceinline__ int gvid(const GenPlan& p, const int32_t* axis, int c
 static __device__ bool gen_feasible(const GenPlan& p, int i, int num, const int* s_min,
                              long long aff_total) {
   if (!(p.static_ok[i] && p.fit_ok[i] && i < num)) return false;
+  if (p.blocked && p.blocked[i]) return false;
   for (int c = 0; c < p.C1; ++c) {
     if (p.dns_active[c] != 1) continue;
     const int v = gvid(p, p.dns_axis, c, i);
@@ -342,8 +344,9 @@ static __device__ void gen_scan(const ResFeat& f, const GenPlan& p, int num, int
           const int v = gvid(p, p.ipa_axis, k, row);
           if (v > 0) p.ipa_delta[(int64_t)k * p.V + v] += p.ipa_wland[k];
         }
+        if (p.blocked) p.blocked[row] = 1;
         if (p.incremental) {
-          bool new_ok = p.static_ok[row] && ok && row < num;
+          bool new_ok = p.static_ok[row] && ok && row < num && !(p.blocked && p.blocked[row]);
           for (int c = 0; c < p.A1; ++c) {
             const int v = gvid(p, p.anti_axis, c, row);
             if (v > 0 && p.anti_counts[(int64_t)c * p.V + v] > 0) new_ok = false;

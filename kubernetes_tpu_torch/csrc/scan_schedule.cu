@@ -14,6 +14,10 @@
 // Padded steps (t >= n_active) land nothing and keep `start` (:348, :506).
 // With a nominated-pod lane (nom_req non-null) the landed row's
 // re-evaluation counts its nominated pods against the fit filter (:448).
+// With the blocked lane of a host-port plan (blocked non-null) a blocked row
+// is infeasible in the seed and a landing blocks its row (:485-486,
+// :495-496), so the landed row's verdict turns false and the prefix-sum
+// tail shifts by the delta.
 //
 // Bound: a dependent sequence of steps, each a pass over the node rows
 // (~13 B per row from L2) and two block reductions; single block for the
@@ -23,7 +27,8 @@
 __global__ void __launch_bounds__(KTT_BLOCK) scan_schedule_kernel(
     ResFeat f, const int64_t* __restrict__ alloc_r, const int64_t* __restrict__ alloc_pods,
     int64_t* req_r, int64_t* nonzero, int32_t* pod_count,
-    const int64_t* __restrict__ nom_req, const int32_t* __restrict__ nom_pods, uint8_t* fit_ok,
+    const int64_t* __restrict__ nom_req, const int32_t* __restrict__ nom_pods,
+    uint8_t* blocked, uint8_t* fit_ok,
     int64_t* fit_sc, int64_t* ba, const uint8_t* __restrict__ static_ok,
     const int64_t* __restrict__ il_score, const int64_t* __restrict__ weights,
     const int32_t* __restrict__ num_nodes_p, const int32_t* __restrict__ to_find_p,
@@ -42,7 +47,7 @@ __global__ void __launch_bounds__(KTT_BLOCK) scan_schedule_kernel(
   // okd / F / carried total seeds
   int cnt = 0;
   for (int i = lo; i < hi; ++i) {
-    const bool okd = static_ok[i] && fit_ok[i] && i < num;
+    const bool okd = static_ok[i] && fit_ok[i] && i < num && !(blocked && blocked[i]);
     okd_s[i] = okd;
     total_s[i] = w_tt * MAX_NODE_SCORE + w_fit * fit_sc[i] + w_ba * ba[i] + w_il * il_score[i];
     cnt += okd;
@@ -84,6 +89,7 @@ __global__ void __launch_bounds__(KTT_BLOCK) scan_schedule_kernel(
         nonzero[2 * (int64_t)row] += f.nz_request[0];
         nonzero[2 * (int64_t)row + 1] += f.nz_request[1];
         pod_count[row] += 1;
+        if (blocked) blocked[row] = 1;
       }
       bool ok;
       int64_t sc, b;
@@ -94,7 +100,7 @@ __global__ void __launch_bounds__(KTT_BLOCK) scan_schedule_kernel(
       fit_ok[row] = ok;
       fit_sc[row] = sc;
       ba[row] = b;
-      const bool new_ok = static_ok[row] && ok && row < num;
+      const bool new_ok = static_ok[row] && ok && row < num && !(blocked && blocked[row]);
       s_delta = (int)new_ok - (int)okd_s[row];
       okd_s[row] = new_ok;
       s_row = row;
@@ -120,14 +126,15 @@ extern "C" int launch_scan_schedule(
     const int32_t* enable, const int32_t* fit_slots, const int64_t* fit_weights,
     const int64_t* alloc_r, const int64_t* alloc_pods, int64_t* req_r, int64_t* nonzero,
     int32_t* pod_count, OPTIONAL const int64_t* nom_req, OPTIONAL const int32_t* nom_pods,
-    bool* fit_ok, int64_t* fit_sc, int64_t* ba, const bool* static_ok,
+    OPTIONAL bool* blocked, bool* fit_ok, int64_t* fit_sc, int64_t* ba, const bool* static_ok,
     const int64_t* il_score, const int64_t* weights, const int32_t* num_nodes,
     const int32_t* to_find, const int32_t* start, uint8_t* okd_s, int32_t* F_s,
     int64_t* total_s, int32_t* out, int32_t* start_out, cudaStream_t stream) {
   ResFeat f{request, nz_request, has_request, ba_skip, enable, fit_slots, fit_weights,
             R, FR, fit_strategy};
   scan_schedule_kernel<<<1, KTT_BLOCK, 0, stream>>>(
-      f, alloc_r, alloc_pods, req_r, nonzero, pod_count, nom_req, nom_pods, (uint8_t*)fit_ok,
+      f, alloc_r, alloc_pods, req_r, nonzero, pod_count, nom_req, nom_pods, (uint8_t*)blocked,
+      (uint8_t*)fit_ok,
       fit_sc, ba,
       (const uint8_t*)static_ok, il_score, weights, num_nodes, to_find, start, NP, B, n_act,
       okd_s, F_s, total_s, out, start_out);

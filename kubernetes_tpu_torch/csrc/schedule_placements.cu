@@ -15,7 +15,9 @@
 // writes its lane's copy of the fresh carry into its own slice of the
 // scratch: the node aggregates, each row's fit verdict and scores through
 // resource_eval_row (the nominated-pod lane where the plan has one), its
-// static mask, and its spread tables; then it runs gen_scan
+// static mask, its spread tables and, for a plan whose members request host
+// ports (blocked_s non-null), its blocked lane, empty as in a fresh carry,
+// which only its own members' landings set; then it runs gen_scan
 // (scan_general.cuh), the step scan_general runs, on that slice, and
 // writes results[p] ([2, B]: chosen row or -1, start after). A lane reads
 // only the shared inputs and writes only its own slice, so lanes never
@@ -44,6 +46,7 @@ struct LaneScratch {
   int64_t* total;       // [P, NP]
   int32_t* dns_counts;  // [P, C1, V]
   int32_t* sa_counts;   // [P, C2, V]
+  uint8_t* blocked;     // [P, NP], or null: no host ports
 };
 
 // The lane tables' sources: [C, V] / [C] shared by every lane, or
@@ -80,6 +83,7 @@ __global__ void __launch_bounds__(GEN_BLOCK) schedule_placements_kernel(
   p.out = base.out + lane * 2 * base.B;
   p.dns_counts = s.dns_counts + lane * C1 * V;
   p.sa_counts = s.sa_counts + lane * C2 * V;
+  p.blocked = s.blocked ? s.blocked + row0 : nullptr;
   const int64_t t1 = tab.per_lane ? lane * C1 * V : 0, t2 = tab.per_lane ? lane * C2 * V : 0;
   p.dns_dom = tab.dns_dom + t1;
   p.dns_forced0 = tab.dns_forced0 + (tab.per_lane ? lane * C1 : 0);
@@ -104,6 +108,7 @@ __global__ void __launch_bounds__(GEN_BLOCK) schedule_placements_kernel(
     p.fit_sc[i] = sc;
     p.ba[i] = b;
     lane_ok[i] = static_ok[i] && mask[i];
+    if (p.blocked) p.blocked[i] = 0;
   }
   for (int64_t k = tid; k < (int64_t)C1 * V; k += nt) p.dns_counts[k] = tab.dns_counts[t1 + k];
   for (int64_t k = tid; k < (int64_t)C2 * V; k += nt) p.sa_counts[k] = tab.sa_counts[t2 + k];
@@ -131,7 +136,7 @@ extern "C" int launch_schedule_placements(
     const int32_t* sa_counts, int64_t* req_r_s, int64_t* nonzero_s, int32_t* pod_count_s,
     bool* fit_ok_s, int64_t* fit_sc_s, int64_t* ba_s, bool* static_ok_s, uint8_t* okd_s,
     int32_t* F_s, int64_t* total_s, int32_t* dns_counts_s, int32_t* sa_counts_s,
-    int32_t* out, cudaStream_t stream) {
+    OPTIONAL bool* blocked_s, int32_t* out, cudaStream_t stream) {
   if (NP <= 0 || P <= 0 || C1 > GEN_MAXC || C2 > GEN_MAXC) return (int)cudaErrorInvalidValue;
   ResFeat f{request, nz_request, has_request, ba_skip, enable, fit_slots, fit_weights,
             R, FR, fit_strategy};
@@ -174,7 +179,8 @@ extern "C" int launch_schedule_placements(
   p.sa_self = sa_self;
   p.out = out;
   LaneScratch s{req_r_s, nonzero_s, pod_count_s, (uint8_t*)fit_ok_s, fit_sc_s, ba_s,
-                (uint8_t*)static_ok_s, okd_s, F_s, total_s, dns_counts_s, sa_counts_s};
+                (uint8_t*)static_ok_s, okd_s, F_s, total_s, dns_counts_s, sa_counts_s,
+                (uint8_t*)blocked_s};
   LaneTables tab{per_lane, dns_counts, (const uint8_t*)dns_dom, dns_forced0, sa_counts, sa_wq};
   schedule_placements_kernel<<<P, GEN_BLOCK, 0, stream>>>(
       f, p, s, tab, (const uint8_t*)static_ok, (const uint8_t*)masks, num_nodes);

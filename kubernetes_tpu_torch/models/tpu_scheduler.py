@@ -66,10 +66,11 @@ one schedule_placements launch (_evaluate_placements); PlacementFeasible,
 the PlacementScore plugins and the commit stay on the host.
 
 Pods the kernels do not cover (matchFields narrowing, a nominated node's
-fast path, spread or affinity pods while pods are nominated) and pods a
-session hands back take the host path in core/scheduler.py, which produces
-the same assignments; so does the dry run of a preemptor with spread or
-affinity terms, in a cluster with anti-affinity pods, or with more than
+fast path, spread, affinity or host-port pods while pods are nominated) and
+pods a session hands back take the host path in core/scheduler.py, which
+produces the same assignments; so does the dry run of a preemptor with
+spread or affinity terms or host ports, in a cluster with anti-affinity
+pods, or with more than
 PREEMPT_K_CAP victims on a node; so do groups whose members differ or are
 not covered, groups while pods are nominated, placement groups whose plan
 carries inter-pod-affinity tables, and pod-group preemption.
@@ -198,8 +199,8 @@ class TorchScheduler(Scheduler):
         self.placement_device_evals = 0
         self.placement_eval_s = 0.0
         # Across group cycles: the placement plan (keyed on the cluster-event
-        # version; spread-carrying plans are not kept) and the candidates'
-        # row masks on the device.
+        # version; spread-carrying and port-aware plans are not kept) and
+        # the candidates' row masks on the device.
         self._placement_plan_cache = None
         self._placement_mask_cache = None
         self.resume = resume
@@ -361,12 +362,14 @@ class TorchScheduler(Scheduler):
         resource arithmetic and the batch's static masks. The nominated lane
         and the dry-run kernel model other pods (a nomination counted in, a
         victim removed) as request and count deltas, exact only for pods
-        without these."""
+        without these: a victim removed can also free a host port."""
         if pod.topology_spread_constraints:
             return "spread constraints"
         aff = pod.affinity
         if aff is not None and (aff.pod_affinity or aff.pod_anti_affinity):
             return "pod affinity"
+        if pod.host_ports():
+            return "host ports"
         return None
 
     def _nominated_lane(self, pod) -> Optional[list]:
@@ -402,11 +405,13 @@ class TorchScheduler(Scheduler):
         self.cache.update_snapshot(self.snapshot)
         self.mirror.sync(self.snapshot.node_info_list)
         ipa = fw.plugin("InterPodAffinity")
+        names = {p.name for p in fw.filter_plugins}
         plan = build_batch(
             pod, batch_size, self.mirror, self.snapshot, self.cache.namespace_labels,
             percentage_of_nodes_to_score=self.percentage_of_nodes_to_score,
             start_index=self.next_start_node_index,
             weights=self._profile_weights(fw), filters_on=self._profile_filters(fw),
+            extra_filters={n: n in names for n in ("NodePorts", "NodeDeclaredFeatures")},
             hard_pod_affinity_weight=ipa.hard_pod_affinity_weight,
             ignore_preferred_terms_of_existing_pods=ipa.ignore_preferred_terms_of_existing_pods,
             fit_plugin=fw.plugin("NodeResourcesFit"), nominated=self._nominated_lane(pod))
@@ -486,10 +491,10 @@ class TorchScheduler(Scheduler):
             if ev.kind in (EV_POD_ADD, EV_POD_REMOVE, EV_POD_UPDATE):
                 # pod_local: a pod on node n dirties only row n's aggregates;
                 # pod_plain: it brings no term a feature table would count.
-                # (The JAX package also refuses pod_ports events under a
-                # plan that blocks host ports; the port has no such plan.)
                 if not (plan.pod_local and ev.pod_plain):
                     return None
+                if ev.pod_ports and plan.facts.port_selfblock:
+                    return None  # the ports in use moved under a port-aware plan
             elif ev.kind == EV_NODE_UPDATE:
                 if not plan.pod_local:
                     return None  # the spread tables' Honor policies read taints
@@ -1046,9 +1051,11 @@ class TorchScheduler(Scheduler):
                 state, plan = self.build_plan(fw, p0, len(members))
                 host = not self._placement_plan_restriction_invariant(plan)
                 # Spread-carrying plans are not kept: their per-node match
-                # counts move with every commit of a matching pod.
-                keep = (not host and plan.dns_node_counts is None
-                        and plan.sa_node_counts is None)
+                # counts move with every commit of a matching pod; nor are
+                # port-aware ones: their extra_ok moves with every commit
+                # of a member that holds the ports.
+                keep = (not host and not plan.facts.port_selfblock
+                        and plan.dns_node_counts is None and plan.sa_node_counts is None)
                 self._placement_plan_cache = ((id(fw), sig, len(members), self.cluster_event_seq,
                                                self.mirror.np_cap), plan) if keep else None
         if host:
@@ -1135,8 +1142,8 @@ class TorchScheduler(Scheduler):
         loop (preemption.go:425). Returns the candidates in rotation order
         from `start`, at most `num_candidates`, skipping the nodes whose
         rejection no eviction resolves; or None where the exact host dry
-        run decides by rule: a preemptor with spread or affinity terms, a
-        cluster with anti-affinity pods (a victim's removal could lift
+        run decides by rule: a preemptor with spread or affinity terms or
+        host ports, a cluster with anti-affinity pods (a victim's removal could lift
         them), a pod the kernels do not cover, no lower-priority pod at all,
         or a node with more than PREEMPT_K_CAP of them. A kernel that fails
         raises."""

@@ -20,10 +20,16 @@ the batch pod's: pass one of the two-pass filter, for resources only. It is
 zero-length when no such pod exists. `build_preemption_victims` builds the
 preemption dry run's victim tensors.
 
+`extra_ok` folds in the static filters of NodeDeclaredFeatures (the pod's
+required features) and NodePorts (conflicts with the host ports of the pods
+already on a node); `il_score` is ImageLocality's static score. A pod with
+host ports always conflicts with an identical pod, so its plan carries
+`port_selfblock`: a landing blocks its row for the rest of the session (the
+kernels' `blocked` lane).
+
 `BatchFeatures` keeps every field of the JAX package's BatchFeatures, in its
-order and dtypes, so the two can be fed identical inputs. Lanes the port
-never fills (images, host ports, counted claims) are zero vectors or
-zero-length tables.
+order and dtypes, so the two can be fed identical inputs. The lanes the
+port never fills (counted claims: `aux_room`, `aux_inc`) are inert.
 """
 
 from __future__ import annotations
@@ -47,7 +53,8 @@ from ..api.types import (
 from ..core.framework import Diagnosis, Status
 from ..core.node_info import NodeInfo, PodInfo
 from ..core.scheduler import num_feasible_nodes_to_find
-from ..plugins.basic import UNSCHED_TAINT
+from ..plugins.basic import UNSCHED_TAINT, ImageLocality, host_ports_conflict
+from ..plugins.extras import required_features
 from ..plugins.helpers import compile_terms
 from ..plugins.podtopologyspread import _compile_constraints, _count_pods_matching
 from .codebook import EFFECT_IDS, EFFECT_PREFER_NO_SCHEDULE, OP_EQUAL, OP_EXISTS
@@ -81,9 +88,9 @@ class BatchFeatures(NamedTuple):
     node_name_id: torch.Tensor     # i32 (0 = unset)
     tolerates_unsched: torch.Tensor  # i32
     sel_match: torch.Tensor        # [NP] bool node selector + required affinity
-    extra_ok: torch.Tensor         # [NP] bool (all true in the port)
+    extra_ok: torch.Tensor         # [NP] bool NodeDeclaredFeatures and NodePorts
     # static score inputs
-    il_score: torch.Tensor         # [NP] i64 ImageLocality (zero in the port)
+    il_score: torch.Tensor         # [NP] i64 ImageLocality
     na_raw: torch.Tensor           # [NP] i64 preferred-node-affinity raw sum
     # PodTopologySpread DoNotSchedule
     dns_axis: torch.Tensor         # [C1] i32 axis row in state.topo
@@ -162,6 +169,10 @@ class PlanFacts(NamedTuple):
     # axis (kubernetes.io/hostname-like): a landing blocks only its own row.
     anti_rowlocal: bool = False
     has_na_pref: bool = False     # the pod has preferred node-affinity terms
+    # The pod requests host ports: a landing occupies them, so the landed
+    # row blocks itself for the rest of the session (identical pods always
+    # conflict with each other's ports). Row-local: the lap stays exact.
+    port_selfblock: bool = False
 
 
 @dataclass
@@ -230,14 +241,17 @@ def _batch_tier(n: int) -> int:
 
 def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
                 ns_labels_fn=None, *, percentage_of_nodes_to_score: int = 0,
-                start_index: int = 0, weights: Tuple[int, ...] = (3, 1, 2, 2, 1, 2, 0),
+                start_index: int = 0, weights: Tuple[int, ...] = (3, 1, 2, 2, 1, 2, 1),
                 filters_on: Tuple[bool, ...] = (True, True, True, True, True),
+                extra_filters: Optional[Dict[str, bool]] = None,
                 hard_pod_affinity_weight: int = 1,
                 ignore_preferred_terms_of_existing_pods: bool = False,
                 fit_plugin=None, nominated=None) -> BatchPlan:
     """Build kernel inputs for a batch of `batch_size` pods identical to
     `pod`. `mirror` must already be synced to `snapshot`; `ns_labels_fn(ns)`
     gives a namespace's labels for namespaceSelector matching.
+    `extra_filters`: {"NodePorts": on, "NodeDeclaredFeatures": on}, the
+    profile's filter set (a name left out counts as on).
     `nominated`: [(snapshot row, PodInfo)] of the nominated pods whose
     priority is at least `pod`'s (the caller filters them, and sends pods
     that a nominated pod could affect beyond resources to the host)."""
@@ -314,6 +328,28 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
                      for ni in nodes]
     sel_match = np.zeros(npc, bool)
     sel_match[:n] = sel_host
+
+    # -- NodeDeclaredFeatures and NodePorts: static per-row filters --------
+    extra = extra_filters or {}
+    extra_ok = np.ones(npc, bool)
+    feats_req = required_features(pod)
+    if feats_req and extra.get("NodeDeclaredFeatures", True):
+        for r_i, ni in enumerate(nodes):
+            declared = ni.node.declared_features if ni.node else {}
+            extra_ok[r_i] &= all(declared.get(ft, False) for ft in feats_req)
+    ports = pod.host_ports()
+    port_selfblock = bool(ports) and extra.get("NodePorts", True)
+    if port_selfblock:
+        for r_i, ni in enumerate(nodes):
+            if host_ports_conflict(ports, ni.used_ports):
+                extra_ok[r_i] = False
+
+    # -- ImageLocality static score (imagelocality.go scaledImageScore) ----
+    il_score = np.zeros(npc, i64)
+    if weights[6] and any(c.image for c in pod.containers):
+        for r_i, ni in enumerate(nodes):
+            il_score[r_i] = ImageLocality.scaled_score(pod, ni, snapshot.image_num_nodes,
+                                                       max(1, n))
 
     fr = _pow2(len(specs))
     fit_slots = np.zeros(fr, i32)
@@ -553,8 +589,7 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
         tolerates_unsched=np.array(
             1 if any(t.tolerates(UNSCHED_TAINT) for t in tols) else 0, i32),
         sel_match=sel_match,
-        extra_ok=np.ones(npc, bool),
-        il_score=np.zeros(npc, i64), na_raw=na_raw,
+        extra_ok=extra_ok, il_score=il_score, na_raw=na_raw,
         dns_axis=dns_axis, dns_active=dns_active, dns_max_skew=dns_max_skew,
         dns_self=dns_self, dns_forced0=dns_forced0, dns_honor_aff=dns_honor_aff,
         dns_honor_taints=dns_honor_taints, dns_counts=dns_counts, dns_dom=dns_dom,
@@ -580,7 +615,8 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
         vmax=vmax,
         facts=PlanFacts(
             has_pns=bool((mirror.h_taint_eff[:n] == EFFECT_PREFER_NO_SCHEDULE).any()),
-            has_ipa_base=has_ipa_base, anti_rowlocal=anti_rowlocal, has_na_pref=has_na_pref),
+            has_ipa_base=has_ipa_base, anti_rowlocal=anti_rowlocal, has_na_pref=has_na_pref,
+            port_selfblock=port_selfblock),
         pod_local=bool(c1 == 0 and c2 == 0 and a1 == 0 and a2 == 0 and kd == 0
                        and not has_ipa_base and not (exist_anti != 0).any()),
         dns_node_counts=dns_node_counts, dns_node_elig=dns_node_elig,
@@ -665,6 +701,12 @@ def diagnose_unschedulable(pod: Pod, mirror: NodeStateMirror, snapshot, fw) -> O
                        np.array([not pod.required_node_selector_matches(ni.node)
                                  for ni in nodes]),
                        "node(s) didn't match Pod's node affinity/selector"))
+    ports = pod.host_ports()
+    if "NodePorts" in names and ports:
+        # Resolvable: a preemption can free a port.
+        checks.append(("NodePorts", False,
+                       np.array([host_ports_conflict(ports, ni.used_ports) for ni in nodes]),
+                       "node(s) didn't have free ports for the requested pod ports"))
     if "NodeResourcesFit" in names:
         req_vec = _resource_vec(mirror, pod.resource_request())
         alloc = mirror.h_alloc_r[:n]
@@ -677,6 +719,12 @@ def diagnose_unschedulable(pod: Pod, mirror: NodeStateMirror, snapshot, fw) -> O
                        "Insufficient resources (request exceeds allocatable)"))
         checks.append(("NodeResourcesFit", False, insufficient.any(axis=1) | pods_full,
                        "Insufficient resources"))
+    feats_req = required_features(pod)
+    if "NodeDeclaredFeatures" in names and feats_req:
+        checks.append(("NodeDeclaredFeatures", False, np.array([
+            not all((ni.node.declared_features if ni.node else {}).get(ft, False)
+                    for ft in feats_req) for ni in nodes]),
+            "node(s) didn't declare required features"))
     if not checks:
         return None
     fail_stack = np.stack([c[2] for c in checks])          # [C, n]

@@ -1,6 +1,7 @@
 """The in-tree plugins of the port besides the resource and topology ones:
-NodeName, NodeUnschedulable, TaintToleration, NodeAffinity (required and
-preferred terms, nodeSelector), PrioritySort and DefaultBinder.
+NodeName, NodeUnschedulable, NodePorts, SchedulingGates, TaintToleration,
+NodeAffinity (required and preferred terms, nodeSelector), ImageLocality,
+PrioritySort and DefaultBinder.
 
 Each class mirrors one reference plugin package under
 pkg/scheduler/framework/plugins/. Methods follow the duck-typed
@@ -64,6 +65,62 @@ class NodeUnschedulable:
 
 
 UNSCHED_TAINT = Taint(key=NodeUnschedulable.TAINT_KEY, effect=NO_SCHEDULE)
+
+
+def host_ports_conflict(ports, used_ports) -> bool:
+    """nodeports.go Fits → fitsPorts, with the 0.0.0.0 wildcard: a pod port
+    conflicts with a used (protocol, host_ip, port) of the same port and
+    protocol when either address is the wildcard or both are equal. The
+    host filter and the device path's static per-row mask
+    (ops/features.py) both call it."""
+    for p in ports:
+        for (proto, ip, port) in used_ports:
+            if port != p.host_port or proto != p.protocol:
+                continue
+            if ip in ("", "0.0.0.0") or p.host_ip in ("", "0.0.0.0") or ip == p.host_ip:
+                return True
+    return False
+
+
+class NodePorts:
+    """plugins/nodeports: reject nodes where a pod already holds one of the
+    pod's host ports."""
+
+    name = "NodePorts"
+    _KEY = "PreFilterNodePorts"
+
+    def pre_filter(self, state: CycleState, pod: Pod,
+                   nodes) -> Tuple[Optional[PreFilterResult], Status]:
+        ports = pod.host_ports()
+        if not ports:
+            return None, Status.skip()
+        state.write(self._KEY, ports)
+        return None, OK
+
+    def filter(self, state: CycleState, pod: Pod, node_info: NodeInfo) -> Status:
+        ports = state.read(self._KEY)
+        if ports is None:
+            ports = pod.host_ports()
+        if host_ports_conflict(ports, node_info.used_ports):
+            return Status.unschedulable("node(s) didn't have free ports for the requested pod ports")
+        return OK
+
+    def sign(self, pod: Pod):
+        return tuple(sorted((p.protocol, p.host_ip, p.host_port) for p in pod.host_ports()))
+
+
+class SchedulingGates:
+    """plugins/schedulinggates: the PreEnqueue gate on spec.schedulingGates
+    (a gated pod waits in the queue's unschedulable pool until an update
+    removes its gates)."""
+
+    name = "SchedulingGates"
+
+    def pre_enqueue(self, pod: Pod) -> Status:
+        if pod.scheduling_gates:
+            return Status.unresolvable(
+                "waiting for scheduling gates: " + ",".join(pod.scheduling_gates))
+        return OK
 
 
 class PrioritySort:
@@ -208,3 +265,46 @@ class NodeAffinity:
     def sign(self, pod: Pod):
         na = pod.affinity.node_affinity if pod.affinity else None
         return (tuple(sorted(pod.node_selector.items())), repr(na) if na else "")
+
+
+class ImageLocality:
+    """plugins/imagelocality: score nodes by the bytes of the pod's images
+    they already hold, each discounted by the share of nodes that hold it,
+    scaled between 23Mi and 1000Mi a container (imagelocality.go
+    scaledImageScore)."""
+
+    name = "ImageLocality"
+    MIN_THRESHOLD = 23 * 1024 * 1024
+    MAX_CONTAINER_THRESHOLD = 1000 * 1024 * 1024
+
+    def __init__(self, handle):
+        self.handle = handle
+
+    @classmethod
+    def scaled_score(cls, pod: Pod, node_info: NodeInfo, image_nodes: dict,
+                     total_nodes: int) -> int:
+        """The score of one node, for the host plugin and the device path's
+        static score vector (ops/features.py). The spread discount is
+        Python float arithmetic, as in the JAX package: integer arithmetic
+        would round some scores one lower."""
+        sum_scores = 0
+        for c in pod.containers:
+            size = node_info.image_states.get(c.image)
+            if size is None:
+                continue
+            sum_scores += int(size * (image_nodes.get(c.image, 1) / total_nodes))
+        max_threshold = cls.MAX_CONTAINER_THRESHOLD * max(1, len(pod.containers))
+        if sum_scores < cls.MIN_THRESHOLD:
+            return 0
+        if sum_scores > max_threshold:
+            return MAX_NODE_SCORE
+        return int(MAX_NODE_SCORE * (sum_scores - cls.MIN_THRESHOLD)
+                   / (max_threshold - cls.MIN_THRESHOLD))
+
+    def score(self, state: CycleState, pod: Pod, node_info: NodeInfo) -> int:
+        snap = self.handle.snapshot()
+        return self.scaled_score(pod, node_info, snap.image_num_nodes,
+                                 max(1, len(snap.node_info_list)))
+
+    def sign(self, pod: Pod):
+        return tuple(sorted(c.image for c in pod.containers))

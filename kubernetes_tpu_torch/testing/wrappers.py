@@ -158,9 +158,9 @@ class MakePod:
 
     # -- features the scope guard refuses ----------------------------------
 
-    def host_port(self, port: int, protocol: str = "TCP") -> "MakePod":
+    def host_port(self, port: int, protocol: str = "TCP", host_ip: str = "") -> "MakePod":
         c = self._pod.containers[0]
-        c.ports = c.ports + (ContainerPort(host_port=port, protocol=protocol),)
+        c.ports = c.ports + (ContainerPort(host_port=port, protocol=protocol, host_ip=host_ip),)
         return self
 
     def volume(self, pvc_name: str) -> "MakePod":

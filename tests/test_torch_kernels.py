@@ -282,7 +282,11 @@ def test_launcher_signatures_are_read_from_the_sources():
         optional = {p.name for p in sig if p.optional}
         lane = name in ("resource_eval", "lap_schedule", "scan_schedule", "scan_general",
                         "patch_carry_rows", "schedule_placements")
-        assert optional == ({"nom_req", "nom_pods"} if lane else set())
+        # The schedule kernels' blocked lane (host ports) is nullable too.
+        blocked = {"lap_schedule": {"blocked"}, "scan_schedule": {"blocked"},
+                   "scan_general": {"blocked"}, "schedule_placements": {"blocked_s"}}
+        assert optional == ({"nom_req", "nom_pods"} | blocked.get(name, set())
+                            if lane else set())
 
 
 def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches):
@@ -477,7 +481,7 @@ def _not_an_int(ts, tf):
     (_wrong_dtype, TypeError, "enable must be a torch.int32"),
     (_wrong_feature_dtype, TypeError, "fit_weights must be a torch.int64"),
     (_null_pointer, TypeError, "taint_key may not be null"),
-    (_wrong_count, TypeError, "takes 40 arguments"),
+    (_wrong_count, TypeError, "takes 41 arguments"),
     (_wrong_device, ValueError, "request on meta, expected cpu"),
     (_not_an_int, TypeError, "NP must be an int"),
 ], ids=["dtype", "feature-dtype", "null", "count", "device", "int"])

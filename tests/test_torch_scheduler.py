@@ -199,16 +199,16 @@ class TestScope:
         assert port.scheduled > 0 and port.device_scheduled == port.scheduled
 
     @pytest.mark.parametrize("build", [
-        lambda b: b.host_port(8080),
         lambda b: b.volume("claim"),
         lambda b: b.resource_claim("gpu"),
-        lambda b: b.scheduling_gate("wait"),
         lambda b: b.pod_group("gang"),
-    ], ids=["host-ports", "volumes", "claims", "gates", "pod-groups"])
+        lambda b: b.host_port(8080).volume("claim"),
+    ], ids=["volumes", "claims", "pod-groups", "ports-and-volume"])
     def test_out_of_scope_pod_refused(self, build):
         # Pod groups are in scope since the gang slice; a group inside a
         # composite tree (a parent composite group) is not, so the
-        # pod-groups case registers its pod's group as such a leaf.
+        # pod-groups case registers its pod's group as such a leaf. Host
+        # ports are in scope; a volume beside them is not.
         s = TorchScheduler(device="cpu")
         pod = build(make_pod().name("p").req({"cpu": "1"})).obj()
         with pytest.raises(NotImplementedError):
@@ -218,33 +218,51 @@ class TestScope:
         assert not s.clientset.pods and s.queue.pending_counts() == (0, 0, 0)
         assert not s.clientset.pod_groups
 
+    @pytest.mark.parametrize("build,bound", [
+        (lambda b: b.host_port(8080), 3),
+        (lambda b: b.scheduling_gate("wait"), 0),
+    ], ids=["host-ports", "gates"])
+    def test_lifted_refusals_admit_and_schedule_like_jax(self, build, bound):
+        """Host ports and scheduling gates were refused until NodePorts and
+        SchedulingGates were ported: five pods on three nodes bind (one a
+        node, the other two failing NodePorts) or stay gated exactly as in
+        the JAX package, with equal queue counts."""
+        jax_s = TPUScheduler(mesh=None)
+        port = TorchScheduler(device="cpu")
+        for mk, s in ((jax_make_node, jax_s), (make_node, port)):
+            for i in range(3):
+                s.clientset.create_node(mk().name(f"node-{i}").capacity(
+                    {"cpu": 4, "memory": "8Gi", "pods": 110}).obj())
+        for mk, s in ((jax_make_pod, jax_s), (make_pod, port)):
+            for i in range(5):
+                s.clientset.create_pod(build(mk().name(f"p{i}").req({"cpu": "1"})).obj())
+            s.run_until_idle()
+        _assert_same(jax_s, port)
+        assert len(port.clientset.bindings) == bound
+        assert port.queue.pending_counts() == jax_s.queue.pending_counts()
+        assert sum(port.queue.pending_counts()) == 5 - bound
+
     def test_required_node_features_refused(self):
-        """NodeDeclaredFeatures: the JAX scheduler binds the one node that
-        declares the pod's required feature; the port has no such filter,
-        so it refuses the pod rather than binding a node without it."""
+        """NodeDeclaredFeatures, once refused (the port had no such filter),
+        is ported: the one node that declares the pod's required feature
+        takes it, as in the JAX package."""
         required = {"features.k8s.io/required": "gpu-x"}
         jax_s = TPUScheduler(mesh=None)
-        for i in range(2):
-            node = jax_make_node().name(f"node-{i}").capacity(
-                {"cpu": 4, "memory": "8Gi", "pods": 110}).obj()
-            if i == 1:
-                node.declared_features = {"gpu-x": True}
-            jax_s.clientset.create_node(node)
-        pod = jax_make_pod().name("p").req({"cpu": "1"}).obj()
-        pod.annotations.update(required)
-        jax_s.clientset.create_pod(pod)
-        jax_s.run_until_idle()
-        assert {p.name: p.node_name for p in jax_s.clientset.pods.values()} == {"p": "node-1"}
-        s = TorchScheduler(device="cpu")
-        for i in range(2):
-            s.clientset.create_node(make_node().name(f"node-{i}").capacity(
-                {"cpu": 4, "memory": "8Gi", "pods": 110}).obj())
-        pod = make_pod().name("p").req({"cpu": "1"}).obj()
-        pod.annotations.update(required)
-        with pytest.raises(NotImplementedError, match="NodeDeclaredFeatures"):
+        port = TorchScheduler(device="cpu")
+        for mk, s in ((jax_make_node, jax_s), (make_node, port)):
+            for i in range(2):
+                node = mk().name(f"node-{i}").capacity(
+                    {"cpu": 4, "memory": "8Gi", "pods": 110}).obj()
+                if i == 1:
+                    node.declared_features = {"gpu-x": True}
+                s.clientset.create_node(node)
+        for mk, s in ((jax_make_pod, jax_s), (make_pod, port)):
+            pod = mk().name("p").req({"cpu": "1"}).obj()
+            pod.annotations.update(required)
             s.clientset.create_pod(pod)
-        s.run_until_idle()
-        assert not s.clientset.pods and not s.clientset.bindings
+            s.run_until_idle()
+        assert _assignments(jax_s) == _assignments(port) == {"p": "node-1"}
+        assert port.device_scheduled == 1
 
     def test_priority_pod_accepted(self):
         # Pod priority is in scope (DefaultPreemption is ported): a pod of
@@ -256,13 +274,24 @@ class TestScope:
         assert s.clientset.bindings and s.device_scheduled == 1
 
     @pytest.mark.parametrize("build", [
-        lambda b: b.image("nginx", 100 << 20),
+        lambda b: b.image("nginx", 2 << 30),
     ], ids=["images"])
     def test_out_of_scope_node_refused(self, build):
-        s = TorchScheduler(device="cpu")
-        with pytest.raises(NotImplementedError):
-            s.clientset.create_node(build(make_node().name("n").capacity({"cpu": 4})).obj())
-        assert not s.clientset.nodes
+        """Nodes that report images, once refused, are admitted since
+        ImageLocality is ported: pods naming the image score the nodes
+        that hold it as the JAX package does."""
+        jax_s = TPUScheduler(mesh=None)
+        port = TorchScheduler(device="cpu")
+        for mk, s in ((jax_make_node, jax_s), (make_node, port)):
+            for i in range(6):
+                b = mk().name(f"n{i}").capacity({"cpu": 4, "memory": "8Gi", "pods": 110})
+                s.clientset.create_node((build(b) if i % 3 == 2 else b).obj())
+        for mk, s in ((jax_make_pod, jax_s), (make_pod, port)):
+            for i in range(2):
+                s.clientset.create_pod(mk().name(f"p{i}").req({"cpu": "1"}).image("nginx").obj())
+            s.run_until_idle()
+        _assert_same(jax_s, port)
+        assert {p.node_name for p in port.clientset.pods.values()} == {"n2", "n5"}
 
     def test_cuda_is_the_default_device(self):
         if torch.cuda.is_available():
