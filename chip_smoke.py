@@ -44,8 +44,14 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                whose batch outnumbers their feasible rows (every row blocked,
                the last pods placed nowhere), schedule_placements' lanes at
                P = 16 and 64 each blocking only their own rows; static_masks
-               with a mixed extra_ok. Results must be exactly equal on every
-               output and carry lane. It also times scan_general's first
+               with a mixed extra_ok; the four schedule kernels with the
+               aux_cnt lane of a has_aux plan (a CSI attach limit): a room of
+               0 to 3 attachments a row, an increment of 1 or 2, the carry's
+               count drawn or zero, fresh and chained, padded steps, draws
+               whose batch outnumbers their room (every row filled, the last
+               pods placed nowhere), schedule_placements' lanes at P = 16
+               and 64 each counting only their own members. Results must be
+               exactly equal on every output and carry lane. It also times scan_general's first
                launch in the process against the next;
   3. paths   — each through TorchScheduler on cuda at full width, the
                launch counts zeroed just before each drive and read just
@@ -142,7 +148,20 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                spread (scan_schedule and scan_general with the lane), and
                SchedulingGangsPlacement/1000Nodes_250Groups cut to 50 groups
                whose members hold hostPort 9000 (schedule_placements with the
-               lane);
+               lane); the volume shapes at 5000 nodes with no zone label,
+               every pod with its own pre-bound 1Gi ReadOnlyMany PV and claim
+               and one measured pod scheduled before the window —
+               SchedulingCSIPVs/5000Nodes_5000Pods (CSINodes allowing 39
+               ebs.csi.aws.com attachments: the lap with the aux lane on
+               every dispatch), SchedulingInTreePVs/5000Nodes_2000Pods (no
+               driver: no plan with the lane) and CSIAttachLimit/
+               5000Nodes_9000Pods (a limit of 3, 15000 slots for 14000 pods):
+               every pod bound on the device, no node past its limit; and the
+               attach-limit cuts (1000 nodes allowing 2, 100 init pods, then
+               1950 pods: every node filled, the rest unschedulable by
+               NodeVolumeLimits) at max_batch 1024 (the lap), 64
+               (scan_schedule) and 64 with a zone spread over 10 zones
+               (scan_general), each with the lane on every dispatch;
   4. timing  — on the main paths' own next-batch inputs (exactness checked
                there too): each kernel's device time per launch from
                torch.profiler (a warm-up step, then at least 19 of 20
@@ -167,7 +186,12 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                the rebalance drive's first what-if batch (no library call
                computes it); the four schedule kernels with the blocked lane
                on their own drives' first dispatch (the `blocked` entry of
-               each row);
+               each row); and with the aux lane (the `aux` entry): the lap on
+               SchedulingCSIPVs' first full measured batch, the scans on
+               their attach-limit cuts' first batch, schedule_placements on
+               a seeded 16-lane draw at NP 8192 (no path launches it
+               with the lane: volume members of a placement group take
+               the host simulation);
   5. parity  — a 500-node cluster with NoSchedule and PreferNoSchedule
                taints, unschedulable nodes, node selectors, pods that fit no
                node, zone and hostname spread, required and preferred
@@ -197,7 +221,12 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                (scan_schedule, scan_general), the port gangs,
                SchedulingWhileGated/1Node_10GatedPods and a 1000-node cut
                whose odd nodes alone declare the feature the pods require:
-               bindings, failure and queue counts equal;
+               bindings, failure and queue counts equal; the three
+               attach-limit cuts and a host-path cut (500 nodes, 200 pods
+               with unbound WaitForFirstConsumer claims, half matched by
+               PVs pinned to a node, half provisioned by an attached PV
+               controller): bindings, device and host-path pods, failure and
+               queue counts equal;
   6. output  — a `{"kernels": [...]}` line, the card's name and power limit
                as nvidia-smi prints them, and last
                `{"ok": true, "device": {...}}`.
@@ -457,6 +486,7 @@ def kernel_phase(dev, np_cap: int, n_nodes: int) -> dict:
     patch_phase(K, dev, np_cap, n_nodes, errs)
     placement_phase(K, dev, np_cap, n_nodes, errs)
     blocked_phase(K, dev, np_cap, n_nodes, errs)
+    aux_phase(K, dev, np_cap, n_nodes, errs)
     whatif_phase(dev, n_nodes, errs)
     torch.cuda.synchronize()
     print(f"kernels vs plain: max_abs_err {errs}", flush=True)
@@ -1270,6 +1300,14 @@ def paths_phase(dev) -> dict:
     out[PORT_SPREAD] = port_cut(dev, spread=True, capture=caps["general"])
     out[PORT_GANGS] = port_gangs(dev, capture=caps["placements"])
     waves["blocked_captures"] = caps
+    caps = {"lap": {}, "scan": {}, "general": {}}
+    out[CSIPVS] = volume_drive(dev, CSIPVS, capture=caps["lap"])
+    out[INTREE] = volume_drive(dev, INTREE)
+    out[ATTACH] = volume_drive(dev, ATTACH)
+    out[AUX_LAP] = aux_cut(dev)
+    out[AUX_SCAN] = aux_cut(dev, max_batch=64, capture=caps["scan"])
+    out[AUX_SPREAD] = aux_cut(dev, max_batch=64, spread=True, capture=caps["general"])
+    waves["aux_captures"] = caps
     return out, lane_inputs, waves
 
 
@@ -1296,6 +1334,7 @@ def general_cost(f, facts, K, n_act: int, rows=None):
     V = f.dns_counts.shape[1]
     _incremental, carried = K.plan_modes(f, facts)
     row = 1 + 1 + facts.port_selfblock       # static_ok, fit_ok (and blocked)
+    row += 8 * facts.has_aux                 # aux_cnt and aux_room
     row += 8 if carried else 8 + 8           # the carried total, or fit_sc and ba
     row += 4 * (C1 + C2 + A1 + A2 + KD)      # a value id per table
     row += 8 * (facts.has_pns + facts.has_ipa_base + facts.has_na_pref)
@@ -1571,8 +1610,8 @@ def preemption_timing(paths: dict, errs: dict) -> dict:
 def placement_cost(K, args) -> tuple:
     """(bytes, ops) of a schedule_placements call: summed over the real
     lanes (the candidate placements), each the fresh carry of its rows (and
-    its blocked lane) and general_cost's steps over its rows, and its row
-    mask read once."""
+    its blocked and aux_cnt lanes) and general_cost's steps over its rows,
+    and its row mask read once."""
     state, f, _B, _strat, _vmax, facts, masks, n_act = args[:8]
     NP, R = state.alloc_r.shape
     FR = f.fit_slots.shape[0]
@@ -1582,7 +1621,7 @@ def placement_cost(K, args) -> tuple:
         if not rows:
             continue  # a padded lane
         b, o = general_cost(f, lane_facts, K, n_act, rows=rows)
-        nbytes += NP + rows * (16 * R + 28 + 2 * facts.port_selfblock) + b
+        nbytes += NP + rows * (16 * R + 28 + 2 * facts.port_selfblock + 4 * facts.has_aux) + b
         ops += rows * (4 * R + 12 * FR + 24) + o
     return nbytes, ops
 
@@ -1813,6 +1852,7 @@ def parity_phase(dev, paths: dict):
     gang_parity(dev, paths)
     rebalance_parity(dev)
     slice7_parity(dev, paths)
+    volume_parity(dev, paths)
 
 
 def rebalance_parity(dev) -> None:
@@ -2305,22 +2345,25 @@ def slice7_parity(dev, paths: dict) -> None:
     same(features_cut(dev), features_cut("cpu"), "declared features, odd nodes, 1000 nodes")
 
 
-def blocked_timing(rows: dict, caps: dict, errs: dict) -> None:
-    """Each schedule kernel with the blocked lane on its own drive's first
-    dispatch (the host-port drive for the lap, its cuts for the scans, the
-    port gangs' first group cycle for the placements), held exact first:
-    the `blocked` entry of the kernel's row, with its bound."""
+def lane_timing(rows: dict, caps: dict, errs: dict, lane: str, drives) -> None:
+    """The lap, scan_schedule and scan_general with a row-local lane
+    ("blocked": a host-port plan, "aux": an attach-limited one) on their
+    own drives' first captured dispatch, held exact first: the `lane` entry
+    of each kernel's row, with its bound (the lane's bytes a row added)."""
     from kubernetes_tpu_torch.ops import kernel as K
 
-    for kname, cap, what in (("lap_schedule", caps["lap"], HOSTPORTS),
-                             ("scan_schedule", caps["scan"], PORT_SCAN),
-                             ("scan_general", caps["general"], PORT_SPREAD)):
+    ports, aux = lane == "blocked", lane == "aux"
+    lane_bytes = 2 if ports else 12  # the blocked flag read and written; aux_cnt, aux_room
+    for kname, what in zip(("lap_schedule", "scan_schedule", "scan_general"), drives):
+        cap = caps[{"lap_schedule": "lap", "scan_schedule": "scan",
+                    "scan_general": "general"}[kname]]
         check(cap, f"{what}: no dispatch captured")
         st, plan, n_act = cap["state"], cap["plan"], cap["n_act"]
         ft, strat, B, facts = plan.features, plan.fit_strategy, plan.batch_pad, plan.facts
         path = {"lap_schedule": "lap", "scan_schedule": "scan", "scan_general": "general"}[kname]
-        check(facts.port_selfblock and K.plan_path(ft, facts, B) == path,
-              f"{what}: the captured plan does not take {kname} with the blocked lane")
+        check((facts.port_selfblock if ports else facts.has_aux)
+              and K.plan_path(ft, facts, B) == path,
+              f"{what}: the captured plan does not take {kname} with the {lane} lane")
         masks = K._static_masks_plain(st, ft)
         ext0 = cap["carry"] or K.fresh_carry(st, ft, plan.vmax, K._resource_eval_plain(
             ft, strat, st.alloc_r, st.alloc_pods, st.req_r, st.nonzero, st.pod_count))
@@ -2331,38 +2374,49 @@ def blocked_timing(rows: dict, caps: dict, errs: dict) -> None:
             k_fn = lambda: K.scan_general(st, ft, B, strat, ext0, masks, n_act, facts)  # noqa
             p_fn = lambda: K._scan_general_plain(st, ft, B, strat, ext0, masks, n_act, facts)  # noqa
             nbytes, ops = general_cost(ft, facts, K, n_act)
-            nbytes += 2 * NP
+            nbytes += lane_bytes * NP
             extra = {}
         else:
             wrap = K.lap_schedule if kname == "lap_schedule" else K.scan_schedule
             plain = getattr(K, f"_{kname}_plain")
-            k_fn = lambda: wrap(st, ft, B, strat, ext0, masks.static_ok, n_act, True)  # noqa
-            p_fn = lambda: plain(st, ft, B, strat, ext0, masks.static_ok, n_act, True)  # noqa
+            k_fn = lambda: wrap(st, ft, B, strat, ext0, masks.static_ok, n_act, ports, aux)  # noqa
+            p_fn = lambda: plain(st, ft, B, strat, ext0, masks.static_ok, n_act, ports, aux)  # noqa
+            pass_ops = 24 + 2 * aux  # the room test a row
             if kname == "lap_schedule":
                 stats = {}
-                plain(st, ft, B, strat, ext0, masks.static_ok, n_act, True, stats=stats)
+                plain(st, ft, B, strat, ext0, masks.static_ok, n_act, ports, aux, stats=stats)
                 laps = stats["laps"]
-                nbytes = NP * (16 * R + 37) + NP * (8 * R + 37) + 8 * B + 2 * NP
-                ops = laps * (NP * 24 + K.LAP_MAX * row_ops) + NP * row_ops
+                nbytes = NP * (16 * R + 37) + NP * (8 * R + 37) + 8 * B + lane_bytes * NP
+                ops = laps * (NP * pass_ops + K.LAP_MAX * row_ops) + NP * row_ops
                 extra = dict(laps=laps)
             else:
-                nbytes = NP * (16 * R + 54) + NP * (8 * R + 37) + 8 * B + 2 * NP
-                ops = n_act * NP * 16 + NP * 24 + n_act * row_ops
+                nbytes = NP * (16 * R + 54) + NP * (8 * R + 37) + 8 * B + lane_bytes * NP
+                ops = n_act * NP * 16 + NP * pass_ops + n_act * row_ops
                 extra = {}
         (o_k, c_k), (o_p, c_p) = k_fn(), p_fn()
         check(max_abs_err((o_k,) + tuple(c_k), (o_p,) + tuple(c_p)) == 0,
-              f"{kname} with the blocked lane disagrees with its plain version on the {what}")
+              f"{kname} with the {lane} lane disagrees with its plain version on the {what}")
         case = kernel_row(kname, "", errs[kname], k_fn, p_fn, nbytes, ops,
                           reps=5 if kname == "scan_general" else 20,
                           plain_reps=1 if kname == "scan_general" else 2)
         case = {k: case[k] for k in ("ms", "ms_launches_seen", "host_ms", "plain_ms",
                                      "bound_ms", "bound_by", "bytes", "ops")}
         case.update(drive=what, pods=n_act, steps=B, placed=int((o_p[0] >= 0).sum()), **extra)
-        rows[kname]["blocked"] = case
-        print(f"{kname} with the blocked lane on the {what}'s first batch ({n_act} pods"
+        rows[kname][lane] = case
+        print(f"{kname} with the {lane} lane on the {what}'s first batch ({n_act} pods"
               + (f", {extra['laps']} laps" if extra else "") + f", NP {NP}): {case['ms']:.4f} ms "
               f"on the device, {case['host_ms']:.4f} ms a call, plain {case['plain_ms']:.3f} ms, "
               f"bound {case['bound_ms']:.6f} ms ({case['bound_by']})", flush=True)
+
+
+def blocked_timing(rows: dict, caps: dict, errs: dict) -> None:
+    """Each schedule kernel with the blocked lane on its own drive's first
+    dispatch (the host-port drive for the lap, its cuts for the scans, the
+    port gangs' first group cycle for the placements), held exact first:
+    the `blocked` entry of the kernel's row, with its bound."""
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    lane_timing(rows, caps, errs, "blocked", (HOSTPORTS, PORT_SCAN, PORT_SPREAD))
     cap = caps["placements"]
     check(cap, f"{PORT_GANGS}: no placement evaluation captured")
     args = cap["args"]
@@ -2384,6 +2438,326 @@ def blocked_timing(rows: dict, caps: dict, errs: dict) -> None:
           f"({case['lanes']} lanes, {case['placements']} placements, NP {NP}): {case['ms']:.4f} "
           f"ms on the device, {case['host_ms']:.4f} ms a call, plain {case['plain_ms']:.3f} ms, "
           f"bound {case['bound_ms']:.6f} ms ({case['bound_by']})", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Volumes: the aux_cnt lane of the four schedule kernels (phases 2, 3, 4, 5)
+# ---------------------------------------------------------------------------
+
+CSIPVS = "SchedulingCSIPVs/5000Nodes_5000Pods"
+INTREE = "SchedulingInTreePVs/5000Nodes_2000Pods"
+ATTACH = "CSIAttachLimit/5000Nodes_9000Pods"
+AUX_LAP = "attach limit 2 at 1000 nodes, 1950 pods"
+AUX_SCAN = "attach limit 2 at 1000 nodes, 1950 pods, max_batch 64"
+AUX_SPREAD = "attach limit 2 at 1000 nodes, 1950 pods, max_batch 64, zone spread"
+WFFC = "WaitForFirstConsumer claims at 500 nodes, 200 pods"
+
+
+def aux_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
+    """The four schedule kernels with has_aux against their plain versions:
+    an attach room of 0 to 3 a row (some rows unlimited), an increment of 1
+    or 2, the carry's aux_cnt drawn (strategy 0) or zero (strategy 1),
+    fresh and chained, padded steps; draws whose batch outnumbers their
+    room fill every row and leave the last pods placed nowhere;
+    schedule_placements' lanes each counting only their own members."""
+    from kubernetes_tpu_torch.testing.kernel_inputs import (aux_lane, general_inputs,
+                                                            placement_inputs, with_aux_lane)
+
+    def fit(st, ft, strat):
+        return K._resource_eval_plain(ft, strat, st.alloc_r, st.alloc_pods, st.req_r,
+                                      st.nonzero, st.pod_count)
+
+    summary = []
+    # (case, kernel, draw, rows, live rows, steps, active pods)
+    for case, kname, draw, cap, live, B, n_act in (
+            ("lap", "lap_schedule", dict(), np_cap, n_nodes, 1024, 1000),
+            ("lap, more pods than room", "lap_schedule", dict(), 128, 100, 512, 512),
+            ("scan", "scan_schedule", dict(), np_cap, n_nodes, 64, 60),
+            ("scan, more pods than room", "scan_schedule", dict(), 64, 40, 64, 64),
+            ("scan_general, zone spread", "scan_general", dict(dns=1), np_cap, n_nodes, 64, 60),
+            ("scan_general, soft spread", "scan_general", dict(sa=1, pns=True), np_cap, n_nodes,
+             64, 64),
+            ("scan_general, more pods than room", "scan_general", dict(sa=1), 64, 40, 64, 64)):
+        seed = 1200 + len(summary)
+        s, f, facts = general_inputs(seed, cap, live, vmax=64, **draw)
+        room, inc, cnt = aux_lane(seed, cap, live, unlimited=0.0 if "room" in case else 0.1)
+        facts = K.PlanFacts(**dict(facts, has_aux=True))
+        st, ft = to_device(dev, s, with_aux_lane(f, room, inc))
+        masks = K._static_masks_plain(st, ft)
+        err = placed = 0
+        for strat in (0, 1):
+            ext0 = K.fresh_carry(st, ft, 64, fit(st, ft, strat))
+            if strat == 0:
+                ext0 = ext0._replace(aux_cnt=torch.from_numpy(cnt).to(dev))
+            ck = cp = ext0
+            for _chain in range(2):
+                if kname == "scan_general":
+                    o_k, ck = K.scan_general(st, ft, B, strat, ck, masks, n_act, facts)
+                    o_p, cp = K._scan_general_plain(st, ft, B, strat, cp, masks, n_act, facts)
+                else:
+                    wrap = K.lap_schedule if kname == "lap_schedule" else K.scan_schedule
+                    plain = getattr(K, f"_{kname}_plain")
+                    o_k, ck = wrap(st, ft, B, strat, ck, masks.static_ok, n_act, False, True)
+                    o_p, cp = plain(st, ft, B, strat, cp, masks.static_ok, n_act, False, True)
+                err = max(err, max_abs_err((o_k,) + tuple(ck), (o_p,) + tuple(cp)))
+                placed += int((o_p[0] >= 0).sum())
+            if "room" in case:
+                left = masks.static_ok & cp.fit_ok & (cp.aux_cnt + ft.aux_inc <= ft.aux_room)
+                check(not bool(left[:live].any()) and int((o_p[0, :n_act] < 0).sum()) > 0,
+                      f"aux lane, {case}: a row with room left, or no pod placed nowhere")
+        torch.cuda.synchronize()
+        check(placed > 0, f"aux lane, {case}: nothing placed")
+        errs[kname] = max(errs[kname], err)
+        summary.append(f"{case} {err}")
+    err = placed = 0
+    for lanes, tables, strats, acts in ((16, {}, (0, 1), (0, 8)),
+                                        (16, dict(dns=1, sa=1, overrides=True), (0, 1), (0, 8)),
+                                        (64, dict(dns=1, sa=1, overrides=True), (1,), (8,))):
+        seed = 1220 + lanes + len(tables)
+        s, f, facts, m, ov = placement_inputs(seed, np_cap, n_nodes, lanes, vmax=64, **tables)
+        room, inc, _cnt = aux_lane(seed, np_cap, n_nodes)
+        st, ft = to_device(dev, s, with_aux_lane(f, room, inc))
+        m = torch.from_numpy(m).to(dev)
+        t_ov = None if ov is None else tuple(torch.from_numpy(a).to(dev) for a in ov)
+        facts = K.PlanFacts(**dict(facts, has_aux=True))
+        for strat in strats:
+            for n_act in acts:
+                args = (st, ft, 8, strat, 64, facts, m, n_act, t_ov)
+                got, want = K.schedule_placements(*args), K._schedule_placements_plain(*args)
+                err = max(err, max_abs_err((got,), (want,)))
+                for lane in want[:, 0, :n_act]:
+                    rows = lane[lane >= 0]
+                    if rows.numel():
+                        taken = torch.bincount(rows.long(), minlength=np_cap) * int(inc)
+                        check(bool((taken[rows.long()] <= ft.aux_room[rows.long()]).all()),
+                              "schedule_placements overfilled a row's attach room in a lane")
+                    placed += rows.numel()
+    torch.cuda.synchronize()
+    check(placed > 0, "aux lane: the placement draws placed nothing")
+    errs["schedule_placements"] = max(errs["schedule_placements"], err)
+    summary.append(f"schedule_placements {err}")
+    print("kernels with the aux_cnt lane vs plain (max_abs_err): " + ", ".join(summary),
+          flush=True)
+
+
+def watch_dispatches(sched, capture=None) -> dict:
+    """Count `sched`'s dispatches with active pods and those whose plan has
+    the aux lane; `capture` receives the device state (a copy), plan, active
+    pods and carry of the first such dispatch of more than one pod."""
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    dispatch = sched._dispatch
+    stats = {"dispatches": 0, "aux_dispatches": 0}
+
+    def counted(state, plan, n_active, carry):
+        if n_active:
+            stats["dispatches"] += 1
+            stats["aux_dispatches"] += plan.facts.has_aux
+            if capture is not None and not capture and n_active > 1 and plan.facts.has_aux:
+                capture.update(state=K.DeviceNodeState(*[t.clone() for t in state]), plan=plan,
+                               n_act=n_active, carry=carry)
+        return dispatch(state, plan, n_active, carry)
+    sched._dispatch = counted
+    return stats
+
+
+def volumes_per_node(sched) -> dict:
+    out = {}
+    for p in sched.clientset.pods.values():
+        if p.node_name and p.volumes:
+            out[p.node_name] = out.get(p.node_name, 0) + len(p.volumes)
+    return out
+
+
+def volume_drive(dev, workload: str, capture=None):
+    """A volume shape at full width (bench.WORKLOADS[workload]: 5000 nodes of
+    32 cpu / 256Gi / 110 pods with no zone label, every pod 100m/128Mi with
+    its own pre-bound 1Gi ReadOnlyMany PV and claim; the CSI shapes' nodes
+    with a CSINode limit): the init pods, then one measured pod before the
+    window and the measured pods in it, launch counts zeroed before. Every
+    pod bound on the device, none on the host path; on the CSI shapes the
+    lap runs with the aux lane and no node holds more claims than its
+    limit, on the in-tree shape no plan has the lane."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    w = bench.WORKLOADS[workload]
+    sched = bench.build_cluster(5000, device=dev, node=w.node)
+    bench.warm(sched, w.init_pods, workload)
+    stats = watch_dispatches(sched, capture)
+    K.reset_launch_counts()
+    result = bench.measure(sched, w.measure_pods, workload=workload)
+    launches = {k.__name__: k.launches for k in K.WRAPPERS}
+    d = result["detail"]
+    d.update(stats)
+    print(f"path {workload}: {json.dumps(result)}", flush=True)
+    total = w.init_pods + 1 + w.measure_pods
+    bound = sum(1 for p in sched.clientset.pods.values() if p.node_name)
+    check(bound == len(sched.clientset.pods) == total, f"{workload}: {bound} of {total} bound")
+    check(d["failures"] == 0 and d["host_path_pods"] == 0 and d["device_batches"] > 0,
+          f"{workload}: failures {d['failures']}, host path {d['host_path_pods']}, "
+          f"{d['device_batches']} device batches")
+    per_node = volumes_per_node(sched)
+    if w.node.csi is not None:
+        check(stats["aux_dispatches"] == stats["dispatches"] > 0,
+              f"{workload}: {stats['aux_dispatches']} of {stats['dispatches']} dispatches with "
+              "the aux lane")
+        check(max(per_node.values()) <= w.node.csi[1],
+              f"{workload}: a node holds {max(per_node.values())} claims, limit {w.node.csi[1]}")
+    else:
+        check(stats["aux_dispatches"] == 0, f"{workload}: a plan with the aux lane")
+    if torch.device(dev).type == "cuda":
+        check_launched(workload, launches, d, ("static_masks", "resource_eval", "lap_schedule"))
+    print(f"{workload}: {result['value']:.1f} pods/s (floor {w.threshold}), {bound} pods bound, "
+          f"{stats['aux_dispatches']} of {stats['dispatches']} dispatches with the aux lane, at "
+          f"most {max(per_node.values())} claims a node", flush=True)
+    return sched, result, launches
+
+
+def aux_cut(dev, max_batch=None, spread: bool = False, n_nodes: int = 1000, n_init: int = 100,
+            n_pods: int = 1950, capture=None):
+    """SchedulingCSIPVs' pods on `n_nodes` nodes whose CSINodes allow 2
+    ebs.csi.aws.com attachments (over 10 zones with a zone spread on the
+    measured pods): `n_init` init pods, then `n_pods`, more than the slots
+    left, at `max_batch`: every node ends with its 2 claims, the rest fail
+    NodeVolumeLimits (with the spread, PodTopologySpread beside it). Launch
+    counts zeroed before the measured pods."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    node = bench.NodeTemplate(zones=10 if spread else 0, csi=(bench.EBS, 2))
+    sched = bench.build_cluster(n_nodes, device=dev, max_batch=max_batch, node=node)
+    build = bench._basic
+    if spread:
+        def build(b):
+            return bench._basic(b).labels({"app": "v"}).spread_constraint(
+                1, bench.ZONE, "DoNotSchedule", {"app": "v"})
+    pods = bench._clones(bench._basic, n_init, "init") + bench._clones(build, n_pods, "v")
+    for p in pods:
+        p.volumes = [bench.Volume(name="data", pvc_name=f"pvc-{p.name}")]
+    for p in pods[:n_init]:
+        bench.create_volume(sched, p, bench.Volumes(csi=bench.EBS))
+        sched.clientset.create_pod(p)
+    sched.run_until_idle()
+    stats = watch_dispatches(sched, capture)
+    K.reset_launch_counts()
+    for p in pods[n_init:]:
+        bench.create_volume(sched, p, bench.Volumes(csi=bench.EBS))
+        sched.clientset.create_pod(p)
+    sched.run_until_idle()
+    launches = {k.__name__: k.launches for k in K.WRAPPERS}
+    per_node = volumes_per_node(sched)
+    bound = sum(per_node.values())
+    pending = sched.queue.unschedulable
+    check(max(per_node.values()) <= 2 and (spread or bound == 2 * n_nodes),
+          f"attach-limit cut ({dev}, max_batch {max_batch}, spread {spread}): {bound} bound, at "
+          f"most {max(per_node.values())} a node")
+    check(len(pending) == n_init + n_pods - bound
+          and all("NodeVolumeLimits" in q.unschedulable_plugins for q in pending.values()),
+          f"attach-limit cut ({dev}): {len(pending)} unschedulable, not all for NodeVolumeLimits")
+    check(stats["aux_dispatches"] == stats["dispatches"] > 0,
+          f"attach-limit cut ({dev}): {stats['aux_dispatches']} of {stats['dispatches']} "
+          "dispatches with the aux lane")
+    kernel = "scan_general" if spread else "scan_schedule" if max_batch else "lap_schedule"
+    check(torch.device(dev).type == "cpu" or launches[kernel] > 0,
+          f"attach-limit cut: {kernel} was not launched")
+    return sched, None, launches
+
+
+def wffc_cut(dev, n_nodes: int = 500, n_pods: int = 200):
+    """The host-path cut: `n_pods` pods each with an unbound
+    WaitForFirstConsumer claim, half of them matched by an available PV
+    pinned to a node, half provisioned by an attached PV controller: every
+    pod bound on the host path, every claim bound."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.api.labels import IN, Requirement
+    from kubernetes_tpu_torch.api.storage import (WAIT_FOR_FIRST_CONSUMER, PersistentVolume,
+                                                  PersistentVolumeClaim, StorageClass)
+    from kubernetes_tpu_torch.api.types import NodeSelector, NodeSelectorTerm
+    from kubernetes_tpu_torch.core.pv_controller import PVController
+
+    sched = bench.build_cluster(n_nodes, device=dev, node=bench.NO_ZONES)
+    cs = sched.clientset
+    ctrl = PVController(cs)
+    cs.create_storage_class(StorageClass(name="local",
+                                         volume_binding_mode=WAIT_FOR_FIRST_CONSUMER))
+    cs.create_storage_class(StorageClass(name="dyn", provisioner=bench.EBS,
+                                         volume_binding_mode=WAIT_FOR_FIRST_CONSUMER))
+    for i in range(n_pods):
+        sc = "local" if i % 2 == 0 else "dyn"
+        if sc == "local":
+            node = f"node-{(7 * i) % n_nodes}"
+            cs.create_pv(PersistentVolume.of(
+                f"local-{i}", "2Gi", storage_class="local",
+                node_affinity=NodeSelector(terms=(NodeSelectorTerm(
+                    match_fields=(Requirement("metadata.name", IN, (node,)),)),))))
+        cs.create_pvc(PersistentVolumeClaim.of(f"w{i}", "1Gi", storage_class=sc))
+        p = bench._basic(bench.make_pod().name(f"wp-{i}")).obj()
+        p.volumes = [bench.Volume(name="data", pvc_name=f"w{i}")]
+        cs.create_pod(p)
+    sched.run_until_idle()
+    check(all(p.node_name for p in cs.pods.values()) and ctrl.provisions == n_pods // 2
+          and all(c.volume_name for c in cs.pvcs.values()) and sched.host_path_pods == n_pods,
+          f"{WFFC} ({dev}): {sum(1 for p in cs.pods.values() if p.node_name)} bound, "
+          f"{ctrl.provisions} provisioned, {sched.host_path_pods} on the host path")
+    return sched
+
+
+def volume_parity(dev, paths: dict) -> None:
+    """The volume parity cells: each cuda run's bindings, failure and queue
+    counts equal the device="cpu" run's."""
+    def same(a, b, what):
+        got, want = assignments(a), assignments(b)
+        diffs = {k: (v, got.get(k)) for k, v in want.items() if got.get(k) != v}
+        check(not diffs and set(got) == set(want),
+              f"cuda/cpu divergence ({what}): {list(diffs.items())[:5]}")
+        check((a.scheduled, a.failures, a.device_scheduled, a.host_path_pods,
+               a.queue.pending_counts())
+              == (b.scheduled, b.failures, b.device_scheduled, b.host_path_pods,
+                  b.queue.pending_counts()), f"counts differ ({what})")
+        print(f"parity ({what}): {len(want)} pods, {b.scheduled} bound, {b.failures} failed "
+              f"attempts, pending {b.queue.pending_counts()}, identical", flush=True)
+
+    same(paths[AUX_LAP][0], aux_cut("cpu")[0], AUX_LAP)
+    same(paths[AUX_SCAN][0], aux_cut("cpu", max_batch=64)[0], AUX_SCAN)
+    same(paths[AUX_SPREAD][0], aux_cut("cpu", max_batch=64, spread=True)[0], AUX_SPREAD)
+    same(wffc_cut(dev), wffc_cut("cpu"), WFFC)
+
+
+def aux_timing(rows: dict, caps: dict, errs: dict) -> None:
+    """Each schedule kernel with the aux lane: the lap on SchedulingCSIPVs'
+    first full measured batch, scan_schedule and scan_general on their
+    attach-limit cuts' first batch, schedule_placements (which no path
+    launches with the lane: volume members of a placement group take the
+    host simulation) on a seeded draw at NP 8192 and 16 lanes; each held
+    exact first: the `aux` entry of the kernel's row."""
+    from kubernetes_tpu_torch.ops import kernel as K
+    from kubernetes_tpu_torch.testing.kernel_inputs import aux_lane, placement_inputs, with_aux_lane
+
+    lane_timing(rows, caps, errs, "aux", (CSIPVS, AUX_SCAN, AUX_SPREAD))
+    np_cap = caps["lap"]["state"].alloc_r.shape[0]
+    live = int(caps["lap"]["state"].valid.sum())
+    s, f, facts, m, _ov = placement_inputs(1240, np_cap, live, 16, vmax=64)
+    room, inc, _cnt = aux_lane(1240, np_cap, live)
+    dev = caps["lap"]["state"].alloc_r.device
+    st, ft = to_device(dev, s, with_aux_lane(f, room, inc))
+    args = (st, ft, 8, 0, 64, K.PlanFacts(**dict(facts, has_aux=True)),
+            torch.from_numpy(m).to(dev), 8, None)
+    check(max_abs_err((K.schedule_placements(*args),), (K._schedule_placements_plain(*args),))
+          == 0, "schedule_placements with the aux lane disagrees on the seeded draw")
+    nbytes, ops = placement_cost(K, args)
+    case = kernel_row("schedule_placements", "", errs["schedule_placements"],
+                      lambda: K.schedule_placements(*args),
+                      lambda: K._schedule_placements_plain(*args), nbytes, ops, plain_reps=1)
+    case = {k: case[k] for k in ("ms", "ms_launches_seen", "host_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "bytes", "ops")}
+    case.update(drive="seeded draw (no path launches it with the lane)",
+                lanes=16, placements=int(m.any(axis=1).sum()), members=8)
+    rows["schedule_placements"]["aux"] = case
+    print(f"schedule_placements with the aux lane on a seeded draw (16 lanes, NP {np_cap}, 8 "
+          f"members): {case['ms']:.4f} ms on the device, {case['host_ms']:.4f} ms a call, plain "
+          f"{case['plain_ms']:.3f} ms, bound {case['bound_ms']:.6f} ms ({case['bound_by']})",
+          flush=True)
 
 
 def main() -> int:
@@ -2419,6 +2793,7 @@ def main() -> int:
     rows.update(placement_timing(waves, errs))
     rows.update(whatif_timing(waves, errs))
     blocked_timing(rows, waves["blocked_captures"], errs)
+    aux_timing(rows, waves["aux_captures"], errs)
     print(f"timing phase: {time.perf_counter() - t1:.1f} s", flush=True)
     for name, (_s, result, _l) in paths.items():
         if result is not None:

@@ -1,10 +1,11 @@
 """The API object model — the subset of staging/src/k8s.io/api/core/v1 the
 port's scheduling slices consume, flattened into plain dataclasses.
 
-Fields for features outside the port (volumes, claims, a pod group's
+Fields for features outside the port (resource claims, a pod group's
 parent composite group) stay on the objects so that a caller who sets them
 is refused loudly by the scope guard (core/scope.py) instead of having the
-field silently dropped.
+field silently dropped. Volumes name their PersistentVolumeClaim; the
+storage objects are in api/storage.py.
 
 Reference anchors:
 - Pod/PodSpec/Container:    staging/src/k8s.io/api/core/v1/types.go
@@ -201,7 +202,7 @@ class TopologySpreadConstraint:
 
 
 # ---------------------------------------------------------------------------
-# Containers, ports, volumes (carried only so the scope guard can refuse them)
+# Containers, ports (NodePorts), volumes (the volume plugins)
 # ---------------------------------------------------------------------------
 
 

@@ -86,6 +86,33 @@ of 32 cpu / 256Gi / 110 pods across 50 zones with 100m pods:
                                              scores. No upstream shape (no
                                              threshold): DaemonSet-like agents.
 
+  SchedulingCSIPVs/5000Nodes_5000Pods        5000 nodes of 32 cpu / 256Gi / 110
+                                             pods with no zone label, each
+                                             with a CSINode allowing 39
+                                             ebs.csi.aws.com attachments;
+                                             every pod 100m/128Mi with one
+                                             pre-bound 1Gi ReadOnlyMany PV of
+                                             that driver and its claim
+                                             (bind-completed): 5000 init pods,
+                                             one measured pod scheduled before
+                                             the window, then 5000 (floor 100
+                                             pods/s): the lap with the aux_cnt
+                                             lane live, room 39 - existing.
+  SchedulingMigratedInTreePVs/5000Nodes_5000Pods
+                                             the same plan (the migrated
+                                             in-tree PV carries the CSI driver).
+  SchedulingInTreePVs/5000Nodes_2000Pods     the same nodes without CSINodes,
+                                             PVs of no driver: 1000 init pods,
+                                             then 2000 (floor 290): volume pods
+                                             on the device with no lane.
+  CSIAttachLimit/5000Nodes_9000Pods          the CSIPVs cluster with a limit of
+                                             3: 5000 init pods, then 9000 —
+                                             15000 attach slots for 14000 pods,
+                                             the lane binding on most rows. No
+                                             upstream shape (no threshold):
+                                             clouds whose instance types cap
+                                             attached disks.
+
   ChurnDriftRebalance/5000Nodes_Rebalance    the descheduler (`rebalance`):
                                              5000 nodes of the hollow plane's
                                              default shape (32 cpu / 256Gi /
@@ -140,7 +167,9 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from .api.types import Namespace, PodGroup
+from .api.resource import to_int
+from .api.storage import BIND_COMPLETED, ROX, CSINode, PersistentVolume, PersistentVolumeClaim
+from .api.types import Namespace, PodGroup, Volume
 from .controllers.descheduler import DeschedulerController, default_strategies
 from .core.registry import default_profile, gang_placement_profile
 from .models import TorchScheduler
@@ -160,9 +189,9 @@ WINDOW_COUNTERS = ("scheduled", "failures", "device_batches", "device_scheduled"
 
 class NodeTemplate(NamedTuple):
     """createNodes' nodeTemplate: capacity, the zone count (0: no zone
-    label), the declared features feature-0..features-1 on every node, and
-    an image (name, bytes, zones) that the nodes of the first `zones` zones
-    report."""
+    label), the declared features feature-0..features-1 on every node, an
+    image (name, bytes, zones) that the nodes of the first `zones` zones
+    report, and csiNodeAllocatable (driver, count): every node's CSINode."""
 
     cpu: int = 32
     memory: str = "256Gi"
@@ -170,6 +199,7 @@ class NodeTemplate(NamedTuple):
     zones: int = 50
     features: int = 0
     image: Optional[Tuple[str, int, int]] = None
+    csi: Optional[Tuple[str, int]] = None
 
 
 class Churn(NamedTuple):
@@ -207,6 +237,17 @@ class Deleting(NamedTuple):
     per_second: float = 50.0
 
 
+class Volumes(NamedTuple):
+    """createPods' persistentVolumeTemplate and persistentVolumeClaimTemplate:
+    each pod gets one PV of `capacity` and `access_modes` (of the CSI driver
+    `csi`, "" for none) pre-bound to its own claim, bind-completed (the JAX
+    package's perf harness, kubernetes_tpu/perf/harness.py:800-827)."""
+
+    csi: str = ""
+    capacity: str = "1Gi"
+    access_modes: Tuple[str, ...] = (ROX,)
+
+
 class Workload(NamedTuple):
     """One scheduler_perf shape: the measured pods' template (a builder
     step over make_pod), their count, the warm-up/init pods (`init_build`
@@ -215,8 +256,8 @@ class Workload(NamedTuple):
     window, the namespaces the pods are created in (None: `default`), the
     pod groups they form (None: none), the pods of the measured shape held
     by a scheduling gate (created first, never released), the init pods'
-    deletion during the window, and whether init pod i is created bound to
-    node i."""
+    deletion during the window, whether init pod i is created bound to
+    node i, and the PV and claim each pod gets (None: no volume)."""
 
     measure_pods: int
     build: Callable
@@ -230,9 +271,12 @@ class Workload(NamedTuple):
     gated: int = 0
     deleting: Optional[Deleting] = None
     bound_init: bool = False
+    volumes: Optional[Volumes] = None
 
 
 AGENT_IMAGE = "registry.example/agent:1"
+EBS = "ebs.csi.aws.com"
+NO_ZONES = NodeTemplate(zones=0)
 GATE = "test.k8s.io/hold"
 
 
@@ -299,6 +343,17 @@ WORKLOADS = {
     "HostPorts/5000Nodes_4000Pods": Workload(
         4000, _agent, 1000, lambda b: _basic(b).host_port(8080), None,
         node=NodeTemplate(image=(AGENT_IMAGE, 600 * 1024 ** 2, 10)), bound_init=True),
+    "SchedulingCSIPVs/5000Nodes_5000Pods": Workload(
+        5000, _basic, 5000, None, 100.0, node=NO_ZONES._replace(csi=(EBS, 39)),
+        volumes=Volumes(csi=EBS)),
+    "SchedulingMigratedInTreePVs/5000Nodes_5000Pods": Workload(
+        5000, _basic, 5000, None, 100.0, node=NO_ZONES._replace(csi=(EBS, 39)),
+        volumes=Volumes(csi=EBS)),
+    "SchedulingInTreePVs/5000Nodes_2000Pods": Workload(
+        2000, _basic, 1000, None, 290.0, node=NO_ZONES, volumes=Volumes()),
+    "CSIAttachLimit/5000Nodes_9000Pods": Workload(
+        9000, _basic, 5000, None, None, node=NO_ZONES._replace(csi=(EBS, 3)),
+        volumes=Volumes(csi=EBS)),
 }
 NODES = {"SchedulingRequiredPodAntiAffinityWithNSSelector/5000Nodes_2000Pods": 6000,
          "SchedulingGangs/1000Nodes_250Groups": 1000,
@@ -337,6 +392,9 @@ def build_cluster(n_nodes: int, device="cuda", max_batch=None,
                            profile_factory=profile_factory)
     for i in range(n_nodes):
         sched.clientset.create_node(cluster_node(i, node))
+        if node.csi is not None:
+            sched.clientset.create_csi_node(CSINode(node_name=f"node-{i}",
+                                                    driver_limits={node.csi[0]: node.csi[1]}))
     return sched
 
 
@@ -349,7 +407,9 @@ def make_pods(n: int, prefix: str, workload: str = DEFAULT_WORKLOAD):
     """N clones of the workload's measured template (shared spec and
     signature memo), in its measured namespace. SchedulingBasic pods carry
     `app: <prefix>`; a gang workload's pods name their group,
-    `<prefix>-group-<i>`, `size` consecutive pods a group."""
+    `<prefix>-group-<i>`, `size` consecutive pods a group; in a volume
+    workload pod `<name>` mounts its own claim `pvc-<name>` (create_pods
+    creates the claim and its PV)."""
     w = WORKLOADS[workload]
     ns = "measure-ns-0" if w.namespaces is not None else "default"
     if workload == DEFAULT_WORKLOAD:
@@ -358,13 +418,33 @@ def make_pods(n: int, prefix: str, workload: str = DEFAULT_WORKLOAD):
     if w.gang is not None:
         for i, p in enumerate(pods):
             p.pod_group = f"{prefix}-group-{i // w.gang.size}"
+    if w.volumes is not None:
+        for p in pods:
+            p.volumes = [Volume(name="data", pvc_name=f"pvc-{p.name}")]
     return pods
+
+
+def create_volume(sched: TorchScheduler, pod, vol: Volumes) -> None:
+    """The pod's pre-bound PV and claim (the harness's pv-csi.yaml / pvc.yaml
+    pair, bind-completed)."""
+    cap = to_int(vol.capacity)
+    for v in pod.volumes:
+        pv = PersistentVolume(name=f"pv-{v.pvc_name}", capacity=cap,
+                              access_modes=vol.access_modes, csi_driver=vol.csi)
+        pvc = PersistentVolumeClaim(name=v.pvc_name, namespace=pod.namespace, request=cap,
+                                    access_modes=vol.access_modes, volume_name=pv.name,
+                                    annotations={BIND_COMPLETED: "true"})
+        pv.claim_ref = pvc.key
+        sched.clientset.create_pv(pv)
+        sched.clientset.create_pvc(pvc)
 
 
 def create_pods(sched: TorchScheduler, pods, workload: str) -> None:
     """Create `pods`; in a gang workload each group is created before its
-    first member (createPodGroups)."""
-    gang = WORKLOADS[workload].gang
+    first member (createPodGroups), in a volume workload each pod's PV and
+    claim before the pod."""
+    w = WORKLOADS[workload]
+    gang = w.gang
     made = set()
     for p in pods:
         if gang is not None and p.pod_group not in made:
@@ -372,6 +452,8 @@ def create_pods(sched: TorchScheduler, pods, workload: str) -> None:
             sched.clientset.create_pod_group(PodGroup(
                 name=p.pod_group, namespace=p.namespace, min_count=gang.size,
                 topology_keys=(gang.topology_key,) if gang.topology_key else ()))
+        if w.volumes is not None:
+            create_volume(sched, p, w.volumes)
         sched.clientset.create_pod(p)
 
 
@@ -503,6 +585,11 @@ def measure(sched: TorchScheduler, n_pods: int, prefix: str = "bench",
     not the workload itself (other init pods, say): it heads the metric, and
     `vs_baseline` is None, since the upstream threshold is the workload's."""
     w = WORKLOADS[workload]
+    if w.volumes is not None:
+        # The harness schedules one measured pod, claim and PV included,
+        # before the window opens (kubernetes_tpu/perf/harness.py:903-910).
+        create_pods(sched, make_pods(1, f"{prefix}-first", workload), workload)
+        sched.run_until_idle()
     win0 = {a: getattr(sched, a) for a in WINDOW_COUNTERS}
     pre0 = sched.preemption_counts()
     evals0 = sched.preemption_device_evals

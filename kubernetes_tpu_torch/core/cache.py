@@ -232,6 +232,11 @@ class Cache:
         # the live gate of the namespace-erased session signature and of the
         # namespace-event delta classification (models/tpu_scheduler.py).
         self.affinity_pod_refs = 0
+        # Claim key ("ns/name") -> the pods (assumed or bound) that mount
+        # it, cluster-wide: a claim already in use is the "shared pvc" that
+        # sends a pod to the host path (ops/features.py
+        # volume_device_support).
+        self.pvc_refs: Dict[str, int] = {}
         # The scheduler's placed-group-members index (core/podgroupstate.py),
         # fed from the add and remove flow below.
         self.pod_group_state = None
@@ -334,6 +339,9 @@ class Cache:
         ni.add_pod(pod_info)
         if self.pod_group_state is not None:
             self.pod_group_state.record_bound(pod)
+        if pod.volumes:
+            for key in pod_info.pvc_keys:
+                self.pvc_refs[key] = self.pvc_refs.get(key, 0) + 1
         if _has_pod_affinity(pod):
             self.affinity_pod_refs += 1
         self._dirty.add(pod.node_name)
@@ -341,6 +349,16 @@ class Cache:
     def _remove_pod_from_node(self, pod: Pod) -> None:
         if self.pod_group_state is not None:
             self.pod_group_state.remove(pod)
+        # Dropped even when the pod's node has left the cache: a leaked
+        # count would mark the claim shared for good.
+        for v in pod.volumes:
+            if v.pvc_name:
+                key = f"{pod.namespace}/{v.pvc_name}"
+                n = self.pvc_refs.get(key, 0) - 1
+                if n <= 0:
+                    self.pvc_refs.pop(key, None)
+                else:
+                    self.pvc_refs[key] = n
         if _has_pod_affinity(pod):
             self.affinity_pod_refs = max(0, self.affinity_pod_refs - 1)
         ni = self.nodes.get(pod.node_name)

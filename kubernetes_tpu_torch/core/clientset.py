@@ -4,7 +4,9 @@ Plays the role of client-go fake.Clientset + informers in the reference's unit
 layer: scheduler event handlers subscribe, API writes (bind, create, delete)
 synchronously fan out to them — the apiserver watch streams collapsed to
 function calls. Every pod and pod-group write passes the scope guard
-(core/scope.py).
+(core/scope.py). The storage objects (PersistentVolumes, claims, storage
+classes, CSINodes) fan out to `on_storage_event` handlers: the volume
+plugins' listers and the PV controller (core/pv_controller.py).
 """
 
 from __future__ import annotations
@@ -14,7 +16,16 @@ import itertools
 import time
 from typing import Callable, Dict, List, Optional
 
-from ..api.types import Namespace, Node, Pod, PodGroup
+from ..api.labels import IN, Requirement
+from ..api.storage import (
+    BIND_COMPLETED,
+    SELECTED_NODE,
+    CSINode,
+    PersistentVolume,
+    PersistentVolumeClaim,
+    StorageClass,
+)
+from ..api.types import Namespace, Node, NodeSelector, NodeSelectorTerm, Pod, PodGroup
 from .scope import check_pod, check_pod_group
 
 
@@ -25,10 +36,18 @@ class FakeClientset:
         self.bindings: Dict[str, str] = {}  # pod uid -> node name
         self.namespaces: Dict[str, Namespace] = {"default": Namespace(name="default")}
         self.pod_groups: Dict[str, PodGroup] = {}  # "ns/name" -> group
+        self.pvs: Dict[str, PersistentVolume] = {}
+        self.pvcs: Dict[str, PersistentVolumeClaim] = {}  # "ns/name" -> claim
+        self.storage_classes: Dict[str, StorageClass] = {}
+        self.csi_nodes: Dict[str, CSINode] = {}
+        # The CSINode set's version: replacing a node's limits moves it too.
+        self.csi_nodes_rv = 0
         self._pod_handlers: List = []
         self._node_handlers: List = []
         self._namespace_handlers: List = []
         self._pod_group_handlers: List = []
+        self._storage_handlers: List = []
+        self._pv_controller = None
         self._rv_counter = itertools.count(1)
         # The apiserver's /api/v1/leases surface (the descheduler's HA
         # lease). `lease_now` is injectable so lease-expiry tests need no
@@ -59,6 +78,16 @@ class FakeClientset:
         for g in self.pod_groups.values():
             handler(g)
 
+    def on_storage_event(self, handler: Callable[[str, object], None]) -> None:
+        """handler(kind, obj) with kind in pv/pvc/storage_class/csi_node on
+        every storage write (the informer feed behind the Storage/Add
+        queueing hints)."""
+        self._storage_handlers.append(handler)
+
+    def _fire_storage(self, kind: str, obj) -> None:
+        for h in self._storage_handlers:
+            h(kind, obj)
+
     # -- writes ------------------------------------------------------------
 
     def create_namespace(self, ns: Namespace) -> Namespace:
@@ -77,6 +106,59 @@ class FakeClientset:
     def create_composite_pod_group(self, cpg) -> None:
         """The JAX package's CompositePodGroup feed: always refused."""
         check_pod_group(cpg)
+
+    # -- storage (the PV controller surface the volume plugins consume) ----
+
+    def create_pv(self, pv: PersistentVolume) -> PersistentVolume:
+        self.pvs[pv.name] = pv
+        self._fire_storage("pv", pv)
+        return pv
+
+    def create_pvc(self, pvc: PersistentVolumeClaim) -> PersistentVolumeClaim:
+        self.pvcs[pvc.key] = pvc
+        self._fire_storage("pvc", pvc)
+        return pvc
+
+    def create_storage_class(self, sc: StorageClass) -> StorageClass:
+        self.storage_classes[sc.name] = sc
+        self._fire_storage("storage_class", sc)
+        return sc
+
+    def create_csi_node(self, cn: CSINode) -> CSINode:
+        self.csi_nodes[cn.node_name] = cn
+        self.csi_nodes_rv += 1
+        self._fire_storage("csi_node", cn)
+        return cn
+
+    def attach_pv_controller(self, ctrl) -> None:
+        """Register the PV controller (core/pv_controller.py): PreBind's
+        provisioning then goes through it."""
+        self._pv_controller = ctrl
+
+    def bind_volume(self, pvc: PersistentVolumeClaim, pv_name: str, node_name: str) -> None:
+        """VolumeBinding's PreBind writes (binder.go BindPodVolumes): bind the
+        claim to the chosen PV, or, for a WaitForFirstConsumer claim to
+        provision, write the selected-node annotation and let the PV
+        controller provision a PV there. Without a controller attached the
+        provisioning is done inline (a PV pinned to the node, bound)."""
+        if pv_name:
+            pv = self.pvs[pv_name]
+            pv.claim_ref = pvc.key
+            pvc.volume_name = pv_name
+            pvc.annotations[BIND_COMPLETED] = "true"
+            return
+        pvc.annotations[SELECTED_NODE] = node_name
+        if self._pv_controller is not None:
+            self._pv_controller.provision(pvc, node_name)
+            return
+        provisioned = PersistentVolume(
+            name=f"pvc-{pvc.uid}", capacity=pvc.request,
+            access_modes=pvc.access_modes, storage_class=pvc.storage_class,
+            node_affinity=NodeSelector(terms=(NodeSelectorTerm(
+                match_fields=(Requirement("metadata.name", IN, (node_name,)),)),)),
+            claim_ref=pvc.key)
+        self.pvs[provisioned.name] = provisioned
+        pvc.volume_name = provisioned.name
 
     def create_node(self, node: Node) -> Node:
         node.resource_version = next(self._rv_counter)

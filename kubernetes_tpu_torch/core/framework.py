@@ -2,7 +2,7 @@
 CycleState, and the plugin-dispatch runtime, trimmed to the extension points
 the port's plugins implement (QueueSort, PreFilter with its AddPod/RemovePod
 extensions, Filter, PostFilter, PreScore, Score, NormalizeScore, Reserve,
-Unreserve, Permit, Bind, Sign, and the pod-group points PlacementGenerate,
+Unreserve, Permit, PreBind with its PreBindPreFlight, Bind, Sign, and the pod-group points PlacementGenerate,
 PlacementFeasible, PlacementScore and PodGroupPostFilter).
 
 Re-expresses staging/src/k8s.io/kube-scheduler/framework interface.go and
@@ -66,6 +66,9 @@ class Status:
 
 
 OK = Status()
+SKIP_STATUS = Status.skip()  # shared: callers never stamp a Skip status
+
+_NO_SKIPS: frozenset = frozenset()
 
 # Distinguishes "memoized as unsignable (None)" from "not memoized".
 _SIG_MISS = object()
@@ -74,12 +77,14 @@ _SIG_MISS = object()
 class CycleState:
     """Per-scheduling-cycle KV store + skip sets (cycle_state.go)."""
 
-    __slots__ = ("_data", "skip_filter_plugins", "skip_score_plugins")
+    __slots__ = ("_data", "skip_filter_plugins", "skip_score_plugins", "skip_pre_bind_plugins")
 
     def __init__(self):
         self._data: Dict[str, Any] = {}
         self.skip_filter_plugins: set = set()
         self.skip_score_plugins: set = set()
+        # Replaced, never changed in place (PreBindPreFlight's skips).
+        self.skip_pre_bind_plugins: frozenset = _NO_SKIPS
 
     def write(self, key: str, value: Any) -> None:
         self._data[key] = value
@@ -94,6 +99,7 @@ class CycleState:
         c._data = {k: (v.clone() if hasattr(v, "clone") else v) for k, v in self._data.items()}
         c.skip_filter_plugins = set(self.skip_filter_plugins)
         c.skip_score_plugins = set(self.skip_score_plugins)
+        c.skip_pre_bind_plugins = self.skip_pre_bind_plugins
         return c
 
 
@@ -200,6 +206,7 @@ class Framework:
         self.reserve_plugins = self._having("reserve")
         self.unreserve_plugins = self._having("unreserve")
         self.permit_plugins = self._having("permit")
+        self.pre_bind_plugins = self._having("pre_bind")
         self.bind_plugins = self._having("bind")
         self.sign_plugins = self._having("sign")
         # Pod-group extension points (framework.go:2208, :2160, :1625, :1212).
@@ -434,6 +441,40 @@ class Framework:
         an error)."""
         for p in self.permit_plugins:
             st = p.permit(state, pod, node_name)
+            if not st.is_success():
+                st.plugin = p.name
+                return st
+        return OK
+
+    def run_pre_bind_pre_flight(self, state: CycleState, pod: Pod, node_name: str) -> Status:
+        """PreBindPreFlight (interface.go:688-694, framework.go:1875): each
+        PreBind plugin says whether it has work for this pod. Those that
+        answer Skip are recorded in the state; Skip when every one does, so
+        the binding cycle bypasses PreBind."""
+        all_skip = True
+        skipped = None
+        for p in self.pre_bind_plugins:
+            flight = getattr(p, "pre_bind_pre_flight", None)
+            if flight is None:
+                all_skip = False
+                continue
+            st = flight(state, pod, node_name)
+            if st.is_skip():
+                skipped = {p.name} if skipped is None else skipped | {p.name}
+            elif not st.is_success():
+                st.plugin = p.name
+                return st
+            else:
+                all_skip = False
+        if skipped is not None:
+            state.skip_pre_bind_plugins = frozenset(skipped)
+        return SKIP_STATUS if all_skip else OK
+
+    def run_pre_bind_plugins(self, state: CycleState, pod: Pod, node_name: str) -> Status:
+        for p in self.pre_bind_plugins:
+            if p.name in state.skip_pre_bind_plugins:
+                continue
+            st = p.pre_bind(state, pod, node_name)
             if not st.is_success():
                 st.plugin = p.name
                 return st

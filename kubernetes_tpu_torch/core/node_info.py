@@ -4,8 +4,9 @@ Re-expresses pkg/scheduler/framework/types.go (NodeInfo struct at types.go:173),
 trimmed to the port's slices: each node carries its pod list, the sublists
 of pods with (anti-)affinity terms that InterPodAffinity walks, the summed
 `requested` vector, the non-zero-default aggregate that scoring reads, the
-host ports its pods hold (NodePorts), its images' sizes (ImageLocality), and
-a monotonically increasing `generation` that drives incremental snapshotting
+host ports its pods hold (NodePorts), the claims its pods mount
+(NodeVolumeLimits, VolumeRestrictions), its images' sizes (ImageLocality),
+and a monotonically increasing `generation` that drives incremental snapshotting
 (backend/cache/cache.go:206 UpdateSnapshot) and the device mirror's re-encode.
 """
 
@@ -28,8 +29,9 @@ def next_generation() -> int:
 
 @dataclass
 class PodInfo:
-    """A Pod with its precomputed request, host ports and affinity term
-    lists (framework/types.go PodInfo)."""
+    """A Pod with its precomputed request, host ports, claim keys ("ns/name"
+    of each PVC-backed volume) and affinity term lists (framework/types.go
+    PodInfo)."""
 
     pod: Pod
     request: Resource
@@ -38,6 +40,7 @@ class PodInfo:
     preferred_affinity_terms: tuple = ()
     preferred_anti_affinity_terms: tuple = ()
     host_ports: tuple = ()
+    pvc_keys: tuple = ()
 
     @classmethod
     def of(cls, pod: Pod) -> "PodInfo":
@@ -53,7 +56,9 @@ class PodInfo:
         return cls(pod=pod, request=pod.resource_request(),
                    required_affinity_terms=req_aff, required_anti_affinity_terms=req_anti,
                    preferred_affinity_terms=pref_aff,
-                   preferred_anti_affinity_terms=pref_anti, host_ports=pod.host_ports())
+                   preferred_anti_affinity_terms=pref_anti, host_ports=pod.host_ports(),
+                   pvc_keys=tuple(f"{pod.namespace}/{v.pvc_name}" for v in pod.volumes
+                                  if v.pvc_name) if pod.volumes else ())
 
     @property
     def has_affinity(self) -> bool:
@@ -67,7 +72,7 @@ class NodeInfo:
 
     __slots__ = ("node", "pods", "pods_with_affinity", "pods_with_required_anti_affinity",
                  "requested", "non_zero_requested", "allocatable", "used_ports",
-                 "image_states", "generation")
+                 "pvc_ref_counts", "image_states", "generation")
 
     # Default requests for the "non-zero" aggregate used by scoring
     # (reference framework/types.go DefaultMilliCPURequest/DefaultMemoryRequest).
@@ -82,11 +87,13 @@ class NodeInfo:
         self.requested = Resource()
         self.non_zero_requested = Resource()
         self.allocatable = node.allocatable.clone() if node else Resource()
-        # (protocol, host_ip, port) held by the node's pods, and image name
-        # -> bytes. Both are replaced, never changed in place, so a snapshot
-        # clone shares them, and a node without ports or images allocates
-        # nothing for them.
+        # (protocol, host_ip, port) held by the node's pods, claim key ->
+        # the node's pods that mount it, and image name -> bytes. Each is
+        # replaced, never changed in place, so a snapshot clone shares them,
+        # and a node without ports, claims or images allocates nothing for
+        # them.
         self.used_ports: FrozenSet[Tuple[str, str, int]] = _NO_PORTS
+        self.pvc_ref_counts: Mapping[str, int] = _NO_PVCS
         self.image_states: Mapping[str, int] = _image_states(node)
         self.generation = next_generation()
 
@@ -109,6 +116,11 @@ class NodeInfo:
         if pi.host_ports:
             self.used_ports = self.used_ports | {(p.protocol, p.host_ip, p.host_port)
                                                  for p in pi.host_ports}
+        if pi.pvc_keys:
+            counts = dict(self.pvc_ref_counts)
+            for key in pi.pvc_keys:
+                counts[key] = counts.get(key, 0) + 1
+            self.pvc_ref_counts = MappingProxyType(counts)
         self.generation = next_generation()
 
     def remove_pod(self, pod: Pod) -> bool:
@@ -126,6 +138,15 @@ class NodeInfo:
                 if pi.host_ports:
                     self.used_ports = self.used_ports - {(p.protocol, p.host_ip, p.host_port)
                                                          for p in pi.host_ports}
+                if pi.pvc_keys:
+                    counts = dict(self.pvc_ref_counts)
+                    for key in pi.pvc_keys:
+                        n = counts.get(key, 0) - 1
+                        if n <= 0:
+                            counts.pop(key, None)
+                        else:
+                            counts[key] = n
+                    self.pvc_ref_counts = MappingProxyType(counts) if counts else _NO_PVCS
                 self.generation = next_generation()
                 return True
         return False
@@ -145,12 +166,14 @@ class NodeInfo:
         c.non_zero_requested = self.non_zero_requested.clone()
         c.allocatable = self.allocatable.clone()
         c.used_ports = self.used_ports
+        c.pvc_ref_counts = self.pvc_ref_counts
         c.image_states = self.image_states
         c.generation = self.generation
         return c
 
 
 _NO_PORTS: FrozenSet[Tuple[str, str, int]] = frozenset()
+_NO_PVCS: Mapping[str, int] = MappingProxyType({})
 _NO_IMAGES: Mapping[str, int] = MappingProxyType({})
 
 

@@ -47,6 +47,7 @@ EVENT_ASSIGNED_POD_ADD = "AssignedPod/Add"
 EVENT_ASSIGNED_POD_DELETE = "AssignedPod/Delete"
 EVENT_NODE_ADD = "Node/Add"
 EVENT_NODE_UPDATE = "Node/Update"
+EVENT_STORAGE_ADD = "Storage/Add"  # a PV, claim, storage class or CSINode written
 
 # Static QueueingHints for plugins that register no hint functions: which
 # events can unblock a pod a plugin rejected. Plugins absent from both this
@@ -55,6 +56,11 @@ QUEUEING_HINTS: Dict[str, Set[str]] = {
     "NodeName": {EVENT_NODE_ADD, EVENT_NODE_UPDATE},
     "NodeUnschedulable": {EVENT_NODE_ADD, EVENT_NODE_UPDATE},
     "NodePorts": {EVENT_NODE_ADD, EVENT_ASSIGNED_POD_DELETE, EVENT_POD_DELETE},
+    "VolumeBinding": {EVENT_NODE_ADD, EVENT_NODE_UPDATE, EVENT_STORAGE_ADD},
+    "VolumeZone": {EVENT_NODE_ADD, EVENT_NODE_UPDATE, EVENT_STORAGE_ADD},
+    "NodeVolumeLimits": {EVENT_NODE_ADD, EVENT_ASSIGNED_POD_DELETE, EVENT_POD_DELETE,
+                         EVENT_STORAGE_ADD},
+    "VolumeRestrictions": {EVENT_ASSIGNED_POD_DELETE, EVENT_POD_DELETE},
     # A topology-constrained group with no feasible placement is charged to
     # no plugin it registered events for: nothing requeues it early.
     "TopologyPlacementGenerator": set(),

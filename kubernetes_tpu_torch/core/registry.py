@@ -3,7 +3,8 @@ pkg/scheduler/apis/config/v1/default_plugins.go:32-60, in the reference's
 order (filter order decides which plugin a node's failure is charged to)
 and with its weights (TaintToleration 3, NodeAffinity 2, NodeResourcesFit 1,
 PodTopologySpread 2, InterPodAffinity 2, NodeResourcesBalancedAllocation 1,
-ImageLocality 1), DefaultPreemption as the PostFilter (and
+ImageLocality 1; the four volume plugins after NodeResourcesFit filter
+only, weight 0), DefaultPreemption as the PostFilter (and
 PodGroupPostFilter), SchedulingGates as the PreEnqueue gate, and
 NodeDeclaredFeatures last: the JAX package adds it while its feature gate
 is on, which is the default (core/registry.py:119-133 there); the port has
@@ -14,8 +15,8 @@ core/registry.py:141-153): GangScheduling (the Permit barrier and the
 PlacementFeasible gate), TopologyPlacementGenerator and PodGroupPodsCount
 (weight 1); NodeResourcesFit scores placements too. `handle` gives the
 plugins the clientset, the scheduler's snapshot, the namespaces' labels,
-the nominator, the placed-group-members index, the waiting pods and the
-device dry run (framework.Handle)."""
+the nominator, the placed-group-members index, the waiting pods, the
+storage listers and the device dry run (framework.Handle)."""
 
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from ..plugins.noderesources import BalancedAllocation, Fit
 from ..plugins.podtopologyspread import PodTopologySpread
 from ..plugins.preemption import DefaultPreemption
 from ..plugins.topologyaware import PodGroupPodsCount, TopologyPlacementGenerator
+from ..plugins.volumes import NodeVolumeLimits, VolumeBinding, VolumeRestrictions, VolumeZone
 from .framework import Framework
 
 
@@ -54,6 +56,10 @@ def default_profile(handle, profile_name: str = "default-scheduler",
         (NodeAffinity(), 2),
         (NodePorts(), 0),
         (Fit(), 1),
+        (VolumeRestrictions(handle), 0),
+        (NodeVolumeLimits(handle), 0),
+        (VolumeBinding(handle), 0),
+        (VolumeZone(handle), 0),
         (PodTopologySpread(handle), 2),
         (InterPodAffinity(handle), 2),
         (preemption, 0),

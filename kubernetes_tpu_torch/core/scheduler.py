@@ -17,7 +17,7 @@ session (models/tpu_scheduler.py) also uses for pods it hands back:
         select_host      (first max in evaluation order: deterministic ties)
         assume                                     (:1060)
         Reserve → Permit (WAIT parks the pod)       (:315-340)
-    binding cycle → bind                           (:141)
+    binding cycle → PreBindPreFlight → PreBind → bind   (:141)
     failure → PostFilter (DefaultPreemption) → nomination
             → handle_scheduling_failure → requeue  (:169, :1152)
 
@@ -77,6 +77,7 @@ from .queue import (
     EVENT_ASSIGNED_POD_DELETE,
     EVENT_NODE_ADD,
     EVENT_NODE_UPDATE,
+    EVENT_STORAGE_ADD,
     PriorityQueue,
     QueuedPodGroupInfo,
     QueuedPodInfo,
@@ -127,6 +128,23 @@ class Handle:
     @property
     def pod_group_state(self):
         return self._scheduler.pod_group_state
+
+    # the storage listers (plugins/volumes.py)
+    @property
+    def pvs(self):
+        return self.clientset.pvs
+
+    @property
+    def pvcs(self):
+        return self.clientset.pvcs
+
+    @property
+    def storage_classes(self):
+        return self.clientset.storage_classes
+
+    @property
+    def csi_nodes(self):
+        return self.clientset.csi_nodes
 
     def allow_waiting_pod(self, uid: str) -> bool:
         return self._scheduler.allow_waiting_pod(uid)
@@ -195,6 +213,7 @@ class Scheduler:
         self.clientset.on_node_event(self._threaded(self._on_node_event))
         self.clientset.on_namespace_event(self._threaded(self._on_namespace_event))
         self.clientset.on_pod_group_event(self._threaded(self._on_pod_group_event))
+        self.clientset.on_storage_event(self._threaded(self._on_storage_event))
 
     @property
     def cluster_event_seq(self) -> int:
@@ -342,6 +361,16 @@ class Scheduler:
         # Queue-only: a group's arrival can activate its buffered members.
         self._record_event(EV_QUEUE, f"{group.namespace}/{group.name}")
         self.queue.register_pod_group(group)
+
+    def _on_storage_event(self, kind: str, obj) -> None:
+        # Only storage objects that change what a node offers (CSINode
+        # limits, PV topology, binding modes) can make a device session's
+        # plan stale. A claim is pod-side state: it unblocks waiting pods
+        # but changes no decision already made, and journaling each claim
+        # a measured pod creates would end a session a pod.
+        if kind != "pvc":
+            self._record_event(EV_OTHER, kind)
+        self.queue.move_all_to_active_or_backoff(EVENT_STORAGE_ADD, None, obj)
 
     def framework_for_pod(self, pod: Pod) -> Framework:
         return self.profiles[pod.scheduler_name]
@@ -756,19 +785,35 @@ class Scheduler:
                           qpi: QueuedPodInfo, node_name: str) -> bool:
         """Returns True iff the pod was bound (False: unwound + requeued)."""
         pod = qpi.pod
+        if fw.pre_bind_plugins:
+            # PreBindPreFlight (framework.go:1875): PreBind plugins with no
+            # work for this pod are skipped, and all skipping bypasses it.
+            st = fw.run_pre_bind_pre_flight(state, pod, node_name)
+            if not st.is_skip():
+                if st.is_success():
+                    st = fw.run_pre_bind_plugins(state, pod, node_name)
+                if not st.is_success():
+                    self._unwind_binding(fw, state, qpi, node_name, st)
+                    return False
         st = fw.run_bind_plugins(state, pod, node_name)
         if not st.is_success():
-            # handleBindingCycleError (schedule_one.go:507).
-            self.state_unwinds += 1
-            fw.run_reserve_plugins_unreserve(state, pod, node_name)
-            self.cache.forget_pod(pod)
-            pod.node_name = ""
-            self.queue.move_all_to_active_or_backoff(EVENT_ASSIGNED_POD_DELETE, pod, None)
-            self.handle_scheduling_failure(fw, qpi, st, None)
+            self._unwind_binding(fw, state, qpi, node_name, st)
             return False
         self.queue.nominator.delete_nominated_pod(pod)
         self.scheduled += 1
         return True
+
+    def _unwind_binding(self, fw: Framework, state: CycleState, qpi: QueuedPodInfo,
+                        node_name: str, st: Status) -> None:
+        """handleBindingCycleError (schedule_one.go:507): a failed PreBind or
+        bind unreserves, forgets the assumed pod and requeues it."""
+        pod = qpi.pod
+        self.state_unwinds += 1
+        fw.run_reserve_plugins_unreserve(state, pod, node_name)
+        self.cache.forget_pod(pod)
+        pod.node_name = ""
+        self.queue.move_all_to_active_or_backoff(EVENT_ASSIGNED_POD_DELETE, pod, None)
+        self.handle_scheduling_failure(fw, qpi, st, None)
 
     # -- pods parked at Permit WAIT (framework.go waitingPods) --------------
 

@@ -6,11 +6,13 @@ the queue on admission.
 
 In scope: resources, taints and tolerations (PreferNoSchedule included),
 node selectors and node affinity (required and preferred), host ports
-(NodePorts), scheduling gates, required declared node features
-(NodeDeclaredFeatures), node images (ImageLocality), topology spread and
-pod (anti-)affinity, pod priority with DefaultPreemption, and pod groups
-(gangs, with or without a topology constraint, and pod-group preemption).
-Not in scope: volumes, resource claims and composite pod-group trees."""
+(NodePorts), volumes backed by PersistentVolumeClaims (VolumeBinding,
+NodeVolumeLimits, VolumeZone, VolumeRestrictions, with the PV controller),
+scheduling gates, required declared node features (NodeDeclaredFeatures),
+node images (ImageLocality), topology spread and pod (anti-)affinity, pod
+priority with DefaultPreemption, and pod groups (gangs, with or without a
+topology constraint, and pod-group preemption). Not in scope: resource
+claims (DynamicResources) and composite pod-group trees."""
 
 from __future__ import annotations
 
@@ -19,8 +21,6 @@ from ..api.types import Pod, PodGroup
 
 def pod_unsupported(pod: Pod) -> str:
     """The first out-of-scope feature `pod` uses, or "" when it is in scope."""
-    if pod.volumes:
-        return "volumes/PVCs"
     if pod.resource_claims:
         return "resource claims"
     return ""

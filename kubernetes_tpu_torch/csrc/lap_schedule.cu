@@ -25,6 +25,15 @@
 // so a lap's own landings never block a window of the same lap; the dump
 // lane LAP_MAX never lands and never blocks.
 //
+// A plan whose pods' claims count against a CSI attach limit (has_aux)
+// passes the carry's `aux_cnt` lane (non-null) with the batch's `aux_room`
+// [NP] and `aux_inc`: a row is infeasible once aux_cnt + aux_inc exceeds its
+// room, read once a lap beside the blocked flag (:845-846), and each landing
+// adds aux_inc at its row (:889-890). A lap lands at most one pod on a row,
+// so one add a landing is exact; the dump lane LAP_MAX never writes it. The
+// lane is int32: the room is at most 1 << 30 and the count stays far below
+// 2^31.
+//
 // Required anti-affinity on a singleton-per-node axis (hostname) rides the
 // lap too (:818-820, :847-849, :891-899): a row is infeasible while its own
 // value's count in anti_counts [A1, V] is positive, and each landing adds
@@ -43,7 +52,8 @@ __global__ void __launch_bounds__(KTT_BLOCK) lap_schedule_kernel(
     ResFeat f, const int64_t* __restrict__ alloc_r, const int64_t* __restrict__ alloc_pods,
     int64_t* req_r, int64_t* nonzero, int32_t* pod_count,
     const int64_t* __restrict__ nom_req, const int32_t* __restrict__ nom_pods,
-    uint8_t* blocked, const uint8_t* __restrict__ static_ok,
+    uint8_t* blocked, int32_t* aux_cnt, const int32_t* __restrict__ aux_room,
+    const int32_t* __restrict__ aux_inc_p, const uint8_t* __restrict__ static_ok,
     const int64_t* __restrict__ il_score,
     const int64_t* __restrict__ weights, const int32_t* __restrict__ num_nodes_p,
     const int32_t* __restrict__ to_find_p, const int32_t* __restrict__ start_p,
@@ -62,6 +72,7 @@ __global__ void __launch_bounds__(KTT_BLOCK) lap_schedule_kernel(
   const int num = max(*num_nodes_p, 1);
   const int tf = max(*to_find_p, 1);
   const int64_t w_tt = weights[0], w_fit = weights[1], w_ba = weights[4], w_il = weights[6];
+  const int32_t aux_inc = *aux_inc_p;
   if (tid == 0) {
     s_start = *start_p;
     s_done = 0;
@@ -80,7 +91,8 @@ __global__ void __launch_bounds__(KTT_BLOCK) lap_schedule_kernel(
                         nonzero + 2 * (int64_t)i, pod_count[i],
                         nom_req ? nom_req + (int64_t)i * f.R : nullptr,
                         nom_req ? nom_pods[i] : 0, ok, sc, ba);
-      bool okd = static_ok[i] && ok && i < num && !(blocked && blocked[i]);
+      bool okd = static_ok[i] && ok && i < num && !(blocked && blocked[i]) &&
+                 !(aux_cnt && aux_cnt[i] + aux_inc > aux_room[i]);
       for (int c = 0; c < A1 && okd; ++c) {
         const int v = topo[(int64_t)anti_axis[c] * NP + i];
         if (v > 0 && anti_counts[(int64_t)c * V + v] > 0) okd = false;
@@ -138,6 +150,7 @@ __global__ void __launch_bounds__(KTT_BLOCK) lap_schedule_kernel(
         nonzero[2 * (int64_t)row + 1] += f.nz_request[1];
         pod_count[row] += 1;
         if (blocked) blocked[row] = 1;
+        if (aux_cnt) aux_cnt[row] += aux_inc;
         for (int c = 0; c < A1; ++c) {
           const int v = topo[(int64_t)anti_axis[c] * NP + row];
           if (v > 0) atomicAdd(&anti_counts[(int64_t)c * V + v], anti_self[c]);
@@ -170,7 +183,8 @@ extern "C" int launch_lap_schedule(
     const int32_t* enable, const int32_t* fit_slots, const int64_t* fit_weights,
     const int64_t* alloc_r, const int64_t* alloc_pods, int64_t* req_r, int64_t* nonzero,
     int32_t* pod_count, OPTIONAL const int64_t* nom_req, OPTIONAL const int32_t* nom_pods,
-    OPTIONAL bool* blocked, const bool* static_ok, const int64_t* il_score,
+    OPTIONAL bool* blocked, OPTIONAL int32_t* aux_cnt, const int32_t* aux_room,
+    const int32_t* aux_inc, const bool* static_ok, const int64_t* il_score,
     const int64_t* weights, const int32_t* num_nodes, const int32_t* to_find,
     const int32_t* start, const int32_t* topo, const int32_t* anti_axis,
     const int32_t* anti_self, int32_t* anti_counts, uint8_t* okd_s, int32_t* F_s,
@@ -180,7 +194,7 @@ extern "C" int launch_lap_schedule(
             R, FR, fit_strategy};
   lap_schedule_kernel<<<1, KTT_BLOCK, 0, stream>>>(
       f, alloc_r, alloc_pods, req_r, nonzero, pod_count, nom_req, nom_pods,
-      (uint8_t*)blocked, (const uint8_t*)static_ok,
+      (uint8_t*)blocked, aux_cnt, aux_room, aux_inc, (const uint8_t*)static_ok,
       il_score, weights, num_nodes, to_find, start, NP, B, n_act, A1, V, topo, anti_axis,
       anti_self, anti_counts, okd_s, F_s, total_s, out, (uint8_t*)fit_ok, fit_sc, ba,
       start_out);

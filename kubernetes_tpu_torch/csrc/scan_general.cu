@@ -26,7 +26,10 @@
 //      the +1 (or +weight) at the row's value of every table, the row's
 //      blocked flag when the plan's pods request host ports (blocked
 //      non-null; a blocked row is infeasible, :322-323, :485-498), the
-//      carried total and the next rotation start.
+//      row's attachments when the plan's claims count against a CSI attach
+//      limit (aux_cnt non-null: aux_inc added at the landed row, and a row
+//      whose aux_cnt + aux_inc exceeds its aux_room is infeasible, :324-325,
+//      :487-488, :497-498), the carried total and the next rotation start.
 // Padded steps land nothing and keep the start, so the loop ends at n_act
 // and the rest of the results are filled.
 //
@@ -67,7 +70,7 @@ extern "C" int launch_scan_general(
     const int32_t* fit_slots, const int64_t* fit_weights, const int64_t* alloc_r,
     const int64_t* alloc_pods, int64_t* req_r, int64_t* nonzero, int32_t* pod_count,
     OPTIONAL const int64_t* nom_req, OPTIONAL const int32_t* nom_pods, OPTIONAL bool* blocked,
-    bool* fit_ok, int64_t* fit_sc, int64_t* ba, const bool* static_ok, const bool* sel_ok,
+    OPTIONAL int32_t* aux_cnt, const int32_t* aux_room, const int32_t* aux_inc, bool* fit_ok, int64_t* fit_sc, int64_t* ba, const bool* static_ok, const bool* sel_ok,
     const bool* taint_ok, const int64_t* pns_cnt, const int32_t* topo, const int64_t* il_score,
     const int64_t* na_raw, const int64_t* ipa_base, const int64_t* weights,
     const int32_t* num_nodes, const int32_t* to_find, const int32_t* start,
@@ -86,7 +89,8 @@ extern "C" int launch_scan_general(
             R, FR, fit_strategy};
   GenPlan p{NP, B, n_act, V, C1, C2, A1, A2, KD, incremental, carried, has_pns,
             has_ipa_base, has_na_pref, alloc_r, alloc_pods, req_r, nonzero, pod_count,
-            nom_req, nom_pods, (uint8_t*)blocked, (uint8_t*)fit_ok, fit_sc, ba,
+            nom_req, nom_pods, (uint8_t*)blocked, aux_cnt, aux_room, aux_inc,
+            (uint8_t*)fit_ok, fit_sc, ba,
             (const uint8_t*)static_ok,
             (const uint8_t*)sel_ok, (const uint8_t*)taint_ok, pns_cnt, topo, il_score, na_raw,
             ipa_base, weights,

@@ -28,6 +28,9 @@ struct GenPlan {
   const int64_t* nom_req;  // the nominated-pod lane, or null
   const int32_t* nom_pods;
   uint8_t* blocked;        // the blocked lane of a host-port plan, or null
+  int32_t* aux_cnt;        // the aux_cnt lane of a has_aux plan, or null
+  const int32_t* aux_room; // [NP] attach room a row (with aux_cnt)
+  const int32_t* aux_inc;  // device scalar: attachments a pod adds
   uint8_t* fit_ok;
   int64_t* fit_sc;
   int64_t* ba;
@@ -81,6 +84,7 @@ static __device__ bool gen_feasible(const GenPlan& p, int i, int num, const int*
                              long long aff_total) {
   if (!(p.static_ok[i] && p.fit_ok[i] && i < num)) return false;
   if (p.blocked && p.blocked[i]) return false;
+  if (p.aux_cnt && p.aux_cnt[i] + *p.aux_inc > p.aux_room[i]) return false;
   for (int c = 0; c < p.C1; ++c) {
     if (p.dns_active[c] != 1) continue;
     const int v = gvid(p, p.dns_axis, c, i);
@@ -345,8 +349,10 @@ static __device__ void gen_scan(const ResFeat& f, const GenPlan& p, int num, int
           if (v > 0) p.ipa_delta[(int64_t)k * p.V + v] += p.ipa_wland[k];
         }
         if (p.blocked) p.blocked[row] = 1;
+        if (p.aux_cnt) p.aux_cnt[row] += *p.aux_inc;
         if (p.incremental) {
-          bool new_ok = p.static_ok[row] && ok && row < num && !(p.blocked && p.blocked[row]);
+          bool new_ok = p.static_ok[row] && ok && row < num && !(p.blocked && p.blocked[row]) &&
+                        !(p.aux_cnt && p.aux_cnt[row] + *p.aux_inc > p.aux_room[row]);
           for (int c = 0; c < p.A1; ++c) {
             const int v = gvid(p, p.anti_axis, c, row);
             if (v > 0 && p.anti_counts[(int64_t)c * p.V + v] > 0) new_ok = false;

@@ -17,7 +17,11 @@
 // With the blocked lane of a host-port plan (blocked non-null) a blocked row
 // is infeasible in the seed and a landing blocks its row (:485-486,
 // :495-496), so the landed row's verdict turns false and the prefix-sum
-// tail shifts by the delta.
+// tail shifts by the delta. With the aux_cnt lane of a has_aux plan (aux_cnt
+// non-null) a row whose count leaves no room for aux_inc is infeasible in
+// the seed (:324-325); the landing thread adds aux_inc at the landed row and
+// re-tests it (:487-488, :497-498), so the tail shifts the same way. The
+// lane is int32 (room at most 1 << 30).
 //
 // Bound: a dependent sequence of steps, each a pass over the node rows
 // (~13 B per row from L2) and two block reductions; single block for the
@@ -28,7 +32,8 @@ __global__ void __launch_bounds__(KTT_BLOCK) scan_schedule_kernel(
     ResFeat f, const int64_t* __restrict__ alloc_r, const int64_t* __restrict__ alloc_pods,
     int64_t* req_r, int64_t* nonzero, int32_t* pod_count,
     const int64_t* __restrict__ nom_req, const int32_t* __restrict__ nom_pods,
-    uint8_t* blocked, uint8_t* fit_ok,
+    uint8_t* blocked, int32_t* aux_cnt, const int32_t* __restrict__ aux_room,
+    const int32_t* __restrict__ aux_inc_p, uint8_t* fit_ok,
     int64_t* fit_sc, int64_t* ba, const uint8_t* __restrict__ static_ok,
     const int64_t* __restrict__ il_score, const int64_t* __restrict__ weights,
     const int32_t* __restrict__ num_nodes_p, const int32_t* __restrict__ to_find_p,
@@ -44,10 +49,12 @@ __global__ void __launch_bounds__(KTT_BLOCK) scan_schedule_kernel(
   const int num = max(*num_nodes_p, 1);
   const int to_find = *to_find_p;
   const int64_t w_tt = weights[0], w_fit = weights[1], w_ba = weights[4], w_il = weights[6];
+  const int32_t aux_inc = *aux_inc_p;
   // okd / F / carried total seeds
   int cnt = 0;
   for (int i = lo; i < hi; ++i) {
-    const bool okd = static_ok[i] && fit_ok[i] && i < num && !(blocked && blocked[i]);
+    const bool okd = static_ok[i] && fit_ok[i] && i < num && !(blocked && blocked[i]) &&
+                     !(aux_cnt && aux_cnt[i] + aux_inc > aux_room[i]);
     okd_s[i] = okd;
     total_s[i] = w_tt * MAX_NODE_SCORE + w_fit * fit_sc[i] + w_ba * ba[i] + w_il * il_score[i];
     cnt += okd;
@@ -90,6 +97,7 @@ __global__ void __launch_bounds__(KTT_BLOCK) scan_schedule_kernel(
         nonzero[2 * (int64_t)row + 1] += f.nz_request[1];
         pod_count[row] += 1;
         if (blocked) blocked[row] = 1;
+        if (aux_cnt) aux_cnt[row] += aux_inc;
       }
       bool ok;
       int64_t sc, b;
@@ -100,7 +108,8 @@ __global__ void __launch_bounds__(KTT_BLOCK) scan_schedule_kernel(
       fit_ok[row] = ok;
       fit_sc[row] = sc;
       ba[row] = b;
-      const bool new_ok = static_ok[row] && ok && row < num && !(blocked && blocked[row]);
+      const bool new_ok = static_ok[row] && ok && row < num && !(blocked && blocked[row]) &&
+                          !(aux_cnt && aux_cnt[row] + aux_inc > aux_room[row]);
       s_delta = (int)new_ok - (int)okd_s[row];
       okd_s[row] = new_ok;
       s_row = row;
@@ -126,7 +135,8 @@ extern "C" int launch_scan_schedule(
     const int32_t* enable, const int32_t* fit_slots, const int64_t* fit_weights,
     const int64_t* alloc_r, const int64_t* alloc_pods, int64_t* req_r, int64_t* nonzero,
     int32_t* pod_count, OPTIONAL const int64_t* nom_req, OPTIONAL const int32_t* nom_pods,
-    OPTIONAL bool* blocked, bool* fit_ok, int64_t* fit_sc, int64_t* ba, const bool* static_ok,
+    OPTIONAL bool* blocked, OPTIONAL int32_t* aux_cnt, const int32_t* aux_room,
+    const int32_t* aux_inc, bool* fit_ok, int64_t* fit_sc, int64_t* ba, const bool* static_ok,
     const int64_t* il_score, const int64_t* weights, const int32_t* num_nodes,
     const int32_t* to_find, const int32_t* start, uint8_t* okd_s, int32_t* F_s,
     int64_t* total_s, int32_t* out, int32_t* start_out, cudaStream_t stream) {
@@ -134,7 +144,7 @@ extern "C" int launch_scan_schedule(
             R, FR, fit_strategy};
   scan_schedule_kernel<<<1, KTT_BLOCK, 0, stream>>>(
       f, alloc_r, alloc_pods, req_r, nonzero, pod_count, nom_req, nom_pods, (uint8_t*)blocked,
-      (uint8_t*)fit_ok,
+      aux_cnt, aux_room, aux_inc, (uint8_t*)fit_ok,
       fit_sc, ba,
       (const uint8_t*)static_ok, il_score, weights, num_nodes, to_find, start, NP, B, n_act,
       okd_s, F_s, total_s, out, start_out);

@@ -17,7 +17,10 @@
 // resource_eval_row (the nominated-pod lane where the plan has one), its
 // static mask, its spread tables and, for a plan whose members request host
 // ports (blocked_s non-null), its blocked lane, empty as in a fresh carry,
-// which only its own members' landings set; then it runs gen_scan
+// which only its own members' landings set, and for a plan whose claims
+// count against a CSI attach limit (aux_cnt_s non-null) its aux_cnt lane,
+// zero as in a fresh carry, which only its own members' landings add to;
+// then it runs gen_scan
 // (scan_general.cuh), the step scan_general runs, on that slice, and
 // writes results[p] ([2, B]: chosen row or -1, start after). A lane reads
 // only the shared inputs and writes only its own slice, so lanes never
@@ -47,6 +50,7 @@ struct LaneScratch {
   int32_t* dns_counts;  // [P, C1, V]
   int32_t* sa_counts;   // [P, C2, V]
   uint8_t* blocked;     // [P, NP], or null: no host ports
+  int32_t* aux_cnt;     // [P, NP], or null: no counted attach limit
 };
 
 // The lane tables' sources: [C, V] / [C] shared by every lane, or
@@ -84,6 +88,7 @@ __global__ void __launch_bounds__(GEN_BLOCK) schedule_placements_kernel(
   p.dns_counts = s.dns_counts + lane * C1 * V;
   p.sa_counts = s.sa_counts + lane * C2 * V;
   p.blocked = s.blocked ? s.blocked + row0 : nullptr;
+  p.aux_cnt = s.aux_cnt ? s.aux_cnt + row0 : nullptr;
   const int64_t t1 = tab.per_lane ? lane * C1 * V : 0, t2 = tab.per_lane ? lane * C2 * V : 0;
   p.dns_dom = tab.dns_dom + t1;
   p.dns_forced0 = tab.dns_forced0 + (tab.per_lane ? lane * C1 : 0);
@@ -109,6 +114,7 @@ __global__ void __launch_bounds__(GEN_BLOCK) schedule_placements_kernel(
     p.ba[i] = b;
     lane_ok[i] = static_ok[i] && mask[i];
     if (p.blocked) p.blocked[i] = 0;
+    if (p.aux_cnt) p.aux_cnt[i] = 0;
   }
   for (int64_t k = tid; k < (int64_t)C1 * V; k += nt) p.dns_counts[k] = tab.dns_counts[t1 + k];
   for (int64_t k = tid; k < (int64_t)C2 * V; k += nt) p.sa_counts[k] = tab.sa_counts[t2 + k];
@@ -136,7 +142,8 @@ extern "C" int launch_schedule_placements(
     const int32_t* sa_counts, int64_t* req_r_s, int64_t* nonzero_s, int32_t* pod_count_s,
     bool* fit_ok_s, int64_t* fit_sc_s, int64_t* ba_s, bool* static_ok_s, uint8_t* okd_s,
     int32_t* F_s, int64_t* total_s, int32_t* dns_counts_s, int32_t* sa_counts_s,
-    OPTIONAL bool* blocked_s, int32_t* out, cudaStream_t stream) {
+    OPTIONAL bool* blocked_s, OPTIONAL int32_t* aux_cnt_s, const int32_t* aux_room,
+    const int32_t* aux_inc, int32_t* out, cudaStream_t stream) {
   if (NP <= 0 || P <= 0 || C1 > GEN_MAXC || C2 > GEN_MAXC) return (int)cudaErrorInvalidValue;
   ResFeat f{request, nz_request, has_request, ba_skip, enable, fit_slots, fit_weights,
             R, FR, fit_strategy};
@@ -177,10 +184,12 @@ extern "C" int launch_schedule_placements(
   p.sa_axis = sa_axis;
   p.sa_skew = sa_skew;
   p.sa_self = sa_self;
+  p.aux_room = aux_room;
+  p.aux_inc = aux_inc;
   p.out = out;
   LaneScratch s{req_r_s, nonzero_s, pod_count_s, (uint8_t*)fit_ok_s, fit_sc_s, ba_s,
                 (uint8_t*)static_ok_s, okd_s, F_s, total_s, dns_counts_s, sa_counts_s,
-                (uint8_t*)blocked_s};
+                (uint8_t*)blocked_s, aux_cnt_s};
   LaneTables tab{per_lane, dns_counts, (const uint8_t*)dns_dom, dns_forced0, sa_counts, sa_wq};
   schedule_placements_kernel<<<P, GEN_BLOCK, 0, stream>>>(
       f, p, s, tab, (const uint8_t*)static_ok, (const uint8_t*)masks, num_nodes);

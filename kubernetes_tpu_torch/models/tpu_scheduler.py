@@ -65,8 +65,21 @@ host placement algorithm, whose evaluation of every candidate placement is
 one schedule_placements launch (_evaluate_placements); PlacementFeasible,
 the PlacementScore plugins and the commit stay on the host.
 
+Volumes. A pod whose claims are all bound, to PVs without node affinity
+or zone labels, none ReadWriteOncePod or in use by another pod, rides a
+session; where its claims count against one CSI driver's attach limit the
+plan carries the kernels' aux_cnt lane (ops/features.py
+volume_device_support). Every pod of a session has the head's attach shape
+(driver and attachments, _aux_shape), and no two share a claim (the
+kernels count a landing's attachments, NodeVolumeLimits each distinct
+claim once); the resume key holds the shape. Pods with other volumes take
+the host path through the volume plugins, as do a volume pod's preemption
+dry run and its placement evaluation, and a volume pod while pods are
+nominated.
+
 Pods the kernels do not cover (matchFields narrowing, a nominated node's
-fast path, spread, affinity or host-port pods while pods are nominated) and
+fast path, spread, affinity, host-port or volume pods while pods are
+nominated, volumes that need stateful binding) and
 pods a session hands back take the host path in core/scheduler.py, which
 produces the same assignments; so does the dry run of a preemptor with
 spread or affinity terms or host ports, in a cluster with anti-affinity
@@ -109,12 +122,14 @@ from ..core.scheduler import Scheduler, ScheduleResult
 from ..ops.codebook import EFFECT_PREFER_NO_SCHEDULE
 from ..ops.device_state import NodeStateMirror, patch_tier
 from ..ops.features import (
+    NO_VOLUMES,
     Unsupported,
     _pow2,
     batch_supported,
     build_batch,
     build_preemption_victims,
     diagnose_unschedulable,
+    volume_device_support,
 )
 from ..ops.kernel import (
     dry_run_preemption,
@@ -132,6 +147,15 @@ PIPELINE_DEPTH = 2        # batches in flight (double buffering)
 # its placements on the device.
 _GANG_SESSION = "gang device session"
 _PLACEMENT_GROUP = "placement group"
+
+
+def _aux_shape(volume) -> Optional[tuple]:
+    """The counted-constraint shape a plan models for a pod whose
+    volume_device_support triple is `volume`: (driver, attachments a pod)
+    of its attach-limited CSI claims, or None. Every pod of a session has
+    the head's: the plan counts one driver and one increment."""
+    _r, driver, inc = volume
+    return (driver, inc) if driver else None
 
 
 class _Fetch:
@@ -220,6 +244,15 @@ class TorchScheduler(Scheduler):
         # The priority of the session's pods while pods are nominated (the
         # nominated lane is priority-thresholded), else None.
         self._session_nom_priority: Optional[int] = None
+        # The live session's attach shape (_aux_shape) and the claims of the
+        # pods it took: the kernels count attachments a landing, so a pod
+        # sharing a claim with one of them must not join.
+        self._session_volume = NO_VOLUMES  # the head's volume_device_support
+        self._session_aux_shape = None
+        self._session_claims: set = set()
+        # The drivers with any CSINode limit, at the CSINode set's version.
+        self._limited_drivers = frozenset()
+        self._limited_drivers_rv = -1
         # Host/device time split: snapshot→features host work, popping and
         # grouping pods into batches, enqueueing the kernels, time blocked
         # on a result fetch, the host commit tails, and the session's end
@@ -267,8 +300,9 @@ class TorchScheduler(Scheduler):
             if (not isinstance(nxt, QueuedPodGroupInfo)
                     and nxt.pod.scheduler_name in self.profiles
                     and self.framework_for_pod(nxt.pod) is fw
-                    and self._sig_joins(fw, nxt.pod, sig) and batch_supported(nxt.pod) is None
-                    and self._session_nom_priority in (None, nxt.pod.priority)):
+                    and self._sig_joins(fw, nxt.pod, sig)
+                    and self._session_nom_priority in (None, nxt.pod.priority)
+                    and self._joins_session_volumes(nxt.pod)):
                 batch.append(nxt)
             else:
                 self._holdover = nxt
@@ -291,7 +325,9 @@ class TorchScheduler(Scheduler):
                 return fw, [head], _PLACEMENT_GROUP
             return fw, [head], "pod group outside the gang device session"
         fw = self.framework_for_pod(head.pod)
-        reason = batch_supported(head.pod) or self._nominated_device_block(head.pod)
+        volume = self._volume_support(head.pod)
+        reason = (batch_supported(head.pod, volume)
+                  or self._nominated_device_block(head.pod))
         sig = fw.sign_pod(head.pod) if reason is None else None
         if sig is None:
             return fw, [head], reason or "unsignable pod"
@@ -300,8 +336,58 @@ class TorchScheduler(Scheduler):
         # need another lane, so it waits for the next session.
         nom = self.queue.nominator
         self._session_nom_priority = head.pod.priority if nom.has_nominated_pods() else None
+        self._session_claims = set(self._claims_of(head.pod))
+        self._session_volume = volume
+        self._session_aux_shape = _aux_shape(volume)
         self._session_neutral_sig = self._neutral_sig(fw, head.pod, sig)
         return fw, self._collect_session_batch(fw, sig, [head]), None
+
+    # -- volumes: the session's attach shape and claims ----------------------
+
+    def limited_drivers(self) -> frozenset:
+        """The CSI drivers with an attach limit on any CSINode."""
+        rv = self.clientset.csi_nodes_rv
+        if rv != self._limited_drivers_rv:
+            self._limited_drivers = frozenset(
+                d for cn in self.clientset.csi_nodes.values() for d in cn.driver_limits)
+            self._limited_drivers_rv = rv
+        return self._limited_drivers
+
+    def _volume_support(self, pod) -> tuple:
+        """features.volume_device_support against live claim and volume
+        state (so never memoized); a pod without volumes answers at once.
+        One call a pod: the collection passes the triple on."""
+        if not pod.volumes:
+            return NO_VOLUMES
+        return volume_device_support(pod, self.clientset, self.cache.pvc_refs,
+                                     self.limited_drivers())
+
+    def _batch_supported(self, pod) -> Optional[str]:
+        """features.batch_supported with the storage context a pod with
+        volumes needs."""
+        return batch_supported(pod, self._volume_support(pod))
+
+    @staticmethod
+    def _claims_of(pod) -> list:
+        return [f"{pod.namespace}/{v.pvc_name}" for v in pod.volumes if v.pvc_name]
+
+    def _joins_session_volumes(self, pod) -> bool:
+        """The kernels cover `pod`, it has the session's attach shape and it
+        shares no claim with a pod the session took; it is then recorded as
+        taken."""
+        if not pod.volumes:
+            return batch_supported(pod) is None and self._session_aux_shape is None
+        volume = self._volume_support(pod)
+        if batch_supported(pod, volume) is not None:
+            return False
+        if _aux_shape(volume) != self._session_aux_shape:
+            return False
+        claims = self._claims_of(pod)
+        if claims:
+            if any(c in self._session_claims for c in claims):
+                return False
+            self._session_claims.update(claims)
+        return True
 
     def _sig_joins(self, fw: Framework, pod, sig) -> bool:
         """`pod` may join the session of signature `sig`: the same
@@ -362,7 +448,8 @@ class TorchScheduler(Scheduler):
         resource arithmetic and the batch's static masks. The nominated lane
         and the dry-run kernel model other pods (a nomination counted in, a
         victim removed) as request and count deltas, exact only for pods
-        without these: a victim removed can also free a host port."""
+        without these: a victim removed can also free a host port, an
+        attachment or a ReadWriteOncePod claim."""
         if pod.topology_spread_constraints:
             return "spread constraints"
         aff = pod.affinity
@@ -370,6 +457,8 @@ class TorchScheduler(Scheduler):
             return "pod affinity"
         if pod.host_ports():
             return "host ports"
+        if any(v.pvc_name for v in pod.volumes):
+            return "counted claims"
         return None
 
     def _nominated_lane(self, pod) -> Optional[list]:
@@ -399,9 +488,12 @@ class TorchScheduler(Scheduler):
         return tuple(n in names for n in ("NodeName", "NodeUnschedulable", "TaintToleration",
                                           "NodeAffinity", "NodeResourcesFit"))
 
-    def build_plan(self, fw: Framework, pod, batch_size: int):
+    def build_plan(self, fw: Framework, pod, batch_size: int, volume=None):
         """Snapshot → mirror sync → batch features → device flush. Returns
-        (device state, BatchPlan)."""
+        (device state, BatchPlan). `volume`: the pod's
+        volume_device_support triple where the caller has it."""
+        if volume is None:
+            volume = self._volume_support(pod)
         self.cache.update_snapshot(self.snapshot)
         self.mirror.sync(self.snapshot.node_info_list)
         ipa = fw.plugin("InterPodAffinity")
@@ -414,7 +506,8 @@ class TorchScheduler(Scheduler):
             extra_filters={n: n in names for n in ("NodePorts", "NodeDeclaredFeatures")},
             hard_pod_affinity_weight=ipa.hard_pod_affinity_weight,
             ignore_preferred_terms_of_existing_pods=ipa.ignore_preferred_terms_of_existing_pods,
-            fit_plugin=fw.plugin("NodeResourcesFit"), nominated=self._nominated_lane(pod))
+            fit_plugin=fw.plugin("NodeResourcesFit"), clientset=self.clientset,
+            volume=volume, nominated=self._nominated_lane(pod))
         return self.mirror.flush(), plan
 
     def _dispatch(self, state, plan, n_active: int, carry):
@@ -435,7 +528,7 @@ class TorchScheduler(Scheduler):
         nominated-lane variant of the plan, with an empty lane, is launched
         too (:1168-1180)."""
         fw = self.framework_for_pod(pod)
-        if batch_supported(pod) is not None:
+        if self._batch_supported(pod) is not None:
             return
         state, plan = self.build_plan(fw, pod, self.max_batch)
         variants = [plan]
@@ -579,18 +672,22 @@ class TorchScheduler(Scheduler):
         self.delta_dirty_rows += len(rows)
         return new_state, carry
 
-    def _resume_or_rebuild(self, fw: Framework, head_pod, sig, nsig):
+    def _resume_or_rebuild(self, fw: Framework, head_pod, sig, nsig, volume):
         """A session's plan: the previous clean session's, resumed as it is
-        or after the journal's row patches, else a full rebuild. Returns
-        (state, plan, carry, node_names, kind)."""
+        or after the journal's row patches, else a full rebuild. The
+        signature covers no volume, so the key also holds the attach shape
+        of the head's volume_device_support triple `volume`: a volume plan
+        never resumes for plain pods, nor a plain plan for volume pods.
+        Returns (state, plan, carry, node_names, kind)."""
         t0 = time.perf_counter()
+        aux_shape = _aux_shape(volume)
         resume, self._resume = self._resume, None
         kind = "full"
         state = plan = carry = node_names = None
         if resume is not None and self.resume:
             rkey, rseq, payload, rnom = resume
             sig_ok = rkey[1] == (sig if rkey[0] == "exact" else nsig)
-            if (sig_ok and rkey[2:] == (id(fw), self.attempts, self.state_unwinds)
+            if (sig_ok and rkey[2:] == (id(fw), aux_shape, self.attempts, self.state_unwinds)
                     and rnom == self._nom_resume_key(head_pod.priority)):
                 state, plan, carry, node_names = payload
                 if rseq == self.cluster_event_seq:
@@ -609,21 +706,22 @@ class TorchScheduler(Scheduler):
                     carry = None
         if kind == "full":
             t1 = time.perf_counter()
-            state, plan = self.build_plan(fw, head_pod, self.max_batch)
+            state, plan = self.build_plan(fw, head_pod, self.max_batch, volume)
             self.plan_build_s += time.perf_counter() - t1
             node_names = [ni.name for ni in self.snapshot.node_info_list]
         self._count_rebuild(kind)
         self.plan_acquire_s += time.perf_counter() - t0
         return state, plan, carry, node_names, kind
 
-    def _save_resume(self, fw: Framework, head_pod, sig, state, plan, carry, node_names,
-                     neutral: bool = True) -> None:
+    def _save_resume(self, fw: Framework, head_pod, sig, aux_shape, state, plan, carry,
+                     node_names, neutral: bool = True) -> None:
         """Keep a clean session's end state for the next session's resume
         check, under the neutral signature where it is eligible (and
         `neutral`: gang sessions stay exact)."""
         nsig = self._neutral_sig(fw, head_pod, sig) if neutral else None
         mode = ("neutral", nsig) if nsig is not None else ("exact", sig)
-        self._resume = (mode + (id(fw), self.attempts, self.state_unwinds), self.cluster_event_seq,
+        self._resume = (mode + (id(fw), aux_shape, self.attempts, self.state_unwinds),
+                        self.cluster_event_seq,
                         (state, plan, carry, node_names),
                         self._nom_resume_key(head_pod.priority))
 
@@ -634,7 +732,10 @@ class TorchScheduler(Scheduler):
         sig = fw.sign_pod(head)
         nsig = self._neutral_sig(fw, head, sig)
         self._session_neutral_sig = nsig
-        state, plan, carry, node_names, _kind = self._resume_or_rebuild(fw, head, sig, nsig)
+        volume = self._session_volume  # the head's, from _collect_batch
+        aux_shape = _aux_shape(volume)
+        state, plan, carry, node_names, _kind = self._resume_or_rebuild(fw, head, sig, nsig,
+                                                                        volume)
         sd = _SessionDelta(state, carry, self.cluster_event_seq)
         del state, carry
         start_nom = self.queue.nominator.version
@@ -719,7 +820,7 @@ class TorchScheduler(Scheduler):
             self.mirror.adopt(self.snapshot.node_info_list, ok_rows, sd.carry.req_r,
                               sd.carry.nonzero, sd.carry.pod_count, dirty_rows=dirty_rows)
             if not dirty_rows:
-                self._save_resume(fw, head, sig, sd.state, plan, sd.carry, node_names)
+                self._save_resume(fw, head, sig, aux_shape, sd.state, plan, sd.carry, node_names)
         self.session_end_s += time.perf_counter() - t3
 
     def _commit_batch(self, b, res, fw, node_names, ok_rows, dirty_rows) -> bool:
@@ -785,11 +886,14 @@ class TorchScheduler(Scheduler):
     # nowhere takes the exact host group cycle (diagnosis, PodGroupPostFilter)
     # and the session ends.
 
-    def _gang_device_eligible(self, qgpi: QueuedPodGroupInfo):
+    def _gang_device_eligible(self, qgpi: QueuedPodGroupInfo, session=None):
         """(fw, sig) when the whole group can ride a gang device session:
         the default algorithm, no nominated pods, members of one profile
         and one signature that the kernels cover, no more than max_batch of
-        them. Else (None, None)."""
+        them, one attach shape, and claims distinct among the members.
+        `session`: the live session's (claims, attach shape), which the
+        group must share the shape of (None, no attach limit, included) and
+        none of the claims of. Else (None, None)."""
         if not qgpi.members or len(qgpi.members) > self.max_batch:
             return None, None
         if self.queue.nominator.has_nominated_pods():
@@ -803,10 +907,20 @@ class TorchScheduler(Scheduler):
         sig = fw.sign_pod(p0)
         if sig is None:
             return None, None
-        for m in qgpi.members:
+        volumes = [self._volume_support(m.pod) for m in qgpi.members]
+        aux_shape = _aux_shape(volumes[0])
+        if session is not None and aux_shape != session[1]:
+            return None, None  # the live session's plan models one shape
+        group_claims: set = set()
+        for m, volume in zip(qgpi.members, volumes):
             if (m.pod.scheduler_name != p0.scheduler_name or fw.sign_pod(m.pod) != sig
-                    or batch_supported(m.pod) is not None):
+                    or batch_supported(m.pod, volume) is not None
+                    or _aux_shape(volume) != aux_shape):
                 return None, None
+            for c in self._claims_of(m.pod):
+                if c in group_claims or (session is not None and c in session[0]):
+                    return None, None  # a shared claim: the host counts it once
+                group_claims.add(c)
         return fw, sig
 
     @staticmethod
@@ -825,7 +939,11 @@ class TorchScheduler(Scheduler):
         head = first.members[0].pod
         sig = fw.sign_pod(head)
         self._session_neutral_sig = None  # gang sessions stay exact-signature
-        state, plan, carry, node_names, _kind = self._resume_or_rebuild(fw, head, sig, None)
+        volume = self._volume_support(head)
+        aux_shape = _aux_shape(volume)
+        self._session_claims = {c for m in first.members for c in self._claims_of(m.pod)}
+        state, plan, carry, node_names, _kind = self._resume_or_rebuild(fw, head, sig, None,
+                                                                        volume)
         sd = _SessionDelta(state, carry, self.cluster_event_seq)
         del state, carry
         start_unwinds = self.state_unwinds
@@ -842,10 +960,13 @@ class TorchScheduler(Scheduler):
                 if nxt is None:
                     break
                 if isinstance(nxt, QueuedPodGroupInfo):
-                    gfw, gsig = self._gang_device_eligible(nxt)
+                    gfw, gsig = self._gang_device_eligible(
+                        nxt, session=(self._session_claims, aux_shape))
                     if gfw is fw and gsig == sig and total + len(nxt.members) <= self.max_batch:
                         groups.append(nxt)
                         total += len(nxt.members)
+                        self._session_claims.update(c for m in nxt.members
+                                                    for c in self._claims_of(m.pod))
                         continue
                 self._holdover = nxt
                 break
@@ -931,8 +1052,8 @@ class TorchScheduler(Scheduler):
             self.mirror.adopt(self.snapshot.node_info_list, ok_rows, sd.carry.req_r,
                               sd.carry.nonzero, sd.carry.pod_count, dirty_rows=dirty_rows)
             if not dirty_rows:
-                self._save_resume(fw, head, sig, sd.state, plan, sd.carry, node_names,
-                                  neutral=False)
+                self._save_resume(fw, head, sig, aux_shape, sd.state, plan, sd.carry,
+                                  node_names, neutral=False)
         self.session_end_s += time.perf_counter() - t3
 
     def _commit_gang_group(self, fw: Framework, qgpi: QueuedPodGroupInfo,
@@ -1024,15 +1145,17 @@ class TorchScheduler(Scheduler):
         launch (the JAX package's :635-758), then gated with
         PlacementFeasible as the host loop does. The host loop evaluates
         them instead (its members counted as host-path pods) while pods are
-        nominated, for members of differing or uncovered specs, and for a
-        plan outside the restriction invariant."""
+        nominated, for members of differing or uncovered specs or with
+        PVC-backed volumes (the simulation does not count a claim two
+        members share once), and for a plan outside the restriction
+        invariant."""
         host = False
         if self.queue.nominator.has_nominated_pods():
             host = True
         p0 = members[0].pod
         sig = fw.sign_pod(p0)
-        if sig is None or any(fw.sign_pod(m.pod) != sig or batch_supported(m.pod) is not None
-                              for m in members):
+        if sig is None or any(fw.sign_pod(m.pod) != sig or self._batch_supported(m.pod) is not None
+                              or any(v.pvc_name for v in m.pod.volumes) for m in members):
             host = True
         plan = None
         if not host:
@@ -1052,9 +1175,9 @@ class TorchScheduler(Scheduler):
                 host = not self._placement_plan_restriction_invariant(plan)
                 # Spread-carrying plans are not kept: their per-node match
                 # counts move with every commit of a matching pod; nor are
-                # port-aware ones: their extra_ok moves with every commit
-                # of a member that holds the ports.
-                keep = (not host and not plan.facts.port_selfblock
+                # port-aware or attach-counting ones: their extra_ok and
+                # aux_room move with every commit of a member.
+                keep = (not host and not plan.facts.port_selfblock and not plan.facts.has_aux
                         and plan.dns_node_counts is None and plan.sa_node_counts is None)
                 self._placement_plan_cache = ((id(fw), sig, len(members), self.cluster_event_seq,
                                                self.mirror.np_cap), plan) if keep else None
@@ -1113,7 +1236,7 @@ class TorchScheduler(Scheduler):
         candidates will use, so that set-up lands outside a measured window
         (the JAX package's warm_for_placements, :1193-1228)."""
         fw = self.framework_for_pod(pod)
-        if batch_supported(pod) is not None:
+        if self._batch_supported(pod) is not None:
             return
         state, plan = self.build_plan(fw, pod, group_size)
         if not self._placement_plan_restriction_invariant(plan):

@@ -27,9 +27,15 @@ host ports always conflicts with an identical pod, so its plan carries
 `port_selfblock`: a landing blocks its row for the rest of the session (the
 kernels' `blocked` lane).
 
+A pod whose PVC-backed volumes impose one counted CSI attach limit
+(volume_device_support) carries the counted aux lane: `aux_room` is, per
+row, the attachments the driver's CSINode limit leaves (`AUX_BIG` on a row
+without a limit), `aux_inc` the attachments one pod adds, and the plan's
+`has_aux` turns on the kernels' `aux_cnt` lane, which counts each
+landing's attachments against the row's room.
+
 `BatchFeatures` keeps every field of the JAX package's BatchFeatures, in its
-order and dtypes, so the two can be fed identical inputs. The lanes the
-port never fills (counted claims: `aux_room`, `aux_inc`) are inert.
+order and dtypes, so the two can be fed identical inputs.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import numpy as np
 import torch
 
 from ..api import resource as res
+from ..api.storage import RWOP
 from ..api.types import (
     DO_NOT_SCHEDULE,
     HONOR,
@@ -57,6 +64,7 @@ from ..plugins.basic import UNSCHED_TAINT, ImageLocality, host_ports_conflict
 from ..plugins.extras import required_features
 from ..plugins.helpers import compile_terms
 from ..plugins.podtopologyspread import _compile_constraints, _count_pods_matching
+from ..plugins.volumes import VolumeZone
 from .codebook import EFFECT_IDS, EFFECT_PREFER_NO_SCHEDULE, OP_EQUAL, OP_EXISTS
 from .device_state import NodeStateMirror
 
@@ -130,9 +138,9 @@ class BatchFeatures(NamedTuple):
     # filter enablement:
     # [NodeName, NodeUnschedulable, TaintToleration, NodeAffinity, NodeResourcesFit]
     enable: torch.Tensor           # [5] i32
-    # counted aux constraint (not ported: inert)
-    aux_room: torch.Tensor         # [NP] i32
-    aux_inc: torch.Tensor          # i32
+    # counted aux constraint (a CSI attach limit)
+    aux_room: torch.Tensor         # [NP] i32 (AUX_BIG: no limit on the row)
+    aux_inc: torch.Tensor          # i32 (0: no counted constraint)
     # nominated-pod lane ([0, R] and [0] when no pod is nominated)
     nom_req: torch.Tensor          # [NP, R] i64
     nom_pods: torch.Tensor         # [NP] i32
@@ -173,6 +181,10 @@ class PlanFacts(NamedTuple):
     # row blocks itself for the rest of the session (identical pods always
     # conflict with each other's ports). Row-local: the lap stays exact.
     port_selfblock: bool = False
+    # The pod's claims count against one CSI driver's attach limit: each
+    # landing adds aux_inc to its row's aux_cnt, which must stay within the
+    # row's aux_room. Row-local: the lap stays exact.
+    has_aux: bool = False
 
 
 @dataclass
@@ -204,18 +216,75 @@ class Unsupported(Exception):
     """Pod needs the host path (the JAX package's batch_supported)."""
 
 
-def batch_supported(pod: Pod) -> Optional[str]:
+AUX_BIG = 1 << 30  # aux_room of a row without an attach limit
+NO_VOLUMES = (None, "", 0)  # volume_device_support of a pod without claims
+
+
+def volume_device_support(pod: Pod, clientset, pvc_refs=None,
+                          limited_drivers=frozenset()) -> Tuple[Optional[str], str, int]:
+    """(reason, limited driver, attachments) for a pod's PVC-backed volumes
+    (the JAX package's :227-276). The reason is None when the volumes
+    impose no per-node constraint (every claim bound to a PV without node
+    affinity or zone labels, none ReadWriteOncePod, none already in use)
+    but at most one counted CSI attach limit: the driver, among those with
+    any CSINode limit, and the pod's attachments to it, which build_batch
+    turns into the aux lane. Then the volume plugins' Filter verdicts pass
+    everywhere but NodeVolumeLimits', whose count of distinct claims equals
+    the kernels' count a landing over unshared claims."""
+    names = [v.pvc_name for v in pod.volumes if v.pvc_name]
+    if not names:
+        return NO_VOLUMES
+    if clientset is None:
+        return "pvc-backed volumes", "", 0
+    driver_incs: Dict[str, int] = {}
+    for name in names:
+        key = f"{pod.namespace}/{name}"
+        pvc = clientset.pvcs.get(key)
+        if pvc is None or not pvc.volume_name:
+            return "unbound pvc", "", 0
+        if RWOP in pvc.access_modes:
+            return "rwop pvc", "", 0
+        if pvc_refs is not None and pvc_refs.get(key, 0) > 0:
+            return "shared pvc", "", 0
+        pv = clientset.pvs.get(pvc.volume_name)
+        if pv is None:
+            return "missing pv", "", 0
+        if pv.node_affinity is not None:
+            return "pv node affinity", "", 0
+        if any(k in pv.labels for k in VolumeZone.TOPOLOGY_KEYS):
+            return "pv zone labels", "", 0
+        driver = pv.csi_driver
+        if not driver:
+            sc = clientset.storage_classes.get(pvc.storage_class)
+            driver = sc.provisioner if sc is not None else ""
+        if driver and driver in limited_drivers:
+            driver_incs[driver] = driver_incs.get(driver, 0) + 1
+    if len(driver_incs) > 1:
+        return "multiple attach-limited drivers", "", 0
+    if driver_incs:
+        d, inc = next(iter(driver_incs.items()))
+        return None, d, inc
+    return NO_VOLUMES
+
+
+def batch_supported(pod: Pod, volume=None) -> Optional[str]:
     """A reason string when the pod must take the host path, else None: a
-    pod with a nominated node takes the host's fast path to it, and
-    matchFields metadata.name pins narrow the node list in PreFilter
-    (node_affinity.go), which the kernels' full-cluster rotation cannot
-    reproduce — and the narrowed universe is tiny."""
+    pod with a nominated node takes the host's fast path to it; matchFields
+    metadata.name pins narrow the node list in PreFilter (node_affinity.go),
+    which the kernels' full-cluster rotation cannot reproduce — and the
+    narrowed universe is tiny; and volumes that volume_device_support does
+    not admit need the stateful host plugins. `volume`: the pod's
+    volume_device_support triple, which the caller computes against live
+    claim state (None: no storage context, so PVC-backed volumes take the
+    host path)."""
     if pod.nominated_node_name:
         return "nominated node fast path"
     na = pod.affinity.node_affinity if pod.affinity is not None else None
     if na is not None and na.required is not None:
         if any(t.match_fields for t in na.required.terms):
             return "node-affinity metadata.name narrowing"
+    if pod.volumes:
+        return (volume or volume_device_support(pod, None))[0]
     return None
 
 
@@ -246,18 +315,23 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
                 extra_filters: Optional[Dict[str, bool]] = None,
                 hard_pod_affinity_weight: int = 1,
                 ignore_preferred_terms_of_existing_pods: bool = False,
-                fit_plugin=None, nominated=None) -> BatchPlan:
+                fit_plugin=None, clientset=None, volume=None,
+                nominated=None) -> BatchPlan:
     """Build kernel inputs for a batch of `batch_size` pods identical to
     `pod`. `mirror` must already be synced to `snapshot`; `ns_labels_fn(ns)`
     gives a namespace's labels for namespaceSelector matching.
     `extra_filters`: {"NodePorts": on, "NodeDeclaredFeatures": on}, the
     profile's filter set (a name left out counts as on).
+    `volume`: the pod's volume_device_support triple (None: no storage
+    context); a pod with an attach-limited CSI driver gets its aux lane,
+    whose room per row reads `clientset`'s CSINodes, claims and volumes.
     `nominated`: [(snapshot row, PodInfo)] of the nominated pods whose
     priority is at least `pod`'s (the caller filters them, and sends pods
     that a nominated pod could affect beyond resources to the host)."""
-    reason = batch_supported(pod)
+    reason = batch_supported(pod, volume)
     if reason:
         raise Unsupported(reason)
+    _r, aux_driver, aux_inc = volume or NO_VOLUMES
     nodes: List[NodeInfo] = snapshot.node_info_list
     n = len(nodes)
     i32, i64 = np.int32, np.int64
@@ -578,6 +652,34 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
         nom_req[row] += _resource_vec(mirror, nr)
         nom_pods[row] += 1
 
+    # -- counted aux constraint: a CSI driver's attach room (csi.go) -------
+    aux_room = np.full(npc, AUX_BIG, i32)
+    has_aux = bool(aux_driver and aux_inc)
+    if has_aux:
+        driver_of: Dict[str, Optional[str]] = {}
+
+        def claim_driver(key: str) -> Optional[str]:
+            if key not in driver_of:
+                pvc = clientset.pvcs.get(key)
+                d = None
+                if pvc is not None:
+                    pv = clientset.pvs.get(pvc.volume_name) if pvc.volume_name else None
+                    if pv is not None and pv.csi_driver:
+                        d = pv.csi_driver
+                    else:
+                        sc = clientset.storage_classes.get(pvc.storage_class)
+                        d = sc.provisioner if sc is not None else None
+                driver_of[key] = d
+            return driver_of[key]
+
+        for r_i, ni in enumerate(nodes):
+            cn = clientset.csi_nodes.get(ni.name)
+            limit = cn.driver_limits.get(aux_driver) if cn is not None else None
+            if limit is None:
+                continue
+            existing = sum(1 for key in ni.pvc_ref_counts if claim_driver(key) == aux_driver)
+            aux_room[r_i] = max(0, limit - existing)
+
     host = dict(
         request=_resource_vec(mirror, req),
         nz_request=np.array([req.milli_cpu or NodeInfo.DEFAULT_MILLI_CPU,
@@ -602,7 +704,7 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
         fit_slots=fit_slots, fit_weights=fit_weights,
         weights=np.array(weights, i64),
         enable=np.array([1 if b else 0 for b in filters_on], i32),
-        aux_room=np.full(npc, 1 << 30, i32), aux_inc=np.array(0, i32),
+        aux_room=aux_room, aux_inc=np.array(aux_inc, i32),
         nom_req=nom_req, nom_pods=nom_pods,
         num_nodes=np.array(n, i32),
         start_index=np.array(start_index % max(1, n), i32),
@@ -616,7 +718,7 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
         facts=PlanFacts(
             has_pns=bool((mirror.h_taint_eff[:n] == EFFECT_PREFER_NO_SCHEDULE).any()),
             has_ipa_base=has_ipa_base, anti_rowlocal=anti_rowlocal, has_na_pref=has_na_pref,
-            port_selfblock=port_selfblock),
+            port_selfblock=port_selfblock, has_aux=has_aux),
         pod_local=bool(c1 == 0 and c2 == 0 and a1 == 0 and a2 == 0 and kd == 0
                        and not has_ipa_base and not (exist_anti != 0).any()),
         dns_node_counts=dns_node_counts, dns_node_elig=dns_node_elig,

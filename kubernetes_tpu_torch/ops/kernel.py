@@ -37,8 +37,12 @@ The three schedule kernels take the nominated-pod lane (features whose
 row's nominated pods, as the JAX package's `has_nom` plans do. They and
 schedule_placements take the `blocked` lane of a `port_selfblock` plan (a
 pod with host ports): a row where a pod of the session landed is
-infeasible for the rest of it (the JAX package's :322-325, :485-498,
-:843-846, :887-890).
+infeasible for the rest of it; and the `aux_cnt` lane of a `has_aux` plan
+(a pod whose claims count against a CSI attach limit): each landing adds
+the pod's attachments `aux_inc` to its row's count, and a row is feasible
+only while `aux_cnt + aux_inc <= aux_room` (the JAX package's :322-325,
+:485-498, :843-846, :887-890). Both lanes are row-local, so neither picks
+another kernel.
 
 A wrapper runs the plain version only because the tensors it was given lie
 on the CPU; on CUDA tensors it launches its kernel (building it at first
@@ -337,12 +341,13 @@ def _vids(state: DeviceNodeState, axis: torch.Tensor) -> torch.Tensor:
 
 def _lap_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int,
                         fit_strategy: int, ext0: ScanCarry, static_ok, n_act: int,
-                        port_selfblock: bool = False,
+                        port_selfblock: bool = False, has_aux: bool = False,
                         stats: Optional[dict] = None) -> Tuple[torch.Tensor, ScanCarry]:
     """Plain PyTorch version of the lap_schedule kernel (the lap-vectorized
     greedy assignment, with the required anti-affinity lanes of a
-    singleton-per-node axis and, under `port_selfblock`, the blocked lane).
-    `stats`, when given, receives the lap count."""
+    singleton-per-node axis, under `port_selfblock` the blocked lane and
+    under `has_aux` the aux_cnt lane). `stats`, when given, receives the lap
+    count."""
     dev = static_ok.device
     NP = static_ok.shape[0]
     A1 = f.anti_axis.shape[0]
@@ -354,6 +359,7 @@ def _lap_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
     req_r, nonzero, pod_count, start = ext0.req_r, ext0.nonzero, ext0.pod_count, ext0.start
     anti_counts = ext0.anti_counts.clone()
     blocked = ext0.blocked
+    aux_cnt = ext0.aux_cnt
     out = torch.full((2, batch_pad + LAP_MAX), -1, dtype=i32, device=dev)
     done = laps = 0
     nom_r, nom_p = _nom_lane(f)
@@ -365,6 +371,8 @@ def _lap_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
         okd = static_ok & fit_ok & (idx < num)
         if port_selfblock:
             okd &= ~blocked
+        if has_aux:
+            okd &= aux_cnt + f.aux_inc <= f.aux_room
         if A1:
             acnt = torch.gather(anti_counts, 1, anti_vid.to(i64))
             okd &= ~((anti_vid > 0) & (acnt > 0)).any(dim=0)
@@ -395,6 +403,8 @@ def _lap_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
         pod_count = pod_count + cnt.to(i32)
         if port_selfblock:
             blocked = blocked | cnt  # a lap's windows share no row
+        if has_aux:
+            aux_cnt = aux_cnt + f.aux_inc * cnt.to(i32)
         if A1:
             # +anti_self at each landed row's own value (the axis is
             # singleton per node, so no two windows share a value).
@@ -413,7 +423,7 @@ def _lap_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
         nom_r, nom_p)
     carry = ext0._replace(req_r=req_r, nonzero=nonzero, pod_count=pod_count,
                           fit_ok=fit_ok, fit_sc=fit_sc, ba=ba, anti_counts=anti_counts,
-                          start=start, blocked=blocked)
+                          start=start, blocked=blocked, aux_cnt=aux_cnt)
     return out[:, :batch_pad], carry
 
 
@@ -423,13 +433,27 @@ def _blocked_lane(ext0: ScanCarry, port_selfblock: bool) -> Optional[torch.Tenso
     return ext0.blocked.clone() if port_selfblock else None
 
 
+def _aux_lane(ext0: ScanCarry, has_aux: bool) -> Optional[torch.Tensor]:
+    """The kernel's copy of the carry's aux_cnt lane, or None (a null
+    pointer: the lane is off) without has_aux."""
+    return ext0.aux_cnt.clone() if has_aux else None
+
+
+def _lanes_out(ext0: ScanCarry, blocked, aux_cnt) -> dict:
+    """The carry's blocked and aux_cnt lanes after a launch: the kernel's
+    copies where the lanes were on, the input's lanes where they were off."""
+    return dict(blocked=ext0.blocked if blocked is None else blocked,
+                aux_cnt=ext0.aux_cnt if aux_cnt is None else aux_cnt)
+
+
 def _lap_schedule_cuda(state, f, batch_pad, fit_strategy, ext0, static_ok, n_act,
-                       port_selfblock=False):
+                       port_selfblock=False, has_aux=False):
     dev = static_ok.device
     NP = static_ok.shape[0]
     req_r, nonzero, pod_count = (t.clone() for t in ext0[:3])
     anti_counts = ext0.anti_counts.clone()
     blocked = _blocked_lane(ext0, port_selfblock)
+    aux_cnt = _aux_lane(ext0, has_aux)
     fit_ok = torch.empty(NP, dtype=torch.bool, device=dev)
     fit_sc = torch.empty(NP, dtype=i64, device=dev)
     ba = torch.empty(NP, dtype=i64, device=dev)
@@ -441,27 +465,31 @@ def _lap_schedule_cuda(state, f, batch_pad, fit_strategy, ext0, static_ok, n_act
     ints, feats = _res_args(f, fit_strategy)
     _launch("lap_schedule", dev, NP, *ints, batch_pad, n_act, anti_counts.shape[0],
             anti_counts.shape[1], *feats, state.alloc_r,
-            state.alloc_pods, req_r, nonzero, pod_count, *_nom_lane(f), blocked, static_ok,
+            state.alloc_pods, req_r, nonzero, pod_count, *_nom_lane(f), blocked, aux_cnt,
+            f.aux_room, f.aux_inc, static_ok,
             f.il_score, f.weights, f.num_nodes, f.to_find, ext0.start, state.topo, f.anti_axis,
             f.anti_self, anti_counts, okd_s, F_s, total_s, out, fit_ok, fit_sc, ba, start)
     carry = ext0._replace(req_r=req_r, nonzero=nonzero, pod_count=pod_count,
                           fit_ok=fit_ok, fit_sc=fit_sc, ba=ba, anti_counts=anti_counts,
-                          start=start, blocked=ext0.blocked if blocked is None else blocked)
+                          start=start, **_lanes_out(ext0, blocked, aux_cnt))
     return out, carry
 
 
 def lap_schedule(state: DeviceNodeState, f: BatchFeatures, batch_pad: int,
                  fit_strategy: int, ext0: ScanCarry, static_ok: torch.Tensor,
-                 n_act: int, port_selfblock: bool = False) -> Tuple[torch.Tensor, ScanCarry]:
+                 n_act: int, port_selfblock: bool = False,
+                 has_aux: bool = False) -> Tuple[torch.Tensor, ScanCarry]:
     """Lap-vectorized greedy assignment of up to `batch_pad` pods (`n_act`
     real): returns the [2, batch_pad] (row or -1, start after) results and
     the final carry. With `port_selfblock` the carry's blocked lane is read
-    and each landing blocks its row (a copy: `ext0` keeps its lane)."""
+    and each landing blocks its row; with `has_aux` a row takes a pod only
+    while its aux_cnt leaves room for the pod's aux_inc, and each landing
+    adds it (copies: `ext0` keeps its lanes)."""
     if _on_cpu(static_ok):
         return _lap_schedule_plain(state, f, batch_pad, fit_strategy, ext0, static_ok, n_act,
-                                   port_selfblock)
+                                   port_selfblock, has_aux)
     out = _lap_schedule_cuda(state, f, batch_pad, fit_strategy, ext0, static_ok, n_act,
-                             port_selfblock)
+                             port_selfblock, has_aux)
     lap_schedule.launches += 1
     return out
 
@@ -476,7 +504,8 @@ lap_schedule.launches = 0
 
 def _scan_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int,
                          fit_strategy: int, ext0: ScanCarry, static_ok, n_act: int,
-                         port_selfblock: bool = False) -> Tuple[torch.Tensor, ScanCarry]:
+                         port_selfblock: bool = False,
+                         has_aux: bool = False) -> Tuple[torch.Tensor, ScanCarry]:
     """Plain PyTorch version of the scan_schedule kernel: one pod per step,
     feasibility patched at the landed row, total score carried."""
     dev = static_ok.device
@@ -485,10 +514,13 @@ def _scan_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: in
     num = f.num_nodes.clamp_min(1)
     req_r, nonzero, pod_count, fit_ok, fit_sc, ba = (t.clone() for t in ext0[:6])
     blocked = ext0.blocked.clone() if port_selfblock else ext0.blocked
+    aux_cnt = ext0.aux_cnt.clone() if has_aux else ext0.aux_cnt
     start = ext0.start
     okd = static_ok & fit_ok & (idx < num)
     if port_selfblock:
         okd &= ~blocked
+    if has_aux:
+        okd &= aux_cnt + f.aux_inc <= f.aux_room
     F = torch.cumsum(okd.to(i32), 0, dtype=i32)
     total = _total(f, fit_sc, ba)
     out = torch.full((2, batch_pad), -1, dtype=i32, device=dev)
@@ -520,6 +552,9 @@ def _scan_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: in
         if port_selfblock:
             blocked[row] |= any_kept
             new_ok_row &= ~blocked[row]
+        if has_aux:
+            aux_cnt[row] += f.aux_inc * any_kept.to(i32)
+            new_ok_row &= aux_cnt[row] + f.aux_inc <= f.aux_room[row]
         delta = new_ok_row.to(i32) - okd[row].to(i32)
         okd[row] = new_ok_row
         F = F + torch.where(idx >= row, delta, 0)
@@ -529,16 +564,18 @@ def _scan_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: in
         out[:, t] = torch.stack([chosen, start])
     out[1, n_act:] = start  # padded steps: nothing lands, the start stays
     carry = ext0._replace(req_r=req_r, nonzero=nonzero, pod_count=pod_count,
-                          fit_ok=fit_ok, fit_sc=fit_sc, ba=ba, start=start, blocked=blocked)
+                          fit_ok=fit_ok, fit_sc=fit_sc, ba=ba, start=start, blocked=blocked,
+                          aux_cnt=aux_cnt)
     return out, carry
 
 
 def _scan_schedule_cuda(state, f, batch_pad, fit_strategy, ext0, static_ok, n_act,
-                        port_selfblock=False):
+                        port_selfblock=False, has_aux=False):
     dev = static_ok.device
     NP = static_ok.shape[0]
     req_r, nonzero, pod_count, fit_ok, fit_sc, ba = (t.clone() for t in ext0[:6])
     blocked = _blocked_lane(ext0, port_selfblock)
+    aux_cnt = _aux_lane(ext0, has_aux)
     start = torch.empty((), dtype=i32, device=dev)
     okd_s = torch.empty(NP, dtype=torch.uint8, device=dev)
     F_s = torch.empty(NP, dtype=i32, device=dev)
@@ -546,26 +583,28 @@ def _scan_schedule_cuda(state, f, batch_pad, fit_strategy, ext0, static_ok, n_ac
     out = torch.full((2, batch_pad), -1, dtype=i32, device=dev)
     ints, feats = _res_args(f, fit_strategy)
     _launch("scan_schedule", dev, NP, *ints, batch_pad, n_act, *feats, state.alloc_r,
-            state.alloc_pods, req_r, nonzero, pod_count, *_nom_lane(f), blocked, fit_ok, fit_sc,
+            state.alloc_pods, req_r, nonzero, pod_count, *_nom_lane(f), blocked, aux_cnt,
+            f.aux_room, f.aux_inc, fit_ok, fit_sc,
             ba, static_ok, f.il_score, f.weights, f.num_nodes, f.to_find, ext0.start, okd_s, F_s,
             total_s, out, start)
     carry = ext0._replace(req_r=req_r, nonzero=nonzero, pod_count=pod_count,
                           fit_ok=fit_ok, fit_sc=fit_sc, ba=ba, start=start,
-                          blocked=ext0.blocked if blocked is None else blocked)
+                          **_lanes_out(ext0, blocked, aux_cnt))
     return out, carry
 
 
 def scan_schedule(state: DeviceNodeState, f: BatchFeatures, batch_pad: int,
                   fit_strategy: int, ext0: ScanCarry, static_ok: torch.Tensor,
-                  n_act: int, port_selfblock: bool = False) -> Tuple[torch.Tensor, ScanCarry]:
+                  n_act: int, port_selfblock: bool = False,
+                  has_aux: bool = False) -> Tuple[torch.Tensor, ScanCarry]:
     """One-pod-per-step greedy assignment for small batches: returns the
-    [2, batch_pad] results and the final carry (the blocked lane as in
-    lap_schedule)."""
+    [2, batch_pad] results and the final carry (the blocked and aux_cnt
+    lanes as in lap_schedule)."""
     if _on_cpu(static_ok):
         return _scan_schedule_plain(state, f, batch_pad, fit_strategy, ext0, static_ok, n_act,
-                                    port_selfblock)
+                                    port_selfblock, has_aux)
     out = _scan_schedule_cuda(state, f, batch_pad, fit_strategy, ext0, static_ok, n_act,
-                              port_selfblock)
+                              port_selfblock, has_aux)
     scan_schedule.launches += 1
     return out
 
@@ -621,6 +660,7 @@ def _scan_general_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
     dns_counts, sa_counts, anti_counts, aff_counts, ipa_delta = (
         t.clone() for t in ext0[6:11])
     blocked = ext0.blocked.clone() if facts.port_selfblock else ext0.blocked
+    aux_cnt = ext0.aux_cnt.clone() if facts.has_aux else ext0.aux_cnt
     start = ext0.start
     # prologue: per-node projections of the count tables, okd/F seeds
     mnum = torch.gather(dns_counts, 1, dns_vid.to(i64))
@@ -634,6 +674,8 @@ def _scan_general_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
         ok = static_ok & fit_ok & (idx < num)
         if facts.port_selfblock:
             ok &= ~blocked
+        if facts.has_aux:
+            ok &= aux_cnt + f.aux_inc <= f.aux_room
         if C1:
             min_match = torch.where(f.dns_dom, dns_counts, big).amin(dim=1)
             min_match = torch.where(f.dns_forced0 == 1, 0, min_match)
@@ -730,9 +772,12 @@ def _scan_general_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
                 dproj += upd[:, None] * (ipa_vid == ipa_vid[:, row][:, None])
             if facts.port_selfblock:
                 blocked[row] = True
+            if facts.has_aux:
+                aux_cnt[row] += f.aux_inc
             if incremental:
                 new_ok = bool(static_ok[row] & r_ok) and row < int(num)
                 new_ok &= not (facts.port_selfblock and bool(blocked[row]))
+                new_ok &= not (facts.has_aux and bool(aux_cnt[row] + f.aux_inc > f.aux_room[row]))
                 if A1:
                     new_ok &= not bool(((anti_vid[:, row] > 0) & (acnt[:, row] > 0)).any())
                 delta = int(new_ok) - int(okd[row])
@@ -748,7 +793,7 @@ def _scan_general_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
     carry = ext0._replace(req_r=req_r, nonzero=nonzero, pod_count=pod_count, fit_ok=fit_ok,
                           fit_sc=fit_sc, ba=ba, dns_counts=dns_counts, sa_counts=sa_counts,
                           anti_counts=anti_counts, aff_counts=aff_counts,
-                          ipa_delta=ipa_delta, start=start, blocked=blocked)
+                          ipa_delta=ipa_delta, start=start, blocked=blocked, aux_cnt=aux_cnt)
     return out, carry
 
 
@@ -760,6 +805,7 @@ def _scan_general_cuda(state, f, batch_pad, fit_strategy, ext0, masks, n_act, fa
     dns_counts, sa_counts, anti_counts, aff_counts, ipa_delta = (
         t.clone() for t in ext0[6:11])
     blocked = _blocked_lane(ext0, facts.port_selfblock)
+    aux_cnt = _aux_lane(ext0, facts.has_aux)
     start = torch.empty((), dtype=i32, device=dev)
     okd_s = torch.empty(NP, dtype=torch.uint8, device=dev)
     F_s = torch.empty(NP, dtype=i32, device=dev)
@@ -771,7 +817,8 @@ def _scan_general_cuda(state, f, batch_pad, fit_strategy, ext0, masks, n_act, fa
             anti_counts.shape[0], aff_counts.shape[0], ipa_delta.shape[0], int(incremental),
             int(carried), int(facts.has_pns), int(facts.has_ipa_base),
             int(facts.has_na_pref), *feats, state.alloc_r, state.alloc_pods, req_r, nonzero,
-            pod_count, *_nom_lane(f), blocked, fit_ok, fit_sc, ba, masks.static_ok, masks.sel_ok,
+            pod_count, *_nom_lane(f), blocked, aux_cnt, f.aux_room, f.aux_inc, fit_ok, fit_sc, ba,
+            masks.static_ok, masks.sel_ok,
             masks.taint_ok, masks.pns_cnt, state.topo, f.il_score, f.na_raw, f.ipa_base, f.weights,
             f.num_nodes, f.to_find, ext0.start, f.dns_axis, f.dns_active, f.dns_max_skew,
             f.dns_self, f.dns_forced0, f.dns_honor_aff, f.dns_honor_taints, f.dns_dom,
@@ -781,8 +828,7 @@ def _scan_general_cuda(state, f, batch_pad, fit_strategy, ext0, masks, n_act, fa
     carry = ext0._replace(req_r=req_r, nonzero=nonzero, pod_count=pod_count, fit_ok=fit_ok,
                           fit_sc=fit_sc, ba=ba, dns_counts=dns_counts, sa_counts=sa_counts,
                           anti_counts=anti_counts, aff_counts=aff_counts,
-                          ipa_delta=ipa_delta, start=start,
-                          blocked=ext0.blocked if blocked is None else blocked)
+                          ipa_delta=ipa_delta, start=start, **_lanes_out(ext0, blocked, aux_cnt))
     return out, carry
 
 
@@ -1025,8 +1071,9 @@ def schedule_batch(state: DeviceNodeState, f: BatchFeatures, batch_pad: int,
     nominated-pod lane (the JAX package's `has_nom`): every kernel counts a
     row's nominated pods against the fit filter of that row. A
     `port_selfblock` plan reads the carry's blocked lane and blocks each
-    landed row; it picks no other path (a landing still changes only its
-    own row)."""
+    landed row, and a `has_aux` plan counts each landing's attachments in
+    the carry's aux_cnt lane against the row's aux_room; neither picks
+    another path (a landing still changes only its own row)."""
     n_act = batch_pad if n_active is None else int(n_active)
     masks = static_masks(state, f)
     if carry_in is None:
@@ -1038,10 +1085,10 @@ def schedule_batch(state: DeviceNodeState, f: BatchFeatures, batch_pad: int,
     path = plan_path(f, facts, batch_pad)
     if path == "lap":
         return lap_schedule(state, f, batch_pad, fit_strategy, ext0, masks.static_ok, n_act,
-                            facts.port_selfblock)
+                            facts.port_selfblock, facts.has_aux)
     if path == "scan":
         return scan_schedule(state, f, batch_pad, fit_strategy, ext0, masks.static_ok, n_act,
-                             facts.port_selfblock)
+                             facts.port_selfblock, facts.has_aux)
     return scan_general(state, f, batch_pad, fit_strategy, ext0, masks, n_act, facts)
 
 
@@ -1101,10 +1148,10 @@ def _schedule_placements_plain(state: DeviceNodeState, f: BatchFeatures, batch_p
         path = plan_path(f2, lane_facts, batch_pad)
         if path == "lap":
             res, _ = _lap_schedule_plain(state, f2, batch_pad, fit_strategy, ext0, lm.static_ok,
-                                         n_active, facts.port_selfblock)
+                                         n_active, facts.port_selfblock, facts.has_aux)
         elif path == "scan":
             res, _ = _scan_schedule_plain(state, f2, batch_pad, fit_strategy, ext0, lm.static_ok,
-                                          n_active, facts.port_selfblock)
+                                          n_active, facts.port_selfblock, facts.has_aux)
         else:
             res, _ = _scan_general_plain(state, f2, batch_pad, fit_strategy, ext0, lm, n_active,
                                          lane_facts)
@@ -1154,7 +1201,8 @@ def _schedule_placements_cuda(state, f, batch_pad, fit_strategy, vmax, facts, ma
             scratch(NP, dtype=torch.bool), scratch(NP, dtype=torch.uint8),
             scratch(NP, dtype=i32), scratch(NP, dtype=i64), scratch(C1, V, dtype=i32),
             scratch(C2, V, dtype=i32),
-            scratch(NP, dtype=torch.bool) if facts.port_selfblock else None, out)
+            scratch(NP, dtype=torch.bool) if facts.port_selfblock else None,
+            scratch(NP, dtype=i32) if facts.has_aux else None, f.aux_room, f.aux_inc, out)
     return out
 
 
@@ -1172,7 +1220,9 @@ def schedule_placements(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
     is written. The plan must carry no inter-pod-affinity table and no base
     score (the caller's restriction invariant). Under `port_selfblock` each
     lane blocks the rows its own members land on, in its own copy of the
-    fresh carry's (empty) blocked lane."""
+    fresh carry's (empty) blocked lane; under `has_aux` each lane counts its
+    own members' attachments in its own copy of the fresh carry's (zero)
+    aux_cnt lane."""
     if _on_cpu(masks):
         return _schedule_placements_plain(state, f, batch_pad, fit_strategy, vmax, facts,
                                           masks, n_active, spread_overrides)

@@ -9,8 +9,9 @@ flags and selector verdicts; the keyword arguments pick the cases the
 parity checks need (rotation start past a row, truncation on or off,
 zero-request pods, no feasible row at all). `general_inputs` adds topology
 axes and the count-table and score lanes of spread and inter-pod affinity;
-`nominated_lane` draws the nominated-pod lane and `victim_inputs` the
-preemption dry run's victim tensors. `whatif_inputs` draws the descheduler's
+`nominated_lane` draws the nominated-pod lane, `aux_lane` the counted
+attach-limit lane and `victim_inputs` the preemption dry run's victim
+tensors. `whatif_inputs` draws the descheduler's
 what-if batch (the JAX package's WhatIfBatch field order).
 """
 
@@ -244,6 +245,28 @@ def with_nominated_lane(feats: tuple, lane: Tuple[np.ndarray, np.ndarray]) -> tu
     """`feats` (a feature-array tuple) with its nominated-pod lane set."""
     f = dict(zip(_F, feats))
     f["nom_req"], f["nom_pods"] = lane
+    return tuple(f[name] for name in _F)
+
+
+def aux_lane(seed: int, np_cap: int, num_nodes: int,
+             unlimited: float = 0.1) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(aux_room [np_cap] i32, aux_inc i32 scalar, aux_cnt [np_cap] i32) of
+    the counted attach-limit lane: a room of 0 to 3 attachments a live row
+    (about `unlimited` of them without a limit: 1 << 30), an increment of 1
+    or 2, and a carry count of 0 to 2 attachments already taken (a row may
+    start over its room)."""
+    rng = np.random.default_rng(seed + 65537)
+    live = np.arange(np_cap) < num_nodes
+    room = rng.integers(0, 4, np_cap)
+    room = np.where(live & (rng.random(np_cap) < unlimited), 1 << 30, room).astype(np.int32)
+    cnt = np.where(live, rng.integers(0, 3, np_cap), 0).astype(np.int32)
+    return room, np.array(int(rng.integers(1, 3)), np.int32), cnt
+
+
+def with_aux_lane(feats: tuple, room: np.ndarray, inc: np.ndarray) -> tuple:
+    """`feats` (a feature-array tuple) with its aux_room and aux_inc set."""
+    f = dict(zip(_F, feats))
+    f["aux_room"], f["aux_inc"] = room, inc
     return tuple(f[name] for name in _F)
 
 

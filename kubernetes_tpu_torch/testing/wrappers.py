@@ -156,7 +156,7 @@ class MakePod:
             node_taints_policy=node_taints_policy))
         return self
 
-    # -- features the scope guard refuses ----------------------------------
+    # -- host ports, volumes, claims (the scope guard refuses claims) -------
 
     def host_port(self, port: int, protocol: str = "TCP", host_ip: str = "") -> "MakePod":
         c = self._pod.containers[0]

@@ -282,10 +282,12 @@ def test_launcher_signatures_are_read_from_the_sources():
         optional = {p.name for p in sig if p.optional}
         lane = name in ("resource_eval", "lap_schedule", "scan_schedule", "scan_general",
                         "patch_carry_rows", "schedule_placements")
-        # The schedule kernels' blocked lane (host ports) is nullable too.
-        blocked = {"lap_schedule": {"blocked"}, "scan_schedule": {"blocked"},
-                   "scan_general": {"blocked"}, "schedule_placements": {"blocked_s"}}
-        assert optional == ({"nom_req", "nom_pods"} | blocked.get(name, set())
+        # The schedule kernels' blocked lane (host ports) and aux_cnt lane
+        # (CSI attach limits) are nullable too.
+        lanes = {"lap_schedule": {"blocked", "aux_cnt"}, "scan_schedule": {"blocked", "aux_cnt"},
+                 "scan_general": {"blocked", "aux_cnt"},
+                 "schedule_placements": {"blocked_s", "aux_cnt_s"}}
+        assert optional == ({"nom_req", "nom_pods"} | lanes.get(name, set())
                             if lane else set())
 
 
@@ -332,6 +334,21 @@ def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches):
         sig = {p.name: a for p, a in zip(K._build.signature(name), args)}
         assert (sig["nom_req"], sig["nom_pods"]) == (lane.nom_req.data_ptr(),
                                                      lane.nom_pods.data_ptr()), name
+    # With the aux lane on, the schedule kernels get a copy of the carry's
+    # aux_cnt (placements: a scratch lane) and the batch's room and increment.
+    aux = K.PlanFacts(has_aux=True)
+    recorded_launches.clear()
+    K._lap_schedule_cuda(ts, tf, 512, 0, ext0, static_ok, 300, has_aux=True)
+    K._scan_schedule_cuda(ts, tf, 64, 0, ext0, static_ok, 40, has_aux=True)
+    K._scan_general_cuda(ts, tf, 64, 0, ext0, K._static_masks_plain(ts, tf), 40,
+                         aux._replace(has_pns=True))
+    K._schedule_placements_cuda(ts, tf, 8, 0, VMAX, aux, masks, 5)
+    for name, args in recorded_launches:
+        sig = {p.name: a for p, a in zip(K._build.signature(name), args)}
+        cnt = sig.get("aux_cnt", sig.get("aux_cnt_s"))
+        assert isinstance(cnt, int) and cnt != ext0.aux_cnt.data_ptr(), name
+        assert (sig["aux_room"], sig["aux_inc"]) == (tf.aux_room.data_ptr(),
+                                                     tf.aux_inc.data_ptr()), name
 
 
 @pytest.mark.parametrize("case", ["all-lanes", "hostname-anti", "aff-bootstrap"])
@@ -481,7 +498,7 @@ def _not_an_int(ts, tf):
     (_wrong_dtype, TypeError, "enable must be a torch.int32"),
     (_wrong_feature_dtype, TypeError, "fit_weights must be a torch.int64"),
     (_null_pointer, TypeError, "taint_key may not be null"),
-    (_wrong_count, TypeError, "takes 41 arguments"),
+    (_wrong_count, TypeError, "takes 44 arguments"),
     (_wrong_device, ValueError, "request on meta, expected cpu"),
     (_not_an_int, TypeError, "NP must be an int"),
 ], ids=["dtype", "feature-dtype", "null", "count", "device", "int"])

@@ -15,10 +15,13 @@ import sys
 import pytest
 import torch
 
+from kubernetes_tpu.api import storage as jax_storage
+from kubernetes_tpu.api.types import Volume as JaxVolume
 from kubernetes_tpu.models.tpu_scheduler import TPUScheduler
 from kubernetes_tpu.testing.wrappers import make_node as jax_make_node
 from kubernetes_tpu.testing.wrappers import make_pod as jax_make_pod
-from kubernetes_tpu_torch.api.types import PodGroup
+from kubernetes_tpu_torch.api import storage
+from kubernetes_tpu_torch.api.types import PodGroup, Volume
 from kubernetes_tpu_torch.models import TorchScheduler
 from kubernetes_tpu_torch.testing import make_node, make_pod
 
@@ -199,16 +202,14 @@ class TestScope:
         assert port.scheduled > 0 and port.device_scheduled == port.scheduled
 
     @pytest.mark.parametrize("build", [
-        lambda b: b.volume("claim"),
         lambda b: b.resource_claim("gpu"),
         lambda b: b.pod_group("gang"),
-        lambda b: b.host_port(8080).volume("claim"),
-    ], ids=["volumes", "claims", "pod-groups", "ports-and-volume"])
+    ], ids=["claims", "pod-groups"])
     def test_out_of_scope_pod_refused(self, build):
         # Pod groups are in scope since the gang slice; a group inside a
         # composite tree (a parent composite group) is not, so the
-        # pod-groups case registers its pod's group as such a leaf. Host
-        # ports are in scope; a volume beside them is not.
+        # pod-groups case registers its pod's group as such a leaf. Volumes
+        # are in scope with the volume plugins; resource claims are not.
         s = TorchScheduler(device="cpu")
         pod = build(make_pod().name("p").req({"cpu": "1"})).obj()
         with pytest.raises(NotImplementedError):
@@ -218,24 +219,37 @@ class TestScope:
         assert not s.clientset.pods and s.queue.pending_counts() == (0, 0, 0)
         assert not s.clientset.pod_groups
 
-    @pytest.mark.parametrize("build,bound", [
-        (lambda b: b.host_port(8080), 3),
-        (lambda b: b.scheduling_gate("wait"), 0),
-    ], ids=["host-ports", "gates"])
-    def test_lifted_refusals_admit_and_schedule_like_jax(self, build, bound):
-        """Host ports and scheduling gates were refused until NodePorts and
-        SchedulingGates were ported: five pods on three nodes bind (one a
-        node, the other two failing NodePorts) or stay gated exactly as in
-        the JAX package, with equal queue counts."""
+    @pytest.mark.parametrize("build,bound,claim", [
+        (lambda b: b.host_port(8080), 3, None),
+        (lambda b: b.scheduling_gate("wait"), 0, None),
+        (lambda b: b, 0, "missing"),
+        (lambda b: b.host_port(8080), 3, "bound"),
+    ], ids=["host-ports", "gates", "missing-claim", "ports-and-volume"])
+    def test_lifted_refusals_admit_and_schedule_like_jax(self, build, bound, claim):
+        """Host ports, scheduling gates and volumes were refused until
+        NodePorts, SchedulingGates and the volume plugins were ported: five
+        pods on three nodes bind (one a node, the other two failing
+        NodePorts), stay gated, or (naming a claim that does not exist)
+        stay unresolvable exactly as in the JAX package, with equal queue
+        counts; host ports beside a bound claim bind as host ports alone."""
         jax_s = TPUScheduler(mesh=None)
         port = TorchScheduler(device="cpu")
         for mk, s in ((jax_make_node, jax_s), (make_node, port)):
             for i in range(3):
                 s.clientset.create_node(mk().name(f"node-{i}").capacity(
                     {"cpu": 4, "memory": "8Gi", "pods": 110}).obj())
-        for mk, s in ((jax_make_pod, jax_s), (make_pod, port)):
+        for mk, s, st, vol in ((jax_make_pod, jax_s, jax_storage, JaxVolume),
+                               (make_pod, port, storage, Volume)):
+            if claim == "bound":
+                s.clientset.create_pv(st.PersistentVolume.of(
+                    "pv-claim", "1Gi", access_modes=(st.ROX,), claim_ref="default/claim"))
+                s.clientset.create_pvc(st.PersistentVolumeClaim.of(
+                    "claim", "1Gi", access_modes=(st.ROX,), volume_name="pv-claim"))
             for i in range(5):
-                s.clientset.create_pod(build(mk().name(f"p{i}").req({"cpu": "1"})).obj())
+                pod = build(mk().name(f"p{i}").req({"cpu": "1"})).obj()
+                if claim is not None:
+                    pod.volumes.append(vol(name="data", pvc_name="claim"))
+                s.clientset.create_pod(pod)
             s.run_until_idle()
         _assert_same(jax_s, port)
         assert len(port.clientset.bindings) == bound
