@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, in order; any error or mismatch exits non-zero before the result:
-  1. build   — compile the ten CUDA kernels from csrc/ (one nvcc each, in
+  1. build   — compile the eleven CUDA sources from csrc/ (one nvcc each, in
                parallel, linked into one library) and print the build
                seconds;
   2. kernels — hold each kernel against its plain PyTorch version on the
@@ -50,7 +50,15 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                count drawn or zero, fresh and chained, padded steps, draws
                whose batch outnumbers their room (every row filled, the last
                pods placed nowhere), schedule_placements' lanes at P = 16
-               and 64 each counting only their own members. Results must be
+               and 64 each counting only their own members; the sharded lap's
+               three launchers (sharded_lap_count, _windows, _land) at S = 2,
+               4 and 8 shards on one card, on SchedulingBasic's first batch
+               (NP 8192, B 1024) and on draws with the start's row in a late
+               shard, a start of 0, LAP_MAX windows with a short final lap,
+               shards with no feasible row, padded rows, truncation off and
+               nothing feasible: each launcher against its plain version lap
+               by lap, the whole lap fresh and chained against the one-device
+               lap kernel and against its plain version. Results must be
                exactly equal on every output and carry lane. It also times scan_general's first
                launch in the process against the next;
   3. paths   — each through TorchScheduler on cuda at full width, the
@@ -162,6 +170,17 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                NodeVolumeLimits) at max_batch 1024 (the lap), 64
                (scan_schedule) and 64 with a zone spread over 10 zones
                (scan_general), each with the lane on every dispatch;
+               under a mesh of 4 shards on one card (one device repeated,
+               make_mesh(devices=[cuda:0] * 4)): SchedulingBasic/5000Nodes_10000Pods,
+               pod for pod as the unsharded run, through the sharded lap
+               (its three launchers launched, no one-device lap, pods/s
+               labelled as 4 shards on one card: no multi-GPU number); a
+               TopologySpreading cut (1000 nodes) on the gathered path;
+               delta-resume waves (1000 nodes, deletes and taint flips, one
+               full rebuild, scatter_rows and patch_carry_rows a shard); each
+               equal to the unsharded run and to the same cut under a CPU
+               mesh; and a two-cell sharded_schedule_batch draw (8 shards)
+               equal to each cell's single-device run and the CPU run;
   4. timing  — on the main paths' own next-batch inputs (exactness checked
                there too): each kernel's device time per launch from
                torch.profiler (a warm-up step, then at least 19 of 20
@@ -191,7 +210,11 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                their attach-limit cuts' first batch, schedule_placements on
                a seeded 16-lane draw at NP 8192 (no path launches it
                with the lane: volume members of a placement group take
-               the host simulation);
+               the host simulation); the sharded lap on SchedulingBasic's
+               next batch at S = 2, 4 and 8: a dispatch, a lap, each
+               launcher's device and call time and bound a shard, the two
+               exchanges a lap; the mesh waves' sharded carry patch and
+               dirty-row scatter;
   5. parity  — a 500-node cluster with NoSchedule and PreferNoSchedule
                taints, unschedulable nodes, node selectors, pods that fit no
                node, zone and hostname spread, required and preferred
@@ -231,8 +254,21 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                as nvidia-smi prints them, and last
                `{"ok": true, "device": {...}}`.
 
-It imports neither jax nor kubernetes_tpu. With no CUDA device, or without
-the rest of the repository beside it, it exits non-zero with no result.
+    python3 chip_smoke.py --cards N
+
+runs the node-sharded mesh across N cards of one host, one shard a card,
+in place of the phases above: the build; SchedulingBasic/5000Nodes_10000Pods
+unsharded on cuda:0 and under make_mesh() over the N cards, pod for pod
+equal, the three sharded-lap launchers launched and the one-device lap
+not; the mesh's delta-resume waves against the unsharded ones; the
+sharded lap on the path's next batch, exact against the one-device lap,
+timed a lap (and its exchanges and phases) across the N cards beside N
+shards on cuda:0; then a `{"cards": {...}}` line, every card's name and
+power limit, and the same last line.
+
+It imports neither jax nor kubernetes_tpu. With no CUDA device (or fewer
+than N), or without the rest of the repository beside it, it exits
+non-zero with no result.
 """
 
 import json
@@ -488,6 +524,7 @@ def kernel_phase(dev, np_cap: int, n_nodes: int) -> dict:
     blocked_phase(K, dev, np_cap, n_nodes, errs)
     aux_phase(K, dev, np_cap, n_nodes, errs)
     whatif_phase(dev, n_nodes, errs)
+    mesh_kernel_phase(dev, np_cap, n_nodes, errs)
     torch.cuda.synchronize()
     print(f"kernels vs plain: max_abs_err {errs}", flush=True)
     for name, e in errs.items():
@@ -676,7 +713,7 @@ def zone_of(node: str) -> int:
 
 
 def run_path(dev, workload: str, n_init=None, n_measure=None, max_batch=None,
-             churn_limit=None, label=None):
+             churn_limit=None, label=None, mesh="auto"):
     """Build the workload's 5000-node cluster, warm it (n_init init or
     warm-up pods), then run n_measure measured pods with the launch counts
     zeroed just before and read just after. A `label` names a run that is
@@ -686,7 +723,7 @@ def run_path(dev, workload: str, n_init=None, n_measure=None, max_batch=None,
 
     w = bench.WORKLOADS[workload]
     sched = bench.build_cluster(bench.NODES.get(workload, 5000), device=dev, max_batch=max_batch,
-                                node=w.node)
+                                node=w.node, mesh=mesh)
     bench.warm(sched, w.init_pods if n_init is None else n_init, workload)
     flushes0 = sched.mirror.scatter_flushes
     K.reset_launch_counts()
@@ -2760,6 +2797,430 @@ def aux_timing(rows: dict, caps: dict, errs: dict) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The node-sharded mesh: S shards on one card
+# ---------------------------------------------------------------------------
+
+BASIC = "SchedulingBasic/5000Nodes_10000Pods"
+MESH_SHARDS = (2, 4, 8)     # shards of the kernel cases, all on one card
+MESH_PATH_SHARDS = 4        # shards of the mesh drives
+SHARDED = ("sharded_lap_count", "sharded_lap_windows", "sharded_lap_land")
+MESH_BASIC = f"{BASIC}, {MESH_PATH_SHARDS} shards on one card"
+MESH_SPREAD = (f"TopologySpreading cut (1000 nodes, 200 init, 600 spread pods), "
+               f"{MESH_PATH_SHARDS} shards on one card")
+MESH_WAVES = (f"delta-resume waves (1000 nodes, 512 warm, 4 waves of 300 pods with deletes "
+              f"and taints), {MESH_PATH_SHARDS} shards on one card")
+MESH_CELLS = "two cells of 4 shards on one card (sharded_schedule_batch, NP 8192, B 1024)"
+
+
+def card_mesh(dev, shards: int):
+    from kubernetes_tpu_torch.parallel import make_mesh
+    return make_mesh(devices=[dev] * shards)
+
+
+def sharded_inputs(st, ft, shards: int):
+    """(mesh, sharded state, sharded features) of S shards on st's device."""
+    from kubernetes_tpu_torch.parallel import shard_features, shard_node_state
+    mesh = card_mesh(st.valid.device, shards)
+    return mesh, shard_node_state(st, mesh), shard_features(ft, mesh)
+
+
+def phase_errs(lap, sst, sft, n_act: int, laps: int = 3) -> dict:
+    """Each sharded-lap launcher against its plain version on identical
+    inputs, lap by lap: a kernel run and a plain run of the same dispatch,
+    every buffer a phase writes compared after the phase."""
+    from kubernetes_tpu_torch.parallel.mesh import LapRun
+
+    runs = [LapRun(lap, sst, sft, n_act, None, plain=p) for p in (False, True)]
+    errs = dict.fromkeys(SHARDED, 0)
+
+    def err(name, get):
+        errs[name] = max(errs[name], max_abs_err(get(runs[0]), get(runs[1])))
+
+    for _ in range(laps):
+        for r in runs:
+            r.count_phase()
+        err("sharded_lap_count",
+            lambda r: [t for sh in r.shards for t in (sh.okd, sh.Fl, sh.total, sh.pair)])
+        for r in runs:
+            r.exchange_pairs()
+            r.windows_phase()
+        err("sharded_lap_windows", lambda r: [t for sh in r.shards for t in (sh.keys, sh.L)])
+        for r in runs:
+            r.exchange_keys()
+            r.land_phase()
+        err("sharded_lap_land", lambda r: [r.out] + [
+            t for sh in r.shards for t in (sh.carry.req_r, sh.carry.nonzero, sh.carry.pod_count,
+                                           sh.carry.start, sh.done)])
+    torch.cuda.synchronize()
+    return errs
+
+
+def mesh_kernel_phase(dev, np_cap: int, n_nodes: int, errs: dict) -> None:
+    """The three sharded-lap launchers against their plain versions on the
+    card, S = 2, 4 and 8 shards on one card: SchedulingBasic's first batch
+    (its 5000-node mirror, B 1024) and seeded draws with the hazard cases.
+    Each launcher alone over three laps; the whole lap, fresh and chained,
+    against the one-device lap kernel at every S and against its plain
+    version at S = 2 and 4 (and at 8 on the first batch)."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.ops import kernel as K
+    from kubernetes_tpu_torch.ops.features import BatchFeatures
+    from kubernetes_tpu_torch.parallel import gather, sharded_lap_schedule
+    from kubernetes_tpu_torch.testing.kernel_inputs import random_inputs
+
+    first = "SchedulingBasic's first batch"
+    sched = bench.build_cluster(n_nodes, device=dev, mesh=None)
+    pod = bench.make_pods(1, "first")[0]
+    st, plan = sched.build_plan(sched.framework_for_pod(pod), pod, 1024)
+    check(plan.row_local and plan.batch_pad == 1024 and st.valid.shape[0] == np_cap,
+          "SchedulingBasic's first batch is not a row-local 1024-step plan at the mirror's tier")
+    draws = {first: (st, plan.features, plan.fit_strategy, plan.vmax, 1024)}
+    sel = BatchFeatures._fields.index("sel_match")
+    hazards = {  # (random_inputs arguments, pods, rows [lo, hi) with no feasible row)
+        "the start in a late shard": (dict(start=n_nodes * 5 // 6), 256, None),
+        "start 0": (dict(start=0), 256, None),
+        "LAP_MAX windows, a short final lap": (dict(to_find=7), 1021, None),
+        "shards with no feasible row": (dict(to_find=13), 1000, (np_cap // 2, np_cap)),
+        "truncation off": (dict(to_find=n_nodes), 24, None),
+        "nothing feasible": (dict(infeasible=True), 24, None),
+    }
+    for i, (case, (kw, n_act, dead)) in enumerate(hazards.items()):
+        s, f = random_inputs(500 + i, np_cap, n_nodes, **kw)
+        if dead is not None:
+            f = list(f)
+            f[sel] = f[sel].copy()
+            f[sel][dead[0]:dead[1]] = False
+        st_h, ft_h = to_device(dev, s, f)
+        draws[case] = (st_h, ft_h, i % 2, 64, n_act)
+    for case, (st_c, ft_c, fs, vmax, n_act) in draws.items():
+        one = [K.schedule_batch(st_c, ft_c, 1024, fs, vmax, K.PlanFacts(), n_active=n_act)]
+        one.append(K.schedule_batch(st_c, ft_c, 1024, fs, vmax, K.PlanFacts(), n_active=n_act,
+                                    carry_in=one[0][1]))
+        summary = []
+        for S in MESH_SHARDS:
+            _mesh, sst, sft = sharded_inputs(st_c, ft_c, S)
+            lap = sharded_lap_schedule(_mesh, 1024, fs, vmax)
+            for name, e in phase_errs(lap, sst, sft, n_act).items():
+                errs[name] = max(errs[name], e)
+            plain = S < 8 or case == first
+            ck = cp = None
+            for chain, (o_1, c_1) in zip(("fresh", "chained"), one):
+                o_k, ck = lap(sst, sft, n_act, ck)
+                got = (o_k,) + tuple(gather(ck))
+                e = max_abs_err(got, (o_1,) + tuple(c_1))
+                check(e == 0, f"the sharded lap disagrees with the one-device lap kernel: {case}, "
+                      f"S {S}, {chain} (max_abs_err {e})")
+                if plain:
+                    o_p, cp = lap.plain(sst, sft, n_act, cp)
+                    e = max_abs_err(got, (o_p,) + tuple(gather(cp)))
+                    check(e == 0, f"the sharded lap disagrees with its plain version: {case}, "
+                          f"S {S}, {chain} (max_abs_err {e})")
+                summary.append(f"S {S} {chain} {int((o_k[0] >= 0).sum())} placed")
+            torch.cuda.synchronize()
+        print(f"sharded lap, {case}: exact; {', '.join(summary)}", flush=True)
+    print(f"sharded-lap launchers vs plain, three laps each: "
+          f"{ {n: errs[n] for n in SHARDED} } over {len(draws)} draws x S {MESH_SHARDS}",
+          flush=True)
+
+
+def cut_run(dev, workload: str, n_nodes: int, n_init: int, n_measure: int, mesh, label: str):
+    """A cut of a workload on `n_nodes` nodes under `mesh` (None: one
+    device): init pods, then `n_measure` measured pods, the launch counts
+    zeroed between."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    w = bench.WORKLOADS[workload]
+    sched = bench.build_cluster(n_nodes, device=dev, node=w.node, mesh=mesh)
+    bench.warm(sched, n_init, workload)
+    K.reset_launch_counts()
+    result = bench.measure(sched, n_measure, workload=workload, label=label)
+    return sched, result, {k.__name__: k.launches for k in K.WRAPPERS}
+
+
+def mesh_waves(dev, mesh, n_nodes: int = 1000, warm: int = 512, waves: int = 4,
+               wave_pods: int = 300, deletes: int = 50, capture=None):
+    """Completions and arrivals under `mesh`: SchedulingBasic's node shape,
+    `warm` pods, then `waves` waves of `wave_pods` pods, each after
+    `deletes` bound pods are deleted; wave 1 taints a node NoSchedule, wave
+    2 another, wave 3 lifts the first. Every event is a row patch: one full
+    rebuild in all. `capture` receives the first patch_carry_rows_pinned
+    call's arguments."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.models import tpu_scheduler as TS
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    rng = random.Random(77)
+    sched = bench.build_cluster(n_nodes, device=dev, mesh=mesh)
+    bench.warm(sched, warm)
+    pinned = TS.patch_carry_rows_pinned
+
+    def recorded(*args):
+        if capture is not None and not capture:
+            capture["args"] = args
+        return pinned(*args)
+    TS.patch_carry_rows_pinned = recorded
+    K.reset_launch_counts()
+    try:
+        for w in range(1, waves + 1):
+            done = sorted(p.name for p in sched.clientset.pods.values() if p.node_name)
+            by_name = {p.name: p for p in sched.clientset.pods.values()}
+            for name in rng.sample(done, deletes):
+                sched.clientset.delete_pod(by_name[name])
+            if w in (1, 2):
+                sched.clientset.update_node(bench.cluster_node(
+                    w * n_nodes // 3, taint=("dedicated", "infra", "NoSchedule")))
+            elif w == 3:
+                sched.clientset.update_node(bench.cluster_node(n_nodes // 3))
+            for p in bench.make_pods(wave_pods, f"mwave{w}"):
+                sched.clientset.create_pod(p)
+            sched.run_until_idle()
+    finally:
+        TS.patch_carry_rows_pinned = pinned
+    launches = {k.__name__: k.launches for k in K.WRAPPERS}
+    pods = list(sched.clientset.pods.values())
+    check(all(p.node_name for p in pods) and sched.host_path_pods == 0 and sched.failures == 0,
+          f"{MESH_WAVES} on {dev}: {sum(1 for p in pods if p.node_name)} of {len(pods)} bound, "
+          f"{sched.host_path_pods} host-path pods")
+    check(sched.plan_rebuilds_full == 1 and sched.plan_rebuilds_delta >= waves,
+          f"{MESH_WAVES} on {dev}: {sched.plan_rebuilds_full} full rebuilds, "
+          f"{sched.plan_rebuilds_delta} row patches")
+    return sched, launches
+
+
+def mesh_paths(dev, paths: dict) -> dict:
+    """The mesh drives on the card, each against the unsharded CUDA run
+    (and, for the cuts, the same cut under a CPU mesh of as many shards):
+    SchedulingBasic at full size through the sharded lap, a
+    TopologySpreading cut through the gathered path, delta-resume waves and
+    a two-cell draw."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.ops import kernel as K
+    from kubernetes_tpu_torch.parallel import make_mesh, sharded_schedule_batch
+    from kubernetes_tpu_torch.testing.kernel_inputs import random_inputs
+
+    out = {}
+    mesh = card_mesh(dev, MESH_PATH_SHARDS)
+    cpu_mesh = make_mesh(devices=["cpu"] * MESH_PATH_SHARDS)
+
+    sched, result, launches = run_path(dev, BASIC, mesh=mesh, label=MESH_BASIC)
+    d = result["detail"]
+    w = bench.WORKLOADS[BASIC]
+    total = w.init_pods + w.measure_pods
+    check(len(sched.clientset.bindings) == total and d["host_path_pods"] == 0
+          and d["failures"] == 0, f"{MESH_BASIC}: {len(sched.clientset.bindings)} of {total} "
+          f"bound, {d['host_path_pods']} host-path pods")
+    check(assignments(sched) == assignments(paths[BASIC][0]),
+          f"{MESH_BASIC}: the assignments differ from the unsharded run's")
+    check(d["shard_map_dispatches"] > 0 and sched.host_path_pods == 0,
+          f"{MESH_BASIC}: {d['shard_map_dispatches']} sharded-lap dispatches")
+    for k in SHARDED + ("static_masks",):
+        check(launches[k] > 0, f"{k} was not launched on the {MESH_BASIC} path")
+    check(launches["lap_schedule"] == 0, f"{MESH_BASIC}: the one-device lap was launched")
+    print(f"{MESH_BASIC}: {total} pods as the unsharded run, pod for pod; "
+          f"{d['shard_map_dispatches']} sharded-lap dispatches in the window; launches "
+          f"{ {k: launches[k] for k in SHARDED} }; pods/s {result['value']:.1f} "
+          f"({MESH_PATH_SHARDS} shards on one card, not a multi-GPU number)", flush=True)
+    out[MESH_BASIC] = (sched, result, launches)
+
+    spread = "TopologySpreading/5000Nodes_5000Pods"
+    runs = {}
+    for what, d_, m_ in (("mesh", dev, mesh), ("unsharded", dev, None), ("cpu mesh", "cpu",
+                                                                           cpu_mesh)):
+        t0 = time.perf_counter()
+        runs[what] = cut_run(d_, spread, 1000, 200, 600, m_, MESH_SPREAD)
+        print(f"{MESH_SPREAD}, {what} run: {time.perf_counter() - t0:.1f} s", flush=True)
+    ms, mr, ml = runs["mesh"]
+    for what in ("unsharded", "cpu mesh"):
+        check(assignments(ms) == assignments(runs[what][0]),
+              f"{MESH_SPREAD}: the card's mesh run differs from the {what} run")
+    smd = mr["detail"]["shard_map_dispatches"]
+    check(ms.host_path_pods == 0 and smd == 0,
+          f"{MESH_SPREAD}: {ms.host_path_pods} host-path pods, {smd} sharded-lap dispatches "
+          "of spread pods (the gathered path takes them)")
+    check(ml["scan_general"] > 0, f"scan_general was not launched on the {MESH_SPREAD} path")
+    print(f"{MESH_SPREAD}: every run equal, the gathered path (scan_general "
+          f"{ml['scan_general']} launches)", flush=True)
+    out[MESH_SPREAD] = (ms, mr, ml)
+
+    capture = {}
+    t0 = time.perf_counter()
+    wm, wl = mesh_waves(dev, mesh, capture=capture)
+    wu, _ = mesh_waves(dev, None)
+    wc, _ = mesh_waves("cpu", cpu_mesh)
+    check(assignments(wm) == assignments(wu) == assignments(wc),
+          f"{MESH_WAVES}: the card's mesh run differs from the unsharded or the cpu mesh run")
+    for k in ("scatter_rows", "patch_carry_rows") + SHARDED:
+        check(wl[k] > 0, f"{k} was not launched on the {MESH_WAVES} path")
+    check(capture and hasattr(capture["args"][2], "parts"),
+          f"{MESH_WAVES}: no sharded carry was patched")
+    print(f"{MESH_WAVES}: equal to the unsharded and the cpu mesh runs; full/delta/resume "
+          f"{wm.plan_rebuilds_full}/{wm.plan_rebuilds_delta}/{wm.plan_rebuilds_resume}; launches "
+          f"scatter_rows {wl['scatter_rows']}, patch_carry_rows {wl['patch_carry_rows']}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out[MESH_WAVES] = (wm, None, wl)
+
+    draws = [random_inputs(900 + c, 8192, 5000) for c in range(2)]
+    stacked = [[np.stack([dr[k][i] for dr in draws]) for i in range(len(draws[0][k]))]
+               for k in (0, 1)]
+    facts = K.PlanFacts()  # row-local: the one-device lap on each cell's row
+    got = {}
+    for what, d_ in (("card", dev), ("cpu", "cpu")):
+        st_c, ft_c = to_device(d_, *stacked)
+        run = sharded_schedule_batch(make_mesh(n_cells=2, devices=[d_] * 8), 1024, 0, 64)
+        got[what] = run(st_c, ft_c, facts)[0].cpu()
+    for c in range(2):
+        st_c, ft_c = to_device(dev, *draws[c])
+        single = K.schedule_batch(st_c, ft_c, 1024, 0, 64, facts)[0].cpu()
+        check(torch.equal(got["card"][c], single) and torch.equal(got["cpu"][c], single),
+              f"{MESH_CELLS}: cell {c} differs from its single-device run")
+    print(f"{MESH_CELLS}: each cell equal to its single-device run and to the cpu run "
+          f"({int((got['card'][:, 0] >= 0).sum())} pods placed)", flush=True)
+    return out, capture
+
+
+def mesh_timing(paths: dict, errs: dict, capture: dict) -> dict:
+    """The sharded lap on SchedulingBasic's next batch (the path's cluster
+    after its measured run, NP 8192, B 1024) at S = 2, 4 and 8 on one card:
+    the whole dispatch and its plain version, each launcher's device time
+    (torch.profiler, per launch) and call time, the two exchanges a lap and
+    each launcher's bound a shard; the mesh waves' first sharded carry
+    patch and per-shard dirty-row scatter."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.ops import kernel as K
+    from kubernetes_tpu_torch.parallel import gather, sharded_lap_schedule
+    from kubernetes_tpu_torch.parallel.mesh import LapRun
+
+    sched = paths[BASIC][0]
+    pod = bench.make_pods(1, "timed")[0]
+    st, plan = sched.build_plan(sched.framework_for_pod(pod), pod, sched.max_batch)
+    ft, fs, vmax = plan.features, plan.fit_strategy, plan.vmax
+    stats = {}
+    ext0 = K.fresh_carry(st, ft, vmax, K._resource_eval_plain(
+        ft, fs, st.alloc_r, st.alloc_pods, st.req_r, st.nonzero, st.pod_count))
+    K._lap_schedule_plain(st, ft, 1024, fs, ext0, K._static_masks_plain(st, ft).static_ok, 1024,
+                          stats=stats)
+    laps = stats["laps"]
+    single_ms = wall_ms(lambda: K.schedule_batch(st, ft, 1024, fs, vmax, plan.facts), reps=5)
+    NP, R = st.alloc_r.shape
+    FR = ft.fit_slots.shape[0]
+    row_ops = 4 * R + 12 * FR + 24
+    by_shards = {}
+    for S in MESH_SHARDS:
+        mesh, sst, sft = sharded_inputs(st, ft, S)
+        lap = sharded_lap_schedule(mesh, 1024, fs, vmax)
+        o_k, c_k = lap(sst, sft, 1024)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o_p, c_p = lap.plain(sst, sft, 1024)
+        torch.cuda.synchronize()
+        plain_lap_ms = (time.perf_counter() - t0) * 1e3
+        check(max_abs_err((o_k,) + tuple(gather(c_k)), (o_p,) + tuple(gather(c_p))) == 0,
+              f"the sharded lap at S {S} disagrees with its plain version on {BASIC}'s next batch")
+        lap_ms = wall_ms(lambda: lap(sst, sft, 1024), reps=5)
+        runs = [LapRun(lap, sst, sft, 1 << 30, None, plain=p) for p in (False, True)]
+        for r in runs:
+            r.one_lap()
+        L = int(runs[0].shards[0].L)
+        npl = NP // S
+        phases = {
+            # the shard's rows in (16 R + 37 B: aggregates, allocatable,
+            # static_ok, il_score), okd, Fl and the total out (13 B)
+            "sharded_lap_count": (runs[0].count_phase, runs[1].count_phase,
+                                  npl * (16 * R + 37 + 13) + 8, npl * (row_ops + 8)),
+            # okd, Fl and total in, the gathered pairs in, the keys out
+            "sharded_lap_windows": (runs[0].windows_phase, runs[1].windows_phase,
+                                    npl * 13 + 8 * S + 16 * K.LAP_MAX + 4, npl * 24),
+            # the gathered keys in, the landed rows read and written, results
+            "sharded_lap_land": (runs[0].land_phase, runs[1].land_phase,
+                                 16 * K.LAP_MAX * S + L * (2 * (8 * R + 20) + 8) + 8,
+                                 2 * K.LAP_MAX * S + L * (R + 3)),
+        }
+        row = {}
+        for name, (k_fn, p_fn, nbytes, ops) in phases.items():
+            ms, seen = device_ms(k_fn, name)
+            t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S * 1e3
+            row[name] = dict(ms=ms, ms_launches_seen=seen, host_ms=wall_ms(k_fn, reps=20) / S,
+                             plain_ms=wall_ms(p_fn, reps=3, warmup=1) / S,
+                             bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else
+                             "operations", bytes=nbytes, ops=ops)
+        exch_ms = wall_ms(lambda: (runs[0].exchange_pairs(), runs[0].exchange_keys()), reps=20)
+        by_shards[S] = dict(phases=row, lap_call_ms=lap_ms, ms_a_lap=lap_ms / laps,
+                            plain_call_ms=plain_lap_ms, exchanges_ms_a_lap=exch_ms, laps=laps,
+                            L=L)
+        print(f"sharded lap, S {S} on one card, {BASIC}'s next batch ({laps} laps): "
+              f"{lap_ms:.4f} ms a dispatch, {lap_ms / laps * 1e3:.1f} us a lap (one-device lap "
+              f"{single_ms:.4f} ms); exchanges {exch_ms * 1e3:.1f} us a lap; "
+              + ", ".join(f"{n} {r['ms'] * 1e3:.2f} us on the device, {r['host_ms'] * 1e3:.1f} us "
+                          f"a call, bound {r['bound_ms'] * 1e3:.4f} us"
+                          for n, r in row.items()), flush=True)
+    rows = {}
+    for name in SHARDED:
+        r4 = by_shards[MESH_PATH_SHARDS]["phases"][name]
+        rows[name] = dict(name=name, route="cuda", source="kubernetes_tpu_torch/csrc/sharded_lap.cu",
+                          replaces="kubernetes_tpu/parallel/mesh.py:228", launches=0,
+                          max_abs_err=errs[name], exact=errs[name] == 0, **r4, library_ms=None,
+                          shards=MESH_PATH_SHARDS,
+                          by_shards={S: by_shards[S]["phases"][name] for S in MESH_SHARDS})
+    rows["sharded_lap_count"]["lap"] = {
+        S: {k: v for k, v in b.items() if k != "phases"} for S, b in by_shards.items()}
+    rows["sharded_lap_count"]["lap"]["one_device_call_ms"] = single_ms
+    # The two ported functions with no kernel of their own, on the mesh
+    # waves' first sharded carry patch: patch_carry_rows and scatter_rows a
+    # shard, in place (the same rows again give the same values).
+    from kubernetes_tpu_torch.ops.device_state import DeviceNodeState
+
+    args = state, f, carry, idx, req_rows, nz_rows, cnt_rows, strat = capture["args"]
+    mirror = paths[MESH_WAVES][0].mirror
+    rows_idx = sorted({int(r) for r in idx.tolist()})
+    part = state.parts[0]
+    d, R, T, Kx = (len(rows_idx), part.alloc_r.shape[1], part.taint_key.shape[1],
+                   part.topo.shape[0])
+    npl = carry.parts[0].pod_count.shape[0]
+
+    def pinned_plain():  # patch_carry_rows' plain version a shard, in place
+        shard_of = idx.to(torch.int64) // npl
+        for s_, (st_s, f_s, c_s) in enumerate(zip(state.parts, f.parts, carry.parts)):
+            mine = shard_of == s_
+            if bool(mine.any()):
+                K._patch_carry_rows_plain(st_s, f_s, c_s, idx[mine] - s_ * npl, req_rows[mine],
+                                          nz_rows[mine], cnt_rows[mine], strat, in_place=True)
+
+    def scatter_plain():  # scatter_rows' plain version a shard, in place
+        res = mirror._device
+        for s_, part in enumerate(res.parts):
+            mine = [r for r in rows_idx if r // res.block == s_]
+            if mine:
+                packed = DeviceNodeState(*[torch.from_numpy(a[mine]) for a in mirror._arrays()],
+                                         torch.from_numpy(mirror.h_topo[:, mine]))
+                K._scatter_rows_plain(part, torch.tensor([r - s_ * res.block for r in mine],
+                                                         dtype=torch.int32, device=part.valid.device),
+                                      *[t.to(part.valid.device) for t in K.pack_rows(packed)])
+
+    # Bytes each call needs, each distinct row once: the patch reads the
+    # row's index, new aggregates and allocatable and writes six lanes; the
+    # scatter reads and writes the row's packed fields.
+    patch_bytes = d * (4 + 8 * R + 16 + 4 + 8 * R + 8) + d * (8 * R + 16 + 4 + 1 + 8 + 8)
+    scatter_bytes = 2 * d * (8 * (2 * R + 3) + 4 * (3 * T + 2 + Kx) + 2)
+    mesh_patch = {}
+    for what, k_fn, p_fn, nbytes in (
+            ("patch_carry_rows_pinned", lambda: K.patch_carry_rows_pinned(*args), pinned_plain,
+             patch_bytes),
+            ("sharded_scatter", lambda: mirror._scatter_sharded(rows_idx, in_place=True),
+             scatter_plain, scatter_bytes)):
+        mesh_patch[what] = dict(rows=d, shards=MESH_PATH_SHARDS, call_ms=wall_ms(k_fn, reps=20),
+                                plain_ms=wall_ms(p_fn, reps=5),
+                                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                                bytes=nbytes)
+    print("the mesh waves' first patch (" + ", ".join(
+        f"{w}: {r['call_ms']:.4f} ms a call, plain {r['plain_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.8f} ms" for w, r in mesh_patch.items())
+        + f"; {d} rows over {MESH_PATH_SHARDS} shards)", flush=True)
+    rows["sharded_lap_count"]["mesh_patch"] = mesh_patch
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -2785,6 +3246,8 @@ def main() -> int:
 
     t1 = time.perf_counter()
     paths, lane_inputs, waves = paths_phase(dev)
+    mesh_out, mesh_capture = mesh_paths(dev, paths)
+    paths.update(mesh_out)
     print(f"paths phase: {time.perf_counter() - t1:.1f} s", flush=True)
     t1 = time.perf_counter()
     rows = timing_phase(paths, errs, lane_inputs)
@@ -2794,6 +3257,7 @@ def main() -> int:
     rows.update(whatif_timing(waves, errs))
     blocked_timing(rows, waves["blocked_captures"], errs)
     aux_timing(rows, waves["aux_captures"], errs)
+    rows.update(mesh_timing(paths, errs, mesh_capture))
     print(f"timing phase: {time.perf_counter() - t1:.1f} s", flush=True)
     for name, (_s, result, _l) in paths.items():
         if result is not None:
@@ -2816,5 +3280,122 @@ def main() -> int:
     return 0
 
 
+def sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def cards_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean wall ms a call of `fn`, every card drained before and after:
+    events on one card do not see another card's queue."""
+    for _ in range(warmup):
+        fn()
+    sync_all()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync_all()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def cards_main(n: int) -> int:
+    """The mesh across `n` cards, one shard a card (the module docstring's
+    --cards mode)."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    if torch.cuda.device_count() < n or n < 2:
+        fail(f"--cards {n} needs at least 2 and at most {torch.cuda.device_count()} cards")
+    try:
+        from kubernetes_tpu_torch.ops import _build
+    except ImportError as e:
+        fail(f"the kubernetes_tpu_torch package is not beside this script ({e})")
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.ops import kernel as K
+    from kubernetes_tpu_torch.parallel import (gather, make_mesh, shard_features,
+                                               shard_node_state, sharded_lap_schedule)
+    from kubernetes_tpu_torch.parallel.mesh import LapRun
+
+    dev = torch.device("cuda", 0)
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    smi = out.stdout.strip().splitlines()[:n] if out.returncode == 0 else ["nvidia-smi unavailable"]
+    print(f"cards: {smi}", flush=True)
+    t0 = time.perf_counter()
+    _build.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    mesh = make_mesh(devices=[torch.device("cuda", i) for i in range(n)])
+    label = f"{BASIC}, {n} shards on {n} cards"
+    res = {"cards": n, "card": smi}
+
+    one, r1, _ = drive(dev, BASIC)
+    sched, result, launches = run_path(dev, BASIC, mesh=mesh, label=label)
+    d = result["detail"]
+    check(assignments(sched) == assignments(one) and d["host_path_pods"] == 0
+          and d["failures"] == 0, f"{label}: the assignments differ from the unsharded run's")
+    check(d["shard_map_dispatches"] > 0, f"{label}: no sharded-lap dispatch")
+    for k in SHARDED:
+        check(launches[k] > 0, f"{k} was not launched on the {label} path")
+    check(launches["lap_schedule"] == 0, f"{label}: the one-device lap was launched")
+    check({p.valid.device for p in sched.mirror._device.parts} == set(mesh.nodes()),
+          f"{label}: the resident state is not one shard a card")
+    res["pods_per_s"] = {"unsharded": r1["value"], "mesh": result["value"]}
+    res["dispatch_s"] = {"unsharded": r1["detail"]["dispatch_s"], "mesh": d["dispatch_s"]}
+    res["launches"] = {k: launches[k] for k in SHARDED}
+    print(f"{label}: pod for pod as the unsharded run; pods/s {result['value']:.1f} "
+          f"(unsharded {r1['value']:.1f}); launches {res['launches']}", flush=True)
+
+    wm, wl = mesh_waves(dev, mesh)
+    wu, _ = mesh_waves(dev, None)
+    check(assignments(wm) == assignments(wu),
+          f"the delta-resume waves on {n} cards differ from the unsharded run")
+    for k in ("scatter_rows", "patch_carry_rows") + SHARDED:
+        check(wl[k] > 0, f"{k} was not launched on the delta-resume waves on {n} cards")
+    res["waves"] = {"full": wm.plan_rebuilds_full, "delta": wm.plan_rebuilds_delta,
+                    "scatter_rows": wl["scatter_rows"],
+                    "patch_carry_rows": wl["patch_carry_rows"]}
+    print(f"delta-resume waves on {n} cards: equal to the unsharded run; {res['waves']}",
+          flush=True)
+
+    pod = bench.make_pods(1, "timed")[0]
+    st, plan = one.build_plan(one.framework_for_pod(pod), pod, one.max_batch)
+    ft, fs, vmax = plan.features, plan.fit_strategy, plan.vmax
+    o1, c1 = K.schedule_batch(st, ft, 1024, fs, vmax, plan.facts)
+    single_ms = cards_ms(lambda: K.schedule_batch(st, ft, 1024, fs, vmax, plan.facts), reps=5)
+    res["one_device_call_ms"] = single_ms
+    for where, m in ((f"{n} cards", mesh), ("one card", card_mesh(dev, n))):
+        sst, sft = shard_node_state(st, m), shard_features(ft, m)
+        lap = sharded_lap_schedule(m, 1024, fs, vmax)
+        o_k, c_k = lap(sst, sft, 1024)
+        e = max_abs_err((o_k,) + tuple(gather(c_k)), (o1,) + tuple(c1))
+        check(e == 0, f"the sharded lap on {where} disagrees with the one-device lap ({e})")
+        whole = LapRun(lap, sst, sft, 1024, None)
+        whole.run()
+        run = LapRun(lap, sst, sft, 1 << 30, None)
+        run.one_lap()
+        row = dict(laps=whole.laps, call_ms=cards_ms(lambda: lap(sst, sft, 1024), reps=5),
+                   exchanges_ms_a_lap=cards_ms(lambda: (run.exchange_pairs(),
+                                                        run.exchange_keys()), reps=20),
+                   **{f"{name}_call_ms": cards_ms(fn, reps=20) for name, fn in (
+                       ("sharded_lap_count", run.count_phase),
+                       ("sharded_lap_windows", run.windows_phase),
+                       ("sharded_lap_land", run.land_phase))})
+        row["ms_a_lap"] = row["call_ms"] / whole.laps
+        res[f"lap_{n}_shards_on_" + where.replace(" ", "_")] = row
+        print(f"sharded lap, {n} shards on {where}, {BASIC}'s next batch: exact; {row} "
+              f"(one-device lap {single_ms:.4f} ms a call)", flush=True)
+
+    print(json.dumps(res), flush=True)
+    for line in smi:
+        print(line, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cards"] and len(sys.argv) == 3:
+        sys.exit(cards_main(int(sys.argv[2])))
+    if sys.argv[1:]:
+        fail("usage: chip_smoke.py [--cards N]")
     sys.exit(main())

@@ -184,7 +184,8 @@ WINDOW_COUNTERS = ("scheduled", "failures", "device_batches", "device_scheduled"
                    "host_path_pods", "plan_build_s", "plan_acquire_s", "collect_s",
                    "dispatch_s", "device_wait_s", "host_commit_s", "session_end_s",
                    "plan_rebuilds_full", "plan_rebuilds_delta", "plan_rebuilds_resume",
-                   "delta_dirty_rows", "placement_device_evals", "placement_eval_s")
+                   "delta_dirty_rows", "placement_device_evals", "placement_eval_s",
+                   "shard_map_dispatches")
 
 
 class NodeTemplate(NamedTuple):
@@ -387,9 +388,9 @@ def profile_for(workload: str):
 
 def build_cluster(n_nodes: int, device="cuda", max_batch=None,
                   node: NodeTemplate = NodeTemplate(), resume: bool = True,
-                  profile_factory=default_profile) -> TorchScheduler:
+                  profile_factory=default_profile, mesh="auto") -> TorchScheduler:
     sched = TorchScheduler(device=device, max_batch=max_batch, resume=resume,
-                           profile_factory=profile_factory)
+                           profile_factory=profile_factory, mesh=mesh)
     for i in range(n_nodes):
         sched.clientset.create_node(cluster_node(i, node))
         if node.csi is not None:

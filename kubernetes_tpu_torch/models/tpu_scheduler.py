@@ -77,6 +77,18 @@ the host path through the volume plugins, as do a volume pod's preemption
 dry run and its placement evaluation, and a volume pod while pods are
 nominated.
 
+Node mesh (the JAX package's mesh code, :88-123, :1081-1116, :1233-1275,
+:1505-1565). With a NodeMesh (parallel/mesh.py make_mesh, passed as
+`mesh`; the default keeps one device) the mirror's resident state
+and each plan's features are cut along the node axis over the mesh's
+shards. A row-local plan above 64 steps dispatches the sharded lap (the
+three sharded_lap kernels a shard a lap, two exchanges a lap); every other
+plan runs schedule_batch on the state and features gathered onto the
+mesh's first device, its carry staying there for the session. Delta
+patches route each dirty row to its shard (scatter_rows a shard) and patch
+a sharded carry in place (patch_carry_rows a shard). One device may repeat
+in a mesh, so several shards can share one card or the CPU.
+
 Pods the kernels do not cover (matchFields narrowing, a nominated node's
 fast path, spread, affinity, host-port or volume pods while pods are
 nominated, volumes that need stateful binding) and
@@ -132,10 +144,19 @@ from ..ops.features import (
     volume_device_support,
 )
 from ..ops.kernel import (
+    SCAN_MAX_STEPS,
     dry_run_preemption,
     patch_carry_rows,
+    patch_carry_rows_pinned,
     schedule_batch,
     schedule_placements,
+)
+from ..parallel.mesh import (
+    Sharded,
+    gather,
+    mesh_shard_count,
+    shard_features,
+    sharded_lap_schedule,
 )
 from ..plugins.preemption import Candidate
 
@@ -164,9 +185,10 @@ class _Fetch:
     def __init__(self, results: torch.Tensor):
         if results.device.type == "cuda":
             self._host = torch.empty(results.shape, dtype=results.dtype, pin_memory=True)
-            self._host.copy_(results, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
+            with torch.cuda.device(results.device):
+                self._host.copy_(results, non_blocking=True)
+                self._event = torch.cuda.Event()
+                self._event.record()
         else:
             self._host = results
             self._event = None
@@ -198,24 +220,44 @@ class TorchScheduler(Scheduler):
     every session rebuilds its plan, any journaled event ends it, and only
     pods of one exact signature share it (a baseline to measure against).
     `profile_factory` builds the profile (core/registry.py default_profile,
-    or gang_placement_profile for the pod-group placement plugins)."""
+    or gang_placement_profile for the pod-group placement plugins).
+    `mesh` (the JAX package's TPUScheduler mesh, :88-123): a NodeMesh
+    (parallel/mesh.py make_mesh) is used as given, its first device then
+    the scheduler's device; None keeps `device` alone. "auto" keeps
+    `device` alone too, on any number of cards: where the JAX package
+    shards over every device, a host with several cards opts in with
+    mesh=make_mesh()."""
 
     def __init__(self, clientset=None, device="cuda", max_batch: Optional[int] = None,
                  percentage_of_nodes_to_score: int = 0, resume: bool = True,
-                 profile_factory=default_profile):
+                 profile_factory=default_profile, mesh="auto"):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TorchScheduler: CUDA is not available "
                                "(pass device='cpu' to run the plain versions)")
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise ValueError(f"mesh must be 'auto', a NodeMesh or None, not {mesh!r}")
+            # On one card and across cards alike the sharded path is slower
+            # than the single-device lap (PERF.md): until it is not, "auto"
+            # keeps the requested device alone.
+            mesh = None
+        if mesh is not None:
+            if mesh.first.type != device.type:
+                raise ValueError(f"a {device.type} scheduler on a mesh of {mesh.first.type} "
+                                 "devices")
+            device = mesh.first
         super().__init__(clientset, percentage_of_nodes_to_score,
                          profile_factory=profile_factory)
         self.device = device
+        self.mesh = mesh
         self.max_batch = max_batch or DEFAULT_MAX_BATCH
         self.mirror = NodeStateMirror(device)
         self._holdover: Optional[QueuedPodInfo] = None
         self.device_batches = 0
         self.device_scheduled = 0
         self.host_path_pods = 0
+        self.shard_map_dispatches = 0     # dispatches that took the sharded lap
         self.preemption_device_evals = 0  # dry runs that took the kernel
         # Group cycles whose candidate placements were evaluated in one
         # schedule_placements launch, and their seconds (plan, masks, the
@@ -495,6 +537,8 @@ class TorchScheduler(Scheduler):
         if volume is None:
             volume = self._volume_support(pod)
         self.cache.update_snapshot(self.snapshot)
+        if self.mesh is not None:
+            self.mirror.commit_mesh(self.mesh)
         self.mirror.sync(self.snapshot.node_info_list)
         ipa = fw.plugin("InterPodAffinity")
         names = {p.name for p in fw.filter_plugins}
@@ -508,11 +552,35 @@ class TorchScheduler(Scheduler):
             ignore_preferred_terms_of_existing_pods=ipa.ignore_preferred_terms_of_existing_pods,
             fit_plugin=fw.plugin("NodeResourcesFit"), clientset=self.clientset,
             volume=volume, nominated=self._nominated_lane(pod))
-        return self.mirror.flush(), plan
+        state = self.mirror.flush()
+        if self.mesh is not None:
+            plan.shards = shard_features(plan.features, self.mesh)
+        return state, plan
+
+    def _shard_map_fn(self, plan):
+        """The sharded lap for this plan under the mesh, or None where the
+        gathered schedule_batch owns the dispatch (the JAX package's
+        :1233-1248): a row-local plan above 64 steps whose rows divide over
+        the shards."""
+        if (self.mesh is None or not plan.row_local or plan.batch_pad <= SCAN_MAX_STEPS
+                or self.mirror.np_cap % mesh_shard_count(self.mesh)):
+            return None
+        return sharded_lap_schedule(self.mesh, plan.batch_pad, plan.fit_strategy, plan.vmax)
 
     def _dispatch(self, state, plan, n_active: int, carry):
-        """The only kernel call site (warm and live dispatches alike)."""
-        return schedule_batch(state, plan.features, plan.batch_pad, plan.fit_strategy,
+        """The only kernel call site (warm and live dispatches alike). Under a
+        mesh the path is a pure function of (mesh, plan facts), so a
+        session keeps one path and warm_for warms the one it runs."""
+        if self.mesh is None:
+            return schedule_batch(state, plan.features, plan.batch_pad, plan.fit_strategy,
+                                  plan.vmax, plan.facts, n_active=n_active, carry_in=carry)
+        fn = self._shard_map_fn(plan)
+        if fn is not None:
+            self.shard_map_dispatches += 1
+            return fn(state, plan.shards, n_active, carry)
+        # The counterpart of the JAX GSPMD path: the state gathered onto the
+        # mesh's first device, where the carry stays for the session.
+        return schedule_batch(gather(state), plan.features, plan.batch_pad, plan.fit_strategy,
                               plan.vmax, plan.facts, n_active=n_active, carry_in=carry)
 
     def warm_for(self, pod) -> None:
@@ -531,16 +599,21 @@ class TorchScheduler(Scheduler):
         if self._batch_supported(pod) is not None:
             return
         state, plan = self.build_plan(fw, pod, self.max_batch)
+        whole = state if self.mesh is None else gather(state)
         variants = [plan]
         if not plan.features.nom_req.shape[0]:
-            f = plan.features
-            variants.append(dataclasses.replace(plan, features=f._replace(
-                nom_req=torch.zeros_like(state.req_r),
-                nom_pods=torch.zeros_like(state.pod_count))))
+            f = plan.features._replace(nom_req=torch.zeros_like(whole.req_r),
+                                       nom_pods=torch.zeros_like(whole.pod_count))
+            # Under a mesh the lane is sharded like the live one (:1178-1186).
+            variants.append(dataclasses.replace(
+                plan, features=f, shards=None if self.mesh is None else shard_features(
+                    f, self.mesh)))
+        dispatches = self.shard_map_dispatches  # warm dispatches are not engagement
         for v in variants:
             _results, carry = self._dispatch(state, v, 0, None)
             results, _ = self._dispatch(state, v, 0, carry)
             _Fetch(results).wait()
+        self.shard_map_dispatches = dispatches
         if plan.facts.anti_rowlocal:
             fallback = dataclasses.replace(
                 plan, facts=plan.facts._replace(anti_rowlocal=False))
@@ -637,7 +710,11 @@ class TorchScheduler(Scheduler):
         """Patch the dirty rows of `names` into host staging, the device
         state (NodeStateMirror.patch_rows) and the carry (patch_carry_rows).
         Returns (state, carry), or None when the patch cannot apply; the
-        caller then rebuilds in full, which recovers from every such case."""
+        caller then rebuilds in full, which recovers from every such case.
+        Under a mesh (the JAX package's :1534-1561) the sharded resident is
+        patched shard by shard, in place, and the carry where it lies
+        (patch_carry_rows_pinned): no dispatched batch reads the state here,
+        since _note_session_events defers a patch while one is in flight."""
         if not names:
             return state, carry
         row_of = self._session_row_of
@@ -651,7 +728,10 @@ class TorchScheduler(Scheduler):
             if row is None or ni is None or ni.node is None:
                 return None  # the row set changed shape: structural after all
             updates.append((row, ni))
-        new_state = self.mirror.patch_rows(updates)
+        if self.mesh is not None:
+            new_state = self.mirror.patch_rows(updates, sharded_state=state)
+        else:
+            new_state = self.mirror.patch_rows(updates)
         if new_state is None:
             return None
         m = self.mirror
@@ -663,8 +743,9 @@ class TorchScheduler(Scheduler):
         if carry is not None:
             prows = rows + [rows[-1]] * (patch_tier(len(rows)) - len(rows))
             dev = self.device
-            carry = patch_carry_rows(
-                new_state, plan.features, carry,
+            patch = patch_carry_rows if self.mesh is None else patch_carry_rows_pinned
+            carry = patch(
+                new_state, plan.features if self.mesh is None else plan.shards, carry,
                 torch.tensor(prows, dtype=torch.int32).to(dev),
                 torch.from_numpy(m.h_req_r[prows]).to(dev),
                 torch.from_numpy(m.h_nonzero[prows]).to(dev),
@@ -817,11 +898,20 @@ class TorchScheduler(Scheduler):
         elif sd.carry is not None:
             # The final carry holds every placement: keep it resident, and
             # keep the session's plan for the next one.
-            self.mirror.adopt(self.snapshot.node_info_list, ok_rows, sd.carry.req_r,
-                              sd.carry.nonzero, sd.carry.pod_count, dirty_rows=dirty_rows)
+            self._adopt(ok_rows, sd.carry, dirty_rows)
             if not dirty_rows:
                 self._save_resume(fw, head, sig, aux_shape, sd.state, plan, sd.carry, node_names)
         self.session_end_s += time.perf_counter() - t3
+
+    def _adopt(self, ok_rows: List[int], carry, dirty_rows: List[int]) -> None:
+        """Keep the session's final carry as the mirror's resident aggregates
+        (a sharded carry's lanes shard by shard)."""
+        if isinstance(carry, Sharded):
+            lanes = ([p.req_r for p in carry.parts], [p.nonzero for p in carry.parts],
+                     [p.pod_count for p in carry.parts])
+        else:
+            lanes = (carry.req_r, carry.nonzero, carry.pod_count)
+        self.mirror.adopt(self.snapshot.node_info_list, ok_rows, *lanes, dirty_rows=dirty_rows)
 
     def _commit_batch(self, b, res, fw, node_names, ok_rows, dirty_rows) -> bool:
         """Host tail for one retired batch. Returns True when the session
@@ -1049,8 +1139,7 @@ class TorchScheduler(Scheduler):
         if invalidated:
             self.mirror.invalidate()
         elif sd.carry is not None:
-            self.mirror.adopt(self.snapshot.node_info_list, ok_rows, sd.carry.req_r,
-                              sd.carry.nonzero, sd.carry.pod_count, dirty_rows=dirty_rows)
+            self._adopt(ok_rows, sd.carry, dirty_rows)
             if not dirty_rows:
                 self._save_resume(fw, head, sig, aux_shape, sd.state, plan, sd.carry,
                                   node_names, neutral=False)
@@ -1181,6 +1270,8 @@ class TorchScheduler(Scheduler):
                         and plan.dns_node_counts is None and plan.sa_node_counts is None)
                 self._placement_plan_cache = ((id(fw), sig, len(members), self.cluster_event_seq,
                                                self.mirror.np_cap), plan) if keep else None
+            if self.mesh is not None:
+                state = gather(state)
         if host:
             self.host_path_pods += len(members)
             return super()._evaluate_placements(fw, pg_state, group, members, placements)
@@ -1241,6 +1332,8 @@ class TorchScheduler(Scheduler):
         state, plan = self.build_plan(fw, pod, group_size)
         if not self._placement_plan_restriction_invariant(plan):
             return
+        if self.mesh is not None:
+            state = gather(state)
         p_pad = _pow2(max(1, n_placements))
         f, dev = plan.features, self.device
         masks = torch.zeros((p_pad, self.mirror.np_cap), dtype=torch.bool, device=dev)
@@ -1285,6 +1378,8 @@ class TorchScheduler(Scheduler):
             dstate, plan = self.build_plan(fw, pod, 1)
         except Unsupported:
             return None
+        if self.mesh is not None:
+            dstate = gather(dstate)
         r_slots = self.mirror.r_slots
         if vic_req.shape[2] != r_slots:
             # build_plan interned the preemptor's own new scalar slots after

@@ -5,7 +5,8 @@ all started together — and the objects link once into one shared library,
 `build/kernels/libkernels-<hash>.so` at the repository root, for `sm_90a`.
 Each source exports a plain C launcher `launch_<name>` that `ctypes` calls
 (no PyTorch headers: a source that includes them takes minutes to compile,
-these take seconds). The hash covers the sources and flags, so an
+these take seconds); a source cut into phases, `sharded_lap.cu`, exports
+one launcher a phase (PHASES). The hash covers the sources and flags, so an
 unchanged checkout reuses its build. Nothing is built at import: the first
 launch on a CUDA tensor builds.
 
@@ -34,7 +35,12 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "kernels")
 KERNELS = ("static_masks", "resource_eval", "lap_schedule", "scan_schedule", "scan_general",
            "dry_run_preemption", "scatter_rows", "patch_carry_rows", "schedule_placements",
-           "whatif_score")
+           "whatif_score", "sharded_lap")
+# The launchers of a source that is cut into phases; every other source
+# exports the one launcher of its own name.
+PHASES = {"sharded_lap": ("sharded_lap_count", "sharded_lap_windows", "sharded_lap_land")}
+LAUNCHERS = tuple(name for src in KERNELS for name in PHASES.get(src, (src,)))
+SOURCE = {name: src for src in KERNELS for name in PHASES.get(src, (src,))}
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 COMPILE_FLAGS = (ARCH, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = (ARCH, "-shared")
@@ -56,12 +62,13 @@ class Param(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def signature(name: str) -> Tuple[Param, ...]:
     """The arguments of `launch_<name>` before its trailing cudaStream_t,
-    read from csrc/<name>.cu."""
-    with open(os.path.join(CSRC, f"{name}.cu")) as fh:
+    read from the source that exports it (csrc/<name>.cu, or the source
+    whose PHASES name it)."""
+    with open(os.path.join(CSRC, f"{SOURCE.get(name, name)}.cu")) as fh:
         src = fh.read()
     m = re.search(r'extern "C" int launch_%s\((.*?)\)\s*\{' % name, src, re.S)
     if m is None:
-        raise RuntimeError(f"csrc/{name}.cu has no launch_{name}")
+        raise RuntimeError(f"csrc/{SOURCE.get(name, name)}.cu has no launch_{name}")
     params = [" ".join(p.split()) for p in m.group(1).split(",")]
     if not params[-1].startswith("cudaStream_t "):
         raise RuntimeError(f"launch_{name} must end with a cudaStream_t argument")
@@ -135,7 +142,7 @@ def build() -> ctypes.CDLL:
             _run_all([[_nvcc(), *LINK_FLAGS, "-o", so + ".tmp", *objs]], log)
             os.replace(so + ".tmp", so)
         lib = ctypes.CDLL(so)
-        for name in KERNELS:
+        for name in LAUNCHERS:
             fn = getattr(lib, f"launch_{name}")
             # Every pointer is c_void_p: ctypes would otherwise pass a
             # Python int as a 32-bit C int and cut the address.

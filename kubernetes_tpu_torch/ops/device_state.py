@@ -7,6 +7,12 @@ whose NodeInfo.generation advanced (or whose list position changed), and
 flushes them to the device with the scatter_rows kernel (ops/kernel.py)
 when few rows are dirty, a full upload otherwise.
 
+Under a node mesh (commit_mesh, parallel/mesh.py) the resident device copy
+is the sharded state: each shard's rows are uploaded to its own device,
+dirty rows are routed to their shards and scattered there (the JAX
+package's _sharded_scatter), and row patches and the session-end adoption
+write the shards in place.
+
 Row order == snapshot list order, so the kernels' rotation arithmetic
 (schedule_one.go:816 nextStartNodeIndex) operates directly on row indices.
 Topology keys that a batch's spread constraints or affinity terms name are
@@ -131,6 +137,7 @@ class NodeStateMirror:
         self._dirty: set = set()
         self._full_flush = True
         self._device: Optional[DeviceNodeState] = None
+        self.mesh = None  # a parallel/mesh.py NodeMesh: the resident is Sharded
         self.num_nodes = 0
         self.scatter_flushes = 0  # flushes that took the dirty-row scatter
         self.scatter_rows = 0     # rows those flushes wrote
@@ -285,14 +292,71 @@ class NodeStateMirror:
                 self.h_pod_count, self.h_taint_key, self.h_taint_val,
                 self.h_taint_eff, self.h_unsched, self.h_valid, self.h_name_id)
 
+    def commit_mesh(self, mesh) -> None:
+        """Commit the resident device copy to `mesh`'s node shards (None:
+        the one device) — the JAX package's commit_shardings (:371-380).
+        Under a mesh the resident is a parallel/mesh.py Sharded state. A
+        changed commitment forces a full upload at the new placement."""
+        if mesh != self.mesh:
+            self.mesh = mesh
+            self._device = None
+            self._full_flush = True
+
     def _upload(self) -> DeviceNodeState:
+        if self.mesh is not None:
+            return self._upload_sharded()
         return DeviceNodeState(*[torch.from_numpy(a.copy()).to(self.device)
                                  for a in self._arrays() + (self.h_topo,)])
+
+    def _upload_sharded(self):
+        """Full upload straight to the shards: each shard's rows to its own
+        device, no whole copy on any device."""
+        from ..parallel.mesh import Sharded, row_blocks
+
+        devs = self.mesh.nodes(0)
+        blocks = row_blocks(self.np_cap, len(devs))
+        parts = [DeviceNodeState(*[torch.from_numpy(a[lo:hi].copy()).to(d) for a in self._arrays()],
+                                 torch.from_numpy(self.h_topo[:, lo:hi].copy()).to(d))
+                 for d, (lo, hi) in zip(devs, blocks)]
+        return Sharded(parts, blocks[0][1] - blocks[0][0])
+
+    def _scatter_sharded(self, dirty: List[int], in_place: bool):
+        """The mesh's dirty-row scatter (the JAX package's _sharded_scatter,
+        ops/device_state.py:138-164): each dirty row goes to its shard by
+        row // NPl, and each shard with dirty rows takes one scatter_rows
+        launch with its local indices, into the shard's own tensors
+        (`in_place`: no dispatched batch reads them) or into a copy of
+        them. Shards without dirty rows keep their tensors."""
+        from ..parallel.mesh import Sharded, on_device
+        from .kernel import pack_rows, scatter_rows
+
+        res = self._device
+        b = res.block
+        parts = list(res.parts)
+        by_shard: Dict[int, List[int]] = {}
+        for row in dirty:
+            by_shard.setdefault(row // b, []).append(row)
+        for s, rows in sorted(by_shard.items()):
+            dev = parts[s].valid.device
+            packed = DeviceNodeState(*[torch.from_numpy(a[rows]) for a in self._arrays()],
+                                     torch.from_numpy(self.h_topo[:, rows]))
+            packs = [t.to(dev) for t in pack_rows(packed)]
+            idx = torch.tensor([r - s * b for r in rows], dtype=torch.int32).to(dev)
+            target = parts[s] if in_place else DeviceNodeState(*[t.clone() for t in parts[s]])
+            with on_device(dev):
+                scatter_rows(target, idx, *packs)
+            parts[s] = target
+        if in_place:
+            res.touched()
+            return res
+        return Sharded(parts, b)
 
     def _scatter_dirty(self, dirty: List[int]) -> DeviceNodeState:
         """Dirty-row scatter into a copy of the resident device state (a
         dispatched batch may still read the old one): the rows packed by
         element type on the host, three uploads, one scatter_rows launch."""
+        if self.mesh is not None:
+            return self._scatter_sharded(dirty, in_place=False)
         # ops/kernel.py imports this module for DeviceNodeState.
         from .kernel import pack_rows, scatter_rows
 
@@ -318,19 +382,24 @@ class NodeStateMirror:
         self._full_flush = False
         return self._device
 
-    def patch_rows(self, updates: Sequence) -> Optional[DeviceNodeState]:
+    def patch_rows(self, updates: Sequence, sharded_state=None) -> Optional[DeviceNodeState]:
         """Event-delta row flush (the JAX package's NodeStateMirror.patch_rows,
-        ops/device_state.py:431-492, single device): re-encode the given
-        (row, NodeInfo) pairs from the live cache's NodeInfos and scatter
-        them into the resident device state without a snapshot refresh.
-        Returns the patched state, or None where a row patch cannot apply (no
-        resident copy or a full upload pending, a capacity tier grown
-        mid-encode, a row out of range or holding another node): the caller
-        then rebuilds its plan in full.
+        ops/device_state.py:431-492): re-encode the given (row, NodeInfo)
+        pairs from the live cache's NodeInfos and scatter them into the
+        resident device state without a snapshot refresh. Returns the
+        patched state, or None where a row patch cannot apply (no resident
+        copy or a full upload pending, a capacity tier grown mid-encode, a
+        row out of range or holding another node): the caller then rebuilds
+        its plan in full.
 
-        The scatter writes into a copy (_scatter_dirty): the state a resumed
-        session or a queued kernel holds keeps its values, and the returned
-        state becomes the resident."""
+        On one device the scatter writes into a copy (_scatter_dirty): the
+        state a resumed session or a queued kernel holds keeps its values,
+        and the returned state becomes the resident. Under a mesh the
+        session passes its state as `sharded_state`: when that is the
+        resident, the shards are patched in place, in the resident's own
+        storage (the counterpart of the JAX donation; the caller patches
+        only while no dispatched batch reads it); otherwise into copies.
+        The resident is returned either way."""
         if self._device is None or self._full_flush:
             return None
         # Validate every row before encoding any: a late failure after
@@ -347,7 +416,11 @@ class NodeStateMirror:
         except _Regrown:
             return None  # staging reset: the next flush uploads everything
         dirty = sorted({row for row, _ in updates})
-        self._device = self._scatter_dirty(dirty)
+        if self.mesh is not None:
+            self._device = self._scatter_sharded(
+                dirty, in_place=sharded_state is self._device)
+        else:
+            self._device = self._scatter_dirty(dirty)
         self._dirty.difference_update(dirty)
         self.scatter_flushes += 1
         self.scatter_rows += len(dirty)
@@ -368,7 +441,9 @@ class NodeStateMirror:
         dirty — the next flush uploads nothing (the device-resident
         analogue of cache.go's incremental UpdateSnapshot). `dirty_rows`
         (rows whose host commit diverged from the carry) go through the
-        normal dirty path."""
+        normal dirty path. Under a mesh the aggregates are copied into the
+        resident's shards in place; each lane is then a whole tensor or a
+        list of one tensor a shard."""
         if self._device is None or self._full_flush:
             return  # a full upload from (authoritative) staging is pending
         try:
@@ -381,6 +456,16 @@ class NodeStateMirror:
                 self._row_gen[i] = ni.generation
         except _Regrown:
             return  # staging reset; the full flush rebuilds everything
-        self._device = self._device._replace(
-            req_r=req_r, nonzero=nonzero, pod_count=pod_count)
+        if self.mesh is not None:
+            res = self._device
+            for s, part in enumerate(res.parts):
+                lo = s * res.block
+                hi = lo + part.valid.shape[0]
+                for dst, src in ((part.req_r, req_r), (part.nonzero, nonzero),
+                                 (part.pod_count, pod_count)):
+                    dst.copy_(src[s] if isinstance(src, (list, tuple)) else src[lo:hi])
+            res.touched()
+        else:
+            self._device = self._device._replace(
+                req_r=req_r, nonzero=nonzero, pod_count=pod_count)
         self._dirty.update(dirty_rows)

@@ -210,6 +210,21 @@ class BatchPlan:
     sa_node_counts: Optional[np.ndarray] = None    # [C2, n] i32
     sa_node_live: Optional[np.ndarray] = None      # [n] bool (not ignored)
     sa_hostname_axis: Optional[list] = None        # per C2 row: the hostname key
+    # Under a node mesh: `features` cut over the mesh's shards
+    # (parallel/mesh.py shard_features); None on one device.
+    shards: Optional[object] = None
+
+    @property
+    def row_local(self) -> bool:
+        """A landing changes feasibility and scores only at its own row (the
+        JAX package's BatchPlan.row_local, ops/features.py:189-199): a
+        pod-local plan with no PreferNoSchedule, preferred-node-affinity,
+        nominated-pod, host-port or attach-limit lane — the precondition of
+        the node-sharded lap (parallel/mesh.py ShardedLap)."""
+        f = self.facts
+        return (self.pod_local and not f.has_pns and not f.has_na_pref
+                and not self.features.nom_req.shape[0] and not f.port_selfblock
+                and not f.has_aux)
 
 
 class Unsupported(Exception):

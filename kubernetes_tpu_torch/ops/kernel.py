@@ -2,10 +2,9 @@
 (schedule_one.go findNodesThatFitPod :630 / prioritizeNodes :945) for a batch
 of identical pods, with the greedy sequential assignment on the device.
 
-Nine hand-written CUDA kernels (csrc/), each beside a plain PyTorch version
-of the same function in this module (a tenth, whatif_score, the
-descheduler's what-if rescore, lives in ops/whatif.py and is counted and
-reset with these):
+Hand-written CUDA kernels (csrc/), each beside a plain PyTorch version of
+the same function in this module (whatif_score, the descheduler's what-if
+rescore, lives in ops/whatif.py and is counted and reset with these):
 
 - static_masks   <- the JAX package's _static_masks + _tolerates
                     (ops/kernel.py:105-150), once per batch;
@@ -30,7 +29,12 @@ reset with these):
 - schedule_placements <- schedule_placements (:655-723): a pod group's
                     greedy scan against each of P candidate placements at
                     once, one lane per placement (the general scan step of
-                    scan_general, shared through csrc/scan_general.cuh).
+                    scan_general, shared through csrc/scan_general.cuh);
+- sharded_lap_count, sharded_lap_windows, sharded_lap_land <- the node-
+                    sharded lap's per-shard body, _lap_body
+                    (parallel/mesh.py:228-351), cut at its two exchanges
+                    into three launchers of one source, csrc/sharded_lap.cu
+                    (the lap loop and the exchanges: parallel/mesh.py).
 
 The three schedule kernels take the nominated-pod lane (features whose
 `nom_req` has rows): the fit filter of every re-evaluated row counts the
@@ -983,26 +987,28 @@ scatter_rows.launches = 0
 
 def _patch_carry_rows_plain(state: DeviceNodeState, f: BatchFeatures, carry: ScanCarry,
                             idx: torch.Tensor, req_rows: torch.Tensor, nz_rows: torch.Tensor,
-                            cnt_rows: torch.Tensor, fit_strategy: int) -> ScanCarry:
+                            cnt_rows: torch.Tensor, fit_strategy: int,
+                            in_place: bool = False) -> ScanCarry:
     """Plain PyTorch version of the patch_carry_rows kernel."""
     at = idx.to(i64)
     ok, sc, ba = _resource_eval_plain(f, fit_strategy, state.alloc_r[at], state.alloc_pods[at],
                                       req_rows, nz_rows, cnt_rows, *_nom_lane(f, at))
-    lanes = [t.clone() for t in carry[:6]]
+    lanes = list(carry[:6]) if in_place else [t.clone() for t in carry[:6]]
     for lane, rows in zip(lanes, (req_rows, nz_rows, cnt_rows, ok, sc, ba)):
         lane[at] = rows
     return carry._replace(req_r=lanes[0], nonzero=lanes[1], pod_count=lanes[2],
                           fit_ok=lanes[3], fit_sc=lanes[4], ba=lanes[5])
 
 
-def _patch_carry_rows_cuda(state, f, carry, idx, req_rows, nz_rows, cnt_rows, fit_strategy):
+def _patch_carry_rows_cuda(state, f, carry, idx, req_rows, nz_rows, cnt_rows, fit_strategy,
+                           in_place=False):
     dev = idx.device
     NP, R = state.alloc_r.shape
     K = idx.shape[0]
     if req_rows.shape != (K, R) or nz_rows.shape != (K, 2) or cnt_rows.shape != (K,):
         raise ValueError(f"patch_carry_rows: rows {tuple(req_rows.shape)}, "
                          f"{tuple(nz_rows.shape)}, {tuple(cnt_rows.shape)} for K {K}, R {R}")
-    lanes = [t.clone() for t in carry[:6]]
+    lanes = list(carry[:6]) if in_place else [t.clone() for t in carry[:6]]
     ints, feats = _res_args(f, fit_strategy)
     _launch("patch_carry_rows", dev, NP, K, *ints, *feats, idx, req_rows, nz_rows, cnt_rows,
             state.alloc_r, state.alloc_pods, *_nom_lane(f), *lanes)
@@ -1012,7 +1018,8 @@ def _patch_carry_rows_cuda(state, f, carry, idx, req_rows, nz_rows, cnt_rows, fi
 
 def patch_carry_rows(state: DeviceNodeState, f: BatchFeatures, carry: ScanCarry,
                      idx: torch.Tensor, req_rows: torch.Tensor, nz_rows: torch.Tensor,
-                     cnt_rows: torch.Tensor, fit_strategy: int = 0) -> ScanCarry:
+                     cnt_rows: torch.Tensor, fit_strategy: int = 0,
+                     in_place: bool = False) -> ScanCarry:
     """Event-delta patch of a live session's carry: install the post-event
     aggregates of the rows `idx` [K] i32 (`req_rows` [K, R] i64, `nz_rows`
     [K, 2] i64, `cnt_rows` [K] i32) and re-evaluate those rows' fit_ok,
@@ -1022,16 +1029,50 @@ def patch_carry_rows(state: DeviceNodeState, f: BatchFeatures, carry: ScanCarry,
     padding of patch_tier). Returns a new carry: the six patched lanes are
     copies, so the carry given — which may be the mirror's adopted state
     or a queued kernel's input — keeps its values; the other lanes are
-    shared."""
+    shared. `in_place` writes the carry's own six lanes instead (the
+    sharded carry's pinned patch, patch_carry_rows_pinned)."""
     if _on_cpu(idx):
         return _patch_carry_rows_plain(state, f, carry, idx, req_rows, nz_rows, cnt_rows,
-                                       fit_strategy)
-    out = _patch_carry_rows_cuda(state, f, carry, idx, req_rows, nz_rows, cnt_rows, fit_strategy)
+                                       fit_strategy, in_place)
+    out = _patch_carry_rows_cuda(state, f, carry, idx, req_rows, nz_rows, cnt_rows, fit_strategy,
+                                 in_place)
     patch_carry_rows.launches += 1
     return out
 
 
 patch_carry_rows.launches = 0
+
+
+def patch_carry_rows_pinned(state, f, carry, idx: torch.Tensor, req_rows: torch.Tensor,
+                            nz_rows: torch.Tensor, cnt_rows: torch.Tensor,
+                            fit_strategy: int = 0):
+    """patch_carry_rows for a carry that lives on a mesh (the JAX package's
+    patch_carry_rows_pinned, :624-652), patched where it lies. A sharded
+    carry (parallel/mesh.py Sharded) is patched in place, shard by shard:
+    each dirty row goes to its shard by `row // NPl`, and the shard's
+    patch_carry_rows launch takes the shard's local indices, its state and
+    its features (`state` and `f` Sharded too) — the counterpart of the JAX
+    out_shardings pin and of its donated carry. A carry that is whole on
+    one device (the mesh's gathered path) takes patch_carry_rows unchanged,
+    on the whole state and features. Returns the patched carry."""
+    from ..parallel.mesh import Sharded, gather, on_device
+
+    if not isinstance(carry, Sharded):
+        return patch_carry_rows(gather(state), gather(f), carry, idx, req_rows, nz_rows,
+                                cnt_rows, fit_strategy)
+    npl = carry.parts[0].pod_count.shape[0]
+    shard_of = idx.to(i64) // npl
+    for s, (st_s, f_s, c_s) in enumerate(zip(state.parts, f.parts, carry.parts)):
+        mine = shard_of == s
+        if not bool(mine.any()):
+            continue
+        dev = c_s.pod_count.device
+        with on_device(dev):
+            patch_carry_rows(st_s, f_s, c_s, (idx[mine] - s * npl).to(dev),
+                             req_rows[mine].to(dev), nz_rows[mine].to(dev),
+                             cnt_rows[mine].to(dev), fit_strategy, in_place=True)
+    carry.touched()
+    return carry
 
 # ---------------------------------------------------------------------------
 # schedule_batch
@@ -1234,9 +1275,190 @@ def schedule_placements(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
 
 schedule_placements.launches = 0
 
+# ---------------------------------------------------------------------------
+# sharded_lap: the node-sharded lap's three phases, one shard a launch
+# ---------------------------------------------------------------------------
+#
+# The lap loop and the two exchanges between the phases are in
+# parallel/mesh.py (ShardedLap). Each phase reads the shard's `done` and
+# does nothing once done >= n_act, so laps can be launched in chunks. The
+# plain versions write the same buffers in place.
+
+
+def _sharded_lap_count_plain(state: DeviceNodeState, f: BatchFeatures, fit_strategy: int,
+                             req_r, nonzero, pod_count, static_ok, n_act: int, shard: int,
+                             done, start, okd, Fl, total, pair) -> None:
+    """Plain PyTorch version of the sharded_lap_count kernel."""
+    if int(done) >= n_act:
+        return
+    npl = static_ok.shape[0]
+    gidx = shard * npl + torch.arange(npl, dtype=i32, device=static_ok.device)
+    fit_ok, fit_sc, ba = _resource_eval_plain(f, fit_strategy, state.alloc_r, state.alloc_pods,
+                                              req_r, nonzero, pod_count)
+    ok = static_ok & fit_ok & (gidx < f.num_nodes.clamp_min(1))
+    F = torch.cumsum(ok.to(i32), 0, dtype=i32)
+    sidx = start - 1
+    own = (start > 0) & (sidx >= shard * npl) & (sidx < (shard + 1) * npl)
+    lpos = (sidx - shard * npl).clamp(0, npl - 1).to(i64)
+    okd.copy_(ok)
+    Fl.copy_(F)
+    total.copy_(_total(f, fit_sc, ba))
+    pair.copy_(torch.stack([F[-1], torch.where(own, F[lpos], 0)]))
+
+
+def _sharded_lap_count_cuda(state, f, fit_strategy, req_r, nonzero, pod_count, static_ok, n_act,
+                            shard, done, start, okd, Fl, total, pair) -> None:
+    ints, feats = _res_args(f, fit_strategy)
+    _launch("sharded_lap_count", static_ok.device, static_ok.shape[0], *ints, n_act, shard,
+            *feats, state.alloc_r, state.alloc_pods, req_r, nonzero, pod_count, static_ok,
+            f.il_score, f.weights, f.num_nodes, done, start, okd, Fl, total, pair)
+
+
+def sharded_lap_count(state: DeviceNodeState, f: BatchFeatures, fit_strategy: int, req_r,
+                      nonzero, pod_count, static_ok, n_act: int, shard: int, done, start, okd,
+                      Fl, total, pair) -> None:
+    """Phase (a) of a lap on shard `shard` (NPl rows, global row shard *
+    NPl + local): re-evaluate the carry's rows (fit_ok, fit_sc, ba), write
+    okd = static_ok & fit_ok & (row < num_nodes) [NPl] u8, its inclusive
+    prefix sum Fl [NPl] i32, the carried total score [NPl] i64, and the
+    shard's pair [2] i32: (Fl[-1], Fl at row start-1 where the shard owns
+    it, else 0) — what exchange 1 gathers. `done` and `start` are the
+    shard's 0-d i32 copies of the loop state."""
+    if _on_cpu(static_ok):
+        _sharded_lap_count_plain(state, f, fit_strategy, req_r, nonzero, pod_count, static_ok,
+                                 n_act, shard, done, start, okd, Fl, total, pair)
+        return
+    _sharded_lap_count_cuda(state, f, fit_strategy, req_r, nonzero, pod_count, static_ok, n_act,
+                            shard, done, start, okd, Fl, total, pair)
+    sharded_lap_count.launches += 1
+
+
+sharded_lap_count.launches = 0
+
+
+def _sharded_lap_windows_plain(f: BatchFeatures, n_act: int, shard: int, pairs, okd, Fl, total,
+                               done, start, keys, L) -> None:
+    """Plain PyTorch version of the sharded_lap_windows kernel."""
+    d = int(done)
+    if d >= n_act:
+        return
+    dev = okd.device
+    npl, S = okd.shape[0], pairs.shape[0]
+    NP = npl * S
+    gidx = shard * npl + torch.arange(npl, dtype=i32, device=dev)
+    num = f.num_nodes.clamp_min(1)
+    tf = f.to_find.clamp_min(1)
+    svec = torch.arange(S, dtype=i32, device=dev)
+    tots = pairs[:, 0]
+    total_feas = tots.sum().to(i32)
+    F = Fl + torch.where(svec < shard, tots, 0).sum().to(i32)
+    owner = ((start - 1) // npl).clamp(0, S - 1)
+    f_start = torch.where(start > 0, torch.where(svec < owner, tots, 0).sum().to(i32)
+                          + pairs[owner.to(i64), 1], 0)
+    rank = torch.where(gidx >= start, F - f_start, F + total_feas - f_start)
+    rot = (gidx - start) % num
+    lap_l = max(1, min(int(total_feas // tf), n_act - d, LAP_MAX))
+    lanes = torch.arange(LAP_MAX, dtype=i32, device=dev)
+    ok = okd.bool()
+    w = torch.clamp_max((rank - 1) // tf, LAP_MAX)
+    seg = torch.where(ok & (w < lap_l), w, LAP_MAX)
+    key = total * NP + ((NP - 1) - rot)
+    keys[:LAP_MAX] = torch.where(seg[None, :] == lanes[:, None], key[None, :], -1).amax(dim=1)
+    is_b = ok & (rank % tf == 0)
+    seg_b = torch.where(is_b, torch.clamp_max(rank // tf - 1, LAP_MAX), LAP_MAX)
+    ev_w = torch.where(seg_b[None, :] == lanes[:, None], rot[None, :] + 1, num).amin(dim=1)
+    keys[LAP_MAX:] = -ev_w.to(i64)
+    L.fill_(lap_l)
+
+
+def _sharded_lap_windows_cuda(f, n_act, shard, pairs, okd, Fl, total, done, start, keys,
+                              L) -> None:
+    _launch("sharded_lap_windows", okd.device, okd.shape[0], pairs.shape[0], shard, n_act,
+            f.num_nodes, f.to_find, pairs, okd, Fl, total, done, start, keys, L)
+
+
+def sharded_lap_windows(f: BatchFeatures, n_act: int, shard: int, pairs, okd, Fl, total, done,
+                        start, keys, L) -> None:
+    """Phase (b) of a lap on shard `shard`: from exchange 1's gathered
+    pairs [S, 2] i32, the feasible total, the shard's global prefix offset
+    and the rank origin F[start - 1] of the start's owner, clip((start - 1)
+    // NPl, 0, S - 1); the lap's L = clip(min(total // to_find, n_act -
+    done), 1, LAP_MAX) into `L` (0-d i32); and the shard's packed keys
+    [2 * LAP_MAX] i64 — each window's max of total * NP + (NP - 1 - rot)
+    (-1 where empty), then each window's negated boundary min of rot + 1
+    (-num where empty): what exchange 2 gathers."""
+    if _on_cpu(okd):
+        _sharded_lap_windows_plain(f, n_act, shard, pairs, okd, Fl, total, done, start, keys, L)
+        return
+    _sharded_lap_windows_cuda(f, n_act, shard, pairs, okd, Fl, total, done, start, keys, L)
+    sharded_lap_windows.launches += 1
+
+
+sharded_lap_windows.launches = 0
+
+
+def _sharded_lap_land_plain(f: BatchFeatures, n_act: int, shard: int, keys, L, req_r, nonzero,
+                            pod_count, out, start, done) -> None:
+    """Plain PyTorch version of the sharded_lap_land kernel."""
+    d = int(done)
+    if d >= n_act:
+        return
+    dev = pod_count.device
+    npl, S = pod_count.shape[0], keys.shape[0]
+    NP = npl * S
+    num = f.num_nodes.clamp_min(1)
+    lap_l = int(L)
+    red = keys.amax(dim=0)
+    key_w, ev_w = red[:LAP_MAX], (-red[LAP_MAX:]).to(i32)
+    lanes = torch.arange(LAP_MAX, dtype=i32, device=dev)
+    has_w = (lanes < lap_l) & (key_w >= 0)
+    rot_w = (NP - 1) - (key_w % NP).to(i32)
+    row_w = torch.where(has_w, (start + rot_w) % num, -1).to(i32)
+    start_w = ((start + ev_w) % num).to(i32)
+    local = row_w.to(i64) - shard * npl
+    mine = has_w & (local >= 0) & (local < npl)
+    rows = torch.arange(npl, dtype=i64, device=dev)
+    cnt = ((rows[None, :] == local[:, None]) & mine[:, None]).any(dim=0)
+    c64 = cnt.to(i64)
+    req_r.add_(f.request[None, :] * c64[:, None])
+    nonzero.add_(f.nz_request[None, :] * c64[:, None])
+    pod_count.add_(cnt.to(i32))
+    if out is not None:
+        n = max(0, min(LAP_MAX, out.shape[1] - d))
+        out[0, d:d + n] = torch.where(has_w, row_w, -1)[:n]
+        out[1, d:d + n] = start_w[:n]
+    start.copy_(start_w[lap_l - 1])
+    done.fill_(d + lap_l)
+
+
+def _sharded_lap_land_cuda(f, n_act, shard, keys, L, req_r, nonzero, pod_count, out, start,
+                           done) -> None:
+    _launch("sharded_lap_land", pod_count.device, pod_count.shape[0], req_r.shape[1],
+            keys.shape[0], shard, n_act, 0 if out is None else out.shape[1], f.request,
+            f.nz_request, f.num_nodes, keys, L, req_r, nonzero, pod_count, out, start, done)
+
+
+def sharded_lap_land(f: BatchFeatures, n_act: int, shard: int, keys, L, req_r, nonzero,
+                     pod_count, out, start, done) -> None:
+    """Phase (c) of a lap on shard `shard`: the max over exchange 2's
+    gathered keys [S, 2 * LAP_MAX] (the JAX pmax), each window's landed row
+    and start after, the landings on the shard's own rows (req_r, nonzero
+    and pod_count, in place), the [2, B] results block at column `done`
+    where `out` is given (the shard that keeps the results; None on the
+    others), the new start and done += L."""
+    if _on_cpu(pod_count):
+        _sharded_lap_land_plain(f, n_act, shard, keys, L, req_r, nonzero, pod_count, out, start,
+                                done)
+        return
+    _sharded_lap_land_cuda(f, n_act, shard, keys, L, req_r, nonzero, pod_count, out, start, done)
+    sharded_lap_land.launches += 1
+
+
+sharded_lap_land.launches = 0
+
 WRAPPERS = (static_masks, resource_eval, lap_schedule, scan_schedule, scan_general,
             dry_run_preemption, scatter_rows, patch_carry_rows, schedule_placements,
-            whatif_score)
+            whatif_score, sharded_lap_count, sharded_lap_windows, sharded_lap_land)
 
 
 def reset_launch_counts() -> None:

@@ -269,26 +269,31 @@ def recorded_launches(monkeypatch):
 
 
 def test_launcher_signatures_are_read_from_the_sources():
-    for name in K._build.KERNELS:
+    # Every source's launchers: its own, or one a phase (the sharded lap).
+    assert set(K._build.SOURCE.values()) == set(K._build.KERNELS)
+    for name in K._build.LAUNCHERS:
         sig = K._build.signature(name)
-        # The batch kernels take the node rows first, the what-if its
-        # candidates x nodes.
-        first = ("P", "N", "R") if name == "whatif_score" else ("NP",)
+        # The batch kernels take the node rows first (a shard's rows for the
+        # sharded lap's phases), the what-if its candidates x nodes.
+        first = (("P", "N", "R") if name == "whatif_score" else
+                 ("NPl",) if name.startswith("sharded_lap") else ("NP",))
         assert sig[:len(first)] == tuple(K._build.Param(n, None) for n in first)
         assert all(p.dtype is not None for p in sig if p.name not in
                    ("NP", "T", "L", "R", "FR", "fit_strategy", "B", "n_act", "V",
                     "C1", "C2", "A1", "A2", "KD", "incremental", "carried", "has_pns",
-                    "has_ipa_base", "has_na_pref", "K", "D", "P", "per_lane", "N"))
+                    "has_ipa_base", "has_na_pref", "K", "D", "P", "per_lane", "N", "NPl",
+                    "S", "shard"))
         optional = {p.name for p in sig if p.optional}
         lane = name in ("resource_eval", "lap_schedule", "scan_schedule", "scan_general",
                         "patch_carry_rows", "schedule_placements")
         # The schedule kernels' blocked lane (host ports) and aux_cnt lane
-        # (CSI attach limits) are nullable too.
+        # (CSI attach limits) are nullable too; the sharded lap's last phase
+        # writes the results only on the shard that keeps them.
         lanes = {"lap_schedule": {"blocked", "aux_cnt"}, "scan_schedule": {"blocked", "aux_cnt"},
                  "scan_general": {"blocked", "aux_cnt"},
                  "schedule_placements": {"blocked_s", "aux_cnt_s"}}
         assert optional == ({"nom_req", "nom_pods"} | lanes.get(name, set())
-                            if lane else set())
+                            if lane else {"out"} if name == "sharded_lap_land" else set())
 
 
 def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches):
@@ -313,7 +318,21 @@ def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches):
     masks = torch.zeros((4, ts.valid.shape[0]), dtype=torch.bool)
     K._schedule_placements_cuda(ts, tf, 8, 0, VMAX, K.PlanFacts(), masks, 5)
     W._whatif_score_cuda(*[torch.from_numpy(a) for a in whatif_inputs(17, 3, 40)])
-    assert [name for name, _ in recorded_launches] == list(K._build.KERNELS)
+    # The sharded lap's three phases on one shard of two (rows 128..255).
+    half = K.DeviceNodeState(*[t[128:] for t in ts[:-1]], ts.topo[:, 128:].contiguous())
+    fh = tf._replace(sel_match=tf.sel_match[128:], il_score=tf.il_score[128:])
+    i32 = torch.int32
+    one, two = torch.zeros((), dtype=i32), torch.zeros(2, dtype=i32)
+    okd, Fl = torch.zeros(128, dtype=torch.uint8), torch.zeros(128, dtype=i32)
+    total, keys = torch.zeros(128, dtype=torch.int64), torch.zeros(2 * K.LAP_MAX,
+                                                                    dtype=torch.int64)
+    K._sharded_lap_count_cuda(half, fh, 0, half.req_r, half.nonzero, half.pod_count,
+                              static_ok[128:], 300, 1, one, one, okd, Fl, total, two)
+    K._sharded_lap_windows_cuda(fh, 300, 1, torch.zeros((2, 2), dtype=i32), okd, Fl, total, one,
+                                one, keys, one)
+    K._sharded_lap_land_cuda(fh, 300, 1, keys.repeat(2, 1), one, half.req_r, half.nonzero,
+                             half.pod_count, None, one, one)
+    assert [name for name, _ in recorded_launches] == list(K._build.LAUNCHERS)
     for name, args in recorded_launches:
         sig = K._build.signature(name)
         assert len(args) == len(sig) + 1  # and the stream
