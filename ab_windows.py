@@ -9,7 +9,9 @@ TopologySpreading/5000Nodes_5000Pods and SchedulingBasic/5000Nodes_10000Pods.
 
 Each round runs parent, change, change, parent, each side in a process of
 its own started in its tree, and prints one `AB {...}` JSON line a run:
-pods/s, session end, host commit, device wait and the window's seconds.
+pods/s, session end, host commit, device wait, the window's seconds, and
+the garbage collector's seconds and full (generation 2) collections in
+the window (gc.callbacks).
 The last line gives each side's median pods/s and interquartile range.
 With --freeze, each side moves everything alive after its warm-up out of
 the garbage collector's reach (gc.freeze): a window of a few hundred ms
@@ -32,11 +34,20 @@ HOOKS = ("run_pre_filter_plugins", "run_filter_plugins", "run_reserve_plugins_re
          "_collect_session_batch", "_evaluate_placements")
 
 ONE_SIDE = """
-import cProfile, gc, json, pstats, sys
+import cProfile, gc, json, pstats, sys, time
 sys.path.insert(0, ".")
 from kubernetes_tpu_torch import bench
 out = {}
 calls = "--calls" in sys.argv
+gcw = dict(s=0.0, full=0, t0=0.0)
+
+def on_gc(phase, info):
+    if phase == "start":
+        gcw["t0"] = time.perf_counter()
+    else:
+        gcw["s"] += time.perf_counter() - gcw["t0"]
+        gcw["full"] += info["generation"] == 2
+
 for w in sys.argv[1].split(","):
     spec = bench.WORKLOADS[w]
     s = bench.build_cluster(bench.NODES.get(w, 5000), node=spec.node,
@@ -48,11 +59,14 @@ for w in sys.argv[1].split(","):
     prof = cProfile.Profile() if calls else None
     if prof is not None:
         prof.enable()
+    gcw.update(s=0.0, full=0)
+    gc.callbacks.append(on_gc)
     r = bench.measure(s, spec.measure_pods, workload=w)
+    gc.callbacks.remove(on_gc)
     d = r["detail"]
     out[w] = dict(pods_s=r["value"], session_end_s=d["session_end_s"],
                   host_commit_s=d["host_commit_s"], device_wait_s=d["device_wait_s"],
-                  elapsed_s=d["elapsed_s"])
+                  elapsed_s=d["elapsed_s"], gc_s=gcw["s"], gc_full=gcw["full"])
     if prof is not None:
         prof.disable()
         hooks = {}

@@ -19,7 +19,10 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                preferred-node-affinity scores, each on and off; incremental
                and full feasibility; carried and normalized scores) at the
                zone tier V = 64 and the hostname tier V = 8192, B = 1024
-               and 64; and the lap with hostname anti-affinity lanes. Both
+               and 64, and six on the edges of its on-chip design (5003
+               rows, 16384 rows, 65536 rows, a hostname spread at V = 8192,
+               GEN_MAXC spread constraints, every table and lane at once);
+               and the lap with hostname anti-affinity lanes. Both
                fit strategies, fresh and chained carries. The three schedule
                kernels again with a live nominated-pod lane; dry_run_preemption
                on seeded victim draws at K = 8, 32 and 256 (rows with no
@@ -191,8 +194,9 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                also with a random nominated-pod lane on the same inputs, and
                the lap on the nominated-lane drive's own session with and
                without its lane;
-               scan_general on scan_schedule's own inputs (it must agree
-               exactly); dry_run_preemption on Unschedulable's own dry-run
+               scan_general also on PreferredTopologySpreading's and
+               SchedulingPodAffinity's next batch, and on scan_schedule's
+               own inputs (it must agree exactly); dry_run_preemption on Unschedulable's own dry-run
                inputs (a churn pod against the 10000 bound pods); and
                scatter_rows at the preempting case's rows per flush, with
                index_copy_ per field (a library call) beside it;
@@ -362,16 +366,32 @@ def device_ms(fn, kernel: str, reps: int = 20) -> tuple:
     """(mean device ms of one launch, launches the profiler saw) of the
     `<kernel>_kernel` that `fn` launches, from torch.profiler's CUDA kernel
     events: the kernel alone, without the host work of its wrapper. At
-    least reps - 1 of the reps launches must be seen; a trace that saw
-    fewer is taken again once."""
-    for attempt in range(2):
-        spans = [us for name, us in traced(fn, reps) if f"{kernel}_kernel" in name]
+    least reps - 1 of the reps launches must be seen in one trace; a trace
+    that saw fewer is taken again, up to five traces (what it did see is
+    printed). The profiler on the card can lose a trace's CUDA events; when
+    every trace lost launches, the reps calls are timed back to back with
+    CUDA events instead and 0 launches seen is returned: that time is the
+    kernel's with its wrapper's enqueue, an upper bound."""
+    for attempt in range(5):
+        events = traced(fn, reps)
+        spans = [us for name, us in events if f"{kernel}_kernel" in name]
         if len(spans) >= reps - 1:
-            break
-        print(f"device_ms: trace {attempt + 1} saw {len(spans)} of {reps} {kernel} launches",
-              flush=True)
-    check(len(spans) >= reps - 1, f"the profiler saw {len(spans)} of {reps} {kernel} launches")
-    return sum(spans) / len(spans) / 1e3, len(spans)
+            return sum(spans) / len(spans) / 1e3, len(spans)
+        names = sorted({name for name, _us in events})
+        print(f"device_ms: trace {attempt + 1} saw {len(spans)} of {reps} {kernel} launches "
+              f"({len(events)} CUDA events: {names[:6]})", flush=True)
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b) / reps
+    print(f"device_ms: {kernel} timed with CUDA events over {reps} calls back to back: "
+          f"{ms:.6f} ms a call (the profiler lost its launches)", flush=True)
+    return ms, 0
 
 
 def max_abs_err(a, b) -> int:
@@ -412,15 +432,18 @@ def compare(K, st, ft, strategies=(0, 1)) -> dict:
     return errs
 
 
-def compare_general(K, st, ft, facts, B, strategies=(0, 1)) -> tuple:
+def compare_general(K, st, ft, facts, B, strategies=(0, 1), prep=None) -> tuple:
     """(max_abs_err, pods placed) of scan_general against its plain version
-    on one input, over the fit strategies, fresh and chained."""
+    on one input, over the fit strategies, fresh and chained. `prep(carry,
+    strategy)` sets the fresh carry's lanes where a draw has them."""
     err = placed = 0
     masks = K._static_masks_plain(st, ft)
     for strat in strategies:
         fit = K._resource_eval_plain(ft, strat, st.alloc_r, st.alloc_pods, st.req_r,
                                      st.nonzero, st.pod_count)
         ck = cp = K.fresh_carry(st, ft, ft.dns_counts.shape[1], fit)
+        if prep is not None:
+            ck = cp = prep(ck, strat)
         for _chain in range(2):
             o_k, ck = K.scan_general(st, ft, B, strat, ck, masks, B, facts)
             o_p, cp = K._scan_general_plain(st, ft, B, strat, cp, masks, B, facts)
@@ -478,28 +501,7 @@ def kernel_phase(dev, np_cap: int, n_nodes: int) -> dict:
                   "the truncation case must place pods with more feasible rows than to_find")
     print(f"fit-only kernels vs plain: max_abs_err {errs} over {len(cases)} cases x 2 "
           "strategies x fresh+chained", flush=True)
-    # scan_general: (draw arguments, value tier, steps)
-    general = {
-        "spread-zone": (dict(dns=1), 64, 1024),                       # full feasibility, carried
-        "spread-soft-pns": (dict(sa=1, pns=True), 64, 1024),          # incremental, normalized
-        "affinity-bootstrap": (dict(aff=1, kd=1, ipa_base=True, bootstrap=True), 64, 1024),
-        "anti-affinity-na": (dict(anti=2, na=True), 64, 1024),
-        "all-lanes": (dict(dns=2, sa=1, anti=1, aff=1, kd=1, pns=True, ipa_base=True,
-                           na=True), 8192, 64),
-        "hostname-anti": (dict(anti=1, anti_axis=HOST_AXIS), 8192, 64),
-    }
-    for gi, (case, (kw, vmax, B)) in enumerate(general.items()):
-        s, f, facts = general_inputs(200 + gi, np_cap, n_nodes, vmax=vmax, **kw)
-        st, ft = to_device(dev, s, f)
-        if gi == 0:
-            first, second = first_launch_ms(K, st, ft, K.PlanFacts(**facts), B)
-            print(f"scan_general's first launch in the process (no active step): {first:.3f} ms "
-                  f"a call, the next: {second:.3f} ms", flush=True)
-        e, placed = compare_general(K, st, ft, K.PlanFacts(**facts), B)
-        print(f"scan_general {case} (V {vmax}, B {B}): max_abs_err {e}, {placed} pods placed "
-              "over 2 strategies x fresh+chained", flush=True)
-        check(placed > 0, f"the scan_general draw {case} placed nothing")
-        errs["scan_general"] = max(errs["scan_general"], e)
+    general_phase(K, dev, np_cap, n_nodes, errs)
     # the lap with hostname anti-affinity lanes
     s, f, facts = general_inputs(300, np_cap, n_nodes, vmax=8192, anti=1, anti_axis=HOST_AXIS)
     st, ft = to_device(dev, s, f)
@@ -530,6 +532,78 @@ def kernel_phase(dev, np_cap: int, n_nodes: int) -> dict:
     for name, e in errs.items():
         check(e == 0, f"{name} disagrees with its plain version (max_abs_err {e})")
     return errs
+
+
+def general_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
+    """scan_general against its plain version on seeded draws: the plan
+    kinds (full and incremental feasibility, carried and normalized scores,
+    each table kind, the zone and hostname value tiers), and the edges of
+    the kernel's on-chip design: a row count that is no multiple of a
+    warp's 32-row chunk or of the block, 16384 rows (SchedulingDaemonset's
+    15000 nodes, the row state on chip), 65536 rows (above it: value ids
+    and totals in device memory), a hostname spread at V = 8192, GEN_MAXC
+    spread constraints (9 live, 7 padded with max skew 2^40), more than
+    GEN_MAXC tables of every other kind (read in device memory past the
+    first GEN_MAXC, 33 a kind past the landing warp's 32 lanes), and every
+    table and lane at once (nominated, blocked, aux, fit weights 1 and 2);
+    fresh and chained."""
+    from kubernetes_tpu_torch.testing.kernel_inputs import (HOST_AXIS, aux_lane, general_inputs,
+                                                            nominated_lane, with_aux_lane,
+                                                            with_nominated_lane)
+
+    every = dict(dns=2, sa=2, anti=1, aff=2, kd=2, pns=True, ipa_base=True, na=True)
+    # (draw arguments, rows, live rows, value tier, steps, seed)
+    general = {
+        "spread-zone": (dict(dns=1), np_cap, n_nodes, 64, 1024, 200),  # full feasibility, carried
+        "spread-soft-pns": (dict(sa=1, pns=True), np_cap, n_nodes, 64, 1024, 201),  # incremental
+        "affinity-bootstrap": (dict(aff=1, kd=1, ipa_base=True, bootstrap=True), np_cap, n_nodes,
+                               64, 1024, 202),
+        "anti-affinity-na": (dict(anti=2, na=True), np_cap, n_nodes, 64, 1024, 203),
+        "all-lanes": (dict(dns=2, sa=1, anti=1, aff=1, kd=1, pns=True, ipa_base=True, na=True),
+                      np_cap, n_nodes, 8192, 64, 204),
+        "hostname-anti": (dict(anti=1, anti_axis=HOST_AXIS), np_cap, n_nodes, 8192, 64, 205),
+        "odd-rows": (dict(dns=1, sa=1), 5003, 4999, 64, 64, 256),
+        "rows-16384": (dict(dns=1), 16384, 15000, 64, 64, 257),
+        "rows-65536": (dict(dns=1, sa=1), 65536, 60000, 64, 32, 208),
+        "hostname-spread": (dict(dns=1, dns_axis=HOST_AXIS), np_cap, n_nodes, 8192, 256, 209),
+        "c1-gen-maxc": (dict(dns=9), np_cap, n_nodes, 64, 64, 360),
+        "every-lane": (every, np_cap, n_nodes, 8192, 64, 311),
+        # 17 anti terms (A1 32), 17 ScheduleAnyway constraints, 33 landing deltas (KD 64)
+        "tables-past-maxc": (dict(dns=1, sa=17, anti=17, kd=33, anti_axis=HOST_AXIS, pns=True),
+                             np_cap, n_nodes, 8192, 64, 312),
+        "tables-past-maxc-incremental": (dict(sa=17, anti=33, anti_axis=HOST_AXIS), np_cap,
+                                         n_nodes, 8192, 64, 313),
+        "affinity-past-maxc": (dict(aff=33, sa=2, kd=2, bootstrap=True), np_cap, n_nodes, 64, 64,
+                               314),
+    }
+    for gi, (case, (kw, cap, live, vmax, B, seed)) in enumerate(general.items()):
+        s, f, facts = general_inputs(seed, cap, live, vmax=vmax, **kw)
+        prep = None
+        if case == "every-lane":
+            room, inc, cnt = aux_lane(seed, cap, live)
+            f = with_aux_lane(with_nominated_lane(f, nominated_lane(seed, cap, live)), room, inc)
+            facts = dict(facts, port_selfblock=True, has_aux=True)
+            gen = torch.Generator().manual_seed(seed)
+
+            def prep(carry, strat, cnt=cnt, gen=gen, cap=cap):
+                blocked = (torch.rand(cap, generator=gen) < 0.3).to(dev)
+                return carry._replace(blocked=blocked, aux_cnt=torch.from_numpy(cnt).to(dev)
+                                      if strat == 0 else carry.aux_cnt)
+        st, ft = to_device(dev, s, f)
+        if case == "every-lane":  # fit weights whose sum is no power of two
+            ft = ft._replace(fit_weights=torch.tensor([1, 2], dtype=torch.int64, device=dev))
+        check(ft.dns_axis.shape[0] <= K.GEN_MAXC, f"the scan_general draw {case} has too many "
+              "spread constraints")
+        if gi == 0:
+            first, second = first_launch_ms(K, st, ft, K.PlanFacts(**facts), B)
+            print(f"scan_general's first launch in the process (no active step): {first:.3f} ms "
+                  f"a call, the next: {second:.3f} ms", flush=True)
+        e, placed = compare_general(K, st, ft, K.PlanFacts(**facts), B, prep=prep)
+        print(f"scan_general {case} (NP {cap}, {live} rows, C1 {ft.dns_axis.shape[0]}, V {vmax}, "
+              f"B {B}): max_abs_err {e}, {placed} pods placed over 2 strategies x "
+              "fresh+chained", flush=True)
+        check(placed > 0, f"the scan_general draw {case} placed nothing")
+        errs["scan_general"] = max(errs["scan_general"], e)
 
 
 def lane_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
@@ -1457,11 +1531,12 @@ def timing_phase(paths: dict, errs: dict, lane_inputs) -> dict:
                 "scan_general": "kubernetes_tpu/ops/kernel.py:314"}
     rows = {}
     for kname, (k_fn, p_fn, nbytes, ops) in calls.items():
-        slow = kname == "scan_general"  # 29 ms a launch, its plain version seconds
+        slow = kname == "scan_general"  # its plain version takes seconds
         rows[kname] = kernel_row(kname, replaces[kname], errs[kname], k_fn, p_fn, nbytes, ops,
                                  reps=5 if slow else 20, plain_reps=1 if slow else 2)
     rows["lap_schedule"]["laps"] = laps
     rows["scan_general"]["steps"] = gB
+    rows["scan_general"]["inputs"] = general_inputs_timing(paths, name, rows["scan_general"])
     # The three schedule kernels with a nominated-pod lane on the same
     # inputs (held exact for the lap and scan_schedule here too).
     from kubernetes_tpu_torch.testing.kernel_inputs import nominated_lane
@@ -1539,6 +1614,47 @@ def timing_phase(paths: dict, errs: dict, lane_inputs) -> dict:
                       for n, r in rows.items()),
           flush=True)
     return rows
+
+
+def general_inputs_timing(paths: dict, main: str, main_row: dict) -> dict:
+    """scan_general on the next batch of each path that launches it: the
+    main path's (timed in its kernels row) and PreferredTopologySpreading's
+    (normalized scores, incremental feasibility) and SchedulingPodAffinity's
+    (full feasibility, the affinity table), each held exact against the
+    plain version, then its device ms (torch.profiler) and call ms (CUDA
+    events)."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    out = {}
+    for name in (main, "PreferredTopologySpreading/5000Nodes_5000Pods",
+                 "SchedulingPodAffinity/5000Nodes_5000Pods"):
+        sched = paths[name][0]
+        pod = bench.make_pods(1, "timed", name)[0]
+        st, plan = sched.build_plan(sched.framework_for_pod(pod), pod, sched.max_batch)
+        f, facts, B = plan.features, plan.facts, plan.batch_pad
+        e, placed = compare_general(K, st, f, facts, B, (plan.fit_strategy,))
+        check(e == 0, f"scan_general disagrees with its plain version on {name}'s next batch")
+        incremental, carried = K.plan_modes(f, facts)
+        row = dict(steps=B, vmax=plan.vmax, incremental=incremental, carried=carried,
+                   max_abs_err=e, placed=placed)
+        if name == main:
+            row.update(ms=main_row["ms"], launches_seen=main_row["ms_launches_seen"],
+                       host_ms=main_row["host_ms"])
+        else:
+            masks = K._static_masks_plain(st, f)
+            ext0 = K.fresh_carry(st, f, plan.vmax, K._resource_eval_plain(
+                f, plan.fit_strategy, st.alloc_r, st.alloc_pods, st.req_r, st.nonzero,
+                st.pod_count))
+            fn = (lambda st=st, f=f, B=B, s=plan.fit_strategy, e0=ext0, m=masks, fa=facts:
+                  K.scan_general(st, f, B, s, e0, m, B, fa))
+            row["ms"], row["launches_seen"] = device_ms(fn, "scan_general")
+            row["host_ms"] = wall_ms(fn, reps=5)
+        out[name] = row
+        print(f"scan_general on {name}'s next batch ({B} steps, V {plan.vmax}, incremental "
+              f"{incremental}, carried {carried}): exact, {row['ms']:.4f} ms on the device, "
+              f"{row['host_ms']:.4f} ms a call", flush=True)
+    return out
 
 
 def kernel_row(kname, replaces, err, k_fn, p_fn, nbytes, ops, library_ms=None, reps=20,

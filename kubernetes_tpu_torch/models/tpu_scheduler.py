@@ -369,6 +369,7 @@ class TorchScheduler(Scheduler):
         fw = self.framework_for_pod(head.pod)
         volume = self._volume_support(head.pod)
         reason = (batch_supported(head.pod, volume)
+                  or self._device_unsupported_profile(fw, head.pod)
                   or self._nominated_device_block(head.pod))
         sig = fw.sign_pod(head.pod) if reason is None else None
         if sig is None:
@@ -485,6 +486,24 @@ class TorchScheduler(Scheduler):
         return None
 
     @staticmethod
+    def _device_unsupported_profile(fw: Framework, pod) -> Optional[str]:
+        """Why `pod` takes the host path under `fw` (None: the device
+        covers it): the kernels enforce a pod's spread constraints and
+        affinity terms whatever the profile, while the host path ignores a
+        term whose plugin the profile lacks (the JAX package's :1044-1069;
+        its branches for plugin-level default constraints and for extended
+        resources backed by DRA wait for PodTopologySpread's arguments and
+        for DynamicResources)."""
+        names = {p.name for p in fw.filter_plugins}
+        if pod.topology_spread_constraints and "PodTopologySpread" not in names:
+            return "spread constraints without PodTopologySpread plugin"
+        aff = pod.affinity
+        if (aff is not None and (aff.pod_affinity or aff.pod_anti_affinity)
+                and "InterPodAffinity" not in names):
+            return "pod affinity without InterPodAffinity plugin"
+        return None
+
+    @staticmethod
     def _resources_only_block(pod) -> Optional[str]:
         """Why `pod`'s filter verdicts depend on more than each row's
         resource arithmetic and the batch's static masks. The nominated lane
@@ -548,8 +567,9 @@ class TorchScheduler(Scheduler):
             start_index=self.next_start_node_index,
             weights=self._profile_weights(fw), filters_on=self._profile_filters(fw),
             extra_filters={n: n in names for n in ("NodePorts", "NodeDeclaredFeatures")},
-            hard_pod_affinity_weight=ipa.hard_pod_affinity_weight,
-            ignore_preferred_terms_of_existing_pods=ipa.ignore_preferred_terms_of_existing_pods,
+            hard_pod_affinity_weight=getattr(ipa, "hard_pod_affinity_weight", 1),
+            ignore_preferred_terms_of_existing_pods=getattr(
+                ipa, "ignore_preferred_terms_of_existing_pods", False),
             fit_plugin=fw.plugin("NodeResourcesFit"), clientset=self.clientset,
             volume=volume, nominated=self._nominated_lane(pod))
         state = self.mirror.flush()
@@ -1005,6 +1025,7 @@ class TorchScheduler(Scheduler):
         for m, volume in zip(qgpi.members, volumes):
             if (m.pod.scheduler_name != p0.scheduler_name or fw.sign_pod(m.pod) != sig
                     or batch_supported(m.pod, volume) is not None
+                    or self._device_unsupported_profile(fw, m.pod) is not None
                     or _aux_shape(volume) != aux_shape):
                 return None, None
             for c in self._claims_of(m.pod):
@@ -1244,6 +1265,7 @@ class TorchScheduler(Scheduler):
         p0 = members[0].pod
         sig = fw.sign_pod(p0)
         if sig is None or any(fw.sign_pod(m.pod) != sig or self._batch_supported(m.pod) is not None
+                              or self._device_unsupported_profile(fw, m.pod) is not None
                               or any(v.pvc_name for v in m.pod.volumes) for m in members):
             host = True
         plan = None
@@ -1363,7 +1385,8 @@ class TorchScheduler(Scheduler):
         them), a pod the kernels do not cover, no lower-priority pod at all,
         or a node with more than PREEMPT_K_CAP of them. A kernel that fails
         raises."""
-        if self._resources_only_block(pod) is not None:
+        if (self._resources_only_block(pod) is not None
+                or self._device_unsupported_profile(fw, pod) is not None):
             return None
         self.cache.update_snapshot(self.snapshot)
         nodes = self.snapshot.node_info_list

@@ -28,8 +28,8 @@ rescore, lives in ops/whatif.py and is counted and reset with these):
                     installed and their resource lanes re-evaluated;
 - schedule_placements <- schedule_placements (:655-723): a pod group's
                     greedy scan against each of P candidate placements at
-                    once, one lane per placement (the general scan step of
-                    scan_general, shared through csrc/scan_general.cuh);
+                    once, one lane per placement (the first version of
+                    scan_general's step, gen_scan in csrc/scan_general.cuh);
 - sharded_lap_count, sharded_lap_windows, sharded_lap_land <- the node-
                     sharded lap's per-shard body, _lap_body
                     (parallel/mesh.py:228-351), cut at its two exchanges

@@ -119,18 +119,18 @@ def _pow2(n: int) -> int:
 def general_inputs(seed: int, np_cap: int, num_nodes: int, *, vmax: int = 256,
                    dns: int = 0, sa: int = 0, anti: int = 0, aff: int = 0, kd: int = 0,
                    pns: bool = False, ipa_base: bool = False, na: bool = False,
-                   anti_axis: Optional[int] = None, bootstrap: bool = False,
-                   **kw) -> Tuple[tuple, tuple, Dict[str, bool]]:
+                   anti_axis: Optional[int] = None, dns_axis: Optional[int] = None,
+                   bootstrap: bool = False, **kw) -> Tuple[tuple, tuple, Dict[str, bool]]:
     """(state arrays, feature arrays, plan facts) for one batch whose plan
     has `dns`/`sa` spread constraints, `anti`/`aff` required terms and `kd`
     landing-delta axes (each table padded to a power of two with inert
     rows), and optionally PreferNoSchedule scoring (`pns`), base
     inter-pod-affinity scores and preferred node-affinity raw scores.
     `anti_axis` pins every anti term to one axis (HOST_AXIS makes the plan
-    row-local); `bootstrap` leaves the affinity tables empty with the pod
-    matching its own terms. The hostname-like axis needs `vmax` above
-    `num_nodes`; below, its row stays empty (no node has the key) and no
-    table may name it. The facts are a dict of PlanFacts' fields (the JAX
+    row-local), `dns_axis` every DoNotSchedule constraint; `bootstrap`
+    leaves the affinity tables empty with the pod matching its own terms.
+    The hostname-like axis needs `vmax` above `num_nodes`; below, its row
+    stays empty (no node has the key) and no table may name it. The facts are a dict of PlanFacts' fields (the JAX
     package's schedule_batch keyword flags)."""
     rng = np.random.default_rng(seed + 7919)
     state, feats = random_inputs(seed, np_cap, num_nodes, vmax=vmax, **kw)
@@ -139,7 +139,8 @@ def general_inputs(seed: int, np_cap: int, num_nodes: int, *, vmax: int = 256,
     i32, i64 = np.int32, np.int64
     live = np.arange(npc) < n
     hosts = vmax > n
-    assert hosts or anti_axis != HOST_AXIS, "a hostname-like axis needs vmax > num_nodes"
+    assert hosts or HOST_AXIS not in (anti_axis, dns_axis), \
+        "a hostname-like axis needs vmax > num_nodes"
     topo = np.zeros((4, npc), i32)
     topo[ZONE_AXIS] = np.where(rng.random(npc) < 0.95, rng.integers(1, 7, npc), 0)
     topo[HOST_AXIS] = np.arange(npc) + 1 if hosts else 0
@@ -172,7 +173,7 @@ def general_inputs(seed: int, np_cap: int, num_nodes: int, *, vmax: int = 256,
 
     c1 = _pow2(dns)
     f = feats
-    f["dns_axis"] = axes(dns)
+    f["dns_axis"] = axes(dns, dns_axis)
     f["dns_active"] = (np.arange(c1) < dns).astype(i32)
     f["dns_max_skew"] = np.where(np.arange(c1) < dns, rng.integers(1, 4, c1), 1 << 40).astype(i64)
     f["dns_self"] = ((np.arange(c1) < dns) & (rng.random(c1) < 0.8)).astype(i32)

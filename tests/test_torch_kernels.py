@@ -526,3 +526,187 @@ def test_launch_arguments_are_checked_before_the_launch(recorded_launches, bad, 
     with pytest.raises(err, match=match):
         bad(ts, tf)
     assert recorded_launches == []
+
+
+# ---------------------------------------------------------------------------
+# The scan_general kernel's shortcuts (csrc/scan_general.cu), modelled in
+# numpy and held against the plain version's from-scratch arithmetic, so a
+# wrong shortcut shows here and not only on the card.
+# ---------------------------------------------------------------------------
+
+
+class _MaintainedMin:
+    """The kernel's spread minimum: per constraint the minimum count over
+    its eligible domains (capped at BIG) and the number of domains at it,
+    moved by each landing and rescanned only when that number reaches 0."""
+
+    def __init__(self, counts, dom):
+        self.counts, self.dom = counts, dom
+        self.mn = np.zeros(counts.shape[0], np.int64)
+        self.at_min = np.zeros(counts.shape[0], np.int64)
+        self.rescans = 0
+        for c in range(counts.shape[0]):
+            self._rescan(c)
+
+    def _rescan(self, c):
+        vals = self.counts[c][self.dom[c]]
+        self.mn[c] = min(K.BIG, int(vals.min())) if vals.size else K.BIG
+        self.at_min[c] = int((vals == self.mn[c]).sum())
+        self.rescans += 1
+
+    def land(self, c, v, add):
+        o = int(self.counts[c, v])
+        n = o + add
+        self.counts[c, v] = n
+        if not self.dom[c, v] or n == o:
+            return
+        if n < self.mn[c]:
+            self.mn[c], self.at_min[c] = n, 1
+        elif o == self.mn[c]:
+            self.at_min[c] -= 1
+            if self.at_min[c] == 0:
+                self._rescan(c)
+        elif n == self.mn[c]:
+            self.at_min[c] += 1
+
+
+@pytest.mark.parametrize("seed,case", [(s, c) for c in ("zone", "hostname", "gen-maxc")
+                                       for s in (0, 1)])
+def test_maintained_spread_minimum_equals_the_plain_minimum(seed, case):
+    """Landings stepped over a general draw: the maintained minimum equals
+    the plain version's from-scratch `where(dns_dom, counts, BIG).amin`
+    after every landing (domains outside dns_dom, rows that are not
+    eligible, dns_self 0, dns_forced0 and max skews padded at 2^40
+    included), and the kernel's row test count <= thr equals the plain
+    version's skew test on every domain."""
+    kw = {"zone": dict(dns=2), "hostname": dict(dns=1, dns_axis=HOST_AXIS),
+          "gen-maxc": dict(dns=9)}[case]
+    s, f, _facts = general_inputs(900 + seed, 256, 200, vmax=GVMAX, **kw)
+    _js, _jf, ts, tf = _convert(s, f)
+    counts = tf.dns_counts.numpy().astype(np.int64)
+    dom = tf.dns_dom.numpy()
+    model = _MaintainedMin(counts, dom)
+    vid = K._vids(ts, tf.dns_axis).numpy()
+    sel = (tf.sel_match.numpy()) | (tf.enable[3].item() == 0)
+    taint = np.random.default_rng(seed).random(256) < 0.8
+    C1 = counts.shape[0]
+    cap = np.minimum(tf.dns_max_skew.numpy(), K.BIG)
+    self_ = tf.dns_self.numpy().astype(np.int64)
+    forced0 = tf.dns_forced0.numpy() == 1
+    if seed == 1:
+        forced0[0] = True  # the draw's first constraint under dns_forced0
+    rng = np.random.default_rng(seed + 17)
+    landed_at_min = 0
+    for _step in range(600):
+        row = int(rng.integers(0, 200))
+        for c in range(C1):
+            v = int(vid[c, row])
+            elig = (v > 0 and (tf.dns_honor_aff[c] != 1 or sel[row])
+                    and (tf.dns_honor_taints[c] != 1 or taint[row]))
+            if elig:
+                landed_at_min += bool(dom[c, v] and counts[c, v] == model.mn[c] and self_[c])
+                model.land(c, v, int(self_[c]))
+        plain_min = torch.where(torch.from_numpy(dom), torch.from_numpy(counts),
+                                K.BIG).amin(dim=1).numpy()
+        np.testing.assert_array_equal(model.mn, plain_min)
+        eff = np.where(forced0, 0, plain_min)
+        plain_ok = counts + self_[:, None] - eff[:, None] <= cap[:, None]
+        thr = np.where(forced0, 0, model.mn) + cap - self_
+        np.testing.assert_array_equal(counts <= thr[:, None], plain_ok)
+    assert (tf.dns_max_skew.numpy() == 1 << 40).any() == (case == "gen-maxc")
+    assert model.rescans - C1 < landed_at_min, "the minimum must not be rescanned each landing"
+
+
+def _warp_ranks(okd, nrows, num, start, to_find, nt):
+    """The kernel's ranks (pass 1, the chunk prefixes and pass 2 of
+    csrc/scan_general.cu): rows come in 32-row chunks and chunk k * nw + w
+    is warp w's k-th, its ballot mask[k, w]. Each warp sums the chunk rows,
+    32 at a time with the total carried between groups, into pfx[k, w] =
+    the feasible rows of the chunk rows before k plus those of the warps
+    before w in row k; f_start adds, at row start-1's chunk (chunk row ks,
+    warp wsx), the warps before wsx and the ballot's bits up to its lane. A
+    row's inclusive prefix is pfx plus its ballot's popcount at or below
+    its lane. Returns (rank of each visited row, -1 elsewhere; the boundary;
+    the kept rows), with the chunks pass 2 skips left unvisited."""
+    nw = nt // 32
+    kw = ((nrows + 31) // 32 + nw - 1) // nw
+    rows = kw * nw * 32
+    ok = np.zeros(max(rows, okd.shape[0]), bool)
+    ok[:nrows] = okd[:nrows]
+    bits = ok[:rows].reshape(kw, nw, 32)  # [chunk row k, warp w, lane]
+    pop = bits.sum(axis=2)
+    cs = (start - 1) >> 5 if 0 < start and start - 1 < nrows else -1
+    ks, wsx = (cs // nw, cs % nw) if cs >= 0 else (-1, 0)
+    pfx = np.zeros((kw, nw), np.int64)
+    total = fbase = 0
+    for g in range(0, kw, 32):  # lane k - g of each warp takes chunk row k
+        k = np.arange(g, min(g + 32, kw))
+        T = pop[k].sum(axis=1)
+        incl = np.cumsum(T)
+        excl = total + incl - T
+        for w in range(nw):
+            pfx[k, w] = excl + pop[k, :w].sum(axis=1)
+        if g <= ks < g + 32:
+            fbase = int(excl[ks - g] + pop[ks, :wsx].sum())
+        total += int(incl[-1])
+    f_start = (0 if start == 0 else total if cs < 0
+               else fbase + int(bits[ks, wsx, :((start - 1) & 31) + 1].sum()))
+    s_mod = start % num
+    rank = np.full(ok.shape[0], -1)
+    kept = np.zeros(ok.shape[0], bool)
+    bound = 0
+    for w in range(nw):
+        for k in range(kw):
+            m = bits[k, w]
+            if not m.any():
+                continue
+            c0 = int(pfx[k, w])
+            cb = 32 * (k * nw + w)
+            if (c0 + 1 - f_start > to_find) if cb >= start else (
+                    cb + 31 < start and c0 + 1 + total - f_start > to_find):
+                continue
+            for lane in np.nonzero(m)[0]:
+                r = cb + lane
+                Fi = c0 + int(m[:lane + 1].sum())
+                rk = Fi - f_start if r >= start else Fi + total - f_start
+                rank[r] = rk
+                if rk <= to_find:
+                    kept[r] = True
+                    rot = r - s_mod + (num if r < s_mod else 0)
+                    assert rot == (r - start) % num
+                    if rk == to_find:
+                        bound = num - 1 - rot
+    return rank, bound, kept
+
+
+@pytest.mark.parametrize("nt", [64, 512])
+@pytest.mark.parametrize("case", ["start-0", "start-mid", "start-last", "start-past-rows",
+                                  "start-past-num", "few-feasible", "to-find-0"])
+def test_warp_ranks_equal_the_plain_prefix_sum(case, nt):
+    """The kernel's chunk-dealt ranks, window boundary and kept set equal
+    the plain version's cumsum ranks (rank by raw start, rotation by start
+    mod num) for every row pass 2 can keep; the chunks it skips hold no
+    kept row and no boundary. 5000 rows make 79 chunk rows a warp at 64
+    threads, so the prefixes cross three 32-row groups."""
+    rng = np.random.default_rng(len(case) * 7 + nt)
+    NP, num = 5000, 4937
+    nrows = min(NP, num)
+    okd = rng.random(NP) < (0.05 if case == "few-feasible" else 0.7)
+    okd[nrows:] = False
+    start = {"start-0": 0, "start-mid": 2411, "start-last": num - 1, "start-past-rows": 4960,
+             "start-past-num": 4940, "few-feasible": 3000, "to-find-0": 25}[case]
+    to_find = {"few-feasible": 100, "to-find-0": 0}.get(case, 500)
+    rank, bound, kept = _warp_ranks(okd, nrows, num, start, to_find, nt)
+    idx = torch.arange(NP)
+    F = torch.cumsum(torch.from_numpy(okd).to(torch.int32), 0)
+    total = F[-1]
+    f_start = F[start - 1] if start > 0 else 0
+    plain_rank = torch.where(idx >= start, F - f_start, F + total - f_start).numpy()
+    plain_kept = okd & (plain_rank <= to_find)
+    rot = ((idx - start) % num).numpy()
+    plain_bound = int(np.where(okd & (plain_rank == to_find), num - 1 - rot, 0).max())
+    np.testing.assert_array_equal(kept[:NP], plain_kept)
+    visited = rank[:NP] >= 0
+    np.testing.assert_array_equal(rank[:NP][visited], plain_rank[visited])
+    assert bound == plain_bound
+    assert plain_kept.any() == (to_find > 0)
