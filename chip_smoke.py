@@ -22,7 +22,14 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                and 64, and six on the edges of its on-chip design (5003
                rows, 16384 rows, 65536 rows, a hostname spread at V = 8192,
                GEN_MAXC spread constraints, every table and lane at once);
-               and the lap with hostname anti-affinity lanes. Both
+               and the lap with hostname anti-affinity lanes; the lap on
+               the edges of its on-chip design (lap_phase: to_find 1,
+               LAP_MAX windows with spill, start inside a chunk, at 0 and
+               past num, no feasible row, fewer feasible rows than
+               to_find, 8189 rows, three fit slots, each lane, two
+               anti-affinity terms with repeated values, every lane,
+               NP 16384 and NP 20000 in device memory; one line a draw
+               with its L range and laps). Both
                fit strategies, fresh and chained carries. The three schedule
                kernels again with a live nominated-pod lane; dry_run_preemption
                on seeded victim draws at K = 8, 32 and 256 (rows with no
@@ -518,6 +525,7 @@ def kernel_phase(dev, np_cap: int, n_nodes: int) -> dict:
                                        max_abs_err((o_k,) + tuple(ck), (o_p,) + tuple(cp)))
     check(int(cp.anti_counts.sum()) > int(ft.anti_counts.sum()),
           "the anti-lane lap draw landed no anti-affinity pod")
+    lap_phase(K, dev, np_cap, n_nodes, errs)
     lane_phase(K, dev, np_cap, n_nodes, errs)
     dry_run_phase(K, dev, np_cap, n_nodes, errs)
     scatter_phase(K, dev, np_cap, n_nodes, errs)
@@ -532,6 +540,121 @@ def kernel_phase(dev, np_cap: int, n_nodes: int) -> dict:
     for name, e in errs.items():
         check(e == 0, f"{name} disagrees with its plain version (max_abs_err {e})")
     return errs
+
+
+LAP_ABOVE_TIER = (20000, 19990)   # rows and live rows of the lap draw past the on-chip tier
+
+
+def lap_draw(K, st, ft, B: int, n_act: int, ports: bool = False, aux: bool = False,
+             prep=None) -> tuple:
+    """(max_abs_err, pods placed, laps, smallest L, largest L) of the lap
+    kernel against its plain version on one draw, both fit strategies,
+    fresh and chained; `prep(carry, strategy)` sets the fresh carry's lanes."""
+    static_ok = K._static_masks_plain(st, ft).static_ok
+    err = placed = laps = 0
+    sizes = []
+    for strat in (0, 1):
+        ck = cp = K.fresh_carry(st, ft, max(ft.anti_counts.shape[1], 1), K._resource_eval_plain(
+            ft, strat, st.alloc_r, st.alloc_pods, st.req_r, st.nonzero, st.pod_count,
+            *K._nom_lane(ft)))
+        if prep is not None:
+            ck = cp = prep(ck, strat)
+        for _chain in range(2):
+            stats = {}
+            o_k, ck = K.lap_schedule(st, ft, B, strat, ck, static_ok, n_act, ports, aux)
+            o_p, cp = K._lap_schedule_plain(st, ft, B, strat, cp, static_ok, n_act, ports, aux,
+                                            stats=stats)
+            err = max(err, max_abs_err((o_k,) + tuple(ck), (o_p,) + tuple(cp)))
+            placed += int((o_p[0] >= 0).sum())
+            laps += stats["laps"]
+            sizes += stats["lap_sizes"]
+    torch.cuda.synchronize()
+    return err, placed, laps, min(sizes), max(sizes)
+
+
+def lap_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
+    """The lap kernel against its plain version on the edges of its design
+    (csrc/lap_schedule.cu): to_find 1; windows held at LAP_MAX with the
+    rest spilling to the next lap, `start` inside a chunk, at 0 and past
+    `num`; no feasible row; fewer feasible rows than to_find; rows not a
+    multiple of 32 with fewer live rows; a scalar resource as a third fit
+    slot; each lane (nominated, blocked, aux,
+    hostname anti-affinity), two anti-affinity terms on a rack axis (values
+    repeat over rows), every lane at once; NP 16384 (the on-chip tier's
+    top) and NP 20000 (the row state in device memory). One line a draw."""
+    from kubernetes_tpu_torch.testing.kernel_inputs import (HOST_AXIS, RACK_AXIS, aux_lane,
+                                                            general_inputs, nominated_lane,
+                                                            with_aux_lane, with_nominated_lane)
+
+    gen = torch.Generator().manual_seed(1400)
+
+    def draw(seed, cap, live, nom=False, ports=False, aux=False, anti=0, axis=None,
+             scalar=False, **kw):
+        s, f, _facts = general_inputs(seed, cap, live, vmax=8192 if axis == HOST_AXIS else 64,
+                                      anti=anti, anti_axis=axis, **kw)
+        if nom:
+            f = with_nominated_lane(f, nominated_lane(seed, cap, live))
+        cnt = None
+        if aux:
+            room, inc, cnt = aux_lane(seed, cap, live)
+            f = with_aux_lane(f, room, inc)
+        st, ft = to_device(dev, s, f)
+        if anti:
+            ft = ft._replace(anti_self=torch.ones_like(ft.anti_self))
+        if scalar:  # a scalar resource requested and scored as a third fit slot
+            ft = ft._replace(request=ft.request.index_fill(0, torch.tensor([3], device=dev), 1),
+                             fit_slots=torch.tensor([0, 1, 3], dtype=torch.int32, device=dev),
+                             fit_weights=torch.tensor([1, 1, 2], dtype=torch.int64, device=dev))
+
+        def prep(ext0, strat):
+            if ports:
+                ext0 = ext0._replace(blocked=(torch.rand(ext0.blocked.shape, generator=gen)
+                                              < 0.3).to(dev))
+            if aux and strat == 0:
+                ext0 = ext0._replace(aux_cnt=torch.from_numpy(cnt).to(dev))
+            return ext0
+        return st, ft, prep
+
+    tf_few = dict(to_find=n_nodes)  # above the feasible rows: L is 1 every lap
+    # (case, seed, rows, live rows, steps, active pods, draw keywords)
+    cases = (
+        ("to_find 1", 1400, np_cap, n_nodes, 1024, 1024, dict(to_find=1)),
+        ("L = LAP_MAX with spill, start inside a chunk", 1401, np_cap, n_nodes, 1024, 1000,
+         dict(to_find=20, start=2411)),
+        ("start 0", 1402, np_cap, n_nodes, 1024, 1024, dict(to_find=100, start=0)),
+        ("start past num", 1403, np_cap, n_nodes, 1024, 1024, dict(to_find=60, start=6000)),
+        ("no feasible row", 1404, np_cap, n_nodes, 128, 128, dict(infeasible=True)),
+        ("fewer feasible rows than to_find", 1405, np_cap, n_nodes, 128, 128, tf_few),
+        ("rows not a multiple of 32", 1406, np_cap - 3, n_nodes + 3, 1024, 1024,
+         dict(to_find=37)),
+        ("three fit slots, a scalar resource", 1415, np_cap, n_nodes, 256, 256,
+         dict(scalar=True, to_find=50)),
+        ("nominated lane", 1407, np_cap, n_nodes, 1024, 1024, dict(nom=True, to_find=50)),
+        ("blocked lane", 1408, np_cap, n_nodes, 512, 512, dict(ports=True, to_find=50)),
+        ("aux lane", 1409, np_cap, n_nodes, 1024, 1024, dict(aux=True, to_find=50)),
+        ("hostname anti-affinity", 1410, np_cap, n_nodes, 1024, 1024,
+         dict(anti=1, axis=HOST_AXIS, to_find=50)),
+        ("two anti-affinity terms on a rack axis (values repeat)", 1411, np_cap, n_nodes, 256,
+         256, dict(anti=2, axis=RACK_AXIS, to_find=50)),
+        ("every lane", 1412, np_cap, n_nodes, 256, 256,
+         dict(nom=True, ports=True, aux=True, anti=2, axis=RACK_AXIS, to_find=40)),
+        ("NP 16384", 1413, 16384, 15000, 1024, 1024, {}),
+        (f"NP {LAP_ABOVE_TIER[0]}, above the on-chip tier", 1414, *LAP_ABOVE_TIER, 1024, 1024,
+         dict(to_find=300)),
+    )
+    for case, seed, cap, live, B, n_act, kw in cases:
+        st, ft, prep = draw(seed, cap, live, **kw)
+        err, placed, laps, lo, hi = lap_draw(K, st, ft, B, n_act, kw.get("ports", False),
+                                             kw.get("aux", False), prep)
+        errs["lap_schedule"] = max(errs["lap_schedule"], err)
+        print(f"lap_schedule {case} (NP {cap}, {live} live rows, B {B}): max_abs_err {err}, "
+              f"{laps} laps over 2 strategies x fresh+chained, L {lo}..{hi}, {placed} placed",
+              flush=True)
+        check(err == 0, f"lap_schedule disagrees with its plain version: {case}")
+        check(placed > 0 or case == "no feasible row", f"lap_schedule {case}: nothing placed")
+        check(case != "to_find 1" or hi == K.LAP_MAX, "the to_find 1 draw never reached LAP_MAX")
+        check(case != "fewer feasible rows than to_find" or hi == 1,
+              "the few-feasible draw took more than one pod a lap")
 
 
 def general_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
@@ -1535,6 +1658,7 @@ def timing_phase(paths: dict, errs: dict, lane_inputs) -> dict:
         rows[kname] = kernel_row(kname, replaces[kname], errs[kname], k_fn, p_fn, nbytes, ops,
                                  reps=5 if slow else 20, plain_reps=1 if slow else 2)
     rows["lap_schedule"]["laps"] = laps
+    rows["lap_schedule"]["us_a_lap"] = rows["lap_schedule"]["ms"] * 1e3 / laps
     rows["scan_general"]["steps"] = gB
     rows["scan_general"]["inputs"] = general_inputs_timing(paths, name, rows["scan_general"])
     # The three schedule kernels with a nominated-pod lane on the same
@@ -1582,7 +1706,8 @@ def timing_phase(paths: dict, errs: dict, lane_inputs) -> dict:
               f"lap_schedule disagrees with its plain version on the {LANE} ({what})")
         placed = int((o_p[0] >= 0).sum())
         ms, seen = device_ms(lambda: K.lap_schedule(*args), "lap_schedule")
-        lane_rows[what] = dict(ms=ms, launches_seen=seen, placed=placed, laps=stats["laps"])
+        lane_rows[what] = dict(ms=ms, launches_seen=seen, placed=placed, laps=stats["laps"],
+                               us_a_lap=ms * 1e3 / stats["laps"])
     check(lane_rows["with_lane"]["placed"] == l_free
           and lane_rows["without_lane"]["placed"] == l_act,
           f"the {LANE}'s lap placed {lane_rows['with_lane']['placed']} with the lane and "
@@ -1590,7 +1715,7 @@ def timing_phase(paths: dict, errs: dict, lane_inputs) -> dict:
     rows["lap_schedule"]["lane_drive"] = lane_rows
     print(f"lap on the {LANE} session ({l_act} pods, {int(lf.nom_pods.sum())} nominations): "
           + ", ".join(f"{r['ms']:.4f} ms on the device {what.replace('_', ' ')} "
-                      f"({r['placed']} placed, {r['laps']} laps)"
+                      f"({r['placed']} placed, {r['laps']} laps, {r['us_a_lap']:.2f} us a lap)"
                       for what, r in lane_rows.items()), flush=True)
     # scan_general on scan_schedule's own inputs: the plan scan_schedule
     # takes (incremental feasibility, carried score, no table) is one of
@@ -1609,6 +1734,7 @@ def timing_phase(paths: dict, errs: dict, lane_inputs) -> dict:
     print(f"kernel times on the main paths' inputs (NP {NP}, R {R}, T {T}, L {L}, "
           f"{laps} laps per 1024-pod batch; scan_general {gB} steps, V {gplan.vmax}): "
           + ", ".join(f"{n} {r['ms']:.4f} ms on the device"
+                      + (f" ({r['us_a_lap']:.2f} us a lap)" if "us_a_lap" in r else "")
                       + (f" ({r['ms_lane']:.4f} with a nominated lane)" if "ms_lane" in r else "")
                       + f", {r['host_ms']:.4f} ms a call (plain {r['plain_ms']:.3f})"
                       for n, r in rows.items()),
@@ -2554,10 +2680,13 @@ def lane_timing(rows: dict, caps: dict, errs: dict, lane: str, drives) -> None:
                           plain_reps=1 if kname == "scan_general" else 2)
         case = {k: case[k] for k in ("ms", "ms_launches_seen", "host_ms", "plain_ms",
                                      "bound_ms", "bound_by", "bytes", "ops")}
+        if extra:
+            extra["us_a_lap"] = case["ms"] * 1e3 / extra["laps"]
         case.update(drive=what, pods=n_act, steps=B, placed=int((o_p[0] >= 0).sum()), **extra)
         rows[kname][lane] = case
         print(f"{kname} with the {lane} lane on the {what}'s first batch ({n_act} pods"
-              + (f", {extra['laps']} laps" if extra else "") + f", NP {NP}): {case['ms']:.4f} ms "
+              + (f", {extra['laps']} laps, {extra['us_a_lap']:.2f} us a lap" if extra else "")
+              + f", NP {NP}): {case['ms']:.4f} ms "
               f"on the device, {case['host_ms']:.4f} ms a call, plain {case['plain_ms']:.3f} ms, "
               f"bound {case['bound_ms']:.6f} ms ({case['bound_by']})", flush=True)
 

@@ -74,14 +74,23 @@ __device__ __forceinline__ bool fit_ok_row(
   return (pods_ok && (!viol || *f.has_request == 0)) || f.enable[4] == 0;
 }
 
+// Python's floored //, resource_eval_row's division by a row's values.
+struct FloorDiv {
+  __device__ __forceinline__ int64_t operator()(int64_t a, int64_t b) const {
+    return floor_div(a, b);
+  }
+};
+
 // _resource_eval (:160-208) for one node row: the fit filter, the
 // LeastAllocated/MostAllocated score over fit_slots, and BalancedAllocation
-// quantized at BA_SCALE.
+// quantized at BA_SCALE. `div` divides by the row's values; a kernel may
+// pass another exact floored division (lap_schedule.cu's LapDiv).
+template <class Div = FloorDiv>
 __device__ __forceinline__ void resource_eval_row(
     const ResFeat& f, const int64_t* alloc_row, int64_t alloc_pods,
     const int64_t* req_row, const int64_t* nz_row, int32_t pod_count,
     const int64_t* nom_row, int32_t nom_pods,
-    bool& fit_ok, int64_t& fit_sc, int64_t& ba) {
+    bool& fit_ok, int64_t& fit_sc, int64_t& ba, Div div = Div()) {
   fit_ok = fit_ok_row(f, alloc_row, alloc_pods, req_row, pod_count, nom_row, nom_pods);
   const int64_t used0 = nz_row[0] + f.nz_request[0];
   const int64_t used1 = nz_row[1] + f.nz_request[1];
@@ -94,19 +103,19 @@ __device__ __forceinline__ void resource_eval_row(
     const int64_t a1 = alloc > 1 ? alloc : 1;
     int64_t rs;
     if (f.fit_strategy == 0) {
-      rs = (alloc > 0 && used <= alloc) ? floor_div((alloc - used) * MAX_NODE_SCORE, a1) : 0;
+      rs = (alloc > 0 && used <= alloc) ? div((alloc - used) * MAX_NODE_SCORE, a1) : 0;
     } else {
-      rs = alloc > 0 ? floor_div((used < alloc ? used : alloc) * MAX_NODE_SCORE, a1) : 0;
+      rs = alloc > 0 ? div((used < alloc ? used : alloc) * MAX_NODE_SCORE, a1) : 0;
     }
     if (alloc > 0) {
       num += rs * w;
       den += w;
     }
   }
-  fit_sc = den > 0 ? floor_div(num, den > 1 ? den : 1) : 0;
+  fit_sc = den > 0 ? div(num, den > 1 ? den : 1) : 0;
   const int64_t a_cpu = alloc_row[0], a_mem = alloc_row[1];
-  int64_t q_cpu = floor_div(used0 * BA_SCALE, a_cpu > 1 ? a_cpu : 1);
-  int64_t q_mem = floor_div(used1 * BA_SCALE, a_mem > 1 ? a_mem : 1);
+  int64_t q_cpu = div(used0 * BA_SCALE, a_cpu > 1 ? a_cpu : 1);
+  int64_t q_mem = div(used1 * BA_SCALE, a_mem > 1 ? a_mem : 1);
   q_cpu = q_cpu < BA_SCALE ? q_cpu : BA_SCALE;
   q_mem = q_mem < BA_SCALE ? q_mem : BA_SCALE;
   const int64_t diff = q_cpu > q_mem ? q_cpu - q_mem : q_mem - q_cpu;

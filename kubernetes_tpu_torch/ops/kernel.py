@@ -351,7 +351,7 @@ def _lap_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
     greedy assignment, with the required anti-affinity lanes of a
     singleton-per-node axis, under `port_selfblock` the blocked lane and
     under `has_aux` the aux_cnt lane). `stats`, when given, receives the lap
-    count."""
+    count and each lap's pods L."""
     dev = static_ok.device
     NP = static_ok.shape[0]
     A1 = f.anti_axis.shape[0]
@@ -366,6 +366,7 @@ def _lap_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
     aux_cnt = ext0.aux_cnt
     out = torch.full((2, batch_pad + LAP_MAX), -1, dtype=i32, device=dev)
     done = laps = 0
+    sizes = []
     nom_r, nom_p = _nom_lane(f)
     while done < n_act:
         laps += 1
@@ -387,6 +388,7 @@ def _lap_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
         rank = torch.where(idx >= start, F - f_start, F + total_feas - f_start)
         rot = (idx - start) % num
         L = max(1, min(int(total_feas // tf), n_act - done, LAP_MAX))
+        sizes.append(L)
         w = torch.clamp_max((rank - 1) // tf, LAP_MAX)
         seg = torch.where(okd & (w < L), w, LAP_MAX)
         in_w = seg[None, :] == lanes[:, None]
@@ -422,6 +424,7 @@ def _lap_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
         done += L
     if stats is not None:
         stats["laps"] = laps
+        stats["lap_sizes"] = sizes
     fit_ok, fit_sc, ba = _resource_eval_plain(
         f, fit_strategy, state.alloc_r, state.alloc_pods, req_r, nonzero, pod_count,
         nom_r, nom_p)
@@ -450,10 +453,38 @@ def _lanes_out(ext0: ScanCarry, blocked, aux_cnt) -> dict:
                 aux_cnt=ext0.aux_cnt if aux_cnt is None else aux_cnt)
 
 
+# The lap kernel keeps a batch's row state in shared memory up to this many
+# rows and this many bytes (csrc/lap_schedule.cu LAP_SMEM_ROWS,
+# LAP_SMEM_MAX, lap_layout for a block of LAP_WARPS warps); above either it
+# takes a device-memory buffer of the same layout.
+LAP_SMEM_ROWS = 16384
+LAP_SMEM_MAX = 220 * 1024
+LAP_WARPS = 32
+
+
+def _lap_layout_bytes(NP: int, R: int, FR: int) -> int:
+    """Bytes of the lap kernel's row state (lap_layout in csrc/lap_schedule.cu):
+    totals, chunk maxima, a landing stage a warp, the batch's constants and
+    six int32 arrays a 32-row chunk, each rounded up to 16 bytes."""
+    nc = (NP + 31) // 32
+    parts = [8 * NP, 8 * nc, 8 * LAP_WARPS * (3 * R + 2), 8 * (R + 4 + FR),
+             4 * (5 + FR)] + [4 * nc] * 6
+    return sum((b + 15) // 16 * 16 for b in parts)
+
+
+def _lap_work(NP: int, R: int, FR: int, dev) -> Optional[torch.Tensor]:
+    """None when the lap kernel's row state fits shared memory (a null
+    pointer), else the device-memory buffer that holds it."""
+    nbytes = _lap_layout_bytes(NP, R, FR)
+    if NP <= LAP_SMEM_ROWS and nbytes <= LAP_SMEM_MAX:
+        return None
+    return torch.empty(nbytes // 8, dtype=i64, device=dev)
+
+
 def _lap_schedule_cuda(state, f, batch_pad, fit_strategy, ext0, static_ok, n_act,
                        port_selfblock=False, has_aux=False):
     dev = static_ok.device
-    NP = static_ok.shape[0]
+    NP, R = state.alloc_r.shape
     req_r, nonzero, pod_count = (t.clone() for t in ext0[:3])
     anti_counts = ext0.anti_counts.clone()
     blocked = _blocked_lane(ext0, port_selfblock)
@@ -462,9 +493,6 @@ def _lap_schedule_cuda(state, f, batch_pad, fit_strategy, ext0, static_ok, n_act
     fit_sc = torch.empty(NP, dtype=i64, device=dev)
     ba = torch.empty(NP, dtype=i64, device=dev)
     start = torch.empty((), dtype=i32, device=dev)
-    okd_s = torch.empty(NP, dtype=torch.uint8, device=dev)
-    F_s = torch.empty(NP, dtype=i32, device=dev)
-    total_s = torch.empty(NP, dtype=i64, device=dev)
     out = torch.full((2, batch_pad), -1, dtype=i32, device=dev)
     ints, feats = _res_args(f, fit_strategy)
     _launch("lap_schedule", dev, NP, *ints, batch_pad, n_act, anti_counts.shape[0],
@@ -472,7 +500,8 @@ def _lap_schedule_cuda(state, f, batch_pad, fit_strategy, ext0, static_ok, n_act
             state.alloc_pods, req_r, nonzero, pod_count, *_nom_lane(f), blocked, aux_cnt,
             f.aux_room, f.aux_inc, static_ok,
             f.il_score, f.weights, f.num_nodes, f.to_find, ext0.start, state.topo, f.anti_axis,
-            f.anti_self, anti_counts, okd_s, F_s, total_s, out, fit_ok, fit_sc, ba, start)
+            f.anti_self, anti_counts, _lap_work(NP, R, ints[1], dev), out, fit_ok, fit_sc, ba,
+            start)
     carry = ext0._replace(req_r=req_r, nonzero=nonzero, pod_count=pod_count,
                           fit_ok=fit_ok, fit_sc=fit_sc, ba=ba, anti_counts=anti_counts,
                           start=start, **_lanes_out(ext0, blocked, aux_cnt))

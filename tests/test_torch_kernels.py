@@ -8,6 +8,8 @@ PyTorch versions, so this holds the plain versions equal to JAX; the CUDA
 kernels are held equal to the plain versions on the card by chip_smoke.py.
 Every comparison is exact: all quantities are integers or booleans."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -27,12 +29,15 @@ from kubernetes_tpu_torch.ops.features import features_from_jax_numpy, victims_f
 from kubernetes_tpu_torch.ops.kernel import carry_from_jax_numpy
 from kubernetes_tpu_torch.testing.kernel_inputs import (
     HOST_AXIS,
+    RACK_AXIS,
+    aux_lane,
     general_inputs,
     nominated_lane,
     placement_inputs,
     random_inputs,
     victim_inputs,
     whatif_inputs,
+    with_aux_lane,
     with_nominated_lane,
 )
 
@@ -287,9 +292,12 @@ def test_launcher_signatures_are_read_from_the_sources():
         lane = name in ("resource_eval", "lap_schedule", "scan_schedule", "scan_general",
                         "patch_carry_rows", "schedule_placements")
         # The schedule kernels' blocked lane (host ports) and aux_cnt lane
-        # (CSI attach limits) are nullable too; the sharded lap's last phase
-        # writes the results only on the shard that keeps them.
-        lanes = {"lap_schedule": {"blocked", "aux_cnt"}, "scan_schedule": {"blocked", "aux_cnt"},
+        # (CSI attach limits) are nullable too, and so is the lap's
+        # device-memory buffer (null: its row state fits shared memory); the
+        # sharded lap's last phase writes the results only on the shard that
+        # keeps them.
+        lanes = {"lap_schedule": {"blocked", "aux_cnt", "work"},
+                 "scan_schedule": {"blocked", "aux_cnt"},
                  "scan_general": {"blocked", "aux_cnt"},
                  "schedule_placements": {"blocked_s", "aux_cnt_s"}}
         assert optional == ({"nom_req", "nom_pods"} | lanes.get(name, set())
@@ -517,7 +525,7 @@ def _not_an_int(ts, tf):
     (_wrong_dtype, TypeError, "enable must be a torch.int32"),
     (_wrong_feature_dtype, TypeError, "fit_weights must be a torch.int64"),
     (_null_pointer, TypeError, "taint_key may not be null"),
-    (_wrong_count, TypeError, "takes 44 arguments"),
+    (_wrong_count, TypeError, "takes 42 arguments"),
     (_wrong_device, ValueError, "request on meta, expected cpu"),
     (_not_an_int, TypeError, "NP must be an int"),
 ], ids=["dtype", "feature-dtype", "null", "count", "device", "int"])
@@ -710,3 +718,428 @@ def test_warp_ranks_equal_the_plain_prefix_sum(case, nt):
     np.testing.assert_array_equal(rank[:NP][visited], plain_rank[visited])
     assert bound == plain_bound
     assert plain_kept.any() == (to_find > 0)
+
+
+# ---------------------------------------------------------------------------
+# The lap kernel's bookkeeping (csrc/lap_schedule.cu), modelled in numpy on
+# its own layout and stepped lap by lap, then held against the plain
+# version's dense laps: a shortcut that drifts from the reference shows
+# here and not only on the card.
+# ---------------------------------------------------------------------------
+
+I64_MIN = np.iinfo(np.int64).min
+
+
+def _popc(m: int) -> int:
+    return bin(m).count("1")
+
+
+class _LapModel:
+    """The lap kernel's on-chip state and its steps: a 32-bit feasibility
+    mask a 32-row chunk (the base verdict apart from the anti one), each
+    chunk's count, maximum total and first row at it, the chunk prefixes of
+    one warp's scan, the 32-way search of a rank's row, a window's best row
+    over its edge rows and the summaries between, its cut at the rotation
+    origin, every lane's boundary, the landings' re-evaluation and the
+    refresh of the chunks they changed (idempotent when two share a chunk),
+    and the dense anti recheck. Row evaluations go through the plain
+    resource_eval, as the kernel's go through resource_eval_row."""
+
+    def __init__(self, st, f, strat, ext0, static_ok, ports, aux):
+        self.st, self.f, self.strat = st, f, strat
+        self.ports, self.aux = ports, aux
+        self.NP = NP = static_ok.shape[0]
+        self.NC = (NP + 31) // 32
+        self.num = max(int(f.num_nodes), 1)
+        self.tf = max(int(f.to_find), 1)
+        self.static_ok = static_ok.numpy()
+        self.req_r, self.nonzero, self.pod_count = (t.clone() for t in ext0[:3])
+        self.blocked = ext0.blocked.clone()
+        self.aux_cnt = ext0.aux_cnt.clone()
+        self.anti_counts = ext0.anti_counts.clone().numpy()
+        self.vid = K._vids(st, f.anti_axis).numpy()
+        self.A1 = self.vid.shape[0]
+        self.start = int(ext0.start)
+        self.fit_ok, self.fit_sc, self.ba = (t.clone() for t in K._resource_eval_plain(
+            f, strat, st.alloc_r, st.alloc_pods, self.req_r, self.nonzero, self.pod_count,
+            *K._nom_lane(f)))
+        self.total = K._total(f, self.fit_sc, self.ba).numpy().copy()
+        base = self._base_rows(np.arange(NP))
+        self.base = self._pack(base)
+        self.mask = self.base & self._pack(self._anti_rows())
+        self.cnt = np.zeros(self.NC, np.int64)
+        self.mx = np.full(self.NC, I64_MIN, np.int64)
+        self.arg = np.full(self.NC, -1, np.int64)
+        self.pfx = np.zeros(self.NC, np.int64)
+        self.dirty = np.zeros(self.NC, bool)
+        for c in range(self.NC):
+            self._summary(c, int(self.mask[c]))
+        self.shared_refreshes = self.anti_refreshes = self.cut_ranges = self.multi_round = 0
+        self.sizes = []
+
+    # -- verdicts -----------------------------------------------------------
+    def _base_rows(self, rows):
+        ok = self.static_ok[rows] & self.fit_ok.numpy()[rows] & (rows < self.num)
+        if self.ports:
+            ok &= ~self.blocked.numpy()[rows]
+        if self.aux:
+            ok &= (self.aux_cnt.numpy()[rows] + int(self.f.aux_inc)
+                   <= self.f.aux_room.numpy()[rows])
+        return ok
+
+    def _anti_rows(self):
+        ok = np.ones(self.NP, bool)
+        for c in range(self.A1):
+            v = self.vid[c]
+            ok &= ~((v > 0) & (self.anti_counts[c][v] > 0))
+        return ok
+
+    def _pack(self, ok):
+        """One ballot a chunk; lanes past NP hold no row and stay clear."""
+        pad = np.zeros(self.NC * 32, bool)
+        pad[:self.NP] = ok
+        bits = pad.reshape(self.NC, 32).astype(np.uint64) << np.arange(32, dtype=np.uint64)
+        return bits.sum(axis=1).astype(np.uint64)
+
+    def _summary(self, c, m):
+        rows = [c * 32 + lane for lane in range(32) if (m >> lane) & 1]
+        before = (int(self.mask[c]), int(self.cnt[c]), int(self.mx[c]), int(self.arg[c]))
+        self.mask[c] = m
+        self.cnt[c] = len(rows)
+        if rows:
+            best = max(int(self.total[r]) for r in rows)
+            self.mx[c], self.arg[c] = best, min(r for r in rows if self.total[r] == best)
+        else:
+            self.mx[c], self.arg[c] = I64_MIN, -1
+        return before
+
+    # -- one lap ------------------------------------------------------------
+    def _scan(self):
+        """Warp 0: a contiguous run of chunks a lane, an inclusive scan of
+        the lanes' sums, the runs' exclusive prefixes."""
+        cpl = (self.NC + 31) // 32
+        sums = [int(self.cnt[min(l * cpl, self.NC):min(l * cpl + cpl, self.NC)].sum())
+                for l in range(32)]
+        incl = np.cumsum(sums)
+        for l in range(32):
+            run = int(incl[l] - sums[l])
+            for c in range(min(l * cpl, self.NC), min(l * cpl + cpl, self.NC)):
+                self.pfx[c] = run
+                run += int(self.cnt[c])
+        return int(incl[-1])
+
+    def _find_row(self, g):
+        lo, hi = 0, self.NC
+        while hi - lo > 32:
+            self.multi_round += 1
+            step = (hi - lo + 31) // 32
+            j = max(l for l in range(32) if lo + l * step < hi and self.pfx[lo + l * step] <= g)
+            lo, hi = lo + j * step, min(lo + j * step + step, hi)
+        c = lo + max(l for l in range(32) if lo + l < hi and self.pfx[lo + l] <= g)
+        k, m = g - int(self.pfx[c]), int(self.mask[c])
+        [lane] = [l for l in range(32) if (m >> l) & 1 and _popc(m & ((1 << l) - 1)) == k]
+        return c * 32 + lane
+
+    def _range_best(self, a, b):
+        """(total, row) of the best feasible row of rows [a, b]: edge chunks
+        from their rows, the chunks between from their summaries."""
+        ca, cb = a >> 5, b >> 5
+        cands = []
+        for c, lo, hi in ((ca, a, b), (cb, a, b)) if ca != cb else ((ca, a, b),):
+            m = int(self.mask[c])
+            cands += [(int(self.total[r]), r) for r in range(c * 32, c * 32 + 32)
+                      if lo <= r <= hi and (m >> (r & 31)) & 1]
+        cands += [(int(self.mx[c]), int(self.arg[c])) for c in range(ca + 1, cb)
+                  if self.cnt[c] > 0]
+        if not cands:
+            return None
+        best = max(t for t, _ in cands)
+        return best, min(r for t, r in cands if t == best)
+
+    def _rot(self, row):
+        return (row - self.start) % self.num
+
+    def _window(self, w, L, T, f_start):
+        """(key, row or -1, start after) of window lane w."""
+        key, row, last = -1, -1, -1
+        any_ = False
+        if w < L and T > 0:
+            r0 = w * self.tf
+            length = min(self.tf, T - r0)
+            g0 = (f_start + r0) % T
+            end = g0 + length - 1
+            pieces = [(g0, end)] if end < T else [(g0, T - 1), (0, end - T)]
+            so = self.start % self.num
+            for ga, gb in pieces:
+                a, b = self._find_row(ga), self._find_row(gb)
+                last = b
+                ranges = [(so, b), (a, so - 1)] if a < so <= b else [(a, b)]
+                self.cut_ranges += len(ranges) - 1
+                for lo, hi in ranges:
+                    got = self._range_best(lo, hi)
+                    if got is not None:
+                        k = got[0] * self.NP + (self.NP - 1 - self._rot(got[1]))
+                        if not any_ or k > key:
+                            key, row = k, got[1]
+                        any_ = True
+        rb = (w + 1) * self.tf
+        ev = self.num
+        if rb <= T:
+            brow = last if w < L else self._find_row((f_start + rb - 1) % T)
+            ev = self._rot(brow) + 1
+        has = w < L and any_ and key >= 0
+        return (row if has else -1), (self.start + ev) % self.num
+
+    def _land(self, row):
+        f, st = self.f, self.st
+        self.req_r[row] += f.request
+        self.nonzero[row] += f.nz_request
+        self.pod_count[row] += 1
+        if self.ports:
+            self.blocked[row] = True
+        if self.aux:
+            self.aux_cnt[row] += f.aux_inc
+        for c in range(self.A1):
+            v = self.vid[c, row]
+            if v > 0:
+                self.anti_counts[c, v] += int(f.anti_self[c])
+        sl = slice(row, row + 1)
+        nom_r, nom_p = K._nom_lane(f)
+        ok, sc, ba = K._resource_eval_plain(
+            f, self.strat, st.alloc_r[sl], st.alloc_pods[sl], self.req_r[sl], self.nonzero[sl],
+            self.pod_count[sl], None if nom_r is None else nom_r[sl],
+            None if nom_p is None else nom_p[sl])
+        self.fit_ok[row], self.fit_sc[row], self.ba[row] = ok[0], sc[0], ba[0]
+        self.total[row] = int(K._total(f._replace(il_score=f.il_score[sl]), sc, ba)[0])
+        return bool(self._base_rows(np.array([row]))[0])
+
+    def _apply(self, m, c, land, land_ok):
+        clr = sum(1 << (r & 31) for r in land if r >= 0 and r >> 5 == c)
+        st = sum(1 << (r & 31) for r, k in zip(land, land_ok) if r >= 0 and r >> 5 == c and k)
+        return (m & ~clr & 0xffffffff) | st
+
+    def lap(self, done, n_act, out, B):
+        T = self._scan()
+        L = max(1, min(T // self.tf, n_act - done, K.LAP_MAX))
+        self.sizes.append(L)
+        ra = self.start if 0 < self.start < self.num else 0
+        f_start = 0 if ra == 0 else int(self.pfx[ra >> 5]) + _popc(
+            int(self.mask[ra >> 5]) & ((1 << (ra & 31)) - 1))
+        # Every window's search reads the lap's masks before any landing;
+        # lanes past L run only in the last lap (the next lap rewrites their
+        # out[] positions).
+        n_lanes = K.LAP_MAX if done + L >= n_act else L
+        lanes = [self._window(w, L, T, f_start) for w in range(n_lanes)]
+        land = [row for row, _ in lanes] + [-1] * (K.LAP_MAX - n_lanes)
+        land_ok = [False] * K.LAP_MAX
+        for w, (row, start_w) in enumerate(lanes):
+            if done + w < B:
+                out[0, done + w], out[1, done + w] = row, start_w
+            if row >= 0:
+                land_ok[w] = self._land(row)
+                self.dirty[row >> 5] = True
+        self.start = lanes[L - 1][1]
+        if self.A1:
+            anti = self._pack(self._anti_rows())
+            for c in range(self.NC):
+                d = bool(self.dirty[c])
+                b = self._apply(int(self.base[c]), c, land, land_ok) if d else int(self.base[c])
+                m = b & int(anti[c])
+                if d or m != int(self.mask[c]):
+                    self.anti_refreshes += not d
+                    self._summary(c, m)
+                    self.base[c], self.dirty[c] = b, False
+        else:
+            seen = {}
+            for w in range(L):
+                if land[w] < 0:
+                    continue
+                c = land[w] >> 5
+                m = self._apply(int(self.mask[c]), c, land, land_ok)
+                before = self._summary(c, m)
+                if c in seen:
+                    # The second landing's warp writes what the first wrote.
+                    assert before == seen[c] == (int(self.mask[c]), int(self.cnt[c]),
+                                                 int(self.mx[c]), int(self.arg[c]))
+                    self.shared_refreshes += 1
+                seen[c] = (int(self.mask[c]), int(self.cnt[c]), int(self.mx[c]),
+                           int(self.arg[c]))
+            self.dirty[:] = False
+        return L
+
+    def check_summaries(self):
+        """The kept masks and summaries equal ones computed afresh from the
+        state after the lap's landings."""
+        fresh = self._base_rows(np.arange(self.NP)) & self._anti_rows()
+        mask = self._pack(fresh)
+        np.testing.assert_array_equal(self.mask, mask)
+        for c in range(self.NC):
+            rows = [r for r in range(c * 32, min(c * 32 + 32, self.NP)) if fresh[r]]
+            assert self.cnt[c] == len(rows)
+            if rows:
+                best = max(self.total[r] for r in rows)
+                assert (self.mx[c], self.arg[c]) == (best, min(r for r in rows
+                                                              if self.total[r] == best))
+
+    def run(self, B, n_act, ext0):
+        out = torch.full((2, B), -1, dtype=torch.int32)
+        done = 0
+        while done < n_act:
+            done += self.lap(done, n_act, out, B)
+            self.check_summaries()
+        carry = ext0._replace(
+            req_r=self.req_r, nonzero=self.nonzero, pod_count=self.pod_count,
+            fit_ok=self.fit_ok, fit_sc=self.fit_sc, ba=self.ba,
+            anti_counts=torch.from_numpy(self.anti_counts), blocked=self.blocked,
+            aux_cnt=self.aux_cnt, start=torch.tensor(self.start, dtype=torch.int32))
+        return out, carry
+
+
+# (draw: random_inputs, or general_inputs with anti terms; rows, live rows,
+# steps, active pods, lanes)
+LAP_MODEL = {
+    "tf-1": (dict(to_find=1), 256, 200, 256, 256, {}),
+    "feasible-0": (dict(infeasible=True), 256, 200, 64, 40, {}),
+    "feasible-below-tf": (dict(to_find=200), 256, 200, 64, 64, {}),
+    "lap-max-spill": (dict(to_find=2), 256, 230, 256, 250, {}),
+    "start-in-chunk": (dict(start=77, to_find=9), 256, 200, 128, 128, {}),
+    "start-0": (dict(start=0, to_find=7), 256, 200, 128, 128, {}),
+    "start-past-num": (dict(start=230, to_find=9), 256, 200, 128, 100, {}),
+    "num-below-np-odd": (dict(to_find=5), 250, 190, 128, 128, {}),
+    "many-chunks": (dict(to_find=40), 2048, 1990, 256, 256, {}),
+    "nominated": (dict(to_find=8), 256, 200, 256, 200, dict(nom=True)),
+    "blocked": (dict(to_find=8), 256, 200, 256, 200, dict(ports=True)),
+    "aux": (dict(to_find=8), 256, 200, 256, 200, dict(aux=True)),
+    "anti-hostname": (dict(to_find=6, anti=1, anti_axis=HOST_AXIS), 256, 200, 256, 200, {}),
+    "anti-repeated": (dict(to_find=6, anti=2, anti_axis=RACK_AXIS), 256, 200, 256, 200, {}),
+    "every-lane": (dict(to_find=6, anti=2, anti_axis=RACK_AXIS), 256, 200, 256, 200,
+                   dict(nom=True, ports=True, aux=True)),
+}
+
+
+def _lap_model_draw(seed, case):
+    kw, cap, live, B, n_act, lanes = LAP_MODEL[case]
+    if "anti" in kw:
+        s, f, _facts = general_inputs(seed, cap, live, vmax=GVMAX, **kw)
+    else:
+        s, f = random_inputs(seed, cap, live, vmax=VMAX, **kw)
+    if lanes.get("nom"):
+        f = with_nominated_lane(f, nominated_lane(seed, cap, live))
+    cnt = None
+    if lanes.get("aux"):
+        room, inc, cnt = aux_lane(seed, cap, live)
+        f = with_aux_lane(f, room, inc)
+    ts, tf = state_from_jax_numpy(s), features_from_jax_numpy(f)
+    if "anti" in kw:
+        tf = tf._replace(anti_self=torch.ones_like(tf.anti_self))
+    ext0 = K.fresh_carry(ts, tf, max(tf.anti_counts.shape[1], 1), K._resource_eval_plain(
+        tf, 0, ts.alloc_r, ts.alloc_pods, ts.req_r, ts.nonzero, ts.pod_count, *K._nom_lane(tf)))
+    rng = np.random.default_rng(seed)
+    if lanes.get("ports"):
+        ext0 = ext0._replace(blocked=torch.from_numpy(rng.random(cap) < 0.3))
+    if cnt is not None:
+        ext0 = ext0._replace(aux_cnt=torch.from_numpy(cnt))
+    return ts, tf, ext0, B, n_act, lanes.get("ports", False), lanes.get("aux", False)
+
+
+@pytest.mark.parametrize("case", list(LAP_MODEL))
+def test_lap_model_equals_the_plain_laps(case):
+    """The kernel's bookkeeping, stepped lap by lap (its masks and summaries
+    checked against fresh ones after every lap), gives the plain version's
+    whole `out` and every carry lane, over two chained batches, with the
+    same lap count and sizes."""
+    ts, tf, ext0, B, n_act, ports, aux = _lap_model_draw(1500 + len(case), case)
+    static_ok = K._static_masks_plain(ts, tf).static_ok
+    strat = 1 if case in ("start-0", "aux") else 0
+    mc = pc = ext0
+    placed = 0
+    for batch in range(2):
+        model = _LapModel(ts, tf, strat, mc, static_ok, ports, aux)
+        m_out, mc = model.run(B, n_act, mc)
+        stats = {}
+        p_out, pc = K._lap_schedule_plain(ts, tf, B, strat, pc, static_ok, n_act, ports, aux,
+                                          stats=stats)
+        assert torch.equal(m_out, p_out), f"out, batch {batch}"
+        for name, a, b in zip(K.ScanCarry._fields, mc, pc):
+            assert a.dtype == b.dtype and torch.equal(a, b), f"{name}, batch {batch}"
+        assert model.sizes == stats["lap_sizes"]
+        placed += int((p_out[0] >= 0).sum())
+        if batch == 0:
+            first = model
+    assert placed > 0 or case == "feasible-0"
+    want = {"tf-1": first.shared_refreshes > 0 and max(first.sizes) == K.LAP_MAX,
+            "lap-max-spill": max(first.sizes) == K.LAP_MAX,
+            "feasible-below-tf": max(first.sizes) == 1,
+            "start-past-num": first.cut_ranges > 0,
+            "many-chunks": first.multi_round > 0,
+            "anti-repeated": first.anti_refreshes > 0}
+    assert want.get(case, True), f"the {case} draw misses the edge it is named for"
+
+
+@pytest.mark.parametrize("NP,R,FR,on_chip", [(8192, 7, 2, True), (16384, 7, 2, True),
+                                             (16385, 7, 2, False), (5000, 600, 2, False)],
+                         ids=["np-8192", "np-16384", "np-16385", "wide-rows"])
+def test_lap_row_state_tier(recorded_launches, monkeypatch, NP, R, FR, on_chip):
+    """The lap's row state stays in shared memory (a null `work`) up to
+    16384 rows and 220 KB, and takes a device-memory buffer of its layout's
+    size above either; the wrapper passes it in the launcher's slot."""
+    assert (K._lap_work(NP, R, FR, "cpu") is None) == on_chip
+    nc = (NP + 31) // 32
+    assert K._lap_layout_bytes(NP, R, FR) >= 8 * NP + 8 * nc + 24 * nc + 256 * (3 * R + 2)
+    if not on_chip:
+        assert K._lap_work(NP, R, FR, "cpu").numel() * 8 == K._lap_layout_bytes(NP, R, FR)
+    if NP != 8192:
+        return
+    _js, _jf, ts, tf = _both(19)
+    static_ok = K._static_masks_plain(ts, tf).static_ok
+    ext0 = K.fresh_carry(ts, tf, VMAX, K._resource_eval_plain(
+        tf, 0, ts.alloc_r, ts.alloc_pods, ts.req_r, ts.nonzero, ts.pod_count))
+    K._lap_schedule_cuda(ts, tf, 512, 0, ext0, static_ok, 300)
+    monkeypatch.setattr(K, "LAP_SMEM_ROWS", 0)  # every draw above the tier
+    K._lap_schedule_cuda(ts, tf, 512, 0, ext0, static_ok, 300)
+    (_n1, on), (_n2, off) = recorded_launches
+    work = [p.name for p in K._build.signature("lap_schedule")].index("work")
+    assert on[work] is None and isinstance(off[work], int)
+
+
+def _lap_floor_div(a: int, b: int) -> int:
+    """csrc/lap_schedule.cu's lap_floor_div in Python: float is IEEE
+    float64, float(int) rounds to nearest like the kernel's conversion, and
+    the remainder's true value fits int64, so the kernel's wrapping product
+    gives it exactly."""
+    if 0 < b < 1 << 62:
+        d = float(a) / float(b)
+        if abs(d) < 2.0 ** 50:
+            q = math.floor(d)
+            r = a - q * b
+            assert -b <= r < 2 * b
+            return q - (r < 0) + (r >= b)
+    return a // b
+
+
+@pytest.mark.parametrize("kind", ["fit-scores", "shares", "exact-multiples", "wide"])
+def test_lap_floor_div_equals_floored_division(kind):
+    """The landing's division (a float64 quotient and one exact correction)
+    equals Python's floored // on the operands the fit and
+    BalancedAllocation scores give it and on wide int64 draws, the fast
+    path's edges (|quotient| near 2^50, exact multiples, negative
+    numerators) included."""
+    rng = np.random.default_rng(len(kind))
+    n = 20000
+    if kind == "fit-scores":     # (alloc - used) * 100 over max(alloc, 1)
+        b = rng.integers(1, 1 << 45, n)
+        a = (b - rng.integers(-(1 << 20), 1 << 45, n)) * 100
+    elif kind == "shares":       # used * 1e6 over an allocatable, and the fit sum
+        b = rng.integers(1, 1 << 40, n)
+        a = rng.integers(0, 1 << 40, n) * 1_000_000
+    elif kind == "exact-multiples":
+        b = rng.integers(1, 1 << 31, n)
+        a = b * rng.integers(-(1 << 31), 1 << 31, n) + rng.integers(-1, 2, n)
+    else:
+        b = np.where(rng.random(n) < 0.5, rng.integers(1, 1 << 62, n), rng.integers(1, 1 << 12, n))
+        a = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+    cases = list(zip(a.tolist(), b.tolist()))
+    cases += [(2 ** 50 * 7 - 1, 7), (2 ** 50 * 7, 7), (-(2 ** 50) * 7 + 1, 7), (-1, 1 << 61),
+              ((1 << 63) - 1, 1), (-(1 << 63), 3), (0, 5), (-5, 5), (-6, 5)]
+    for x, y in cases:
+        assert _lap_floor_div(x, y) == x // y, (x, y)
