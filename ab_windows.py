@@ -5,13 +5,15 @@ profile, warm, measure) for a parent tree and this one; by default
 TopologySpreading/5000Nodes_5000Pods and SchedulingBasic/5000Nodes_10000Pods.
 
     git archive <parent commit> | tar -x -C <dir>   # into an ignored directory
-    python3 ab_windows.py <dir> [rounds] [--freeze] [--workloads W1,W2] [--calls]
+    python3 ab_windows.py <dir> [rounds] [--freeze] [--workloads W1,W2] [--calls] [--shards S]
 
 Each round runs parent, change, change, parent, each side in a process of
 its own started in its tree, and prints one `AB {...}` JSON line a run:
-pods/s, session end, host commit, device wait, the window's seconds, and
-the garbage collector's seconds and full (generation 2) collections in
-the window (gc.callbacks).
+pods/s, session end, host commit, device wait, kernel enqueue (dispatch),
+the window's seconds, the sharded-lap dispatches, and the garbage
+collector's seconds and full (generation 2) collections in the window
+(gc.callbacks). With --shards S, each side builds its clusters under a
+node mesh of S shards on the one card (make_mesh(devices=[cuda:0] * S)).
 The last line gives each side's median pods/s and interquartile range.
 With --freeze, each side moves everything alive after its warm-up out of
 the garbage collector's reach (gc.freeze): a window of a few hundred ms
@@ -48,10 +50,17 @@ def on_gc(phase, info):
         gcw["s"] += time.perf_counter() - gcw["t0"]
         gcw["full"] += info["generation"] == 2
 
+shards = int(sys.argv[sys.argv.index("--shards") + 1]) if "--shards" in sys.argv else 0
+mesh = {}
+if shards:
+    import torch
+    from kubernetes_tpu_torch.parallel import make_mesh
+    mesh = dict(mesh=make_mesh(devices=[torch.device("cuda", 0)] * shards))
+
 for w in sys.argv[1].split(","):
     spec = bench.WORKLOADS[w]
     s = bench.build_cluster(bench.NODES.get(w, 5000), node=spec.node,
-                            profile_factory=bench.profile_for(w))
+                            profile_factory=bench.profile_for(w), **mesh)
     bench.warm(s, spec.init_pods, w)
     if "--freeze" in sys.argv:
         gc.collect()
@@ -66,7 +75,9 @@ for w in sys.argv[1].split(","):
     d = r["detail"]
     out[w] = dict(pods_s=r["value"], session_end_s=d["session_end_s"],
                   host_commit_s=d["host_commit_s"], device_wait_s=d["device_wait_s"],
-                  elapsed_s=d["elapsed_s"], gc_s=gcw["s"], gc_full=gcw["full"])
+                  dispatch_s=d["dispatch_s"], elapsed_s=d["elapsed_s"],
+                  shard_map_dispatches=d["shard_map_dispatches"], gc_s=gcw["s"],
+                  gc_full=gcw["full"])
     if prof is not None:
         prof.disable()
         hooks = {}
@@ -94,7 +105,11 @@ def main() -> int:
         i = args.index("--workloads")
         workloads = tuple(args[i + 1].split(","))
         del args[i:i + 2]
-    args = [a for a in args if a not in flags]
+    if "--shards" in args:
+        i = args.index("--shards")
+        flags += args[i:i + 2]
+        del args[i:i + 2]
+    args = [a for a in args if a not in ("--freeze", "--calls")]
     if not args:
         print(__doc__, file=sys.stderr)
         return 2

@@ -60,15 +60,19 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                count drawn or zero, fresh and chained, padded steps, draws
                whose batch outnumbers their room (every row filled, the last
                pods placed nowhere), schedule_placements' lanes at P = 16
-               and 64 each counting only their own members; the sharded lap's
-               three launchers (sharded_lap_count, _windows, _land) at S = 2,
-               4 and 8 shards on one card, on SchedulingBasic's first batch
-               (NP 8192, B 1024) and on draws with the start's row in a late
-               shard, a start of 0, LAP_MAX windows with a short final lap,
-               shards with no feasible row, padded rows, truncation off and
-               nothing feasible: each launcher against its plain version lap
-               by lap, the whole lap fresh and chained against the one-device
-               lap kernel and against its plain version. Results must be
+               and 64 each counting only their own members; the sharded_lap
+               kernel (one launch a card a dispatch) at S = 2, 4 and 8 shards
+               on one card (and 16 on the first batch), on SchedulingBasic's
+               first batch (NP 8192, B 1024) and on draws with the start's
+               row in a late shard, a start of 0, LAP_MAX windows with a
+               short final lap, shards with no feasible row, padded rows,
+               truncation off and nothing feasible, and 40000 rows in two
+               shards (past the on-chip tier): each dispatch fresh and
+               chained, cut after 1, L and 2L pods and whole, against its
+               plain version (LapRun) and the one-device lap kernel, one
+               launch a dispatch; then its refusals (33 shards on one card,
+               a wait whose budget runs out, an exchange buffer the card
+               cannot reach), each raising. Results must be
                exactly equal on every output and carry lane. It also times scan_general's first
                launch in the process against the next;
   3. paths   — each through TorchScheduler on cuda at full width, the
@@ -183,7 +187,7 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                under a mesh of 4 shards on one card (one device repeated,
                make_mesh(devices=[cuda:0] * 4)): SchedulingBasic/5000Nodes_10000Pods,
                pod for pod as the unsharded run, through the sharded lap
-               (its three launchers launched, no one-device lap, pods/s
+               (one sharded_lap launch a dispatch, no one-device lap, pods/s
                labelled as 4 shards on one card: no multi-GPU number); a
                TopologySpreading cut (1000 nodes) on the gathered path;
                delta-resume waves (1000 nodes, deletes and taint flips, one
@@ -222,9 +226,11 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                a seeded 16-lane draw at NP 8192 (no path launches it
                with the lane: volume members of a placement group take
                the host simulation); the sharded lap on SchedulingBasic's
-               next batch at S = 2, 4 and 8: a dispatch, a lap, each
-               launcher's device and call time and bound a shard, the two
-               exchanges a lap; the mesh waves' sharded carry patch and
+               next batch at S = 1, 2, 4 and 8 on one card: ms a dispatch,
+               the device time of its one launch and us a lap, launches and
+               device-to-host copies a dispatch (the counter and
+               torch.profiler), its plain version and bound, beside the
+               one-device lap; the mesh waves' sharded carry patch and
                dirty-row scatter;
   5. parity  — a 500-node cluster with NoSchedule and PreferNoSchedule
                taints, unschedulable nodes, node selectors, pods that fit no
@@ -270,12 +276,13 @@ Phases, in order; any error or mismatch exits non-zero before the result:
 runs the node-sharded mesh across N cards of one host, one shard a card,
 in place of the phases above: the build; SchedulingBasic/5000Nodes_10000Pods
 unsharded on cuda:0 and under make_mesh() over the N cards, pod for pod
-equal, the three sharded-lap launchers launched and the one-device lap
-not; the mesh's delta-resume waves against the unsharded ones; the
-sharded lap on the path's next batch, exact against the one-device lap,
-timed a lap (and its exchanges and phases) across the N cards beside N
-shards on cuda:0; then a `{"cards": {...}}` line, every card's name and
-power limit, and the same last line.
+equal, one sharded_lap launch a card a dispatch and no one-device lap;
+the mesh's delta-resume waves against the unsharded ones; the sharded lap
+on the path's next batch, exact against the one-device lap and its plain
+version, timed a dispatch and a lap (its exchanges through pinned host
+memory) across the N cards beside N shards on cuda:0; an exchange buffer
+in another card's memory refused; then a `{"cards": {...}}` line, every
+card's name and power limit, and the same last line.
 
 It imports neither jax nor kubernetes_tpu. With no CUDA device (or fewer
 than N), or without the rest of the repository beside it, it exits
@@ -3049,7 +3056,8 @@ def aux_timing(rows: dict, caps: dict, errs: dict) -> None:
 BASIC = "SchedulingBasic/5000Nodes_10000Pods"
 MESH_SHARDS = (2, 4, 8)     # shards of the kernel cases, all on one card
 MESH_PATH_SHARDS = 4        # shards of the mesh drives
-SHARDED = ("sharded_lap_count", "sharded_lap_windows", "sharded_lap_land")
+SHARDED_ABOVE_TIER = (40000, 39990)   # rows and live rows: 20000 a shard at S = 2
+SHARDED = ("sharded_lap",)
 MESH_BASIC = f"{BASIC}, {MESH_PATH_SHARDS} shards on one card"
 MESH_SPREAD = (f"TopologySpreading cut (1000 nodes, 200 init, 600 spread pods), "
                f"{MESH_PATH_SHARDS} shards on one card")
@@ -3070,48 +3078,114 @@ def sharded_inputs(st, ft, shards: int):
     return mesh, shard_node_state(st, mesh), shard_features(ft, mesh)
 
 
-def phase_errs(lap, sst, sft, n_act: int, laps: int = 3) -> dict:
-    """Each sharded-lap launcher against its plain version on identical
-    inputs, lap by lap: a kernel run and a plain run of the same dispatch,
-    every buffer a phase writes compared after the phase."""
-    from kubernetes_tpu_torch.parallel.mesh import LapRun
+def first_lap_size(lap, sst, sft, n_act: int) -> int:
+    """L of a dispatch's first lap (one lap of the plain version)."""
+    run = lap.lap_run(sst, sft, n_act)
+    run.one_lap()
+    return int(run.shards[0].L)
 
-    runs = [LapRun(lap, sst, sft, n_act, None, plain=p) for p in (False, True)]
-    errs = dict.fromkeys(SHARDED, 0)
 
-    def err(name, get):
-        errs[name] = max(errs[name], max_abs_err(get(runs[0]), get(runs[1])))
+def dispatch_errs(lap, sst, sft, st, ft, fs: int, vmax: int, cuts) -> tuple:
+    """The sharded_lap kernel, dispatch by dispatch, against its plain
+    version (LapRun) and the one-device lap kernel on the whole state: a
+    fresh dispatch then a chained one at each cut (pods a dispatch). Returns
+    (largest difference from the plain version, from the one-device lap,
+    sharded_lap launches a dispatch) over out and the gathered carry."""
+    from kubernetes_tpu_torch.ops import kernel as K
+    from kubernetes_tpu_torch.parallel import gather
 
-    for _ in range(laps):
-        for r in runs:
-            r.count_phase()
-        err("sharded_lap_count",
-            lambda r: [t for sh in r.shards for t in (sh.okd, sh.Fl, sh.total, sh.pair)])
-        for r in runs:
-            r.exchange_pairs()
-            r.windows_phase()
-        err("sharded_lap_windows", lambda r: [t for sh in r.shards for t in (sh.keys, sh.L)])
-        for r in runs:
-            r.exchange_keys()
-            r.land_phase()
-        err("sharded_lap_land", lambda r: [r.out] + [
-            t for sh in r.shards for t in (sh.carry.req_r, sh.carry.nonzero, sh.carry.pod_count,
-                                           sh.carry.start, sh.done)])
+    e_plain = e_one = 0
+    per = set()
+    for n in cuts:
+        ck = cp = co = None
+        for _chain in ("fresh", "chained"):
+            before = K.sharded_lap.launches
+            o_k, ck = lap(sst, sft, n, ck)
+            per.add(K.sharded_lap.launches - before)
+            got = (o_k,) + tuple(gather(ck))
+            o_p, cp = lap.plain(sst, sft, n, cp)
+            o_1, co = K.schedule_batch(st, ft, 1024, fs, vmax, K.PlanFacts(), n_active=n,
+                                       carry_in=co)
+            e_plain = max(e_plain, max_abs_err(got, (o_p,) + tuple(gather(cp))))
+            e_one = max(e_one, max_abs_err(got, (o_1,) + tuple(co)))
     torch.cuda.synchronize()
-    return errs
+    return e_plain, e_one, per
+
+
+def mesh_refusals(dev) -> None:
+    """What the sharded lap must refuse on the card rather than hang or
+    return a result that only looks valid: more shards on a card than one
+    launch keeps resident (ValueError before any launch), a wait whose
+    budget runs out (a shard that never arrives: the status word raises),
+    and an exchange buffer the card cannot reach (pageable host memory: the
+    launcher's cudaPointerGetAttributes check; _marshal refuses it first)."""
+    from kubernetes_tpu_torch.ops import kernel as K
+    from kubernetes_tpu_torch.parallel import sharded_lap_schedule
+    from kubernetes_tpu_torch.parallel.mesh import _lap_shards
+    from kubernetes_tpu_torch.testing.kernel_inputs import random_inputs
+
+    st, ft = to_device(dev, *random_inputs(520, 64 * (K.SHL_MAX_LOCAL + 1), 2000))
+    _m, sst, sft = sharded_inputs(st, ft, K.SHL_MAX_LOCAL + 1)
+    lap = sharded_lap_schedule(_m, 1024, 0, 64)
+    limit = K._resident_limit(dev, 64, st.alloc_r.shape[1], ft.fit_slots.shape[0],
+                              K.SHL_MAX_LOCAL + 1, False)
+    before = K.sharded_lap.launches
+    try:
+        lap(sst, sft, 100)
+        fail(f"{K.SHL_MAX_LOCAL + 1} shards on one card were not refused")
+    except ValueError as e:
+        check(f"at most {limit} resident" in str(e), f"the refusal does not name the limit: {e}")
+    check(K.sharded_lap.launches == before, "a refused dispatch launched")
+    # A dispatch of two shards whose second never launches.
+    _m, sst, sft = sharded_inputs(*to_device(dev, *random_inputs(521, 8192, 5000)), 2)
+    shards = _lap_shards(sharded_lap_schedule(_m, 1024, 0, 64), sst, sft, None, plain=False)
+    out = torch.full((2, 1024), -1, dtype=torch.int32, device=dev)
+    npl, R = shards[0].state.alloc_r.shape
+    ints, feats = K._res_args(shards[0].f, 0)
+    xbuf, gen = K._exchange_buffer([dev, dev])
+    table = torch.tensor([K._lap_table_row(shards[0], 0, dev, npl, R)], dtype=torch.int64)
+    status = torch.zeros(1, dtype=torch.int32, device=dev)
+    f = shards[0].f
+    args = (npl, *ints, 2, 1, 500, 1024, gen, 2, *feats, f.weights, f.num_nodes, f.to_find, table,
+            xbuf, out, None, status)
+    t0 = time.perf_counter()
+    rc = K._build.launcher("sharded_lap")(*K._marshal("sharded_lap", dev, args), K._stream(dev))
+    check(rc == 0, f"the lone shard's launch failed with cudaError {rc}")
+    try:
+        K._sharded_lap_status([(dev, [0], status, table)])
+        fail("a wait whose budget ran out did not raise")
+    except RuntimeError as e:
+        waited = time.perf_counter() - t0
+        check("waited past its budget at lap 0, exchange 1" in str(e), f"wrong status: {e}")
+    # Pageable host memory as the exchange buffer.
+    pageable = torch.zeros(xbuf.numel(), dtype=torch.int64)
+    try:
+        K._marshal("sharded_lap", dev, args[:-4] + (pageable,) + args[-3:])
+        fail("a pageable exchange buffer passed _marshal")
+    except ValueError:
+        pass
+    cargs = K._marshal("sharded_lap", dev, args)
+    cargs[-4] = pageable.data_ptr()
+    rc = K._build.launcher("sharded_lap")(*cargs, K._stream(dev))
+    check(rc == K._CUDA_INVALID_DEVICE_POINTER,
+          f"the launcher took an exchange buffer the card cannot reach (rc {rc})")
+    torch.cuda.synchronize()
+    print(f"sharded lap refusals: {K.SHL_MAX_LOCAL + 1} shards on one card refused (limit "
+          f"{limit}); a lone shard's wait ran out and raised after {waited:.3f} s; pageable "
+          f"host memory refused (rc {rc})", flush=True)
 
 
 def mesh_kernel_phase(dev, np_cap: int, n_nodes: int, errs: dict) -> None:
-    """The three sharded-lap launchers against their plain versions on the
-    card, S = 2, 4 and 8 shards on one card: SchedulingBasic's first batch
-    (its 5000-node mirror, B 1024) and seeded draws with the hazard cases.
-    Each launcher alone over three laps; the whole lap, fresh and chained,
-    against the one-device lap kernel at every S and against its plain
-    version at S = 2 and 4 (and at 8 on the first batch)."""
+    """The sharded_lap kernel against its plain version (LapRun) and the
+    one-device lap kernel on the card, S = 2, 4 and 8 shards on one card
+    (and 16 on the first batch): SchedulingBasic's first batch (its
+    5000-node mirror, B 1024), seeded draws with the hazard cases, and a
+    draw whose shards keep their rows in device memory (S = 2); each
+    dispatch fresh and chained, cut after 1, L and 2L pods (L the first
+    lap's) and whole; one launch a dispatch. Then the refusals."""
     from kubernetes_tpu_torch import bench
-    from kubernetes_tpu_torch.ops import kernel as K
     from kubernetes_tpu_torch.ops.features import BatchFeatures
-    from kubernetes_tpu_torch.parallel import gather, sharded_lap_schedule
+    from kubernetes_tpu_torch.parallel import sharded_lap_schedule
     from kubernetes_tpu_torch.testing.kernel_inputs import random_inputs
 
     first = "SchedulingBasic's first batch"
@@ -3120,7 +3194,8 @@ def mesh_kernel_phase(dev, np_cap: int, n_nodes: int, errs: dict) -> None:
     st, plan = sched.build_plan(sched.framework_for_pod(pod), pod, 1024)
     check(plan.row_local and plan.batch_pad == 1024 and st.valid.shape[0] == np_cap,
           "SchedulingBasic's first batch is not a row-local 1024-step plan at the mirror's tier")
-    draws = {first: (st, plan.features, plan.fit_strategy, plan.vmax, 1024)}
+    draws = {first: (st, plan.features, plan.fit_strategy, plan.vmax, 1024,
+                     MESH_SHARDS + (16,))}
     sel = BatchFeatures._fields.index("sel_match")
     hazards = {  # (random_inputs arguments, pods, rows [lo, hi) with no feasible row)
         "the start in a late shard": (dict(start=n_nodes * 5 // 6), 256, None),
@@ -3137,36 +3212,36 @@ def mesh_kernel_phase(dev, np_cap: int, n_nodes: int, errs: dict) -> None:
             f[sel] = f[sel].copy()
             f[sel][dead[0]:dead[1]] = False
         st_h, ft_h = to_device(dev, s, f)
-        draws[case] = (st_h, ft_h, i % 2, 64, n_act)
-    for case, (st_c, ft_c, fs, vmax, n_act) in draws.items():
-        one = [K.schedule_batch(st_c, ft_c, 1024, fs, vmax, K.PlanFacts(), n_active=n_act)]
-        one.append(K.schedule_batch(st_c, ft_c, 1024, fs, vmax, K.PlanFacts(), n_active=n_act,
-                                    carry_in=one[0][1]))
+        draws[case] = (st_h, ft_h, i % 2, 64, n_act, MESH_SHARDS)
+    # Past the on-chip tier: two shards of 20000 rows keep their rows in
+    # the device-memory buffer.
+    rows, live = SHARDED_ABOVE_TIER
+    draws[f"{rows} rows in two shards (past the on-chip tier)"] = (
+        *to_device(dev, *random_inputs(530, rows, live)), 1, 64, 256, (2,))
+    errs.setdefault("sharded_lap", 0)
+    dispatches = 0
+    for case, (st_c, ft_c, fs, vmax, n_act, shard_counts) in draws.items():
         summary = []
-        for S in MESH_SHARDS:
+        for S in shard_counts:
             _mesh, sst, sft = sharded_inputs(st_c, ft_c, S)
             lap = sharded_lap_schedule(_mesh, 1024, fs, vmax)
-            for name, e in phase_errs(lap, sst, sft, n_act).items():
-                errs[name] = max(errs[name], e)
-            plain = S < 8 or case == first
-            ck = cp = None
-            for chain, (o_1, c_1) in zip(("fresh", "chained"), one):
-                o_k, ck = lap(sst, sft, n_act, ck)
-                got = (o_k,) + tuple(gather(ck))
-                e = max_abs_err(got, (o_1,) + tuple(c_1))
-                check(e == 0, f"the sharded lap disagrees with the one-device lap kernel: {case}, "
-                      f"S {S}, {chain} (max_abs_err {e})")
-                if plain:
-                    o_p, cp = lap.plain(sst, sft, n_act, cp)
-                    e = max_abs_err(got, (o_p,) + tuple(gather(cp)))
-                    check(e == 0, f"the sharded lap disagrees with its plain version: {case}, "
-                          f"S {S}, {chain} (max_abs_err {e})")
-                summary.append(f"S {S} {chain} {int((o_k[0] >= 0).sum())} placed")
-            torch.cuda.synchronize()
-        print(f"sharded lap, {case}: exact; {', '.join(summary)}", flush=True)
-    print(f"sharded-lap launchers vs plain, three laps each: "
-          f"{ {n: errs[n] for n in SHARDED} } over {len(draws)} draws x S {MESH_SHARDS}",
-          flush=True)
+            L = first_lap_size(lap, sst, sft, n_act)
+            cuts = sorted({min(c, n_act) for c in (1, L, 2 * L, n_act)})
+            e_plain, e_one, per = dispatch_errs(lap, sst, sft, st_c, ft_c, fs, vmax, cuts)
+            errs["sharded_lap"] = max(errs["sharded_lap"], e_plain, e_one)
+            check(e_plain == 0, f"the sharded lap disagrees with its plain version: {case}, S {S} "
+                  f"(max_abs_err {e_plain})")
+            check(e_one == 0, f"the sharded lap disagrees with the one-device lap kernel: {case}, "
+                  f"S {S} (max_abs_err {e_one})")
+            check(per == {1}, f"{case}, S {S}: sharded_lap launches a dispatch {per}, not 1")
+            dispatches += 2 * len(cuts)
+            summary.append(f"S {S} cuts {cuts}")
+        print(f"sharded lap, {case}: exact against the plain version and the one-device lap, "
+              f"fresh and chained; {', '.join(summary)}", flush=True)
+    print(f"sharded_lap vs its plain version and the one-device lap: max_abs_err "
+          f"{errs['sharded_lap']} over {dispatches} dispatches ({len(draws)} draws), one launch "
+          "each", flush=True)
+    mesh_refusals(dev)
 
 
 def cut_run(dev, workload: str, n_nodes: int, n_init: int, n_measure: int, mesh, label: str):
@@ -3262,10 +3337,14 @@ def mesh_paths(dev, paths: dict) -> dict:
           f"{MESH_BASIC}: {d['shard_map_dispatches']} sharded-lap dispatches")
     for k in SHARDED + ("static_masks",):
         check(launches[k] > 0, f"{k} was not launched on the {MESH_BASIC} path")
+    check(launches["sharded_lap"] == d["shard_map_dispatches"],
+          f"{MESH_BASIC}: {launches['sharded_lap']} sharded_lap launches for "
+          f"{d['shard_map_dispatches']} dispatches on one card (one a dispatch)")
     check(launches["lap_schedule"] == 0, f"{MESH_BASIC}: the one-device lap was launched")
     print(f"{MESH_BASIC}: {total} pods as the unsharded run, pod for pod; "
           f"{d['shard_map_dispatches']} sharded-lap dispatches in the window; launches "
-          f"{ {k: launches[k] for k in SHARDED} }; pods/s {result['value']:.1f} "
+          f"{ {k: launches[k] for k in SHARDED} }; dispatch_s {d['dispatch_s']:.4f}; pods/s "
+          f"{result['value']:.1f} "
           f"({MESH_PATH_SHARDS} shards on one card, not a multi-GPU number)", flush=True)
     out[MESH_BASIC] = (sched, result, launches)
 
@@ -3325,17 +3404,59 @@ def mesh_paths(dev, paths: dict) -> dict:
     return out, capture
 
 
+def lap_dispatch_timing(lap, sst, sft, laps: int, timer, cards: int = 1) -> dict:
+    """One sharded-lap dispatch of 1024 pods: its wall ms (`timer`), the
+    device ms of its launches and their count from torch.profiler (kernel
+    events of 20 dispatches; a trace that lost launches is taken again, up
+    to three), launches a dispatch from the wrapper's counter, and the
+    device-to-host copies a dispatch (the status words: no read of `done`)."""
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    reps = 20
+    call_ms = timer(lambda: lap(sst, sft, 1024), reps=10)
+    for _attempt in range(3):
+        before = K.sharded_lap.launches
+        events = traced(lambda: lap(sst, sft, 1024), reps)
+        counted = (K.sharded_lap.launches - before) / (2 * reps + 1)
+        spans = [us for name, us in events if "sharded_lap_kernel" in name]
+        if len(spans) >= reps * cards - 1:
+            break
+    dtoh = sum(1 for name, _us in events if "DtoH" in name or "Device -> Pageable" in name
+               or "Device -> Pinned" in name)
+    device_ms = sum(spans) / max(len(spans), 1) / 1e3
+    return dict(call_ms=call_ms, device_ms=device_ms, us_a_lap=device_ms / laps * 1e3,
+                call_us_a_lap=call_ms / laps * 1e3, laps=laps,
+                launches_a_dispatch=counted, profiler_launches_a_dispatch=len(spans) / reps,
+                dtoh_copies_a_dispatch=dtoh / reps)
+
+
+def lap_bound(st, ft, landed: int, B: int = 1024) -> tuple:
+    """(bound ms, "bytes" or "operations", bytes, ops) of one sharded-lap
+    dispatch: every row's inputs read once (alloc_r and req_r 8R bytes
+    each, alloc_pods, nonzero, pod_count, static_ok, il_score) and its fit
+    lanes written once, the landed rows' aggregates written, the results;
+    each row evaluated once and each landed row again."""
+    NP, R = st.alloc_r.shape
+    FR = ft.fit_slots.shape[0]
+    row_ops = 4 * R + 12 * FR + 24
+    nbytes = NP * (16 * R + 8 + 16 + 4 + 1 + 8 + 17) + landed * (8 * R + 20) + 8 * B
+    ops = (NP + landed) * row_ops
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations", nbytes, ops
+
+
 def mesh_timing(paths: dict, errs: dict, capture: dict) -> dict:
     """The sharded lap on SchedulingBasic's next batch (the path's cluster
-    after its measured run, NP 8192, B 1024) at S = 2, 4 and 8 on one card:
-    the whole dispatch and its plain version, each launcher's device time
-    (torch.profiler, per launch) and call time, the two exchanges a lap and
-    each launcher's bound a shard; the mesh waves' first sharded carry
-    patch and per-shard dirty-row scatter."""
+    after its measured run, NP 8192, B 1024) at S = 1, 2, 4 and 8 on one
+    card: ms a dispatch, us a lap, the device time of its one launch and the
+    launches a dispatch (the counter and torch.profiler), its plain version
+    and its bound a dispatch, beside the one-device lap on the same batch
+    (S = 1 holds the window pass over 8192 rows against the one-device
+    lap's chunk summaries); the mesh waves' first sharded carry patch and
+    per-shard dirty-row scatter."""
     from kubernetes_tpu_torch import bench
     from kubernetes_tpu_torch.ops import kernel as K
     from kubernetes_tpu_torch.parallel import gather, sharded_lap_schedule
-    from kubernetes_tpu_torch.parallel.mesh import LapRun
 
     sched = paths[BASIC][0]
     pod = bench.make_pods(1, "timed")[0]
@@ -3344,15 +3465,15 @@ def mesh_timing(paths: dict, errs: dict, capture: dict) -> dict:
     stats = {}
     ext0 = K.fresh_carry(st, ft, vmax, K._resource_eval_plain(
         ft, fs, st.alloc_r, st.alloc_pods, st.req_r, st.nonzero, st.pod_count))
-    K._lap_schedule_plain(st, ft, 1024, fs, ext0, K._static_masks_plain(st, ft).static_ok, 1024,
-                          stats=stats)
-    laps = stats["laps"]
-    single_ms = wall_ms(lambda: K.schedule_batch(st, ft, 1024, fs, vmax, plan.facts), reps=5)
-    NP, R = st.alloc_r.shape
-    FR = ft.fit_slots.shape[0]
-    row_ops = 4 * R + 12 * FR + 24
+    o_s, _c = K._lap_schedule_plain(st, ft, 1024, fs, ext0, K._static_masks_plain(st, ft).static_ok,
+                                    1024, stats=stats)
+    laps, landed = stats["laps"], int((o_s[0] >= 0).sum())
+    one = lambda: K.schedule_batch(st, ft, 1024, fs, vmax, plan.facts)  # noqa: E731
+    single = dict(call_ms=wall_ms(one, reps=5), device_ms=device_ms(one, "lap_schedule")[0])
+    single["us_a_lap"] = single["device_ms"] / laps * 1e3
+    bound_ms, bound_by, nbytes, ops = lap_bound(st, ft, landed)
     by_shards = {}
-    for S in MESH_SHARDS:
+    for S in (1,) + MESH_SHARDS:
         mesh, sst, sft = sharded_inputs(st, ft, S)
         lap = sharded_lap_schedule(mesh, 1024, fs, vmax)
         o_k, c_k = lap(sst, sft, 1024)
@@ -3360,57 +3481,30 @@ def mesh_timing(paths: dict, errs: dict, capture: dict) -> dict:
         t0 = time.perf_counter()
         o_p, c_p = lap.plain(sst, sft, 1024)
         torch.cuda.synchronize()
-        plain_lap_ms = (time.perf_counter() - t0) * 1e3
+        plain_ms = (time.perf_counter() - t0) * 1e3
         check(max_abs_err((o_k,) + tuple(gather(c_k)), (o_p,) + tuple(gather(c_p))) == 0,
               f"the sharded lap at S {S} disagrees with its plain version on {BASIC}'s next batch")
-        lap_ms = wall_ms(lambda: lap(sst, sft, 1024), reps=5)
-        runs = [LapRun(lap, sst, sft, 1 << 30, None, plain=p) for p in (False, True)]
-        for r in runs:
-            r.one_lap()
-        L = int(runs[0].shards[0].L)
-        npl = NP // S
-        phases = {
-            # the shard's rows in (16 R + 37 B: aggregates, allocatable,
-            # static_ok, il_score), okd, Fl and the total out (13 B)
-            "sharded_lap_count": (runs[0].count_phase, runs[1].count_phase,
-                                  npl * (16 * R + 37 + 13) + 8, npl * (row_ops + 8)),
-            # okd, Fl and total in, the gathered pairs in, the keys out
-            "sharded_lap_windows": (runs[0].windows_phase, runs[1].windows_phase,
-                                    npl * 13 + 8 * S + 16 * K.LAP_MAX + 4, npl * 24),
-            # the gathered keys in, the landed rows read and written, results
-            "sharded_lap_land": (runs[0].land_phase, runs[1].land_phase,
-                                 16 * K.LAP_MAX * S + L * (2 * (8 * R + 20) + 8) + 8,
-                                 2 * K.LAP_MAX * S + L * (R + 3)),
-        }
-        row = {}
-        for name, (k_fn, p_fn, nbytes, ops) in phases.items():
-            ms, seen = device_ms(k_fn, name)
-            t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S * 1e3
-            row[name] = dict(ms=ms, ms_launches_seen=seen, host_ms=wall_ms(k_fn, reps=20) / S,
-                             plain_ms=wall_ms(p_fn, reps=3, warmup=1) / S,
-                             bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else
-                             "operations", bytes=nbytes, ops=ops)
-        exch_ms = wall_ms(lambda: (runs[0].exchange_pairs(), runs[0].exchange_keys()), reps=20)
-        by_shards[S] = dict(phases=row, lap_call_ms=lap_ms, ms_a_lap=lap_ms / laps,
-                            plain_call_ms=plain_lap_ms, exchanges_ms_a_lap=exch_ms, laps=laps,
-                            L=L)
+        row = lap_dispatch_timing(lap, sst, sft, laps, wall_ms)
+        check(row["launches_a_dispatch"] == 1,
+              f"S {S}: {row['launches_a_dispatch']} sharded_lap launches a dispatch, not 1")
+        row.update(plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops)
+        by_shards[S] = row
         print(f"sharded lap, S {S} on one card, {BASIC}'s next batch ({laps} laps): "
-              f"{lap_ms:.4f} ms a dispatch, {lap_ms / laps * 1e3:.1f} us a lap (one-device lap "
-              f"{single_ms:.4f} ms); exchanges {exch_ms * 1e3:.1f} us a lap; "
-              + ", ".join(f"{n} {r['ms'] * 1e3:.2f} us on the device, {r['host_ms'] * 1e3:.1f} us "
-                          f"a call, bound {r['bound_ms'] * 1e3:.4f} us"
-                          for n, r in row.items()), flush=True)
-    rows = {}
-    for name in SHARDED:
-        r4 = by_shards[MESH_PATH_SHARDS]["phases"][name]
-        rows[name] = dict(name=name, route="cuda", source="kubernetes_tpu_torch/csrc/sharded_lap.cu",
-                          replaces="kubernetes_tpu/parallel/mesh.py:228", launches=0,
-                          max_abs_err=errs[name], exact=errs[name] == 0, **r4, library_ms=None,
-                          shards=MESH_PATH_SHARDS,
-                          by_shards={S: by_shards[S]["phases"][name] for S in MESH_SHARDS})
-    rows["sharded_lap_count"]["lap"] = {
-        S: {k: v for k, v in b.items() if k != "phases"} for S, b in by_shards.items()}
-    rows["sharded_lap_count"]["lap"]["one_device_call_ms"] = single_ms
+              f"{row['call_ms']:.4f} ms a dispatch, its launch {row['device_ms']:.4f} ms on the "
+              f"device ({row['us_a_lap']:.2f} us a lap); launches a dispatch "
+              f"{row['launches_a_dispatch']} (profiler {row['profiler_launches_a_dispatch']}), "
+              f"device-to-host copies {row['dtoh_copies_a_dispatch']}; plain {plain_ms:.1f} ms; "
+              f"bound {bound_ms:.6f} ms ({bound_by}); one-device lap {single['call_ms']:.4f} ms, "
+              f"{single['device_ms']:.4f} ms on the device ({single['us_a_lap']:.2f} us a lap)",
+              flush=True)
+    r4 = by_shards[MESH_PATH_SHARDS]
+    rows = {"sharded_lap": dict(
+        name="sharded_lap", route="cuda", source="kubernetes_tpu_torch/csrc/sharded_lap.cu",
+        replaces="kubernetes_tpu/parallel/mesh.py:228", launches=0,
+        max_abs_err=errs["sharded_lap"], exact=errs["sharded_lap"] == 0, ms=r4["device_ms"],
+        host_ms=r4["call_ms"], plain_ms=r4["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
+        bytes=nbytes, ops=ops, library_ms=None, shards=MESH_PATH_SHARDS, by_shards=by_shards,
+        one_device_lap=single)}
     # The two ported functions with no kernel of their own, on the mesh
     # waves' first sharded carry patch: patch_carry_rows and scatter_rows a
     # shard, in place (the same rows again give the same values).
@@ -3462,7 +3556,7 @@ def mesh_timing(paths: dict, errs: dict, capture: dict) -> dict:
         f"{w}: {r['call_ms']:.4f} ms a call, plain {r['plain_ms']:.4f} ms, bound "
         f"{r['bound_ms']:.8f} ms" for w, r in mesh_patch.items())
         + f"; {d} rows over {MESH_PATH_SHARDS} shards)", flush=True)
-    rows["sharded_lap_count"]["mesh_patch"] = mesh_patch
+    rows["sharded_lap"]["mesh_patch"] = mesh_patch
     return rows
 
 
@@ -3558,7 +3652,7 @@ def cards_main(n: int) -> int:
     from kubernetes_tpu_torch.ops import kernel as K
     from kubernetes_tpu_torch.parallel import (gather, make_mesh, shard_features,
                                                shard_node_state, sharded_lap_schedule)
-    from kubernetes_tpu_torch.parallel.mesh import LapRun
+    from kubernetes_tpu_torch.parallel.mesh import _lap_shards
 
     dev = torch.device("cuda", 0)
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3580,6 +3674,9 @@ def cards_main(n: int) -> int:
     check(d["shard_map_dispatches"] > 0, f"{label}: no sharded-lap dispatch")
     for k in SHARDED:
         check(launches[k] > 0, f"{k} was not launched on the {label} path")
+    check(launches["sharded_lap"] == n * d["shard_map_dispatches"],
+          f"{label}: {launches['sharded_lap']} sharded_lap launches for "
+          f"{d['shard_map_dispatches']} dispatches on {n} cards (one a card a dispatch)")
     check(launches["lap_schedule"] == 0, f"{label}: the one-device lap was launched")
     check({p.valid.device for p in sched.mirror._device.parts} == set(mesh.nodes()),
           f"{label}: the resident state is not one shard a card")
@@ -3587,7 +3684,9 @@ def cards_main(n: int) -> int:
     res["dispatch_s"] = {"unsharded": r1["detail"]["dispatch_s"], "mesh": d["dispatch_s"]}
     res["launches"] = {k: launches[k] for k in SHARDED}
     print(f"{label}: pod for pod as the unsharded run; pods/s {result['value']:.1f} "
-          f"(unsharded {r1['value']:.1f}); launches {res['launches']}", flush=True)
+          f"(unsharded {r1['value']:.1f}); dispatch_s {d['dispatch_s']:.4f} (unsharded "
+          f"{r1['detail']['dispatch_s']:.4f}); launches {res['launches']} for "
+          f"{d['shard_map_dispatches']} dispatches", flush=True)
 
     wm, wl = mesh_waves(dev, mesh)
     wu, _ = mesh_waves(dev, None)
@@ -3605,29 +3704,57 @@ def cards_main(n: int) -> int:
     st, plan = one.build_plan(one.framework_for_pod(pod), pod, one.max_batch)
     ft, fs, vmax = plan.features, plan.fit_strategy, plan.vmax
     o1, c1 = K.schedule_batch(st, ft, 1024, fs, vmax, plan.facts)
+    stats = {}
+    ext0 = K.fresh_carry(st, ft, vmax, K._resource_eval_plain(
+        ft, fs, st.alloc_r, st.alloc_pods, st.req_r, st.nonzero, st.pod_count))
+    K._lap_schedule_plain(st, ft, 1024, fs, ext0, K._static_masks_plain(st, ft).static_ok, 1024,
+                          stats=stats)
+    laps = stats["laps"]
     single_ms = cards_ms(lambda: K.schedule_batch(st, ft, 1024, fs, vmax, plan.facts), reps=5)
     res["one_device_call_ms"] = single_ms
-    for where, m in ((f"{n} cards", mesh), ("one card", card_mesh(dev, n))):
+    bound_ms, bound_by, _b, _o = lap_bound(st, ft, int((o1[0] >= 0).sum()))
+    res["bound_ms"] = bound_ms
+    for where, m, n_cards in ((f"{n} cards", mesh, n), ("one card", card_mesh(dev, n), 1)):
         sst, sft = shard_node_state(st, m), shard_features(ft, m)
         lap = sharded_lap_schedule(m, 1024, fs, vmax)
         o_k, c_k = lap(sst, sft, 1024)
         e = max_abs_err((o_k,) + tuple(gather(c_k)), (o1,) + tuple(c1))
         check(e == 0, f"the sharded lap on {where} disagrees with the one-device lap ({e})")
-        whole = LapRun(lap, sst, sft, 1024, None)
-        whole.run()
-        run = LapRun(lap, sst, sft, 1 << 30, None)
-        run.one_lap()
-        row = dict(laps=whole.laps, call_ms=cards_ms(lambda: lap(sst, sft, 1024), reps=5),
-                   exchanges_ms_a_lap=cards_ms(lambda: (run.exchange_pairs(),
-                                                        run.exchange_keys()), reps=20),
-                   **{f"{name}_call_ms": cards_ms(fn, reps=20) for name, fn in (
-                       ("sharded_lap_count", run.count_phase),
-                       ("sharded_lap_windows", run.windows_phase),
-                       ("sharded_lap_land", run.land_phase))})
-        row["ms_a_lap"] = row["call_ms"] / whole.laps
+        o_p, c_p = lap.plain(sst, sft, 1024)
+        e = max_abs_err((o_k,) + tuple(gather(c_k)), (o_p,) + tuple(gather(c_p)))
+        check(e == 0, f"the sharded lap on {where} disagrees with its plain version ({e})")
+        row = lap_dispatch_timing(lap, sst, sft, laps, cards_ms, cards=n_cards)
+        check(row["launches_a_dispatch"] == n_cards,
+              f"{where}: {row['launches_a_dispatch']} sharded_lap launches a dispatch, "
+              f"not {n_cards}")
         res[f"lap_{n}_shards_on_" + where.replace(" ", "_")] = row
-        print(f"sharded lap, {n} shards on {where}, {BASIC}'s next batch: exact; {row} "
-              f"(one-device lap {single_ms:.4f} ms a call)", flush=True)
+        print(f"sharded lap, {n} shards on {where}, {BASIC}'s next batch ({laps} laps): exact; "
+              f"{row['call_ms']:.4f} ms a dispatch ({row['call_us_a_lap']:.2f} us a lap), each "
+              f"launch {row['device_ms']:.4f} ms on its card; launches a dispatch "
+              f"{row['launches_a_dispatch']} (profiler {row['profiler_launches_a_dispatch']}); "
+              f"bound {bound_ms:.6f} ms ({bound_by}); one-device lap {single_ms:.4f} ms a call",
+              flush=True)
+    # A card that cannot reach the exchange buffer: another card's memory.
+    sst, sft = shard_node_state(st, mesh), shard_features(ft, mesh)
+    shards = _lap_shards(sharded_lap_schedule(mesh, 1024, fs, vmax), sst, sft, None, plain=False)
+    npl, R = shards[0].state.alloc_r.shape
+    ints, feats = K._res_args(shards[0].f, fs)
+    f0 = shards[0].f
+    other = torch.zeros(n * (K.SHL_PAIR_STRIDE + K.SHL_KEY_STRIDE), dtype=torch.int64,
+                        device=torch.device("cuda", 1))
+    table = torch.tensor([K._lap_table_row(shards[0], 0, dev, npl, R)], dtype=torch.int64)
+    status = torch.zeros(1, dtype=torch.int32, device=dev)
+    cargs = K._marshal("sharded_lap", dev, (npl, *ints, n, 1, 10, 1024, 1, 2, *feats, f0.weights,
+                                            f0.num_nodes, f0.to_find, table,
+                                            torch.zeros_like(other, device=dev), None, None,
+                                            status))
+    cargs[-4] = other.data_ptr()  # past _marshal, which refuses another card's tensor
+    with torch.cuda.device(dev):
+        rc = K._build.launcher("sharded_lap")(*cargs, K._stream(dev))
+    check(rc == K._CUDA_INVALID_DEVICE_POINTER,
+          f"cuda:0 took an exchange buffer in cuda:1's memory (rc {rc})")
+    res["unreachable_buffer_rc"] = rc
+    print(f"an exchange buffer on cuda:1 refused by cuda:0's launcher (rc {rc})", flush=True)
 
     print(json.dumps(res), flush=True)
     for line in smi:

@@ -288,98 +288,6 @@ __device__ __forceinline__ uint32_t lap_apply(uint32_t m, int c, const int* land
   return (m & ~clr) | set;
 }
 
-// floor_div for a positive divisor, from a float64 quotient: while the
-// quotient's magnitude is below 2^50 its float64 value is within 0.4 of
-// the true one, so its floor is off by at most one, and the exact int64
-// remainder (which then lies in [-b, 2b)) corrects it. Operands that fit
-// 31 bits take an unsigned 32-bit division, others floor_div. The same
-// results, without int64 division's long sequence.
-__device__ __noinline__ int64_t lap_floor_div_wide(int64_t a, int64_t b) { return floor_div(a, b); }
-
-__device__ __forceinline__ int64_t lap_floor_div(int64_t a, int64_t b) {
-  if (a >= 0 && a <= INT_MAX && b > 0 && b <= INT_MAX) return (uint32_t)a / (uint32_t)b;
-  if (b > 0 && b < ((int64_t)1 << 62)) {
-    const double d = (double)a / (double)b;
-    if (fabs(d) < 1125899906842624.0) {  // 2^50
-      const int64_t q = (int64_t)floor(d);
-      const int64_t r = a - q * b;
-      return q - (r < 0) + (r >= b);
-    }
-  }
-  return lap_floor_div_wide(a, b);  // a call: rare, and the kernel stays small
-}
-
-struct LapDiv {
-  __device__ __forceinline__ int64_t operator()(int64_t a, int64_t b) const {
-    return lap_floor_div(a, b);
-  }
-};
-
-// resource_eval_row of a landed row on the 32 lanes of its warp, so that
-// its int64 divisions run side by side: lane r tests resource r of the fit
-// filter, lane j scores fit slot j, the next two lanes take
-// BalancedAllocation's cpu and memory shares, and lane 0 sums the slots
-// (int64 sums wrap the same in any order) and returns (fit_ok, fit_sc, ba),
-// bit for bit resource_eval_row's (its divisions by a row's values as
-// lap_floor_div).
-// The scalars (alloc_pods, pod_count, nom_pods) are read on lane 0 only.
-template <bool NOM>
-__device__ __forceinline__ void lap_eval_landed(
-    const ResFeat& f, const int64_t* alloc_row, int64_t alloc_pods, const int64_t* req_row,
-    const int64_t* nz_row, int32_t pod_count, const int64_t* nom_row, int32_t nom_pods,
-    int lane, bool& fit_ok, int64_t& fit_sc, int64_t& ba) {
-  bool viol = false;
-  for (int r = lane; r < f.R; r += 32) {
-    const int64_t avail = alloc_row[r] - req_row[r] - (NOM ? nom_row[r] : 0);
-    const int64_t q = f.request[r];
-    viol |= (q > 0) && (q > avail);
-  }
-  viol = __any_sync(FULL, viol);
-  const int64_t used0 = nz_row[0] + f.nz_request[0];
-  const int64_t used1 = nz_row[1] + f.nz_request[1];
-  // Division jobs: job k < FR scores fit slot k, jobs FR and FR + 1 take
-  // the cpu and memory shares; lane k mod 32 runs job k, and the jobs'
-  // divisions run as one pass of the warp.
-  int64_t num = 0, den = 0, share = 0;
-  for (int k = lane; k < f.FR + 2; k += 32) {
-    const bool slot = k < f.FR;
-    const int s = slot ? f.fit_slots[k] : k - f.FR;
-    const int64_t alloc = alloc_row[s];
-    const int64_t used = s == 0 ? used0 : (s == 1 ? used1 : req_row[s] + f.request[s]);
-    const int64_t a1 = alloc > 1 ? alloc : 1;
-    const int64_t n = !slot ? used * BA_SCALE
-                    : f.fit_strategy == 0 ? (alloc - used) * MAX_NODE_SCORE
-                                          : (used < alloc ? used : alloc) * MAX_NODE_SCORE;
-    const int64_t q = lap_floor_div(n, a1);
-    if (!slot) {
-      share = q < BA_SCALE ? q : BA_SCALE;
-    } else if (alloc > 0) {
-      const bool scored = f.fit_strategy != 0 || used <= alloc;
-      num += (scored ? q : 0) * f.fit_weights[k];
-      den += f.fit_weights[k];
-    }
-  }
-  for (int j = 1; j < 32 && j < f.FR; ++j) {
-    const int64_t nj = __shfl_sync(FULL, num, j), dj = __shfl_sync(FULL, den, j);
-    if (lane == 0) {
-      num += nj;
-      den += dj;
-    }
-  }
-  const int64_t q_cpu = __shfl_sync(FULL, share, f.FR & 31);
-  const int64_t q_mem = __shfl_sync(FULL, share, (f.FR + 1) & 31);
-  if (lane == 0) {
-    const bool pods_ok = (int64_t)(pod_count + nom_pods + 1) <= alloc_pods;
-    fit_ok = (pods_ok && (!viol || *f.has_request == 0)) || f.enable[4] == 0;
-    fit_sc = den > 0 ? lap_floor_div(num, den > 1 ? den : 1) : 0;
-    const int64_t diff = q_cpu > q_mem ? q_cpu - q_mem : q_mem - q_cpu;
-    const int64_t ba_val = (alloc_row[0] > 0 && alloc_row[1] > 0)
-        ? floor_div(MAX_NODE_SCORE * BA_SCALE - 50 * diff, BA_SCALE)
-        : (int64_t)MAX_NODE_SCORE;
-    ba = *f.ba_skip == 1 ? 0 : ba_val;
-  }
-}
-
 template <bool SMEM, bool NOM, bool BLK, bool AUX, bool ANTI>
 __global__ void __launch_bounds__(LAP_THREADS) lap_schedule_kernel(ResFeat f, LapArgs a) {
   extern __shared__ __align__(16) unsigned char lap_smem[];

@@ -81,8 +81,8 @@ Node mesh (the JAX package's mesh code, :88-123, :1081-1116, :1233-1275,
 :1505-1565). With a NodeMesh (parallel/mesh.py make_mesh, passed as
 `mesh`; the default keeps one device) the mirror's resident state
 and each plan's features are cut along the node axis over the mesh's
-shards. A row-local plan above 64 steps dispatches the sharded lap (the
-three sharded_lap kernels a shard a lap, two exchanges a lap); every other
+shards. A row-local plan above 64 steps dispatches the sharded lap (one
+sharded_lap launch a card, both exchanges of each lap on the device); every other
 plan runs schedule_batch on the state and features gathered onto the
 mesh's first device, its carry staying there for the session. Delta
 patches route each dirty row to its shard (scatter_rows a shard) and patch

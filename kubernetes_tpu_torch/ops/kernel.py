@@ -30,11 +30,11 @@ rescore, lives in ops/whatif.py and is counted and reset with these):
                     greedy scan against each of P candidate placements at
                     once, one lane per placement (the first version of
                     scan_general's step, gen_scan in csrc/scan_general.cuh);
-- sharded_lap_count, sharded_lap_windows, sharded_lap_land <- the node-
-                    sharded lap's per-shard body, _lap_body
-                    (parallel/mesh.py:228-351), cut at its two exchanges
-                    into three launchers of one source, csrc/sharded_lap.cu
-                    (the lap loop and the exchanges: parallel/mesh.py).
+- sharded_lap    <- the node-sharded lap, _lap_body (parallel/mesh.py:228-351):
+                    one persistent launch a card a dispatch, a block a
+                    shard, every lap and both exchanges of a lap on the
+                    device (LapRun, its plain version, runs the body's
+                    three phases with the exchanges as copies).
 
 The three schedule kernels take the nominated-pod lane (features whose
 `nom_req` has rows): the fit filter of every re-evaluated row counts the
@@ -61,6 +61,8 @@ versions and the kernels stop at the last active step and fill the rest.
 
 from __future__ import annotations
 
+import functools
+from contextlib import nullcontext
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -146,7 +148,8 @@ def _marshal(name: str, device: torch.device, args) -> list:
     """The C arguments of `launch_<name>` (its stream aside), each checked
     against the launcher's C signature: the count, an int where it takes an
     int, and a contiguous tensor on `device` of the pointee's dtype where it
-    takes a pointer (None only where the pointer is OPTIONAL)."""
+    takes a pointer (None only where the pointer is OPTIONAL; a CPU tensor
+    where it is HOST; a pinned CPU tensor also where it is MAPPED)."""
     sig = _build.signature(name)
     if len(args) != len(sig):
         raise TypeError(f"launch_{name} takes {len(sig)} arguments and a stream, "
@@ -164,8 +167,10 @@ def _marshal(name: str, device: torch.device, args) -> list:
         elif not isinstance(a, torch.Tensor) or a.dtype != p.dtype:
             raise TypeError(f"launch_{name}: {p.name} must be a {p.dtype} tensor, got "
                             f"{getattr(a, 'dtype', type(a))}")
-        elif a.device != device:
-            raise ValueError(f"launch_{name}: {p.name} on {a.device}, expected {device}")
+        elif a.device != (torch.device("cpu") if p.host else device) and not (
+                p.mapped and a.device.type == "cpu" and a.is_pinned()):
+            where = "the CPU" if p.host else device
+            raise ValueError(f"launch_{name}: {p.name} on {a.device}, expected {where}")
         elif not a.is_contiguous():
             raise ValueError(f"launch_{name}: {p.name} must be contiguous")
         else:
@@ -1084,7 +1089,7 @@ def patch_carry_rows_pinned(state, f, carry, idx: torch.Tensor, req_rows: torch.
     out_shardings pin and of its donated carry. A carry that is whole on
     one device (the mesh's gathered path) takes patch_carry_rows unchanged,
     on the whole state and features. Returns the patched carry."""
-    from ..parallel.mesh import Sharded, gather, on_device
+    from ..parallel.mesh import Sharded, gather
 
     if not isinstance(carry, Sharded):
         return patch_carry_rows(gather(state), gather(f), carry, idx, req_rows, nz_rows,
@@ -1304,20 +1309,38 @@ def schedule_placements(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
 
 schedule_placements.launches = 0
 
+
 # ---------------------------------------------------------------------------
-# sharded_lap: the node-sharded lap's three phases, one shard a launch
+# sharded_lap: the node-sharded lap, one persistent launch a card a dispatch
 # ---------------------------------------------------------------------------
 #
-# The lap loop and the two exchanges between the phases are in
-# parallel/mesh.py (ShardedLap). Each phase reads the shard's `done` and
-# does nothing once done >= n_act, so laps can be launched in chunks. The
-# plain versions write the same buffers in place.
+# The plain version is LapRun: the JAX body's three phases a shard (count,
+# windows, land), cut at its two exchanges, which it makes as copies. Each
+# phase reads the shard's `done` and does nothing once done >= n_act.
+
+
+class LapShard(NamedTuple):
+    """One shard of a sharded-lap dispatch: its rows of the node state and
+    of the features (parts of a Sharded cut, parallel/mesh.py), its carry,
+    whose req_r, nonzero, pod_count, fit_ok, fit_sc, ba and start the
+    dispatch writes in place, and its static_ok."""
+
+    state: DeviceNodeState
+    f: BatchFeatures
+    carry: ScanCarry
+    static_ok: torch.Tensor
 
 
 def _sharded_lap_count_plain(state: DeviceNodeState, f: BatchFeatures, fit_strategy: int,
                              req_r, nonzero, pod_count, static_ok, n_act: int, shard: int,
                              done, start, okd, Fl, total, pair) -> None:
-    """Plain PyTorch version of the sharded_lap_count kernel."""
+    """Phase (a) of a lap on shard `shard` (NPl rows, global row shard *
+    NPl + local): re-evaluate the carry's rows (fit_ok, fit_sc, ba), write
+    okd = static_ok & fit_ok & (row < num_nodes) [NPl] u8, its inclusive
+    prefix sum Fl [NPl] i32, the carried total score [NPl] i64, and the
+    shard's pair [2] i32: (Fl[-1], Fl at row start-1 where the shard owns
+    it, else 0), what exchange 1 gathers. `done` and `start` are the
+    shard's 0-d i32 copies of the loop state."""
     if int(done) >= n_act:
         return
     npl = static_ok.shape[0]
@@ -1335,39 +1358,16 @@ def _sharded_lap_count_plain(state: DeviceNodeState, f: BatchFeatures, fit_strat
     pair.copy_(torch.stack([F[-1], torch.where(own, F[lpos], 0)]))
 
 
-def _sharded_lap_count_cuda(state, f, fit_strategy, req_r, nonzero, pod_count, static_ok, n_act,
-                            shard, done, start, okd, Fl, total, pair) -> None:
-    ints, feats = _res_args(f, fit_strategy)
-    _launch("sharded_lap_count", static_ok.device, static_ok.shape[0], *ints, n_act, shard,
-            *feats, state.alloc_r, state.alloc_pods, req_r, nonzero, pod_count, static_ok,
-            f.il_score, f.weights, f.num_nodes, done, start, okd, Fl, total, pair)
-
-
-def sharded_lap_count(state: DeviceNodeState, f: BatchFeatures, fit_strategy: int, req_r,
-                      nonzero, pod_count, static_ok, n_act: int, shard: int, done, start, okd,
-                      Fl, total, pair) -> None:
-    """Phase (a) of a lap on shard `shard` (NPl rows, global row shard *
-    NPl + local): re-evaluate the carry's rows (fit_ok, fit_sc, ba), write
-    okd = static_ok & fit_ok & (row < num_nodes) [NPl] u8, its inclusive
-    prefix sum Fl [NPl] i32, the carried total score [NPl] i64, and the
-    shard's pair [2] i32: (Fl[-1], Fl at row start-1 where the shard owns
-    it, else 0) — what exchange 1 gathers. `done` and `start` are the
-    shard's 0-d i32 copies of the loop state."""
-    if _on_cpu(static_ok):
-        _sharded_lap_count_plain(state, f, fit_strategy, req_r, nonzero, pod_count, static_ok,
-                                 n_act, shard, done, start, okd, Fl, total, pair)
-        return
-    _sharded_lap_count_cuda(state, f, fit_strategy, req_r, nonzero, pod_count, static_ok, n_act,
-                            shard, done, start, okd, Fl, total, pair)
-    sharded_lap_count.launches += 1
-
-
-sharded_lap_count.launches = 0
-
-
 def _sharded_lap_windows_plain(f: BatchFeatures, n_act: int, shard: int, pairs, okd, Fl, total,
                                done, start, keys, L) -> None:
-    """Plain PyTorch version of the sharded_lap_windows kernel."""
+    """Phase (b) of a lap on shard `shard`: from exchange 1's gathered
+    pairs [S, 2] i32, the feasible total, the shard's global prefix offset
+    and the rank origin F[start - 1] of the start's owner, clip((start - 1)
+    // NPl, 0, S - 1); the lap's L = clip(min(total // to_find, n_act -
+    done), 1, LAP_MAX) into `L` (0-d i32); and the shard's packed keys
+    [2 * LAP_MAX] i64 — each window's max of total * NP + (NP - 1 - rot)
+    (-1 where empty), then each window's negated boundary min of rot + 1
+    (-num where empty): what exchange 2 gathers."""
     d = int(done)
     if d >= n_act:
         return
@@ -1400,35 +1400,14 @@ def _sharded_lap_windows_plain(f: BatchFeatures, n_act: int, shard: int, pairs, 
     L.fill_(lap_l)
 
 
-def _sharded_lap_windows_cuda(f, n_act, shard, pairs, okd, Fl, total, done, start, keys,
-                              L) -> None:
-    _launch("sharded_lap_windows", okd.device, okd.shape[0], pairs.shape[0], shard, n_act,
-            f.num_nodes, f.to_find, pairs, okd, Fl, total, done, start, keys, L)
-
-
-def sharded_lap_windows(f: BatchFeatures, n_act: int, shard: int, pairs, okd, Fl, total, done,
-                        start, keys, L) -> None:
-    """Phase (b) of a lap on shard `shard`: from exchange 1's gathered
-    pairs [S, 2] i32, the feasible total, the shard's global prefix offset
-    and the rank origin F[start - 1] of the start's owner, clip((start - 1)
-    // NPl, 0, S - 1); the lap's L = clip(min(total // to_find, n_act -
-    done), 1, LAP_MAX) into `L` (0-d i32); and the shard's packed keys
-    [2 * LAP_MAX] i64 — each window's max of total * NP + (NP - 1 - rot)
-    (-1 where empty), then each window's negated boundary min of rot + 1
-    (-num where empty): what exchange 2 gathers."""
-    if _on_cpu(okd):
-        _sharded_lap_windows_plain(f, n_act, shard, pairs, okd, Fl, total, done, start, keys, L)
-        return
-    _sharded_lap_windows_cuda(f, n_act, shard, pairs, okd, Fl, total, done, start, keys, L)
-    sharded_lap_windows.launches += 1
-
-
-sharded_lap_windows.launches = 0
-
-
 def _sharded_lap_land_plain(f: BatchFeatures, n_act: int, shard: int, keys, L, req_r, nonzero,
                             pod_count, out, start, done) -> None:
-    """Plain PyTorch version of the sharded_lap_land kernel."""
+    """Phase (c) of a lap on shard `shard`: the max over exchange 2's
+    gathered keys [S, 2 * LAP_MAX] (the JAX pmax), each window's landed row
+    and start after, the landings on the shard's own rows (req_r, nonzero
+    and pod_count, in place), the [2, B] results block at column `done`
+    where `out` is given (the shard that keeps the results; None on the
+    others), the new start and done += L."""
     d = int(done)
     if d >= n_act:
         return
@@ -1460,34 +1439,280 @@ def _sharded_lap_land_plain(f: BatchFeatures, n_act: int, shard: int, keys, L, r
     done.fill_(d + lap_l)
 
 
-def _sharded_lap_land_cuda(f, n_act, shard, keys, L, req_r, nonzero, pod_count, out, start,
-                           done) -> None:
-    _launch("sharded_lap_land", pod_count.device, pod_count.shape[0], req_r.shape[1],
-            keys.shape[0], shard, n_act, 0 if out is None else out.shape[1], f.request,
-            f.nz_request, f.num_nodes, keys, L, req_r, nonzero, pod_count, out, start, done)
+def on_device(dev: torch.device):
+    """The launch context of a shard's kernels: its card made current."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else nullcontext()
 
 
-def sharded_lap_land(f: BatchFeatures, n_act: int, shard: int, keys, L, req_r, nonzero,
-                     pod_count, out, start, done) -> None:
-    """Phase (c) of a lap on shard `shard`: the max over exchange 2's
-    gathered keys [S, 2 * LAP_MAX] (the JAX pmax), each window's landed row
-    and start after, the landings on the shard's own rows (req_r, nonzero
-    and pod_count, in place), the [2, B] results block at column `done`
-    where `out` is given (the shard that keeps the results; None on the
-    others), the new start and done += L."""
-    if _on_cpu(pod_count):
-        _sharded_lap_land_plain(f, n_act, shard, keys, L, req_r, nonzero, pod_count, out, start,
-                                done)
+def _all_gather(src: Sequence[torch.Tensor], dst: dict) -> None:
+    """Every shard's tensor stacked into each device's buffer."""
+    for dev, buf in dst.items():
+        with on_device(dev):
+            torch.stack([t if t.device == dev else t.to(dev, non_blocking=True) for t in src],
+                        out=buf)
+
+
+class _PlainShard:
+    """One shard's per-lap buffers in LapRun."""
+
+    __slots__ = ("done", "okd", "Fl", "total", "pair", "keys", "L")
+
+    def __init__(self, npl: int, dev):
+        self.done = torch.zeros((), dtype=i32, device=dev)
+        self.okd = torch.empty(npl, dtype=torch.uint8, device=dev)
+        self.Fl = torch.empty(npl, dtype=i32, device=dev)
+        self.total = torch.empty(npl, dtype=i64, device=dev)
+        self.pair = torch.zeros(2, dtype=i32, device=dev)
+        self.keys = torch.empty(2 * LAP_MAX, dtype=i64, device=dev)
+        self.L = torch.ones((), dtype=i32, device=dev)
+
+
+class LapRun:
+    """The plain version of the sharded_lap kernel, lap by lap: the JAX
+    body's three phases a shard and its two exchanges as copies (an
+    all-gather of each shard's pair, then of its packed keys, stacked onto
+    every distinct device). `run()` writes what the kernel writes: the
+    shards' carries in place (the landed rows' aggregates, every row's fit
+    lanes, start) and `out`, the [2, B] results on shard 0's device. It
+    runs on any device."""
+
+    def __init__(self, shards: Sequence[LapShard], fit_strategy: int, n_act: int,
+                 out: torch.Tensor):
+        self.io, self.fit_strategy, self.n_act, self.out = list(shards), fit_strategy, int(n_act), out
+        S = len(self.io)
+        self.shards = [_PlainShard(sh.static_ok.shape[0], sh.static_ok.device) for sh in self.io]
+        devs = dict.fromkeys(sh.static_ok.device for sh in self.io)
+        self.pairs = {d: torch.empty((S, 2), dtype=i32, device=d) for d in devs}
+        self.keys = {d: torch.empty((S, 2 * LAP_MAX), dtype=i64, device=d) for d in devs}
+
+    def count_phase(self) -> None:
+        for s, (io, b) in enumerate(zip(self.io, self.shards)):
+            c = io.carry
+            with on_device(io.static_ok.device):
+                _sharded_lap_count_plain(io.state, io.f, self.fit_strategy, c.req_r, c.nonzero,
+                                         c.pod_count, io.static_ok, self.n_act, s, b.done,
+                                         c.start, b.okd, b.Fl, b.total, b.pair)
+
+    def exchange_pairs(self) -> None:
+        _all_gather([b.pair for b in self.shards], self.pairs)
+
+    def windows_phase(self) -> None:
+        for s, (io, b) in enumerate(zip(self.io, self.shards)):
+            dev = io.static_ok.device
+            with on_device(dev):
+                _sharded_lap_windows_plain(io.f, self.n_act, s, self.pairs[dev], b.okd, b.Fl,
+                                           b.total, b.done, io.carry.start, b.keys, b.L)
+
+    def exchange_keys(self) -> None:
+        _all_gather([b.keys for b in self.shards], self.keys)
+
+    def land_phase(self) -> None:
+        for s, (io, b) in enumerate(zip(self.io, self.shards)):
+            c, dev = io.carry, io.static_ok.device
+            with on_device(dev):
+                _sharded_lap_land_plain(io.f, self.n_act, s, self.keys[dev], b.L, c.req_r,
+                                        c.nonzero, c.pod_count, self.out if s == 0 else None,
+                                        c.start, b.done)
+
+    def one_lap(self) -> None:
+        self.count_phase()
+        self.exchange_pairs()
+        self.windows_phase()
+        self.exchange_keys()
+        self.land_phase()
+
+    def run(self) -> None:
+        """Laps until done >= n_act (read a lap), then every row's fit
+        lanes from the final aggregates."""
+        while int(self.shards[0].done) < self.n_act:
+            self.one_lap()
+        for io in self.io:
+            c = io.carry
+            with on_device(io.static_ok.device):
+                fit = _resource_eval_plain(io.f, self.fit_strategy, io.state.alloc_r,
+                                           io.state.alloc_pods, c.req_r, c.nonzero, c.pod_count)
+                for lane, new in zip((c.fit_ok, c.fit_sc, c.ba), fit):
+                    lane.copy_(new)
+
+
+def _sharded_lap_plain(shards: Sequence[LapShard], fit_strategy: int, n_act: int,
+                       out: torch.Tensor) -> None:
+    """Plain PyTorch version of the sharded_lap kernel."""
+    LapRun(shards, fit_strategy, n_act, out).run()
+
+
+# csrc/sharded_lap.cu's limits and exchange layout.
+SHL_MAX_LOCAL = 32        # shards one card's launch holds
+SHL_SMEM_ROWS = 16384     # a shard's kept rows in shared memory up to this many
+SHL_PAIR_STRIDE = 16      # int64 words a shard's pair slot
+SHL_KEY_STRIDE = 80       # int64 words a shard's key slot
+SHL_WAIT_MCYCLES = 8000   # a wait's budget, millions of clock64 cycles (~4 s at 1.98 GHz)
+_CUDA_INVALID_DEVICE_POINTER = 17
+_CUDA_COOPERATIVE_LAUNCH_TOO_LARGE = 82
+
+
+def _shl_work_words(npl: int) -> int:
+    """int64 words of one shard's kept arrays in device memory (shl_work_words)."""
+    return npl + (npl + 7) // 8
+
+
+def shards_per_card(devices: Sequence[torch.device]) -> dict:
+    """{card: [its shards' indices]}, cards in the order of their first
+    shard: what each card's one launch holds."""
+    groups: dict = {}
+    for s, dev in enumerate(devices):
+        groups.setdefault(dev, []).append(s)
+    return groups
+
+
+def check_resident(dev, n_local: int, limit: int) -> None:
+    """Refuse a card asked to hold more shards than one cooperative launch
+    keeps resident there (`limit`, at most SHL_MAX_LOCAL): its blocks could
+    not all run at once, and a block waiting on one that never runs hangs."""
+    if n_local > limit:
+        raise ValueError(f"sharded_lap: {n_local} shards on {dev}, but one launch there keeps "
+                         f"at most {limit} resident; use fewer shards a card")
+
+
+def exchange_medium(devices: Sequence[torch.device]) -> Optional[torch.device]:
+    """Where a dispatch's exchange buffer lives: the card's own memory when
+    every shard is on one card, else pinned host memory (None), which every
+    card reads and writes directly under unified addressing."""
+    distinct = set(devices)
+    return next(iter(distinct)) if len(distinct) == 1 else None
+
+
+# {shards' devices: [exchange buffer, last generation]}: a buffer serves
+# every dispatch of its mesh; the generation in each arrival word tells one
+# dispatch's slots from another's, so nothing is reset between them.
+_EXCHANGES: dict = {}
+
+
+def _exchange_buffer(devices: Sequence[torch.device]) -> Tuple[torch.Tensor, int]:
+    entry = _EXCHANGES.get(tuple(devices))
+    if entry is None:
+        words = len(devices) * (SHL_PAIR_STRIDE + SHL_KEY_STRIDE)
+        medium = exchange_medium(devices)
+        buf = (torch.zeros(words, dtype=i64, pin_memory=True) if medium is None
+               else torch.zeros(words, dtype=i64, device=medium))
+        entry = _EXCHANGES[tuple(devices)] = [buf, 0]
+    entry[1] = entry[1] % (2 ** 31 - 1) + 1
+    return entry[0], entry[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_limit(dev: torch.device, npl: int, R: int, FR: int, S: int, tiered: bool) -> int:
+    """The most shards one launch keeps resident on `dev` (the source's
+    sharded_lap_resident_limit, which also loads the kernel there)."""
+    with torch.cuda.device(dev):
+        rc = _build.build().sharded_lap_resident_limit(npl, R, FR, S, int(tiered))
+    if rc < 0:
+        raise RuntimeError(f"sharded_lap: occupancy query failed on {dev} with cudaError {-rc}")
+    return rc
+
+
+def _lap_table_row(sh: LapShard, s: int, dev, npl: int, R: int) -> list:
+    """Shard s's row of the launcher's table: its index, then the addresses
+    of its tensors, each checked as _marshal checks a launcher's."""
+    c = sh.carry
+    fields = (("alloc_r", sh.state.alloc_r, i64, (npl, R)),
+              ("alloc_pods", sh.state.alloc_pods, i64, (npl,)),
+              ("req_r", c.req_r, i64, (npl, R)), ("nonzero", c.nonzero, i64, (npl, 2)),
+              ("pod_count", c.pod_count, i32, (npl,)),
+              ("static_ok", sh.static_ok, torch.bool, (npl,)),
+              ("il_score", sh.f.il_score, i64, (npl,)), ("fit_ok", c.fit_ok, torch.bool, (npl,)),
+              ("fit_sc", c.fit_sc, i64, (npl,)), ("ba", c.ba, i64, (npl,)),
+              ("start", c.start, i32, ()))
+    row = [s]
+    for name, t, dtype, shape in fields:
+        if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"sharded_lap: shard {s}'s {name} must be a contiguous {dtype} "
+                             f"{shape} tensor on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+        row.append(t.data_ptr())
+    return row
+
+
+def _sharded_lap_cuda(shards: Sequence[LapShard], fit_strategy: int, n_act: int,
+                      out: torch.Tensor) -> list:
+    """One launch a card; returns [(card, its shards, status words, table)]. Every
+    buffer is made and every card's kernel loaded before the first launch,
+    and nothing between two launches waits for a card: a card whose blocks
+    already wait on the others' exchanges would otherwise deadlock."""
+    S = len(shards)
+    npl, R = shards[0].state.alloc_r.shape
+    ints, _ = _res_args(shards[0].f, fit_strategy)
+    tiered = npl > SHL_SMEM_ROWS
+    devices = [sh.static_ok.device for sh in shards]
+    groups = shards_per_card(devices)
+    for dev, idx in groups.items():
+        check_resident(dev, len(idx), _resident_limit(dev, npl, R, ints[1], S, tiered))
+    xbuf, gen = _exchange_buffer(devices)
+    cards = []
+    for dev, idx in groups.items():
+        table = torch.tensor([_lap_table_row(shards[s], s, dev, npl, R) for s in idx], dtype=i64)
+        status = torch.zeros(len(idx), dtype=i32, device=dev)
+        work = (torch.empty(len(idx) * _shl_work_words(npl), dtype=i64, device=dev) if tiered
+                else None)
+        cards.append((dev, idx, table, work, status))
+    for dev, idx, table, work, status in cards:
+        f = shards[idx[0]].f
+        _, feats = _res_args(f, fit_strategy)
+        with on_device(dev):
+            cargs = _marshal("sharded_lap", dev, (
+                npl, *ints, S, len(idx), n_act, out.shape[1], gen, SHL_WAIT_MCYCLES, *feats,
+                f.weights, f.num_nodes, f.to_find, table, xbuf, out if 0 in idx else None, work,
+                status))
+            rc = _build.launcher("sharded_lap")(*cargs, _stream(dev))
+        if rc == _CUDA_INVALID_DEVICE_POINTER:
+            raise RuntimeError(f"sharded_lap: {dev} cannot reach the exchange buffer on "
+                               f"{xbuf.device} (cudaPointerGetAttributes)")
+        if rc == _CUDA_COOPERATIVE_LAUNCH_TOO_LARGE:
+            raise ValueError(f"sharded_lap: {len(idx)} shards on {dev} are more than one "
+                             "launch keeps resident there")
+        if rc != 0:
+            raise RuntimeError(f"sharded_lap: kernel launch failed with cudaError {rc}")
+    return [(dev, idx, status, table) for dev, idx, table, _w, status in cards]
+
+
+def _sharded_lap_status(cards: list) -> None:
+    """Raise for a block whose wait ran past its budget (its status word:
+    ((lap << 1) | exchange) + 1): the dispatch's results are void."""
+    for dev, idx, status, _table in cards:
+        for s, word in zip(idx, status.tolist()):
+            if word:
+                raise RuntimeError(f"sharded_lap: shard {s} on {dev} waited past its budget at "
+                                   f"lap {(word - 1) >> 1}, exchange {((word - 1) & 1) + 1}; "
+                                   "the dispatch's results are void")
+
+
+def sharded_lap(shards: Sequence[LapShard], fit_strategy: int, n_act: int,
+                out: torch.Tensor) -> None:
+    """One dispatch of the node-sharded lap over `shards` (shard s holds
+    global rows [s * NPl, (s + 1) * NPl)): the JAX package's _lap_body laps
+    until `n_act` pods are placed, both exchanges of each lap included.
+    Writes each shard's carry in place (the landed rows' req_r, nonzero and
+    pod_count; every row's fit_ok, fit_sc and ba from the final aggregates;
+    start) and the [2, B] results into `out` (on shard 0's device, filled
+    with -1 by the caller). On CUDA shards each card launches its kernel
+    once, one block a shard, and the status words are read after the last
+    launch; CPU shards run LapRun."""
+    on_cpu = [_on_cpu(sh.static_ok) for sh in shards]
+    if all(on_cpu):
+        _sharded_lap_plain(shards, fit_strategy, n_act, out)
         return
-    _sharded_lap_land_cuda(f, n_act, shard, keys, L, req_r, nonzero, pod_count, out, start, done)
-    sharded_lap_land.launches += 1
+    if any(on_cpu):
+        raise ValueError("sharded_lap: the shards must all be on the CPU or all on cards")
+    cards = _sharded_lap_cuda(shards, fit_strategy, n_act, out)
+    sharded_lap.launches += len(cards)
+    _sharded_lap_status(cards)
 
 
-sharded_lap_land.launches = 0
+sharded_lap.launches = 0
 
 WRAPPERS = (static_masks, resource_eval, lap_schedule, scan_schedule, scan_general,
             dry_run_preemption, scatter_rows, patch_carry_rows, schedule_placements,
-            whatif_score, sharded_lap_count, sharded_lap_windows, sharded_lap_land)
+            whatif_score, sharded_lap)
 
 
 def reset_launch_counts() -> None:

@@ -1,7 +1,7 @@
 """Distribution layer: the node-sharded mesh (mesh.py), the JAX package's
 parallel/ in one process — a grid of torch devices, the cluster state cut
-along its node axis, and the row-local lap run shard by shard with two
-exchanges a lap."""
+along its node axis, and the row-local lap as one launch a card a dispatch,
+with both exchanges of a lap on the device."""
 
 from .mesh import (
     NodeMesh,

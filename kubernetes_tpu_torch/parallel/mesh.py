@@ -22,11 +22,14 @@ Count tables, pod-level values and the carry's `start` are copied to each
 distinct device. The shard index is outer-axis-major, as in the JAX mesh;
 the scheduler shards over the first cell's row.
 
-The row-local lap (ShardedLap) runs each shard's three sharded_lap
-launchers (ops/kernel.py, csrc/sharded_lap.cu) with exactly two exchanges a
-lap, each a copy between the phases: an all-gather of an int32 pair per
-shard, and an all-gather of each shard's [2 * LAP_MAX] int64 window keys,
-whose max the last phase takes itself.
+The row-local lap (ShardedLap) is one sharded_lap launch a card a
+dispatch (ops/kernel.py, csrc/sharded_lap.cu): a block a shard runs every
+lap, and both exchanges of a lap (an all-gather of an int32 pair a shard,
+and the max over each shard's [2 * LAP_MAX] int64 window keys) go through
+a buffer in the card's memory, or in pinned host memory when the shards
+span cards; the host reads nothing until the dispatch ends. Its plain
+version, LapRun (ops/kernel.py), runs the three phases of the JAX body a
+shard and makes the exchanges as copies.
 
 Not ported (ROADMAP): make_multihost_mesh, mesh_host_split and
 collective_report (:52-71, :146-190, :204-215), which parse XLA's HLO over
@@ -35,7 +38,6 @@ a (dcn, ici) host grid; a multi-process exchange for meshes across hosts.
 
 from __future__ import annotations
 
-from contextlib import nullcontext
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -43,7 +45,7 @@ import torch
 from ..ops import kernel as K
 from ..ops.device_state import DeviceNodeState
 from ..ops.features import BatchFeatures, PlanFacts
-from ..ops.kernel import LAP_MAX, ScanCarry
+from ..ops.kernel import LapRun, ScanCarry, on_device
 
 i32, i64 = torch.int32, torch.int64
 
@@ -103,11 +105,6 @@ def mesh_shard_count(mesh: NodeMesh) -> int:
     """Shards along the node axis (the state's rows must divide by this for
     the sharded lap)."""
     return mesh.shape["nodes"]
-
-
-def on_device(dev: torch.device):
-    """The launch context of a shard's kernels: its card made current."""
-    return torch.cuda.device(dev) if dev.type == "cuda" else nullcontext()
 
 
 def row_blocks(n: int, shards: int) -> List[Tuple[int, int]]:
@@ -218,145 +215,40 @@ def shard_features(feats: BatchFeatures, mesh: NodeMesh) -> Sharded:
     return out
 
 
-def _exchange(src: List[torch.Tensor], dst: Dict[torch.device, torch.Tensor]) -> None:
-    """All-gather: every shard's tensor stacked into each device's buffer."""
-    for dev, buf in dst.items():
+def _lap_shards(lap: "ShardedLap", state: Sharded, feats: Sharded,
+                carry_in: Optional[Sharded], plain: bool) -> List[K.LapShard]:
+    """Each shard's inputs and carry for one dispatch: its static_ok (the
+    static_masks kernel on a card, its plain version with `plain` or on the
+    CPU) and its carry, `carry_in`'s part or a fresh one."""
+    S = len(state.parts)
+    npl = state.block
+    if S != mesh_shard_count(lap.mesh) or any(p.valid.shape[0] != npl for p in state.parts):
+        raise ValueError(f"the sharded lap needs {mesh_shard_count(lap.mesh)} shards of "
+                         "equal rows")
+    if feats.parts[0].nom_req.shape[0]:
+        raise ValueError("the sharded lap takes row-local plans: no nominated-pod lane")
+    masks = K._static_masks_plain if plain else K.static_masks
+    shards = []
+    for s, (dev, st, f) in enumerate(zip(state.devices, state.parts, feats.parts)):
         with on_device(dev):
-            torch.stack([t if t.device == dev else t.to(dev, non_blocking=True) for t in src],
-                        out=buf)
-
-
-class _LapShard:
-    """One shard's inputs, carry and per-lap buffers."""
-
-    __slots__ = ("dev", "state", "f", "carry", "static_ok", "done", "okd", "Fl", "total", "pair",
-                 "keys", "L")
-
-    def __init__(self, dev, state, f, carry, static_ok):
-        npl = static_ok.shape[0]
-        self.dev, self.state, self.f, self.carry, self.static_ok = dev, state, f, carry, static_ok
-        self.done = torch.zeros((), dtype=i32, device=dev)
-        self.okd = torch.empty(npl, dtype=torch.uint8, device=dev)
-        self.Fl = torch.empty(npl, dtype=i32, device=dev)
-        self.total = torch.empty(npl, dtype=i64, device=dev)
-        self.pair = torch.zeros(2, dtype=i32, device=dev)
-        self.keys = torch.empty(2 * LAP_MAX, dtype=i64, device=dev)
-        self.L = torch.ones((), dtype=i32, device=dev)
-
-
-_PHASES = {
-    False: (K.static_masks, K.resource_eval, K.sharded_lap_count, K.sharded_lap_windows,
-            K.sharded_lap_land),
-    True: (K._static_masks_plain, K._resource_eval_plain, K._sharded_lap_count_plain,
-           K._sharded_lap_windows_plain, K._sharded_lap_land_plain),
-}
-
-
-class LapRun:
-    """One dispatch of the sharded lap, lap by lap: the shards' buffers,
-    the exchange buffers of each distinct device and the [2, B] results on
-    shard 0's device. `plain` runs the phases' plain versions (on any
-    device) in place of the kernels."""
-
-    def __init__(self, lap: "ShardedLap", state: Sharded, feats: Sharded, n_active: int,
-                 carry_in: Optional[Sharded], plain: bool = False):
-        S = len(state.parts)
-        npl = state.block
-        if S != mesh_shard_count(lap.mesh) or any(p.valid.shape[0] != npl for p in state.parts):
-            raise ValueError(f"the sharded lap needs {mesh_shard_count(lap.mesh)} shards of "
-                             "equal rows")
-        if feats.parts[0].nom_req.shape[0]:
-            raise ValueError("the sharded lap takes row-local plans: no nominated-pod lane")
-        self.lap, self.n_act, self.carry_in = lap, int(n_active), carry_in
-        self.masks, self.resource_eval, self.count, self.windows, self.land = _PHASES[plain]
-        fs, vmax = lap.fit_strategy, lap.vmax
-        self.shards: List[_LapShard] = []
-        for s, (dev, st, f) in enumerate(zip(state.devices, state.parts, feats.parts)):
-            with on_device(dev):
-                static_ok = self.masks(st, f).static_ok
-                if carry_in is None:
-                    # The fresh carry (:377-388): the shard's own copies of
-                    # the resident aggregates, which the landings update.
-                    fit = self.resource_eval(f, fs, st.alloc_r, st.alloc_pods, st.req_r,
-                                             st.nonzero, st.pod_count)
-                    ext = ScanCarry(st.req_r.clone(), st.nonzero.clone(), st.pod_count.clone(),
-                                    *fit, f.dns_counts, f.sa_counts, f.anti_counts,
-                                    f.aff_counts, torch.zeros((0, vmax), dtype=i64, device=dev),
-                                    f.start_index.clone(),
-                                    torch.zeros(npl, dtype=torch.bool, device=dev),
-                                    torch.zeros(npl, dtype=i32, device=dev))
-                else:
-                    ext = carry_in.parts[s]
-                self.shards.append(_LapShard(dev, st, f, ext, static_ok))
-        self.pairs = {d: torch.empty((S, 2), dtype=i32, device=d) for d in dict.fromkeys(
-            state.devices)}
-        self.keys = {d: torch.empty((S, 2 * LAP_MAX), dtype=i64, device=d) for d in self.pairs}
-        self.out = torch.full((2, lap.batch_pad), -1, dtype=i32, device=state.devices[0])
-        self.laps = 0  # laps launched, the inert ones of a last chunk included
-
-    def count_phase(self) -> None:
-        for s, sh in enumerate(self.shards):
-            c = sh.carry
-            with on_device(sh.dev):
-                self.count(sh.state, sh.f, self.lap.fit_strategy, c.req_r, c.nonzero, c.pod_count,
-                           sh.static_ok, self.n_act, s, sh.done, c.start, sh.okd, sh.Fl, sh.total,
-                           sh.pair)
-
-    def exchange_pairs(self) -> None:
-        _exchange([sh.pair for sh in self.shards], self.pairs)
-
-    def windows_phase(self) -> None:
-        for s, sh in enumerate(self.shards):
-            with on_device(sh.dev):
-                self.windows(sh.f, self.n_act, s, self.pairs[sh.dev], sh.okd, sh.Fl, sh.total,
-                             sh.done, sh.carry.start, sh.keys, sh.L)
-
-    def exchange_keys(self) -> None:
-        _exchange([sh.keys for sh in self.shards], self.keys)
-
-    def land_phase(self) -> None:
-        for s, sh in enumerate(self.shards):
-            c = sh.carry
-            with on_device(sh.dev):
-                self.land(sh.f, self.n_act, s, self.keys[sh.dev], sh.L, c.req_r, c.nonzero,
-                          c.pod_count, self.out if s == 0 else None, c.start, sh.done)
-
-    def one_lap(self) -> None:
-        self.count_phase()
-        self.exchange_pairs()
-        self.windows_phase()
-        self.exchange_keys()
-        self.land_phase()
-        self.laps += 1
-
-    def run(self) -> Tuple[torch.Tensor, Sharded]:
-        """Laps until done >= n_active: chunks of laps, `done` read once a
-        chunk. The first chunk is the fewest laps that could place every pod
-        (LAP_MAX a lap); later ones extrapolate the pods a lap so far. Laps
-        past the end are inert."""
-        known = 0
-        while known < self.n_act:
-            left = self.n_act - known
-            chunk = -(-left // LAP_MAX) if known == 0 else min(left, -(-left * self.laps // known))
-            for _ in range(chunk):
-                self.one_lap()
-            known = int(self.shards[0].done)
-        fs = self.lap.fit_strategy
-        parts = []
-        for sh in self.shards:
-            c = sh.carry
-            with on_device(sh.dev):
-                fit = self.resource_eval(sh.f, fs, sh.state.alloc_r, sh.state.alloc_pods,
-                                         c.req_r, c.nonzero, c.pod_count)
-                if self.carry_in is None:
-                    parts.append(c._replace(fit_ok=fit[0], fit_sc=fit[1], ba=fit[2]))
-                else:
-                    for lane, new in zip((c.fit_ok, c.fit_sc, c.ba), fit):
-                        lane.copy_(new)
-        if self.carry_in is None:
-            return self.out, Sharded(parts, self.shards[0].static_ok.shape[0])
-        self.carry_in.touched()
-        return self.out, self.carry_in
+            static_ok = masks(st, f).static_ok
+            if carry_in is None:
+                # The fresh carry (:377-388): the shard's own copies of the
+                # resident aggregates, which the landings update; the
+                # dispatch writes its fit lanes.
+                carry = ScanCarry(st.req_r.clone(), st.nonzero.clone(), st.pod_count.clone(),
+                                  torch.empty(npl, dtype=torch.bool, device=dev),
+                                  torch.empty(npl, dtype=i64, device=dev),
+                                  torch.empty(npl, dtype=i64, device=dev),
+                                  f.dns_counts, f.sa_counts, f.anti_counts, f.aff_counts,
+                                  torch.zeros((0, lap.vmax), dtype=i64, device=dev),
+                                  f.start_index.clone(),
+                                  torch.zeros(npl, dtype=torch.bool, device=dev),
+                                  torch.zeros(npl, dtype=i32, device=dev))
+            else:
+                carry = carry_in.parts[s]
+        shards.append(K.LapShard(st, f, carry, static_ok))
+    return shards
 
 
 class ShardedLap:
@@ -368,8 +260,8 @@ class ShardedLap:
     a chained carry is updated in place and returned (the counterpart of
     the JAX chained trace's donate_argnums=3). The plan must be row-local
     (ops/features.py BatchPlan.row_local): a landing changes only its own
-    row. On CUDA shards every phase launches its kernel; on CPU shards the
-    plain versions run."""
+    row. On cards a dispatch is one sharded_lap launch a card, after each
+    shard's static_masks launch; on CPU shards its plain version runs."""
 
     def __init__(self, mesh: NodeMesh, batch_pad: int, fit_strategy: int, vmax: int):
         self.mesh, self.batch_pad, self.fit_strategy, self.vmax = (mesh, batch_pad, fit_strategy,
@@ -377,13 +269,32 @@ class ShardedLap:
 
     def __call__(self, state: Sharded, feats: Sharded, n_active: int,
                  carry_in: Optional[Sharded] = None) -> Tuple[torch.Tensor, Sharded]:
-        return LapRun(self, state, feats, n_active, carry_in).run()
+        return self._dispatch(state, feats, n_active, carry_in, plain=False)
 
     def plain(self, state: Sharded, feats: Sharded, n_active: int,
               carry_in: Optional[Sharded] = None) -> Tuple[torch.Tensor, Sharded]:
-        """The same lap through the phases' plain versions, whatever the
-        tensors' device (how the card's run holds the kernels exact)."""
-        return LapRun(self, state, feats, n_active, carry_in, plain=True).run()
+        """The same lap through its plain version (LapRun) and static_masks'
+        plain version, whatever the tensors' device (how the card's run
+        holds the kernel exact)."""
+        return self._dispatch(state, feats, n_active, carry_in, plain=True)
+
+    def lap_run(self, state: Sharded, feats: Sharded, n_active: int,
+                carry_in: Optional[Sharded] = None) -> LapRun:
+        """A plain dispatch to step lap by lap (LapRun's phases), on a fresh
+        carry unless `carry_in` is given."""
+        shards = _lap_shards(self, state, feats, carry_in, plain=True)
+        out = torch.full((2, self.batch_pad), -1, dtype=i32, device=state.devices[0])
+        return LapRun(shards, self.fit_strategy, n_active, out)
+
+    def _dispatch(self, state, feats, n_active, carry_in, plain):
+        shards = _lap_shards(self, state, feats, carry_in, plain)
+        out = torch.full((2, self.batch_pad), -1, dtype=i32, device=state.devices[0])
+        run = K._sharded_lap_plain if plain else K.sharded_lap
+        run(shards, self.fit_strategy, int(n_active), out)
+        if carry_in is None:
+            return out, Sharded([sh.carry for sh in shards], state.block)
+        carry_in.touched()
+        return out, carry_in
 
 
 # The counterpart of the JAX package's sharded_lap_schedule: a ShardedLap

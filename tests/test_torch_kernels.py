@@ -274,12 +274,11 @@ def recorded_launches(monkeypatch):
 
 
 def test_launcher_signatures_are_read_from_the_sources():
-    # Every source's launchers: its own, or one a phase (the sharded lap).
-    assert set(K._build.SOURCE.values()) == set(K._build.KERNELS)
-    for name in K._build.LAUNCHERS:
+    # Every source exports the one launcher of its own name.
+    for name in K._build.KERNELS:
         sig = K._build.signature(name)
         # The batch kernels take the node rows first (a shard's rows for the
-        # sharded lap's phases), the what-if its candidates x nodes.
+        # sharded lap), the what-if its candidates x nodes.
         first = (("P", "N", "R") if name == "whatif_score" else
                  ("NPl",) if name.startswith("sharded_lap") else ("NP",))
         assert sig[:len(first)] == tuple(K._build.Param(n, None) for n in first)
@@ -287,24 +286,69 @@ def test_launcher_signatures_are_read_from_the_sources():
                    ("NP", "T", "L", "R", "FR", "fit_strategy", "B", "n_act", "V",
                     "C1", "C2", "A1", "A2", "KD", "incremental", "carried", "has_pns",
                     "has_ipa_base", "has_na_pref", "K", "D", "P", "per_lane", "N", "NPl",
-                    "S", "shard"))
+                    "S", "n_loc", "gen", "wait_mcycles"))
         optional = {p.name for p in sig if p.optional}
         lane = name in ("resource_eval", "lap_schedule", "scan_schedule", "scan_general",
                         "patch_carry_rows", "schedule_placements")
         # The schedule kernels' blocked lane (host ports) and aux_cnt lane
         # (CSI attach limits) are nullable too, and so is the lap's
         # device-memory buffer (null: its row state fits shared memory); the
-        # sharded lap's last phase writes the results only on the shard that
-        # keeps them.
+        # sharded lap writes the results only on the card of shard 0, and
+        # takes a device-memory buffer only past its on-chip tier.
         lanes = {"lap_schedule": {"blocked", "aux_cnt", "work"},
                  "scan_schedule": {"blocked", "aux_cnt"},
                  "scan_general": {"blocked", "aux_cnt"},
                  "schedule_placements": {"blocked_s", "aux_cnt_s"}}
         assert optional == ({"nom_req", "nom_pods"} | lanes.get(name, set())
-                            if lane else {"out"} if name == "sharded_lap_land" else set())
+                            if lane else {"out", "work"} if name == "sharded_lap" else set())
+        # The sharded lap's shard table is read on the host; its exchange
+        # buffer may be pinned host memory.
+        assert {p.name for p in sig if p.host} == ({"table"} if name == "sharded_lap" else set())
+        assert {p.name for p in sig if p.mapped} == ({"xbuf"} if name == "sharded_lap"
+                                                     else set())
 
 
-def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches):
+def _two_lap_shards(ts, tf, static_ok):
+    """The sharded lap's two shards of rows 0..127 and 128..255, each with a
+    fresh carry of its own (fit lanes to be written)."""
+    shards = []
+    for lo in (0, 128):
+        st = K.DeviceNodeState(*[t[lo:lo + 128].clone() for t in ts[:-1]],
+                               ts.topo[:, lo:lo + 128].contiguous())
+        f = tf._replace(sel_match=tf.sel_match[lo:lo + 128], il_score=tf.il_score[lo:lo + 128])
+        fit = K._resource_eval_plain(f, 0, st.alloc_r, st.alloc_pods, st.req_r, st.nonzero,
+                                     st.pod_count)
+        carry = K.fresh_carry(st, f, VMAX, [t.clone() for t in fit])._replace(
+            req_r=st.req_r.clone(), nonzero=st.nonzero.clone(), pod_count=st.pod_count.clone(),
+            start=tf.start_index.clone())
+        shards.append(K.LapShard(st, f, carry, static_ok[lo:lo + 128].clone()))
+    return shards
+
+
+def test_sharded_lap_refuses_more_shards_than_stay_resident(recorded_launches, monkeypatch):
+    """More shards on one card than one launch keeps resident: refused
+    before any card launches (a block waiting on one that never runs would
+    hang)."""
+    monkeypatch.setattr(K, "_resident_limit", lambda *a: K.SHL_MAX_LOCAL)
+    _js, _jf, ts, tf = _both(17)
+    shards = _two_lap_shards(ts, tf, K._static_masks_plain(ts, tf).static_ok)
+    with pytest.raises(ValueError, match=f"at most {K.SHL_MAX_LOCAL} resident"):
+        K._sharded_lap_cuda(shards * 17, 0, 300, torch.full((2, 512), -1, dtype=torch.int32))
+    assert recorded_launches == []
+
+
+def test_sharded_lap_status_words_raise():
+    """A block whose wait ran out of budget leaves ((lap << 1) | exchange)
+    + 1 in its status word: the wrapper raises, naming the shard, the lap
+    and the exchange; all-zero words pass."""
+    cpu = torch.device("cpu")
+    K._sharded_lap_status([(cpu, [0, 1], torch.zeros(2, dtype=torch.int32), None)])
+    with pytest.raises(RuntimeError, match="shard 3 .* lap 2, exchange 2"):
+        K._sharded_lap_status([(cpu, [2, 3], torch.tensor([0, (2 << 1 | 1) + 1],
+                                                          dtype=torch.int32), None)])
+
+
+def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches, monkeypatch):
     _js, _jf, ts, tf = _both(17)
     fit = K._resource_eval_plain(tf, 0, ts.alloc_r, ts.alloc_pods, ts.req_r, ts.nonzero,
                                  ts.pod_count)
@@ -326,26 +370,28 @@ def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches):
     masks = torch.zeros((4, ts.valid.shape[0]), dtype=torch.bool)
     K._schedule_placements_cuda(ts, tf, 8, 0, VMAX, K.PlanFacts(), masks, 5)
     W._whatif_score_cuda(*[torch.from_numpy(a) for a in whatif_inputs(17, 3, 40)])
-    # The sharded lap's three phases on one shard of two (rows 128..255).
-    half = K.DeviceNodeState(*[t[128:] for t in ts[:-1]], ts.topo[:, 128:].contiguous())
-    fh = tf._replace(sel_match=tf.sel_match[128:], il_score=tf.il_score[128:])
-    i32 = torch.int32
-    one, two = torch.zeros((), dtype=i32), torch.zeros(2, dtype=i32)
-    okd, Fl = torch.zeros(128, dtype=torch.uint8), torch.zeros(128, dtype=i32)
-    total, keys = torch.zeros(128, dtype=torch.int64), torch.zeros(2 * K.LAP_MAX,
-                                                                    dtype=torch.int64)
-    K._sharded_lap_count_cuda(half, fh, 0, half.req_r, half.nonzero, half.pod_count,
-                              static_ok[128:], 300, 1, one, one, okd, Fl, total, two)
-    K._sharded_lap_windows_cuda(fh, 300, 1, torch.zeros((2, 2), dtype=i32), okd, Fl, total, one,
-                                one, keys, one)
-    K._sharded_lap_land_cuda(fh, 300, 1, keys.repeat(2, 1), one, half.req_r, half.nonzero,
-                             half.pod_count, None, one, one)
-    assert [name for name, _ in recorded_launches] == list(K._build.LAUNCHERS)
+    # The sharded lap: one launch for the two shards of one device, each
+    # shard's tensors in its row of the host table.
+    monkeypatch.setattr(K, "_resident_limit", lambda *a: K.SHL_MAX_LOCAL)
+    shards = _two_lap_shards(ts, tf, static_ok)
+    out = torch.full((2, 512), -1, dtype=torch.int32)
+    cards = K._sharded_lap_cuda(shards, 0, 300, out)
+    K._sharded_lap_status(cards)
+    assert [name for name, _ in recorded_launches] == list(K._build.KERNELS)
     for name, args in recorded_launches:
         sig = K._build.signature(name)
         assert len(args) == len(sig) + 1  # and the stream
         for p, a in zip(sig, args):
-            assert (a is None) if p.optional else isinstance(a, int), (name, p)
+            given = name == "sharded_lap" and p.name == "out"  # shard 0 is on this card
+            assert (a is None) if p.optional and not given else isinstance(a, int), (name, p)
+    sl = {p.name: a for p, a in zip(K._build.signature("sharded_lap"), recorded_launches[-1][1])}
+    assert (sl["S"], sl["n_loc"], sl["NPl"], sl["gen"] > 0) == (2, 2, 128, True)
+    assert sl["out"] == out.data_ptr() and sl["table"] == cards[0][3].data_ptr()
+    table = cards[0][3]
+    assert table[:, 0].tolist() == [0, 1]
+    assert table[1, 1:].tolist() == [t.data_ptr() for t in (
+        shards[1].state.alloc_r, shards[1].state.alloc_pods, *shards[1].carry[:3],
+        shards[1].static_ok, shards[1].f.il_score, *shards[1].carry[3:6], shards[1].carry.start)]
     # With a nominated lane the schedule kernels get its two pointers.
     lane = tf._replace(nom_req=torch.zeros_like(ts.req_r),
                        nom_pods=torch.zeros_like(ts.pod_count))

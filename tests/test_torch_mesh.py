@@ -3,7 +3,8 @@
 The JAX package shards the node axis over its 8-device virtual CPU mesh
 (tests/conftest.py); the port's mesh here is eight (or two, or four) shards
 on the CPU (`make_mesh(devices=["cpu"] * S)`), where the sharded lap runs
-its three phases' plain versions and the exchanges are real copies.
+its plain version (LapRun: the JAX body's three phases a shard, the
+exchanges as real copies).
 
 - The sharded lap: the port's ShardedLap against the JAX package's
   sharded_lap_schedule at S = 2, 4 and 8, fresh and chained, on seeded numpy
@@ -11,6 +12,12 @@ its three phases' plain versions and the exchanges are real copies.
   shard 0 and a start of 0, shards with no feasible row, padded rows, a
   final lap shorter than L, nothing feasible), and against the port's own
   single-device lap.
+- What only the card runs, modelled: the sharded_lap kernel's kept row
+  state (each row evaluated once, landed rows again) stepped lap by lap
+  against LapRun at S = 1, 2, 4 and 8; its exchange protocol under random
+  schedules of shard progress, and a shard that never arrives; the
+  exchange medium of a device list and the refusal of more shards than a
+  card keeps resident.
 - The scheduler: TorchScheduler(device="cpu", mesh=...) against
   TPUScheduler(mesh=make_mesh(n_cells=1)) on tests/test_sharded_mesh.py's
   shapes (the gathered path's chained sessions, the sharded lap's
@@ -178,26 +185,27 @@ def test_sharded_lap_matches_the_single_device_lap(shards, case):
 
 
 def test_sharded_lap_phases_are_inert_once_done():
-    """Laps launched past the last pod change nothing: each phase reads
-    `done` and returns (the host reads done once a chunk)."""
-    from kubernetes_tpu_torch.parallel.mesh import LapRun
-
+    """Laps stepped past the last pod change nothing: each phase of the
+    plain version reads `done` and returns."""
     s, f, n_act = _draw(7, "full-windows")
     mesh = make_mesh(devices=["cpu"] * 4)
     st = shard_node_state(state_from_jax_numpy(s), mesh)
     ft = shard_features(features_from_jax_numpy(f), mesh)
     lap = sharded_lap_schedule(mesh, B, 0, VMAX)
     want, wc = lap(st, ft, n_act)
-    run = LapRun(lap, st, ft, n_act, None)
-    out, carry = run.run()
-    before = [t.clone() for t in gather(carry)] + [out.clone()]
+    run = lap.lap_run(st, ft, n_act)
+    run.run()
+    out = run.out
+    before = [t.clone() for io in run.io for t in io.carry] + [out.clone()]
     for _ in range(3):
         run.one_lap()
     assert int(run.shards[0].done) >= n_act
-    after = list(gather(carry)) + [out]
-    for a, b in zip(before[:3], after[:3]):  # the landed lanes
+    after = [t for io in run.io for t in io.carry] + [out]
+    for a, b in zip(before, after):
         assert torch.equal(a, b)
-    assert torch.equal(before[-1], after[-1]) and torch.equal(out, want)
+    assert torch.equal(out, want)
+    for a, b in zip(gather(Sharded([io.carry for io in run.io], st.block)), gather(wc)):
+        assert torch.equal(a, b)
 
 
 def test_plain_phases_run_as_the_wrappers_on_cpu():
@@ -237,14 +245,276 @@ def test_mesh_layout_cuts_rows_and_replicates_the_rest():
 
 
 def test_launcher_phases_are_read_from_one_source():
+    """The sharded lap is one launcher, read from its source: the three
+    per-phase launchers are gone, and its table, exchange buffer, results
+    and device-memory tier are marked as the wrapper passes them."""
     from kubernetes_tpu_torch.ops import _build
 
     assert "sharded_lap" in _build.KERNELS
-    assert [n for n in _build.LAUNCHERS if _build.SOURCE[n] == "sharded_lap"] == [
-        "sharded_lap_count", "sharded_lap_windows", "sharded_lap_land"]
-    land = {p.name: p for p in _build.signature("sharded_lap_land")}
-    assert land["out"].optional and land["keys"].dtype == torch.int64
-    assert _build.signature("sharded_lap_count")[0] == _build.Param("NPl", None)
+    assert not any(n.startswith("sharded_lap_") for n in _build.KERNELS)
+    assert not hasattr(_build, "PHASES")
+    sig = {p.name: p for p in _build.signature("sharded_lap")}
+    assert _build.signature("sharded_lap")[0] == _build.Param("NPl", None)
+    assert sig["table"].host and sig["table"].dtype == torch.int64
+    assert sig["xbuf"].mapped and not sig["xbuf"].host
+    assert {n for n, p in sig.items() if p.optional} == {"out", "work"}
+    assert not any(hasattr(K, n) for n in ("sharded_lap_count", "sharded_lap_windows",
+                                           "sharded_lap_land"))
+    assert K.sharded_lap in K.WRAPPERS
+
+
+# ---------------------------------------------------------------------------
+# models of what only the card runs: the sharded_lap kernel's kept state
+# and its exchange protocol (csrc/sharded_lap.cu)
+# ---------------------------------------------------------------------------
+
+
+class _ShardModel:
+    """One block of the sharded_lap kernel in numpy: the shard's rows
+    evaluated once (the prologue), its feasibility and totals kept, the
+    threads' contiguous runs of rows and their block scan, the pair's one
+    writer, the window pass, and landings that re-evaluate only the landed
+    rows. `threads` is the block's size (the kernel takes any multiple of
+    32; fewer threads give each one several rows)."""
+
+    def __init__(self, sh: K.LapShard, s: int, S: int, fs: int, threads: int = 32):
+        self.sh, self.s, self.S, self.fs = sh, s, S, fs
+        c = sh.carry
+        self.npl = npl = sh.static_ok.shape[0]
+        self.req_r, self.nonzero, self.pod_count = (t.clone() for t in c[:3])
+        self.fit = list(K._resource_eval_plain(sh.f, fs, sh.state.alloc_r, sh.state.alloc_pods,
+                                               self.req_r, self.nonzero, self.pod_count))
+        self.num = max(int(sh.f.num_nodes), 1)
+        self.tf = max(int(sh.f.to_find), 1)
+        self.base = s * npl
+        gidx = self.base + torch.arange(npl)
+        self.okd = (sh.static_ok & self.fit[0] & (gidx < self.num)).numpy().astype(np.int64)
+        self.total = K._total(sh.f, self.fit[1], self.fit[2]).numpy().copy()
+        self.start = int(c.start)
+        self.rpt = -(-npl // threads)
+        self.threads = threads
+
+    def _scan(self):
+        counts = np.array([self.okd[t * self.rpt:(t + 1) * self.rpt].sum()
+                           for t in range(self.threads)], dtype=np.int64)
+        return np.cumsum(counts) - counts, int(counts.sum())
+
+    def pair(self):
+        excl, count = self._scan()
+        sidx = self.start - 1
+        if self.start > 0 and self.base <= sidx < self.base + self.npl:
+            lpos = sidx - self.base
+            t = lpos // self.rpt
+            return count, int(excl[t] + self.okd[t * self.rpt:lpos + 1].sum())
+        return count, 0
+
+    def windows(self, pairs, done: int, n_act: int):
+        S, s, start, tf, num = self.S, self.s, self.start, self.tf, self.num
+        NP = self.npl * S
+        tots = [int(p[0]) for p in pairs]
+        total_feas, offset = sum(tots), sum(tots[:s])
+        owner = min(max((start - 1) // self.npl, 0), S - 1)
+        f_start = sum(tots[:owner]) + int(pairs[owner][1]) if start > 0 else 0
+        L = max(1, min(total_feas // tf, n_act - done, K.LAP_MAX))
+        key, ev = [-1] * K.LAP_MAX, [num] * K.LAP_MAX
+        excl, _ = self._scan()
+        for t in range(self.threads):
+            F = int(excl[t]) + offset
+            for i in range(t * self.rpt, min((t + 1) * self.rpt, self.npl)):
+                if not self.okd[i]:
+                    continue
+                F += 1
+                g = self.base + i
+                rank = F - f_start if g >= start else F + total_feas - f_start
+                rot = (g - start) % num
+                w = min((rank - 1) // tf, K.LAP_MAX)
+                if w < L:
+                    key[w] = max(key[w], int(self.total[i]) * NP + (NP - 1 - rot))
+                if rank % tf == 0:
+                    sb = min(rank // tf - 1, K.LAP_MAX)
+                    if sb < K.LAP_MAX:
+                        ev[sb] = min(ev[sb], rot + 1)
+        return key + [-e for e in ev], L
+
+    def land(self, gathered, L: int, done: int, out) -> None:
+        NP, num, start = self.npl * self.S, self.num, self.start
+        f = self.sh.f
+        for w in range(K.LAP_MAX):
+            kw = max(int(row[w]) for row in gathered)
+            nb = max(int(row[K.LAP_MAX + w]) for row in gathered)
+            has = w < L and kw >= 0
+            row = (start + (NP - 1 - kw % NP)) % num if has else -1
+            start_w = (start - nb) % num
+            if out is not None and done + w < out.shape[1]:
+                out[:, done + w] = torch.tensor([row, start_w], dtype=torch.int32)
+            if w == L - 1:
+                self.start = start_w
+            i = row - self.base
+            if has and 0 <= i < self.npl:
+                self.req_r[i] += f.request
+                self.nonzero[i] += f.nz_request
+                self.pod_count[i] += 1
+                st = self.sh.state
+                fit = K._resource_eval_plain(f, self.fs, st.alloc_r[i:i + 1],
+                                             st.alloc_pods[i:i + 1], self.req_r[i:i + 1],
+                                             self.nonzero[i:i + 1], self.pod_count[i:i + 1])
+                for lane, new in zip(self.fit, fit):
+                    lane[i] = new[0]
+                self.total[i] = int(K._total(f._replace(il_score=f.il_score[i:i + 1]),
+                                             fit[1], fit[2])[0])
+                self.okd[i] = int(bool(self.sh.static_ok[i]) and bool(fit[0][0]) and row < num)
+
+
+@pytest.mark.parametrize("case", list(LAP_CASES))
+@pytest.mark.parametrize("shards", [1, 2, 4, 8])
+def test_sharded_lap_kept_state_model_matches_the_plain_laps(shards, case):
+    """The kernel's design, modelled: each shard's rows evaluated once,
+    only landed rows re-evaluated, the counts and prefixes from the kept
+    state. Stepped lap by lap against LapRun, which re-evaluates every row
+    every lap: the kept feasibility and totals, the pairs, the keys and L,
+    the landings, the results and the final fit lanes are equal."""
+    fs = list(LAP_CASES).index(case) % 2
+    s, f, n_act = _draw(80 + list(LAP_CASES).index(case), case)
+    mesh = make_mesh(devices=["cpu"] * shards)
+    st = shard_node_state(state_from_jax_numpy(s), mesh)
+    ft = shard_features(features_from_jax_numpy(f), mesh)
+    run = sharded_lap_schedule(mesh, B, fs, VMAX).lap_run(st, ft, n_act)
+    models = [_ShardModel(io, i, shards, fs, threads=32 if i % 2 else 1024)
+              for i, io in enumerate(run.io)]
+    out = torch.full((2, B), -1, dtype=torch.int32)
+    done = laps = 0
+    while done < n_act:
+        run.count_phase()
+        for m, b in zip(models, run.shards):
+            assert (m.okd == b.okd.numpy()).all() and (m.total == b.total.numpy()).all()
+            assert m.pair() == tuple(b.pair.tolist())
+        pairs = [m.pair() for m in models]
+        run.exchange_pairs()
+        run.windows_phase()
+        keys = [m.windows(pairs, done, n_act) for m in models]
+        for (k, L), b in zip(keys, run.shards):
+            assert k == b.keys.tolist() and L == int(b.L)
+        run.exchange_keys()
+        run.land_phase()
+        L = keys[0][1]
+        for i, m in enumerate(models):
+            m.land([k for k, _L in keys], L, done, out if i == 0 else None)
+            c = run.io[i].carry
+            assert torch.equal(m.req_r, c.req_r) and torch.equal(m.nonzero, c.nonzero)
+            assert torch.equal(m.pod_count, c.pod_count) and m.start == int(c.start)
+        done += L
+        laps += 1
+    run.run()  # no lap left: the fit lanes from the final aggregates
+    assert torch.equal(out, run.out) and laps > 0
+    for m, io in zip(models, run.io):
+        for mine, lane in zip(m.fit, (io.carry.fit_ok, io.carry.fit_sc, io.carry.ba)):
+            assert torch.equal(mine, lane)
+
+
+def _protocol(s, S, mem, dispatches, budget, status, trace):
+    """One block of the kernel's exchange protocol over `dispatches` (a list
+    of (generation, per-lap values)): one memory action a step. A slot is
+    {"tag", "payload", "readers"}; an arrival word is (generation, lap + 1).
+    A wait that spins past `budget` steps writes the status and ends."""
+    for gen, values in dispatches:
+        done, lap = 0, 0
+        n_act = values["n_act"]
+        while done < n_act:
+            tag = (gen, lap + 1)
+            got = {}
+            for region in ("pair", "key"):
+                slot = mem[(region, s)]
+                assert slot["payload"] is None or len(slot["readers"]) == S, (
+                    f"shard {s} rewrote its {region} slot before every shard read it")
+                slot["payload"] = (gen, lap, values["count"](s, lap))
+                slot["readers"] = set()
+                yield
+                slot["tag"] = tag  # the release, after the payload
+                yield
+                for t in range(S):
+                    spins = 0
+                    while mem[(region, t)]["tag"] != tag:
+                        spins += 1
+                        if spins > budget:
+                            status[s] = (gen, lap, region)
+                            return
+                        yield
+                    g, l_, v = mem[(region, t)]["payload"]
+                    assert (g, l_) == (gen, lap), f"shard {s} read lap {l_} for lap {lap}"
+                    mem[(region, t)]["readers"].add(s)
+                    got[(region, t)] = v
+                    yield
+            total = sum(got[("pair", t)] for t in range(S))
+            L = max(1, min(total // values["to_find"], n_act - done, K.LAP_MAX))
+            done += L
+            lap += 1
+        trace.append((s, gen, lap, done))
+
+
+def _run_protocol(S, dispatches, seed, budget=10 ** 6, dead=()):
+    rng = random.Random(seed)
+    mem = {(r, t): {"tag": None, "payload": None, "readers": set()}
+           for r in ("pair", "key") for t in range(S)}
+    status, trace = {}, []
+    live = {s: _protocol(s, S, mem, dispatches, budget, status, trace)
+            for s in range(S) if s not in dead}
+    steps = 0
+    while live:
+        s = rng.choice(sorted(live))
+        try:
+            next(live[s])
+        except StopIteration:
+            del live[s]
+        steps += 1
+        assert steps < 10 ** 7, "the protocol did not end"
+    return status, trace
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("shards", [2, 4, 8])
+def test_sharded_lap_exchange_protocol_under_random_schedules(shards, seed):
+    """The exchanges as the kernel makes them, two dispatches back to back
+    with no barrier between the shards' dispatches (cards run apart), each
+    shard's steps interleaved at random: no shard reads a slot of another
+    lap or dispatch, no slot is rewritten before every shard has read it,
+    and every shard leaves each dispatch at the same lap with the same
+    count."""
+    r = random.Random(1000 + seed)
+    table = {(s, lap): r.randint(0, 12) for s in range(shards) for lap in range(200)}
+    dispatches = [(gen, {"n_act": r.randint(1, 150), "to_find": r.randint(1, 9),
+                         "count": lambda s, lap: table[(s, lap)]}) for gen in (1, 2)]
+    status, trace = _run_protocol(shards, dispatches, seed)
+    assert status == {}
+    for gen in (1, 2):
+        ends = {(lap, done) for s, g, lap, done in trace if g == gen}
+        assert len(ends) == 1 and len([t for t in trace if t[1] == gen]) == shards
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_lap_waits_end_with_a_status_when_a_shard_never_arrives(shards):
+    """A shard that never runs: every other shard's wait runs out of budget,
+    writes its status and ends; none finishes the dispatch."""
+    dispatches = [(1, {"n_act": 50, "to_find": 3, "count": lambda s, lap: 5})]
+    status, trace = _run_protocol(shards, dispatches, 3, budget=50, dead=(shards - 1,))
+    assert trace == [] and set(status) == set(range(shards - 1))
+    assert all(st == (1, 0, "pair") for st in status.values())
+
+
+def test_exchange_medium_and_cards_of_a_device_list():
+    c0, c1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    assert K.exchange_medium([c0] * 4) == c0
+    assert K.exchange_medium([c0, c1]) is None  # pinned host memory
+    assert K.exchange_medium([c0, c1, c0, c1]) is None
+    assert K.shards_per_card([c0, c1, c0, c1]) == {c0: [0, 2], c1: [1, 3]}
+    assert list(K.shards_per_card([c1, c0, c0])) == [c1, c0]
+
+
+def test_a_card_asked_for_more_shards_than_stay_resident_is_refused():
+    K.check_resident(torch.device("cuda", 0), 32, 32)
+    with pytest.raises(ValueError, match="at most 32 resident"):
+        K.check_resident(torch.device("cuda", 0), 33, 32)
+    with pytest.raises(ValueError, match="at most 0 resident"):
+        K.check_resident(torch.device("cuda", 0), 1, 0)
 
 
 # ---------------------------------------------------------------------------
