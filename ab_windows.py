@@ -6,13 +6,14 @@ TopologySpreading/5000Nodes_5000Pods and SchedulingBasic/5000Nodes_10000Pods.
 
     git archive <parent commit> | tar -x -C <dir>   # into an ignored directory
     python3 ab_windows.py <dir> [rounds] [--freeze] [--workloads W1,W2] [--calls] [--shards S]
+    python3 ab_windows.py <dir> [rounds] --scan
 
 Each round runs parent, change, change, parent, each side in a process of
 its own started in its tree, and prints one `AB {...}` JSON line a run:
 pods/s, session end, host commit, device wait, kernel enqueue (dispatch),
 the window's seconds, the sharded-lap dispatches, and the garbage
 collector's seconds and full (generation 2) collections in the window
-(gc.callbacks). With --shards S, each side builds its clusters under a
+(gc.callbacks), and the placement evaluations' count and seconds. With --shards S, each side builds its clusters under a
 node mesh of S shards on the one card (make_mesh(devices=[cuda:0] * S)).
 The last line gives each side's median pods/s and interquartile range.
 With --freeze, each side moves everything alive after its warm-up out of
@@ -21,7 +22,18 @@ then no longer reads whether a full collection happened to land in it.
 With --calls, each side instead runs once with its window under cProfile
 and prints one `CALLS {...}` line: for each of the framework's per-pod and
 per-node hooks (HOOKS), its calls and cumulative seconds in the window
-(seconds inflated by the profiler; compare sides, not windows)."""
+(seconds inflated by the profiler; compare sides, not windows).
+
+With --scan, the two trees' kernels of the scan path instead (the
+reference's scan step for a row-local plan of at most 64 steps): this
+tree's chip_smoke.scan_path_inputs gathers every input of that path once
+(build/scan_inputs.pt), then each side, in the same turns, runs the
+kernel its own tree routes each input to (scan_schedule where the tree has
+it, else scan_general) and prints one `SCAN {...}` line a run: per input
+the kernel, its device ms a launch (torch.profiler), its call ms (CUDA
+events) and a digest of the results and carry. The last line gives, per
+input, each side's median device ms and whether every run's digest was
+the same."""
 
 import json
 import os
@@ -77,7 +89,8 @@ for w in sys.argv[1].split(","):
                   host_commit_s=d["host_commit_s"], device_wait_s=d["device_wait_s"],
                   dispatch_s=d["dispatch_s"], elapsed_s=d["elapsed_s"],
                   shard_map_dispatches=d["shard_map_dispatches"], gc_s=gcw["s"],
-                  gc_full=gcw["full"])
+                  gc_full=gcw["full"], placement_device_evals=d.get("placement_device_evals"),
+                  placement_eval_s=d.get("placement_eval_s"))
     if prof is not None:
         prof.disable()
         hooks = {}
@@ -89,12 +102,91 @@ print(json.dumps(out))
 """ % (HOOKS,)
 
 
-def run_side(tree: str, workloads, flags) -> dict:
-    out = subprocess.run([sys.executable, "-c", ONE_SIDE, ",".join(workloads)] + flags,
+GATHER = """
+import sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke
+torch.save(chip_smoke.scan_path_inputs(torch.device("cuda", 0)), sys.argv[1])
+print("{}")
+"""
+
+SCAN_SIDE = """
+import hashlib, json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke
+from kubernetes_tpu_torch.ops import kernel as K
+from kubernetes_tpu_torch.ops.device_state import DeviceNodeState
+from kubernetes_tpu_torch.ops.features import BatchFeatures
+
+dev = torch.device("cuda", 0)
+out = {}
+for name, e in torch.load(sys.argv[1]).items():
+    st = DeviceNodeState(*[t.to(dev) for t in e["state"]])
+    ft = BatchFeatures(*[t.to(dev) for t in e["feats"]])
+    facts = K.PlanFacts(**e["facts"])
+    strat, B, n = e["strat"], e["B"], e["n_act"]
+    masks = K.static_masks(st, ft)
+    if e["carry"] is not None:
+        ext0 = K.ScanCarry(*[t.to(dev) for t in e["carry"]])
+    else:
+        ext0 = K.fresh_carry(st, ft, e["vmax"], K.resource_eval(
+            ft, strat, st.alloc_r, st.alloc_pods, st.req_r, st.nonzero, st.pod_count,
+            *K._nom_lane(ft)))
+    # Only a tree from before scan_schedule's removal still has it: this
+    # branch serves the comparison with such a parent and nothing else.
+    if K.plan_path(ft, facts, B) == "scan" and hasattr(K, "scan_schedule"):
+        kname = "scan_schedule"
+        fn = lambda: K.scan_schedule(st, ft, B, strat, ext0, masks.static_ok, n,
+                                     facts.port_selfblock, facts.has_aux)
+    else:
+        kname = "scan_general"
+        fn = lambda: K.scan_general(st, ft, B, strat, ext0, masks, n, facts)
+    o, c = fn()
+    h = hashlib.sha256()
+    for t in (o,) + tuple(c):
+        h.update(t.to(torch.int64).cpu().numpy().tobytes())
+    ms, seen = chip_smoke.device_ms(fn, kname)
+    out[name] = dict(kernel=kname, device_ms=ms, launches_seen=seen,
+                     call_ms=chip_smoke.wall_ms(fn, reps=20), digest=h.hexdigest()[:16],
+                     placed=int((o[0] >= 0).sum()), steps=B, pods=n, rows=int(st.valid.shape[0]))
+print(json.dumps(out))
+"""
+
+
+def run_side(tree: str, workloads, flags, script=ONE_SIDE) -> dict:
+    out = subprocess.run([sys.executable, "-c", script, ",".join(workloads)] + flags,
                          cwd=tree, capture_output=True, text=True, timeout=900)
     if out.returncode != 0:
         raise SystemExit(f"{tree}: exit {out.returncode}\n{out.stderr[-2000:]}")
     return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def scan_main(trees: dict, rounds: int) -> int:
+    """The --scan mode: the scan path's kernels of both trees in turns."""
+    inputs = os.path.join(trees["change"], "build", "scan_inputs.pt")
+    os.makedirs(os.path.dirname(inputs), exist_ok=True)
+    run_side(trees["change"], [inputs], [], script=GATHER)
+    ms, digests, kernels = {}, {}, {}
+    for _ in range(rounds):
+        for side in ("parent", "change", "change", "parent"):
+            res = run_side(trees[side], [inputs], [], script=SCAN_SIDE)
+            for name, r in res.items():
+                ms.setdefault((side, name), []).append(r["device_ms"])
+                digests.setdefault(name, set()).add(r["digest"])
+                kernels[(side, name)] = r["kernel"]
+            print("SCAN " + json.dumps({"tree": side, **res}), flush=True)
+    summary = {}
+    for name, seen in digests.items():
+        p, c = (statistics.median(ms[(side, name)]) for side in ("parent", "change"))
+        summary[name] = dict(parent=[kernels[("parent", name)], p, min(ms[("parent", name)]),
+                                     max(ms[("parent", name)])],
+                             change=[kernels[("change", name)], c, min(ms[("change", name)]),
+                                     max(ms[("change", name)])],
+                             change_over_parent=c / p, exact=len(seen) == 1)
+    print(json.dumps(summary), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -109,12 +201,15 @@ def main() -> int:
         i = args.index("--shards")
         flags += args[i:i + 2]
         del args[i:i + 2]
-    args = [a for a in args if a not in ("--freeze", "--calls")]
+    scan = "--scan" in args
+    args = [a for a in args if a not in ("--freeze", "--calls", "--scan")]
     if not args:
         print(__doc__, file=sys.stderr)
         return 2
     trees = {"parent": args[0], "change": os.path.dirname(os.path.abspath(__file__))}
     rounds = int(args[1]) if len(args) > 1 else 3
+    if scan:
+        return scan_main(trees, rounds)
     if "--calls" in flags:
         for side in ("parent", "change"):
             print("CALLS " + json.dumps({"tree": side, **run_side(trees[side], workloads, flags)}),

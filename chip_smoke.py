@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, in order; any error or mismatch exits non-zero before the result:
-  1. build   — compile the eleven CUDA sources from csrc/ (one nvcc each, in
+  1. build   — compile the ten CUDA sources from csrc/ (one nvcc each, in
                parallel, linked into one library) and print the build
                seconds;
   2. kernels — hold each kernel against its plain PyTorch version on the
@@ -30,7 +30,7 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                anti-affinity terms with repeated values, every lane,
                NP 16384 and NP 20000 in device memory; one line a draw
                with its L range and laps). Both
-               fit strategies, fresh and chained carries. The three schedule
+               fit strategies, fresh and chained carries. The schedule
                kernels again with a live nominated-pod lane; dry_run_preemption
                on seeded victim draws at K = 8, 32 and 256 (rows with no
                victim, invalid slots, scalar-resource victims) and with no
@@ -40,21 +40,24 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                schedule_batch calls, with and without a nominated-pod lane,
                its input carry left unchanged; schedule_placements at P = 1,
                16 and 64 lanes (an empty padded lane, a one-row, a 100-row
-               and an every-row lane), without spread tables, with the
-               plan's and with per-lane overrides, at V = 64 and 8192, no
-               active member and a gang of 4, some lane placing only part of
-               its gang, its inputs left unchanged; whatif_score at the
+               and an every-row lane, which also marks the padded rows past
+               num_nodes), without spread tables, with the plan's and with
+               per-lane overrides, at V = 64 and 8192, both fit strategies,
+               no active member and a gang of 4, some lane placing only
+               part of its gang, its inputs left unchanged, and at NP 20000
+               (a gang of 4, one fit strategy) with a placement of 19990 rows (past a lane's on-chip tier: its arrays in device
+               memory); whatif_score at the
                rebalance drive's shape (P 128, N 5000, R 3) and at P 1 /
                N 3, with 16 TiB nodes (int64 wrap-around), with negative
                numerators (floored division), both at odd sizes, its inputs
-               left unchanged, and empty batches that launch nothing; the four
+               left unchanged, and empty batches that launch nothing; the three
                schedule kernels with the blocked lane of a host-port plan
                (port_selfblock): a random third of the carry's rows blocked,
                both fit strategies, fresh and chained, padded steps, draws
                whose batch outnumbers their feasible rows (every row blocked,
                the last pods placed nowhere), schedule_placements' lanes at
                P = 16 and 64 each blocking only their own rows; static_masks
-               with a mixed extra_ok; the four schedule kernels with the
+               with a mixed extra_ok; the three schedule kernels with the
                aux_cnt lane of a has_aux plan (a CSI attach limit): a room of
                0 to 3 attachments a row, an increment of 1 or 2, the carry's
                count drawn or zero, fresh and chained, padded steps, draws
@@ -85,8 +88,8 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                no host-path pod, scan_general launched;
                SchedulingBasic/5000Nodes_10000Pods (1024 warm-up pods,
                10000 measured): every pod bound, the lap launched, and a
-               small-batch drive (max_batch 64: 40 pods) that must launch
-               scan_schedule;
+               small-batch drive (max_batch 64: 40 pods, the scan path)
+               that must launch scan_general;
                PreferredTopologySpreading/5000Nodes_5000Pods: every pod
                bound;
                SchedulingPodAntiAffinity/5000Nodes_2000Pods: every pod
@@ -134,7 +137,7 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                SchedulingGangs/1000Nodes_250Groups (1000 nodes over 10 zones,
                250 pod groups of 4 500m/256Mi members): every pod bound by
                gang device sessions, none on the host path, the lap or
-               scan_schedule launched;
+               scan_general launched;
                SchedulingGangsPlacement/5000Nodes_250Groups (the same groups
                constrained to one zone, under the placement plugins, on
                TopologySpreading's 5000 nodes over 50 zones): every pod
@@ -167,7 +170,8 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                its own, the lap with the blocked lane and image scores, and
                one more pod unschedulable by NodePorts; the host-port drive
                cut to 1000 nodes at max_batch 64, without and with a zone
-               spread (scan_schedule and scan_general with the lane), and
+               spread (scan_general with the lane, on the scan path and a
+               general plan), and
                SchedulingGangsPlacement/1000Nodes_250Groups cut to 50 groups
                whose members hold hostPort 9000 (schedule_placements with the
                lane); the volume shapes at 5000 nodes with no zone label,
@@ -181,9 +185,9 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                every pod bound on the device, no node past its limit; and the
                attach-limit cuts (1000 nodes allowing 2, 100 init pods, then
                1950 pods: every node filled, the rest unschedulable by
-               NodeVolumeLimits) at max_batch 1024 (the lap), 64
-               (scan_schedule) and 64 with a zone spread over 10 zones
-               (scan_general), each with the lane on every dispatch;
+               NodeVolumeLimits) at max_batch 1024 (the lap), 64 (the
+               scan path) and 64 with a zone spread over 10 zones (both
+               scan_general), each with the lane on every dispatch;
                under a mesh of 4 shards on one card (one device repeated,
                make_mesh(devices=[cuda:0] * 4)): SchedulingBasic/5000Nodes_10000Pods,
                pod for pod as the unsharded run, through the sharded lap
@@ -201,13 +205,14 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                launches seen, the count kept in the row), its wrapper's wall
                time per call (host work included) and its plain version's,
                from CUDA events, beside the least time the card could take
-               for what the run's data needs; the three schedule kernels
+               for what the run's data needs; the schedule kernels
                also with a random nominated-pod lane on the same inputs, and
                the lap on the nominated-lane drive's own session with and
                without its lane;
                scan_general also on PreferredTopologySpreading's and
-               SchedulingPodAffinity's next batch, and on scan_schedule's
-               own inputs (it must agree exactly); dry_run_preemption on Unschedulable's own dry-run
+               SchedulingPodAffinity's next batch, and on the scan path's
+               row-local plan (SchedulingBasic's next batch at 64 steps,
+               its `row_local` entry); dry_run_preemption on Unschedulable's own dry-run
                inputs (a churn pod against the 10000 bound pods); and
                scatter_rows at the preempting case's rows per flush, with
                index_copy_ per field (a library call) beside it;
@@ -218,7 +223,7 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                the placement drive's first group cycle (its 64 lanes and
                plan), its bound summed over the real lanes; whatif_score on
                the rebalance drive's first what-if batch (no library call
-               computes it); the four schedule kernels with the blocked lane
+               computes it); the three schedule kernels with the blocked lane
                on their own drives' first dispatch (the `blocked` entry of
                each row); and with the aux lane (the `aux` entry): the lap on
                SchedulingCSIPVs' first full measured batch, the scans on
@@ -258,7 +263,7 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                counters equal; the rebalance drive cut to REBAL_PARITY (1000
                nodes, 400 pods, at most 5 ticks): planned intents, eviction
                ledger, counters and final bindings equal; the host-port cuts
-               (scan_schedule, scan_general), the port gangs,
+               (the scan path, a zone spread), the port gangs,
                SchedulingWhileGated/1Node_10GatedPods and a 1000-node cut
                whose odd nodes alone declare the feature the pods require:
                bindings, failure and queue counts equal; the three
@@ -425,7 +430,8 @@ def max_abs_err(a, b) -> int:
 
 def compare(K, st, ft, strategies=(0, 1)) -> dict:
     """Largest kernel-vs-plain difference of each fit-only kernel on one
-    input, over the fit strategies, fresh and chained through the carry."""
+    input (the lap at 1024 steps, scan_general on the scan path's 64), over
+    the fit strategies, fresh and chained through the carry."""
     errs = {}
     for strat in strategies:
         m_k, m_p = K.static_masks(st, ft), K._static_masks_plain(st, ft)
@@ -434,12 +440,17 @@ def compare(K, st, ft, strategies=(0, 1)) -> dict:
         r_k, r_p = K.resource_eval(*r_args), K._resource_eval_plain(*r_args)
         errs["resource_eval"] = max(errs.get("resource_eval", 0), max_abs_err(r_k, r_p))
         ext0 = K.fresh_carry(st, ft, ft.dns_counts.shape[1], r_p)
-        for name, B, wrap, plain in (("lap_schedule", 1024, K.lap_schedule, K._lap_schedule_plain),
-                                     ("scan_schedule", 64, K.scan_schedule, K._scan_schedule_plain)):
+        facts = K.PlanFacts()  # row-local: the lap at 1024 steps, the scan path at 64
+        for name, wrap, plain in (
+                ("lap_schedule", lambda c: K.lap_schedule(st, ft, 1024, strat, c, m_p.static_ok,
+                                                          1024),
+                 lambda c: K._lap_schedule_plain(st, ft, 1024, strat, c, m_p.static_ok, 1024)),
+                ("scan_general", lambda c: K.scan_general(st, ft, 64, strat, c, m_p, 64, facts),
+                 lambda c: K._scan_general_plain(st, ft, 64, strat, c, m_p, 64, facts))):
             ck = cp = ext0
             for _chain in range(2):  # fresh, then chained through the carry
-                o_k, ck = wrap(st, ft, B, strat, ck, m_p.static_ok, B)
-                o_p, cp = plain(st, ft, B, strat, cp, m_p.static_ok, B)
+                o_k, ck = wrap(ck)
+                o_p, cp = plain(cp)
                 errs[name] = max(errs.get(name, 0),
                                  max_abs_err((o_k,) + tuple(ck), (o_p,) + tuple(cp)))
         torch.cuda.synchronize()
@@ -737,8 +748,9 @@ def general_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
 
 
 def lane_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
-    """The three schedule kernels with a live nominated-pod lane, both fit
-    strategies, fresh and chained."""
+    """The schedule kernels with a live nominated-pod lane (the lap, and
+    scan_general on the scan path and a spread plan), both fit strategies,
+    fresh and chained."""
     from kubernetes_tpu_torch.testing.kernel_inputs import (general_inputs, nominated_lane,
                                                             random_inputs, with_nominated_lane)
 
@@ -747,7 +759,8 @@ def lane_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
     lane = compare(K, st, ft)
     s, f, facts = general_inputs(401, np_cap, n_nodes, vmax=64, dns=1)
     st, ft = to_device(dev, s, with_nominated_lane(f, nominated_lane(401, np_cap, n_nodes)))
-    lane["scan_general"], placed = compare_general(K, st, ft, K.PlanFacts(**facts), 64)
+    e, placed = compare_general(K, st, ft, K.PlanFacts(**facts), 64)
+    lane["scan_general"] = max(lane["scan_general"], e)
     check(placed > 0, "the nominated-lane scan_general draw placed nothing")
     print(f"schedule kernels with a nominated-pod lane vs plain: max_abs_err {lane}", flush=True)
     for name, e in lane.items():
@@ -838,26 +851,41 @@ def patch_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
 def placement_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
     """schedule_placements against its plain version: P = 1, 16 and 64
     lanes (a multi-lane draw has an empty padded lane, a one-row lane, a
-    100-row lane and an every-row lane), no spread table, the plan's shared
-    tables and per-lane overrides, at V = 64 and 8192, both fit strategies,
-    no active member and a gang of 4; the inputs left unchanged. Some lane
-    must place only part of its gang (PlacementFeasible decides there)."""
+    100-row lane and an every-row lane, which also marks the rows past
+    num_nodes), no spread table, the plan's shared tables and per-lane
+    overrides, at V = 64 and 8192, both fit strategies, no active member
+    and a gang of 4; then P = 4 at NP 20000 (a gang of 4, one strategy), the
+    every-row lane 19990 rows, past a lane's on-chip tier (carried and
+    normalized plans). The inputs left unchanged. Some lane must place only
+    part of its gang (PlacementFeasible decides there)."""
     from kubernetes_tpu_torch.testing.kernel_inputs import placement_inputs
 
+    big_np, big_n = LAP_ABOVE_TIER
     partial = placed = cases = 0
-    for lanes in (1, 16, 64):
-        for vmax, tables in ((64, {}), (64, dict(dns=1, sa=1)),
-                             (64, dict(dns=1, sa=1, overrides=True)),
-                             (8192, dict(dns=2, sa=1)), (8192, dict(dns=1, sa=2, overrides=True))):
-            s, f, facts, masks, ov = placement_inputs(900 + lanes + vmax + len(tables), np_cap,
-                                                      n_nodes, lanes, vmax=vmax, **tables)
+    for lanes, cap, live, draws in (
+            *[(lanes, np_cap, n_nodes, ((64, {}), (64, dict(dns=1, sa=1)),
+                                        (64, dict(dns=1, sa=1, overrides=True)),
+                                        (8192, dict(dns=2, sa=1)),
+                                        (8192, dict(dns=1, sa=2, overrides=True))))
+              for lanes in (1, 16, 64)],
+            (4, big_np, big_n, ((64, {}), (64, dict(dns=1, sa=1, overrides=True))))):
+        for vmax, tables in draws:
+            s, f, facts, masks, ov = placement_inputs(900 + lanes + vmax + len(tables), cap,
+                                                      live, lanes, vmax=vmax, **tables)
+            masks[-1, live:] = True
             st, ft = to_device(dev, s, f)
+            if cap == big_np:
+                _inc, carried = K.plan_modes(ft, K.PlanFacts(**facts))
+                check(K._placement_lane_bytes(live, ft.dns_counts.shape[1], ft.dns_axis.shape[0],
+                                              ft.sa_axis.shape[0], carried)
+                      > K.PLACEMENT_SMEM_MAX, "the NP 20000 placement lane fits on chip")
             m = torch.from_numpy(masks).to(dev)
             t_ov = None if ov is None else tuple(torch.from_numpy(a).to(dev) for a in ov)
             inputs = list(st) + list(ft) + [m] + list(t_ov or ())
             before = [t.clone() for t in inputs]
-            for strat in (0, 1):
-                for n_act in (0, 4):
+            deep = cap == np_cap  # the plain version walks the big lanes' 19990 rows slowly
+            for strat in (0, 1) if deep else (1,):
+                for n_act in (0, 4) if deep else (4,):
                     args = (st, ft, 8, strat, vmax, K.PlanFacts(**facts), m, n_act, t_ov)
                     got, want = K.schedule_placements(*args), K._schedule_placements_plain(*args)
                     e = max_abs_err((got,), (want,))
@@ -1243,17 +1271,21 @@ def nsselector_drive(dev, n_nodes: int = 6000, resume: bool = True, init_only: b
     return sched, result, launches, init_plans
 
 
-def gang_drive(dev, n_groups: int = 250, n_nodes: int = 1000):
+def gang_drive(dev, n_groups: int = 250, n_nodes: int = 1000, capture=None, max_batch=None):
     """SchedulingGangs/1000Nodes_250Groups: 1000 nodes over 10 zones, then
     n_groups pod groups of 4 500m/256Mi members, each created before its
     members: every pod bound by gang device sessions, none on the host
-    path. Launch counts zeroed just before the groups."""
+    path. Launch counts zeroed just before the groups. Its sessions take
+    the lap at the default max_batch and the scan path at 64; `capture`
+    receives the first dispatch on the scan path (capture_first_dispatch)."""
     from kubernetes_tpu_torch import bench
     from kubernetes_tpu_torch.ops import kernel as K
 
     w = bench.WORKLOADS[GANGS]
-    sched = bench.build_cluster(n_nodes, device=dev, node=w.node)
+    sched = bench.build_cluster(n_nodes, device=dev, node=w.node, max_batch=max_batch)
     bench.warm(sched, 0, GANGS)
+    if capture is not None:
+        capture_first_dispatch(sched, capture, path="scan")
     flushes0 = sched.mirror.scatter_flushes
     K.reset_launch_counts()
     result = bench.measure(sched, 4 * n_groups, workload=GANGS)
@@ -1268,8 +1300,8 @@ def gang_drive(dev, n_groups: int = 250, n_nodes: int = 1000):
           f"{GANGS}: host_path_pods {d['host_path_pods']}, failures {d['failures']}, "
           f"device_scheduled {d['device_scheduled']}")
     if torch.device(dev).type == "cuda":
-        check(launches["lap_schedule"] + launches["scan_schedule"] > 0,
-              f"neither the lap nor scan_schedule was launched on the {GANGS} path")
+        check(launches["lap_schedule"] + launches["scan_general"] > 0,
+              f"neither the lap nor scan_general was launched on the {GANGS} path")
     return sched, result, launches
 
 
@@ -1444,7 +1476,7 @@ def paths_phase(dev) -> dict:
           f"launches {small_launches}", flush=True)
     check(len(small.clientset.bindings) == 40 and small.host_path_pods == 0,
           "small-batch drive did not bind every pod on the device")
-    for k in ("static_masks", "resource_eval", "scan_schedule"):
+    for k in ("static_masks", "resource_eval", "scan_general"):
         check(small_launches[k] > 0, f"{k} was not launched on the small-batch path")
     out["SchedulingBasic small batch (max_batch 64)"] = (small, None, small_launches)
 
@@ -1585,6 +1617,74 @@ def general_cost(f, facts, K, n_act: int, rows=None):
     return n_act * step_bytes, n_act * (NP * ops_row + C1 * V)
 
 
+def scan_path_inputs(dev) -> dict:
+    """Every input of the scan path (the reference's scan step for a
+    row-local plan of at most 64 steps), by name: SchedulingBasic's next
+    batch at 64 steps (NP 8192), the same with a random nominated-pod
+    lane, the blocked and aux_cnt lanes' seeded draws (NP 8192, a third of
+    the rows pre-blocked; an attach room of 0 to 3), the first batch of
+    the host-port and attach-limit cuts (1000 nodes, max_batch 64), and
+    the first scan dispatch of SchedulingGangs/1000Nodes_250Groups at
+    max_batch 64 (at the default its sessions take the lap). Each is
+    (state, features, facts, fit strategy, steps, active pods, carry or
+    None for a fresh one, vmax), its tensors on the CPU."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.ops import kernel as K
+    from kubernetes_tpu_torch.testing.kernel_inputs import (aux_lane, general_inputs,
+                                                            nominated_lane, with_aux_lane)
+
+    def cpu(ts):
+        return None if ts is None else [t.detach().to("cpu").clone() for t in ts]
+
+    def entry(st, ft, facts, strat, B, n_act, carry, vmax):
+        check(K.plan_path(ft, facts, B) == "scan", "a scan-path input whose plan is not row-local")
+        return dict(state=cpu(st), feats=cpu(ft), facts=facts._asdict(), strat=strat, B=B,
+                    n_act=int(n_act), carry=cpu(carry), vmax=vmax)
+
+    out = {}
+    sched = drive(dev, BASIC)[0]
+    pod = bench.make_pods(1, "timed")[0]
+    st, plan = sched.build_plan(sched.framework_for_pod(pod), pod, sched.max_batch)
+    ft = plan.features
+    out["SchedulingBasic next batch, 64 steps"] = entry(st, ft, plan.facts, plan.fit_strategy, 64,
+                                                        64, None, plan.vmax)
+    NP, R = st.alloc_r.shape
+    nom_req, nom_pods = nominated_lane(700, NP, int(st.valid.sum()), R)
+    ft_l = ft._replace(nom_req=torch.from_numpy(nom_req), nom_pods=torch.from_numpy(nom_pods))
+    out["SchedulingBasic next batch, 64 steps, nominated lane"] = entry(
+        st, ft_l, plan.facts, plan.fit_strategy, 64, 64, None, plan.vmax)
+    np_cap = NP
+    s, f, facts = general_inputs(1102, np_cap, 5000, vmax=64)
+    st, ft = to_device("cpu", s, f)
+    fit = K._resource_eval_plain(ft, 0, st.alloc_r, st.alloc_pods, st.req_r, st.nonzero,
+                                 st.pod_count)
+    gen = torch.Generator().manual_seed(1100)
+    carry = K.fresh_carry(st, ft, 64, fit)._replace(
+        blocked=torch.rand(np_cap, generator=gen) < 0.3)
+    out["blocked lane, seeded draw (NP 8192, a third blocked)"] = entry(
+        st, ft, K.PlanFacts(**dict(facts, port_selfblock=True)), 0, 64, 60, carry, 64)
+    s, f, facts = general_inputs(1202, np_cap, 5000, vmax=64)
+    room, inc, cnt = aux_lane(1202, np_cap, 5000)
+    st, ft = to_device("cpu", s, with_aux_lane(f, room, inc))
+    fit = K._resource_eval_plain(ft, 0, st.alloc_r, st.alloc_pods, st.req_r, st.nonzero,
+                                 st.pod_count)
+    carry = K.fresh_carry(st, ft, 64, fit)._replace(aux_cnt=torch.from_numpy(cnt))
+    out["aux lane, seeded draw (NP 8192)"] = entry(
+        st, ft, K.PlanFacts(**dict(facts, has_aux=True)), 0, 64, 60, carry, 64)
+    for name, run in ((PORT_SCAN, lambda c: port_cut(dev, capture=c)),
+                      (AUX_SCAN, lambda c: aux_cut(dev, max_batch=64, capture=c)),
+                      (f"{GANGS} at max_batch 64",
+                       lambda c: gang_drive(dev, capture=c, max_batch=64))):
+        cap = {}
+        run(cap)
+        check(cap, f"{name}: no scan-path dispatch captured")
+        p = cap["plan"]
+        out[f"{name}, first scan batch"] = entry(cap["state"], p.features, p.facts,
+                                                 p.fit_strategy, p.batch_pad, cap["n_act"],
+                                                 cap["carry"], p.vmax)
+    return out
+
+
 def timing_phase(paths: dict, errs: dict, lane_inputs) -> dict:
     """Each kernel and its plain version timed on its main path's own
     inputs: the next batch's device state and features of the path's
@@ -1629,10 +1729,6 @@ def timing_phase(paths: dict, errs: dict, lane_inputs) -> dict:
                                                        1024),
                          NP * (16 * R + 37) + NP * (8 * R + 37) + 8 * 1024,
                          laps * (NP * pass_ops + K.LAP_MAX * row_ops) + NP * row_ops),
-        "scan_schedule": (lambda: K.scan_schedule(st, ft, 64, strat, ext0, static_ok, 64),
-                          lambda: K._scan_schedule_plain(st, ft, 64, strat, ext0, static_ok, 64),
-                          NP * (16 * R + 54) + NP * (8 * R + 37) + 8 * 64,
-                          64 * NP * 16 + NP * 24 + 64 * row_ops),
     }
     # scan_general on the main path's next batch: 1024 spread pods after
     # the 6000 of the TopologySpreading run.
@@ -1657,7 +1753,6 @@ def timing_phase(paths: dict, errs: dict, lane_inputs) -> dict:
     replaces = {"static_masks": "kubernetes_tpu/ops/kernel.py:106",
                 "resource_eval": "kubernetes_tpu/ops/kernel.py:160",
                 "lap_schedule": "kubernetes_tpu/ops/kernel.py:799",
-                "scan_schedule": "kubernetes_tpu/ops/kernel.py:343",
                 "scan_general": "kubernetes_tpu/ops/kernel.py:314"}
     rows = {}
     for kname, (k_fn, p_fn, nbytes, ops) in calls.items():
@@ -1668,8 +1763,22 @@ def timing_phase(paths: dict, errs: dict, lane_inputs) -> dict:
     rows["lap_schedule"]["us_a_lap"] = rows["lap_schedule"]["ms"] * 1e3 / laps
     rows["scan_general"]["steps"] = gB
     rows["scan_general"]["inputs"] = general_inputs_timing(paths, name, rows["scan_general"])
-    # The three schedule kernels with a nominated-pod lane on the same
-    # inputs (held exact for the lap and scan_schedule here too).
+    # scan_general on the scan path's row-local plan (the reference's scan
+    # step at 64 steps): SchedulingBasic's next batch, held exact first.
+    masks = K._static_masks_plain(st, ft)
+    local = (lambda: K.scan_general(st, ft, 64, strat, ext0, masks, 64, plan.facts),
+             lambda: K._scan_general_plain(st, ft, 64, strat, ext0, masks, 64, plan.facts))
+    check(K.plan_path(ft, plan.facts, 64) == "scan", "SchedulingBasic's plan is not row-local")
+    (o_k, c_k), (o_p, c_p) = local[0](), local[1]()
+    check(max_abs_err((o_k,) + tuple(c_k), (o_p,) + tuple(c_p)) == 0,
+          "scan_general disagrees with its plain version on the scan path's plan")
+    case = kernel_row("scan_general", "", errs["scan_general"], *local,
+                      NP * (16 * R + 54) + NP * (8 * R + 37) + 8 * 64,
+                      64 * NP * 16 + NP * 24 + 64 * row_ops)
+    rows["scan_general"]["row_local"] = {k: case[k] for k in (
+        "ms", "ms_launches_seen", "host_ms", "plain_ms", "bound_ms", "bound_by", "bytes", "ops")}
+    # The schedule kernels with a nominated-pod lane on the same inputs
+    # (held exact for the lap and the row-local scan here too).
     from kubernetes_tpu_torch.testing.kernel_inputs import nominated_lane
 
     def with_lane(f):
@@ -1682,9 +1791,9 @@ def timing_phase(paths: dict, errs: dict, lane_inputs) -> dict:
         "lap_schedule": (lambda: K.lap_schedule(st, ft_l, 1024, strat, ext0, static_ok, 1024),
                          lambda: K._lap_schedule_plain(st, ft_l, 1024, strat, ext0, static_ok,
                                                        1024)),
-        "scan_schedule": (lambda: K.scan_schedule(st, ft_l, 64, strat, ext0, static_ok, 64),
-                          lambda: K._scan_schedule_plain(st, ft_l, 64, strat, ext0, static_ok,
-                                                         64)),
+        "row_local": (lambda: K.scan_general(st, ft_l, 64, strat, ext0, masks, 64, plan.facts),
+                      lambda: K._scan_general_plain(st, ft_l, 64, strat, ext0, masks, 64,
+                                                    plan.facts)),
         "scan_general": (lambda: K.scan_general(gst, gf_l, gB, gplan.fit_strategy, gext0, gmasks,
                                                 gB, facts), None),
     }
@@ -1693,7 +1802,9 @@ def timing_phase(paths: dict, errs: dict, lane_inputs) -> dict:
             (o_k, c_k), (o_p, c_p) = k_fn(), p_fn()
             check(max_abs_err((o_k,) + tuple(c_k), (o_p,) + tuple(c_p)) == 0,
                   f"{kname} with the nominated lane disagrees with its plain version")
-        rows[kname]["ms_lane"], rows[kname]["ms_lane_launches_seen"] = device_ms(k_fn, kname)
+        row = rows["scan_general"]["row_local"] if kname == "row_local" else rows[kname]
+        row["ms_lane"], row["ms_lane_launches_seen"] = device_ms(
+            k_fn, "scan_general" if kname == "row_local" else kname)
     # The lap on the nominated-lane drive's session: its nominations keep
     # the pods off the nominated rows, so only the freed rows take them;
     # without the lane the same call lands every pod.
@@ -1724,20 +1835,11 @@ def timing_phase(paths: dict, errs: dict, lane_inputs) -> dict:
           + ", ".join(f"{r['ms']:.4f} ms on the device {what.replace('_', ' ')} "
                       f"({r['placed']} placed, {r['laps']} laps, {r['us_a_lap']:.2f} us a lap)"
                       for what, r in lane_rows.items()), flush=True)
-    # scan_general on scan_schedule's own inputs: the plan scan_schedule
-    # takes (incremental feasibility, carried score, no table) is one of
-    # scan_general's modes, so the two must agree there exactly.
-    masks = K._static_masks_plain(st, ft)
-    o_s, c_s = K.scan_schedule(st, ft, 64, strat, ext0, static_ok, 64)
-    o_g, c_g = K.scan_general(st, ft, 64, strat, ext0, masks, 64, plan.facts)
-    check(max_abs_err((o_s,) + tuple(c_s), (o_g,) + tuple(c_g)) == 0,
-          "scan_general disagrees with scan_schedule on scan_schedule's plan")
-    g_ms, _seen = device_ms(
-        lambda: K.scan_general(st, ft, 64, strat, ext0, masks, 64, plan.facts), "scan_general")
-    rows["scan_schedule"]["scan_general_ms_same_inputs"] = g_ms
-    print(f"scan_schedule's plan (64 steps, NP {NP}): scan_schedule "
-          f"{rows['scan_schedule']['ms']:.4f} ms on the device, scan_general {g_ms:.4f} ms, "
-          "identical results", flush=True)
+    loc = rows["scan_general"]["row_local"]
+    print(f"scan_general on the scan path's row-local plan (64 steps, NP {NP}): "
+          f"{loc['ms']:.4f} ms on the device ({loc['ms_lane']:.4f} with a nominated lane), "
+          f"{loc['host_ms']:.4f} ms a call, plain {loc['plain_ms']:.3f} ms, bound "
+          f"{loc['bound_ms']:.6f} ms ({loc['bound_by']})", flush=True)
     print(f"kernel times on the main paths' inputs (NP {NP}, R {R}, T {T}, L {L}, "
           f"{laps} laps per 1024-pod batch; scan_general {gB} steps, V {gplan.vmax}): "
           + ", ".join(f"{n} {r['ms']:.4f} ms on the device"
@@ -2269,7 +2371,7 @@ PORT_GANGS = f"{PLACE1K} cut to 50 groups, members holding hostPort 9000"
 
 
 def blocked_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
-    """The four schedule kernels with port_selfblock against their plain
+    """The three schedule kernels with port_selfblock against their plain
     versions: a random third of the carry's rows blocked before the first
     batch, both fit strategies, fresh and chained, padded steps; draws
     whose batch outnumbers their feasible rows block every row and leave
@@ -2293,8 +2395,8 @@ def blocked_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
     for case, kname, draw, cap, live, B, n_act in (
             ("lap", "lap_schedule", dict(), np_cap, n_nodes, 1024, 1000),
             ("lap, every row blocked", "lap_schedule", dict(), 128, 100, 256, 256),
-            ("scan", "scan_schedule", dict(), np_cap, n_nodes, 64, 60),
-            ("scan, every row blocked", "scan_schedule", dict(), 64, 40, 64, 64),
+            ("scan", "scan_general", dict(), np_cap, n_nodes, 64, 60),
+            ("scan, every row blocked", "scan_general", dict(), 64, 40, 64, 64),
             ("scan_general, zone spread", "scan_general", dict(dns=1), np_cap, n_nodes, 64, 60),
             ("scan_general, soft spread", "scan_general", dict(sa=1, pns=True), np_cap, n_nodes,
              64, 64),
@@ -2311,10 +2413,9 @@ def blocked_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
                     o_k, ck = K.scan_general(st, ft, B, strat, ck, masks, n_act, facts)
                     o_p, cp = K._scan_general_plain(st, ft, B, strat, cp, masks, n_act, facts)
                 else:
-                    wrap = K.lap_schedule if kname == "lap_schedule" else K.scan_schedule
-                    plain = getattr(K, f"_{kname}_plain")
-                    o_k, ck = wrap(st, ft, B, strat, ck, masks.static_ok, n_act, True)
-                    o_p, cp = plain(st, ft, B, strat, cp, masks.static_ok, n_act, True)
+                    o_k, ck = K.lap_schedule(st, ft, B, strat, ck, masks.static_ok, n_act, True)
+                    o_p, cp = K._lap_schedule_plain(st, ft, B, strat, cp, masks.static_ok, n_act,
+                                                    True)
                 err = max(err, max_abs_err((o_k,) + tuple(ck), (o_p,) + tuple(cp)))
                 placed += int((o_p[0] >= 0).sum())
             if "every row" in case:
@@ -2363,15 +2464,17 @@ def blocked_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
           flush=True)
 
 
-def capture_first_dispatch(sched, capture: dict) -> None:
+def capture_first_dispatch(sched, capture: dict, path=None) -> None:
     """Record the device state (a copy), plan, active pods and carry of
-    `sched`'s first dispatch into `capture`."""
+    `sched`'s first dispatch (with `path`: its first with active pods
+    whose plan takes that reference path, K.plan_path) into `capture`."""
     from kubernetes_tpu_torch.ops import kernel as K
 
     dispatch = sched._dispatch
 
     def first(state, plan, n_active, carry):
-        if not capture:
+        if not capture and (path is None or (n_active and K.plan_path(
+                plan.features, plan.facts, plan.batch_pad) == path)):
             capture.update(state=K.DeviceNodeState(*[t.clone() for t in state]), plan=plan,
                            n_act=n_active, carry=carry)
         return dispatch(state, plan, n_active, carry)
@@ -2476,8 +2579,8 @@ def hostport_drive(dev, capture=None):
 def port_cut(dev, spread: bool = False, n_nodes: int = 1000, n_init: int = 200,
              n_pods: int = 600, capture=None):
     """The host-port drive cut to `n_nodes` nodes, `n_init` bound port
-    holders and `n_pods` agent pods at max_batch 64 (scan_schedule), or
-    with a zone spread on the agent pods (scan_general). Launch counts
+    holders and `n_pods` agent pods at max_batch 64 (the scan path), or
+    with a zone spread on the agent pods, both on scan_general. Launch counts
     zeroed before the agent pods."""
     from kubernetes_tpu_torch import bench
     from kubernetes_tpu_torch.ops import kernel as K
@@ -2500,7 +2603,7 @@ def port_cut(dev, spread: bool = False, n_nodes: int = 1000, n_init: int = 200,
     nodes = [p.node_name for p in sched.clientset.pods.values() if p.node_name]
     check(len(nodes) == len(set(nodes)) == n_init + n_pods,
           f"host-port cut ({dev}, spread {spread}): {len(nodes)} bound on {len(set(nodes))} nodes")
-    kernel = "scan_general" if spread else "scan_schedule"
+    kernel = "scan_general"
     check(torch.device(dev).type == "cpu" or launches[kernel] > 0,
           f"host-port cut: {kernel} was not launched")
     return sched, None, launches
@@ -2632,53 +2735,47 @@ def slice7_parity(dev, paths: dict) -> None:
 
 
 def lane_timing(rows: dict, caps: dict, errs: dict, lane: str, drives) -> None:
-    """The lap, scan_schedule and scan_general with a row-local lane
-    ("blocked": a host-port plan, "aux": an attach-limited one) on their
-    own drives' first captured dispatch, held exact first: the `lane` entry
-    of each kernel's row, with its bound (the lane's bytes a row added)."""
+    """The lap and scan_general (on the scan path's row-local plan and on a
+    general plan) with a row-local lane ("blocked": a host-port plan,
+    "aux": an attach-limited one) on their own drives' first captured
+    dispatch, held exact first: the `lane` entry of the lap's row and the
+    `lane` and `<lane>_row_local` entries of scan_general's, with their
+    bound (the lane's bytes a row added)."""
     from kubernetes_tpu_torch.ops import kernel as K
 
     ports, aux = lane == "blocked", lane == "aux"
     lane_bytes = 2 if ports else 12  # the blocked flag read and written; aux_cnt, aux_room
-    for kname, what in zip(("lap_schedule", "scan_schedule", "scan_general"), drives):
-        cap = caps[{"lap_schedule": "lap", "scan_schedule": "scan",
-                    "scan_general": "general"}[kname]]
+    for path, what in zip(("lap", "scan", "general"), drives):
+        kname = "lap_schedule" if path == "lap" else "scan_general"
+        cap = caps[path]
         check(cap, f"{what}: no dispatch captured")
         st, plan, n_act = cap["state"], cap["plan"], cap["n_act"]
         ft, strat, B, facts = plan.features, plan.fit_strategy, plan.batch_pad, plan.facts
-        path = {"lap_schedule": "lap", "scan_schedule": "scan", "scan_general": "general"}[kname]
         check((facts.port_selfblock if ports else facts.has_aux)
               and K.plan_path(ft, facts, B) == path,
-              f"{what}: the captured plan does not take {kname} with the {lane} lane")
+              f"{what}: the captured plan does not take the {path} path with the {lane} lane")
         masks = K._static_masks_plain(st, ft)
         ext0 = cap["carry"] or K.fresh_carry(st, ft, plan.vmax, K._resource_eval_plain(
             ft, strat, st.alloc_r, st.alloc_pods, st.req_r, st.nonzero, st.pod_count))
         NP, R = st.alloc_r.shape
         FR = ft.fit_slots.shape[0]
         row_ops = 4 * R + 12 * FR + 24
+        extra = {}
         if kname == "scan_general":
             k_fn = lambda: K.scan_general(st, ft, B, strat, ext0, masks, n_act, facts)  # noqa
             p_fn = lambda: K._scan_general_plain(st, ft, B, strat, ext0, masks, n_act, facts)  # noqa
             nbytes, ops = general_cost(ft, facts, K, n_act)
             nbytes += lane_bytes * NP
-            extra = {}
         else:
-            wrap = K.lap_schedule if kname == "lap_schedule" else K.scan_schedule
-            plain = getattr(K, f"_{kname}_plain")
-            k_fn = lambda: wrap(st, ft, B, strat, ext0, masks.static_ok, n_act, ports, aux)  # noqa
-            p_fn = lambda: plain(st, ft, B, strat, ext0, masks.static_ok, n_act, ports, aux)  # noqa
-            pass_ops = 24 + 2 * aux  # the room test a row
-            if kname == "lap_schedule":
-                stats = {}
-                plain(st, ft, B, strat, ext0, masks.static_ok, n_act, ports, aux, stats=stats)
-                laps = stats["laps"]
-                nbytes = NP * (16 * R + 37) + NP * (8 * R + 37) + 8 * B + lane_bytes * NP
-                ops = laps * (NP * pass_ops + K.LAP_MAX * row_ops) + NP * row_ops
-                extra = dict(laps=laps)
-            else:
-                nbytes = NP * (16 * R + 54) + NP * (8 * R + 37) + 8 * B + lane_bytes * NP
-                ops = n_act * NP * 16 + NP * pass_ops + n_act * row_ops
-                extra = {}
+            args = (st, ft, B, strat, ext0, masks.static_ok, n_act, ports, aux)
+            k_fn = lambda: K.lap_schedule(*args)  # noqa
+            p_fn = lambda: K._lap_schedule_plain(*args)  # noqa
+            stats = {}
+            K._lap_schedule_plain(*args, stats=stats)
+            laps = stats["laps"]
+            nbytes = NP * (16 * R + 37) + NP * (8 * R + 37) + 8 * B + lane_bytes * NP
+            ops = laps * (NP * (24 + 2 * aux) + K.LAP_MAX * row_ops) + NP * row_ops
+            extra = dict(laps=laps)
         (o_k, c_k), (o_p, c_p) = k_fn(), p_fn()
         check(max_abs_err((o_k,) + tuple(c_k), (o_p,) + tuple(c_p)) == 0,
               f"{kname} with the {lane} lane disagrees with its plain version on the {what}")
@@ -2690,8 +2787,9 @@ def lane_timing(rows: dict, caps: dict, errs: dict, lane: str, drives) -> None:
         if extra:
             extra["us_a_lap"] = case["ms"] * 1e3 / extra["laps"]
         case.update(drive=what, pods=n_act, steps=B, placed=int((o_p[0] >= 0).sum()), **extra)
-        rows[kname][lane] = case
-        print(f"{kname} with the {lane} lane on the {what}'s first batch ({n_act} pods"
+        rows[kname][f"{lane}_row_local" if path == "scan" else lane] = case
+        print(f"{kname} ({path} path) with the {lane} lane on the {what}'s first batch "
+              f"({n_act} pods"
               + (f", {extra['laps']} laps, {extra['us_a_lap']:.2f} us a lap" if extra else "")
               + f", NP {NP}): {case['ms']:.4f} ms "
               f"on the device, {case['host_ms']:.4f} ms a call, plain {case['plain_ms']:.3f} ms, "
@@ -2700,7 +2798,7 @@ def lane_timing(rows: dict, caps: dict, errs: dict, lane: str, drives) -> None:
 
 def blocked_timing(rows: dict, caps: dict, errs: dict) -> None:
     """Each schedule kernel with the blocked lane on its own drive's first
-    dispatch (the host-port drive for the lap, its cuts for the scans, the
+    dispatch (the host-port drive for the lap, its cuts for scan_general, the
     port gangs' first group cycle for the placements), held exact first:
     the `blocked` entry of the kernel's row, with its bound."""
     from kubernetes_tpu_torch.ops import kernel as K
@@ -2730,7 +2828,7 @@ def blocked_timing(rows: dict, caps: dict, errs: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Volumes: the aux_cnt lane of the four schedule kernels (phases 2, 3, 4, 5)
+# Volumes: the aux_cnt lane of the three schedule kernels (phases 2, 3, 4, 5)
 # ---------------------------------------------------------------------------
 
 CSIPVS = "SchedulingCSIPVs/5000Nodes_5000Pods"
@@ -2743,7 +2841,7 @@ WFFC = "WaitForFirstConsumer claims at 500 nodes, 200 pods"
 
 
 def aux_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
-    """The four schedule kernels with has_aux against their plain versions:
+    """The three schedule kernels with has_aux against their plain versions:
     an attach room of 0 to 3 a row (some rows unlimited), an increment of 1
     or 2, the carry's aux_cnt drawn (strategy 0) or zero (strategy 1),
     fresh and chained, padded steps; draws whose batch outnumbers their
@@ -2761,8 +2859,8 @@ def aux_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
     for case, kname, draw, cap, live, B, n_act in (
             ("lap", "lap_schedule", dict(), np_cap, n_nodes, 1024, 1000),
             ("lap, more pods than room", "lap_schedule", dict(), 128, 100, 512, 512),
-            ("scan", "scan_schedule", dict(), np_cap, n_nodes, 64, 60),
-            ("scan, more pods than room", "scan_schedule", dict(), 64, 40, 64, 64),
+            ("scan", "scan_general", dict(), np_cap, n_nodes, 64, 60),
+            ("scan, more pods than room", "scan_general", dict(), 64, 40, 64, 64),
             ("scan_general, zone spread", "scan_general", dict(dns=1), np_cap, n_nodes, 64, 60),
             ("scan_general, soft spread", "scan_general", dict(sa=1, pns=True), np_cap, n_nodes,
              64, 64),
@@ -2784,10 +2882,10 @@ def aux_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
                     o_k, ck = K.scan_general(st, ft, B, strat, ck, masks, n_act, facts)
                     o_p, cp = K._scan_general_plain(st, ft, B, strat, cp, masks, n_act, facts)
                 else:
-                    wrap = K.lap_schedule if kname == "lap_schedule" else K.scan_schedule
-                    plain = getattr(K, f"_{kname}_plain")
-                    o_k, ck = wrap(st, ft, B, strat, ck, masks.static_ok, n_act, False, True)
-                    o_p, cp = plain(st, ft, B, strat, cp, masks.static_ok, n_act, False, True)
+                    o_k, ck = K.lap_schedule(st, ft, B, strat, ck, masks.static_ok, n_act,
+                                             False, True)
+                    o_p, cp = K._lap_schedule_plain(st, ft, B, strat, cp, masks.static_ok, n_act,
+                                                    False, True)
                 err = max(err, max_abs_err((o_k,) + tuple(ck), (o_p,) + tuple(cp)))
                 placed += int((o_p[0] >= 0).sum())
             if "room" in case:
@@ -2947,7 +3045,7 @@ def aux_cut(dev, max_batch=None, spread: bool = False, n_nodes: int = 1000, n_in
     check(stats["aux_dispatches"] == stats["dispatches"] > 0,
           f"attach-limit cut ({dev}): {stats['aux_dispatches']} of {stats['dispatches']} "
           "dispatches with the aux lane")
-    kernel = "scan_general" if spread else "scan_schedule" if max_batch else "lap_schedule"
+    kernel = "scan_general" if max_batch else "lap_schedule"
     check(torch.device(dev).type == "cpu" or launches[kernel] > 0,
           f"attach-limit cut: {kernel} was not launched")
     return sched, None, launches
@@ -3015,8 +3113,8 @@ def volume_parity(dev, paths: dict) -> None:
 
 def aux_timing(rows: dict, caps: dict, errs: dict) -> None:
     """Each schedule kernel with the aux lane: the lap on SchedulingCSIPVs'
-    first full measured batch, scan_schedule and scan_general on their
-    attach-limit cuts' first batch, schedule_placements (which no path
+    first full measured batch, scan_general on the attach-limit cuts'
+    first batch (the scan path and a zone spread), schedule_placements (which no path
     launches with the lane: volume members of a placement group take the
     host simulation) on a seeded draw at NP 8192 and 16 lanes; each held
     exact first: the `aux` entry of the kernel's row."""

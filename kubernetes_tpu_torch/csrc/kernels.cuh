@@ -1,7 +1,7 @@
 // Shared device code for the port's hand-written Hopper kernels: exact
 // floored integer division, the fit/score row evaluation that every kernel
-// inlines, and the single-block scan and reduction the persistent kernels
-// use. All arithmetic is int64/int32, matching the JAX package bit for bit.
+// inlines, and the landed-row helpers of the laps. All arithmetic is
+// int64/int32, matching the JAX package bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -9,12 +9,6 @@
 
 #include <climits>
 #include <cmath>
-
-// Block size of the single-CTA persistent kernels (lap_schedule,
-// scan_schedule). A power of two: the reductions below halve it.
-#ifndef KTT_BLOCK
-#define KTT_BLOCK 1024
-#endif
 
 #define LAP_MAX 32
 #define MAX_NODE_SCORE 100
@@ -191,38 +185,6 @@ __device__ __forceinline__ StaticRow static_row(const StaticFeat& s, int n) {
                 r.exist_anti_ok && s.extra_ok[n];
   r.pns_cnt = pns;
   return r;
-}
-
-// Inclusive prefix sum over the block (Hillis-Steele in shared memory);
-// every thread of the block must call it. sm holds blockDim.x ints.
-__device__ __forceinline__ int block_inclusive_scan(int v, int* sm) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  sm[tid] = v;
-  __syncthreads();
-  for (int off = 1; off < nt; off <<= 1) {
-    const int t = tid >= off ? sm[tid - off] : 0;
-    __syncthreads();
-    sm[tid] += t;
-    __syncthreads();
-  }
-  return sm[tid];
-}
-
-// Max of two int64 lanes over the block (tree in shared memory, blockDim.x
-// a power of two); the results are left in a[0] and b[0].
-__device__ __forceinline__ void block_max2(long long va, long long vb,
-                                          long long* a, long long* b) {
-  const int tid = threadIdx.x;
-  a[tid] = va;
-  b[tid] = vb;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      if (a[tid + s] > a[tid]) a[tid] = a[tid + s];
-      if (b[tid + s] > b[tid]) b[tid] = b[tid + s];
-    }
-    __syncthreads();
-  }
 }
 
 // The landed-row helpers of the persistent laps (lap_schedule.cu and

@@ -1,7 +1,7 @@
 // resource_eval: the JAX package's _resource_eval (ops/kernel.py:160-208)
 // over every node row — the fresh-carry seed of schedule_batch (:525-536).
-// The row function itself lives in kernels.cuh and is inlined into
-// lap_schedule and scan_schedule.
+// The row function itself lives in kernels.cuh and is inlined into the
+// schedule kernels.
 //
 // Bound: bytes. Each row reads its allocatable, requested and non-zero
 // vectors (~16 B per resource slot) and does a few dozen int64 operations;

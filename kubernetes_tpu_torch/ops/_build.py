@@ -32,9 +32,9 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "kernels")
-KERNELS = ("static_masks", "resource_eval", "lap_schedule", "scan_schedule", "scan_general",
-           "dry_run_preemption", "scatter_rows", "patch_carry_rows", "schedule_placements",
-           "whatif_score", "sharded_lap")
+KERNELS = ("static_masks", "resource_eval", "lap_schedule", "scan_general", "dry_run_preemption",
+           "scatter_rows", "patch_carry_rows", "schedule_placements", "whatif_score",
+           "sharded_lap")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 COMPILE_FLAGS = (ARCH, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # A source's own extra flags: the lap's 32 instantiations, the build's

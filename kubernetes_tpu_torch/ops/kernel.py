@@ -12,13 +12,12 @@ rescore, lives in ops/whatif.py and is counted and reset with these):
 - lap_schedule   <- _lap_schedule (:799-925): plans whose landings change
                     only their own row (fit-only, hostname anti-affinity),
                     batches of more than 64 steps;
-- scan_schedule  <- the schedule_batch scan step (:314-523) specialised to
-                    the row-local, carried-score plan with no count tables,
-                    batches of at most 64 steps;
 - scan_general   <- the schedule_batch scan step and feasibility_proj
                     (:314-523) with its prologue (:545-575) for every other
                     plan: spread and affinity count tables, kept-set
-                    normalized score lanes, full or incremental feasibility;
+                    normalized score lanes, full or incremental feasibility,
+                    and the row-local plans of at most 64 steps (the
+                    reference's scan path for them, :273);
 - dry_run_preemption <- dry_run_preemption (:726-789): DefaultPreemption's
                     per-node victim selection for every row at once;
 - scatter_rows   <- the mirror's dirty-row scatter, _scatter_rows
@@ -28,15 +27,15 @@ rescore, lives in ops/whatif.py and is counted and reset with these):
                     installed and their resource lanes re-evaluated;
 - schedule_placements <- schedule_placements (:655-723): a pod group's
                     greedy scan against each of P candidate placements at
-                    once, one lane per placement (the first version of
-                    scan_general's step, gen_scan in csrc/scan_general.cuh);
+                    once, a block a placement running scan_general's step
+                    (csrc/scan_general.cuh) over its placement's rows only;
 - sharded_lap    <- the node-sharded lap, _lap_body (parallel/mesh.py:228-351):
                     one persistent launch a card a dispatch, a block a
                     shard, every lap and both exchanges of a lap on the
                     device (LapRun, its plain version, runs the body's
                     three phases with the exchanges as copies).
 
-The three schedule kernels take the nominated-pod lane (features whose
+The two schedule kernels take the nominated-pod lane (features whose
 `nom_req` has rows): the fit filter of every re-evaluated row counts the
 row's nominated pods, as the JAX package's `has_nom` plans do. They and
 schedule_placements take the `blocked` lane of a `port_selfblock` plan (a
@@ -536,120 +535,6 @@ lap_schedule.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# scan_schedule
-# ---------------------------------------------------------------------------
-
-
-def _scan_schedule_plain(state: DeviceNodeState, f: BatchFeatures, batch_pad: int,
-                         fit_strategy: int, ext0: ScanCarry, static_ok, n_act: int,
-                         port_selfblock: bool = False,
-                         has_aux: bool = False) -> Tuple[torch.Tensor, ScanCarry]:
-    """Plain PyTorch version of the scan_schedule kernel: one pod per step,
-    feasibility patched at the landed row, total score carried."""
-    dev = static_ok.device
-    NP = static_ok.shape[0]
-    idx = torch.arange(NP, dtype=i32, device=dev)
-    num = f.num_nodes.clamp_min(1)
-    req_r, nonzero, pod_count, fit_ok, fit_sc, ba = (t.clone() for t in ext0[:6])
-    blocked = ext0.blocked.clone() if port_selfblock else ext0.blocked
-    aux_cnt = ext0.aux_cnt.clone() if has_aux else ext0.aux_cnt
-    start = ext0.start
-    okd = static_ok & fit_ok & (idx < num)
-    if port_selfblock:
-        okd &= ~blocked
-    if has_aux:
-        okd &= aux_cnt + f.aux_inc <= f.aux_room
-    F = torch.cumsum(okd.to(i32), 0, dtype=i32)
-    total = _total(f, fit_sc, ba)
-    out = torch.full((2, batch_pad), -1, dtype=i32, device=dev)
-    for t in range(n_act):
-        total_feas = F[-1]
-        f_start = torch.where(start > 0, F[(start - 1).clamp_min(0).to(i64)], 0)
-        rank = torch.where(idx >= start, F - f_start, F + total_feas - f_start)
-        kept = okd & (rank <= f.to_find)
-        rot = (idx - start) % num
-        bound = torch.where(okd & (rank == f.to_find), (num - 1 - rot).to(i64), 0).amax()
-        key = total * NP + ((NP - 1) - rot)
-        best_key = torch.where(kept, key, -1).amax()
-        evaluated = (num - bound).to(i32)
-        any_kept = best_key >= 0
-        chosen_rot = (NP - 1) - (best_key % NP).to(i32)
-        chosen = torch.where(any_kept, (start + chosen_rot) % num, -1).to(i32)
-        row = chosen.clamp_min(0).to(i64)
-        apply = any_kept.to(i64)
-        req_r[row] += f.request * apply
-        nonzero[row] += f.nz_request * apply
-        pod_count[row] += apply.to(i32)
-        r_ok, r_fit, r_ba = _resource_eval_plain(
-            f, fit_strategy, state.alloc_r[row], state.alloc_pods[row],
-            req_r[row], nonzero[row], pod_count[row], *_nom_lane(f, row))
-        fit_ok[row] = r_ok
-        fit_sc[row] = r_fit
-        ba[row] = r_ba
-        new_ok_row = static_ok[row] & r_ok & (row < num)
-        if port_selfblock:
-            blocked[row] |= any_kept
-            new_ok_row &= ~blocked[row]
-        if has_aux:
-            aux_cnt[row] += f.aux_inc * any_kept.to(i32)
-            new_ok_row &= aux_cnt[row] + f.aux_inc <= f.aux_room[row]
-        delta = new_ok_row.to(i32) - okd[row].to(i32)
-        okd[row] = new_ok_row
-        F = F + torch.where(idx >= row, delta, 0)
-        total[row] = (f.weights[0] * MAX_NODE_SCORE + f.weights[1] * r_fit
-                      + f.weights[4] * r_ba + f.weights[6] * f.il_score[row])
-        start = ((start + evaluated) % num).to(i32)
-        out[:, t] = torch.stack([chosen, start])
-    out[1, n_act:] = start  # padded steps: nothing lands, the start stays
-    carry = ext0._replace(req_r=req_r, nonzero=nonzero, pod_count=pod_count,
-                          fit_ok=fit_ok, fit_sc=fit_sc, ba=ba, start=start, blocked=blocked,
-                          aux_cnt=aux_cnt)
-    return out, carry
-
-
-def _scan_schedule_cuda(state, f, batch_pad, fit_strategy, ext0, static_ok, n_act,
-                        port_selfblock=False, has_aux=False):
-    dev = static_ok.device
-    NP = static_ok.shape[0]
-    req_r, nonzero, pod_count, fit_ok, fit_sc, ba = (t.clone() for t in ext0[:6])
-    blocked = _blocked_lane(ext0, port_selfblock)
-    aux_cnt = _aux_lane(ext0, has_aux)
-    start = torch.empty((), dtype=i32, device=dev)
-    okd_s = torch.empty(NP, dtype=torch.uint8, device=dev)
-    F_s = torch.empty(NP, dtype=i32, device=dev)
-    total_s = torch.empty(NP, dtype=i64, device=dev)
-    out = torch.full((2, batch_pad), -1, dtype=i32, device=dev)
-    ints, feats = _res_args(f, fit_strategy)
-    _launch("scan_schedule", dev, NP, *ints, batch_pad, n_act, *feats, state.alloc_r,
-            state.alloc_pods, req_r, nonzero, pod_count, *_nom_lane(f), blocked, aux_cnt,
-            f.aux_room, f.aux_inc, fit_ok, fit_sc,
-            ba, static_ok, f.il_score, f.weights, f.num_nodes, f.to_find, ext0.start, okd_s, F_s,
-            total_s, out, start)
-    carry = ext0._replace(req_r=req_r, nonzero=nonzero, pod_count=pod_count,
-                          fit_ok=fit_ok, fit_sc=fit_sc, ba=ba, start=start,
-                          **_lanes_out(ext0, blocked, aux_cnt))
-    return out, carry
-
-
-def scan_schedule(state: DeviceNodeState, f: BatchFeatures, batch_pad: int,
-                  fit_strategy: int, ext0: ScanCarry, static_ok: torch.Tensor,
-                  n_act: int, port_selfblock: bool = False,
-                  has_aux: bool = False) -> Tuple[torch.Tensor, ScanCarry]:
-    """One-pod-per-step greedy assignment for small batches: returns the
-    [2, batch_pad] results and the final carry (the blocked and aux_cnt
-    lanes as in lap_schedule)."""
-    if _on_cpu(static_ok):
-        return _scan_schedule_plain(state, f, batch_pad, fit_strategy, ext0, static_ok, n_act,
-                                    port_selfblock, has_aux)
-    out = _scan_schedule_cuda(state, f, batch_pad, fit_strategy, ext0, static_ok, n_act,
-                              port_selfblock, has_aux)
-    scan_schedule.launches += 1
-    return out
-
-
-scan_schedule.launches = 0
-
-# ---------------------------------------------------------------------------
 # scan_general
 # ---------------------------------------------------------------------------
 
@@ -873,8 +758,8 @@ def _scan_general_cuda(state, f, batch_pad, fit_strategy, ext0, masks, n_act, fa
 def scan_general(state: DeviceNodeState, f: BatchFeatures, batch_pad: int, fit_strategy: int,
                  ext0: ScanCarry, masks: StaticMasks, n_act: int,
                  facts: PlanFacts) -> Tuple[torch.Tensor, ScanCarry]:
-    """One-pod-per-step greedy assignment for every plan the lap and
-    scan_schedule do not cover: returns the [2, batch_pad] results and the
+    """One-pod-per-step greedy assignment for every plan the lap does not
+    take: returns the [2, batch_pad] results and the
     final carry, every count table included."""
     if _on_cpu(masks.static_ok):
         return _scan_general_plain(state, f, batch_pad, fit_strategy, ext0, masks, n_act, facts)
@@ -1140,9 +1025,10 @@ def schedule_batch(state: DeviceNodeState, f: BatchFeatures, batch_pad: int,
     next batch of the same plan.
 
     The plan picks the kernel (:262-273): a plan whose landings change only
-    their own row and score takes the lap above 64 steps; at or below 64
-    steps such a plan without count tables takes scan_schedule; every other
-    plan takes scan_general. Features whose `nom_req` has rows carry the
+    their own row and score takes the lap above 64 steps; every other plan,
+    the reference's scan path for such a plan at or below 64 steps
+    included, takes scan_general (a row-local plan is its incremental,
+    carried mode). Features whose `nom_req` has rows carry the
     nominated-pod lane (the JAX package's `has_nom`): every kernel counts a
     row's nominated pods against the fit filter of that row. A
     `port_selfblock` plan reads the carry's blocked lane and blocks each
@@ -1161,17 +1047,15 @@ def schedule_batch(state: DeviceNodeState, f: BatchFeatures, batch_pad: int,
     if path == "lap":
         return lap_schedule(state, f, batch_pad, fit_strategy, ext0, masks.static_ok, n_act,
                             facts.port_selfblock, facts.has_aux)
-    if path == "scan":
-        return scan_schedule(state, f, batch_pad, fit_strategy, ext0, masks.static_ok, n_act,
-                             facts.port_selfblock, facts.has_aux)
     return scan_general(state, f, batch_pad, fit_strategy, ext0, masks, n_act, facts)
 
 
 def plan_path(f: BatchFeatures, facts: PlanFacts, batch_pad: int) -> str:
-    """The kernel a plan takes (the JAX package's :262-273): "lap" for a
-    plan whose landings change only their own row and score above 64 steps,
-    "scan" (scan_schedule) for such a plan without count tables at or below
-    64 steps, "general" (scan_general) for every other plan."""
+    """The reference's path for a plan (the JAX package's :262-273): "lap"
+    (lap_schedule) for a plan whose landings change only their own row and
+    score above 64 steps, "scan" for such a plan without count tables at or
+    below 64 steps, "general" for every other plan. "scan" and "general"
+    plans both take scan_general."""
     incremental, carried = plan_modes(f, facts)
     if incremental and carried and batch_pad > SCAN_MAX_STEPS:
         return "lap"
@@ -1184,7 +1068,7 @@ def plan_path(f: BatchFeatures, facts: PlanFacts, batch_pad: int) -> str:
 # schedule_placements
 # ---------------------------------------------------------------------------
 
-GEN_MAXC = 16  # spread-table rows a general scan takes (csrc/scan_general.cuh)
+GEN_MAXC = 16  # spread-table rows a general scan takes (csrc/gen_sizes.h)
 
 
 def _lane_features(f: BatchFeatures, mask: torch.Tensor, tables=None) -> BatchFeatures:
@@ -1220,13 +1104,9 @@ def _schedule_placements_plain(state: DeviceNodeState, f: BatchFeatures, batch_p
         f2 = _lane_features(f, masks[p], tables)
         ext0 = fresh_carry(state, f2, vmax, fit)
         lm = m._replace(static_ok=m.static_ok & masks[p])
-        path = plan_path(f2, lane_facts, batch_pad)
-        if path == "lap":
+        if plan_path(f2, lane_facts, batch_pad) == "lap":
             res, _ = _lap_schedule_plain(state, f2, batch_pad, fit_strategy, ext0, lm.static_ok,
                                          n_active, facts.port_selfblock, facts.has_aux)
-        elif path == "scan":
-            res, _ = _scan_schedule_plain(state, f2, batch_pad, fit_strategy, ext0, lm.static_ok,
-                                          n_active, facts.port_selfblock, facts.has_aux)
         else:
             res, _ = _scan_general_plain(state, f2, batch_pad, fit_strategy, ext0, lm, n_active,
                                          lane_facts)
@@ -1234,11 +1114,31 @@ def _schedule_placements_plain(state: DeviceNodeState, f: BatchFeatures, batch_p
     return torch.stack(out)
 
 
+PLACEMENT_SMEM_MAX = 220 * 1024  # a lane's on-chip budget (GEN2_SMEM_MAX, csrc/gen_sizes.h)
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def _placement_lane_bytes(n: int, V: int, C1: int, C2: int, carried: bool) -> int:
+    """The bytes of a placement lane's arrays at `n` rows (lane_layout in
+    csrc/gen_sizes.h, every array aligned to 16): the chunk masks and
+    prefixes, the flags, the row list, each dns table with its domains and
+    each sa table, a value id a row a table, the carried total (or the fit
+    score and BalancedAllocation) and the landing count a row. The launcher
+    refuses a slice shorter than its own count, and a test holds the two
+    equal."""
+    kw = ((n + 31) // 32 + 15) // 16
+    sizes = [2 * kw * 17 * 4, n, 4 * n] + [4 * V, V] * C1 + [4 * V] * C2
+    sizes += [4 * n] * (C1 + C2) + ([8 * n] if carried else [8 * n, 8 * n]) + [4 * n]
+    return sum(_align16(x) for x in sizes)
+
+
 def _schedule_placements_cuda(state, f, batch_pad, fit_strategy, vmax, facts, masks, n_active,
                               spread_overrides=None):
     dev = masks.device
     P, NP = masks.shape
-    R = state.alloc_r.shape[1]
     C1, C2, V = f.dns_axis.shape[0], f.sa_axis.shape[0], f.dns_counts.shape[1]
     if f.anti_axis.shape[0] or f.aff_axis.shape[0] or f.ipa_axis.shape[0]:
         raise ValueError("schedule_placements: a plan with inter-pod-affinity tables is "
@@ -1258,26 +1158,29 @@ def _schedule_placements_cuda(state, f, batch_pad, fit_strategy, vmax, facts, ma
                              f"{[tuple(t.shape) for t in tables]}, expected {list(want)}")
     dns_counts, dns_dom, dns_forced0, sa_counts, sa_wq = tables
     m = static_masks(state, f)
-
-    def scratch(*shape, dtype):
-        return torch.empty((P,) + shape, dtype=dtype, device=dev)
-
+    # A lane keeps its rows' state on chip. Only where a lane of every row
+    # could outgrow the budget does the widest placement decide (one read
+    # of the card), and only a lane past the budget takes device memory: a
+    # slice of its own, sized for the widest placement.
+    rows_cap, need, scratch = NP, 0, None
+    if _placement_lane_bytes(NP, V, C1, C2, carried) > PLACEMENT_SMEM_MAX:
+        rows_cap = int(masks.sum(dim=1).amax())
+        need = _placement_lane_bytes(rows_cap, V, C1, C2, carried)
+        if need > PLACEMENT_SMEM_MAX:
+            scratch = torch.empty((P, need), dtype=torch.uint8, device=dev)
+        else:
+            need = 0
     out = torch.empty((P, 2, batch_pad), dtype=i32, device=dev)
     ints, feats = _res_args(f, fit_strategy)
     _launch("schedule_placements", dev, NP, *ints, P, batch_pad, int(n_active), V, C1, C2,
             int(incremental), int(carried), int(facts.has_pns), int(facts.has_na_pref), per_lane,
+            int(facts.port_selfblock), int(facts.has_aux), rows_cap,
             *feats, state.alloc_r, state.alloc_pods, state.req_r, state.nonzero, state.pod_count,
             *_nom_lane(f), m.static_ok, m.sel_ok, m.taint_ok, m.pns_cnt, masks, state.topo,
             f.il_score, f.na_raw, f.weights, f.num_nodes, f.dns_axis, f.dns_active,
             f.dns_max_skew, f.dns_self, dns_forced0, f.dns_honor_aff, f.dns_honor_taints,
             dns_dom, dns_counts, f.sa_axis, sa_wq, f.sa_skew, f.sa_self, sa_counts,
-            scratch(NP, R, dtype=i64), scratch(NP, 2, dtype=i64), scratch(NP, dtype=i32),
-            scratch(NP, dtype=torch.bool), scratch(NP, dtype=i64), scratch(NP, dtype=i64),
-            scratch(NP, dtype=torch.bool), scratch(NP, dtype=torch.uint8),
-            scratch(NP, dtype=i32), scratch(NP, dtype=i64), scratch(C1, V, dtype=i32),
-            scratch(C2, V, dtype=i32),
-            scratch(NP, dtype=torch.bool) if facts.port_selfblock else None,
-            scratch(NP, dtype=i32) if facts.has_aux else None, f.aux_room, f.aux_inc, out)
+            f.aux_room, f.aux_inc, need, scratch, out)
     return out
 
 
@@ -1294,10 +1197,9 @@ def schedule_placements(state: DeviceNodeState, f: BatchFeatures, batch_pad: int
     Returns [P, 2, batch_pad] i32 (chosen row or -1, start after). No input
     is written. The plan must carry no inter-pod-affinity table and no base
     score (the caller's restriction invariant). Under `port_selfblock` each
-    lane blocks the rows its own members land on, in its own copy of the
-    fresh carry's (empty) blocked lane; under `has_aux` each lane counts its
-    own members' attachments in its own copy of the fresh carry's (zero)
-    aux_cnt lane."""
+    lane blocks only the rows its own members land on (a fresh carry's
+    blocked lane is empty); under `has_aux` each lane counts only its own
+    members' attachments (a fresh carry's aux_cnt lane is zero)."""
     if _on_cpu(masks):
         return _schedule_placements_plain(state, f, batch_pad, fit_strategy, vmax, facts,
                                           masks, n_active, spread_overrides)
@@ -1710,7 +1612,7 @@ def sharded_lap(shards: Sequence[LapShard], fit_strategy: int, n_act: int,
 
 sharded_lap.launches = 0
 
-WRAPPERS = (static_masks, resource_eval, lap_schedule, scan_schedule, scan_general,
+WRAPPERS = (static_masks, resource_eval, lap_schedule, scan_general,
             dry_run_preemption, scatter_rows, patch_carry_rows, schedule_placements,
             whatif_score, sharded_lap)
 

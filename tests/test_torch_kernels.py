@@ -8,7 +8,10 @@ PyTorch versions, so this holds the plain versions equal to JAX; the CUDA
 kernels are held equal to the plain versions on the card by chip_smoke.py.
 Every comparison is exact: all quantities are integers or booleans."""
 
+import ctypes
 import math
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -159,7 +162,7 @@ GENERAL = {
 def paths(monkeypatch):
     """The plain kernel versions schedule_batch ran."""
     seen = []
-    for name in ("_lap_schedule_plain", "_scan_schedule_plain", "_scan_general_plain"):
+    for name in ("_lap_schedule_plain", "_scan_general_plain"):
         fn = getattr(K, name)
         monkeypatch.setattr(K, name, lambda *a, _fn=fn, _n=name[1:-6], **kw:
                             seen.append(_n) or _fn(*a, **kw))
@@ -286,19 +289,20 @@ def test_launcher_signatures_are_read_from_the_sources():
                    ("NP", "T", "L", "R", "FR", "fit_strategy", "B", "n_act", "V",
                     "C1", "C2", "A1", "A2", "KD", "incremental", "carried", "has_pns",
                     "has_ipa_base", "has_na_pref", "K", "D", "P", "per_lane", "N", "NPl",
-                    "S", "n_loc", "gen", "wait_mcycles"))
+                    "S", "n_loc", "gen", "wait_mcycles", "port_selfblock", "has_aux",
+                    "rows_cap", "lane_bytes"))
         optional = {p.name for p in sig if p.optional}
-        lane = name in ("resource_eval", "lap_schedule", "scan_schedule", "scan_general",
-                        "patch_carry_rows", "schedule_placements")
+        lane = name in ("resource_eval", "lap_schedule", "scan_general", "patch_carry_rows",
+                        "schedule_placements")
         # The schedule kernels' blocked lane (host ports) and aux_cnt lane
         # (CSI attach limits) are nullable too, and so is the lap's
-        # device-memory buffer (null: its row state fits shared memory); the
+        # device-memory buffer (null: its row state fits shared memory) and
+        # the placement lanes' (null: every lane fits shared memory); the
         # sharded lap writes the results only on the card of shard 0, and
         # takes a device-memory buffer only past its on-chip tier.
         lanes = {"lap_schedule": {"blocked", "aux_cnt", "work"},
-                 "scan_schedule": {"blocked", "aux_cnt"},
                  "scan_general": {"blocked", "aux_cnt"},
-                 "schedule_placements": {"blocked_s", "aux_cnt_s"}}
+                 "schedule_placements": {"lane_scratch"}}
         assert optional == ({"nom_req", "nom_pods"} | lanes.get(name, set())
                             if lane else {"out", "work"} if name == "sharded_lap" else set())
         # The sharded lap's shard table is read on the host; its exchange
@@ -357,7 +361,6 @@ def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches, monk
     K._static_masks_cuda(ts, tf)
     K._resource_eval_cuda(tf, 1, ts.alloc_r, ts.alloc_pods, ts.req_r, ts.nonzero, ts.pod_count)
     K._lap_schedule_cuda(ts, tf, 512, 0, ext0, static_ok, 300)
-    K._scan_schedule_cuda(ts, tf, 64, 0, ext0, static_ok, 40)
     K._scan_general_cuda(ts, tf, 64, 0, ext0, K._static_masks_plain(ts, tf), 40,
                          K.PlanFacts(has_pns=True))
     s, f, vr, vv = victim_inputs(17, 256, 200, 16)
@@ -397,7 +400,6 @@ def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches, monk
                        nom_pods=torch.zeros_like(ts.pod_count))
     recorded_launches.clear()
     K._lap_schedule_cuda(ts, lane, 512, 0, ext0, static_ok, 300)
-    K._scan_schedule_cuda(ts, lane, 64, 0, ext0, static_ok, 40)
     K._scan_general_cuda(ts, lane, 64, 0, ext0, K._static_masks_plain(ts, tf), 40,
                          K.PlanFacts(has_pns=True))
     K._patch_carry_rows_cuda(ts, lane, ext0, torch.tensor([5, 9], dtype=torch.int32),
@@ -408,18 +410,21 @@ def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches, monk
         assert (sig["nom_req"], sig["nom_pods"]) == (lane.nom_req.data_ptr(),
                                                      lane.nom_pods.data_ptr()), name
     # With the aux lane on, the schedule kernels get a copy of the carry's
-    # aux_cnt (placements: a scratch lane) and the batch's room and increment.
+    # aux_cnt (placements: the flag, each lane counting its own landings)
+    # and the batch's room and increment.
     aux = K.PlanFacts(has_aux=True)
     recorded_launches.clear()
     K._lap_schedule_cuda(ts, tf, 512, 0, ext0, static_ok, 300, has_aux=True)
-    K._scan_schedule_cuda(ts, tf, 64, 0, ext0, static_ok, 40, has_aux=True)
     K._scan_general_cuda(ts, tf, 64, 0, ext0, K._static_masks_plain(ts, tf), 40,
                          aux._replace(has_pns=True))
     K._schedule_placements_cuda(ts, tf, 8, 0, VMAX, aux, masks, 5)
     for name, args in recorded_launches:
         sig = {p.name: a for p, a in zip(K._build.signature(name), args)}
-        cnt = sig.get("aux_cnt", sig.get("aux_cnt_s"))
-        assert isinstance(cnt, int) and cnt != ext0.aux_cnt.data_ptr(), name
+        if name == "schedule_placements":
+            assert sig["has_aux"] == 1
+        else:
+            cnt = sig["aux_cnt"]
+            assert isinstance(cnt, int) and cnt != ext0.aux_cnt.data_ptr(), name
         assert (sig["aux_room"], sig["aux_inc"]) == (tf.aux_room.data_ptr(),
                                                      tf.aux_inc.data_ptr()), name
 
@@ -481,12 +486,15 @@ def test_schedule_placements(lanes, tables, fit_strategy):
     schedule_placements on every lane, for two seeds (the second with
     PreferNoSchedule and preferred node-affinity lanes), with no active
     member (every lane inert) and with six, and leaves its inputs as they
-    were. Lane 0 of a multi-lane draw is a padded lane (no row)."""
+    were. Lane 0 of a multi-lane draw is a padded lane (no row), lane 1 a
+    row, lane 2 ~100 rows; the last lane holds every row, the padded rows
+    past num_nodes too (never feasible)."""
     placed = 0
     for seed in (41, 42):
         s, f, facts, masks, ov = placement_inputs(seed, 256, 200, lanes, vmax=GVMAX,
                                                   pns=seed == 42, na=seed == 42,
                                                   **PLACEMENT_TABLES[tables])
+        masks[-1, 200:] = True
         js, jf, ts, tf = _convert(s, f)
         t_ov = None if ov is None else tuple(torch.from_numpy(a) for a in ov)
         j_ov = None if ov is None else tuple(jnp.asarray(a) for a in ov)
@@ -511,20 +519,26 @@ def test_schedule_placements(lanes, tables, fit_strategy):
 
 
 @pytest.mark.parametrize("overrides", [False, True], ids=["shared-tables", "overrides"])
-def test_schedule_placements_wrapper_marshals_lanes(recorded_launches, overrides):
+def test_schedule_placements_wrapper_marshals_lanes(recorded_launches, monkeypatch, overrides):
     """The CUDA wrapper passes the plan's tables (per_lane 0) or the
-    overrides (per_lane 1), the masks, the shared node state and one
-    scratch slice per lane."""
+    overrides (per_lane 1), the masks, the shared node state, the lanes'
+    modes and the out buffer, and no scratch of the node rows: while a lane
+    of every row fits on chip no other tensor at all, and past the on-chip
+    budget one slice a lane, sized for the widest placement."""
     s, f, facts, masks, ov = placement_inputs(43, 256, 200, 4, vmax=GVMAX, dns=1, sa=1,
                                               overrides=overrides)
     _js, _jf, ts, tf = _convert(s, f)
     t_ov = None if ov is None else tuple(torch.from_numpy(a) for a in ov)
     t_masks = torch.from_numpy(masks)
-    out = K._schedule_placements_cuda(ts, tf, 8, 1, GVMAX, K.PlanFacts(**facts), t_masks, 6, t_ov)
+    m = K._static_masks_plain(ts, tf)
+    monkeypatch.setattr(K, "static_masks", lambda st, ft: m)
+    facts = K.PlanFacts(**dict(facts, port_selfblock=True))
+    out = K._schedule_placements_cuda(ts, tf, 8, 1, GVMAX, facts, t_masks, 6, t_ov)
     [(name, args)] = recorded_launches
     sig = {p.name: a for p, a in zip(K._build.signature(name), args)}
     assert (sig["NP"], sig["P"], sig["B"], sig["n_act"], sig["V"], sig["C1"], sig["C2"],
             sig["per_lane"]) == (256, 4, 8, 6, GVMAX, 1, 1, int(overrides))
+    assert (sig["port_selfblock"], sig["has_aux"], sig["rows_cap"]) == (1, 0, 256)
     tables = t_ov or (tf.dns_counts, tf.dns_dom, tf.dns_forced0, tf.sa_counts, tf.sa_wq)
     for field, t in zip(("dns_counts", "dns_dom", "dns_forced0", "sa_counts", "sa_wq"), tables):
         assert sig[field] == t.data_ptr(), field
@@ -532,12 +546,67 @@ def test_schedule_placements_wrapper_marshals_lanes(recorded_launches, overrides
     for field in ("req_r", "nonzero", "pod_count", "alloc_r", "topo"):
         assert sig[field] == getattr(ts, field).data_ptr(), field
     assert tuple(out.shape) == (4, 2, 8)
+    given = {t.data_ptr() for t in list(ts) + list(tf) + list(m) + list(tables)}
+    pointers = [a for p, a in zip(K._build.signature(name), args) if p.dtype is not None]
+    assert sig["lane_scratch"] is None and sig["lane_bytes"] == 0
+    assert set(pointers) - {None} <= given | {t_masks.data_ptr(), out.data_ptr()}
+    # Past the budget the widest placement (one read of the card) sizes a
+    # slice a lane; the rows of a lane are never the node rows'.
+    monkeypatch.setattr(K, "PLACEMENT_SMEM_MAX", 1024)
+    recorded_launches.clear()
+    K._schedule_placements_cuda(ts, tf, 8, 1, GVMAX, facts, t_masks, 6, t_ov)
+    [(name, args)] = recorded_launches
+    sig = {p.name: a for p, a in zip(K._build.signature(name), args)}
+    widest = int(t_masks.sum(dim=1).max())
+    assert sig["rows_cap"] == widest < 256
+    assert isinstance(sig["lane_scratch"], int)
+    assert sig["lane_bytes"] == K._placement_lane_bytes(widest, GVMAX, 1, 1, False) > 1024
+    assert K._placement_lane_bytes(widest, GVMAX, 1, 1, False) < K._placement_lane_bytes(
+        256, GVMAX, 1, 1, False)
     # A plan outside the placement restriction is refused before a launch.
     s, f, facts = general_inputs(44, 256, 200, vmax=GVMAX, anti=1)
     _js, _jf, ts, tf = _convert(s, f)
     with pytest.raises(ValueError, match="placement restriction"):
         K._schedule_placements_cuda(ts, tf, 8, 0, GVMAX, K.PlanFacts(**facts), t_masks, 6)
     assert len(recorded_launches) == 1
+
+
+@pytest.fixture(scope="module")
+def gen_sizes_lib(tmp_path_factory):
+    """csrc/gen_sizes.h built alone by the host compiler: lane_layout's
+    device-memory bytes and the on-chip budget, as the launcher reads them."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no host C++ compiler to build csrc/gen_sizes.h")
+    d = tmp_path_factory.mktemp("gen_sizes")
+    src, so = d / "sizes.cpp", d / "libsizes.so"
+    src.write_text('#include "gen_sizes.h"\n'
+                   'extern "C" long long lane_bytes(int n, int V, int C1, int C2, int carried) {\n'
+                   '  return (long long)lane_layout(n, V, C1, C2, carried != 0, 0).off_chip;\n}\n'
+                   'extern "C" long long smem_max() { return (long long)GEN2_SMEM_MAX; }\n'
+                   'extern "C" long long gen_maxc() { return GEN_MAXC; }\n')
+    subprocess.run([gxx, "-std=c++17", "-shared", "-fPIC", "-I", K._build.CSRC, "-o", str(so),
+                    str(src)], check=True)
+    lib = ctypes.CDLL(str(so))
+    lib.lane_bytes.argtypes = [ctypes.c_int] * 5
+    lib.lane_bytes.restype = lib.smem_max.restype = lib.gen_maxc.restype = ctypes.c_longlong
+    return lib
+
+
+@pytest.mark.parametrize("carried", [False, True], ids=["normalized", "carried"])
+def test_placement_lane_bytes_match_the_c_layout(gen_sizes_lib, carried):
+    """The wrapper's copy of a placement lane's layout, which sizes the
+    scratch slice a lane, equals lane_layout's count over row counts
+    around the chunk and warp boundaries, table widths and table counts up
+    to GEN_MAXC; the on-chip budget and GEN_MAXC are the header's."""
+    assert (K.PLACEMENT_SMEM_MAX, K.GEN_MAXC) == (gen_sizes_lib.smem_max(),
+                                                  gen_sizes_lib.gen_maxc())
+    for n in (0, 1, 31, 32, 33, 100, 511, 512, 513, 8192, 19990, 50000):
+        for V in (1, 3, 64, 8192):
+            for C1 in (0, 1, 2, K.GEN_MAXC):
+                for C2 in (0, 1, K.GEN_MAXC):
+                    assert K._placement_lane_bytes(n, V, C1, C2, carried) == \
+                        gen_sizes_lib.lane_bytes(n, V, C1, C2, int(carried)), (n, V, C1, C2)
 
 
 def _wrong_dtype(ts, tf):
@@ -1189,3 +1258,277 @@ def test_lap_floor_div_equals_floored_division(kind):
               ((1 << 63) - 1, 1), (-(1 << 63), 3), (0, 5), (-5, 5), (-6, 5)]
     for x, y in cases:
         assert _lap_floor_div(x, y) == x // y, (x, y)
+
+
+# ---------------------------------------------------------------------------
+# schedule_placements' lanes (csrc/schedule_placements.cu): a block holds
+# only its placement's rows, as an ascending list of row ids. The kernel's
+# bookkeeping over that list is modelled in numpy and stepped against the
+# plain version, so a position that drifts from its row shows here.
+# ---------------------------------------------------------------------------
+
+
+def _compact_rows(mask, static_ok, nrows, nw=16):
+    """The kernel's compaction of one lane: warp w counts the rows of its
+    run of 32-row chunks (a ballot a chunk), the block prefix of the
+    counts places each warp's rows, and a row's position is its warp's
+    offset plus the rows before it in the warp's run."""
+    nchunks = (nrows + 31) // 32
+    cpw = -(-nchunks // nw)
+    keep = np.zeros(nchunks * 32, bool)
+    keep[:nrows] = mask[:nrows] & static_ok[:nrows]
+    runs = [range(w * cpw, min(nchunks, (w + 1) * cpw)) for w in range(nw)]
+    counts = [sum(int(keep[32 * k:32 * k + 32].sum()) for k in run) for run in runs]
+    rows = np.full(sum(counts), -1, np.int64)
+    for w, run in enumerate(runs):
+        pos = sum(counts[:w])
+        for k in run:
+            ballot = keep[32 * k:32 * k + 32]
+            for lane in np.nonzero(ballot)[0]:
+                rows[pos + int(ballot[:lane].sum())] = 32 * k + lane
+            pos += int(ballot.sum())
+    return rows
+
+
+def _lower_bound32(rows, x):
+    """warp_lower_bound: the positions whose row is below x, found in
+    rounds of 32 samples (one ballot each)."""
+    lanes = np.arange(32)
+
+    def below(idx, valid):
+        return int((valid & (rows[np.minimum(idx, len(rows) - 1)] < x)).sum())
+
+    lo, n = 0, len(rows)
+    while n > 32:
+        stride = (n + 31) >> 5
+        c = below(lo + lanes * stride, lo + lanes * stride < lo + n)
+        if c == 0:
+            return lo
+        nlo = lo + (c - 1) * stride + 1
+        lo, n = nlo, min(lo + c * stride, lo + n) - nlo
+    return lo + below(lo + lanes, lanes < n)
+
+
+def _compact_ranks(ok, rows, start, num, to_find, NP):
+    """Ranks, kept set and boundary over a lane's positions (start as a
+    row and as its first position), each asserted equal to the plain
+    version's dense arithmetic over every row (cumsum ranks from `start`,
+    rotation by start mod num). Returns (rank, kept, rot, bound)."""
+    cstart = _lower_bound32(rows, start) if len(rows) else 0
+    assert cstart == np.searchsorted(rows, start)
+    F = np.cumsum(ok)
+    total = int(F[-1]) if len(F) else 0
+    f_start = int(F[cstart - 1]) if cstart > 0 else 0
+    pos = np.arange(len(rows))
+    rank = np.where(pos >= cstart, F - f_start, F + total - f_start)
+    rot = (rows - start) % num
+    kept = ok & (rank <= to_find)
+    at = ok & (rank == to_find)
+    bound = int((num - 1 - rot[at]).max()) if at.any() else 0
+    dense = np.zeros(NP, bool)
+    dense[rows] = ok
+    D = torch.cumsum(torch.from_numpy(dense).to(torch.int32), 0).numpy()
+    d_start = D[start - 1] if start > 0 else 0
+    idx = np.arange(NP)
+    d_rank = np.where(idx >= start, D - d_start, D + D[-1] - d_start)
+    d_rot = (idx - start) % num
+    np.testing.assert_array_equal(rank[ok], d_rank[rows][ok])
+    np.testing.assert_array_equal(kept, (dense & (d_rank <= to_find))[rows])
+    d_at = dense & (d_rank == to_find)
+    assert bound == (int((num - 1 - d_rot[d_at]).max()) if d_at.any() else 0)
+    return rank, kept, rot, bound
+
+
+class _LaneModel:
+    """One placement lane as the kernel holds it: the compact row list, a
+    base verdict, value ids and a landing count k a position, the lane's
+    own count tables, and the start as a row. A landing re-evaluates its
+    row at the resident aggregates plus k of the lane's pods (every member
+    requests the same), blocks it under `port_selfblock` and counts k
+    attachments under `has_aux`; nothing else moves. Each step's ranks,
+    kept set and boundary are checked against the dense arithmetic, the
+    landed position against its row."""
+
+    def __init__(self, st, f, facts, strat, mask, tables):
+        self.st, self.f, self.facts, self.strat = st, f, facts, strat
+        self.NP = mask.shape[0]
+        self.num = max(int(f.num_nodes), 1)
+        self.m = K._static_masks_plain(st, f)
+        nrows = min(self.NP, self.num)
+        self.rows = _compact_rows(mask.numpy(), self.m.static_ok.numpy(), nrows)
+        np.testing.assert_array_equal(
+            self.rows, np.nonzero((mask & self.m.static_ok).numpy()[:nrows])[0])
+        counts, dom, forced0, sa_counts, self.sa_wq = (t.numpy() for t in tables)
+        self.dns, self.sa = counts.astype(np.int64), sa_counts.astype(np.int64)
+        self.dom, self.forced0 = dom, forced0
+        self.dvid = K._vids(st, f.dns_axis).numpy()[:, self.rows]
+        self.svid = K._vids(st, f.sa_axis).numpy()[:, self.rows]
+        self.k = np.zeros(len(self.rows), np.int64)
+        self.sel = self.m.sel_ok.numpy()[self.rows]
+        self.taint = self.m.taint_ok.numpy()[self.rows]
+        self.ign = ((self.svid <= 0).any(axis=0) | ~self.sel) if self.sa.shape[0] else \
+            np.zeros(len(self.rows), bool)
+        self.ok, self.fsc, self.ba = self._eval(np.arange(len(self.rows)))
+        self.start = 0
+
+    def _eval(self, pos):
+        st, f, r = self.st, self.f, torch.from_numpy(self.rows[pos])
+        k = torch.from_numpy(self.k[pos])
+        nom = K._nom_lane(f, r)
+        ok, fsc, ba = K._resource_eval_plain(
+            f, self.strat, st.alloc_r[r], st.alloc_pods[r], st.req_r[r] + k[:, None] * f.request,
+            st.nonzero[r] + k[:, None] * f.nz_request, st.pod_count[r] + k.to(torch.int32), *nom)
+        ok = ok.numpy() & (self.rows[pos] < self.num)
+        if self.facts.port_selfblock:
+            ok &= self.k[pos] == 0
+        if self.facts.has_aux:
+            inc = int(f.aux_inc)
+            ok &= (self.k[pos] + 1) * inc <= f.aux_room.numpy()[self.rows[pos]]
+        return ok, fsc.numpy(), ba.numpy()
+
+    def _feasible(self):
+        f, ok = self.f, self.ok.copy()
+        for c in range(self.dns.shape[0]):
+            if int(f.dns_active[c]) != 1:
+                continue
+            eligible = self.dns[c][self.dom[c]]
+            mn = min(K.BIG, int(eligible.min())) if eligible.size else K.BIG
+            eff = 0 if self.forced0[c] == 1 else mn
+            cap = min(int(f.dns_max_skew[c]), K.BIG)
+            v = self.dvid[c]
+            ok &= (v > 0) & (self.dns[c][np.maximum(v, 0)] + int(f.dns_self[c]) - eff <= cap)
+        return ok
+
+    def _scores(self, kept):
+        f, rows, w = self.f, self.rows, self.f.weights.numpy().astype(np.int64)
+        il = f.il_score.numpy()[rows]
+        if not (self.sa.shape[0] or self.facts.has_pns or self.facts.has_na_pref):
+            return w[0] * K.MAX_NODE_SCORE + w[1] * self.fsc + w[4] * self.ba + w[6] * il
+        tt = pts = na = 0
+        if self.facts.has_pns:
+            pns = self.m.pns_cnt.numpy()[rows]
+            mx = int(pns[kept].max()) if kept.any() else 0
+            tt = K.MAX_NODE_SCORE - K.MAX_NODE_SCORE * pns // mx if mx > 0 else K.MAX_NODE_SCORE
+        if self.sa.shape[0]:
+            raw = sum(self.sa[c][self.svid[c]] * int(self.sa_wq[c])
+                      + (int(f.sa_skew[c]) - 1) * 1024 for c in range(self.sa.shape[0]))
+            live = kept & ~self.ign
+            mx = int(raw[live].max()) if live.any() else 0
+            mn = int(raw[live].min()) if live.any() else K.INF64
+            norm = (K.MAX_NODE_SCORE * (mx + min(mn, mx) - raw) // mx if mx > 0
+                    else np.full(len(rows), K.MAX_NODE_SCORE))
+            pts = np.where(self.ign, 0, norm)
+        if self.facts.has_na_pref:
+            raw = f.na_raw.numpy()[rows]
+            mx = int(raw[kept].max()) if kept.any() else 0
+            na = K.MAX_NODE_SCORE * raw // mx if mx > 0 else 0
+        return (w[0] * tt + w[1] * self.fsc + w[4] * self.ba + w[2] * pts + w[5] * na
+                + w[6] * il)
+
+    def step(self):
+        NP, num, start = self.NP, self.num, self.start
+        if not len(self.rows):  # a padded lane: nothing lands, the start stays
+            return -1, start
+        ok = self._feasible()
+        _rank, kept, rot, bound = _compact_ranks(ok, self.rows, start, num, int(self.f.num_nodes),
+                                                 NP)
+        key = np.where(kept, self._scores(kept) * NP + (NP - 1 - rot), -1)
+        chosen = -1
+        if key.max() >= 0:
+            chosen = (start + NP - 1 - int(key.max()) % NP) % num
+            p = _lower_bound32(self.rows, chosen)
+            assert self.rows[p] == chosen and key[p] == key.max()
+            self._land(p)
+        self.start = (start + num - bound) % num
+        return chosen, self.start
+
+    def _land(self, p):
+        f = self.f
+        for c in range(self.dns.shape[0]):
+            v = self.dvid[c][p]
+            if v > 0 and (int(f.dns_honor_aff[c]) != 1 or self.sel[p]) and (
+                    int(f.dns_honor_taints[c]) != 1 or self.taint[p]):
+                self.dns[c][v] += int(f.dns_self[c])
+        if not self.ign[p]:
+            for c in range(self.sa.shape[0]):
+                self.sa[c][self.svid[c][p]] += int(f.sa_self[c])
+        self.k[p] += 1
+        (ok,), (fsc,), (ba,) = self._eval(np.array([p]))
+        self.ok[p], self.fsc[p], self.ba[p] = ok, fsc, ba
+
+
+# (placement_inputs arguments, plan lanes, nominated lane, mask rows past num_nodes)
+LANE_MODEL = {
+    "no-tables": (dict(), {}, False, False),
+    "shared-tables": (dict(dns=1, sa=1, pns=True), {}, False, False),
+    "overrides": (dict(dns=2, sa=1, overrides=True, na=True), {}, False, False),
+    "blocked": (dict(dns=1), dict(port_selfblock=True), False, False),
+    "aux": (dict(sa=1, overrides=True), dict(has_aux=True), False, False),
+    "nominated-past-num": (dict(dns=1, sa=1), {}, True, True),
+}
+
+
+@pytest.mark.parametrize("case", list(LANE_MODEL))
+def test_compact_lanes_step_like_the_plain_placements(case):
+    """Each lane of a placement draw (an empty lane, one row, ~100 rows,
+    random subsets and every live row), modelled on its compact row list
+    and stepped member by member, gives the plain version's chosen rows and
+    starts; every step's ranks, kept set and boundary over the positions
+    equal the dense ones, and each landed position holds its row. Rows
+    past num_nodes in a mask never enter a list."""
+    from kubernetes_tpu_torch.testing.kernel_inputs import aux_lane, with_aux_lane
+    draw, lane_facts, nom, past = LANE_MODEL[case]
+    seed = 70 + len(case)
+    s, f, facts, masks, ov = placement_inputs(seed, 256, 200, 6, vmax=VMAX, **draw)
+    if lane_facts.get("has_aux"):
+        room, inc, _cnt = aux_lane(seed, 256, 200)
+        f = with_aux_lane(f, room, inc)
+    if nom:
+        f = with_nominated_lane(f, nominated_lane(seed, 256, 200))
+    if past:
+        masks[-2:, 200:] = True
+    _js, _jf, ts, tf = _convert(s, f)
+    facts = K.PlanFacts(**dict(facts, **lane_facts))
+    t_ov = None if ov is None else tuple(torch.from_numpy(a) for a in ov)
+    t_masks = torch.from_numpy(masks)
+    B, n_act = 8, 6
+    want = K._schedule_placements_plain(ts, tf, B, 1, VMAX, facts, t_masks, n_act, t_ov)
+    placed = 0
+    for p in range(masks.shape[0]):
+        tables = ([t[p] for t in t_ov] if t_ov is not None else
+                  [tf.dns_counts, tf.dns_dom, tf.dns_forced0, tf.sa_counts, tf.sa_wq])
+        model = _LaneModel(ts, tf, facts, 1, t_masks[p], tables)
+        assert len(model.rows) <= int(t_masks[p, :200].sum())
+        got = np.array([model.step() for _ in range(n_act)]).T
+        np.testing.assert_array_equal(got, want[p, :, :n_act].numpy(), err_msg=f"lane {p}")
+        placed += int((got[0] >= 0).sum())
+    assert placed > 0
+
+
+@pytest.mark.parametrize("case", ["one-row", "hundred-rows", "every-row-boundary",
+                                  "start-between-rows", "start-past-rows", "wide"])
+def test_compact_ranks_equal_the_dense_ranks(case):
+    """The rank arithmetic over a lane's positions (the start's first
+    position from the 32-way search) against the dense cumsum ranks, on
+    lanes of one row, ~100 rows, every row with every row feasible (the
+    boundary at rank == to_find == num_nodes), starts between and past
+    the lane's rows, and a 5000-row lane (three rounds of the search)."""
+    rng = np.random.default_rng(len(case))
+    NP, num = (8192, 5000) if case == "wide" else (256, 200)
+    if case == "one-row":
+        rows = np.array([137])
+    elif case == "every-row-boundary":
+        rows = np.arange(num)
+    else:
+        rows = np.sort(rng.choice(num, 4000 if case == "wide" else 100, replace=False))
+    ok = np.ones(len(rows), bool) if case == "every-row-boundary" else rng.random(len(rows)) < 0.7
+    starts = ([int(rows[40]) + 1, int(rows[0]), int(rows[-1])] if case == "start-between-rows"
+              else [int(rows[-1]) + 1, num - 1] if case == "start-past-rows" else [0, 17, num // 2])
+    bounds = []
+    for start in starts:
+        for to_find in (0, 5, int(ok.sum()), num):
+            bounds.append(_compact_ranks(ok, rows, start, num, to_find, NP)[3])
+    for x in range(-1, NP + 2, 7):
+        assert _lower_bound32(rows, x) == np.searchsorted(rows, x)
+    if case == "every-row-boundary":
+        assert any(b > 0 for b in bounds)  # rank == to_find == num_nodes lands a boundary

@@ -1,11 +1,11 @@
 """NodePorts in the PyTorch port against the JAX reference, on the CPU.
 
-Kernels: the plain versions of the four schedule kernels with the
-`port_selfblock` lane (lap_schedule, scan_schedule, scan_general,
-schedule_placements) against the JAX package's schedule_batch and
-schedule_placements on seeded numpy draws, from a carry whose `blocked`
-lane is drawn at random, fresh and chained: results and every ScanCarry
-lane, `blocked` included, are equal. Scheduler: pods with host ports go
+Kernels: the plain versions of the three schedule kernels with the
+`port_selfblock` lane (lap_schedule, scan_general, schedule_placements)
+against the JAX package's schedule_batch and schedule_placements on seeded
+numpy draws, from a carry whose `blocked` lane is drawn at random, fresh
+and chained: results and every ScanCarry lane, `blocked` included, are
+equal. Scheduler: pods with host ports go
 through the JAX package's TPUScheduler (CPU JAX, no mesh, score hints off:
 the port has no hint walker) and the port's TorchScheduler(device="cpu")
 on each kernel path, against existing pods' ports (the 0.0.0.0 wildcard,
@@ -80,7 +80,7 @@ def _same(jax_arrays, torch_arrays, what):
 def paths(monkeypatch):
     """The plain kernel versions schedule_batch ran."""
     seen = []
-    for name in ("_lap_schedule_plain", "_scan_schedule_plain", "_scan_general_plain"):
+    for name in ("_lap_schedule_plain", "_scan_general_plain"):
         fn = getattr(K, name)
         monkeypatch.setattr(K, name, lambda *a, _fn=fn, _n=name[1:-6], **kw:
                             seen.append(_n) or _fn(*a, **kw))
@@ -115,8 +115,8 @@ BLOCKED = {
     "lap": (dict(), 512, 512, "lap_schedule"),          # more pods than rows
     "lap-padded": (dict(), 512, 150, "lap_schedule"),
     "lap-hostname-anti": (dict(anti=1, anti_axis=HOST_AXIS), 512, 120, "lap_schedule"),
-    "scan": (dict(), 64, 64, "scan_schedule"),
-    "scan-padded": (dict(), 64, 40, "scan_schedule"),
+    "scan": (dict(), 64, 64, "scan_general"),
+    "scan-padded": (dict(), 64, 40, "scan_general"),
     "general-spread": (dict(dns=1), 64, 40, "scan_general"),       # full feasibility
     "general-soft-pns": (dict(sa=1, pns=True), 64, 40, "scan_general"),  # incremental
 }
@@ -277,7 +277,7 @@ def _no_shared_port(bound):
 # (max_batch, nodes, pods, extra pod build, the kernel the sessions take)
 PORT_PATHS = {
     "lap": (None, 40, 48, None, "lap_schedule"),
-    "scan": (64, 30, 36, None, "scan_schedule"),
+    "scan": (64, 30, 36, None, "scan_general"),
     "general-spread": (64, 40, 48, lambda b: b.labels({"app": "agent"}).spread_constraint(
         1, ZONE, "DoNotSchedule", {"app": "agent"}), "scan_general"),
 }

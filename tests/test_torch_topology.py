@@ -39,7 +39,7 @@ def _one_torch_thread():
 def paths(monkeypatch):
     """Counts the plain kernel versions the port's sessions ran."""
     seen = collections.Counter()
-    for name in ("_lap_schedule_plain", "_scan_schedule_plain", "_scan_general_plain"):
+    for name in ("_lap_schedule_plain", "_scan_general_plain"):
         fn = getattr(K, name)
 
         def spy(*args, _fn=fn, _name=name, **kw):

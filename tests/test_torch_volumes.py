@@ -1,8 +1,7 @@
 """Volumes in the PyTorch port against the JAX reference, on the CPU.
 
-Kernels: the plain versions of the four schedule kernels with the `has_aux`
-lane (lap_schedule, scan_schedule, scan_general, schedule_placements)
-against the JAX package's schedule_batch and schedule_placements on seeded
+Kernels: the plain versions of the three schedule kernels with the `has_aux`
+lane (lap_schedule, scan_general, schedule_placements) against the JAX package's schedule_batch and schedule_placements on seeded
 numpy draws with an attach room of 0 to 3 a row, an increment of 1 or 2 and
 a drawn aux_cnt in the carry, fresh and chained: results and every
 ScanCarry lane, aux_cnt included, are equal. Features: build_batch's
@@ -93,7 +92,7 @@ def _same(jax_arrays, torch_arrays, what):
 def paths(monkeypatch):
     """The plain kernel versions schedule_batch ran."""
     seen = []
-    for name in ("_lap_schedule_plain", "_scan_schedule_plain", "_scan_general_plain"):
+    for name in ("_lap_schedule_plain", "_scan_general_plain"):
         fn = getattr(K, name)
         monkeypatch.setattr(K, name, lambda *a, _fn=fn, _n=name[1:-6], **kw:
                             seen.append(_n) or _fn(*a, **kw))
@@ -128,8 +127,8 @@ AUX = {
     "lap": (dict(), 512, 512, "lap_schedule"),          # more pods than room
     "lap-padded": (dict(), 512, 150, "lap_schedule"),
     "lap-hostname-anti": (dict(anti=1, anti_axis=HOST_AXIS), 512, 120, "lap_schedule"),
-    "scan": (dict(), 64, 64, "scan_schedule"),
-    "scan-padded": (dict(), 64, 40, "scan_schedule"),
+    "scan": (dict(), 64, 64, "scan_general"),
+    "scan-padded": (dict(), 64, 40, "scan_general"),
     "general-spread": (dict(dns=1), 64, 40, "scan_general"),       # full feasibility
     "general-soft-pns": (dict(sa=1, pns=True), 64, 40, "scan_general"),  # incremental
 }
@@ -171,7 +170,7 @@ def test_schedule_batch_with_the_aux_lane(case, strategy, drawn, paths):
 
 def test_aux_lane_with_the_blocked_lane():
     """Both row-local lanes at once (host ports and an attach limit) on the
-    lap and scan_schedule, as in JAX."""
+    lap and the scan path (scan_general), as in JAX."""
     for batch_pad, n_active in ((512, 300), (64, 64)):
         s, f, facts = general_inputs(91, 256, 200, vmax=VMAX)
         room, inc, cnt = aux_lane(91, 256, 200)
@@ -629,7 +628,7 @@ def test_build_batch_aux_lane_like_jax(claims):
 
 @pytest.mark.parametrize("max_batch,spread,kernel,want", [
     (None, False, "lap_schedule", 60),
-    (64, False, "scan_schedule", 60),
+    (64, False, "scan_general", 60),
     (64, True, "scan_general", 55),
 ], ids=["lap", "scan", "general-spread"])
 def test_attach_limit_cut_like_jax(max_batch, spread, kernel, want, paths):
