@@ -7,6 +7,7 @@ TopologySpreading/5000Nodes_5000Pods and SchedulingBasic/5000Nodes_10000Pods.
     git archive <parent commit> | tar -x -C <dir>   # into an ignored directory
     python3 ab_windows.py <dir> [rounds] [--freeze] [--workloads W1,W2] [--calls] [--shards S]
     python3 ab_windows.py <dir> [rounds] --scan
+    python3 ab_windows.py <dir> [rounds] --gates
 
 Each round runs parent, change, change, parent, each side in a process of
 its own started in its tree, and prints one `AB {...}` JSON line a run:
@@ -33,7 +34,15 @@ it, else scan_general) and prints one `SCAN {...}` line a run: per input
 the kernel, its device ms a launch (torch.profiler), its call ms (CUDA
 events) and a digest of the results and carry. The last line gives, per
 input, each side's median device ms and whether every run's digest was
-the same."""
+the same.
+
+With --gates, the same for dry_run_preemption and static_masks:
+chip_smoke.gate_inputs gathers their timed inputs once
+(build/gate_inputs.pt: the dry runs of Unschedulable's churn pod and of a
+preemptor after the preempting case, seeded draws, static_masks on those
+clusters' pods and on seeded draws), each side runs its own tree's kernel
+on every input and prints one `GATES {...}` line a run, and the last line
+gives the medians, the ratio and whether every digest agreed."""
 
 import json
 import os
@@ -155,6 +164,46 @@ print(json.dumps(out))
 """
 
 
+GATHER_GATES = """
+import sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke
+torch.save(chip_smoke.gate_inputs(torch.device("cuda", 0)), sys.argv[1])
+print("{}")
+"""
+
+GATES_SIDE = """
+import hashlib, json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke
+from kubernetes_tpu_torch.ops import kernel as K
+from kubernetes_tpu_torch.ops.device_state import DeviceNodeState
+from kubernetes_tpu_torch.ops.features import BatchFeatures
+
+dev = torch.device("cuda", 0)
+out = {}
+for name, e in torch.load(sys.argv[1]).items():
+    st = DeviceNodeState(*[t.to(dev) for t in e["state"]])
+    ft = BatchFeatures(*[t.to(dev) for t in e["feats"]])
+    if e["kind"] == "dry":
+        kname = "dry_run_preemption"
+        vr, vv = e["vic_req"].to(dev), e["vic_valid"].to(dev)
+        fn = lambda: (K.dry_run_preemption(st, ft, vr, vv, e["k"]),)
+    else:
+        kname = "static_masks"
+        fn = lambda: tuple(K.static_masks(st, ft))
+    h = hashlib.sha256()
+    for t in fn():
+        h.update(t.to(torch.int64).cpu().numpy().tobytes())
+    ms, seen = chip_smoke.device_ms(fn, kname)
+    out[name] = dict(kernel=kname, device_ms=ms, launches_seen=seen,
+                     call_ms=chip_smoke.wall_ms(fn, reps=20), digest=h.hexdigest()[:16])
+print(json.dumps(out))
+"""
+
+
 def run_side(tree: str, workloads, flags, script=ONE_SIDE) -> dict:
     out = subprocess.run([sys.executable, "-c", script, ",".join(workloads)] + flags,
                          cwd=tree, capture_output=True, text=True, timeout=900)
@@ -163,28 +212,30 @@ def run_side(tree: str, workloads, flags, script=ONE_SIDE) -> dict:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def scan_main(trees: dict, rounds: int) -> int:
-    """The --scan mode: the scan path's kernels of both trees in turns."""
-    inputs = os.path.join(trees["change"], "build", "scan_inputs.pt")
+def kernels_main(trees: dict, rounds: int, what: str, gather: str, side: str) -> int:
+    """The --scan and --gates modes: one tree's kernels against the
+    other's on the same gathered inputs, in turns."""
+    inputs = os.path.join(trees["change"], "build", f"{what}_inputs.pt")
     os.makedirs(os.path.dirname(inputs), exist_ok=True)
-    run_side(trees["change"], [inputs], [], script=GATHER)
-    ms, digests, kernels = {}, {}, {}
+    run_side(trees["change"], [inputs], [], script=gather)
+    ms, calls, digests, kernels = {}, {}, {}, {}
     for _ in range(rounds):
-        for side in ("parent", "change", "change", "parent"):
-            res = run_side(trees[side], [inputs], [], script=SCAN_SIDE)
+        for tree in ("parent", "change", "change", "parent"):
+            res = run_side(trees[tree], [inputs], [], script=side)
             for name, r in res.items():
-                ms.setdefault((side, name), []).append(r["device_ms"])
+                ms.setdefault((tree, name), []).append(r["device_ms"])
+                calls.setdefault((tree, name), []).append(r["call_ms"])
                 digests.setdefault(name, set()).add(r["digest"])
-                kernels[(side, name)] = r["kernel"]
-            print("SCAN " + json.dumps({"tree": side, **res}), flush=True)
+                kernels[(tree, name)] = r["kernel"]
+            print(f"{what.upper()} " + json.dumps({"tree": tree, **res}), flush=True)
     summary = {}
     for name, seen in digests.items():
-        p, c = (statistics.median(ms[(side, name)]) for side in ("parent", "change"))
-        summary[name] = dict(parent=[kernels[("parent", name)], p, min(ms[("parent", name)]),
-                                     max(ms[("parent", name)])],
-                             change=[kernels[("change", name)], c, min(ms[("change", name)]),
-                                     max(ms[("change", name)])],
-                             change_over_parent=c / p, exact=len(seen) == 1)
+        p, c = (statistics.median(ms[(tree, name)]) for tree in ("parent", "change"))
+        summary[name] = {tree: [kernels[(tree, name)], statistics.median(ms[(tree, name)]),
+                                min(ms[(tree, name)]), max(ms[(tree, name)]),
+                                statistics.median(calls[(tree, name)])]
+                         for tree in ("parent", "change")}
+        summary[name].update(change_over_parent=c / p, exact=len(seen) == 1)
     print(json.dumps(summary), flush=True)
     return 0
 
@@ -201,15 +252,17 @@ def main() -> int:
         i = args.index("--shards")
         flags += args[i:i + 2]
         del args[i:i + 2]
-    scan = "--scan" in args
-    args = [a for a in args if a not in ("--freeze", "--calls", "--scan")]
+    scan, gates = "--scan" in args, "--gates" in args
+    args = [a for a in args if a not in ("--freeze", "--calls", "--scan", "--gates")]
     if not args:
         print(__doc__, file=sys.stderr)
         return 2
     trees = {"parent": args[0], "change": os.path.dirname(os.path.abspath(__file__))}
     rounds = int(args[1]) if len(args) > 1 else 3
     if scan:
-        return scan_main(trees, rounds)
+        return kernels_main(trees, rounds, "scan", GATHER, SCAN_SIDE)
+    if gates:
+        return kernels_main(trees, rounds, "gates", GATHER_GATES, GATES_SIDE)
     if "--calls" in flags:
         for side in ("parent", "change"):
             print("CALLS " + json.dumps({"tree": side, **run_side(trees[side], workloads, flags)}),

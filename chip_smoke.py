@@ -33,8 +33,11 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                fit strategies, fresh and chained carries. The schedule
                kernels again with a live nominated-pod lane; dry_run_preemption
                on seeded victim draws at K = 8, 32 and 256 (rows with no
-               victim, invalid slots, scalar-resource victims) and with no
-               row that any removal can fit; scatter_rows with 1, 64 and 4096
+               victim, invalid slots, scalar-resource victims), with no
+               row that any removal can fit, and on its design's edges
+               (DRY_EDGES: R 1 to 64, K up to 256, victims past
+               num_nodes, gates off, no taint or toleration, 160 taint
+               slots); static_masks on its edges (MASK_EDGES); scatter_rows with 1, 64 and 4096
                dirty rows; patch_carry_rows at K = 32, 256 and 2048 (tiers
                padded with duplicate indices) on a carry chained through two
                schedule_batch calls, with and without a nominated-pod lane,
@@ -213,7 +216,11 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                SchedulingPodAffinity's next batch, and on the scan path's
                row-local plan (SchedulingBasic's next batch at 64 steps,
                its `row_local` entry); dry_run_preemption on Unschedulable's own dry-run
-               inputs (a churn pod against the 10000 bound pods); and
+               inputs (a churn pod against the 10000 bound pods) and on
+               the preempting case's (a preemptor after its 256), with
+               the host's build and copy of the victim tensors; the
+               launch floor (a one-element fill_) and static_masks' call
+               split (allocation, argument checks, launch); and
                scatter_rows at the preempting case's rows per flush, with
                index_copy_ per field (a library call) beside it;
                patch_carry_rows on the completion waves' own patches (each
@@ -381,9 +388,10 @@ def traced(fn, reps: int) -> list:
     return got
 
 
-def device_ms(fn, kernel: str, reps: int = 20) -> tuple:
+def device_ms(fn, kernel: str, reps: int = 20, pick=None) -> tuple:
     """(mean device ms of one launch, launches the profiler saw) of the
-    `<kernel>_kernel` that `fn` launches, from torch.profiler's CUDA kernel
+    `<kernel>_kernel` that `fn` launches (or of the CUDA events whose name
+    `pick` accepts), from torch.profiler's CUDA kernel
     events: the kernel alone, without the host work of its wrapper. At
     least reps - 1 of the reps launches must be seen in one trace; a trace
     that saw fewer is taken again, up to five traces (what it did see is
@@ -391,9 +399,10 @@ def device_ms(fn, kernel: str, reps: int = 20) -> tuple:
     every trace lost launches, the reps calls are timed back to back with
     CUDA events instead and 0 launches seen is returned: that time is the
     kernel's with its wrapper's enqueue, an upper bound."""
+    pick = pick or (lambda name: f"{kernel}_kernel" in name)
     for attempt in range(5):
         events = traced(fn, reps)
-        spans = [us for name, us in events if f"{kernel}_kernel" in name]
+        spans = [us for name, us in events if pick(name)]
         if len(spans) >= reps - 1:
             return sum(spans) / len(spans) / 1e3, len(spans)
         names = sorted({name for name, _us in events})
@@ -546,6 +555,7 @@ def kernel_phase(dev, np_cap: int, n_nodes: int) -> dict:
     lap_phase(K, dev, np_cap, n_nodes, errs)
     lane_phase(K, dev, np_cap, n_nodes, errs)
     dry_run_phase(K, dev, np_cap, n_nodes, errs)
+    masks_phase(K, dev, errs)
     scatter_phase(K, dev, np_cap, n_nodes, errs)
     patch_phase(K, dev, np_cap, n_nodes, errs)
     placement_phase(K, dev, np_cap, n_nodes, errs)
@@ -767,23 +777,65 @@ def lane_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
         errs[name] = max(errs[name], e)
 
 
-def dry_run_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
-    """dry_run_preemption against its plain version on seeded victim draws."""
-    from kubernetes_tpu_torch.testing.kernel_inputs import victim_inputs
+# The dry run's edge draws: (K, victim_edge_inputs keyword arguments).
+DRY_EDGES = ([(8, dict(r_slots=r)) for r in (1, 7, 8, 9, 33, 64)]
+             + [(8, kw) for kw in (dict(past_num=True), dict(no_request=True),
+                                   dict(enable_off=(4,)), dict(taints=0), dict(tolerations=0),
+                                   dict(pad_taints=True), dict(taints=160, pad_taints=True))]
+             + [(8, dict(enable_off=(i,))) for i in range(4)]
+             + [(k, kw) for k in (64, 256)
+                for kw in ({}, dict(r_slots=33, past_num=True), dict(r_slots=64))])
+# static_masks' edge draws: (rows, live rows, static_edge_inputs keyword arguments).
+MASK_EDGES = ([(8192, 5000, kw) for kw in (
+    {}, dict(taints=0), dict(tolerations=0), dict(taints=0, tolerations=0), dict(pad_taints=True),
+    dict(taints=40, pad_taints=True), dict(tolerations=7))]
+    + [(8192, 5000, dict(enable_off=(i,))) for i in range(4)]
+    + [(5003, 4000, {}), (37, 30, dict(tolerations=0))])
 
-    for k, kw in ((8, {}), (32, {}), (256, {}), (8, dict(infeasible=True))):
-        s, f, vr, vv = victim_inputs(500 + k, np_cap, n_nodes, k, **kw)
+
+def dry_run_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
+    """dry_run_preemption against its plain version on seeded victim draws,
+    then on the edges of its design (DRY_EDGES: 1 to 64 resource slots, two
+    slots a lane past 32; K 8, 64 and 256, victims past the register tier;
+    victims on rows past num_nodes; a pod without requests; the fit and
+    static gates off; no taint, no toleration, padded taints and 160 taint
+    slots, past the shared-memory stage)."""
+    from kubernetes_tpu_torch.testing.kernel_inputs import victim_edge_inputs, victim_inputs
+
+    draws = [(k, kw, victim_inputs(500 + k, np_cap, n_nodes, k, **kw))
+             for k, kw in ((8, {}), (32, {}), (256, {}), (8, dict(infeasible=True)))]
+    draws += [(k, kw, victim_edge_inputs(900 + k + i, np_cap, n_nodes, k, **kw))
+              for i, (k, kw) in enumerate(DRY_EDGES)]
+    for k, kw, (s, f, vr, vv) in draws:
         st, ft = to_device(dev, s, f)
         args = (st, ft, torch.from_numpy(vr).to(dev), torch.from_numpy(vv).to(dev), k)
         got, want = K.dry_run_preemption(*args), K._dry_run_preemption_plain(*args)
         e = max_abs_err((got,), (want,))
         errs["dry_run_preemption"] = max(errs["dry_run_preemption"], e)
         cands, empty = int(want[:, 0].sum()), int((vv[:n_nodes].sum(axis=1) == 0).sum())
-        print(f"dry_run_preemption K {k}{' no-fit' if kw else ''}: max_abs_err {e}, "
+        print(f"dry_run_preemption K {k} R {vr.shape[2]} {kw}: max_abs_err {e}, "
               f"{cands} candidate rows, {int(want[:, 1:].sum())} victims, "
               f"{empty} rows without a victim", flush=True)
         check(empty > 0, "the victim draw has no row without a victim")
-        check((cands == 0) if kw else (cands > 0), f"dry run K {k}: {cands} candidate rows")
+        no_fit = kw.get("infeasible") or 4 in kw.get("enable_off", ())
+        check((cands == 0) if no_fit else (cands > 0), f"dry run K {k} {kw}: {cands} candidates")
+
+
+def masks_phase(K, dev, errs: dict) -> None:
+    """static_masks against its plain version on the edges of its design
+    (MASK_EDGES): no taint or toleration, padded taints, 40 taint slots,
+    seven tolerations, each gate off, rows not a multiple of the block or
+    of 8."""
+    from kubernetes_tpu_torch.testing.kernel_inputs import static_edge_inputs
+
+    for i, (NP, n, kw) in enumerate(MASK_EDGES):
+        st, ft = to_device(dev, *static_edge_inputs(1300 + i, NP, n, **kw))
+        want = K._static_masks_plain(st, ft)
+        e = max_abs_err(K.static_masks(st, ft), want)
+        errs["static_masks"] = max(errs["static_masks"], e)
+        print(f"static_masks NP {NP} T {st.taint_key.shape[1]} L {ft.tol_key.shape[0]} {kw}: "
+              f"max_abs_err {e}, {int(want.static_ok.sum())} static_ok rows, "
+              f"{int(want.pns_cnt.sum())} PreferNoSchedule taints", flush=True)
 
 
 def scatter_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
@@ -1685,6 +1737,59 @@ def scan_path_inputs(dev) -> dict:
     return out
 
 
+def gate_inputs(dev) -> dict:
+    """Every timed input of dry_run_preemption and static_masks, by name,
+    for ab_windows.py --gates: the dry runs of Unschedulable's churn pod
+    (10000 victims on 5000 rows) and of a preemptor after the preempting
+    case (one victim a row), seeded draws at K 64 and 256 and at R 33 (two
+    slots a lane); static_masks on a SchedulingBasic pod and on the
+    preemptor against those clusters, a seeded draw with two tolerations
+    and one with 40 taint slots. Each is
+    (kind, state, features and, for a dry run, vic_req, vic_valid, K), its
+    tensors on the CPU."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.testing import make_pod
+    from kubernetes_tpu_torch.testing.kernel_inputs import (random_inputs, static_edge_inputs,
+                                                            victim_edge_inputs, victim_inputs)
+
+    def cpu(ts):
+        return [t.detach().to("cpu").clone() for t in ts]
+
+    def dry(args):
+        st, ft, vr, vv, k = args
+        return dict(kind="dry", state=cpu(st), feats=cpu(ft), vic_req=vr.cpu(), vic_valid=vv.cpu(),
+                    k=k)
+
+    def masks(st, ft):
+        return dict(kind="masks", state=cpu(st), feats=cpu(ft))
+
+    out = {}
+    unsched = run_path(dev, UNSCHED, churn_limit=CHURN_PODS)[0]
+    churn = bench.WORKLOADS[UNSCHED].churn.build(make_pod().name("timed-churn")).obj()
+    out[f"dry run: {UNSCHED}'s churn pod"] = dry(dry_run_inputs(unsched, churn))
+    pre = preempting_case(dev)[0]
+    preemptor = bench.make_pods(1, "timed-pre", PREEMPT)[0]
+    pargs = dry_run_inputs(pre, preemptor)
+    out["dry run: a preemptor after the preempting case"] = dry(pargs)
+    for name, (s, f, vr, vv), k in (
+            ("dry run: seeded draw, K 64", victim_inputs(1400, 8192, 5000, 64), 64),
+            ("dry run: seeded draw, K 256", victim_inputs(1401, 8192, 5000, 256), 256),
+            ("dry run: seeded draw, R 33, K 8", victim_edge_inputs(1402, 8192, 5000, 8, r_slots=33),
+             8)):
+        st, ft = to_device("cpu", s, f)
+        out[name] = dict(kind="dry", state=list(st), feats=list(ft),
+                         vic_req=torch.from_numpy(vr), vic_valid=torch.from_numpy(vv), k=k)
+    pod = bench.make_pods(1, "timed")[0]
+    st, plan = unsched.build_plan(unsched.framework_for_pod(pod), pod, unsched.max_batch)
+    out[f"static_masks: a SchedulingBasic pod on {UNSCHED}'s cluster"] = masks(st, plan.features)
+    out["static_masks: the preemptor after the preempting case"] = masks(pargs[0], pargs[1])
+    out["static_masks: seeded draw, T 4, L 2"] = masks(*to_device(
+        "cpu", *random_inputs(1403, 8192, 5000)))
+    out["static_masks: seeded draw, T 40, L 2"] = masks(*to_device(
+        "cpu", *static_edge_inputs(1404, 8192, 5000, taints=40, pad_taints=True)))
+    return out
+
+
 def timing_phase(paths: dict, errs: dict, lane_inputs) -> dict:
     """Each kernel and its plain version timed on its main path's own
     inputs: the next batch's device state and features of the path's
@@ -1759,6 +1864,9 @@ def timing_phase(paths: dict, errs: dict, lane_inputs) -> dict:
         slow = kname == "scan_general"  # its plain version takes seconds
         rows[kname] = kernel_row(kname, replaces[kname], errs[kname], k_fn, p_fn, nbytes, ops,
                                  reps=5 if slow else 20, plain_reps=1 if slow else 2)
+    rows["static_masks"]["call_split"] = split = static_masks_call_split(K, st, ft)
+    print("static_masks call split (ms a call, host clock): " + ", ".join(
+        f"{k[:-3]} {v:.5f}" for k, v in split.items()), flush=True)
     rows["lap_schedule"]["laps"] = laps
     rows["lap_schedule"]["us_a_lap"] = rows["lap_schedule"]["ms"] * 1e3 / laps
     rows["scan_general"]["steps"] = gB
@@ -1908,54 +2016,181 @@ def kernel_row(kname, replaces, err, k_fn, p_fn, nbytes, ops, library_ms=None, r
                 bytes=nbytes, ops=ops)
 
 
+def launch_floor_ms(dev, reps: int = 20) -> tuple:
+    """(mean device ms, launches seen) of a one-element fill_ on the
+    current stream, from torch.profiler: the least device time any kernel
+    launch takes on this card, the floor the short kernels are read
+    against. A trace that lost the fills is taken again as device_ms
+    does; when every one lost them, 0 seen is returned with the fills'
+    time back to back on CUDA events, an upper bound."""
+    one = torch.empty(1, device=dev)
+    return device_ms(lambda: one.fill_(1), "fill", reps, pick=lambda name: "fill" in name.lower())
+
+
+def static_masks_call_split(K, st, ft, reps: int = 2000) -> dict:
+    """Where a static_masks call's host time goes, each part timed alone
+    over `reps` calls on the host's clock (ms a call): the one output
+    buffer and its seven views, the seven separate allocations the wrapper
+    made before (for comparison), _marshal's checks of the 27 arguments,
+    the ctypes call of the launcher with its stream (the launch), and the
+    whole wrapper; the rest is the whole less the three parts."""
+    from kubernetes_tpu_torch.ops import _build
+
+    dev = st.valid.device
+    NP, T = st.taint_key.shape
+    L = ft.tol_key.shape[0]
+    NPa = -(-NP // 8) * 8
+
+    def alloc():
+        return K._static_mask_views(torch.empty(14 * NPa, dtype=torch.uint8, device=dev), NP)
+
+    def alloc_seven():
+        return ([torch.empty(NP, dtype=torch.bool, device=dev) for _ in range(6)],
+                torch.empty(NP, dtype=torch.int64, device=dev))
+
+    outs = alloc()
+    args = (NP, T, L, st.taint_key, st.taint_val, st.taint_eff, ft.tol_key, ft.tol_val,
+            ft.tol_eff, ft.tol_op, ft.sel_match, ft.node_name_id, st.name_id, st.unsched,
+            ft.tolerates_unsched, ft.exist_anti, ft.enable, st.valid, ft.extra_ok, *outs)
+    cargs = K._marshal("static_masks", dev, args)
+    fn = _build.launcher("static_masks")
+
+    def launch():
+        fn(*cargs, K._stream(dev))
+
+    def host_ms(f):
+        for _ in range(50):
+            f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            f()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    out = dict(alloc_ms=host_ms(alloc), alloc_seven_ms=host_ms(alloc_seven),
+               marshal_ms=host_ms(lambda: K._marshal("static_masks", dev, args)),
+               launch_ms=host_ms(launch), call_ms=host_ms(lambda: K.static_masks(st, ft)))
+    out["rest_ms"] = out["call_ms"] - out["alloc_ms"] - out["marshal_ms"] - out["launch_ms"]
+    return out
+
+
 def library_device_ms(fn, reps: int = 20) -> float:
     """Device time per call of `fn`'s kernels (copies excluded), from
-    torch.profiler."""
-    us = sum(t for name, t in traced(fn, reps)
-             if "memcpy" not in name.lower() and "memset" not in name.lower())
-    return us / reps / 1e3
+    torch.profiler; a trace that saw none of them is taken again, up to
+    five traces, and then the calls are timed back to back on CUDA events
+    (an upper bound)."""
+    for _attempt in range(5):
+        spans = [t for name, t in traced(fn, reps)
+                 if "memcpy" not in name.lower() and "memset" not in name.lower()]
+        if spans:
+            return sum(spans) / reps / 1e3
+    print(f"library_device_ms: every trace lost the kernels; timed with CUDA events over "
+          f"{reps} calls back to back", flush=True)
+    return wall_ms(fn, reps=reps)
+
+
+def dry_run_inputs(sched, pod) -> tuple:
+    """(state, features, vic_req, vic_valid, k) of `pod`'s device dry run
+    on `sched`'s cluster as it stands, built as the scheduler's
+    device_dry_run_preemption builds them."""
+    from kubernetes_tpu_torch.ops.features import build_preemption_victims
+
+    sched.cache.update_snapshot(sched.snapshot)
+    sched.mirror.sync(sched.snapshot.node_info_list)
+    vic_req, vic_valid, _potential = build_preemption_victims(pod, sched.snapshot, sched.mirror)
+    st, plan = sched.build_plan(sched.framework_for_pod(pod), pod, 1)
+    R = st.alloc_r.shape[1]
+    if vic_req.shape[2] != R:  # the preemptor's own new scalar slots: no victim requests them
+        grown = np.zeros(vic_req.shape[:2] + (R,), np.int64)
+        grown[:, :, :vic_req.shape[2]] = vic_req
+        vic_req = grown
+    dev = st.valid.device
+    return (st, plan.features, torch.from_numpy(vic_req).to(dev),
+            torch.from_numpy(vic_valid).to(dev), vic_valid.shape[1])
+
+
+def dry_run_cost(st, ft, vic_valid, k) -> tuple:
+    """(bytes, ops) of one dry run on these inputs, what the run's data
+    needs, read once: the [NP, K] victim flags, the R requests of each
+    valid victim (an invalid slot's are never read), and the allocatable,
+    requested, count and static-filter inputs of the live rows (below
+    num_nodes); the [NP, 1 + K] verdicts written once. Ops: each live
+    row's static filter and fit test, and per valid victim its removal
+    and a fit test over R slots."""
+    NP, R = st.alloc_r.shape
+    T, L = st.taint_key.shape[1], ft.tol_key.shape[0]
+    live, victims = int(ft.num_nodes), int(vic_valid[:int(ft.num_nodes)].sum())
+    nbytes = NP * k + victims * R * 8 + live * (R * 16 + 12 + 12 * T + 12) + NP * (1 + k)
+    ops = live * (T * (10 * L + 6) + 4 * R + 12) + victims * (5 * R + 12)
+    return nbytes, ops, live, victims
 
 
 def preemption_timing(paths: dict, errs: dict) -> dict:
     """dry_run_preemption on Unschedulable's own dry-run inputs (a churn pod
-    against the cluster after the 10000 measured pods) and scatter_rows at
-    the preempting case's dirty rows per flush, each held exact first."""
+    against the cluster after the 10000 measured pods), which its kernels
+    row reports, and on the preempting case's (a preemptor against the
+    cluster after its 256 preemptions, one victim a row), where 256 of its
+    launches run; and scatter_rows at the preempting case's dirty rows per
+    flush; each held exact first."""
     from kubernetes_tpu_torch import bench
     from kubernetes_tpu_torch.ops import kernel as K
-    from kubernetes_tpu_torch.ops.features import build_preemption_victims
     from kubernetes_tpu_torch.testing import make_pod
 
     rows = {}
     sched = paths[UNSCHED][0]
     pod = bench.WORKLOADS[UNSCHED].churn.build(make_pod().name("timed-churn")).obj()
-    sched.cache.update_snapshot(sched.snapshot)
-    sched.mirror.sync(sched.snapshot.node_info_list)
-    vic_req, vic_valid, _potential = build_preemption_victims(pod, sched.snapshot, sched.mirror)
-    st, plan = sched.build_plan(sched.framework_for_pod(pod), pod, 1)
-    dev = st.valid.device
-    NP, R = st.alloc_r.shape
-    k = vic_valid.shape[1]
-    T, L = st.taint_key.shape[1], plan.features.tol_key.shape[0]
-    args = (st, plan.features, torch.from_numpy(vic_req).to(dev),
-            torch.from_numpy(vic_valid).to(dev), k)
-    check(max_abs_err((K.dry_run_preemption(*args),), (K._dry_run_preemption_plain(*args),)) == 0,
-          "dry_run_preemption disagrees with its plain version on Unschedulable's inputs")
-    # What this run's data needs, read once: the [NP, K] victim flags, the
-    # R requests of each valid victim (an invalid slot's are never read),
-    # and the allocatable, requested, count and static-filter inputs of
-    # the live rows (below num_nodes); the [NP, 1 + K] verdicts written
-    # once. Ops: each live row's static filter and fit test, and per valid
-    # victim its removal and a fit test over R slots.
-    live, victims = int(plan.features.num_nodes), int(vic_valid.sum())
-    nbytes = NP * k + victims * R * 8 + live * (R * 16 + 12 + 12 * T + 12) + NP * (1 + k)
-    ops = live * (T * (10 * L + 6) + 4 * R + 12) + victims * (5 * R + 12)
-    rows["dry_run_preemption"] = kernel_row(
-        "dry_run_preemption", "kubernetes_tpu/ops/kernel.py:727", errs["dry_run_preemption"],
-        lambda: K.dry_run_preemption(*args), lambda: K._dry_run_preemption_plain(*args),
-        nbytes, ops)
-    rows["dry_run_preemption"].update(k=k, victims=victims, live_rows=live)
+    cases = {UNSCHED: dry_run_inputs(sched, pod),
+             PREEMPTING: dry_run_inputs(paths[PREEMPTING][0],
+                                        bench.make_pods(1, "timed-pre", PREEMPT)[0])}
+    inputs = {}
+    for name, args in cases.items():
+        check(max_abs_err((K.dry_run_preemption(*args),), (K._dry_run_preemption_plain(*args),))
+              == 0, f"dry_run_preemption disagrees with its plain version on {name}'s inputs")
+        st, ft, _vr, vv, k = args
+        nbytes, ops, live, victims = dry_run_cost(st, ft, vv, k)
+        row = kernel_row("dry_run_preemption", "kubernetes_tpu/ops/kernel.py:727",
+                         errs["dry_run_preemption"], lambda a=args: K.dry_run_preemption(*a),
+                         lambda a=args: K._dry_run_preemption_plain(*a), nbytes, ops)
+        row.update(k=k, victims=victims, live_rows=live, R=int(st.alloc_r.shape[1]))
+        inputs[name] = row
+        print(f"dry_run_preemption on {name}'s dry run (NP {st.valid.shape[0]}, K {k}, R "
+              f"{row['R']}, {victims} victims on {live} live rows): exact, {row['ms']:.6f} ms on "
+              f"the device, {row['host_ms']:.4f} ms a call, plain {row['plain_ms']:.3f} ms, "
+              f"bound {row['bound_ms']:.6f} ms", flush=True)
+    # The host work around a dry run on the preempting case: the victim
+    # tensors built in Python (build_preemption_victims, every node's pods
+    # sorted) and their copy to the card.
+    from kubernetes_tpu_torch.ops.features import build_preemption_victims
 
-    mirror = paths[PREEMPTING][0].mirror
+    pre = paths[PREEMPTING][0]
+    preemptor = bench.make_pods(1, "timed-pre", PREEMPT)[0]
+    t0 = time.perf_counter()
+    for _ in range(5):
+        vr, vv, _potential = build_preemption_victims(preemptor, pre.snapshot, pre.mirror)
+    build_ms = (time.perf_counter() - t0) * 1e3 / 5
+    dev = pre.mirror.device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        torch.from_numpy(vr).to(dev)
+        torch.from_numpy(vv).to(dev)
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t0) * 1e3 / 20
+    inputs[PREEMPTING].update(victims_build_ms=build_ms, victims_copy_ms=copy_ms,
+                              victims_copy_bytes=vr.nbytes + vv.nbytes)
+    print(f"the preempting case's dry run on the host: build_preemption_victims {build_ms:.3f} ms, "
+          f"its [NP, K, R] and [NP, K] copy to the card {copy_ms:.4f} ms "
+          f"({vr.nbytes + vv.nbytes} bytes)", flush=True)
+    rows["dry_run_preemption"] = dict(inputs[UNSCHED])
+    rows["dry_run_preemption"]["inputs"] = {
+        n: {key: r[key] for key in ("ms", "ms_launches_seen", "host_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "bytes", "ops", "k", "victims", "live_rows",
+                                    "victims_build_ms", "victims_copy_ms", "victims_copy_bytes")
+            if key in r}
+        for n, r in inputs.items()}
+
+    mirror = pre.mirror
     d = max(1, round(mirror.scatter_rows / max(1, mirror.scatter_flushes)))
     at = list(range(0, 5000, 5000 // d))[:d]
     state = mirror.flush()
@@ -1991,7 +2226,7 @@ def preemption_timing(paths: dict, errs: dict) -> dict:
         f"{n} {r['ms']:.4f} ms on the device, {r['host_ms']:.4f} ms a call, plain "
         f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), library "
         f"{r['library_ms']}" for n, r in rows.items())
-        + f" (dry run: NP {NP}, K {k}, R {R}; scatter: {d} rows)", flush=True)
+        + f" (dry run: Unschedulable's; scatter: {d} rows)", flush=True)
     return rows
 
 
@@ -3695,6 +3930,12 @@ def main() -> int:
     blocked_timing(rows, waves["blocked_captures"], errs)
     aux_timing(rows, waves["aux_captures"], errs)
     rows.update(mesh_timing(paths, errs, mesh_capture))
+    floor, seen = launch_floor_ms(dev)
+    print(f"launch floor (a one-element fill_ on the stream, {seen} of 20 seen): {floor:.6f} ms "
+          f"on the device; static_masks {rows['static_masks']['ms']:.6f}, dry_run_preemption "
+          f"{rows['dry_run_preemption']['ms']:.6f}", flush=True)
+    for name in ("static_masks", "dry_run_preemption"):
+        rows[name]["launch_floor_ms"] = floor
     print(f"timing phase: {time.perf_counter() - t1:.1f} s", flush=True)
     for name, (_s, result, _l) in paths.items():
         if result is not None:

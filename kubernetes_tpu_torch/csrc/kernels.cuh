@@ -155,36 +155,149 @@ struct StaticRow {
   int64_t pns_cnt;
 };
 
-// Row n's static verdicts and the folded static_ok (:304).
-__device__ __forceinline__ StaticRow static_row(const StaticFeat& s, int n) {
+// Where a block reads its rows' taints (the [rows, T] slab of each taint
+// array from row `first` on) and the batch's L tolerations: shared memory
+// once stage_static has copied them there, else device memory.
+struct StaticStage {
+  int first;
+  const int32_t *tk, *tv, *te;
+  const int32_t *lk, *lv, *le, *lo;
+};
+
+// Dynamic shared memory a block may take without an opt-in attribute.
+#define STAGE_SMEM_MAX (48 * 1024)
+
+// Shared memory stage_static takes for `rows` rows: three [rows, T] int32
+// taint slabs and four [L] int32 toleration arrays. With rows a multiple
+// of 4 every slab starts 16-byte aligned.
+static __host__ __device__ __forceinline__ size_t static_stage_bytes(int rows, int T, int L) {
+  return (size_t)12 * rows * T + (size_t)16 * L;
+}
+
+// Every thread of the block copies tolerations tid, tid + blockDim, ...
+// into lk[0, L) (keys), [L, 2L) (values), [2L, 3L) (effects) and [3L, 4L)
+// (operators) of shared memory, its loads issued before its stores.
+static __device__ __forceinline__ void stage_tolerations(const StaticFeat& s, int32_t* lk) {
+  const int L = s.L;
+  for (int l = threadIdx.x; l < L; l += blockDim.x) {
+    const int32_t a = __ldg(s.tol_key + l), b = __ldg(s.tol_val + l);
+    const int32_t c = __ldg(s.tol_eff + l), d = __ldg(s.tol_op + l);
+    lk[l] = a;
+    lk[L + l] = b;
+    lk[2 * L + l] = c;
+    lk[3 * L + l] = d;
+  }
+}
+
+// The stage of a block's rows [n0, n0 + rows). STAGED: every thread of
+// the block copies the tolerations and the rows' taint slabs (contiguous
+// in each [NP, T] array) into `sm` (static_stage_bytes(cap, T, L),
+// 16-byte aligned, cap >= rows), a thread's loads issued before its
+// stores: 16-byte vector loads where the slabs are 16-byte aligned, one
+// word a thread for the tail. The caller syncs the block before reading.
+// Otherwise the stage points into device memory.
+template <bool STAGED>
+static __device__ __forceinline__ StaticStage stage_static(const StaticFeat& s, int n0, int rows,
+                                                           int cap, int32_t* sm) {
+  const int64_t off = (int64_t)n0 * s.T;
+  const int32_t* __restrict__ sk = s.taint_key + off;
+  const int32_t* __restrict__ sv = s.taint_val + off;
+  const int32_t* __restrict__ se = s.taint_eff + off;
+  if (!STAGED) return StaticStage{n0, sk, sv, se, s.tol_key, s.tol_val, s.tol_eff, s.tol_op};
+  const int slab = cap * s.T, count = rows * s.T, L = s.L, tid = threadIdx.x;
+  int32_t* dk = sm;
+  int32_t* dv = sm + slab;
+  int32_t* de = sm + 2 * slab;
+  int32_t* lk = sm + 3 * slab;
+  stage_tolerations(s, lk);
+  const bool vec = ((reinterpret_cast<uintptr_t>(sk) | reinterpret_cast<uintptr_t>(sv) |
+                     reinterpret_cast<uintptr_t>(se)) & 15) == 0;
+  const int nv = vec ? count >> 2 : 0;
+  for (int i = tid; i < nv; i += blockDim.x) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(sk) + i);
+    const int4 b = __ldg(reinterpret_cast<const int4*>(sv) + i);
+    const int4 c = __ldg(reinterpret_cast<const int4*>(se) + i);
+    reinterpret_cast<int4*>(dk)[i] = a;
+    reinterpret_cast<int4*>(dv)[i] = b;
+    reinterpret_cast<int4*>(de)[i] = c;
+  }
+  for (int i = 4 * nv + tid; i < count; i += blockDim.x) {
+    const int32_t a = __ldg(sk + i), b = __ldg(sv + i), c = __ldg(se + i);
+    dk[i] = a;
+    dv[i] = b;
+    de[i] = c;
+  }
+  return StaticStage{n0, dk, dv, de, lk, lk + L, lk + 2 * L, lk + 3 * L};
+}
+
+// Row n's gates other than its taints (:304): node name, unschedulable,
+// selector and existing anti-affinity, valid & extra_ok, and whether the
+// taint gate is on. Read apart
+// from the taints so that a kernel can issue these loads with its stage.
+struct StaticGates {
+  bool sel_ok, name_ok, unsched_ok, exist_anti_ok, live, taints_off;
+};
+
+static __device__ __forceinline__ StaticGates static_gates(const StaticFeat& s, int n) {
+  const int32_t want = *s.node_name_id;
+  StaticGates g;
+  g.sel_ok = s.sel_match[n] || s.enable[3] == 0;
+  g.name_ok = want == 0 || s.name_id[n] == want || s.enable[0] == 0;
+  g.unsched_ok = !s.unsched[n] || *s.tolerates_unsched == 1 || s.enable[1] == 0;
+  g.exist_anti_ok = s.exist_anti[n] == 0;
+  g.live = s.valid[n] && s.extra_ok[n];
+  g.taints_off = s.enable[2] == 0;
+  return g;
+}
+
+// One taint (key k, value v, effect e) against the L tolerations: an
+// untolerated NoSchedule or NoExecute taint sets `untolerated`, an
+// untolerated PreferNoSchedule taint counts in `pns`.
+static __device__ __forceinline__ void taint_verdict(int32_t k, int32_t v, int32_t e, int L,
+                                                     const int32_t* lk, const int32_t* lv,
+                                                     const int32_t* le, const int32_t* lo,
+                                                     bool& untolerated, int64_t& pns) {
+  bool tolerated = false, pns_tolerated = false;
+  for (int l = 0; l < L; ++l) {
+    const int32_t te = le[l];
+    const bool match = (te == 0 || te == e) && (lk[l] == 0 || lk[l] == k) &&
+                       (lo[l] == OP_EXISTS || lv[l] == v);
+    tolerated |= match;
+    pns_tolerated |= match && (te == 0 || te == EFFECT_PREFER_NO_SCHEDULE);
+  }
+  if ((e == EFFECT_NO_SCHEDULE || e == EFFECT_NO_EXECUTE) && !tolerated) untolerated = true;
+  if (e == EFFECT_PREFER_NO_SCHEDULE && !pns_tolerated) ++pns;
+}
+
+// A row's static verdicts and the folded static_ok (:304) from its gates
+// and its taints' verdicts.
+static __device__ __forceinline__ StaticRow static_verdicts(const StaticGates& g,
+                                                            bool untolerated, int64_t pns) {
+  StaticRow r;
+  r.taint_ok = !untolerated || g.taints_off;
+  r.sel_ok = g.sel_ok;
+  r.name_ok = g.name_ok;
+  r.unsched_ok = g.unsched_ok;
+  r.exist_anti_ok = g.exist_anti_ok;
+  r.static_ok = g.live && r.name_ok && r.unsched_ok && r.taint_ok && r.sel_ok &&
+                r.exist_anti_ok;
+  r.pns_cnt = pns;
+  return r;
+}
+
+// Row n's static verdicts with its taints and the tolerations read where
+// `st` holds them (dry_run_preemption; static_masks runs the same
+// taint_verdict and static_verdicts over a row in device memory).
+static __device__ __forceinline__ StaticRow static_row(const StaticFeat& s, const StaticStage& st,
+                                                       int n, const StaticGates& g) {
+  const int64_t at = (int64_t)(n - st.first) * s.T;
   bool untolerated = false;
   int64_t pns = 0;
   for (int t = 0; t < s.T; ++t) {
-    const int32_t k = s.taint_key[(int64_t)n * s.T + t];
-    const int32_t v = s.taint_val[(int64_t)n * s.T + t];
-    const int32_t e = s.taint_eff[(int64_t)n * s.T + t];
-    bool tolerated = false, pns_tolerated = false;
-    for (int l = 0; l < s.L; ++l) {
-      const int32_t te = s.tol_eff[l];
-      const bool match = (te == 0 || te == e) && (s.tol_key[l] == 0 || s.tol_key[l] == k) &&
-                         (s.tol_op[l] == OP_EXISTS || s.tol_val[l] == v);
-      tolerated |= match;
-      pns_tolerated |= match && (te == 0 || te == EFFECT_PREFER_NO_SCHEDULE);
-    }
-    if ((e == EFFECT_NO_SCHEDULE || e == EFFECT_NO_EXECUTE) && !tolerated) untolerated = true;
-    if (e == EFFECT_PREFER_NO_SCHEDULE && !pns_tolerated) ++pns;
+    taint_verdict(st.tk[at + t], st.tv[at + t], st.te[at + t], s.L, st.lk, st.lv, st.le, st.lo,
+                  untolerated, pns);
   }
-  const int32_t want = *s.node_name_id;
-  StaticRow r;
-  r.taint_ok = !untolerated || s.enable[2] == 0;
-  r.sel_ok = s.sel_match[n] || s.enable[3] == 0;
-  r.name_ok = want == 0 || s.name_id[n] == want || s.enable[0] == 0;
-  r.unsched_ok = !s.unsched[n] || *s.tolerates_unsched == 1 || s.enable[1] == 0;
-  r.exist_anti_ok = s.exist_anti[n] == 0;
-  r.static_ok = s.valid[n] && r.name_ok && r.unsched_ok && r.taint_ok && r.sel_ok &&
-                r.exist_anti_ok && s.extra_ok[n];
-  r.pns_cnt = pns;
-  return r;
+  return static_verdicts(g, untolerated, pns);
 }
 
 // The landed-row helpers of the persistent laps (lap_schedule.cu and

@@ -87,6 +87,22 @@ def signature(name: str) -> Tuple[Param, ...]:
     return tuple(out)
 
 
+@functools.lru_cache(maxsize=None)
+def defines(source: str) -> dict:
+    """The integer #defines of csrc/<source> (`#define NAME 256`, `#define
+    NAME (48 * 1024)`), evaluated: the constants a model of a kernel takes
+    from the source it models."""
+    with open(os.path.join(CSRC, source)) as fh:
+        src = fh.read()
+    out = {}
+    for name, expr in re.findall(r"^#define (\w+) \(?(\d+(?: \* \d+)*)\)?", src, re.M):
+        value = 1
+        for factor in expr.split(" * "):
+            value *= int(factor)
+        out[name] = value
+    return out
+
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds = 0.0

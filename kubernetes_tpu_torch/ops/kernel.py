@@ -219,13 +219,27 @@ def _static_masks_plain(state: DeviceNodeState, f: BatchFeatures) -> StaticMasks
     return StaticMasks(taint_ok, pns_cnt, sel_ok, name_ok, unsched_ok, exist_anti_ok, static_ok)
 
 
+def _static_mask_views(buf: torch.Tensor, NP: int) -> StaticMasks:
+    """The seven outputs of one static_masks launch as views of one byte
+    buffer of 14 * NPa bytes (NPa: NP rounded up to 8): the six bool masks
+    NPa bytes apart, then the int64 pns_cnt at byte 6 * NPa. Four view
+    operations in all where NP is a multiple of 8, as the mirror's row
+    tiers are."""
+    NPa = buf.shape[0] // 14
+    *b, pns = buf.view(torch.bool).split([NPa] * 6 + [8 * NPa])
+    pns = pns.view(i64)
+    if NPa != NP:
+        b, pns = [t[:NP] for t in b], pns[:NP]
+    return StaticMasks(b[0], pns, b[1], b[2], b[3], b[4], b[5])
+
+
 def _static_masks_cuda(state: DeviceNodeState, f: BatchFeatures) -> StaticMasks:
     dev = state.valid.device
     NP, T = state.taint_key.shape
     L = f.tol_key.shape[0]
-    b = [torch.empty(NP, dtype=torch.bool, device=dev) for _ in range(6)]
-    pns = torch.empty(NP, dtype=i64, device=dev)
-    outs = StaticMasks(b[0], pns, b[1], b[2], b[3], b[4], b[5])
+    # One allocation a launch.
+    buf = torch.empty(14 * (-(-NP // 8) * 8), dtype=torch.uint8, device=dev)
+    outs = _static_mask_views(buf, NP)
     _launch("static_masks", dev, NP, T, L, state.taint_key, state.taint_val,
             state.taint_eff, f.tol_key, f.tol_val, f.tol_eff, f.tol_op, f.sel_match,
             f.node_name_id, state.name_id, state.unsched, f.tolerates_unsched,
@@ -250,17 +264,24 @@ static_masks.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _fit_ok_plain(f: BatchFeatures, alloc_r, alloc_pods, req_r, pod_count, nom_r=None,
+                  nom_p=None):
+    """The fit filter of resource_eval (fit.go:710) for any leading shape,
+    the nominated lane counted when given."""
+    eff_count = pod_count if nom_p is None else pod_count + nom_p
+    pods_ok = (eff_count + 1).to(i64) <= alloc_pods
+    avail = alloc_r - req_r if nom_r is None else alloc_r - req_r - nom_r
+    viol = ((f.request > 0) & (f.request > avail)).any(dim=-1)
+    return (pods_ok & (~viol | (f.has_request == 0))) | (f.enable[4] == 0)
+
+
 def _resource_eval_plain(f: BatchFeatures, fit_strategy: int, alloc_r, alloc_pods,
                          req_r, nonzero, pod_count, nom_r=None, nom_p=None):
     """Plain PyTorch version of the resource_eval kernel, for any leading
     shape: the fit filter (fit.go:710, with the nominated lane counted
     against the filter only), the LeastAllocated/MostAllocated score and
     BalancedAllocation quantized at SCALE = 1e6."""
-    eff_count = pod_count if nom_p is None else pod_count + nom_p
-    pods_ok = (eff_count + 1).to(i64) <= alloc_pods
-    avail = alloc_r - req_r if nom_r is None else alloc_r - req_r - nom_r
-    viol = ((f.request > 0) & (f.request > avail)).any(dim=-1)
-    fit_ok = (pods_ok & (~viol | (f.has_request == 0))) | (f.enable[4] == 0)
+    fit_ok = _fit_ok_plain(f, alloc_r, alloc_pods, req_r, pod_count, nom_r, nom_p)
     used0 = nonzero[..., 0] + f.nz_request[0]
     used1 = nonzero[..., 1] + f.nz_request[1]
     fit_num = torch.zeros_like(used0)
@@ -784,12 +805,10 @@ def _dry_run_preemption_plain(state: DeviceNodeState, f: BatchFeatures, vic_req:
     n_pot = vic_valid.sum(dim=1).to(i32)
     base_req = state.req_r - (vic_req * vic_valid[:, :, None]).sum(dim=1)
     cnt0 = state.pod_count - n_pot
-    zero_nz = torch.zeros_like(base_req[:, :2])
 
     def fit(req_r, pod_cnt):
         # No nominated lane: the host dry run ignores nominations too.
-        return _resource_eval_plain(f, 0, state.alloc_r, state.alloc_pods, req_r, zero_nz,
-                                    pod_cnt)[0]
+        return _fit_ok_plain(f, state.alloc_r, state.alloc_pods, req_r, pod_cnt)
 
     feasible0 = static_ok & fit(base_req, cnt0) & (n_pot > 0)
     kept_req = torch.zeros_like(base_req)

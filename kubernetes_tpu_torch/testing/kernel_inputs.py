@@ -11,7 +11,10 @@ zero-request pods, no feasible row at all). `general_inputs` adds topology
 axes and the count-table and score lanes of spread and inter-pod affinity;
 `nominated_lane` draws the nominated-pod lane, `aux_lane` the counted
 attach-limit lane and `victim_inputs` the preemption dry run's victim
-tensors. `whatif_inputs` draws the descheduler's
+tensors; `static_edge_inputs` and `victim_edge_inputs` draw the edges of
+static_masks' and the dry run's designs (no taint or toleration, gates
+off, padded taints, 1 to 64 resource slots, victims past num_nodes).
+`whatif_inputs` draws the descheduler's
 what-if batch (the JAX package's WhatIfBatch field order).
 """
 
@@ -310,6 +313,88 @@ def victim_inputs(seed: int, np_cap: int, num_nodes: int, k: int, *, r_slots: in
         f["request"][0] = rng.choice([1000, 2000, 4000])
         f["request"][1] = rng.choice([1, 2, 4]) * GI
         f["nz_request"] = f["request"][:2].copy()
+    return tuple(state), tuple(f[name] for name in _F), vic_req, vic_valid
+
+
+def static_edge_inputs(seed: int, np_cap: int, num_nodes: int, *, taints: int = 4,
+                       tolerations: int = 2, enable_off: Tuple[int, ...] = (),
+                       pad_taints: bool = False) -> Tuple[tuple, tuple]:
+    """random_inputs' draw on the edges of static_masks: `taints` taint
+    slots a row and `tolerations` tolerations (0 for none; a PreferNoSchedule
+    taint and toleration on some rows), the gates of `enable_off` switched
+    off, and `pad_taints`: every taint but a row's first padded."""
+    state, feats = random_inputs(seed, np_cap, num_nodes, taints=taints,
+                                 tolerations=tolerations)
+    rng = np.random.default_rng(seed + 86028121)
+    state, f = list(state), dict(zip(_F, feats))
+    if taints:
+        eff = state[7].copy()
+        eff[rng.random(eff.shape) < 0.1] = 2  # PreferNoSchedule
+        if pad_taints:
+            eff[:, 1:] = 0
+        state[7] = eff
+    if tolerations:
+        f["tol_eff"] = f["tol_eff"].copy()
+        f["tol_eff"][0] = 2
+    enable = f["enable"].copy()
+    enable[list(enable_off)] = 0
+    f["enable"] = enable
+    f["node_name_id"] = np.array(int(rng.integers(0, num_nodes + 1)) if rng.random() < 0.5 else 0,
+                                 np.int32)
+    f["exist_anti"] = ((np.arange(np_cap) < num_nodes) & (rng.random(np_cap) < 0.05)).astype(
+        np.int32)
+    f["extra_ok"] = rng.random(np_cap) < 0.95
+    return tuple(state), tuple(f[name] for name in _F)
+
+
+def victim_edge_inputs(seed: int, np_cap: int, num_nodes: int, k: int, *, r_slots: int = 7,
+                       past_num: bool = False, enable_off: Tuple[int, ...] = (),
+                       no_request: bool = False, taints: int = 4, tolerations: int = 2,
+                       pad_taints: bool = False) -> Tuple[tuple, tuple, np.ndarray, np.ndarray]:
+    """victim_inputs' draw on the edges of the dry run: `r_slots` resource
+    slots from 1 up (below 4 the draw keeps its first slots; past 8 the
+    preemptor and some victims also request the last slot, with room for
+    it on some rows), victims on the padded rows at or past num_nodes too
+    (`past_num`), the gates of `enable_off` switched off, a pod without
+    requests (`no_request`: has_request 0), `taints` taint slots a row and
+    `tolerations` tolerations (0 for none), and `pad_taints`: every taint
+    but a row's first padded."""
+    R = r_slots
+    state, feats, vic_req, vic_valid = victim_inputs(seed, np_cap, num_nodes, k,
+                                                     r_slots=max(R, 4), taints=taints,
+                                                     tolerations=tolerations)
+    rng = np.random.default_rng(seed + 15485863)
+    state, f = list(state), dict(zip(_F, feats))
+    live = np.arange(np_cap) < num_nodes
+    vic_req = np.ascontiguousarray(vic_req[:, :, :R])
+    if past_num:
+        more = ~live[:, None] & (rng.random((np_cap, k)) < 0.5)
+        vic_req[~live] = rng.integers(1, 1000, (int((~live).sum()), k, R))
+        vic_valid = vic_valid | more
+    if R > 8:
+        last = (rng.random((np_cap, k)) < 0.3) & vic_valid
+        vic_req[:, :, R - 1] = np.where(vic_valid, last.astype(np.int64), vic_req[:, :, R - 1])
+    alloc_r = np.ascontiguousarray(state[0][:, :R])
+    if R > 8:
+        alloc_r[:, R - 1] = np.where(live, rng.integers(0, 4, np_cap), 0)
+    req_r = np.ascontiguousarray(state[2][:, :R])
+    if R > 8:
+        req_r[:, R - 1] = (vic_req[:, :, R - 1] * vic_valid).sum(axis=1) * live
+    state[0], state[2] = alloc_r, req_r
+    state[3] = np.ascontiguousarray(state[3])
+    if pad_taints and taints:
+        state[7] = state[7].copy()
+        state[7][:, 1:] = 0
+    request = np.zeros(R, np.int64)
+    request[:min(R, 4)] = f["request"][:min(R, 4)]
+    if R > 8:
+        request[R - 1] = 1
+    f["request"] = request
+    if no_request:
+        f["has_request"] = np.array(0, np.int64)
+    enable = f["enable"].copy()
+    enable[list(enable_off)] = 0
+    f["enable"] = enable
     return tuple(state), tuple(f[name] for name in _F), vic_req, vic_valid
 
 

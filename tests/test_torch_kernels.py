@@ -38,6 +38,7 @@ from kubernetes_tpu_torch.testing.kernel_inputs import (
     nominated_lane,
     placement_inputs,
     random_inputs,
+    static_edge_inputs,
     victim_inputs,
     whatif_inputs,
     with_aux_lane,
@@ -89,9 +90,23 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(CASES))
+# The edges of static_masks' design: static_edge_inputs arguments.
+MASK_EDGES = {
+    "no-taints": dict(taints=0),
+    "no-tolerations": dict(tolerations=0),
+    "neither": dict(taints=0, tolerations=0),
+    "padded-taints": dict(pad_taints=True),
+    "wide-taints": dict(taints=16, tolerations=5),
+    **{f"gate-{i}-off": dict(enable_off=(i,)) for i in range(4)},
+}
+
+
+@pytest.mark.parametrize("case", list(CASES) + list(MASK_EDGES))
 def test_static_masks(case):
-    js, jf, ts, tf = _both(11, **CASES[case])
+    if case in MASK_EDGES:
+        js, jf, ts, tf = _convert(*static_edge_inputs(11, 256, 200, **MASK_EDGES[case]))
+    else:
+        js, jf, ts, tf = _both(11, **CASES[case])
     want = jax_static_masks(js, jf)
     got = K.static_masks(ts, tf)
     _same(want, got[:6], "static_masks")
@@ -1532,3 +1547,128 @@ def test_compact_ranks_equal_the_dense_ranks(case):
         assert _lower_bound32(rows, x) == np.searchsorted(rows, x)
     if case == "every-row-boundary":
         assert any(b > 0 for b in bounds)  # rank == to_find == num_nodes lands a boundary
+
+
+# ---------------------------------------------------------------------------
+# static_masks: the kernel's decomposition, modelled in numpy
+# ---------------------------------------------------------------------------
+
+
+def _taint_verdicts(keys, vals, effs, tols):
+    """taint_verdict over a row's taints: (an untolerated NoSchedule or
+    NoExecute taint, the untolerated PreferNoSchedule taints)."""
+    lk, lv, le, lo = tols
+    untolerated, pns = False, 0
+    for k, v, e in zip(keys, vals, effs):
+        match = (((le == 0) | (le == e)) & ((lk == 0) | (lk == k)) & ((lo == 1) | (lv == v)))
+        if e in (1, 3) and not match.any():
+            untolerated = True
+        if e == 2 and not (match & ((le == 0) | (le == 2))).any():
+            pns += 1
+    return untolerated, pns
+
+
+class _StaticMasksModel:
+    """static_masks as the kernel runs it: a block of SM_ROWS rows (a thread
+    a row) stages the L tolerations in shared memory, the first L threads
+    a word each (a barrier only when L > 0); a thread reads its own row's
+    taints in device memory and its gates, and writes its verdicts into
+    the one output buffer (14 * NPa bytes: six masks NPa bytes apart, the
+    int64 counts from byte 6 * NPa), read back through the wrapper's
+    views."""
+
+    def __init__(self, st, f):
+        self.c = {**K._build.defines("kernels.cuh"), **K._build.defines("static_masks.cu")}
+        self.st, self.f = st, f
+
+    def run(self):
+        st, f, SM = self.st, self.f, self.c["SM_ROWS"]
+        NP, T = st.taint_key.shape
+        L = f.tol_key.shape[0]
+        assert 16 * L <= self.c["STAGE_SMEM_MAX"]
+        NPa = -(-NP // 8) * 8
+        buf = np.full(14 * NPa, 0xA5, np.uint8)  # what an allocation holds
+        masks = buf[:6 * NPa].reshape(6, NPa)
+        counts = buf[6 * NPa:].view(np.int64)
+        tk, tv, te = (a.numpy() for a in (st.taint_key, st.taint_val, st.taint_eff))
+        e = f.enable.numpy()
+        for n0 in range(0, NP, SM):
+            shared = np.full(4 * L, -7, np.int32)  # the block's stage
+            for tid in range(SM):
+                for l in range(tid, L, SM):
+                    for a, src in enumerate((f.tol_key, f.tol_val, f.tol_eff, f.tol_op)):
+                        shared[a * L + l] = int(src[l])
+            tols = tuple(shared[a * L:(a + 1) * L] for a in range(4))
+            for n in range(n0, min(n0 + SM, NP)):
+                untolerated, pns = _taint_verdicts(tk[n], tv[n], te[n], tols)
+                want = int(f.node_name_id)
+                taint_ok = not untolerated or e[2] == 0
+                sel_ok = bool(f.sel_match[n]) or e[3] == 0
+                name_ok = want == 0 or int(st.name_id[n]) == want or e[0] == 0
+                unsched_ok = not bool(st.unsched[n]) or int(f.tolerates_unsched) == 1 or e[1] == 0
+                anti_ok = int(f.exist_anti[n]) == 0
+                ok = (bool(st.valid[n]) and bool(f.extra_ok[n]) and taint_ok and sel_ok
+                      and name_ok and unsched_ok and anti_ok)
+                for i, v in enumerate((taint_ok, sel_ok, name_ok, unsched_ok, anti_ok, ok)):
+                    masks[i, n] = v
+                counts[n] = pns
+        return K._static_mask_views(torch.from_numpy(buf), NP)
+
+
+@pytest.mark.parametrize("NP,n,kw", [
+    (256, 200, {}), (300, 250, {}), (37, 30, dict(tolerations=0)), (256, 200, dict(taints=0)),
+    (256, 200, dict(taints=0, tolerations=0)), (256, 200, dict(pad_taints=True)),
+    (260, 200, dict(taints=16, tolerations=7)), (256, 200, dict(enable_off=(0, 2))),
+    (256, 200, dict(enable_off=(1, 3)))],
+    ids=["base", "partial-block", "odd-rows", "no-taints", "neither", "padded-taints",
+         "wide", "gates-0-2-off", "gates-1-3-off"])
+def test_static_masks_model_equals_the_plain_masks(NP, n, kw):
+    """The kernel's decomposition (tolerations staged a block, a thread a
+    row, the outputs one buffer read through the wrapper's views) gives the
+    plain version's seven masks on the edges of its design: rows not a
+    multiple of the block or of 8, no taint or toleration, padded and wide
+    taints, gates off."""
+    ts, tf = _convert(*static_edge_inputs(23 + NP, NP, n, **kw))[2:]
+    got = _StaticMasksModel(ts, tf).run()
+    want = K._static_masks_plain(ts, tf)
+    for name, a, b in zip(K.StaticMasks._fields, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+    assert any(bool(m.any()) and not bool(m.all()) for m in want if m.dtype == torch.bool)
+
+
+@pytest.mark.parametrize("NP", [1, 7, 8, 200, 8192])
+def test_static_mask_views_are_seven_disjoint_aligned_outputs(NP):
+    """The one output buffer's views: seven contiguous tensors of NP
+    elements, pairwise disjoint, the bool masks NPa bytes apart and the
+    int64 counts 8-byte aligned after them."""
+    NPa = -(-NP // 8) * 8
+    buf = torch.zeros(14 * NPa, dtype=torch.uint8)
+    m = K._static_mask_views(buf, NP)
+    assert [t.dtype for t in m] == [torch.bool, torch.int64] + [torch.bool] * 5
+    assert all(t.shape == (NP,) and t.is_contiguous() for t in m)
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()) for t in m)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert (m.pns_cnt.data_ptr() - buf.data_ptr()) == 6 * NPa
+    assert m.pns_cnt.data_ptr() % 8 == 0
+    m.static_ok.fill_(True)
+    m.pns_cnt.fill_(-1)
+    assert int(m.taint_ok.sum()) == 0 and int(m.exist_anti_ok.sum()) == 0
+
+
+def test_static_masks_wrapper_makes_one_allocation(recorded_launches, monkeypatch):
+    """A static_masks launch allocates one buffer, and its seven output
+    pointers are the buffer's views in the launcher's order."""
+    _js, _jf, ts, tf = _both(18, np_cap=200)
+    made = []
+    real = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **kw: made.append(a) or real(*a, **kw))
+    out = K._static_masks_cuda(ts, tf)
+    assert len(made) == 1
+    (name, args), = recorded_launches
+    sig = [p.name for p in K._build.signature("static_masks")]
+    ptrs = dict(zip(sig, args))
+    assert [ptrs[k] for k in ("taint_ok", "pns_cnt", "sel_ok", "name_ok", "unsched_ok",
+                              "exist_anti_ok", "static_ok")] == [t.data_ptr() for t in out]
+    base = out.taint_ok.data_ptr()
+    assert [t.data_ptr() - base for t in out] == [0, 6 * 200, 200, 400, 600, 800, 1000]

@@ -39,6 +39,7 @@ from kubernetes_tpu_torch.testing.kernel_inputs import (
     general_inputs,
     nominated_lane,
     random_inputs,
+    victim_edge_inputs,
     victim_inputs,
     with_nominated_lane,
 )
@@ -70,18 +71,48 @@ def _same(jax_arrays, torch_arrays, what):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", ["victims", "no-fit-anywhere"])
-@pytest.mark.parametrize("k", [8, 16])
-@pytest.mark.parametrize("np_cap,num_nodes", [(64, 50), (256, 200)])
-def test_dry_run_preemption(np_cap, num_nodes, k, case):
-    s, f, vic_req, vic_valid = victim_inputs(40 + k + np_cap, np_cap, num_nodes, k,
-                                             infeasible=case == "no-fit-anywhere")
+# The edges of the dry run's design: victim_edge_inputs arguments (resource
+# slots from 1 to 64, two a lane past 32; victims on rows past num_nodes;
+# a pod without requests; the fit and static gates off; no taint or
+# toleration; padded taints).
+DRY_EDGES = {
+    "r1": dict(r_slots=1), "r8": dict(r_slots=8), "r9": dict(r_slots=9),
+    "r33-past-num": dict(r_slots=33, past_num=True), "r64": dict(r_slots=64),
+    "no-request": dict(no_request=True), "fit-gate-off": dict(enable_off=(4,)),
+    "static-gates-off": dict(enable_off=(0, 1, 2, 3)),
+    "no-taints-no-tolerations": dict(taints=0, tolerations=0),
+    "padded-taints": dict(pad_taints=True),
+}
+
+
+def _dry_parity(s, f, vic_req, vic_valid, k):
+    """The JAX package's dry run and the port's on one draw, both returned."""
     want = np.asarray(jax_dry_run_preemption(_jax(s, JaxState), _jax(f, JaxFeatures),
                                              jnp.asarray(vic_req), jnp.asarray(vic_valid), k))
     got = K.dry_run_preemption(state_from_jax_numpy(s), features_from_jax_numpy(f),
                                *victims_from_jax_numpy(vic_req, vic_valid), k)
-    assert got.dtype == torch.bool and got.shape == (np_cap, 1 + k)
+    assert got.dtype == torch.bool and got.shape == (vic_valid.shape[0], 1 + k)
     np.testing.assert_array_equal(want, got.numpy())
+    return want
+
+
+@pytest.mark.parametrize("case", ["victims", "no-fit-anywhere"] + list(DRY_EDGES))
+@pytest.mark.parametrize("k", [8, 16])
+@pytest.mark.parametrize("np_cap,num_nodes", [(64, 50), (256, 200)])
+def test_dry_run_preemption(np_cap, num_nodes, k, case):
+    if case in DRY_EDGES:
+        s, f, vic_req, vic_valid = victim_edge_inputs(40 + k + np_cap, np_cap, num_nodes, k,
+                                                      **DRY_EDGES[case])
+        want = _dry_parity(s, f, vic_req, vic_valid, k)
+        if case == "fit-gate-off":
+            assert not want.any(), "every victim reprieved while the fit gate is off"
+        elif case != "no-request":  # without requests a reprieve fails only on the pod cap
+            assert want[:, 0].any(), "a candidate row"
+        assert not want[num_nodes:].any(), "no verdict past num_nodes"
+        return
+    s, f, vic_req, vic_valid = victim_inputs(40 + k + np_cap, np_cap, num_nodes, k,
+                                             infeasible=case == "no-fit-anywhere")
+    want = _dry_parity(s, f, vic_req, vic_valid, k)
     # The draw holds the cases the kernel must get right.
     live = np.arange(np_cap) < num_nodes
     n_vic = vic_valid.sum(axis=1)
@@ -95,6 +126,215 @@ def test_dry_run_preemption(np_cap, num_nodes, k, case):
         assert reprieved.any(), "a candidate that keeps some of its pods"
     else:
         assert not want.any(), "no removal fits a pod larger than every node"
+
+
+@pytest.mark.parametrize("case", ["victims", "r33-past-num", "padded-taints"])
+@pytest.mark.parametrize("k", [64, 256])
+def test_dry_run_preemption_wide_k(k, case):
+    """K up to PREEMPT_K_CAP: rows with more victims than the kernel's
+    register tier, against the JAX package."""
+    if case == "victims":
+        draw = victim_inputs(90 + k, 64, 50, k)
+    else:
+        draw = victim_edge_inputs(90 + k, 64, 50, k, **DRY_EDGES[case])
+    want = _dry_parity(*draw, k)
+    assert want[:, 0].any() and (draw[3].sum(axis=1) > 8).any()
+
+
+class _DryTileModel:
+    """dry_run_preemption as the kernel decomposes it, in numpy. A block of
+    DRY_THREADS threads takes DRY_THREADS / G rows, a tile of G lanes a row
+    (G the smallest power of two >= R, at most 32; lane l owns slots l,
+    l + G). The block stages its rows' [rows, T] taint slabs and the
+    tolerations in shared memory (stage_static: 16-byte vectors i = tid,
+    tid + blockDim of each slab, the tail a word a thread; device memory
+    past STAGE_SMEM_MAX) and lane 0 takes the row's static verdict there.
+    The tile turns the K flags into bit words (lane l ORs the nibbles of
+    quads l, l + G, ... of each 32 slots; the words are the OR over the
+    lanes), walks the set bits in slot order twice (the removal, the
+    reprieve), holds the first DRY_VREG victims' requests from the removal
+    to the reprieve and reads the rest again, and votes each fit test's
+    violation over its lanes (a masked ballot). Lane l writes output bytes
+    l, l + G, ... Counts each victim read (`reads`)."""
+
+    def __init__(self, st, f, vic_req, vic_valid, K_):
+        c = {**K._build.defines("kernels.cuh"), **K._build.defines("dry_run_preemption.cu")}
+        self.THREADS, self.VREG, self.SMEM = c["DRY_THREADS"], c["DRY_VREG"], c["STAGE_SMEM_MAX"]
+        assert K_ <= c["DRY_KMAX"] and f.request.shape[0] <= c["DRY_RMAX"] and K_ % 4 == 0
+        self.st, self.f = st, f
+        self.vr, self.vv, self.K = vic_req.numpy(), vic_valid.numpy(), K_
+        R = f.request.shape[0]
+        self.G = min(32, 1 << max(0, R - 1).bit_length())
+        self.S = -(-R // self.G)
+        self.reads = 0
+
+    def _stage(self, n0, rows, cap):
+        """(taint rows as the kernel reads them, tolerations, staged?)."""
+        st, f = self.st, self.f
+        T, L = st.taint_key.shape[1], f.tol_key.shape[0]
+        KW = -(-self.K // 32)
+        staged = 4 * cap * KW + 12 * cap * T + 16 * L <= self.SMEM
+        src = [a.numpy()[n0:n0 + rows].reshape(-1) for a in (st.taint_key, st.taint_val,
+                                                              st.taint_eff)]
+        tols = tuple(a.numpy() for a in (f.tol_key, f.tol_val, f.tol_eff, f.tol_op))
+        if not staged:
+            return [a.reshape(rows, T) for a in src], tols, False
+        sm = np.full(3 * cap * T + 4 * L, -7, np.int32)
+        nv, count = (rows * T) // 4, rows * T
+        for tid in range(self.THREADS):
+            for i in range(tid, nv, self.THREADS):
+                for a in range(3):
+                    sm[a * cap * T + 4 * i:a * cap * T + 4 * i + 4] = src[a][4 * i:4 * i + 4]
+            for i in range(4 * nv + tid, count, self.THREADS):
+                for a in range(3):
+                    sm[a * cap * T + i] = src[a][i]
+            for i in range(tid, L, self.THREADS):
+                for a in range(4):
+                    sm[3 * cap * T + a * L + i] = tols[a][i]
+        slabs = [sm[a * cap * T:a * cap * T + rows * T].reshape(rows, T) for a in range(3)]
+        lk = 3 * cap * T
+        return slabs, tuple(sm[lk + a * L:lk + (a + 1) * L] for a in range(4)), True
+
+    def _static_ok(self, n, taints, tols):
+        st, f, e = self.st, self.f, self.f.enable.numpy()
+        lk, lv, le, lo = tols
+        untolerated = False
+        for k, v, eff in zip(*taints):
+            match = ((le == 0) | (le == eff)) & ((lk == 0) | (lk == k)) & ((lo == 1) | (lv == v))
+            untolerated |= eff in (1, 3) and not match.any()
+        want = int(f.node_name_id)
+        return ((not untolerated or e[2] == 0) and (bool(f.sel_match[n]) or e[3] == 0)
+                and (want == 0 or int(st.name_id[n]) == want or e[0] == 0)
+                and (not bool(st.unsched[n]) or int(f.tolerates_unsched) == 1 or e[1] == 0)
+                and int(f.exist_anti[n]) == 0 and bool(st.valid[n]) and bool(f.extra_ok[n]))
+
+    def _lanes(self, row):
+        """A length-R vector as the tile holds it: [G lanes, S slots], 0 past R."""
+        out = np.zeros((self.G, self.S), np.int64)
+        for l in range(self.G):
+            for s_ in range(self.S):
+                if l + self.G * s_ < row.shape[0]:
+                    out[l, s_] = row[l + self.G * s_]
+        return out
+
+    def _fits(self, alloc, used, pods, pods_cap):
+        f = self.f
+        q = self._lanes(f.request.numpy())
+        lane_viol = ((q > 0) & (q > alloc - used)).any(axis=1)   # each lane's slots
+        ballot = sum(1 << l for l in range(self.G) if lane_viol[l])
+        return (((pods + 1) <= pods_cap and (ballot == 0 or int(f.has_request) == 0))
+                or int(f.enable[4]) == 0)
+
+    def _words(self, n):
+        K_, G = self.K, self.G
+        flags = self.vv[n]
+        words = []
+        for w in range(-(-K_ // 32)):
+            lane_bits = [0] * G
+            for l in range(G):
+                for qi in range(8 * w + l, min(8 * w + 8, K_ // 4), G):
+                    nib = sum(1 << b for b in range(4) if flags[4 * qi + b])
+                    lane_bits[l] |= nib << (4 * (qi & 7))
+            word = 0
+            for b in lane_bits:  # __reduce_or_sync over the tile
+                word |= b
+            words.append(word)
+        return words
+
+    @staticmethod
+    def _walk(words):
+        for w, word in enumerate(words):
+            while word:
+                b = (word & -word).bit_length() - 1
+                word &= word - 1
+                yield 32 * w + b
+
+    def run(self):
+        st, f, K_, G = self.st, self.f, self.K, self.G
+        NP = st.valid.shape[0]
+        RB = self.THREADS // G
+        num = max(int(f.num_nodes), 1)
+        out = np.full((NP, 1 + K_), 2, np.uint8)  # 2: never written
+        for n0 in range(0, NP, RB):
+            rows = min(RB, NP - n0)
+            slabs, tols, _staged = self._stage(n0, rows, RB)
+            for tile in range(rows):
+                n = n0 + tile
+                feasible0, n_pot, kept_cnt, words = False, 0, 0, [0]
+                if n < num:
+                    words = self._words(n)
+                    n_pot = sum(bin(w).count("1") for w in words)
+                    alloc = self._lanes(st.alloc_r.numpy()[n])
+                    base = self._lanes(st.req_r.numpy()[n])
+                    cnt, pods_cap = int(st.pod_count[n]), int(st.alloc_pods[n])
+                    held = []
+                    if n_pot:
+                        for j, i in enumerate(self._walk(words)):
+                            v = self._lanes(self.vr[n, i])
+                            self.reads += 1
+                            if j < self.VREG:
+                                held.append(v)
+                            base = base - v
+                        feasible0 = self._fits(alloc, base, cnt - n_pot, pods_cap)
+                    ok = self._static_ok(n, [a[tile] for a in slabs], tols)  # lane 0, shuffled
+                    feasible0 = feasible0 and ok
+                if feasible0:
+                    kept = np.zeros_like(base)
+                    cnt0 = cnt - n_pot
+                    for j, i in enumerate(list(self._walk(words))):
+                        if j < len(held):
+                            v = held[j]
+                        else:
+                            v = self._lanes(self.vr[n, i])
+                            self.reads += 1
+                        if self._fits(alloc, base + kept + v, cnt0 + kept_cnt + 1, pods_cap):
+                            kept, kept_cnt = kept + v, kept_cnt + 1
+                            words[i >> 5] &= ~(1 << (i & 31))
+                for lane in range(G):
+                    for b in range(lane, K_ + 1, G):
+                        out[n, b] = (feasible0 and kept_cnt < n_pot) if b == 0 else (
+                            feasible0 and (words[(b - 1) >> 5] >> ((b - 1) & 31)) & 1)
+        assert (out < 2).all(), "every byte written once"
+        return torch.from_numpy(out.astype(bool))
+
+
+DRY_MODEL = {
+    "base": (8, dict()), "r1": (8, dict(r_slots=1)), "r7-past-num": (8, dict(past_num=True)),
+    "r8": (8, dict(r_slots=8)), "r9": (8, dict(r_slots=9)), "r33": (8, dict(r_slots=33)),
+    "r64-past-num": (8, dict(r_slots=64, past_num=True)), "k64": (64, dict()),
+    "k256-r33": (256, dict(r_slots=33)), "no-request": (8, dict(no_request=True)),
+    "fit-gate-off": (8, dict(enable_off=(4,))),
+    "static-gates-off": (16, dict(enable_off=(0, 1, 2, 3))),
+    "no-taints": (8, dict(taints=0)), "no-tolerations": (8, dict(tolerations=0)),
+    "padded-taints": (8, dict(pad_taints=True)),
+    "past-the-stage": (8, dict(taints=160, pad_taints=True)),
+}
+
+
+@pytest.mark.parametrize("case", list(DRY_MODEL))
+def test_dry_run_tile_model_equals_the_plain_dry_run(case):
+    """The kernel's decomposition (G-lane tiles with masked ballots, the
+    flags as bit words walked by their set bits, the register tier of
+    DRY_VREG victims and the re-read past it, the block-staged taint
+    slabs) gives the plain version's [NP, 1 + K] verdicts on the edges of
+    its design: 1 to 64 resource slots, K 8 to 256, victims on rows past
+    num_nodes, rows without a victim, the gates off, no taint or
+    toleration, padded taints and 160 taint slots (past the stage)."""
+    k, kw = DRY_MODEL[case]
+    s, f, vr, vv = victim_edge_inputs(60 + len(case), 96, 80, k, **kw)
+    ts, tf = state_from_jax_numpy(s), features_from_jax_numpy(f)
+    args = (ts, tf, *victims_from_jax_numpy(vr, vv), k)
+    model = _DryTileModel(*args)
+    got = model.run()
+    want = K._dry_run_preemption_plain(*args)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    live = vv[:80]
+    assert (live.sum(axis=1) == 0).any(), "rows without a victim"
+    # Each valid victim of a live row is read once, and again in the
+    # reprieve past the register tier when the row is feasible.
+    assert model.reads >= int(live.sum())
+    if k > model.VREG:
+        assert model.reads > int(live.sum()), "no victim was read past the register tier"
 
 
 # ---------------------------------------------------------------------------
