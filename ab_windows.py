@@ -8,6 +8,7 @@ TopologySpreading/5000Nodes_5000Pods and SchedulingBasic/5000Nodes_10000Pods.
     python3 ab_windows.py <dir> [rounds] [--freeze] [--workloads W1,W2] [--calls] [--shards S]
     python3 ab_windows.py <dir> [rounds] --scan
     python3 ab_windows.py <dir> [rounds] --gates
+    python3 ab_windows.py <dir> [rounds] --patches
 
 Each round runs parent, change, change, parent, each side in a process of
 its own started in its tree, and prints one `AB {...}` JSON line a run:
@@ -35,6 +36,20 @@ the kernel, its device ms a launch (torch.profiler), its call ms (CUDA
 events) and a digest of the results and carry. The last line gives, per
 input, each side's median device ms and whether every run's digest was
 the same.
+
+With --patches, the two halves of a row patch, whole: this tree's
+chip_smoke.patch_inputs_ab gathers once (build/patches_inputs.pt) the
+preempting case's mirror with the flushes' rows (its rows per flush, the
+placement drive's, 64 and 2048) and the wave drive's carry patches (one a
+tier); each side then times its own tree's flush (NodeStateMirror.
+_scatter_dirty) and carry call (NodeStateMirror.patch_carry, or the
+scheduler's inline code in a tree that predates it) with this tree's
+chip_smoke.whole_patch_cost: host ms a call and the device ms of every op
+a call issues, summed, from torch.profiler (two traces that saw every
+launch must agree, else CUDA events time the calls: device_timing). One
+`PATCHES {...}` line a run; the last line gives, per input, each side's
+medians, the ratios, each side's device_timing and whether every digest
+agreed.
 
 With --gates, the same for dry_run_preemption and static_masks:
 chip_smoke.gate_inputs gathers their timed inputs once
@@ -204,6 +219,85 @@ print(json.dumps(out))
 """
 
 
+GATHER_PATCHES = """
+import sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke
+torch.save(chip_smoke.patch_inputs_ab(torch.device("cuda", 0)), sys.argv[1])
+print("{}")
+"""
+
+PATCHES_SIDE = """
+import hashlib, importlib.util, json, sys
+sys.path.insert(0, ".")
+import torch
+from kubernetes_tpu_torch.ops import kernel as K
+from kubernetes_tpu_torch.ops.device_state import DeviceNodeState, NodeStateMirror, patch_tier
+from kubernetes_tpu_torch.ops.features import BatchFeatures
+
+# The measurement is the changed tree's, whichever tree is timed.
+path = sys.path[:]
+spec = importlib.util.spec_from_file_location("smoke", sys.argv[2])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+sys.path[:] = path
+dev = torch.device("cuda", 0)
+e = torch.load(sys.argv[1])
+np_cap, t_cap, s_cap, k_cap = e["caps"]
+
+
+def mirror():
+    m = NodeStateMirror(dev, node_capacity=np_cap, taint_capacity=t_cap,
+                        scalar_capacity=s_cap, axis_capacity=k_cap)
+    for name, t in zip(smoke.MIRROR_FIELDS, e["mirror"]):
+        getattr(m, name)[...] = t.numpy()
+    m._device = m._upload()
+    m._full_flush = False
+    return m
+
+
+def digest(ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.to(torch.int64).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def inline_carry(m, state, f, carry, rows, strat):
+    # The carry call of TorchScheduler._apply_delta_patch in a tree whose
+    # mirror has no patch_carry.
+    prows = rows + [rows[-1]] * (patch_tier(len(rows)) - len(rows))
+    return K.patch_carry_rows(state, f, carry, torch.tensor(prows, dtype=torch.int32).to(dev),
+                              torch.from_numpy(m.h_req_r[prows]).to(dev),
+                              torch.from_numpy(m.h_nonzero[prows]).to(dev),
+                              torch.from_numpy(m.h_pod_count[prows]).to(dev), strat)
+
+
+out = {}
+m = mirror()
+for name, rows in e["flushes"].items():
+    fn = lambda r=rows: m._scatter_dirty(r)
+    out["flush: " + name] = dict(kernel="whole flush", rows=len(rows), digest=digest(fn()),
+                                 **smoke.whole_patch_cost(fn, "scatter_rows"))
+cm = mirror()
+cm.h_req_r, cm.h_nonzero, cm.h_pod_count = [t.numpy() for t in e["carry_mirror"]]
+for name, c in e["carries"].items():
+    state = DeviceNodeState(*[t.to(dev) for t in c["state"]])
+    f = BatchFeatures(*[t.to(dev) for t in c["feats"]])
+    carry = K.ScanCarry(*[t.to(dev) for t in c["carry"]])
+    rows, strat = c["rows"], c["strat"]
+    if hasattr(cm, "patch_carry"):
+        fn = lambda: cm.patch_carry(state, f, carry, rows, strat)
+    else:
+        fn = lambda: inline_carry(cm, state, f, carry, rows, strat)
+    out["carry: " + name] = dict(kernel="whole carry patch", rows=len(rows),
+                                 digest=digest(fn()[:6]),
+                                 **smoke.whole_patch_cost(fn, "patch_carry_rows"))
+print(json.dumps(out))
+"""
+
+
 def run_side(tree: str, workloads, flags, script=ONE_SIDE) -> dict:
     out = subprocess.run([sys.executable, "-c", script, ",".join(workloads)] + flags,
                          cwd=tree, capture_output=True, text=True, timeout=900)
@@ -212,30 +306,38 @@ def run_side(tree: str, workloads, flags, script=ONE_SIDE) -> dict:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def kernels_main(trees: dict, rounds: int, what: str, gather: str, side: str) -> int:
-    """The --scan and --gates modes: one tree's kernels against the
-    other's on the same gathered inputs, in turns."""
+def kernels_main(trees: dict, rounds: int, what: str, gather: str, side: str,
+                 keys=("device_ms", "call_ms"), flags=()) -> int:
+    """The --scan, --gates and --patches modes: one tree's kernels (or
+    patches) against the other's on the same gathered inputs, in turns.
+    The summary gives, per input and tree, the kernel and the median, min
+    and max of each of `keys`, and each key's change / parent ratio."""
     inputs = os.path.join(trees["change"], "build", f"{what}_inputs.pt")
     os.makedirs(os.path.dirname(inputs), exist_ok=True)
     run_side(trees["change"], [inputs], [], script=gather)
-    ms, calls, digests, kernels = {}, {}, {}, {}
+    vals, digests, kernels, timing = {}, {}, {}, {}
     for _ in range(rounds):
         for tree in ("parent", "change", "change", "parent"):
-            res = run_side(trees[tree], [inputs], [], script=side)
+            res = run_side(trees[tree], [inputs], list(flags), script=side)
             for name, r in res.items():
-                ms.setdefault((tree, name), []).append(r["device_ms"])
-                calls.setdefault((tree, name), []).append(r["call_ms"])
+                for k in keys:
+                    vals.setdefault((tree, name, k), []).append(r[k])
                 digests.setdefault(name, set()).add(r["digest"])
                 kernels[(tree, name)] = r["kernel"]
+                if "device_timing" in r:
+                    timing.setdefault(name, {}).setdefault(tree, set()).add(r["device_timing"])
             print(f"{what.upper()} " + json.dumps({"tree": tree, **res}), flush=True)
     summary = {}
     for name, seen in digests.items():
-        p, c = (statistics.median(ms[(tree, name)]) for tree in ("parent", "change"))
-        summary[name] = {tree: [kernels[(tree, name)], statistics.median(ms[(tree, name)]),
-                                min(ms[(tree, name)]), max(ms[(tree, name)]),
-                                statistics.median(calls[(tree, name)])]
-                         for tree in ("parent", "change")}
-        summary[name].update(change_over_parent=c / p, exact=len(seen) == 1)
+        summary[name] = {tree: [kernels[(tree, name)]] + [
+            [statistics.median(v), min(v), max(v)] for v in
+            (vals[(tree, name, k)] for k in keys)] for tree in ("parent", "change")}
+        for k in keys:
+            p, c = (statistics.median(vals[(tree, name, k)]) for tree in ("parent", "change"))
+            summary[name][f"{k}_change_over_parent"] = c / p
+        summary[name]["exact"] = len(seen) == 1
+        if name in timing:  # "profiler" on both sides, or the device ratio mixes two clocks
+            summary[name]["device_timing"] = {t: sorted(v) for t, v in timing[name].items()}
     print(json.dumps(summary), flush=True)
     return 0
 
@@ -252,8 +354,8 @@ def main() -> int:
         i = args.index("--shards")
         flags += args[i:i + 2]
         del args[i:i + 2]
-    scan, gates = "--scan" in args, "--gates" in args
-    args = [a for a in args if a not in ("--freeze", "--calls", "--scan", "--gates")]
+    scan, gates, patches = "--scan" in args, "--gates" in args, "--patches" in args
+    args = [a for a in args if a not in ("--freeze", "--calls", "--scan", "--gates", "--patches")]
     if not args:
         print(__doc__, file=sys.stderr)
         return 2
@@ -263,6 +365,10 @@ def main() -> int:
         return kernels_main(trees, rounds, "scan", GATHER, SCAN_SIDE)
     if gates:
         return kernels_main(trees, rounds, "gates", GATHER_GATES, GATES_SIDE)
+    if patches:
+        return kernels_main(trees, rounds, "patches", GATHER_PATCHES, PATCHES_SIDE,
+                            keys=("host_ms", "device_sum_ms", "device_ops"),
+                            flags=[os.path.join(trees["change"], "chip_smoke.py")])
     if "--calls" in flags:
         for side in ("parent", "change"):
             print("CALLS " + json.dumps({"tree": side, **run_side(trees[side], workloads, flags)}),

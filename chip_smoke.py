@@ -37,11 +37,18 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                row that any removal can fit, and on its design's edges
                (DRY_EDGES: R 1 to 64, K up to 256, victims past
                num_nodes, gates off, no taint or toleration, 160 taint
-               slots); static_masks on its edges (MASK_EDGES); scatter_rows with 1, 64 and 4096
-               dirty rows; patch_carry_rows at K = 32, 256 and 2048 (tiers
+               slots); static_masks on its edges (MASK_EDGES); scatter_rows on
+               SCATTER_DRAWS (1, 64, 2048 and 4096 rows, sorted and
+               shuffled, in place, NP 5003, R 1 with no taint slot or axis,
+               R 9) and through the staging ring, its input state left
+               unchanged; patch_carry_rows at K = 32, 256 and 2048 (tiers
                padded with duplicate indices) on a carry chained through two
                schedule_batch calls, with and without a nominated-pod lane,
-               its input carry left unchanged; schedule_placements at P = 1,
+               at R 9 and NP 5003, in place, through the staging ring, its
+               input carry left unchanged; the hazard check (64 flushes and
+               64 carry patches back to back behind a long kernel, no
+               synchronize, each step's state and carry held against the
+               plain versions); schedule_placements at P = 1,
                16 and 64 lanes (an empty padded lane, a one-row, a 100-row
                and an every-row lane, which also marks the padded rows past
                num_nodes), without spread tables, with the plan's and with
@@ -222,9 +229,15 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                launch floor (a one-element fill_) and static_masks' call
                split (allocation, argument checks, launch); and
                scatter_rows at the preempting case's rows per flush, with
-               index_copy_ per field (a library call) beside it;
+               index_copy per field (a library call) beside it, and the
+               whole flush (NodeStateMirror._scatter_dirty: host ms a call
+               and every device op it issues, summed) at the preempting
+               case's and the placement drive's rows per flush and at 64
+               and 2048 rows;
                patch_carry_rows on the completion waves' own patches (each
-               tier the drive used), with the drive's plan acquisition
+               tier the drive used), with the whole carry call
+               (NodeStateMirror.patch_carry) timed the same way, and the
+               drive's plan acquisition
                seconds by kind (row patch, resume, full rebuild; and full
                rebuilds with resume off) beside it; schedule_placements on
                the placement drive's first group cycle (its 64 lanes and
@@ -362,7 +375,7 @@ def wall_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def traced(fn, reps: int) -> list:
-    """(name, µs) of every CUDA event of `reps` calls of `fn`, from
+    """(name, µs) of every CUDA op of `reps` calls of `fn`, from
     torch.profiler. The calls are traced in the schedule's active step,
     after a warm-up step of the same calls: launches in the first moments
     of a trace can go unrecorded."""
@@ -372,8 +385,10 @@ def traced(fn, reps: int) -> list:
     got = []
 
     def keep(prof):
+        # The step's own annotation is on the device timeline too and spans
+        # the whole step: it is no op of `fn`.
         got.extend((e.name, e.time_range.end - e.time_range.start) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+                   if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"))
 
     fn()
     torch.cuda.synchronize()
@@ -558,6 +573,7 @@ def kernel_phase(dev, np_cap: int, n_nodes: int) -> dict:
     masks_phase(K, dev, errs)
     scatter_phase(K, dev, np_cap, n_nodes, errs)
     patch_phase(K, dev, np_cap, n_nodes, errs)
+    hazard_phase(K, dev, errs)
     placement_phase(K, dev, np_cap, n_nodes, errs)
     blocked_phase(K, dev, np_cap, n_nodes, errs)
     aux_phase(K, dev, np_cap, n_nodes, errs)
@@ -838,47 +854,86 @@ def masks_phase(K, dev, errs: dict) -> None:
               f"{int(want.pns_cnt.sum())} PreferNoSchedule taints", flush=True)
 
 
+SCATTER_DRAWS = (
+    # NP, rows, R, T, K, order, in place
+    (8192, 1, 7, 4, 4, "sorted", False),
+    (8192, 64, 7, 4, 4, "sorted", False),
+    (8192, 2048, 7, 4, 4, "sorted", False),
+    (8192, 4096, 7, 4, 4, "shuffled", False),
+    (8192, 64, 7, 4, 4, "shuffled", True),
+    (5003, 64, 7, 4, 4, "shuffled", False),   # NP not a multiple of the block
+    (8192, 64, 1, 0, 0, "sorted", False),     # R 1, no taint slot, no topology axis
+    (8192, 64, 9, 3, 5, "shuffled", True),
+)
+
+
 def scatter_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
-    """scatter_rows against its plain version (index_copy_ per field)."""
-    from kubernetes_tpu_torch.testing.kernel_inputs import random_inputs
+    """scatter_rows against its plain version (clone and index_copy_ per
+    field) on SCATTER_DRAWS: a new state, the old one unchanged, or in
+    place the given tensors; then a 2048-row flush through the staging
+    path (the rows packed into one pinned buffer, one upload)."""
+    from kubernetes_tpu_torch.ops import _build
+    from kubernetes_tpu_torch.ops.staging import StagingRing
+    from kubernetes_tpu_torch.testing.kernel_inputs import scatter_inputs, stage_rows
 
-    def state_on(seed):
-        arrays = random_inputs(seed, np_cap, n_nodes)[0]
-        return K.DeviceNodeState(*[torch.from_numpy(a).to(dev) for a in arrays])
+    block = _build.defines("scatter_rows.cu")["SCATTER_BLOCK_ROWS"]
 
-    gen = torch.Generator().manual_seed(600)
-    st, src = state_on(600), state_on(601)
-    st = st._replace(topo=torch.randint(0, 50, st.topo.shape, generator=gen,
-                                        dtype=torch.int32).to(dev))
-    src = src._replace(topo=torch.randint(0, 50, st.topo.shape, generator=gen,
-                                          dtype=torch.int32).to(dev))
-    for d in (1, 64, 4096):
-        at = torch.randperm(np_cap, generator=gen)[:d].to(dev)
-        rows = K.DeviceNodeState(*[t[at] for t in src[:-1]], src.topo[:, at])
-        packs = K.pack_rows(rows)
-        a = K.DeviceNodeState(*[t.clone() for t in st])
-        b = K.DeviceNodeState(*[t.clone() for t in st])
-        K.scatter_rows(a, at.to(torch.int32), *packs)
-        K._scatter_rows_plain(b, at.to(torch.int32), *packs)
-        e = max_abs_err(tuple(a), tuple(b))
-        changed = sum(int((x != y).sum()) for x, y in zip(a, st))
-        print(f"scatter_rows {d} rows: max_abs_err {e}, {changed} elements changed", flush=True)
+    def on(arrays):
+        return K.DeviceNodeState(*[torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                                   for a in arrays])
+
+    ring = StagingRing(dev)
+    for i, (NP, d, R, T, Kx, order, in_place) in enumerate(SCATTER_DRAWS):
+        s, at, rows = scatter_inputs(600 + i, NP, d, r_slots=R, taints=T, axes=Kx, order=order,
+                                     block_rows=block)
+        st, (idx, packed) = on(s), stage_rows(rows, at, ring=ring)
+        before = [t.clone() for t in st]
+        want = K._scatter_rows_plain(K.DeviceNodeState(*[t.clone() for t in st]), idx, packed,
+                                     in_place)
+        got = K.scatter_rows(st, idx, packed, in_place=in_place)
+        torch.cuda.synchronize()
+        e = max_abs_err(tuple(got), tuple(want))
+        changed = sum(int((x != y).sum()) for x, y in zip(got, before))
+        print(f"scatter_rows NP {NP}, {d} rows {order}, R {R} T {T} K {Kx}"
+              f"{' in place' if in_place else ''}: max_abs_err {e}, {changed} elements changed",
+              flush=True)
         check(changed > 0, f"the {d}-row scatter changed nothing")
+        if in_place:
+            check(got is st, "scatter_rows in place returned other tensors")
+        else:
+            check(max_abs_err(tuple(st), tuple(before)) == 0, "scatter_rows wrote into its input")
         errs["scatter_rows"] = max(errs["scatter_rows"], e)
+    s, at, _rows = scatter_inputs(620, 8192, 2048, block_rows=block)
+    st = on(s)
+    host = [np.ascontiguousarray(a) for a in _rows]
+    idx, packed = K.stage_scatter(StagingRing(dev), host[:-1], host[-1], np.arange(2048),
+                                  at=at)
+    want = K._scatter_rows_plain(st, idx, packed)
+    got = K.scatter_rows(st, idx, packed)
+    e = max_abs_err(tuple(got), tuple(want))
+    print(f"scatter_rows through the staging ring (2048 rows, one upload): max_abs_err {e}",
+          flush=True)
+    errs["scatter_rows"] = max(errs["scatter_rows"], e)
 
 
 def patch_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
     """patch_carry_rows against its plain version on a carry chained
     through two real schedule_batch calls: K = 32, 256 and 2048 (tiers
     padded with copies of their last real row), with and without a random
-    nominated-pod lane, both fit strategies."""
+    nominated-pod lane, both fit strategies, the input carry left
+    unchanged; in place at K 256; at R 9 and at NP 5003 (not a multiple of
+    the block); and through the staging path (one upload of the four
+    inputs) at K 2048."""
+    from kubernetes_tpu_torch.ops.staging import StagingRing
     from kubernetes_tpu_torch.testing.kernel_inputs import (nominated_lane, patch_inputs,
                                                             random_inputs, with_nominated_lane)
 
-    for lane in (False, True):
-        s, f = random_inputs(800 + lane, np_cap, n_nodes)
+    draws = [(np_cap, n_nodes, 7, lane) for lane in (False, True)]
+    draws += [(np_cap, n_nodes, 9, True), (5003, 4990, 7, False)]
+    for NP, nn, R, lane in draws:
+        s, f = random_inputs(800 + lane + R + NP, NP, nn, r_slots=R)
         if lane:
-            f = with_nominated_lane(f, nominated_lane(800, np_cap, n_nodes))
+            f = with_nominated_lane(f, nominated_lane(800, NP, nn, r_slots=R))
         st, ft = to_device(dev, s, f)
         for strat in (0, 1):
             carry = None
@@ -886,18 +941,113 @@ def patch_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
                 _out, carry = K.schedule_batch(st, ft, 1024, strat, 64, K.PlanFacts(),
                                                n_active=1024, carry_in=carry)
             for k, tier in ((20, 32), (200, 256), (1500, 2048)):
-                args = (st, ft, carry) + tuple(
-                    torch.from_numpy(a).to(dev)
-                    for a in patch_inputs(810 + k + strat, s, n_nodes, k, tier)) + (strat,)
+                inputs = patch_inputs(810 + k + strat, s, nn, k, tier)
+                args = (st, ft, carry) + tuple(torch.from_numpy(a).to(dev) for a in inputs) + (
+                    strat,)
                 before = [t.clone() for t in carry[:6]]
                 got, want = K.patch_carry_rows(*args), K._patch_carry_rows_plain(*args)
                 e = max_abs_err(tuple(got), tuple(want))
                 moved = int((want.fit_ok != carry.fit_ok).sum())
-                print(f"patch_carry_rows K {tier} ({k} rows){' lane' if lane else ''} strategy "
-                      f"{strat}: max_abs_err {e}, {moved} fit verdicts moved", flush=True)
+                what = (f"patch_carry_rows NP {NP} R {R} K {tier} ({k} rows)"
+                        f"{' lane' if lane else ''} strategy {strat}")
+                print(f"{what}: max_abs_err {e}, {moved} fit verdicts moved", flush=True)
                 check(moved > 0, f"the {tier}-row carry patch moved no fit verdict")
                 check(max_abs_err(before, carry[:6]) == 0, "patch_carry_rows wrote into its input")
                 errs["patch_carry_rows"] = max(errs["patch_carry_rows"], e)
+                if tier == 256:
+                    mine = K.ScanCarry(*[t.clone() for t in carry])
+                    theirs = K.ScanCarry(*[t.clone() for t in carry])
+                    ptrs = [t.data_ptr() for t in mine]
+                    got = K.patch_carry_rows(st, ft, mine, *args[3:], in_place=True)
+                    want = K._patch_carry_rows_plain(st, ft, theirs, *args[3:], in_place=True)
+                    e = max_abs_err(tuple(got), tuple(want))
+                    print(f"{what} in place: max_abs_err {e}", flush=True)
+                    check([t.data_ptr() for t in got] == ptrs,
+                          "patch_carry_rows in place returned other tensors")
+                    errs["patch_carry_rows"] = max(errs["patch_carry_rows"], e)
+                if tier == 2048 and NP == np_cap and not lane:
+                    idx, req_rows, nz_rows, cnt_rows = inputs
+                    host = [np.array(a) for a in (s[2], s[3], s[4])]
+                    host[0][idx], host[1][idx], host[2][idx] = req_rows, nz_rows, cnt_rows
+                    staged = K.stage_carry_patch(StagingRing(dev), idx, *host)
+                    got = K.patch_carry_rows(st, ft, carry, *staged, strat)
+                    e = max_abs_err(tuple(got), tuple(want))
+                    print(f"{what} through the staging ring (one upload): max_abs_err {e}",
+                          flush=True)
+                    errs["patch_carry_rows"] = max(errs["patch_carry_rows"], e)
+
+
+HAZARD_STEPS = 64          # flushes and carry patches queued behind one long kernel
+HAZARD_SLEEP_CYCLES = 200_000_000   # ~0.1 s of the card's clock
+
+
+def hazard_phase(K, dev, errs: dict) -> None:
+    """The staging ring's rule on the card: HAZARD_STEPS row patches back to
+    back behind a long kernel (torch.cuda._sleep), with no synchronize
+    between them — each a mirror flush of new host rows (_scatter_dirty)
+    and a carry patch of the same rows on the state it returns
+    (patch_carry), as a session's delta patch makes them, each step
+    writing other values into the same host staging. The ring has fewer
+    buffers than steps, so the host must wait for the copies before it
+    packs a buffer again. Every step's state and carry, once the card has
+    run them, equal what the plain versions give on the host values of
+    that step."""
+    from kubernetes_tpu_torch.ops.device_state import NodeStateMirror, patch_tier
+    from kubernetes_tpu_torch.testing.kernel_inputs import random_inputs
+
+    s, f = random_inputs(900, 8192, 5000)
+    m = NodeStateMirror(dev, node_capacity=8192, taint_capacity=4, scalar_capacity=4)
+    for name, a in zip(MIRROR_FIELDS, s):
+        getattr(m, name)[...] = a
+    m._device = m._upload()
+    m._full_flush = False
+    st0, ft = to_device(dev, s, f)
+    fit = K._resource_eval_plain(ft, 0, st0.alloc_r, st0.alloc_pods, st0.req_r, st0.nonzero,
+                                 st0.pod_count)
+    carry = K.fresh_carry(st0, ft, 64, fit)
+    prev = K.ScanCarry(*[t.cpu() for t in carry])
+    rng = np.random.default_rng(901)
+    ring = m.ring(dev)
+    waits0 = ring.waits
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HAZARD_SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _step in range(HAZARD_STEPS):
+        rows = sorted(rng.choice(5000, int(rng.integers(1, 300)), replace=False).tolist())
+        for a in (m.h_alloc_r, m.h_req_r):
+            a[rows] = rng.integers(0, 1 << 40, (len(rows), a.shape[1]))
+        m.h_nonzero[rows] = rng.integers(0, 1 << 40, (len(rows), 2))
+        m.h_pod_count[rows] = rng.integers(0, 110, len(rows))
+        m.h_taint_key[rows] = rng.integers(0, 9, (len(rows), 4))
+        m.h_topo[:, rows] = rng.integers(0, 50, (m.h_topo.shape[0], len(rows)))
+        state = m._scatter_dirty(rows)
+        m._device = state
+        carry = m.patch_carry(state, ft, carry, rows, 0)
+        steps.append((rows, [a.copy() for a in m._arrays()] + [m.h_topo.copy()], state, carry))
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    waits = ring.waits - waits0
+    err_s = err_c = 0
+    fc = K.BatchFeatures(*[t.cpu() for t in ft])
+    for rows, arrays, state, got_carry in steps:
+        want = K.DeviceNodeState(*[torch.from_numpy(a) for a in arrays])
+        err_s = max(err_s, max_abs_err(tuple(t.cpu() for t in state), tuple(want)))
+        prows = rows + [rows[-1]] * (patch_tier(len(rows)) - len(rows))
+        at = torch.tensor(prows, dtype=torch.int32)
+        want_carry = K._patch_carry_rows_plain(
+            want, fc, prev, at, torch.from_numpy(arrays[2][prows]),
+            torch.from_numpy(arrays[3][prows]), torch.from_numpy(arrays[4][prows]), 0)
+        err_c = max(err_c, max_abs_err(tuple(t.cpu() for t in got_carry[:6]),
+                                       tuple(want_carry[:6])))
+        prev = want_carry
+    print(f"hazard check: {HAZARD_STEPS} flushes and {HAZARD_STEPS} carry patches behind a "
+          f"{HAZARD_SLEEP_CYCLES}-cycle kernel, {host_s * 1e3:.1f} ms of host, {waits} takes "
+          f"waited on their buffer's copy: states max_abs_err {err_s}, carries max_abs_err "
+          f"{err_c}", flush=True)
+    check(waits > 0, "the hazard check never made the host wait on a staging buffer")
+    errs["scatter_rows"] = max(errs["scatter_rows"], err_s)
+    errs["patch_carry_rows"] = max(errs["patch_carry_rows"], err_c)
 
 
 def placement_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
@@ -1154,11 +1304,12 @@ def wave_drive(dev, resume: bool = True, n_nodes: int = 5000, warm_pods: int = 1
     a full rebuild, then the general scan) and wave 10 adds a node (a full
     rebuild). `resume=False` runs the same drive with incremental resume
     off. The launch counts are zeroed after the warm pods and read after
-    the last wave. `capture`, a dict, receives the first patch_carry_rows
-    call of each tier (its arguments)."""
+    the last wave. `capture`, a dict, receives the first carry patch of
+    each tier (NodeStateMirror.patch_carry's arguments: state, features,
+    carry, rows, fit strategy)."""
     from kubernetes_tpu_torch import bench
-    from kubernetes_tpu_torch.models import tpu_scheduler as TS
     from kubernetes_tpu_torch.ops import kernel as K
+    from kubernetes_tpu_torch.ops.device_state import patch_tier
 
     rng = random.Random(2024)
     sched = bench.build_cluster(n_nodes, device=dev, resume=resume)
@@ -1173,13 +1324,14 @@ def wave_drive(dev, resume: bool = True, n_nodes: int = 5000, warm_pods: int = 1
         kinds.append((wave_of[0], out[4]))
         return out
     sched._resume_or_rebuild = recorded_acquire
-    patch = TS.patch_carry_rows
+    patch = sched.mirror.patch_carry
 
-    def recorded_patch(*args):
-        if capture is not None and args[3].shape[0] not in capture:
-            capture[args[3].shape[0]] = args
-        return patch(*args)
-    TS.patch_carry_rows = recorded_patch
+    def recorded_patch(state, f, carry, rows, strat):
+        tier = patch_tier(len(rows))
+        if capture is not None and tier not in capture:
+            capture[tier] = (state, f, carry, list(rows), strat)
+        return patch(state, f, carry, rows, strat)
+    sched.mirror.patch_carry = recorded_patch
     taint_node, pns_node = n_nodes // 3, 2 * n_nodes // 3
     per_wave = []
     K.reset_launch_counts()
@@ -1226,7 +1378,7 @@ def wave_drive(dev, resume: bool = True, n_nodes: int = 5000, warm_pods: int = 1
                                  has_pns=bool(sched._resume and sched._resume[2][1].facts.has_pns),
                                  **d))
     finally:
-        TS.patch_carry_rows = patch
+        del sched.mirror.patch_carry
         del sched._resume_or_rebuild
     total = {k: v - c0[k] for k, v in snapshot_counts(sched).items()}
     launches = {k: total[k] for k in [w.__name__ for w in K.WRAPPERS] + ["scatter_flushes"]}
@@ -1601,7 +1753,8 @@ def paths_phase(dev) -> dict:
           f"{WAVES}: the assignments with resume off differ from those with resume")
     print(f"{WAVES}: the same assignments with resume off ({len(assignments(base))} pods)",
           flush=True)
-    waves = dict(per_wave=per_wave, per_wave_without_resume=base_waves, capture=capture)
+    waves = dict(per_wave=per_wave, per_wave_without_resume=base_waves, capture=capture,
+                 wave_mirror=sched.mirror)
 
     sched, result, launches, init_plans = nsselector_drive(dev)
     out[NSSEL] = (sched, result, launches)
@@ -1788,6 +1941,39 @@ def gate_inputs(dev) -> dict:
     out["static_masks: seeded draw, T 40, L 2"] = masks(*to_device(
         "cpu", *static_edge_inputs(1404, 8192, 5000, taints=40, pad_taints=True)))
     return out
+
+
+MIRROR_FIELDS = ("h_alloc_r", "h_alloc_pods", "h_req_r", "h_nonzero", "h_pod_count",
+                 "h_taint_key", "h_taint_val", "h_taint_eff", "h_unsched", "h_valid",
+                 "h_name_id", "h_topo")
+
+
+def patch_inputs_ab(dev) -> dict:
+    """Every timed whole patch, for ab_windows.py --patches: the preempting
+    case's mirror (its host staging and capacity tiers) with flush_inputs'
+    rows, and the wave drive's first carry patch of each tier (state,
+    features, carry, rows, fit strategy) with that drive's host aggregates.
+    Tensors on the CPU."""
+    pre = preempting_case(dev)[0]
+    paths = {PREEMPTING: (pre,), PLACE: placement_drive(dev)}
+    m = pre.mirror
+    d_pre = max(1, round(m.scatter_rows / max(1, m.scatter_flushes)))
+    capture = {}
+    wm = wave_drive(dev, capture=capture)[0].mirror
+
+    def cpu(ts):
+        return [t.detach().to("cpu").clone() for t in ts]
+
+    carries = {}
+    for tier, (state, f, carry, rows, strat) in sorted(capture.items()):
+        carries[f"the {WAVES}' {tier}-row tier"] = dict(
+            state=cpu(state), feats=cpu(f), carry=cpu(carry), rows=rows, strat=strat)
+    return dict(mirror=[torch.from_numpy(getattr(m, n).copy()) for n in MIRROR_FIELDS],
+                caps=[m.np_cap, m.t_cap, m.s_cap, m.k_cap],
+                flushes=flush_inputs(paths, d_pre),
+                carry_mirror=[torch.from_numpy(a.copy())
+                              for a in (wm.h_req_r, wm.h_nonzero, wm.h_pod_count)],
+                carries=carries)
 
 
 def timing_phase(paths: dict, errs: dict, lane_inputs) -> dict:
@@ -2131,8 +2317,7 @@ def preemption_timing(paths: dict, errs: dict) -> dict:
     against the cluster after the 10000 measured pods), which its kernels
     row reports, and on the preempting case's (a preemptor against the
     cluster after its 256 preemptions, one victim a row), where 256 of its
-    launches run; and scatter_rows at the preempting case's dirty rows per
-    flush; each held exact first."""
+    launches run; each held exact first."""
     from kubernetes_tpu_torch import bench
     from kubernetes_tpu_torch.ops import kernel as K
     from kubernetes_tpu_torch.testing import make_pod
@@ -2190,44 +2375,149 @@ def preemption_timing(paths: dict, errs: dict) -> dict:
             if key in r}
         for n, r in inputs.items()}
 
-    mirror = pre.mirror
+    print("preemption kernels: " + ", ".join(
+        f"{n} {r['ms']:.4f} ms on the device, {r['host_ms']:.4f} ms a call, plain "
+        f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']})"
+        for n, r in inputs.items()), flush=True)
+    return rows
+
+
+def scatter_timing(paths: dict, errs: dict) -> dict:
+    """scatter_rows at the preempting case's dirty rows per flush, on its
+    mirror's resident state, held exact first, beside twelve index_copy
+    calls (the same function in library calls) and its bound; and the
+    whole flush at flush_inputs' row counts (flush_costs)."""
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    rows = {}
+    mirror = paths[PREEMPTING][0].mirror
+    dev = mirror.device
     d = max(1, round(mirror.scatter_rows / max(1, mirror.scatter_flushes)))
     at = list(range(0, 5000, 5000 // d))[:d]
     state = mirror.flush()
-    rows_d = K.DeviceNodeState(*[torch.from_numpy(a[at]) for a in mirror._arrays()],
-                               torch.from_numpy(mirror.h_topo[:, at]))
-    packs = [t.to(dev) for t in K.pack_rows(rows_d)]
-    idx = torch.tensor(at, dtype=torch.int32, device=dev)
-    a = K.DeviceNodeState(*[t.clone() for t in state])
-    b = K.DeviceNodeState(*[t.clone() for t in state])
-    K.scatter_rows(a, idx, *packs)
-    K._scatter_rows_plain(b, idx, *packs)
+    idx, packed = K.stage_scatter(mirror.ring(dev), mirror._arrays(), mirror.h_topo, at)
+    a = K.scatter_rows(state, idx, packed)
+    b = K._scatter_rows_plain(state, idx, packed)
     check(max_abs_err(tuple(a), tuple(b)) == 0,
           "scatter_rows disagrees with its plain version on the preempting case's rows")
     at64 = idx.to(torch.int64)
-    unpacked = K._unpack_rows(a, *packs)
-    unpacked = [t.contiguous() for t in unpacked[:-1]] + [unpacked.topo.contiguous()]
+    unpacked = K.unpack_rows(packed, d, *K._widths(state))
 
-    def index_copy():
-        for field, r in zip(a[:-1], unpacked[:-1]):
-            field.index_copy_(0, at64, r)
-        a.topo.index_copy_(1, at64, unpacked[-1])
+    def index_copy():  # the same function as twelve library calls: a new tensor a field
+        return ([field.index_copy(0, at64, r) for field, r in zip(state[:-1], unpacked[:-1])]
+                + [state.topo.index_copy(1, at64, unpacked.topo)])
 
-    # Bytes: each dirty row read once from the packs and written once into
-    # the fields, and its index; ops: one move per element.
+    # Bytes: the old state read once and the new one written once, and each
+    # staged row and its index read once; ops: one move per element.
+    NP = state.valid.shape[0]
     row_bytes = sum(x[0].nbytes for x in mirror._arrays()) + mirror.h_topo[:, 0].nbytes
-    elements = sum(int(t.shape[1]) for t in packs)
+    elements = sum(int(t[0].numel()) for t in state[:-1]) + state.topo.shape[0]
     rows["scatter_rows"] = kernel_row(
-        "scatter_rows", "kubernetes_tpu/ops/device_state.py:128", errs["scatter_rows"],
-        lambda: K.scatter_rows(a, idx, *packs), lambda: K._scatter_rows_plain(b, idx, *packs),
-        2 * d * row_bytes + 4 * d, d * elements, library_ms=library_device_ms(index_copy))
-    rows["scatter_rows"].update(rows_per_flush=d, flushes=mirror.scatter_flushes)
-    print("preemption kernels: " + ", ".join(
-        f"{n} {r['ms']:.4f} ms on the device, {r['host_ms']:.4f} ms a call, plain "
-        f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), library "
-        f"{r['library_ms']}" for n, r in rows.items())
-        + f" (dry run: Unschedulable's; scatter: {d} rows)", flush=True)
+        "scatter_rows", "kubernetes_tpu/ops/device_state.py:130", errs["scatter_rows"],
+        lambda: K.scatter_rows(state, idx, packed), lambda: K._scatter_rows_plain(state, idx, packed),
+        2 * NP * row_bytes + d * (row_bytes + 4), NP * elements,
+        library_ms=library_device_ms(index_copy))
+    rows["scatter_rows"].update(rows_per_flush=d, flushes=mirror.scatter_flushes,
+                                whole_patch=flush_costs(paths, d))
+    r = rows["scatter_rows"]
+    print(f"scatter_rows on the {PREEMPTING}'s {d} rows per flush: {r['ms']:.6f} ms on the "
+          f"device, {r['host_ms']:.4f} ms a call, plain {r['plain_ms']:.3f} ms, bound "
+          f"{r['bound_ms']:.6f} ms ({r['bound_by']}), library {r['library_ms']}", flush=True)
     return rows
+
+
+def whole_patch_cost(fn, kernel: str, reps: int = 200, calls: int = 20) -> dict:
+    """What one call of `fn` costs: host ms (perf_counter around each call,
+    the calls back to back with nothing between them, so a call that waits
+    on the card pays for the wait) and, from torch.profiler, the device ms
+    of every CUDA op a call issues (kernels, copies, fills) summed, with
+    their count a call by name. The profiler on the card can lose a trace's
+    events, so a trace of `calls` calls counts only when it saw `kernel`'s
+    launch `calls` times and a whole number of ops a call, and the sum is
+    taken once two such traces saw as many ops (up to five traces). Where
+    none agree, the calls are timed back to back with CUDA events instead:
+    the device's span of the calls, gaps included, an upper bound of the
+    sum, with device_ops 0 and device_timing "events", printed as such."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    host = 0.0
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        host += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    host_ms = host / reps * 1e3
+    whole = {}  # op count -> the traces that saw every launch and that many ops
+    for attempt in range(5):
+        events = traced(fn, calls)
+        launches = sum(f"{kernel}_kernel" in name for name, _us in events)
+        if launches == calls and len(events) % calls == 0:
+            agree = whole.setdefault(len(events), [])
+            agree.append(events)
+            if len(agree) == 2:
+                names = {}
+                for name, _us in events:
+                    names[name] = names.get(name, 0) + 1
+                sums = [sum(us for _n, us in ev) for ev in agree]
+                return dict(host_ms=host_ms, device_sum_ms=sum(sums) / 2 / calls / 1e3,
+                            device_ops=len(events) / calls, device_timing="profiler",
+                            ops={n: c / calls for n, c in sorted(names.items())})
+        else:
+            print(f"whole_patch_cost: trace {attempt + 1} saw {launches} of {calls} {kernel} "
+                  f"launches in {len(events)} CUDA ops (whole traces so far: "
+                  f"{ {n: len(v) for n, v in whole.items()} })", flush=True)
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b) / calls
+    print(f"whole_patch_cost: {kernel}'s patch timed with CUDA events over {calls} calls back "
+          f"to back: {ms:.6f} ms a call, gaps included (no two traces agreed)", flush=True)
+    return dict(host_ms=host_ms, device_sum_ms=ms, device_ops=0, device_timing="events", ops={})
+
+
+def flush_inputs(paths: dict, d_pre: int) -> dict:
+    """The rows of each timed flush, by name: the preempting case's rows per
+    flush (`d_pre`), the placement drive's, 64 and 2048 rows, each spread
+    over the 5000 live rows of the preempting case's mirror."""
+    place = paths[PLACE][0].mirror
+    d_place = round(place.scatter_rows / place.scatter_flushes) if place.scatter_flushes else 0
+    out = {}
+    for name, d in ((f"the {PREEMPTING}'s rows per flush", d_pre),
+                    (f"the {PLACE}'s rows per flush", d_place), ("64 rows", 64),
+                    ("2048 rows", 2048)):
+        if d:
+            out[name] = list(range(0, 5000, 5000 // d))[:d]
+    return out
+
+
+def flush_costs(paths: dict, d_pre: int) -> dict:
+    """The whole flush (NodeStateMirror._scatter_dirty: the staging, the
+    upload and the launch) on the preempting case's mirror at each of
+    flush_inputs' row counts, held exact against the plain version on the
+    same host rows first."""
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    mirror = paths[PREEMPTING][0].mirror
+    out = {}
+    for name, at in flush_inputs(paths, d_pre).items():
+        got = mirror._scatter_dirty(at)
+        want = K._scatter_rows_plain(mirror._device, *K.stage_scatter(
+            mirror.ring(mirror.device), mirror._arrays(), mirror.h_topo, at))
+        check(max_abs_err(tuple(got), tuple(want)) == 0,
+              f"the flush of {name} disagrees with the plain version")
+        out[name] = dict(rows=len(at), **whole_patch_cost(lambda a=at: mirror._scatter_dirty(a),
+                                                         "scatter_rows"))
+        r = out[name]
+        print(f"whole flush, {name} ({len(at)}): {r['host_ms']:.4f} ms of host a call, "
+              f"{r['device_sum_ms']:.6f} ms of device in {r['device_ops']:g} ops "
+              f"({r['device_timing']}: {json.dumps(r['ops'])})", flush=True)
+    return out
 
 
 def placement_cost(K, args) -> tuple:
@@ -2282,29 +2572,51 @@ def patch_timing(waves: dict, errs: dict) -> dict:
     against full rebuilds, with resume and in the same drive without it."""
     from kubernetes_tpu_torch.ops import kernel as K
 
+    mirror = waves["wave_mirror"]
     tiers = {}
-    for tier, args in sorted(waves["capture"].items()):
-        state, f, carry, idx, req_rows, nz_rows, cnt_rows, strat = args
+    for tier, (state, f, carry, rows, strat) in sorted(waves["capture"].items()):
+        # The patch's inputs staged from the drive's host aggregates as the
+        # mirror stages them (its rows' values now, after the drive).
+        prows = rows + [rows[-1]] * (tier - len(rows))
+        staged = K.stage_carry_patch(mirror.ring(mirror.device), prows, mirror.h_req_r,
+                                     mirror.h_nonzero, mirror.h_pod_count)
+        args = (state, f, carry, *staged, strat)
+        idx = staged[0]
         check(max_abs_err(tuple(K.patch_carry_rows(*args)),
                           tuple(K._patch_carry_rows_plain(*args))) == 0,
               f"patch_carry_rows disagrees with its plain version on the {WAVES}' {tier}-row patch")
-        R, FR = state.alloc_r.shape[1], f.fit_slots.shape[0]
+        NP, R = state.alloc_r.shape
+        FR = f.fit_slots.shape[0]
         lane = f.nom_req.shape[0] > 0
         d = int(torch.unique(idx).numel())
-        # What the patch needs, each distinct row once: its index, new
-        # aggregates, allocatable (and lane) read; six lanes written. Ops:
-        # one resource_eval of the row.
-        nbytes = d * (4 + 8 * R + 16 + 4 + 8 * R + 8 + (8 * R + 4 if lane else 0)) \
-            + d * (8 * R + 16 + 4 + 1 + 8 + 8)
+        # What the patch needs: the six lanes read once and written once,
+        # each staged row (index, aggregates) read once, and each distinct
+        # row's allocatable (and lane) read once. Ops: one resource_eval of
+        # each distinct row.
+        nbytes = 2 * NP * (8 * R + 16 + 4 + 1 + 8 + 8) + tier * (4 + 8 * R + 16 + 4) \
+            + d * (8 * R + 8 + (8 * R + 4 if lane else 0))
         ops = d * (4 * R + 12 * FR + 24)
         tiers[tier] = kernel_row("patch_carry_rows", "kubernetes_tpu/ops/kernel.py:584",
                                  errs["patch_carry_rows"], lambda a=args: K.patch_carry_rows(*a),
                                  lambda a=args: K._patch_carry_rows_plain(*a), nbytes, ops)
-        tiers[tier].update(tier=tier, rows=d)
+        # The whole carry call of a delta patch (NodeStateMirror.patch_carry:
+        # the staging, the upload and the launch) on the same rows, held
+        # exact against the plain version on the same host rows first.
+        got = mirror.patch_carry(state, f, carry, rows, strat)
+        check(max_abs_err(tuple(got), tuple(K._patch_carry_rows_plain(*args))) == 0,
+              f"the whole carry patch of {tier} rows disagrees with the plain version")
+        whole = whole_patch_cost(lambda a=args, r=rows: mirror.patch_carry(a[0], a[1], a[2], r,
+                                                                           a[-1]),
+                                 "patch_carry_rows")
+        tiers[tier].update(tier=tier, rows=d, whole_patch=whole)
+        print(f"whole carry patch, the {WAVES}' {tier}-row tier ({d} rows): "
+              f"{whole['host_ms']:.4f} ms of host a call, {whole['device_sum_ms']:.6f} ms of "
+              f"device in {whole['device_ops']:g} ops ({whole['device_timing']}: "
+              f"{json.dumps(whole['ops'])})", flush=True)
     check(tiers, f"the {WAVES} made no carry patch")
     row = dict(tiers[max(tiers)])  # the between-session patch of a wave's deletes
     row["tiers"] = {t: {k: r[k] for k in ("ms", "ms_launches_seen", "host_ms", "plain_ms",
-                                           "bound_ms", "bound_by", "rows")}
+                                           "bound_ms", "bound_by", "rows", "whole_patch")}
                     for t, r in tiers.items()}
     plan_s = {}
     for key, per_wave in (("with_resume", waves["per_wave"]),
@@ -3601,19 +3913,18 @@ def mesh_waves(dev, mesh, n_nodes: int = 1000, warm: int = 512, waves: int = 4,
     rebuild in all. `capture` receives the first patch_carry_rows_pinned
     call's arguments."""
     from kubernetes_tpu_torch import bench
-    from kubernetes_tpu_torch.models import tpu_scheduler as TS
     from kubernetes_tpu_torch.ops import kernel as K
 
     rng = random.Random(77)
     sched = bench.build_cluster(n_nodes, device=dev, mesh=mesh)
     bench.warm(sched, warm)
-    pinned = TS.patch_carry_rows_pinned
+    pinned = K.patch_carry_rows_pinned
 
     def recorded(*args):
         if capture is not None and not capture:
             capture["args"] = args
         return pinned(*args)
-    TS.patch_carry_rows_pinned = recorded
+    K.patch_carry_rows_pinned = recorded
     K.reset_launch_counts()
     try:
         for w in range(1, waves + 1):
@@ -3630,7 +3941,7 @@ def mesh_waves(dev, mesh, n_nodes: int = 1000, warm: int = 512, waves: int = 4,
                 sched.clientset.create_pod(p)
             sched.run_until_idle()
     finally:
-        TS.patch_carry_rows_pinned = pinned
+        K.patch_carry_rows_pinned = pinned
     launches = {k.__name__: k.launches for k in K.WRAPPERS}
     pods = list(sched.clientset.pods.values())
     check(all(p.node_name for p in pods) and sched.host_path_pods == 0 and sched.failures == 0,
@@ -3841,7 +4152,7 @@ def mesh_timing(paths: dict, errs: dict, capture: dict) -> dict:
     # The two ported functions with no kernel of their own, on the mesh
     # waves' first sharded carry patch: patch_carry_rows and scatter_rows a
     # shard, in place (the same rows again give the same values).
-    from kubernetes_tpu_torch.ops.device_state import DeviceNodeState
+    from kubernetes_tpu_torch.ops.staging import StagingRing
 
     args = state, f, carry, idx, req_rows, nz_rows, cnt_rows, strat = capture["args"]
     mirror = paths[MESH_WAVES][0].mirror
@@ -3859,16 +4170,16 @@ def mesh_timing(paths: dict, errs: dict, capture: dict) -> dict:
                 K._patch_carry_rows_plain(st_s, f_s, c_s, idx[mine] - s_ * npl, req_rows[mine],
                                           nz_rows[mine], cnt_rows[mine], strat, in_place=True)
 
+    rings = [StagingRing(part.valid.device) for part in mirror._device.parts]
+
     def scatter_plain():  # scatter_rows' plain version a shard, in place
         res = mirror._device
         for s_, part in enumerate(res.parts):
             mine = [r for r in rows_idx if r // res.block == s_]
             if mine:
-                packed = DeviceNodeState(*[torch.from_numpy(a[mine]) for a in mirror._arrays()],
-                                         torch.from_numpy(mirror.h_topo[:, mine]))
-                K._scatter_rows_plain(part, torch.tensor([r - s_ * res.block for r in mine],
-                                                         dtype=torch.int32, device=part.valid.device),
-                                      *[t.to(part.valid.device) for t in K.pack_rows(packed)])
+                K._scatter_rows_plain(part, *K.stage_scatter(
+                    rings[s_], mirror._arrays(), mirror.h_topo, mine,
+                    at=[r - s_ * res.block for r in mine]), in_place=True)
 
     # Bytes each call needs, each distinct row once: the patch reads the
     # row's index, new aggregates and allocatable and writes six lanes; the
@@ -3924,6 +4235,7 @@ def main() -> int:
     t1 = time.perf_counter()
     rows = timing_phase(paths, errs, lane_inputs)
     rows.update(preemption_timing(paths, errs))
+    rows.update(scatter_timing(paths, errs))
     rows.update(patch_timing(waves, errs))
     rows.update(placement_timing(waves, errs))
     rows.update(whatif_timing(waves, errs))
@@ -3933,8 +4245,9 @@ def main() -> int:
     floor, seen = launch_floor_ms(dev)
     print(f"launch floor (a one-element fill_ on the stream, {seen} of 20 seen): {floor:.6f} ms "
           f"on the device; static_masks {rows['static_masks']['ms']:.6f}, dry_run_preemption "
-          f"{rows['dry_run_preemption']['ms']:.6f}", flush=True)
-    for name in ("static_masks", "dry_run_preemption"):
+          f"{rows['dry_run_preemption']['ms']:.6f}, scatter_rows {rows['scatter_rows']['ms']:.6f}, "
+          f"patch_carry_rows {rows['patch_carry_rows']['ms']:.6f}", flush=True)
+    for name in ("static_masks", "dry_run_preemption", "scatter_rows", "patch_carry_rows"):
         rows[name]["launch_floor_ms"] = floor
     print(f"timing phase: {time.perf_counter() - t1:.1f} s", flush=True)
     for name, (_s, result, _l) in paths.items():

@@ -394,3 +394,154 @@ static __device__ __forceinline__ void lap_eval_landed(
     ba = *f.ba_skip == 1 ? 0 : ba_val;
   }
 }
+
+// ---------------------------------------------------------------------------
+// Copy-on-write of a row patch (scatter_rows, patch_carry_rows): a block owns
+// a contiguous range of node rows, copies that range of every field from the
+// old tensors into the new ones (cow_copy), then writes the patched rows of
+// the range (pass_hits finds them in idx). Each row belongs to one block, so
+// no ordering across blocks is needed; the barrier that ends cow_copy puts
+// the copy of a row before its patch.
+// ---------------------------------------------------------------------------
+
+#define COW_CHUNK 32   // segments one cow_copy call takes (one warp's lanes)
+#define COW_UNROLL 4   // 16-byte loads a thread keeps in flight
+
+// One contiguous byte range of a field: the block's rows of it.
+struct CowSeg {
+  uint8_t* dst;
+  const uint8_t* src;
+  long long bytes;
+};
+
+// Exclusive prefix of v over the block's threads in thread order, and the
+// total on every thread. `scratch`: blockDim.x / 32 ints of shared memory.
+// Every thread calls it (blockDim.x a multiple of 32, at most 1024); it
+// has two barriers, and the caller puts one before the next call.
+static __device__ __forceinline__ int block_exclusive_scan(int v, int* scratch, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) scratch[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < warps ? scratch[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < warps) scratch[lane] = w;
+  }
+  __syncthreads();
+  total = scratch[warps - 1];
+  return x - v + (warp > 0 ? scratch[warp - 1] : 0);
+}
+
+// The block copies the n <= COW_CHUNK segments `seg` (shared memory, filled
+// by the caller before the call): as 16-byte vectors where dst and src are
+// both 16-byte aligned, COW_UNROLL loads a thread issued before their
+// stores, all segments' vectors numbered as one range so that the block's
+// loads are in flight together; bytes for a segment's tail past its last
+// whole vector and for a segment that is not aligned (that loop is skipped
+// when no segment has such bytes). A segment whose dst is its src (an
+// in-place patch) is skipped. Every thread of the block calls it; it
+// begins and ends with a barrier.
+static __device__ void cow_copy(const CowSeg* seg, int n) {
+  __shared__ long long vec_pre[COW_CHUNK + 1];  // vectors before each segment
+  __shared__ int any_bytes;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int s = threadIdx.x;
+    long long v = 0, rest = 0;
+    if (s < n && seg[s].dst != seg[s].src) {
+      const bool aligned = ((reinterpret_cast<uintptr_t>(seg[s].dst) |
+                             reinterpret_cast<uintptr_t>(seg[s].src)) & 15) == 0;
+      v = aligned ? seg[s].bytes >> 4 : 0;
+      rest = seg[s].bytes - (v << 4);
+    }
+    long long x = v;
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long y = __shfl_up_sync(0xffffffffu, x, o);
+      if (s >= o) x += y;
+    }
+    if (s < n) vec_pre[s] = x - v;
+    if (s == n - 1) vec_pre[n] = x;
+    const bool bytes = __any_sync(0xffffffffu, rest != 0);
+    if (s == 0) any_bytes = bytes;
+  }
+  __syncthreads();
+  const long long total = vec_pre[n];
+  int s = 0;
+  for (long long base = threadIdx.x; base < total; base += (long long)blockDim.x * COW_UNROLL) {
+    int4 v[COW_UNROLL];
+    int4* d[COW_UNROLL];
+#pragma unroll
+    for (int u = 0; u < COW_UNROLL; ++u) {
+      const long long i = base + (long long)u * blockDim.x;
+      d[u] = nullptr;
+      if (i < total) {
+        while (i >= vec_pre[s + 1]) ++s;
+        const long long k = i - vec_pre[s];
+        v[u] = reinterpret_cast<const int4*>(seg[s].src)[k];
+        d[u] = reinterpret_cast<int4*>(seg[s].dst) + k;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < COW_UNROLL; ++u)
+      if (d[u] != nullptr) *d[u] = v[u];
+  }
+  if (any_bytes) {
+    for (int t = 0; t < n; ++t) {
+      if (seg[t].dst == seg[t].src) continue;
+      const long long from = (vec_pre[t + 1] - vec_pre[t]) << 4;
+      for (long long b = from + threadIdx.x; b < seg[t].bytes; b += blockDim.x)
+        seg[t].dst[b] = seg[t].src[b];
+    }
+  }
+  __syncthreads();
+}
+
+// This thread's U entries of the idx pass that starts at p0: entry
+// j = p0 + u * blockDim.x + threadIdx.x (-1 past D). With DEDUP, an entry
+// equal to the one before it in idx is -1 too: the caller's duplicates
+// carry identical rows (a patch tier's padding repeats its last row), so
+// one of a run of them writes what all of them would. A kernel issues its
+// first pass's loads before its copy, so that they are in flight with it.
+template <int U, bool DEDUP>
+static __device__ __forceinline__ void pass_load(const int32_t* idx, int D, int p0, int (&row)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int j = p0 + u * blockDim.x + threadIdx.x;
+    row[u] = j < D ? idx[j] : -1;
+    if (DEDUP && j > 0 && j < D && idx[j - 1] == row[u]) row[u] = -1;
+  }
+}
+
+// The entries of the pass (pass_load's `row`) whose row lies in [lo, hi),
+// compacted into hits[0, n) (the entry) and hit_row[0, n) (its row), thread
+// by thread, each thread's in entry order; n is returned on every thread.
+// hits and hit_row hold blockDim.x * U ints each, `scratch` blockDim.x /
+// 32. Every thread calls it; it ends with a barrier after the stores, and
+// the caller puts one before the next call. A row outside [lo, hi) — one
+// outside [0, NP) included — is no block's hit and is never written.
+template <int U>
+static __device__ __forceinline__ int pass_hits(int p0, const int (&row)[U], int lo, int hi,
+                                                int* hits, int* hit_row, int* scratch) {
+  int c = 0;
+#pragma unroll
+  for (int u = 0; u < U; ++u) c += row[u] >= lo && row[u] < hi;
+  int total;
+  int pos = block_exclusive_scan(c, scratch, total);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (row[u] >= lo && row[u] < hi) {
+      hits[pos] = p0 + u * blockDim.x + threadIdx.x;
+      hit_row[pos++] = row[u];
+    }
+  }
+  __syncthreads();
+  return total;
+}

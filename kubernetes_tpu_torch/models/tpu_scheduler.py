@@ -132,7 +132,7 @@ from ..core.queue import QueuedPodGroupInfo, QueuedPodInfo
 from ..core.registry import default_profile
 from ..core.scheduler import Scheduler, ScheduleResult
 from ..ops.codebook import EFFECT_PREFER_NO_SCHEDULE
-from ..ops.device_state import NodeStateMirror, patch_tier
+from ..ops.device_state import NodeStateMirror
 from ..ops.features import (
     NO_VOLUMES,
     Unsupported,
@@ -146,8 +146,6 @@ from ..ops.features import (
 from ..ops.kernel import (
     SCAN_MAX_STEPS,
     dry_run_preemption,
-    patch_carry_rows,
-    patch_carry_rows_pinned,
     schedule_batch,
     schedule_placements,
 )
@@ -728,7 +726,8 @@ class TorchScheduler(Scheduler):
 
     def _apply_delta_patch(self, plan, node_names, names, state, carry):
         """Patch the dirty rows of `names` into host staging, the device
-        state (NodeStateMirror.patch_rows) and the carry (patch_carry_rows).
+        state (NodeStateMirror.patch_rows) and the carry
+        (NodeStateMirror.patch_carry): one upload and one launch each.
         Returns (state, carry), or None when the patch cannot apply; the
         caller then rebuilds in full, which recovers from every such case.
         Under a mesh (the JAX package's :1534-1561) the sharded resident is
@@ -761,15 +760,8 @@ class TorchScheduler(Scheduler):
             # is patched already, so the full rebuild starts from truth.
             return None
         if carry is not None:
-            prows = rows + [rows[-1]] * (patch_tier(len(rows)) - len(rows))
-            dev = self.device
-            patch = patch_carry_rows if self.mesh is None else patch_carry_rows_pinned
-            carry = patch(
-                new_state, plan.features if self.mesh is None else plan.shards, carry,
-                torch.tensor(prows, dtype=torch.int32).to(dev),
-                torch.from_numpy(m.h_req_r[prows]).to(dev),
-                torch.from_numpy(m.h_nonzero[prows]).to(dev),
-                torch.from_numpy(m.h_pod_count[prows]).to(dev), plan.fit_strategy)
+            carry = m.patch_carry(new_state, plan.features if self.mesh is None else plan.shards,
+                                  carry, rows, plan.fit_strategy)
         self.delta_dirty_rows += len(rows)
         return new_state, carry
 

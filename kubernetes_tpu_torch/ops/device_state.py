@@ -36,6 +36,7 @@ import torch
 from ..api import resource as res
 from ..core.node_info import NodeInfo
 from .codebook import EFFECT_IDS, Codebook
+from .staging import StagingRing
 
 # Resource slot layout: [cpu_milli, memory, ephemeral_storage, *scalar_slots].
 BASE_RESOURCES = 3
@@ -141,6 +142,7 @@ class NodeStateMirror:
         self.num_nodes = 0
         self.scatter_flushes = 0  # flushes that took the dirty-row scatter
         self.scatter_rows = 0     # rows those flushes wrote
+        self._rings: Dict[torch.device, StagingRing] = {}
 
     # -- storage -----------------------------------------------------------
 
@@ -320,15 +322,24 @@ class NodeStateMirror:
                  for d, (lo, hi) in zip(devs, blocks)]
         return Sharded(parts, blocks[0][1] - blocks[0][0])
 
+    def ring(self, device) -> StagingRing:
+        """The staging ring of `device`'s uploads (one a device: the mesh's
+        shards may sit on several)."""
+        device = torch.device(device)
+        ring = self._rings.get(device)
+        if ring is None:
+            ring = self._rings[device] = StagingRing(device)
+        return ring
+
     def _scatter_sharded(self, dirty: List[int], in_place: bool):
         """The mesh's dirty-row scatter (the JAX package's _sharded_scatter,
         ops/device_state.py:138-164): each dirty row goes to its shard by
-        row // NPl, and each shard with dirty rows takes one scatter_rows
-        launch with its local indices, into the shard's own tensors
-        (`in_place`: no dispatched batch reads them) or into a copy of
-        them. Shards without dirty rows keep their tensors."""
+        row // NPl, and each shard with dirty rows takes one upload of its
+        rows and local indices and one scatter_rows launch, writing the
+        shard's own tensors (`in_place`: no dispatched batch reads them) or
+        new ones. Shards without dirty rows keep their tensors."""
         from ..parallel.mesh import Sharded, on_device
-        from .kernel import pack_rows, scatter_rows
+        from .kernel import scatter_rows, stage_scatter
 
         res = self._device
         b = res.block
@@ -338,35 +349,27 @@ class NodeStateMirror:
             by_shard.setdefault(row // b, []).append(row)
         for s, rows in sorted(by_shard.items()):
             dev = parts[s].valid.device
-            packed = DeviceNodeState(*[torch.from_numpy(a[rows]) for a in self._arrays()],
-                                     torch.from_numpy(self.h_topo[:, rows]))
-            packs = [t.to(dev) for t in pack_rows(packed)]
-            idx = torch.tensor([r - s * b for r in rows], dtype=torch.int32).to(dev)
-            target = parts[s] if in_place else DeviceNodeState(*[t.clone() for t in parts[s]])
+            idx, packed = stage_scatter(self.ring(dev), self._arrays(), self.h_topo, rows,
+                                        [r - s * b for r in rows])
             with on_device(dev):
-                scatter_rows(target, idx, *packs)
-            parts[s] = target
+                parts[s] = scatter_rows(parts[s], idx, packed, in_place=in_place)
         if in_place:
             res.touched()
             return res
         return Sharded(parts, b)
 
     def _scatter_dirty(self, dirty: List[int]) -> DeviceNodeState:
-        """Dirty-row scatter into a copy of the resident device state (a
-        dispatched batch may still read the old one): the rows packed by
-        element type on the host, three uploads, one scatter_rows launch."""
+        """Dirty-row scatter into a new device state (a dispatched batch may
+        still read the resident one): the rows and their indices packed on
+        the host into one staging buffer, one upload, one scatter_rows
+        launch that writes the new state whole."""
         if self.mesh is not None:
             return self._scatter_sharded(dirty, in_place=False)
         # ops/kernel.py imports this module for DeviceNodeState.
-        from .kernel import pack_rows, scatter_rows
+        from .kernel import scatter_rows, stage_scatter
 
-        rows = DeviceNodeState(*[torch.from_numpy(a[dirty]) for a in self._arrays()],
-                               torch.from_numpy(self.h_topo[:, dirty]))
-        packs = [t.to(self.device) for t in pack_rows(rows)]
-        idx = torch.tensor(dirty, dtype=torch.int32).to(self.device)
-        state = DeviceNodeState(*[t.clone() for t in self._device])
-        scatter_rows(state, idx, *packs)
-        return state
+        idx, packed = stage_scatter(self.ring(self.device), self._arrays(), self.h_topo, dirty)
+        return scatter_rows(self._device, idx, packed)
 
     def flush(self) -> DeviceNodeState:
         """Upload pending changes and return the device state: a row
@@ -392,13 +395,13 @@ class NodeStateMirror:
         row out of range or holding another node): the caller then rebuilds
         its plan in full.
 
-        On one device the scatter writes into a copy (_scatter_dirty): the
+        On one device the scatter writes a new state (_scatter_dirty): the
         state a resumed session or a queued kernel holds keeps its values,
         and the returned state becomes the resident. Under a mesh the
         session passes its state as `sharded_state`: when that is the
         resident, the shards are patched in place, in the resident's own
         storage (the counterpart of the JAX donation; the caller patches
-        only while no dispatched batch reads it); otherwise into copies.
+        only while no dispatched batch reads it); otherwise into new tensors.
         The resident is returned either way."""
         if self._device is None or self._full_flush:
             return None
@@ -425,6 +428,22 @@ class NodeStateMirror:
         self.scatter_flushes += 1
         self.scatter_rows += len(dirty)
         return self._device
+
+    def patch_carry(self, state, f, carry, rows: Sequence[int], fit_strategy: int):
+        """The carry half of a row patch (after patch_rows): the rows'
+        aggregates from host staging, padded to their patch_tier with
+        copies of the last row, staged and uploaded at once, and one
+        patch_carry_rows launch on them into a new carry (under a mesh
+        patch_carry_rows_pinned, with `f` and `carry` as the mesh holds
+        them). Returns the patched carry."""
+        from .kernel import patch_carry_rows, patch_carry_rows_pinned, stage_carry_patch
+
+        rows = list(rows)
+        rows += [rows[-1]] * (patch_tier(len(rows)) - len(rows))
+        staged = stage_carry_patch(self.ring(self.device), rows, self.h_req_r, self.h_nonzero,
+                                   self.h_pod_count)
+        patch = patch_carry_rows if self.mesh is None else patch_carry_rows_pinned
+        return patch(state, f, carry, *staged, fit_strategy)
 
     def invalidate(self) -> None:
         """Force a full staging re-encode + full upload on the next

@@ -20,11 +20,13 @@ rescore, lives in ops/whatif.py and is counted and reset with these):
                     reference's scan path for them, :273);
 - dry_run_preemption <- dry_run_preemption (:726-789): DefaultPreemption's
                     per-node victim selection for every row at once;
-- scatter_rows   <- the mirror's dirty-row scatter, _scatter_rows
-                    (ops/device_state.py:128-135);
+- scatter_rows   <- the mirror's dirty-row scatter, _scatter_rows_impl
+                    (ops/device_state.py:130-135), copy-on-write in one
+                    launch from one staged upload (stage_scatter);
 - patch_carry_rows <- patch_carry_rows (:584-621): a journal delta patch of
                     a live session's carry, the dirty rows' aggregates
-                    installed and their resource lanes re-evaluated;
+                    installed and their resource lanes re-evaluated,
+                    copy-on-write in one launch (stage_carry_patch);
 - schedule_placements <- schedule_placements (:655-723): a pod group's
                     greedy scan against each of P candidate placements at
                     once, a block a placement running scan_general's step
@@ -61,6 +63,7 @@ versions and the kernels stop at the last active step and fill the rest.
 from __future__ import annotations
 
 import functools
+import math
 from contextlib import nullcontext
 from typing import NamedTuple, Optional, Sequence, Tuple
 
@@ -865,55 +868,116 @@ dry_run_preemption.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def pack_rows(rows: DeviceNodeState) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The dirty rows of every field ([D, ...] each, `topo` as [K, D]) packed
-    by element type, as scatter_rows takes them: [D, 2R + 3] i64
-    (alloc_r, alloc_pods, req_r, nonzero), [D, 3T + 2 + K] i32 (pod_count,
-    taint_key, taint_val, taint_eff, name_id, topo), [D, 2] bool (unsched,
-    valid)."""
-    src64 = torch.cat([rows.alloc_r, rows.alloc_pods[:, None], rows.req_r, rows.nonzero], dim=1)
-    src32 = torch.cat([rows.pod_count[:, None], rows.taint_key, rows.taint_val, rows.taint_eff,
-                       rows.name_id[:, None], rows.topo.T], dim=1)
-    srcb = torch.stack([rows.unsched, rows.valid], dim=1)
-    return src64, src32, srcb
+# Bytes an element of each dtype the staged buffers hold, and numpy's dtype.
+_ITEMSIZE = {i64: 8, i32: 4, torch.bool: 1}
+_NP_DTYPE = {i64: np.int64, i32: np.int32, torch.bool: np.bool_}
 
 
-def _unpack_rows(state: DeviceNodeState, src64, src32, srcb) -> DeviceNodeState:
-    R, T = state.alloc_r.shape[1], state.taint_key.shape[1]
-    return DeviceNodeState(
-        src64[:, :R], src64[:, R], src64[:, R + 1:2 * R + 1], src64[:, 2 * R + 1:],
-        src32[:, 0], src32[:, 1:1 + T], src32[:, 1 + T:1 + 2 * T], src32[:, 1 + 2 * T:1 + 3 * T],
-        srcb[:, 0], srcb[:, 1], src32[:, 1 + 3 * T], src32[:, 2 + 3 * T:].T)
+@functools.lru_cache(maxsize=256)
+def _layout(spec) -> Tuple[Tuple[int, ...], int]:
+    """(byte offsets, total bytes) of the arrays of `spec` ((dtype, shape),
+    ...) laid one after another in one byte buffer, each on a 16-byte
+    boundary."""
+    offs, off = [], 0
+    for dt, shape in spec:
+        offs.append(off)
+        off = _align16(off + _ITEMSIZE[dt] * math.prod(shape))
+    return tuple(offs), off
 
 
-def _scatter_rows_plain(state: DeviceNodeState, idx: torch.Tensor, src64, src32, srcb) -> None:
-    """Plain PyTorch version of the scatter_rows kernel: one index_copy_
-    per field."""
-    rows = _unpack_rows(state, src64, src32, srcb)
+def _views(buf, spec, offs) -> list:
+    """The arrays of `spec` as views of the byte buffer `buf` (a numpy
+    uint8 array or a torch uint8 tensor) at the byte offsets `offs`."""
+    out = []
+    for (dt, shape), off in zip(spec, offs):
+        part = buf[off:off + _ITEMSIZE[dt] * math.prod(shape)]
+        if isinstance(buf, np.ndarray):
+            out.append(part.view(_NP_DTYPE[dt]).reshape(shape))
+        else:
+            out.append(part.view(dt).view(shape))
+    return out
+
+
+def _row_spec(D: int, R: int, T: int, K: int) -> tuple:
+    """The packed rows of a scatter: D rows of each DeviceNodeState field in
+    field order, topo's as [K, D]. The kernel gets each section's byte
+    offset from the wrapper, so this is the layout's one statement."""
+    return ((i64, (D, R)), (i64, (D,)), (i64, (D, R)), (i64, (D, 2)), (i32, (D,)),
+            (i32, (D, T)), (i32, (D, T)), (i32, (D, T)), (torch.bool, (D,)), (torch.bool, (D,)),
+            (i32, (D,)), (i32, (K, D)))
+
+
+def _widths(state: DeviceNodeState) -> Tuple[int, int, int]:
+    return state.alloc_r.shape[1], state.taint_key.shape[1], state.topo.shape[0]
+
+
+def unpack_rows(packed: torch.Tensor, D: int, R: int, T: int, K: int) -> DeviceNodeState:
+    """The D rows of each field (topo's as [K, D]) as views of `packed`."""
+    spec = _row_spec(D, R, T, K)
+    return DeviceNodeState(*_views(packed, spec, _layout(spec)[0]))
+
+
+def stage_scatter(ring, fields: Sequence[np.ndarray], topo: np.ndarray, rows,
+                  at=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One flush's upload: the host rows `rows` of the mirror's staging
+    arrays (`fields`, its eleven [NP, ...] arrays, and `topo` [K, NP]) and
+    their target indices `at` (default: `rows`) packed straight into one
+    buffer of the StagingRing `ring` and copied to its device at once.
+    Returns (idx [D] i32, packed), views of that one upload, as
+    scatter_rows takes them."""
+    rows = np.asarray(rows, dtype=np.int64)
+    D = rows.shape[0]
+    spec = ((i32, (D,)),) + _row_spec(D, fields[0].shape[1], fields[5].shape[1], topo.shape[0])
+    offs, total = _layout(spec)
+    views = _views(ring.take(total), spec, offs)
+    views[0][:] = rows if at is None else at
+    # mode="clip" writes straight into `out` (the default buffers it); the
+    # rows are the mirror's own, all in range.
+    for a, view in zip(fields, views[1:-1]):
+        a.take(rows, axis=0, out=view, mode="clip")
+    topo.take(rows, axis=1, out=views[-1], mode="clip")
+    staged = ring.upload(total)
+    return staged[:4 * D].view(i32), staged[offs[1]:]
+
+
+def _scatter_rows_plain(state: DeviceNodeState, idx: torch.Tensor, packed: torch.Tensor,
+                        in_place: bool = False) -> DeviceNodeState:
+    """Plain PyTorch version of the scatter_rows kernel: a clone of each
+    field (none in place) and one index_copy_ per field."""
+    rows = unpack_rows(packed, idx.shape[0], *_widths(state))
+    out = state if in_place else DeviceNodeState(*[t.clone() for t in state])
     at = idx.to(i64)
-    for field, r in zip(state[:-1], rows[:-1]):
+    for field, r in zip(out[:-1], rows[:-1]):
         field.index_copy_(0, at, r)
-    state.topo.index_copy_(1, at, rows.topo)
+    out.topo.index_copy_(1, at, rows.topo)
+    return out
 
 
-def _scatter_rows_cuda(state, idx, src64, src32, srcb) -> None:
+def _scatter_rows_cuda(state, idx, packed, in_place=False) -> DeviceNodeState:
     dev = state.valid.device
-    (NP, R), T, K = state.alloc_r.shape, state.taint_key.shape[1], state.topo.shape[0]
-    D = idx.shape[0]
-    if src64.shape != (D, 2 * R + 3) or src32.shape != (D, 3 * T + 2 + K) or srcb.shape != (D, 2):
+    NP, D, (R, T, K) = state.valid.shape[0], idx.shape[0], _widths(state)
+    offs, total = _layout(_row_spec(D, R, T, K))
+    if packed.shape != (total,):
         raise ValueError("scatter_rows: packed rows do not match the state's widths")
-    _launch("scatter_rows", dev, NP, D, R, T, K, idx, src64, src32, srcb, *state)
+    out = state if in_place else DeviceNodeState(*[torch.empty_like(t) for t in state])
+    # Each field's section as its byte offset: ints marshal for a fraction
+    # of what twelve tensor views cost on the host.
+    _launch("scatter_rows", dev, NP, D, R, T, K, idx, packed, *offs, *state, *out)
+    return out
 
 
-def scatter_rows(state: DeviceNodeState, idx: torch.Tensor, src64: torch.Tensor,
-                 src32: torch.Tensor, srcb: torch.Tensor) -> None:
-    """Write the packed dirty rows (pack_rows) into `state`'s tensors, in
-    place, at the rows `idx` [D] i32."""
+def scatter_rows(state: DeviceNodeState, idx: torch.Tensor, packed: torch.Tensor,
+                 in_place: bool = False) -> DeviceNodeState:
+    """`state` with the packed rows (stage_scatter) written at the
+    rows `idx` [D] i32, in any order: a new state, the given one keeping
+    its values (a dispatched batch or a saved plan may read it); `in_place`
+    writes the rows into `state`'s own tensors and returns it (a mesh
+    shard that no dispatched batch reads)."""
     if _on_cpu(state.valid):
-        _scatter_rows_plain(state, idx, src64, src32, srcb)
-        return
-    _scatter_rows_cuda(state, idx, src64, src32, srcb)
+        return _scatter_rows_plain(state, idx, packed, in_place)
+    out = _scatter_rows_cuda(state, idx, packed, in_place)
     scatter_rows.launches += 1
+    return out
 
 
 scatter_rows.launches = 0
@@ -946,12 +1010,31 @@ def _patch_carry_rows_cuda(state, f, carry, idx, req_rows, nz_rows, cnt_rows, fi
     if req_rows.shape != (K, R) or nz_rows.shape != (K, 2) or cnt_rows.shape != (K,):
         raise ValueError(f"patch_carry_rows: rows {tuple(req_rows.shape)}, "
                          f"{tuple(nz_rows.shape)}, {tuple(cnt_rows.shape)} for K {K}, R {R}")
-    lanes = list(carry[:6]) if in_place else [t.clone() for t in carry[:6]]
+    lanes = list(carry[:6]) if in_place else [torch.empty_like(t) for t in carry[:6]]
     ints, feats = _res_args(f, fit_strategy)
     _launch("patch_carry_rows", dev, NP, K, *ints, *feats, idx, req_rows, nz_rows, cnt_rows,
-            state.alloc_r, state.alloc_pods, *_nom_lane(f), *lanes)
+            state.alloc_r, state.alloc_pods, *_nom_lane(f), *carry[:6], *lanes)
     return carry._replace(req_r=lanes[0], nonzero=lanes[1], pod_count=lanes[2],
                           fit_ok=lanes[3], fit_sc=lanes[4], ba=lanes[5])
+
+
+def stage_carry_patch(ring, rows, req_r: np.ndarray, nonzero: np.ndarray,
+                      pod_count: np.ndarray) -> list:
+    """One carry patch's upload: the rows `rows` (padded to their tier) and
+    their aggregates from host staging (`req_r` [NP, R], `nonzero` [NP, 2],
+    `pod_count` [NP]) packed straight into one buffer of the StagingRing
+    `ring` and copied to its device at once. Returns [idx, req_rows,
+    nz_rows, cnt_rows], views of that one upload, as patch_carry_rows takes
+    them."""
+    rows = np.asarray(rows, dtype=np.int64)
+    K = rows.shape[0]
+    spec = ((i32, (K,)), (i64, (K, req_r.shape[1])), (i64, (K, 2)), (i32, (K,)))
+    offs, total = _layout(spec)
+    views = _views(ring.take(total), spec, offs)
+    views[0][:] = rows
+    for a, view in zip((req_r, nonzero, pod_count), views[1:]):
+        a.take(rows, axis=0, out=view, mode="clip")
+    return _views(ring.upload(total), spec, offs)
 
 
 def patch_carry_rows(state: DeviceNodeState, f: BatchFeatures, carry: ScanCarry,
@@ -968,7 +1051,10 @@ def patch_carry_rows(state: DeviceNodeState, f: BatchFeatures, carry: ScanCarry,
     copies, so the carry given — which may be the mirror's adopted state
     or a queued kernel's input — keeps its values; the other lanes are
     shared. `in_place` writes the carry's own six lanes instead (the
-    sharded carry's pinned patch, patch_carry_rows_pinned)."""
+    sharded carry's pinned patch, patch_carry_rows_pinned). The kernel
+    writes the new lanes whole (the old rows copied, the patched ones
+    written) in one launch; the inputs may be views of one upload
+    (stage_carry_patch)."""
     if _on_cpu(idx):
         return _patch_carry_rows_plain(state, f, carry, idx, req_rows, nz_rows, cnt_rows,
                                        fit_strategy, in_place)

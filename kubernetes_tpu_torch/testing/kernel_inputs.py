@@ -14,8 +14,10 @@ attach-limit lane and `victim_inputs` the preemption dry run's victim
 tensors; `static_edge_inputs` and `victim_edge_inputs` draw the edges of
 static_masks' and the dry run's designs (no taint or toleration, gates
 off, padded taints, 1 to 64 resource slots, victims past num_nodes).
-`whatif_inputs` draws the descheduler's
-what-if batch (the JAX package's WhatIfBatch field order).
+`scatter_inputs` and `patch_inputs` draw the two halves of a row patch
+(the mirror's dirty rows, a carry's post-event aggregates) and
+`stage_rows` stages a scatter's rows as a flush does;
+`whatif_inputs` draws the descheduler's what-if batch (the JAX package's WhatIfBatch field order).
 """
 
 from __future__ import annotations
@@ -396,6 +398,48 @@ def victim_edge_inputs(seed: int, np_cap: int, num_nodes: int, k: int, *, r_slot
     enable[list(enable_off)] = 0
     f["enable"] = enable
     return tuple(state), tuple(f[name] for name in _F), vic_req, vic_valid
+
+
+def scatter_inputs(seed: int, np_cap: int, d: int, *, r_slots: int = 7, taints: int = 4,
+                   axes: int = 4, order: str = "sorted",
+                   block_rows: int = 64) -> Tuple[tuple, np.ndarray, tuple]:
+    """(state arrays, at [d] i64, rows arrays) of one dirty-row scatter: a
+    state of `np_cap` rows at the widths given and `d` distinct rows of
+    another draw (each field's rows, topo's as [axes, d]) to write at `at`.
+    The rows include the first and the last row of a `block_rows` range
+    and of the state where `d` allows; `order` "sorted" or "shuffled"."""
+    rng = np.random.default_rng(seed)
+    n, R, T = np_cap, r_slots, taints
+
+    def draw():
+        return (rng.integers(0, 1 << 40, (n, R)), rng.integers(0, 110, n),
+                rng.integers(0, 1 << 40, (n, R)), rng.integers(0, 1 << 40, (n, 2)),
+                rng.integers(0, 110, n).astype(np.int32),
+                *[rng.integers(0, 9, (n, T)).astype(np.int32) for _ in range(3)],
+                rng.random(n) < 0.5, rng.random(n) < 0.5,
+                rng.integers(0, 1 << 30, n).astype(np.int32),
+                rng.integers(0, 50, (axes, n)).astype(np.int32))
+
+    state, src = draw(), draw()
+    edges = list(dict.fromkeys((block_rows - 1, 0, block_rows, n - 1,
+                                min(2 * block_rows - 1, n - 1))))[:d]
+    rest = rng.permutation(np.setdiff1d(np.arange(n), edges))[:d - len(edges)]
+    at = np.concatenate([edges, rest]).astype(np.int64)
+    at = np.sort(at) if order == "sorted" else rng.permutation(at)
+    return state, at, tuple(a[at] for a in src[:-1]) + (src[-1][:, at],)
+
+
+def stage_rows(rows, at, ring=None):
+    """(idx [d] i32, packed) of the rows `rows` (each field's d rows,
+    topo's as [K, d], numpy arrays or CPU tensors) written at `at`, staged
+    as a flush stages them (kernel.stage_scatter: one buffer of `ring`, by
+    default a new StagingRing on the CPU, one upload)."""
+    from ..ops.kernel import stage_scatter
+    from ..ops.staging import StagingRing
+
+    host = [np.ascontiguousarray(np.asarray(a)) for a in rows]
+    return stage_scatter(ring or StagingRing("cpu"), host[:-1], host[-1],
+                         np.arange(host[0].shape[0]), at=np.asarray(at))
 
 
 def patch_inputs(seed: int, state: tuple, num_nodes: int, k: int,

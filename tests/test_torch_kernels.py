@@ -36,8 +36,11 @@ from kubernetes_tpu_torch.testing.kernel_inputs import (
     aux_lane,
     general_inputs,
     nominated_lane,
+    patch_inputs,
     placement_inputs,
     random_inputs,
+    scatter_inputs,
+    stage_rows,
     static_edge_inputs,
     victim_inputs,
     whatif_inputs,
@@ -271,8 +274,8 @@ def test_wrappers_count_only_kernel_launches():
     s, f, vr, vv = victim_inputs(16, 256, 200, 8)
     vs, vf = state_from_jax_numpy(s), features_from_jax_numpy(f)
     K.dry_run_preemption(vs, vf, *victims_from_jax_numpy(vr, vv), 8)
-    K.scatter_rows(ts, torch.tensor([3], dtype=torch.int32), *K.pack_rows(
-        K.DeviceNodeState(*[t[:1] for t in ts[:-1]], ts.topo[:, :1])))
+    K.scatter_rows(ts, *stage_rows(K.DeviceNodeState(*[t[:1] for t in ts[:-1]],
+                                                     ts.topo[:, :1]), [3]))
     assert [w.launches for w in K.WRAPPERS] == [0] * len(K.WRAPPERS)
     # Neither CPU nor CUDA: refused, never silently computed elsewhere.
     meta = ts._replace(valid=ts.valid.to("meta"))
@@ -305,7 +308,8 @@ def test_launcher_signatures_are_read_from_the_sources():
                     "C1", "C2", "A1", "A2", "KD", "incremental", "carried", "has_pns",
                     "has_ipa_base", "has_na_pref", "K", "D", "P", "per_lane", "N", "NPl",
                     "S", "n_loc", "gen", "wait_mcycles", "port_selfblock", "has_aux",
-                    "rows_cap", "lane_bytes"))
+                    "rows_cap", "lane_bytes")
+                   + tuple(f"off_{f}" for f in K.DeviceNodeState._fields))
         optional = {p.name for p in sig if p.optional}
         lane = name in ("resource_eval", "lap_schedule", "scan_general", "patch_carry_rows",
                         "schedule_placements")
@@ -382,9 +386,9 @@ def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches, monk
     K._dry_run_preemption_cuda(state_from_jax_numpy(s), features_from_jax_numpy(f),
                                *victims_from_jax_numpy(vr, vv), 16)
     rows = K.DeviceNodeState(*[t[:2] for t in ts[:-1]], ts.topo[:, :2])
-    K._scatter_rows_cuda(ts, torch.tensor([5, 9], dtype=torch.int32), *K.pack_rows(rows))
-    K._patch_carry_rows_cuda(ts, tf, ext0, torch.tensor([5, 9], dtype=torch.int32),
-                             ts.req_r[:2], ts.nonzero[:2], ts.pod_count[:2], 0)
+    new_state = K._scatter_rows_cuda(ts, *stage_rows(rows, [5, 9]))
+    new_carry = K._patch_carry_rows_cuda(ts, tf, ext0, torch.tensor([5, 9], dtype=torch.int32),
+                                         ts.req_r[:2], ts.nonzero[:2], ts.pod_count[:2], 0)
     masks = torch.zeros((4, ts.valid.shape[0]), dtype=torch.bool)
     K._schedule_placements_cuda(ts, tf, 8, 0, VMAX, K.PlanFacts(), masks, 5)
     W._whatif_score_cuda(*[torch.from_numpy(a) for a in whatif_inputs(17, 3, 40)])
@@ -402,6 +406,19 @@ def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches, monk
         for p, a in zip(sig, args):
             given = name == "sharded_lap" and p.name == "out"  # shard 0 is on this card
             assert (a is None) if p.optional and not given else isinstance(a, int), (name, p)
+    # The row patches read the old tensors and write new ones: the
+    # wrappers return the new ones, and in place both are the given ones.
+    sc = dict(zip([p.name for p in K._build.signature("scatter_rows")], recorded_launches[5][1]))
+    assert [sc[n] for n in ("alloc_r", "topo", "out_alloc_r", "out_topo")] == [
+        ts.alloc_r.data_ptr(), ts.topo.data_ptr(), new_state.alloc_r.data_ptr(),
+        new_state.topo.data_ptr()]
+    assert not {t.data_ptr() for t in ts} & {t.data_ptr() for t in new_state}
+    pc = dict(zip([p.name for p in K._build.signature("patch_carry_rows")],
+                  recorded_launches[6][1]))
+    assert [pc[n] for n in ("req_r", "ba", "out_req_r", "out_ba")] == [
+        ext0.req_r.data_ptr(), ext0.ba.data_ptr(), new_carry.req_r.data_ptr(),
+        new_carry.ba.data_ptr()]
+    assert new_carry.dns_counts is ext0.dns_counts
     sl = {p.name: a for p, a in zip(K._build.signature("sharded_lap"), recorded_launches[-1][1])}
     assert (sl["S"], sl["n_loc"], sl["NPl"], sl["gen"] > 0) == (2, 2, 128, True)
     assert sl["out"] == out.data_ptr() and sl["table"] == cards[0][3].data_ptr()
@@ -622,6 +639,374 @@ def test_placement_lane_bytes_match_the_c_layout(gen_sizes_lib, carried):
                 for C2 in (0, 1, K.GEN_MAXC):
                     assert K._placement_lane_bytes(n, V, C1, C2, carried) == \
                         gen_sizes_lib.lane_bytes(n, V, C1, C2, int(carried)), (n, V, C1, C2)
+
+
+# ---------------------------------------------------------------------------
+# The row patches: scatter_rows and patch_carry_rows, copy-on-write in one
+# launch, and the staging ring their uploads go through
+# ---------------------------------------------------------------------------
+
+
+def _bytes(t: torch.Tensor) -> np.ndarray:
+    """A contiguous tensor's bytes as a flat writable numpy view."""
+    return t.numpy().reshape(-1).view(np.uint8)
+
+
+class _CowModel:
+    """A numpy model of the copy-on-write row patch kernels, with their
+    constants read from the sources: a block owns `block_rows` rows of
+    every field (scatter_rows.cu, patch_carry_rows.cu); cow_copy
+    (kernels.cuh) copies the block's segments, COW_CHUNK at a time, as one
+    range of 16-byte vectors, `threads` x COW_UNROLL a round, where dst and
+    src are both aligned, and bytes for the rest; pass_hits walks idx
+    `threads` x <prefix>_HIT_UNROLL entries a pass, thread t taking
+    entries t, t + threads, ..., and compacts the entries that land in the
+    block thread by thread (the carry patch skipping an entry equal to the
+    one before it); the hits' elements are then written. The new tensors
+    start filled with a poison byte, so a byte no block copies or writes
+    shows. `misalign` shifts the modelled addresses of the new tensors (the
+    byte path)."""
+
+    def __init__(self, source: str, prefix: str, misalign: int = 0):
+        d = K._build.defines(source)
+        c = K._build.defines("kernels.cuh")
+        self.threads, self.block_rows = d[f"{prefix}_THREADS"], d[f"{prefix}_BLOCK_ROWS"]
+        self.chunk, self.unroll = c["COW_CHUNK"], c["COW_UNROLL"]
+        self.hit_unroll = d[f"{prefix}_HIT_UNROLL"]
+        self.dedup = prefix == "PATCH"  # an entry equal to the one before it is skipped
+        self.misalign = misalign
+        self.vector_bytes = self.byte_copies = 0
+
+    def blocks(self, NP: int):
+        for lo in range(0, NP, self.block_rows):
+            yield lo, min(lo + self.block_rows, NP)
+
+    def cow_copy(self, segs) -> None:
+        """segs: (dst bytes, src bytes, dst address, src address), each the
+        block's range of one field, src None in place."""
+        for c0 in range(0, len(segs), self.chunk):
+            chunk = segs[c0:c0 + self.chunk]
+            vecs = [len(d) >> 4 if src is not None and ((da | sa) & 15) == 0 else 0
+                    for d, src, da, sa in chunk]
+            pre = np.concatenate([[0], np.cumsum(vecs)]).astype(np.int64)
+            # Every vector index of the range is one thread's in one round.
+            t = np.arange(self.threads)[:, None, None]
+            rounds = np.arange(-(-int(pre[-1]) // (self.threads * self.unroll)))[None, :, None]
+            u = np.arange(self.unroll)[None, None, :]
+            i = (t + rounds * self.threads * self.unroll + u * self.threads).reshape(-1)
+            i = np.sort(i[i < pre[-1]])
+            assert np.array_equal(i, np.arange(pre[-1])), "a vector copied twice or never"
+            for (dst, src, _da, _sa), n_vec in zip(chunk, vecs):
+                if src is None:
+                    continue
+                dst[:16 * n_vec] = src[:16 * n_vec]
+                dst[16 * n_vec:] = src[16 * n_vec:]
+                self.vector_bytes += 16 * n_vec
+                self.byte_copies += len(dst) - 16 * n_vec
+
+    def hits(self, idx: np.ndarray, lo: int, hi: int):
+        """The entries of idx in [lo, hi), a pass at a time, each pass's
+        compacted thread by thread (a thread's own in entry order)."""
+        size = self.threads * self.hit_unroll
+        for p0 in range(0, len(idx), size):
+            j = p0 + np.arange(self.hit_unroll)[None, :] * self.threads \
+                + np.arange(self.threads)[:, None]
+            j = j[j < len(idx)]  # thread-major: thread t's entries, then t + 1's
+            keep = (idx[j] >= lo) & (idx[j] < hi)
+            if self.dedup:
+                keep &= (j == 0) | (idx[j] != idx[np.maximum(j - 1, 0)])
+            yield from j[keep].tolist()
+
+    def segs(self, new, old, lo, hi, row_bytes, strides=None):
+        """The block's segments of each field: rows [lo, hi) of a
+        row-major field (`row_bytes` a row), or of each of `strides`' axis
+        rows (topo: a row of `row_bytes` bytes per axis every stride)."""
+        out = []
+        for f, (n, o, rb) in enumerate(zip(new, old, row_bytes)):
+            nb, ob = _bytes(n), None if o is n else _bytes(o)
+            starts = [lo * rb] if strides is None or strides[f] is None else \
+                [k * strides[f] + lo * rb for k in range(n.shape[0])]
+            for off in starts:
+                out.append((nb[off:off + (hi - lo) * rb],
+                            None if ob is None else ob[off:off + (hi - lo) * rb],
+                            512 + self.misalign + off, 512 + off))
+        return out
+
+    def fresh(self, tensors, in_place: bool):
+        if in_place:
+            return list(tensors)
+        out = [torch.empty_like(t) for t in tensors]
+        for t in out:
+            _bytes(t)[:] = 0xA5
+        return out
+
+    def scatter(self, state, idx: np.ndarray, packed: torch.Tensor, in_place: bool):
+        NP, D = state.valid.shape[0], len(idx)
+        R, T, Kx = state.alloc_r.shape[1], state.taint_key.shape[1], state.topo.shape[0]
+        rows = K.unpack_rows(packed, D, R, T, Kx)
+        new = self.fresh(state, in_place)
+        widths = [1 if t.dim() == 1 else t.shape[1] for t in state[:-1]] + [1]
+        row_bytes = [w * t.element_size() for w, t in zip(widths, state)]
+        strides = [None] * 11 + [4 * NP]
+        for lo, hi in self.blocks(NP):
+            self.cow_copy(self.segs(new, state, lo, hi, row_bytes, strides))
+            for j in self.hits(idx, lo, hi):
+                r = int(idx[j])
+                for f in range(11):
+                    new[f][r] = rows[f][j]
+                new[11][:, r] = rows.topo[:, j]
+        return K.DeviceNodeState(*new)
+
+    def patch(self, state, f, carry, idx: np.ndarray, req_rows, nz_rows, cnt_rows,
+              fit_strategy: int, in_place: bool):
+        NP, R = state.alloc_r.shape
+        new = self.fresh(carry[:6], in_place)
+        row_bytes = [8 * R, 16, 4, 1, 8, 8]
+        for lo, hi in self.blocks(NP):
+            self.cow_copy(self.segs(new, carry[:6], lo, hi, row_bytes))
+            for j in self.hits(idx, lo, hi):
+                r = int(idx[j])
+                at = torch.tensor([r])
+                ok, sc, ba = K._resource_eval_plain(
+                    f, fit_strategy, state.alloc_r[at], state.alloc_pods[at], req_rows[j:j + 1],
+                    nz_rows[j:j + 1], cnt_rows[j:j + 1], *K._nom_lane(f, at))
+                for lane, v in zip(new, (req_rows[j], nz_rows[j], cnt_rows[j], ok[0], sc[0],
+                                         ba[0])):
+                    lane[r] = v
+        return carry._replace(req_r=new[0], nonzero=new[1], pod_count=new[2], fit_ok=new[3],
+                              fit_sc=new[4], ba=new[5])
+
+
+def _scatter_draw(seed: int, NP: int, D: int, R: int, T: int, Kx: int, order: str):
+    """(state, idx [D] i32, rows) of one scatter_inputs draw, as tensors."""
+    s, at, rows = scatter_inputs(seed, NP, D, r_slots=R, taints=T, axes=Kx, order=order,
+                                 block_rows=K._build.defines("scatter_rows.cu")[
+                                     "SCATTER_BLOCK_ROWS"])
+    return (state_from_jax_numpy(s), torch.from_numpy(at.astype(np.int32)),
+            state_from_jax_numpy(rows))
+
+
+SCATTER_MODEL_CASES = [
+    # NP, D, R, T, K, order, in_place, misalign
+    (256, 1, 7, 4, 4, "sorted", False, 0),
+    (200, 64, 7, 4, 4, "shuffled", False, 0),     # NP not a multiple of the block
+    (4100, 2048, 7, 4, 4, "shuffled", False, 0),
+    (4100, 2500, 7, 4, 4, "shuffled", False, 0),  # two passes of idx
+    (203, 9, 1, 0, 0, "sorted", False, 0),        # R 1, no taint slot, no topology axis
+    (300, 40, 9, 3, 5, "shuffled", True, 0),
+    (256, 64, 7, 4, 4, "sorted", True, 0),
+    (130, 12, 7, 4, 4, "shuffled", False, 4),     # the new tensors off a 16-byte boundary
+]
+
+
+@pytest.mark.parametrize("NP,D,R,T,Kx,order,in_place,misalign", SCATTER_MODEL_CASES)
+def test_scatter_rows_block_model_steps_like_the_plain_version(NP, D, R, T, Kx, order, in_place,
+                                                               misalign):
+    """The block decomposition of scatter_rows, modelled in numpy, equals
+    its plain version (clone and index_copy_ per field): every byte of the
+    new state copied or patched once, the old state unchanged unless in
+    place."""
+    state, idx, rows = _scatter_draw(90 + NP + D, NP, D, R, T, Kx, order)
+    _at, packed = stage_rows(rows, idx)
+    before = [t.clone() for t in state]
+    want = K._scatter_rows_plain(K.DeviceNodeState(*[t.clone() for t in state]), idx, packed,
+                                 in_place)
+    model = _CowModel("scatter_rows.cu", "SCATTER", misalign)
+    got = model.scatter(state, idx.numpy(), packed, in_place)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and torch.equal(a, b), i
+    # The copy took the vectors (none in place), and bytes where the
+    # modelled addresses are off a 16-byte boundary.
+    assert (model.vector_bytes > 0) == (not in_place and not misalign)
+    assert (model.byte_copies > 0) == (not in_place and bool(misalign or NP % 16))
+    if not in_place:
+        for i, (a, b) in enumerate(zip(state, before)):
+            assert torch.equal(a, b), i
+        # The plain version's new state is equal to what the rows say.
+        at = idx.long()
+        assert torch.equal(want.topo[:, at], rows.topo)
+        assert torch.equal(want.alloc_r[at], rows.alloc_r)
+
+
+PATCH_MODEL_CASES = [
+    # NP, live rows, rows, tier, R, fit strategy, nominated lane, in_place
+    (256, 200, 1, 32, 7, 0, False, False),
+    (256, 200, 5, 32, 7, 0, False, False),
+    (256, 200, 150, 256, 9, 1, True, False),
+    (200, 190, 100, 2048, 7, 0, True, True),
+    (4100, 4000, 1500, 2048, 7, 1, False, False),
+    (4100, 4000, 3000, 4096, 7, 0, False, False),  # two passes of idx
+    (130, 120, 64, 256, 3, 1, False, True),
+]
+
+
+@pytest.mark.parametrize("NP,nn,k,tier,R,strat,lane,in_place", PATCH_MODEL_CASES)
+def test_patch_carry_rows_block_model_steps_like_the_plain_version(NP, nn, k, tier, R, strat,
+                                                                   lane, in_place):
+    """The block decomposition of patch_carry_rows, modelled in numpy, equals
+    its plain version on a chained carry, with the tier's duplicate padding;
+    the given carry keeps its values unless in place."""
+    seed = 300 + NP + k + tier
+    s, f = random_inputs(seed, NP, nn, r_slots=R)
+    if lane:
+        f = with_nominated_lane(f, nominated_lane(seed, NP, nn, r_slots=R))
+    st, ft = state_from_jax_numpy(s), features_from_jax_numpy(f)
+    carry = None
+    for _chain in range(2):
+        _out, carry = K.schedule_batch(st, ft, 64, strat, VMAX, K.PlanFacts(), n_active=40,
+                                       carry_in=carry)
+    carry = carry._replace(**{n: getattr(carry, n).clone() for n in
+                              ("req_r", "nonzero", "pod_count", "fit_ok", "fit_sc", "ba")})
+    idx, req, nz, cnt = [torch.from_numpy(a) for a in patch_inputs(seed, s, nn, k, tier)]
+    before = [t.clone() for t in carry[:6]]
+    want = K._patch_carry_rows_plain(st, ft, K.ScanCarry(*[t.clone() for t in carry]), idx, req,
+                                     nz, cnt, strat, in_place)
+    got = _CowModel("patch_carry_rows.cu", "PATCH").patch(st, ft, carry, idx.numpy(), req, nz,
+                                                          cnt, strat, in_place)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and torch.equal(a, b), i
+    if not in_place:
+        for i, (a, b) in enumerate(zip(carry[:6], before)):
+            assert torch.equal(a, b), i
+    assert bool((want.fit_ok != before[3]).any()) or k < 32
+
+
+def test_scatter_wrapper_passes_each_fields_rows_as_a_view_of_the_upload(recorded_launches):
+    """The kernel reads each field's packed rows at a byte offset into the
+    one upload that the wrapper passes: where the plain version reads them
+    (unpack_rows), over row counts and widths around the 16-byte
+    boundaries, K and T 0 included."""
+    names = [p.name for p in K._build.signature("scatter_rows")]
+    fields = K.DeviceNodeState._fields
+    assert [n for n in names if n.startswith("off_")] == [f"off_{f}" for f in fields]
+    n = 0
+    for D in (1, 3, 4, 5, 31, 64, 2049):
+        for R, T, Kx in ((7, 4, 4), (1, 0, 0), (9, 3, 5), (2, 1, 1), (7, 40, 16)):
+            s, at, rows = scatter_inputs(990 + D, 2112, D, r_slots=R, taints=T, axes=Kx)
+            state = K.DeviceNodeState(*[torch.from_numpy(np.ascontiguousarray(a)) for a in s])
+            idx, packed = stage_rows(rows, at)
+            K._scatter_rows_cuda(state, idx, packed)
+            args = dict(zip(names, recorded_launches[n][1]))
+            n += 1
+            views = K.unpack_rows(packed, D, R, T, Kx)
+            assert args["packed"] == packed.data_ptr()
+            assert [args["packed"] + args[f"off_{f}"] for f, v in zip(fields, views)
+                    if v.numel()] == [v.data_ptr() for v in views if v.numel()]
+            for f, v, r in zip(fields, views, rows):
+                np.testing.assert_array_equal(v.numpy(), r, err_msg=f"{f} D {D} R {R}")
+            end = packed.data_ptr() + packed.numel()
+            assert all(v.data_ptr() + v.numel() * v.element_size() <= end
+                       for v in views if v.numel())
+            assert args["D"] == D and args["idx"] == idx.data_ptr()
+
+
+class _FakeEvent:
+    """An upload's event in the ring model: complete once `done` is set;
+    synchronize() waits for it (here: records the wait and completes)."""
+
+    def __init__(self, log, slot):
+        self.log, self.slot, self.done = log, slot, False
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.log.append(("wait", self.slot))
+        self.done = True
+
+
+def test_staging_ring_rewrites_a_buffer_only_after_its_event():
+    """The staging ring hands its buffers out in turn; a buffer is written
+    again only after the event recorded at its last upload, and each upload
+    carries the bytes packed for it (on the CPU: a copy, so a later
+    take cannot change it)."""
+    from kubernetes_tpu_torch.ops.staging import SLOTS, StagingRing
+
+    log, events = [], []
+
+    def record(device, spent):
+        # The slot's last event comes back once it completed.
+        assert spent is None or (spent.done and spent.slot == len(events) % SLOTS)
+        ev = _FakeEvent(log, len(events) % SLOTS)
+        events.append(ev)
+        return ev
+
+    ring = StagingRing("cpu", record=record)
+    uploads, n_up = [], 3 * SLOTS + 1
+    for n in range(n_up):
+        size = 16 + 8 * n
+        buf = ring.take(size)
+        slot = n % SLOTS
+        if n >= SLOTS:
+            # The slot's previous upload was waited on before this take
+            # handed its buffer out, and only that one.
+            assert log[-1] == ("wait", slot) and events[n - SLOTS].done
+            assert not any(e.done for e in events[n - SLOTS + 1:n])
+        buf[:] = n
+        log.append(("write", slot))
+        uploads.append(ring.upload(size))
+    for n, up in enumerate(uploads):
+        assert up.numel() == 16 + 8 * n and bool((up == n).all())
+    writes = [(i, s) for i, (kind, s) in enumerate(log) if kind == "write"]
+    for (i, s), (j, _s) in zip(writes[SLOTS:], writes):
+        # Between two writes of one slot lies a wait on that slot.
+        assert ("wait", s) in log[j:i]
+    assert ring.uploads == n_up
+    # Every event was still pending when its buffer came round.
+    assert ring.waits == n_up - SLOTS
+    # A completed event is not waited on.
+    events[-SLOTS].done = True
+    n_log = len(log)
+    ring.take(8)
+    assert len(log) == n_log and ring.waits == n_up - SLOTS
+    # A buffer grows to the size asked for.
+    assert ring.take(10000).nbytes == 10000
+
+
+def test_stage_scatter_and_carry_patch_upload_what_they_pack():
+    """One staging buffer a patch: idx and the packed rows of a flush, and
+    idx and the aggregates of a carry patch, are views of one upload, equal
+    to the host rows."""
+    from kubernetes_tpu_torch.ops.staging import StagingRing
+
+    s, _f = random_inputs(95, 256, 200)
+    fields, topo = [np.ascontiguousarray(a) for a in s[:-1]], np.asarray(s[-1])
+    ring = StagingRing("cpu")
+    rows = [250, 3, 77, 0]
+    idx, packed = K.stage_scatter(ring, fields, topo, rows, at=[5, 6, 7, 8])
+    assert idx.tolist() == [5, 6, 7, 8] and ring.uploads == 1
+    got = K.unpack_rows(packed, 4, fields[0].shape[1], fields[5].shape[1], topo.shape[0])
+    for a, g in zip(fields, got[:-1]):
+        np.testing.assert_array_equal(a[rows], g.numpy())
+    np.testing.assert_array_equal(topo[:, rows], got.topo.numpy())
+    staged = K.stage_carry_patch(ring, rows + [0] * 28, fields[2], fields[3], fields[4])
+    assert ring.uploads == 2 and staged[0].tolist() == rows + [0] * 28
+    for a, g in zip((fields[2], fields[3], fields[4]), staged[1:]):
+        np.testing.assert_array_equal(a[rows + [0] * 28], g.numpy())
+    assert len({t.untyped_storage().data_ptr() for t in staged}) == 1
+
+
+def test_row_patches_in_place_pass_the_old_tensors_as_the_new(recorded_launches):
+    """In place, the launchers get the given tensors as old and new (the
+    kernels then write only the rows), and the wrappers return them."""
+    _js, _jf, ts, tf = _both(18)
+    fit = K._resource_eval_plain(tf, 0, ts.alloc_r, ts.alloc_pods, ts.req_r, ts.nonzero,
+                                 ts.pod_count)
+    ext0 = K.fresh_carry(ts, tf, VMAX, fit)
+    rows = K.DeviceNodeState(*[t[:2] for t in ts[:-1]], ts.topo[:, :2])
+    idx = torch.tensor([5, 9], dtype=torch.int32)
+    packed = stage_rows(rows, idx)[1]
+    assert K._scatter_rows_cuda(ts, idx, packed, in_place=True) is ts
+    carry = K._patch_carry_rows_cuda(ts, tf, ext0, idx, ts.req_r[:2], ts.nonzero[:2],
+                                     ts.pod_count[:2], 0, in_place=True)
+    assert all(a is b for a, b in zip(carry, ext0))
+    for (name, args), n in zip(recorded_launches, (12, 6)):
+        sig = [p.name for p in K._build.signature(name)]
+        old = [args[sig.index(p)] for p in sig if f"out_{p}" in sig]
+        new = [args[sig.index(p)] for p in sig if p.startswith("out_")]
+        assert len(old) == len(new) == n and old == new, name
+    with pytest.raises(ValueError, match="packed rows"):
+        K._scatter_rows_cuda(ts, idx, packed[:-16])
 
 
 def _wrong_dtype(ts, tf):

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 from kubernetes_tpu.core.scheduler import Scheduler as JaxHostScheduler
 from kubernetes_tpu.models.tpu_scheduler import TPUScheduler
 from kubernetes_tpu.ops.device_state import DeviceNodeState as JaxState
+from kubernetes_tpu.ops.device_state import _scatter_rows_impl as jax_scatter_rows
 from kubernetes_tpu.ops.features import BatchFeatures as JaxFeatures
 from kubernetes_tpu.ops.kernel import ScanCarry as JaxCarry
 from kubernetes_tpu.ops.kernel import dry_run_preemption as jax_dry_run_preemption
@@ -39,6 +40,7 @@ from kubernetes_tpu_torch.testing.kernel_inputs import (
     general_inputs,
     nominated_lane,
     random_inputs,
+    stage_rows,
     victim_edge_inputs,
     victim_inputs,
     with_nominated_lane,
@@ -400,7 +402,7 @@ def test_schedule_batch_with_nominated_lane(plan, fit_strategy):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dirty", [1, 9])
+@pytest.mark.parametrize("dirty", [1, 9, 2, 16])
 def test_scatter_rows_matches_a_full_upload(dirty):
     """The plain scatter of a mirror's dirty rows leaves the device state
     equal to a full re-upload of the same staging."""
@@ -436,10 +438,11 @@ def test_scatter_rows_matches_a_full_upload(dirty):
 
 
 def test_scatter_rows_writes_every_field():
-    """pack_rows / scatter_rows round trip on a seeded state: the rows
+    """stage_rows / scatter_rows round trip on a seeded state: the rows
     written are the packed ones in every field (topo along its node axis),
-    the other rows are untouched, and the state's tensors are updated in
-    place."""
+    the other rows are untouched; the scatter returns a new state and the
+    given one keeps its values, and in place the state's own tensors are
+    updated."""
     s, _f = random_inputs(70, 256, 200)
     state = state_from_jax_numpy(s)
     state = state._replace(topo=torch.randint(0, 9, state.topo.shape, dtype=torch.int32))
@@ -451,11 +454,54 @@ def test_scatter_rows_writes_every_field():
     for field, r in zip(want[:-1], rows[:-1]):
         field[idx.long()] = r
     want[-1][:, idx.long()] = rows.topo
+    before = [t.clone() for t in state]
+    packed = stage_rows(rows, idx)[1]
+    got = K.scatter_rows(state, idx, packed)
+    for i, (a, b, old) in enumerate(zip(got, want, state)):
+        assert torch.equal(a, b) and a.data_ptr() != old.data_ptr(), i
+    for i, (a, b) in enumerate(zip(state, before)):
+        assert torch.equal(a, b), i
     ptrs = [t.data_ptr() for t in state]
-    K.scatter_rows(state, idx, *K.pack_rows(rows))
-    assert [t.data_ptr() for t in state] == ptrs
+    got = K.scatter_rows(state, idx, packed, in_place=True)
+    assert [t.data_ptr() for t in state] == ptrs and got is state
     for i, (a, b) in enumerate(zip(state, want)):
         assert torch.equal(a, b), i
+
+
+@pytest.mark.parametrize("d,order,taints,axes,in_place", [
+    (1, "sorted", 4, 4, False), (64, "shuffled", 4, 4, False), (200, "shuffled", 4, 2, False),
+    (17, "sorted", 0, 0, False), (33, "shuffled", 4, 4, True)])
+def test_scatter_rows_matches_jax(d, order, taints, axes, in_place):
+    """The dirty-row scatter through the staging path (the rows and their
+    indices packed into one buffer and uploaded at once) equals the JAX
+    package's _scatter_rows_impl on the same state and rows, in any row
+    order; the state given keeps its values unless in place."""
+    rng = np.random.default_rng(400 + d)
+    s = list(random_inputs(400 + d, 256, 200, taints=taints)[0])
+    src = list(random_inputs(401 + d, 256, 200, taints=taints)[0])
+    s[-1] = rng.integers(0, 9, (axes, 256)).astype(np.int32)
+    src[-1] = rng.integers(0, 9, (axes, 256)).astype(np.int32)
+    at = rng.choice(256, d, replace=False)
+    if order == "sorted":
+        at = np.sort(at)
+    rows = [a[at] for a in src[:-1]] + [src[-1][:, at]]
+    want = jax_scatter_rows(JaxState(*[jnp.asarray(a) for a in s]), jnp.asarray(at),
+                            JaxState(*[jnp.asarray(a) for a in rows]))
+    from kubernetes_tpu_torch.ops.staging import StagingRing
+
+    host = [np.ascontiguousarray(a) for a in src]
+    idx, packed = K.stage_scatter(StagingRing("cpu"), host[:-1], host[-1], at)
+    state = state_from_jax_numpy(s)
+    before = [t.clone() for t in state]
+    got = K.scatter_rows(state, idx, packed, in_place=in_place)
+    for i, (a, b) in enumerate(zip(want, got)):
+        a = np.asarray(a)
+        assert a.dtype == b.numpy().dtype and a.shape == tuple(b.shape), i
+        np.testing.assert_array_equal(a, b.numpy(), err_msg=f"field {i}")
+    assert (got is state) == in_place
+    if not in_place:
+        for i, (a, b) in enumerate(zip(state, before)):
+            assert torch.equal(a, b), i
 
 
 # ---------------------------------------------------------------------------

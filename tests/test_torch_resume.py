@@ -487,7 +487,8 @@ def test_mixed_churn_matches_jax(seed):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("k,tier", [(5, 32), (32, 32), (40, 256), (180, 256)])
+@pytest.mark.parametrize("k,tier", [(5, 32), (32, 32), (40, 256), (180, 256), (1, 32),
+                                    (150, 2048)])
 @pytest.mark.parametrize("lane", [False, True], ids=["no-lane", "lane"])
 @pytest.mark.parametrize("fit_strategy", [0, 1], ids=["least", "most"])
 def test_patch_carry_rows_matches_jax(fit_strategy, lane, k, tier):
@@ -522,6 +523,36 @@ def test_patch_carry_rows_matches_jax(fit_strategy, lane, k, tier):
     np.testing.assert_array_equal(np.asarray(want.fit_sc)[rest], jcarry_np[4][rest])
     # A copy: the carry given keeps its values.
     np.testing.assert_array_equal(carry.req_r.numpy(), jcarry_np[0])
+
+
+@pytest.mark.parametrize("k,tier", [(1, 32), (40, 256), (150, 2048)])
+def test_patch_carry_rows_staged_in_place_matches_jax(k, tier):
+    """The carry patch's inputs staged in one upload (stage_carry_patch, as
+    the scheduler sends them) and written in place: every lane equal to the
+    JAX function's, in the carry's own tensors."""
+    from kubernetes_tpu_torch.ops.staging import StagingRing
+
+    seed = 90 + k + tier
+    s, f = random_inputs(seed, 256, 200)
+    js, jf = JaxState(*[jnp.asarray(a) for a in s]), JaxFeatures(*[jnp.asarray(a) for a in f])
+    _res, jcarry = jax_schedule_batch(js, jf, 512, 1, 64, n_active=np.int32(300), has_nom=False,
+                                      has_pns=False, has_ipa_base=False)
+    jcarry_np = [np.asarray(a) for a in jcarry]
+    idx, req_rows, nz_rows, cnt_rows = patch_inputs(seed, s, 200, k, tier)
+    want = jax_patch_carry_rows(js, jf, JaxCarry(*[jnp.asarray(a) for a in jcarry_np]),
+                                jnp.asarray(idx), jnp.asarray(req_rows), jnp.asarray(nz_rows),
+                                jnp.asarray(cnt_rows), fit_strategy=1, has_nom=False)
+    # Host staging holding the post-event aggregates at the patched rows.
+    req_r, nonzero, pod_count = (np.array(a) for a in (s[2], s[3], s[4]))
+    req_r[idx], nonzero[idx], pod_count[idx] = req_rows, nz_rows, cnt_rows
+    staged = K.stage_carry_patch(StagingRing("cpu"), idx, req_r, nonzero, pod_count)
+    carry = carry_from_jax_numpy(jcarry_np)
+    ptrs = [t.data_ptr() for t in carry]
+    got = K.patch_carry_rows(state_from_jax_numpy(s), features_from_jax_numpy(f), carry,
+                             *staged, 1, in_place=True)
+    assert [t.data_ptr() for t in got] == ptrs
+    for i, (a, b) in enumerate(zip(want, got)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=f"carry lane {i}")
 
 
 def test_event_journal_since_and_truncation():
