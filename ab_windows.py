@@ -9,6 +9,7 @@ TopologySpreading/5000Nodes_5000Pods and SchedulingBasic/5000Nodes_10000Pods.
     python3 ab_windows.py <dir> [rounds] --scan
     python3 ab_windows.py <dir> [rounds] --gates
     python3 ab_windows.py <dir> [rounds] --patches
+    python3 ab_windows.py <dir> [rounds] --evals
 
 Each round runs parent, change, change, parent, each side in a process of
 its own started in its tree, and prints one `AB {...}` JSON line a run:
@@ -57,7 +58,19 @@ chip_smoke.gate_inputs gathers their timed inputs once
 preemptor after the preempting case, seeded draws, static_masks on those
 clusters' pods and on seeded draws), each side runs its own tree's kernel
 on every input and prints one `GATES {...}` line a run, and the last line
-gives the medians, the ratio and whether every digest agreed."""
+gives the medians, the ratio and whether every digest agreed.
+
+With --evals, the same for resource_eval and whatif_score:
+chip_smoke.eval_inputs gathers their timed inputs once
+(build/evals_inputs.pt: resource_eval on SchedulingBasic's and
+TopologySpreading's next batch, the latter with a nominated lane under
+MostAllocated, and a seeded draw; the rebalance drive's first what-if
+batch and a seeded one), each side runs its own tree's resource_eval and
+whatif_score on every input (device ms from torch.profiler, call ms from
+CUDA events) and its own whole score call (whatif_scores: host ms and the
+device ops summed, by this tree's chip_smoke.whole_patch_cost) and prints
+one `EVALS {...}` line a run; the last line gives the medians, the
+ratios and whether every digest agreed."""
 
 import json
 import os
@@ -298,6 +311,70 @@ print(json.dumps(out))
 """
 
 
+GATHER_EVALS = """
+import sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke
+torch.save(chip_smoke.eval_inputs(torch.device("cuda", 0)), sys.argv[1])
+print("{}")
+"""
+
+EVALS_SIDE = """
+import hashlib, importlib.util, inspect, json, sys
+sys.path.insert(0, ".")
+import torch
+from kubernetes_tpu_torch.ops import kernel as K
+from kubernetes_tpu_torch.ops import staging
+from kubernetes_tpu_torch.ops import whatif as W
+from kubernetes_tpu_torch.ops.device_state import DeviceNodeState
+from kubernetes_tpu_torch.ops.features import BatchFeatures
+
+# The measurement is the changed tree's, whichever tree is timed.
+path = sys.path[:]
+spec = importlib.util.spec_from_file_location("smoke", sys.argv[2])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+sys.path[:] = path
+dev = torch.device("cuda", 0)
+
+
+def digest(ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(torch.as_tensor(t).to(torch.int64).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+out = {}
+for name, e in torch.load(sys.argv[1]).items():
+    if e["kind"] == "eval":
+        st = DeviceNodeState(*[t.to(dev) for t in e["state"]])
+        ft = BatchFeatures(*[t.to(dev) for t in e["feats"]])
+        args = (ft, e["strat"], st.alloc_r, st.alloc_pods, st.req_r, st.nonzero, st.pod_count,
+                *K._nom_lane(ft))
+        fn = lambda: tuple(K.resource_eval(*args))
+        kname = "resource_eval"
+    else:
+        batch = W.WhatIfBatch(*[t.numpy() for t in e["batch"]])
+        ts = W.batch_tensors(batch, dev)
+        fn = lambda: tuple(W.whatif_score(*ts))
+        kname = "whatif_score"
+        # A tree whose score call takes the caller's staging ring gets one
+        # ring for all its calls, as the descheduler keeps one.
+        ring = (dict(ring=staging.StagingRing(dev))
+                if "ring" in inspect.signature(W.whatif_scores).parameters else {})
+        whole = lambda: W.whatif_scores(batch, device=dev, **ring)
+        out[name.replace("whatif:", "whatif_scores:")] = dict(
+            kernel="whole score call", digest=digest(whole()),
+            **smoke.whole_patch_cost(whole, "whatif_score"))
+    ms, seen = smoke.device_ms(fn, kname)
+    out[name] = dict(kernel=kname, device_ms=ms, launches_seen=seen,
+                     call_ms=smoke.wall_ms(fn, reps=20), digest=digest(fn()))
+print(json.dumps(out))
+"""
+
+
 def run_side(tree: str, workloads, flags, script=ONE_SIDE) -> dict:
     out = subprocess.run([sys.executable, "-c", script, ",".join(workloads)] + flags,
                          cwd=tree, capture_output=True, text=True, timeout=900)
@@ -308,10 +385,11 @@ def run_side(tree: str, workloads, flags, script=ONE_SIDE) -> dict:
 
 def kernels_main(trees: dict, rounds: int, what: str, gather: str, side: str,
                  keys=("device_ms", "call_ms"), flags=()) -> int:
-    """The --scan, --gates and --patches modes: one tree's kernels (or
-    patches) against the other's on the same gathered inputs, in turns.
-    The summary gives, per input and tree, the kernel and the median, min
-    and max of each of `keys`, and each key's change / parent ratio."""
+    """The --scan, --gates, --patches and --evals modes: one tree's kernels
+    (or patches) against the other's on the same gathered inputs, in
+    turns. The summary gives, per input and tree, the kernel and the
+    median, min and max of each of `keys` that the input's runs report,
+    and each such key's change / parent ratio."""
     inputs = os.path.join(trees["change"], "build", f"{what}_inputs.pt")
     os.makedirs(os.path.dirname(inputs), exist_ok=True)
     run_side(trees["change"], [inputs], [], script=gather)
@@ -321,7 +399,8 @@ def kernels_main(trees: dict, rounds: int, what: str, gather: str, side: str,
             res = run_side(trees[tree], [inputs], list(flags), script=side)
             for name, r in res.items():
                 for k in keys:
-                    vals.setdefault((tree, name, k), []).append(r[k])
+                    if k in r:
+                        vals.setdefault((tree, name, k), []).append(r[k])
                 digests.setdefault(name, set()).add(r["digest"])
                 kernels[(tree, name)] = r["kernel"]
                 if "device_timing" in r:
@@ -329,10 +408,12 @@ def kernels_main(trees: dict, rounds: int, what: str, gather: str, side: str,
             print(f"{what.upper()} " + json.dumps({"tree": tree, **res}), flush=True)
     summary = {}
     for name, seen in digests.items():
+        mine = [k for k in keys if ("change", name, k) in vals]
         summary[name] = {tree: [kernels[(tree, name)]] + [
             [statistics.median(v), min(v), max(v)] for v in
-            (vals[(tree, name, k)] for k in keys)] for tree in ("parent", "change")}
-        for k in keys:
+            (vals[(tree, name, k)] for k in mine)] for tree in ("parent", "change")}
+        summary[name]["keys"] = mine
+        for k in mine:
             p, c = (statistics.median(vals[(tree, name, k)]) for tree in ("parent", "change"))
             summary[name][f"{k}_change_over_parent"] = c / p
         summary[name]["exact"] = len(seen) == 1
@@ -355,7 +436,9 @@ def main() -> int:
         flags += args[i:i + 2]
         del args[i:i + 2]
     scan, gates, patches = "--scan" in args, "--gates" in args, "--patches" in args
-    args = [a for a in args if a not in ("--freeze", "--calls", "--scan", "--gates", "--patches")]
+    evals = "--evals" in args
+    args = [a for a in args if a not in ("--freeze", "--calls", "--scan", "--gates", "--patches",
+                                         "--evals")]
     if not args:
         print(__doc__, file=sys.stderr)
         return 2
@@ -368,6 +451,11 @@ def main() -> int:
     if patches:
         return kernels_main(trees, rounds, "patches", GATHER_PATCHES, PATCHES_SIDE,
                             keys=("host_ms", "device_sum_ms", "device_ops"),
+                            flags=[os.path.join(trees["change"], "chip_smoke.py")])
+    if evals:
+        return kernels_main(trees, rounds, "evals", GATHER_EVALS, EVALS_SIDE,
+                            keys=("device_ms", "call_ms", "host_ms", "device_sum_ms",
+                                  "device_ops"),
                             flags=[os.path.join(trees["change"], "chip_smoke.py")])
     if "--calls" in flags:
         for side in ("parent", "change"):

@@ -37,7 +37,12 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                row that any removal can fit, and on its design's edges
                (DRY_EDGES: R 1 to 64, K up to 256, victims past
                num_nodes, gates off, no taint or toleration, 160 taint
-               slots); static_masks on its edges (MASK_EDGES); scatter_rows on
+               slots); static_masks on its edges (MASK_EDGES); resource_eval
+               on its edges (RESOURCE_EDGES: NP 1, 63, 64, 65, 5003 and 8192,
+               R 2 to 50 with FR 0 to R, each with and without a
+               nominated lane, both fit strategies, rows whose divisions
+               leave the fast paths, rows 8 bytes off their allocation);
+               scatter_rows on
                SCATTER_DRAWS (1, 64, 2048 and 4096 rows, sorted and
                shuffled, in place, NP 5003, R 1 with no taint slot or axis,
                R 9) and through the staging ring, its input state left
@@ -59,8 +64,14 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                memory); whatif_score at the
                rebalance drive's shape (P 128, N 5000, R 3) and at P 1 /
                N 3, with 16 TiB nodes (int64 wrap-around), with negative
-               numerators (floored division), both at odd sizes, its inputs
-               left unchanged, and empty batches that launch nothing; the three
+               numerators (floored division), both at odd sizes, about its
+               tiles (P 1 to 600, N 1 to 5003, the sources on the tile
+               edges), at R 2 to 86 (the slack in registers, a shared tile
+               and device memory) with both hazards, its inputs left
+               unchanged, and empty batches that launch nothing; the what-if
+               hazard check (32 score calls behind a long kernel, no
+               synchronize of their own, every result kept and held
+               against the plain version); the three
                schedule kernels with the blocked lane of a host-port plan
                (port_selfblock): a random third of the carry's rows blocked,
                both fit strategies, fresh and chained, padded steps, draws
@@ -226,8 +237,10 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                inputs (a churn pod against the 10000 bound pods) and on
                the preempting case's (a preemptor after its 256), with
                the host's build and copy of the victim tensors; the
-               launch floor (a one-element fill_) and static_masks' call
-               split (allocation, argument checks, launch); and
+               launch floor (a one-element fill_) and static_masks' and
+               resource_eval's call splits (allocation, argument checks,
+               launch); resource_eval also on TopologySpreading's fresh
+               batch and with a nominated lane under MostAllocated; and
                scatter_rows at the preempting case's rows per flush, with
                index_copy per field (a library call) beside it, and the
                whole flush (NodeStateMirror._scatter_dirty: host ms a call
@@ -243,7 +256,8 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                the placement drive's first group cycle (its 64 lanes and
                plan), its bound summed over the real lanes; whatif_score on
                the rebalance drive's first what-if batch (no library call
-               computes it); the three schedule kernels with the blocked lane
+               computes it), with the whole score call (whatif_scores: host
+               ms a call and every device op it issues, summed); the three schedule kernels with the blocked lane
                on their own drives' first dispatch (the `blocked` entry of
                each row); and with the aux lane (the `aux` entry): the lap on
                SchedulingCSIPVs' first full measured batch, the scans on
@@ -256,7 +270,7 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                device-to-host copies a dispatch (the counter and
                torch.profiler), its plain version and bound, beside the
                one-device lap; the mesh waves' sharded carry patch and
-               dirty-row scatter;
+               dirty-row scatter, with the device time of a shard's launch;
   5. parity  — a 500-node cluster with NoSchedule and PreferNoSchedule
                taints, unschedulable nodes, node selectors, pods that fit no
                node, zone and hostname spread, required and preferred
@@ -571,6 +585,7 @@ def kernel_phase(dev, np_cap: int, n_nodes: int) -> dict:
     lane_phase(K, dev, np_cap, n_nodes, errs)
     dry_run_phase(K, dev, np_cap, n_nodes, errs)
     masks_phase(K, dev, errs)
+    resource_phase(K, dev, errs)
     scatter_phase(K, dev, np_cap, n_nodes, errs)
     patch_phase(K, dev, np_cap, n_nodes, errs)
     hazard_phase(K, dev, errs)
@@ -578,6 +593,7 @@ def kernel_phase(dev, np_cap: int, n_nodes: int) -> dict:
     blocked_phase(K, dev, np_cap, n_nodes, errs)
     aux_phase(K, dev, np_cap, n_nodes, errs)
     whatif_phase(dev, n_nodes, errs)
+    whatif_hazard(dev, errs)
     mesh_kernel_phase(dev, np_cap, n_nodes, errs)
     torch.cuda.synchronize()
     print(f"kernels vs plain: max_abs_err {errs}", flush=True)
@@ -854,6 +870,59 @@ def masks_phase(K, dev, errs: dict) -> None:
               f"{int(want.pns_cnt.sum())} PreferNoSchedule taints", flush=True)
 
 
+# resource_eval's edge draws: (rows, live rows, resource slots, fit slots).
+RESOURCE_EDGES = ([(NP, n, 7, 2) for NP, n in ((1, 1), (63, 60), (64, 64), (65, 50),
+                                              (5003, 4990), (8192, 5000))]
+                  + [(8192, 5000, R, FR) for R in (2, 3, 7, 9, 40, 50)
+                     for FR in sorted({0, 1, R // 2, R})])
+
+
+def resource_phase(K, dev, errs: dict) -> None:
+    """resource_eval against its plain version on the edges of its design
+    (RESOURCE_EDGES, each with and without a nominated lane, both fit
+    strategies): rows below, at and past one block and the last block
+    partial; R 2 to 50 and FR 0 to R; rows whose divisions leave
+    lap_floor_div's fast paths; and rows passed as views 8 bytes off their
+    allocation. One launch each, the inputs left unchanged."""
+    from kubernetes_tpu_torch.testing.kernel_inputs import resource_edge_inputs
+
+    worst = draws = 0
+    for i, (NP, n, R, FR) in enumerate(RESOURCE_EDGES):
+        for lane in (False, True):
+            st, ft = to_device(dev, *resource_edge_inputs(1500 + i, NP, n, r_slots=R,
+                                                          fit_slots=FR, lane=lane))
+            for strat in (0, 1):
+                args = (ft, strat, st.alloc_r, st.alloc_pods, st.req_r, st.nonzero,
+                        st.pod_count, *K._nom_lane(ft))
+                before = [t.clone() for t in args[2:] if t is not None]
+                launches = K.resource_eval.launches
+                got, want = K.resource_eval(*args), K._resource_eval_plain(*args)
+                e = max_abs_err(got, want)
+                check(K.resource_eval.launches == launches + 1, "resource_eval: no launch")
+                check(max_abs_err(before, [t for t in args[2:] if t is not None]) == 0,
+                      "resource_eval wrote into an input")
+                worst, draws = max(worst, e), draws + 1
+                print(f"resource_eval NP {NP} R {R} FR {FR}{' lane' if lane else ''} strategy "
+                      f"{strat}: max_abs_err {e}, {int(want[0].sum())} fit rows", flush=True)
+
+    def off8(t):  # t's values in a view 8 bytes into a new allocation
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        buf[1:].copy_(t.reshape(-1))
+        return buf[1:].view(t.shape)
+
+    st, ft = to_device(dev, *resource_edge_inputs(1590, 8192, 5000, lane=True))
+    for strat in (0, 1):
+        args = (ft, strat, off8(st.alloc_r), st.alloc_pods, off8(st.req_r), off8(st.nonzero),
+                st.pod_count, off8(ft.nom_req), ft.nom_pods)
+        e = max_abs_err(K.resource_eval(*args), K._resource_eval_plain(*args))
+        worst, draws = max(worst, e), draws + 1
+        print(f"resource_eval NP 8192 rows 8 bytes off their allocation, lane, strategy "
+              f"{strat}: max_abs_err {e}", flush=True)
+    errs["resource_eval"] = max(errs["resource_eval"], worst)
+    print(f"resource_eval on its design's edges: max_abs_err {worst} over {draws} draws",
+          flush=True)
+
+
 SCATTER_DRAWS = (
     # NP, rows, R, T, K, order, in place
     (8192, 1, 7, 4, 4, "sorted", False),
@@ -1108,8 +1177,12 @@ def whatif_phase(dev, n_nodes: int, errs: dict) -> None:
     """whatif_score against its plain version: seeded batches at the
     rebalance drive's shape (P 128, N 5000, R 3) and at P 1 / N 3, a batch
     with 16 TiB nodes (int64 wrap-around), one with negative numerators
-    (floored division), an empty batch (no launch), the inputs left
-    unchanged. Exactly equal on fit_ok and score."""
+    (floored division); the edges of the kernel's tiles (P 1 to 600 and N
+    1 to 5003 about one tile and one chunk, the candidates' sources on the
+    tile edges); R 2 to 50 (each tier of the slack) with both hazards; an
+    empty batch (no launch); the inputs left unchanged. Exactly equal on
+    fit_ok and score."""
+    from kubernetes_tpu_torch.ops import _build
     from kubernetes_tpu_torch.ops import whatif as W
     from kubernetes_tpu_torch.testing.kernel_inputs import whatif_inputs
 
@@ -1117,8 +1190,22 @@ def whatif_phase(dev, n_nodes: int, errs: dict) -> None:
              "P 1 / N 3": (1002, 1, 3, {}), "16 TiB nodes": (1003, 128, n_nodes, dict(huge=True)),
              "negative numerators": (1004, 37, n_nodes, dict(negative=True)),
              "both hazards, odd sizes": (1005, 37, 999, dict(huge=True, negative=True))}
+    # The edges of the kernel's tiles (WI_NODES nodes x WI_CANDS candidates),
+    # the sources on every tile edge; the slack's three tiers (registers up to
+    # R 8, the shared tile up to R 85, device memory past it) on the hazards.
+    T = _build.defines("whatif_score.cu")["WI_NODES"]
+    edges = dict(src_rows=[0, T - 1, T, T + 1, 2 * T - 1, 2 * T, n_nodes - 1])
+    for i, (P, N) in enumerate([(P, 129) for P in (1, 7, 8, 9, 15, 16, 17, 128, 600)]
+                               + [(17, N) for N in (1, 63, 64, 65, 127, 128, 5003)]
+                               + [(600, 5003)]):
+        cases[f"P {P} / N {N} on the tile edges"] = (1010 + i, P, N, edges)
+    for i, R in enumerate((2, 7, 8, 9, 20, 85, 86)):
+        cases[f"R {R}, both hazards"] = (1030 + i, 37, 999, dict(R=R, huge=True, negative=True,
+                                                                 **edges))
     for case, (seed, P, N, kw) in cases.items():
-        ts = [torch.from_numpy(a).to(dev) for a in whatif_inputs(seed, P, N, **kw)]
+        kw = dict(kw)
+        R = kw.pop("R", 3)
+        ts = [torch.from_numpy(a).to(dev) for a in whatif_inputs(seed, P, N, R, **kw)]
         before = [t.clone() for t in ts]
         launches = W.whatif_score.launches
         got, want = W.whatif_score(*ts), W._whatif_score_plain(*ts)
@@ -1136,6 +1223,43 @@ def whatif_phase(dev, n_nodes: int, errs: dict) -> None:
               and W.whatif_score.launches == launches,
               f"whatif_score: the empty {P} x {N} batch launched or came back misshapen")
     print("whatif_score: the empty batches launched nothing", flush=True)
+
+
+WHATIF_HAZARD_CALLS = 32   # what-if score calls queued behind one long kernel
+
+
+def whatif_hazard(dev, errs: dict) -> None:
+    """whatif_scores' buffers on the card: WHATIF_HAZARD_CALLS calls of the
+    rebalance drive's shape (128 x 5000), each on its own batch, through one
+    staging ring, queued behind a long kernel (torch.cuda._sleep) with no
+    synchronize of the caller's between them, every result kept; then each
+    held against the plain version on its batch. A result that a later
+    call's upload, output or fetch wrote into shows here."""
+    from kubernetes_tpu_torch.ops import whatif as W
+    from kubernetes_tpu_torch.testing.kernel_inputs import whatif_inputs
+
+    from kubernetes_tpu_torch.ops.staging import StagingRing
+
+    batches = [W.WhatIfBatch(*whatif_inputs(1100 + i, 128, 5000))
+               for i in range(WHATIF_HAZARD_CALLS)]
+    ring = StagingRing(dev)   # one ring for every call, as the descheduler keeps
+    launches = W.whatif_score.launches
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HAZARD_SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    results = [W.whatif_scores(b, device=dev, ring=ring) for b in batches]
+    host_s = time.perf_counter() - t0
+    check(W.whatif_score.launches == launches + WHATIF_HAZARD_CALLS,
+          "whatif_scores did not launch once a call")
+    worst = 0
+    for b, (fit, score) in zip(batches, results):
+        want = W._whatif_score_plain(*W.batch_tensors(b, dev))
+        worst = max(worst, max_abs_err((torch.from_numpy(fit), torch.from_numpy(score)),
+                                       tuple(t.cpu() for t in want)))
+    print(f"whatif hazard check: {WHATIF_HAZARD_CALLS} score calls behind a "
+          f"{HAZARD_SLEEP_CYCLES}-cycle kernel, {host_s * 1e3:.1f} ms of host, every result "
+          f"kept: max_abs_err {worst}", flush=True)
+    errs["whatif_score"] = max(errs["whatif_score"], worst)
 
 
 # ---------------------------------------------------------------------------
@@ -1585,10 +1709,10 @@ def rebalance_drive(dev, capture=None, **cut):
 
     scores = W.whatif_scores
 
-    def recorded(batch, device="cuda"):
+    def recorded(batch, device="cuda", ring=None):
         if capture is not None and not capture:
             capture["batch"] = batch
-        return scores(batch, device)
+        return scores(batch, device, ring)
     W.whatif_scores = recorded
     K.reset_launch_counts()
     try:
@@ -1976,6 +2100,51 @@ def patch_inputs_ab(dev) -> dict:
                 carries=carries)
 
 
+def eval_inputs(dev) -> dict:
+    """Every timed input of resource_eval and whatif_score, by name, for
+    ab_windows.py --evals: resource_eval on SchedulingBasic's and
+    TopologySpreading's next batch (a fresh batch's seed, NP 8192, R 7,
+    FR 2, after each path's run), on TopologySpreading's with a nominated
+    lane under MostAllocated, and on a seeded draw with the lane at R 9,
+    FR 3; whatif_score (the kernel, and the whole score call) on the
+    rebalance drive's first what-if batch and on a seeded 128 x 5000 batch
+    with both hazards. Each is (kind, and the state, features and fit
+    strategy or the batch's nine arrays), its tensors on the CPU."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.testing.kernel_inputs import (nominated_lane,
+                                                            resource_edge_inputs, whatif_inputs)
+
+    def cpu(ts):
+        return [t.detach().to("cpu").clone() for t in ts]
+
+    out = {}
+    topo = "TopologySpreading/5000Nodes_5000Pods"
+    for wl in (BASIC, topo):
+        sched = run_path(dev, wl)[0]
+        pod = bench.make_pods(1, "timed", wl)[0]
+        st, plan = sched.build_plan(sched.framework_for_pod(pod), pod, sched.max_batch)
+        feats = plan.features
+        out[f"resource_eval: {wl}'s next batch"] = dict(
+            kind="eval", state=cpu(st), feats=cpu(feats), strat=plan.fit_strategy)
+    NP, R = st.alloc_r.shape
+    nom_req, nom_pods = nominated_lane(700, NP, int(st.valid.sum()), R)
+    lane = feats._replace(nom_req=torch.from_numpy(nom_req), nom_pods=torch.from_numpy(nom_pods))
+    out[f"resource_eval: {topo}'s, a nominated lane, MostAllocated"] = dict(
+        kind="eval", state=cpu(st), feats=cpu(lane), strat=1)
+    st, ft = to_device("cpu", *resource_edge_inputs(1600, 8192, 5000, r_slots=9, fit_slots=3,
+                                                    lane=True))
+    out["resource_eval: seeded draw, R 9, FR 3, a lane"] = dict(
+        kind="eval", state=list(st), feats=list(ft), strat=0)
+    capture = {}
+    rebalance_drive(dev, capture=capture)
+    for name, arrays in ((f"{REBAL}' first batch", capture["batch"]),
+                         ("seeded 128 x 5000, both hazards",
+                          whatif_inputs(1601, 128, 5000, huge=True, negative=True))):
+        out[f"whatif: {name}"] = dict(kind="whatif",
+                                      batch=[torch.from_numpy(np.array(a)) for a in arrays])
+    return out
+
+
 def timing_phase(paths: dict, errs: dict, lane_inputs) -> dict:
     """Each kernel and its plain version timed on its main path's own
     inputs: the next batch's device state and features of the path's
@@ -2013,8 +2182,11 @@ def timing_phase(paths: dict, errs: dict, lane_inputs) -> dict:
         "static_masks": (lambda: K.static_masks(st, ft), lambda: K._static_masks_plain(st, ft),
                          NP * (12 * T + 12) + 16 * L + NP * 14,
                          NP * (T * (10 * L + 6) + 12)),
+        # A row: the fit filter (4 a slot), FR slots each scored with one
+        # division (16 with the float64 path's conversions, product,
+        # floor and correction), the two shares (16 each) and the rest.
         "resource_eval": (lambda: K.resource_eval(*res), lambda: K._resource_eval_plain(*res),
-                          NP * (16 * R + 28) + NP * 17, NP * row_ops),
+                          NP * (16 * R + 28) + NP * 17, NP * (4 * R + 16 * FR + 32)),
         "lap_schedule": (lambda: K.lap_schedule(st, ft, 1024, strat, ext0, static_ok, 1024),
                          lambda: K._lap_schedule_plain(st, ft, 1024, strat, ext0, static_ok,
                                                        1024),
@@ -2053,6 +2225,9 @@ def timing_phase(paths: dict, errs: dict, lane_inputs) -> dict:
     rows["static_masks"]["call_split"] = split = static_masks_call_split(K, st, ft)
     print("static_masks call split (ms a call, host clock): " + ", ".join(
         f"{k[:-3]} {v:.5f}" for k, v in split.items()), flush=True)
+    rows["resource_eval"]["call_split"] = split = resource_eval_call_split(K, res)
+    print("resource_eval call split (ms a call, host clock): " + ", ".join(
+        f"{k[:-3]} {v:.5f}" for k, v in split.items()), flush=True)
     rows["lap_schedule"]["laps"] = laps
     rows["lap_schedule"]["us_a_lap"] = rows["lap_schedule"]["ms"] * 1e3 / laps
     rows["scan_general"]["steps"] = gB
@@ -2081,6 +2256,26 @@ def timing_phase(paths: dict, errs: dict, lane_inputs) -> dict:
                           nom_pods=torch.from_numpy(nom_pods).to(st.valid.device))
 
     ft_l, gf_l = with_lane(ft), with_lane(gf)
+    # resource_eval on the main path's own fresh batch, and with a nominated
+    # lane under MostAllocated, each held exact first.
+    evals = {}
+    for what, (s_, f_, fs_) in {f"{BASIC}'s next batch": (st, ft, strat),
+                                f"{name}'s fresh batch": (gst, gf, gplan.fit_strategy),
+                                f"{name}'s, a nominated lane, MostAllocated": (gst, gf_l, 1)
+                                }.items():
+        args = (f_, fs_, s_.alloc_r, s_.alloc_pods, s_.req_r, s_.nonzero, s_.pod_count,
+                *K._nom_lane(f_))
+        fn = lambda a=args: K.resource_eval(*a)  # noqa: E731
+        check(max_abs_err(fn(), K._resource_eval_plain(*args)) == 0,
+              f"resource_eval disagrees with its plain version on {what}")
+        ms, seen = device_ms(fn, "resource_eval")
+        evals[what] = dict(ms=ms, launches_seen=seen, host_ms=wall_ms(fn, reps=20),
+                           rows=s_.alloc_r.shape[0], slots=s_.alloc_r.shape[1],
+                           fit_slots=f_.fit_slots.shape[0])
+        print(f"resource_eval on {what} (NP {s_.alloc_r.shape[0]}, R {s_.alloc_r.shape[1]}, "
+              f"FR {f_.fit_slots.shape[0]}): {ms:.6f} ms on the device ({seen} of 20 seen), "
+              f"{evals[what]['host_ms']:.4f} ms a call", flush=True)
+    rows["resource_eval"]["inputs"] = evals
     lane_calls = {
         "lap_schedule": (lambda: K.lap_schedule(st, ft_l, 1024, strat, ext0, static_ok, 1024),
                          lambda: K._lap_schedule_plain(st, ft_l, 1024, strat, ext0, static_ok,
@@ -2213,15 +2408,44 @@ def launch_floor_ms(dev, reps: int = 20) -> tuple:
     return device_ms(lambda: one.fill_(1), "fill", reps, pick=lambda name: "fill" in name.lower())
 
 
-def static_masks_call_split(K, st, ft, reps: int = 2000) -> dict:
-    """Where a static_masks call's host time goes, each part timed alone
-    over `reps` calls on the host's clock (ms a call): the one output
-    buffer and its seven views, the seven separate allocations the wrapper
-    made before (for comparison), _marshal's checks of the 27 arguments,
-    the ctypes call of the launcher with its stream (the launch), and the
-    whole wrapper; the rest is the whole less the three parts."""
+def host_ms(f, reps: int) -> float:
+    """Mean ms a call of `f` on the host's clock over `reps` calls back to
+    back (after 50 warm-up calls), the card drained before and after."""
+    for _ in range(50):
+        f()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        f()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def call_split(K, name: str, dev, alloc, args, call, reps: int = 2000, **others) -> dict:
+    """Where a wrapper's host time goes, each part timed alone over `reps`
+    calls on the host's clock (ms a call): `alloc()` (the outputs the
+    wrapper makes), _marshal's checks of `args` (the launcher's arguments),
+    the ctypes call of the launcher with its stream (the launch), `call()`
+    (the whole wrapper) and each of `others` (`<key>_ms`, for comparison);
+    the rest is the whole less the three parts."""
     from kubernetes_tpu_torch.ops import _build
 
+    cargs = K._marshal(name, dev, args)
+    fn = _build.launcher(name)
+    out = dict(alloc_ms=host_ms(alloc, reps),
+               **{f"{k}_ms": host_ms(f, reps) for k, f in others.items()},
+               marshal_ms=host_ms(lambda: K._marshal(name, dev, args), reps),
+               launch_ms=host_ms(lambda: fn(*cargs, K._stream(dev)), reps),
+               call_ms=host_ms(call, reps))
+    out["rest_ms"] = out["call_ms"] - out["alloc_ms"] - out["marshal_ms"] - out["launch_ms"]
+    return out
+
+
+def static_masks_call_split(K, st, ft) -> dict:
+    """call_split of static_masks: the one output buffer and its seven
+    views, the seven separate allocations the wrapper made before (for
+    comparison, `alloc_seven`), _marshal's checks of the 27 arguments, the
+    launch, the whole wrapper."""
     dev = st.valid.device
     NP, T = st.taint_key.shape
     L = ft.tol_key.shape[0]
@@ -2234,31 +2458,35 @@ def static_masks_call_split(K, st, ft, reps: int = 2000) -> dict:
         return ([torch.empty(NP, dtype=torch.bool, device=dev) for _ in range(6)],
                 torch.empty(NP, dtype=torch.int64, device=dev))
 
-    outs = alloc()
     args = (NP, T, L, st.taint_key, st.taint_val, st.taint_eff, ft.tol_key, ft.tol_val,
             ft.tol_eff, ft.tol_op, ft.sel_match, ft.node_name_id, st.name_id, st.unsched,
-            ft.tolerates_unsched, ft.exist_anti, ft.enable, st.valid, ft.extra_ok, *outs)
-    cargs = K._marshal("static_masks", dev, args)
-    fn = _build.launcher("static_masks")
+            ft.tolerates_unsched, ft.exist_anti, ft.enable, st.valid, ft.extra_ok, *alloc())
+    return call_split(K, "static_masks", dev, alloc, args, lambda: K.static_masks(st, ft),
+                      alloc_seven=alloc_seven)
 
-    def launch():
-        fn(*cargs, K._stream(dev))
 
-    def host_ms(f):
-        for _ in range(50):
-            f()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            f()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / reps
+def resource_eval_call_split(K, res) -> dict:
+    """call_split of resource_eval on the arguments `res`: the wrapper's
+    three output allocations, one byte buffer viewed as the three (the
+    layout measured against them, `one_buffer`), _marshal's checks of the
+    21 arguments, the launch, the whole wrapper."""
+    f, strat, alloc_r = res[0], res[1], res[2]
+    dev, NP = alloc_r.device, alloc_r.shape[0]
 
-    out = dict(alloc_ms=host_ms(alloc), alloc_seven_ms=host_ms(alloc_seven),
-               marshal_ms=host_ms(lambda: K._marshal("static_masks", dev, args)),
-               launch_ms=host_ms(launch), call_ms=host_ms(lambda: K.static_masks(st, ft)))
-    out["rest_ms"] = out["call_ms"] - out["alloc_ms"] - out["marshal_ms"] - out["launch_ms"]
-    return out
+    def alloc():
+        return (torch.empty(NP, dtype=torch.bool, device=dev),
+                torch.empty(NP, dtype=torch.int64, device=dev),
+                torch.empty(NP, dtype=torch.int64, device=dev))
+
+    def one_buffer():
+        buf = torch.empty(17 * NP, dtype=torch.uint8, device=dev)
+        lanes = buf[:16 * NP].view(torch.int64)
+        return buf[16 * NP:].view(torch.bool), lanes[:NP], lanes[NP:]
+
+    ints, feats = K._res_args(f, strat)
+    args = (NP, *ints, *feats, *res[2:], *K._nom_lane(f), *alloc())
+    return call_split(K, "resource_eval", dev, alloc, args, lambda: K.resource_eval(*res),
+                      one_buffer=one_buffer)
 
 
 def library_device_ms(fn, reps: int = 20) -> float:
@@ -2657,13 +2885,31 @@ def whatif_timing(waves: dict, errs: dict) -> dict:
           f"whatif_score disagrees with its plain version on the {REBAL}' batch")
     P, N, R = batch.n_pods, batch.n_nodes, batch.alloc_r.shape[1]
     nbytes = N * (16 * R + 32) + P * (8 * R + 24) + P * N + P * N * 9
-    ops = P * N * (4 * R + 40)
+    # A cell: the vacate test, R slots (3 each), the sums, four divisions
+    # by the node's divisors (8 each on the float64 path), the scores and
+    # the writes; a node: its slack and constants, once.
+    ops = P * N * (3 * R + 60) + N * (2 * R + 12)
     row = kernel_row("whatif_score", "kubernetes_tpu/ops/whatif.py:208", errs["whatif_score"],
                      lambda: W.whatif_score(*ts), lambda: W._whatif_score_plain(*ts), nbytes, ops)
     row.update(candidates=P, nodes=N, slots=R)
     print(f"whatif_score on the {REBAL}' first batch (P {P}, N {N}, R {R}): {row['ms']:.5f} ms "
           f"on the device, {row['host_ms']:.4f} ms a call, plain {row['plain_ms']:.3f} ms, bound "
           f"{row['bound_ms']:.6f} ms ({row['bound_by']}), library none", flush=True)
+    # The whole score call (whatif_scores: the upload, the launch, the fetch
+    # into pinned host memory), held exact first.
+    from kubernetes_tpu_torch.ops.staging import StagingRing
+
+    ring = StagingRing(dev)   # the descheduler keeps one for its batches
+    fit, score = W.whatif_scores(batch, device=dev, ring=ring)
+    want = W._whatif_score_plain(*ts)
+    check(max_abs_err((torch.from_numpy(fit), torch.from_numpy(score)),
+                      tuple(t.cpu() for t in want)) == 0,
+          f"whatif_scores disagrees with the plain version on the {REBAL}' batch")
+    row["whole_call"] = whole = whole_patch_cost(
+        lambda: W.whatif_scores(batch, device=dev, ring=ring), "whatif_score")
+    print(f"whatif_scores, the whole call on that batch: {whole['host_ms']:.4f} ms of host, "
+          f"{whole['device_sum_ms']:.6f} ms of device in {whole['device_ops']:g} ops "
+          f"({whole['device_timing']}: {json.dumps(whole['ops'])})", flush=True)
     return {"whatif_score": row}
 
 
@@ -4192,13 +4438,19 @@ def mesh_timing(paths: dict, errs: dict, capture: dict) -> dict:
              patch_bytes),
             ("sharded_scatter", lambda: mirror._scatter_sharded(rows_idx, in_place=True),
              scatter_plain, scatter_bytes)):
+        # The device time of a shard's launch (each call launches once a
+        # shard with rows), over every launch of 20 calls.
+        kernel = "patch_carry_rows" if what == "patch_carry_rows_pinned" else "scatter_rows"
+        ms, seen = device_ms(k_fn, kernel)
         mesh_patch[what] = dict(rows=d, shards=MESH_PATH_SHARDS, call_ms=wall_ms(k_fn, reps=20),
-                                plain_ms=wall_ms(p_fn, reps=5),
+                                plain_ms=wall_ms(p_fn, reps=5), device_ms=ms,
+                                launches_seen=seen, launches_a_call=seen / 20,
                                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                                 bytes=nbytes)
     print("the mesh waves' first patch (" + ", ".join(
-        f"{w}: {r['call_ms']:.4f} ms a call, plain {r['plain_ms']:.4f} ms, bound "
-        f"{r['bound_ms']:.8f} ms" for w, r in mesh_patch.items())
+        f"{w}: {r['call_ms']:.4f} ms a call, {r['device_ms']:.6f} ms on the device a shard's "
+        f"launch ({r['launches_a_call']:g} launches a call), plain {r['plain_ms']:.4f} ms, "
+        f"bound {r['bound_ms']:.8f} ms" for w, r in mesh_patch.items())
         + f"; {d} rows over {MESH_PATH_SHARDS} shards)", flush=True)
     rows["sharded_lap"]["mesh_patch"] = mesh_patch
     return rows
@@ -4243,11 +4495,11 @@ def main() -> int:
     aux_timing(rows, waves["aux_captures"], errs)
     rows.update(mesh_timing(paths, errs, mesh_capture))
     floor, seen = launch_floor_ms(dev)
+    short = ("static_masks", "resource_eval", "dry_run_preemption", "scatter_rows",
+             "patch_carry_rows", "whatif_score")
     print(f"launch floor (a one-element fill_ on the stream, {seen} of 20 seen): {floor:.6f} ms "
-          f"on the device; static_masks {rows['static_masks']['ms']:.6f}, dry_run_preemption "
-          f"{rows['dry_run_preemption']['ms']:.6f}, scatter_rows {rows['scatter_rows']['ms']:.6f}, "
-          f"patch_carry_rows {rows['patch_carry_rows']['ms']:.6f}", flush=True)
-    for name in ("static_masks", "dry_run_preemption", "scatter_rows", "patch_carry_rows"):
+          "on the device; " + ", ".join(f"{n} {rows[n]['ms']:.6f}" for n in short), flush=True)
+    for name in short:
         rows[name]["launch_floor_ms"] = floor
     print(f"timing phase: {time.perf_counter() - t1:.1f} s", flush=True)
     for name, (_s, result, _l) in paths.items():

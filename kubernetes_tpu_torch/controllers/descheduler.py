@@ -41,6 +41,7 @@ import torch
 from ..api.types import find_matching_untolerated_taint
 from ..core.node_info import NodeInfo, PodInfo
 from ..ops import whatif
+from ..ops.staging import StagingRing
 from .evictor import RateLimitedEvictor, intent_for
 
 # The JAX package's node_lifecycle.ZONE_LABEL and workload.OWNER_LABEL.
@@ -198,6 +199,7 @@ class DeschedulerController:
                                else default_strategies())
         self.max_moves_per_tick = int(max_moves_per_tick)
         self.device = device
+        self._ring = StagingRing(device)   # the what-if batches' uploads
         self._now = now
         self.evictor = RateLimitedEvictor(
             clientset, primary_qps=primary_qps, secondary_qps=secondary_qps,
@@ -315,7 +317,7 @@ class DeschedulerController:
         w0 = time.perf_counter()
         batch = whatif.encode_batch(snap.node_infos, candidates)
         w1 = time.perf_counter()
-        fit_ok, score = whatif.whatif_scores(batch, device=self.device)
+        fit_ok, score = whatif.whatif_scores(batch, device=self.device, ring=self._ring)
         w2 = time.perf_counter()
         moves = whatif.best_moves(batch, fit_ok, score)
         w3 = time.perf_counter()

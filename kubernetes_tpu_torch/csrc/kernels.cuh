@@ -302,6 +302,8 @@ static __device__ __forceinline__ StaticRow static_row(const StaticFeat& s, cons
 
 // The landed-row helpers of the persistent laps (lap_schedule.cu and
 // sharded_lap.cu): static, so that each object keeps its own copy.
+// resource_eval.cu divides through LapDiv too, and whatif_score.cu falls
+// back on lap_floor_div_wide.
 
 // floor_div for a positive divisor, from a float64 quotient: while the
 // quotient's magnitude is below 2^50 its float64 value is within 0.4 of

@@ -17,10 +17,11 @@ descheduler re-deriving a dead ACTIVE's plan must mint the SAME
 ``uid@node`` move set, or the exactly-once eviction ledger stops absorbing
 the replay.
 
-Every integer division floors (numpy's and XLA's ``//``; the kernel uses
-`floor_div`), and every int64 product wraps as numpy's and XLA's do: a node
-whose non-zero memory passes 2^63 / 10^6 bytes (~8.4 TiB) overflows
-``used * BA_SCALE`` identically on every path.
+Every integer division floors (numpy's and XLA's ``//``; the kernel takes
+a node's float64 reciprocal and corrects the quotient exactly), and every
+int64 product wraps as numpy's and XLA's do: a node whose non-zero memory
+passes 2^63 / 10^6 bytes (~8.4 TiB) overflows ``used * BA_SCALE``
+identically on every path.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 
 from ..api.types import find_matching_untolerated_taint
 from ..core.node_info import NodeInfo
+from .staging import StagingRing
 
 MAX_NODE_SCORE = 100
 BA_SCALE = 1_000_000
@@ -186,37 +188,52 @@ def _whatif_score_plain(alloc_r, alloc_pods, req_r, nonzero, pod_count, request,
     return fit_ok, (fit_sc + ba).to(i64)
 
 
+def _score_views(buf: torch.Tensor, P: int, N: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(fit_ok [P, N] bool, score [P, N] i64) as contiguous views of one byte
+    buffer (a tensor or a numpy array) of 9 * P * N bytes: the int64 scores
+    first, then the fit bytes at byte 8 * P * N."""
+    cut = 8 * P * N
+    if isinstance(buf, np.ndarray):
+        return buf[cut:].view(bool).reshape(P, N), buf[:cut].view(np.int64).reshape(P, N)
+    return buf[cut:].view(torch.bool).view(P, N), buf[:cut].view(i64).view(P, N)
+
+
 def _whatif_score_cuda(alloc_r, alloc_pods, req_r, nonzero, pod_count, request,
-                       nz_request, src, mask):
+                       nz_request, src, mask, out):
     from .kernel import _launch
 
-    dev = alloc_r.device
     P, N = mask.shape
-    fit_ok = torch.empty((P, N), dtype=torch.bool, device=dev)
-    score = torch.empty((P, N), dtype=i64, device=dev)
-    _launch("whatif_score", dev, P, N, alloc_r.shape[1], alloc_r, alloc_pods, req_r, nonzero,
-            pod_count, request, nz_request, src, mask, fit_ok, score)
-    return fit_ok, score
+    _launch("whatif_score", alloc_r.device, P, N, alloc_r.shape[1], alloc_r, alloc_pods, req_r,
+            nonzero, pod_count, request, nz_request, src, mask, out)
+    return _score_views(out, P, N)
 
 
 def whatif_score(alloc_r, alloc_pods, req_r, nonzero, pod_count, request, nz_request, src,
-                 mask) -> Tuple[torch.Tensor, torch.Tensor]:
+                 mask, out: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(fit_ok [P, N] bool, score [P, N] i64, 0..200) of every candidate on
-    every node row, `src` in [0, N). An empty batch (P or N 0) launches
+    every node row, `src` in [0, N): views of one byte buffer of 9 * P * N
+    bytes on the inputs' device (_score_views), `out` where given (one
+    allocation a call otherwise). An empty batch (P or N 0) launches
     nothing."""
     from .kernel import _on_cpu
 
     P, N = mask.shape
+    if out is None:
+        out = torch.empty(9 * P * N, dtype=torch.uint8, device=mask.device)
     if P == 0 or N == 0:
-        return (torch.zeros((P, N), dtype=torch.bool, device=mask.device),
-                torch.zeros((P, N), dtype=i64, device=mask.device))
+        out.zero_()
+        return _score_views(out, P, N)
     if _on_cpu(alloc_r):
-        return _whatif_score_plain(alloc_r, alloc_pods, req_r, nonzero, pod_count, request,
-                                   nz_request, src, mask)
-    out = _whatif_score_cuda(alloc_r, alloc_pods, req_r, nonzero, pod_count, request,
-                             nz_request, src, mask)
+        views = _score_views(out, P, N)
+        for view, got in zip(views, _whatif_score_plain(alloc_r, alloc_pods, req_r, nonzero,
+                                                        pod_count, request, nz_request, src,
+                                                        mask)):
+            view.copy_(got)
+        return views
+    views = _whatif_score_cuda(alloc_r, alloc_pods, req_r, nonzero, pod_count, request,
+                               nz_request, src, mask, out)
     whatif_score.launches += 1
-    return out
+    return views
 
 
 whatif_score.launches = 0
@@ -228,15 +245,50 @@ def batch_tensors(batch: WhatIfBatch, device) -> tuple:
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in batch)
 
 
-def whatif_scores(batch: WhatIfBatch, device="cuda") -> Tuple[np.ndarray, np.ndarray]:
+def _batch_spec(batch: WhatIfBatch) -> tuple:
+    """(dtype, shape) of the batch's nine arrays in one upload."""
+    return tuple((torch.bool if a.dtype == bool else i64, a.shape) for a in batch)
+
+
+def stage_batch(ring: StagingRing, batch: WhatIfBatch) -> list:
+    """The batch's nine arrays packed straight into one buffer of the
+    StagingRing `ring` and copied to its device at once: whatif_score's
+    inputs as views of that one upload."""
+    from .kernel import _layout, _views
+
+    spec = _batch_spec(batch)
+    offs, total = _layout(spec)
+    for view, a in zip(_views(ring.take(total), spec, offs), batch):
+        view[...] = a
+    return _views(ring.upload(total), spec, offs)
+
+
+def whatif_scores(batch: WhatIfBatch, device="cuda",
+                  ring: Optional[StagingRing] = None) -> Tuple[np.ndarray, np.ndarray]:
     """Score the batch on `device`: returns ``(fit_ok [P, N] bool,
     score [P, N] i64)`` on the host, ``score = fit_sc + ba`` (0..200).
-    A CUDA device launches the kernel; "cpu" runs its plain version."""
+    A CUDA device launches the kernel; "cpu" runs its plain version.
+
+    The call is one upload (stage_batch, through `ring`, the caller's
+    StagingRing of `device`: a caller that scores batch after batch keeps
+    one; a new one where None), the launch into one output allocation, and
+    one copy of it into a new pinned host block that the returned arrays
+    are views of: the caching host allocator hands the block out again only
+    once those arrays are gone, so a later call never writes into them."""
     if batch.n_pods == 0 or batch.n_nodes == 0:
         shape = (batch.n_pods, batch.n_nodes)
         return np.zeros(shape, bool), np.zeros(shape, np.int64)
-    fit_ok, score = whatif_score(*batch_tensors(batch, torch.device(device)))
-    return fit_ok.cpu().numpy(), score.cpu().numpy()
+    device = torch.device(device)
+    P, N = batch.n_pods, batch.n_nodes
+    out = torch.empty(9 * P * N, dtype=torch.uint8, device=device)
+    whatif_score(*stage_batch(ring or StagingRing(device), batch), out=out)
+    if device.type == "cpu":
+        host = out
+    else:
+        host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        torch.cuda.current_stream(device).synchronize()
+    return _score_views(host.numpy(), P, N)
 
 
 class Move(NamedTuple):

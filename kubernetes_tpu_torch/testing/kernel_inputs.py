@@ -17,13 +17,16 @@ off, padded taints, 1 to 64 resource slots, victims past num_nodes).
 `scatter_inputs` and `patch_inputs` draw the two halves of a row patch
 (the mirror's dirty rows, a carry's post-event aggregates) and
 `stage_rows` stages a scatter's rows as a flush does;
-`whatif_inputs` draws the descheduler's what-if batch (the JAX package's WhatIfBatch field order).
+`resource_edge_inputs` draws the edges of resource_eval's design (2 to
+many resource slots, 0 to R fit slots, a lane on every slot, divisions off
+their fast paths); `whatif_inputs` draws the descheduler's what-if batch
+(the JAX package's WhatIfBatch field order).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -400,6 +403,43 @@ def victim_edge_inputs(seed: int, np_cap: int, num_nodes: int, k: int, *, r_slot
     return tuple(state), tuple(f[name] for name in _F), vic_req, vic_valid
 
 
+def resource_edge_inputs(seed: int, np_cap: int, num_nodes: int, *, r_slots: int = 7,
+                         fit_slots: int = 2, lane: bool = False,
+                         extremes: bool = True) -> Tuple[tuple, tuple]:
+    """random_inputs' draw on the edges of resource_eval's design: `r_slots`
+    resource slots (2 or more: cpu and memory are slots 0 and 1, which
+    BalancedAllocation reads), a request on some scalar slots, `fit_slots`
+    distinct slots scored (0 to R of them, weights 1 to 3), with `lane` a
+    nominated-pod lane on about a fifth of the live rows with requests on
+    every slot, and with `extremes` a sixteenth of the live rows at an
+    allocatable of 0, 1 or 3 cpu and memory under non-zero aggregates near
+    2^40, so that quotients pass 2^50 and numerators 2^31 (the floored
+    division's slow paths)."""
+    R = r_slots
+    state, feats = random_inputs(seed, np_cap, num_nodes, r_slots=max(R, 4))
+    rng = np.random.default_rng(seed + 15485863)
+    state, f = list(state), dict(zip(_F, feats))
+    state[0] = np.ascontiguousarray(state[0][:, :R])
+    state[2] = np.ascontiguousarray(state[2][:, :R])
+    request = f["request"][:R].copy()
+    if R > 2:
+        request[2:] = rng.integers(0, 3, R - 2) * (rng.random(R - 2) < 0.5)
+    f["request"] = request
+    f["fit_slots"] = rng.permutation(R)[:fit_slots].astype(np.int32)
+    f["fit_weights"] = rng.integers(1, 4, fit_slots).astype(np.int64)
+    if extremes and num_nodes:
+        rows = rng.choice(num_nodes, max(1, num_nodes // 16), replace=False)
+        for slot in (0, 1):
+            state[0][rows, slot] = rng.choice([0, 1, 3], rows.size)
+            state[3][rows, slot] = rng.integers(1 << 30, 1 << 40, rows.size)
+    if lane:
+        live = np.arange(np_cap) < num_nodes
+        held = live & (rng.random(np_cap) < 0.2)
+        f["nom_req"] = (state[0] * rng.random((np_cap, R)) * 0.5).astype(np.int64) * held[:, None]
+        f["nom_pods"] = (rng.integers(1, 4, np_cap) * held).astype(np.int32)
+    return tuple(state), tuple(f[name] for name in _F)
+
+
 def scatter_inputs(seed: int, np_cap: int, d: int, *, r_slots: int = 7, taints: int = 4,
                    axes: int = 4, order: str = "sorted",
                    block_rows: int = 64) -> Tuple[tuple, np.ndarray, tuple]:
@@ -524,7 +564,7 @@ TIB = 1024 ** 4
 
 
 def whatif_inputs(seed: int, P: int, N: int, R: int = 3, *, huge: bool = False,
-                  negative: bool = False) -> tuple:
+                  negative: bool = False, src_rows: Optional[Sequence[int]] = None) -> tuple:
     """The nine arrays of a what-if batch (alloc_r, alloc_pods, req_r,
     nonzero, pod_count, request, nz_request, src, mask), drawn as the JAX
     package's descheduler fuzz draws them (tests/test_descheduler.py:87-104).
@@ -532,7 +572,9 @@ def whatif_inputs(seed: int, P: int, N: int, R: int = 3, *, huge: bool = False,
     requested, so that `used * BA_SCALE` passes 2^63 and wraps; `negative`
     negates the non-zero and requested aggregates of every other node,
     which encode_batch never makes but the function defines (floored
-    division of negative numerators)."""
+    division of negative numerators). `src_rows`: the candidates' source
+    rows cycle through these (each clipped to [0, N)), where a design's
+    tile edges lie."""
     rng = np.random.default_rng(seed)
     alloc_r = rng.integers(0, 64_000, (N, R)).astype(np.int64)
     alloc_pods = rng.integers(1, 40, N).astype(np.int64)
@@ -554,4 +596,6 @@ def whatif_inputs(seed: int, P: int, N: int, R: int = 3, *, huge: bool = False,
         rows = np.arange(0, N, 2)
         nonzero[rows] = -nonzero[rows]
         req_r[rows] = -req_r[rows]
+    if src_rows is not None and P and N:
+        src = np.resize(np.clip(np.asarray(src_rows, np.int64), 0, N - 1), P)
     return alloc_r, alloc_pods, req_r, nonzero, pod_count, request, nz_request, src, mask

@@ -39,6 +39,7 @@ from kubernetes_tpu_torch.testing.kernel_inputs import (
     patch_inputs,
     placement_inputs,
     random_inputs,
+    resource_edge_inputs,
     scatter_inputs,
     stage_rows,
     static_edge_inputs,
@@ -329,6 +330,13 @@ def test_launcher_signatures_are_read_from_the_sources():
         assert {p.name for p in sig if p.host} == ({"table"} if name == "sharded_lap" else set())
         assert {p.name for p in sig if p.mapped} == ({"xbuf"} if name == "sharded_lap"
                                                      else set())
+        # whatif_score writes one byte buffer (its two outputs are views of
+        # it), last before the stream; resource_eval its three outputs.
+        outs = [p for p in sig if p.name == "out" and p.dtype == torch.uint8]
+        assert (outs == [sig[-1]]) == (name == "whatif_score"), name
+        if name == "resource_eval":
+            assert [(p.name, p.dtype) for p in sig[-3:]] == [
+                ("fit_ok", torch.bool), ("fit_sc", torch.int64), ("ba", torch.int64)]
 
 
 def _two_lap_shards(ts, tf, static_ok):
@@ -378,7 +386,8 @@ def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches, monk
     ext0 = K.fresh_carry(ts, tf, VMAX, fit)
     static_ok = K._static_masks_plain(ts, tf).static_ok
     K._static_masks_cuda(ts, tf)
-    K._resource_eval_cuda(tf, 1, ts.alloc_r, ts.alloc_pods, ts.req_r, ts.nonzero, ts.pod_count)
+    fit_views = K._resource_eval_cuda(tf, 1, ts.alloc_r, ts.alloc_pods, ts.req_r, ts.nonzero,
+                                      ts.pod_count)
     K._lap_schedule_cuda(ts, tf, 512, 0, ext0, static_ok, 300)
     K._scan_general_cuda(ts, tf, 64, 0, ext0, K._static_masks_plain(ts, tf), 40,
                          K.PlanFacts(has_pns=True))
@@ -391,7 +400,8 @@ def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches, monk
                                          ts.req_r[:2], ts.nonzero[:2], ts.pod_count[:2], 0)
     masks = torch.zeros((4, ts.valid.shape[0]), dtype=torch.bool)
     K._schedule_placements_cuda(ts, tf, 8, 0, VMAX, K.PlanFacts(), masks, 5)
-    W._whatif_score_cuda(*[torch.from_numpy(a) for a in whatif_inputs(17, 3, 40)])
+    wi_out = torch.empty(9 * 3 * 40, dtype=torch.uint8)
+    wi = W._whatif_score_cuda(*[torch.from_numpy(a) for a in whatif_inputs(17, 3, 40)], wi_out)
     # The sharded lap: one launch for the two shards of one device, each
     # shard's tensors in its row of the host table.
     monkeypatch.setattr(K, "_resident_limit", lambda *a: K.SHL_MAX_LOCAL)
@@ -419,6 +429,11 @@ def test_cuda_wrappers_pass_what_their_launchers_declare(recorded_launches, monk
         ext0.req_r.data_ptr(), ext0.ba.data_ptr(), new_carry.req_r.data_ptr(),
         new_carry.ba.data_ptr()]
     assert new_carry.dns_counts is ext0.dns_counts
+    # resource_eval writes the three tensors it returns; whatif_score one
+    # output buffer, passed whole as its last pointer, whose views it returns.
+    assert list(recorded_launches[1][1][-4:-1]) == [t.data_ptr() for t in fit_views]
+    assert recorded_launches[8][1][-2] == wi_out.data_ptr() == wi[1].data_ptr()
+    assert wi[0].data_ptr() == wi_out.data_ptr() + 960
     sl = {p.name: a for p, a in zip(K._build.signature("sharded_lap"), recorded_launches[-1][1])}
     assert (sl["S"], sl["n_loc"], sl["NPl"], sl["gen"] > 0) == (2, 2, 128, True)
     assert sl["out"] == out.data_ptr() and sl["table"] == cards[0][3].data_ptr()
@@ -2057,3 +2072,145 @@ def test_static_masks_wrapper_makes_one_allocation(recorded_launches, monkeypatc
                               "exist_anti_ok", "static_ok")] == [t.data_ptr() for t in out]
     base = out.taint_ok.data_ptr()
     assert [t.data_ptr() - base for t in out] == [0, 6 * 200, 200, 400, 600, 800, 1000]
+
+
+# ---------------------------------------------------------------------------
+# resource_eval's blocks (csrc/resource_eval.cu): RE_ROWS rows a block, a
+# thread a row reading its row in device memory, the divisions by
+# lap_floor_div, the outputs one buffer. Modelled in numpy and held against
+# the plain version.
+# ---------------------------------------------------------------------------
+
+
+class _ResourceEvalModel:
+    """resource_eval as the kernel runs it: blocks of RE_ROWS rows, a
+    thread a row (the last block's threads past NP idle), each running
+    resource_eval_row with lap_floor_div on its own row and writing its
+    element of the three outputs."""
+
+    def __init__(self, f, strat, alloc_r, alloc_pods, req_r, nonzero, pod_count, nom_r=None,
+                 nom_p=None):
+        self.c = K._build.defines("resource_eval.cu")
+        self.f, self.strat = f, strat
+        self.rows = [a.numpy() for a in (alloc_r, req_r, nonzero)]
+        self.rows += [nom_r.numpy()] if nom_r is not None else []
+        self.alloc_pods, self.pod_count = alloc_pods.numpy(), pod_count.numpy()
+        self.nom_p = None if nom_p is None else nom_p.numpy()
+        self.blocks = 0
+
+    def run(self):
+        f, ROWS = self.f, self.c["RE_ROWS"]
+        NP, R = self.rows[0].shape
+        FR = f.fit_slots.shape[0]
+        ok_out = np.full(NP, 0xA5, np.uint8)  # what an allocation holds
+        sc_out, ba_out = (np.full(NP, -7, np.int64) for _ in range(2))
+        fv = dict(request=f.request.numpy(), nz=f.nz_request.numpy(),
+                  flags=np.array([int(f.has_request), int(f.ba_skip)], np.int64),
+                  w=f.fit_weights.numpy(), enable=f.enable.numpy(), slots=f.fit_slots.numpy())
+        for n0 in range(0, NP, ROWS):
+            self.blocks += 1
+            for t in range(ROWS):
+                n = n0 + t
+                if n >= NP:
+                    continue
+                ok, sc, ba = self.row(fv, [a[n] for a in self.rows], n, R, FR)
+                ok_out[n], sc_out[n], ba_out[n] = ok, sc, ba
+        return (torch.from_numpy(ok_out.view(bool)), torch.from_numpy(sc_out),
+                torch.from_numpy(ba_out))
+
+    def row(self, fv, row, n, R, FR):
+        """resource_eval_row (csrc/kernels.cuh) with LapDiv, in int64 that
+        wraps as the kernel's does."""
+        a, q, z = row[:3]
+        m = row[3] if len(row) > 3 else None
+        wrap = lambda x: (int(x) + (1 << 63)) % (1 << 64) - (1 << 63)  # noqa: E731
+        req, en = fv["request"], fv["enable"]
+        npods = int(self.nom_p[n]) if self.nom_p is not None else 0
+        pods_ok = int(self.pod_count[n]) + npods + 1 <= int(self.alloc_pods[n])
+        viol = any(int(req[r]) > 0 and int(req[r]) > wrap(int(a[r]) - int(q[r])
+                                                          - (int(m[r]) if m is not None else 0))
+                   for r in range(R))
+        ok = (pods_ok and (not viol or int(fv["flags"][0]) == 0)) or int(en[4]) == 0
+        used0 = wrap(int(z[0]) + int(fv["nz"][0]))
+        used1 = wrap(int(z[1]) + int(fv["nz"][1]))
+        num = den = 0
+        for j in range(FR):
+            s, w = int(fv["slots"][j]), int(fv["w"][j])
+            alloc = int(a[s])
+            used = used0 if s == 0 else used1 if s == 1 else wrap(int(q[s]) + int(req[s]))
+            a1 = max(alloc, 1)
+            if self.strat == 0:
+                rs = _lap_floor_div(wrap((alloc - used) * 100), a1) \
+                    if alloc > 0 and used <= alloc else 0
+            else:
+                rs = _lap_floor_div(wrap(min(used, alloc) * 100), a1) if alloc > 0 else 0
+            if alloc > 0:
+                num, den = wrap(num + wrap(rs * w)), den + w
+        sc = _lap_floor_div(num, max(den, 1)) if den > 0 else 0
+        shares = [min(_lap_floor_div(wrap(u * 1_000_000), max(int(a[s]), 1)), 1_000_000)
+                  for s, u in ((0, used0), (1, used1))]
+        ba = (wrap(100 * 1_000_000 - 50 * abs(shares[0] - shares[1])) // 1_000_000
+              if int(a[0]) > 0 and int(a[1]) > 0 else 100)
+        return ok, sc, 0 if int(fv["flags"][1]) == 1 else ba
+
+
+def _resource_model_case(seed, NP, n, R, FR, lane, strat):
+    """The block model and the plain version on one resource_edge_inputs
+    draw; both (fit_ok, fit_sc, ba), and the model."""
+    ts, tf = _convert(*resource_edge_inputs(seed, NP, n, r_slots=R, fit_slots=FR,
+                                            lane=lane))[2:]
+    args = (tf, strat, ts.alloc_r, ts.alloc_pods, ts.req_r, ts.nonzero, ts.pod_count,
+            *K._nom_lane(tf))
+    model = _ResourceEvalModel(*args)
+    return model.run(), K._resource_eval_plain(*args), model
+
+
+def _assert_same_lanes(got, want):
+    for name, a, b in zip(("fit_ok", "fit_sc", "ba"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.parametrize("lane", [False, True], ids=["no-lane", "lane"])
+@pytest.mark.parametrize("NP,n", [(1, 1), (63, 60), (64, 64), (65, 50), (5003, 4990),
+                                  (8192, 5000)])
+def test_resource_eval_block_model_rows(NP, n, lane):
+    """The kernel's blocks over row counts below, at, past and far past
+    one block, the last block partial or whole, at R 7 and FR 2, both fit
+    strategies, with and without the nominated lane: the same three lanes
+    as the plain version."""
+    for strat in (0, 1):
+        got, want, model = _resource_model_case(40 + NP + lane, NP, n, 7, 2, lane, strat)
+        _assert_same_lanes(got, want)
+        assert model.blocks == -(-NP // model.c["RE_ROWS"])
+    assert bool(want[0].any()) or NP == 1
+
+
+@pytest.mark.parametrize("lane", [False, True], ids=["no-lane", "lane"])
+@pytest.mark.parametrize("R", [2, 3, 7, 9, 40, 50])
+def test_resource_eval_block_model_slots(R, lane):
+    """R from 2 (cpu and memory alone) to 50, FR from 0 to R, both fit
+    strategies, rows whose divisions leave lap_floor_div's fast paths: the
+    same lanes as the plain version."""
+    frs = range(R + 1) if R < 10 else (0, 1, 2, R // 2, R)
+    for FR in frs:
+        for strat in (0, 1):
+            got, want, _model = _resource_model_case(60 + R + FR, 130, 120, R, FR, lane, strat)
+            _assert_same_lanes(got, want)
+
+
+@pytest.mark.parametrize("fit_strategy", [0, 1], ids=["least", "most"])
+def test_resource_eval_with_the_nominated_lane_equals_jax(fit_strategy):
+    """resource_eval with the nominated-pod lane (counted against the fit
+    filter only), under MostAllocated and LeastAllocated, equals the JAX
+    package's _resource_eval with its nom_r / nom_p."""
+    s, f = random_inputs(24, 256, 200, vmax=VMAX)
+    js, jf, ts, tf = _convert(s, with_nominated_lane(f, nominated_lane(24, 256, 200)))
+    want = jax_resource_eval(jf, fit_strategy, js.alloc_r, js.alloc_pods, js.req_r,
+                             js.nonzero, js.pod_count, jf.nom_req, jf.nom_pods)
+    got = K.resource_eval(tf, fit_strategy, ts.alloc_r, ts.alloc_pods, ts.req_r, ts.nonzero,
+                          ts.pod_count, tf.nom_req, tf.nom_pods)
+    _same(want, got, "resource_eval with the nominated lane")
+    plain = K.resource_eval(tf, fit_strategy, ts.alloc_r, ts.alloc_pods, ts.req_r,
+                            ts.nonzero, ts.pod_count)
+    assert not torch.equal(plain[0], got[0])  # the lane moves some fit verdicts
