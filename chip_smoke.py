@@ -84,7 +84,10 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                count drawn or zero, fresh and chained, padded steps, draws
                whose batch outnumbers their room (every row filled, the last
                pods placed nowhere), schedule_placements' lanes at P = 16
-               and 64 each counting only their own members; the sharded_lap
+               and 64 each counting only their own members; the lap and
+               scan_general's row-local entries at the DRA claim shape
+               (NP 512, rooms of 0 to 8 free devices a row, increments 1 to
+               4, fresh and chained); the sharded_lap
                kernel (one launch a card a dispatch) at S = 2, 4 and 8 shards
                on one card (and 16 on the first batch), on SchedulingBasic's
                first batch (NP 8192, B 1024) and on draws with the start's
@@ -209,6 +212,14 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                NodeVolumeLimits) at max_batch 1024 (the lap), 64 (the
                scan path) and 64 with a zone spread over 10 zones (both
                scan_general), each with the lane on every dispatch;
+               SchedulingWithResourceClaimTemplate/500Nodes_2000Pods (500
+               nodes over 10 zones, one ResourceSlice of 8 a100 devices a
+               node, 2000 pods each with its own claim of one a100 device,
+               under the profile with DynamicResources): every pod bound on
+               the device, none on the host path, the lap with the aux lane
+               on every dispatch, every claim holding one a100 device of its
+               pod's node, no device held twice, pods/s and the window's
+               plan acquisition, device wait, commit and session end;
                under a mesh of 4 shards on one card (one device repeated,
                make_mesh(devices=[cuda:0] * 4)): SchedulingBasic/5000Nodes_10000Pods,
                pod for pod as the unsharded run, through the sharded lap
@@ -305,7 +316,10 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                with unbound WaitForFirstConsumer claims, half matched by
                PVs pinned to a node, half provisioned by an attached PV
                controller): bindings, device and host-path pods, failure and
-               queue counts equal;
+               queue counts equal; the claim-template shape at the upstream
+               20Nodes_40Pods cut and with more pods than devices (20 nodes
+               of 2 devices, 60 pods): bindings, claim allocations, failure,
+               queue, device-pod and host-path counts equal;
   6. output  — a `{"kernels": [...]}` line, the card's name and power limit
                as nvidia-smi prints them, and last
                `{"ok": true, "device": {...}}`.
@@ -1910,6 +1924,7 @@ def paths_phase(dev) -> dict:
     out[AUX_SCAN] = aux_cut(dev, max_batch=64, capture=caps["scan"])
     out[AUX_SPREAD] = aux_cut(dev, max_batch=64, spread=True, capture=caps["general"])
     waves["aux_captures"] = caps
+    out[DRA] = dra_drive(dev)
     return out, lane_inputs, waves
 
 
@@ -3034,6 +3049,7 @@ def parity_phase(dev, paths: dict):
     rebalance_parity(dev)
     slice7_parity(dev, paths)
     volume_parity(dev, paths)
+    dra_parity(dev, paths)
 
 
 def rebalance_parity(dev) -> None:
@@ -3182,6 +3198,25 @@ def blocked_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
     def fit(st, ft, strat):
         return K._resource_eval_plain(ft, strat, st.alloc_r, st.alloc_pods, st.req_r,
                                       st.nonzero, st.pod_count)
+
+    def chain(kname, st, ft, B, strat, ext0, masks, n_act, facts):
+        """Two batches chained from ext0 through the kernel and its plain
+        version: (max_abs_err, pods placed, the plain carry, its last
+        results)."""
+        err = placed = 0
+        ck = cp = ext0
+        for _chain in range(2):
+            if kname == "scan_general":
+                o_k, ck = K.scan_general(st, ft, B, strat, ck, masks, n_act, facts)
+                o_p, cp = K._scan_general_plain(st, ft, B, strat, cp, masks, n_act, facts)
+            else:
+                o_k, ck = K.lap_schedule(st, ft, B, strat, ck, masks.static_ok, n_act,
+                                         False, True)
+                o_p, cp = K._lap_schedule_plain(st, ft, B, strat, cp, masks.static_ok, n_act,
+                                                False, True)
+            err = max(err, max_abs_err((o_k,) + tuple(ck), (o_p,) + tuple(cp)))
+            placed += int((o_p[0] >= 0).sum())
+        return err, placed, cp, o_p
 
     summary = []
     # (case, kernel, draw, rows, live rows, steps, active pods)
@@ -3639,13 +3674,34 @@ def aux_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
     or 2, the carry's aux_cnt drawn (strategy 0) or zero (strategy 1),
     fresh and chained, padded steps; draws whose batch outnumbers their
     room fill every row and leave the last pods placed nowhere;
-    schedule_placements' lanes each counting only their own members."""
+    schedule_placements' lanes each counting only their own members; and
+    the lap and scan_general's row-local entries at the DRA claim shape
+    (NP 512, a room of 0 to 8 free devices a row, increments 1 to 4)."""
     from kubernetes_tpu_torch.testing.kernel_inputs import (aux_lane, general_inputs,
                                                             placement_inputs, with_aux_lane)
 
     def fit(st, ft, strat):
         return K._resource_eval_plain(ft, strat, st.alloc_r, st.alloc_pods, st.req_r,
                                       st.nonzero, st.pod_count)
+
+    def chain(kname, st, ft, B, strat, ext0, masks, n_act, facts):
+        """Two batches chained from ext0 through the kernel and its plain
+        version: (max_abs_err, pods placed, the plain carry, its last
+        results)."""
+        err = placed = 0
+        ck = cp = ext0
+        for _chain in range(2):
+            if kname == "scan_general":
+                o_k, ck = K.scan_general(st, ft, B, strat, ck, masks, n_act, facts)
+                o_p, cp = K._scan_general_plain(st, ft, B, strat, cp, masks, n_act, facts)
+            else:
+                o_k, ck = K.lap_schedule(st, ft, B, strat, ck, masks.static_ok, n_act,
+                                         False, True)
+                o_p, cp = K._lap_schedule_plain(st, ft, B, strat, cp, masks.static_ok, n_act,
+                                                False, True)
+            err = max(err, max_abs_err((o_k,) + tuple(ck), (o_p,) + tuple(cp)))
+            placed += int((o_p[0] >= 0).sum())
+        return err, placed, cp, o_p
 
     summary = []
     # (case, kernel, draw, rows, live rows, steps, active pods)
@@ -3669,18 +3725,8 @@ def aux_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
             ext0 = K.fresh_carry(st, ft, 64, fit(st, ft, strat))
             if strat == 0:
                 ext0 = ext0._replace(aux_cnt=torch.from_numpy(cnt).to(dev))
-            ck = cp = ext0
-            for _chain in range(2):
-                if kname == "scan_general":
-                    o_k, ck = K.scan_general(st, ft, B, strat, ck, masks, n_act, facts)
-                    o_p, cp = K._scan_general_plain(st, ft, B, strat, cp, masks, n_act, facts)
-                else:
-                    o_k, ck = K.lap_schedule(st, ft, B, strat, ck, masks.static_ok, n_act,
-                                             False, True)
-                    o_p, cp = K._lap_schedule_plain(st, ft, B, strat, cp, masks.static_ok, n_act,
-                                                    False, True)
-                err = max(err, max_abs_err((o_k,) + tuple(ck), (o_p,) + tuple(cp)))
-                placed += int((o_p[0] >= 0).sum())
+            e, n, cp, o_p = chain(kname, st, ft, B, strat, ext0, masks, n_act, facts)
+            err, placed = max(err, e), placed + n
             if "room" in case:
                 left = masks.static_ok & cp.fit_ok & (cp.aux_cnt + ft.aux_inc <= ft.aux_room)
                 check(not bool(left[:live].any()) and int((o_p[0, :n_act] < 0).sum()) > 0,
@@ -3689,6 +3735,29 @@ def aux_phase(K, dev, np_cap: int, n_nodes: int, errs: dict) -> None:
         check(placed > 0, f"aux lane, {case}: nothing placed")
         errs[kname] = max(errs[kname], err)
         summary.append(f"{case} {err}")
+    # The DRA claim shape's lane (SchedulingWithResourceClaimTemplate): 0 to
+    # 8 free matching devices a row at NP 512 (500 nodes), each increment
+    # 1 to 4, on the lap and on scan_general's row-local entries.
+    for kname, B, n_act in (("lap_schedule", 1024, 1000), ("scan_general", 64, 64)):
+        err = placed = 0
+        for inc in (1, 2, 3, 4):
+            seed = 1260 + inc + (10 if kname == "scan_general" else 0)
+            s, f, facts = general_inputs(seed, 512, 500, vmax=64)
+            room, _inc, cnt = aux_lane(seed, 512, 500, unlimited=0.0, max_room=8, max_inc=4)
+            facts = K.PlanFacts(**dict(facts, has_aux=True))
+            st, ft = to_device(dev, s, with_aux_lane(f, room, np.array(inc, np.int32)))
+            masks = K._static_masks_plain(st, ft)
+            strat = inc % 2
+            ext0 = K.fresh_carry(st, ft, 64, fit(st, ft, strat))
+            if inc > 2:
+                ext0 = ext0._replace(aux_cnt=torch.from_numpy(cnt).to(dev))
+            e, n, _cp, _o = chain(kname, st, ft, B, strat, ext0, masks, n_act, facts)
+            err, placed = max(err, e), placed + n
+        torch.cuda.synchronize()
+        check(placed > 0, f"aux lane, {kname} at the DRA shape: nothing placed")
+        errs[kname] = max(errs[kname], err)
+        summary.append(f"{kname} at the DRA shape (NP 512, 0-8 devices a row, 1-4 a pod, fresh "
+                       f"and chained) {err}")
     err = placed = 0
     for lanes, tables, strats, acts in ((16, {}, (0, 1), (0, 8)),
                                         (16, dict(dns=1, sa=1, overrides=True), (0, 1), (0, 8)),
@@ -3881,6 +3950,127 @@ def wffc_cut(dev, n_nodes: int = 500, n_pods: int = 200):
           f"{WFFC} ({dev}): {sum(1 for p in cs.pods.values() if p.node_name)} bound, "
           f"{ctrl.provisions} provisioned, {sched.host_path_pods} on the host path")
     return sched
+
+
+DRA = "SchedulingWithResourceClaimTemplate/500Nodes_2000Pods"
+DRA_CUT = "SchedulingWithResourceClaimTemplate/20Nodes_40Pods"
+DRA_OUT = "claim-template pods past their devices (20 nodes of 2 devices, 60 pods)"
+
+
+def claims_of(sched) -> dict:
+    """{claim key: (node, [(driver, device)], [pod names])} of every claim."""
+    names = {p.uid: p.name for p in sched.clientset.pods.values()}
+    return {k: (c.allocated_node, [(a.driver, a.device) for a in c.allocations],
+                [names.get(u, u) for u in c.reserved_for])
+            for k, c in sched.clientset.resource_claims.items()}
+
+
+def check_claims(sched, what: str) -> int:
+    """Every bound pod's claim holds one a100 device of its node's slice and
+    names the pod, an unbound pod's claim holds none, and no device is held
+    twice. Returns the devices held."""
+    cs = sched.clientset
+    model = {(n, sl.driver, d.name): d.attributes.get("model")
+             for n, sls in cs.resource_slices.items() for sl in sls for d in sl.devices}
+    held = set()
+    for p in cs.pods.values():
+        c = cs.resource_claims[f"{p.namespace}/{p.resource_claims[0]}"]
+        devs = [(c.allocated_node, a.driver, a.device) for a in c.allocations]
+        if not p.node_name:
+            check(not devs and not c.allocated, f"{what}: {p.name} is pending with devices")
+            continue
+        check(c.allocated_node == p.node_name and len(devs) == 1 and c.reserved_for == [p.uid]
+              and model.get(devs[0]) == "a100",
+              f"{what}: {p.name} on {p.node_name}, its claim {c.allocated_node} {devs} "
+              f"{c.reserved_for}")
+        check(devs[0] not in held, f"{what}: device {devs[0]} allocated twice")
+        held.add(devs[0])
+    return len(held)
+
+
+def dra_drive(dev, n_nodes: int = 500, n_pods: int = 2000, devices: int = 8, capture=None):
+    """SchedulingWithResourceClaimTemplate/500Nodes_2000Pods
+    (bench.WORKLOADS[DRA]: 32-cpu nodes over 10 zones with one ResourceSlice
+    of `devices` a100 devices each, every pod 100m/128Mi with its own claim
+    of one a100 device, under the profile with DynamicResources): one
+    measured pod before the window, then `n_pods` in it, the launch counts
+    zeroed before. Every pod bound on the device with the lap's aux lane on
+    every dispatch, none on the host path, each claim holding one a100
+    device of its pod's node, no device held twice."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    w = bench.WORKLOADS[DRA]
+    sched = bench.build_cluster(n_nodes, device=dev, node=w.node._replace(devices=devices),
+                                profile_factory=bench.profile_for(DRA))
+    bench.warm(sched, w.init_pods, DRA)
+    stats = watch_dispatches(sched, capture)
+    K.reset_launch_counts()
+    result = bench.measure(sched, n_pods, workload=DRA)
+    launches = {k.__name__: k.launches for k in K.WRAPPERS}
+    d = result["detail"]
+    d.update(stats)
+    print(f"path {DRA}: {json.dumps(result)}", flush=True)
+    bound = sum(1 for p in sched.clientset.pods.values() if p.node_name)
+    check(bound == len(sched.clientset.pods) == n_pods + 1,
+          f"{DRA}: {bound} of {n_pods + 1} bound")
+    check(d["failures"] == 0 and d["host_path_pods"] == 0 and sched.host_path_pods == 0
+          and sched.device_scheduled == sched.scheduled,
+          f"{DRA}: failures {d['failures']}, host path {sched.host_path_pods}, "
+          f"{sched.device_scheduled} of {sched.scheduled} on the device")
+    check(stats["aux_dispatches"] == stats["dispatches"] > 0,
+          f"{DRA}: {stats['aux_dispatches']} of {stats['dispatches']} dispatches with the aux lane")
+    held = check_claims(sched, DRA)
+    if torch.device(dev).type == "cuda":
+        check_launched(DRA, launches, d, ("static_masks", "resource_eval", "lap_schedule"))
+    print(f"{DRA}: {result['value']:.1f} pods/s (floor {w.threshold}), {bound} pods bound, "
+          f"{held} devices held, {stats['aux_dispatches']} of {stats['dispatches']} dispatches "
+          f"with the aux lane; window {d['elapsed_s']:.4f} s: plan acquisition "
+          f"{d['plan_acquire_s']:.5f}, device wait {d['device_wait_s']:.4f}, commit "
+          f"{d['host_commit_s']:.4f}, session end {d['session_end_s']:.4f}", flush=True)
+    return sched, result, launches
+
+
+def dra_cut(dev, n_nodes: int, n_pods: int, devices: int):
+    """The claim-template shape on `n_nodes` nodes of `devices` devices:
+    one pod before the window, then `n_pods`; with more pods than devices
+    the rest stay unschedulable by DynamicResources."""
+    from kubernetes_tpu_torch import bench
+
+    w = bench.WORKLOADS[DRA]
+    sched = bench.build_cluster(n_nodes, device=dev, node=w.node._replace(devices=devices),
+                                profile_factory=bench.profile_for(DRA))
+    bench.warm(sched, 0, DRA)
+    bench.measure(sched, n_pods, workload=DRA)
+    held = check_claims(sched, f"DRA cut ({dev})")
+    check(held == min(n_pods + 1, n_nodes * devices),
+          f"DRA cut ({dev}): {held} devices held for {n_pods + 1} pods")
+    pending = sched.queue.unschedulable
+    check(len(pending) == n_pods + 1 - held
+          and all("DynamicResources" in q.unschedulable_plugins for q in pending.values()),
+          f"DRA cut ({dev}): {len(pending)} unschedulable, not all for DynamicResources")
+    return sched
+
+
+def dra_parity(dev, paths: dict) -> None:
+    """The DRA parity cells: the upstream 20Nodes_40Pods cut and one with
+    more pods than devices, each cuda run's bindings, claims, failure,
+    queue, device-pod and host-path counts equal to the device="cpu" run's."""
+    def same(a, b, what):
+        got, want = assignments(a), assignments(b)
+        diffs = {k: (v, got.get(k)) for k, v in want.items() if got.get(k) != v}
+        check(not diffs and set(got) == set(want),
+              f"cuda/cpu divergence ({what}): {list(diffs.items())[:5]}")
+        check(claims_of(a) == claims_of(b), f"claim allocations differ ({what})")
+        counts = [(s.scheduled, s.failures, s.device_scheduled, s.host_path_pods,
+                   s.queue.pending_counts()) for s in (a, b)]
+        check(counts[0] == counts[1], f"counts differ ({what}): {counts}")
+        print(f"parity ({what}): {len(want)} pods, {b.scheduled} bound, {b.device_scheduled} on "
+              f"the device, {b.host_path_pods} on the host path, {b.failures} failed attempts, "
+              f"pending {b.queue.pending_counts()}, identical", flush=True)
+
+    same(dra_cut(dev, 20, 40, 8), dra_cut("cpu", 20, 40, 8), DRA_CUT)
+    same(dra_cut(dev, 20, 59, 2), dra_cut("cpu", 20, 59, 2), DRA_OUT)
 
 
 def volume_parity(dev, paths: dict) -> None:

@@ -112,6 +112,20 @@ of 32 cpu / 256Gi / 110 pods across 50 zones with 100m pods:
                                              upstream shape (no threshold):
                                              clouds whose instance types cap
                                              attached disks.
+  SchedulingWithResourceClaimTemplate/500Nodes_2000Pods
+                                             500 of the 32-cpu nodes over 10
+                                             zones, each with one ResourceSlice
+                                             of 8 gpu.example.com devices
+                                             (model: a100, index: j); every pod
+                                             100m/128Mi with its own claim of
+                                             one request (count 1, expression
+                                             device.attributes["model"] ==
+                                             "a100"), one measured pod
+                                             scheduled before the window, then
+                                             2000 (floor 60 pods/s) under the
+                                             profile with DynamicResources: the
+                                             lap with the aux_cnt lane counting
+                                             each row's free matching devices.
 
   ChurnDriftRebalance/5000Nodes_Rebalance    the descheduler (`rebalance`):
                                              5000 nodes of the hollow plane's
@@ -167,11 +181,12 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from .api.dra import Device, DeviceRequest, ResourceClaim, ResourceSlice
 from .api.resource import to_int
 from .api.storage import BIND_COMPLETED, ROX, CSINode, PersistentVolume, PersistentVolumeClaim
 from .api.types import Namespace, PodGroup, Volume
 from .controllers.descheduler import DeschedulerController, default_strategies
-from .core.registry import default_profile, gang_placement_profile
+from .core.registry import default_profile, dra_profile, gang_placement_profile
 from .models import TorchScheduler
 from .ops import kernel
 from .ops.whatif import whatif_score
@@ -192,7 +207,9 @@ class NodeTemplate(NamedTuple):
     """createNodes' nodeTemplate: capacity, the zone count (0: no zone
     label), the declared features feature-0..features-1 on every node, an
     image (name, bytes, zones) that the nodes of the first `zones` zones
-    report, and csiNodeAllocatable (driver, count): every node's CSINode."""
+    report, csiNodeAllocatable (driver, count): every node's CSINode, and
+    createResourceSlices' devicesPerNode: one ResourceSlice of that many
+    DRA_DRIVER devices a node (0: none)."""
 
     cpu: int = 32
     memory: str = "256Gi"
@@ -201,6 +218,7 @@ class NodeTemplate(NamedTuple):
     features: int = 0
     image: Optional[Tuple[str, int, int]] = None
     csi: Optional[Tuple[str, int]] = None
+    devices: int = 0
 
 
 class Churn(NamedTuple):
@@ -249,6 +267,15 @@ class Volumes(NamedTuple):
     access_modes: Tuple[str, ...] = (ROX,)
 
 
+class Claims(NamedTuple):
+    """createPods' resourceClaimTemplate: each pod gets its own
+    ResourceClaim `<pod>-claim` of one request (the JAX package's perf
+    harness, kubernetes_tpu/perf/harness.py:829-841)."""
+
+    count: int = 1
+    expression: str = 'device.attributes["model"] == "a100"'
+
+
 class Workload(NamedTuple):
     """One scheduler_perf shape: the measured pods' template (a builder
     step over make_pod), their count, the warm-up/init pods (`init_build`
@@ -258,7 +285,8 @@ class Workload(NamedTuple):
     pod groups they form (None: none), the pods of the measured shape held
     by a scheduling gate (created first, never released), the init pods'
     deletion during the window, whether init pod i is created bound to
-    node i, and the PV and claim each pod gets (None: no volume)."""
+    node i, the PV and claim each pod gets (None: no volume), and the
+    resource claim each pod gets (None: none)."""
 
     measure_pods: int
     build: Callable
@@ -273,12 +301,14 @@ class Workload(NamedTuple):
     deleting: Optional[Deleting] = None
     bound_init: bool = False
     volumes: Optional[Volumes] = None
+    claims: Optional[Claims] = None
 
 
 AGENT_IMAGE = "registry.example/agent:1"
 EBS = "ebs.csi.aws.com"
 NO_ZONES = NodeTemplate(zones=0)
 GATE = "test.k8s.io/hold"
+DRA_DRIVER = "gpu.example.com"
 
 
 def _basic(b):
@@ -355,11 +385,14 @@ WORKLOADS = {
     "CSIAttachLimit/5000Nodes_9000Pods": Workload(
         9000, _basic, 5000, None, None, node=NO_ZONES._replace(csi=(EBS, 3)),
         volumes=Volumes(csi=EBS)),
+    "SchedulingWithResourceClaimTemplate/500Nodes_2000Pods": Workload(
+        2000, _basic, 0, None, 60.0, node=NodeTemplate(zones=10, devices=8), claims=Claims()),
 }
 NODES = {"SchedulingRequiredPodAntiAffinityWithNSSelector/5000Nodes_2000Pods": 6000,
          "SchedulingGangs/1000Nodes_250Groups": 1000,
          "SchedulingGangsPlacement/1000Nodes_250Groups": 1000,
-         "SchedulingWhileGated/1Node_10000GatedPods": 1}
+         "SchedulingWhileGated/1Node_10000GatedPods": 1,
+         "SchedulingWithResourceClaimTemplate/500Nodes_2000Pods": 500}
 DEFAULT_WORKLOAD = "SchedulingBasic/5000Nodes_10000Pods"
 
 
@@ -381,9 +414,13 @@ def cluster_node(i: int, node: NodeTemplate = NodeTemplate(), taint=None):
 
 def profile_for(workload: str):
     """The profile a workload's scheduler runs: the placement plugins for
-    topology-constrained groups (GenericWorkload-gated in the reference)."""
-    gang = WORKLOADS[workload].gang
-    return gang_placement_profile if gang is not None and gang.topology_key else default_profile
+    topology-constrained groups (GenericWorkload-gated in the reference),
+    DynamicResources for a workload with resource claims
+    (DynamicResourceAllocation-gated)."""
+    w = WORKLOADS[workload]
+    if w.gang is not None and w.gang.topology_key:
+        return gang_placement_profile
+    return dra_profile if w.claims is not None else default_profile
 
 
 def build_cluster(n_nodes: int, device="cuda", max_batch=None,
@@ -396,6 +433,12 @@ def build_cluster(n_nodes: int, device="cuda", max_batch=None,
         if node.csi is not None:
             sched.clientset.create_csi_node(CSINode(node_name=f"node-{i}",
                                                     driver_limits={node.csi[0]: node.csi[1]}))
+        if node.devices:
+            sched.clientset.create_resource_slice(ResourceSlice(
+                node_name=f"node-{i}", driver=DRA_DRIVER,
+                devices=[Device(name=f"node-{i}-dev{j}",
+                                attributes={"model": "a100", "index": str(j)})
+                         for j in range(node.devices)]))
     return sched
 
 
@@ -409,8 +452,9 @@ def make_pods(n: int, prefix: str, workload: str = DEFAULT_WORKLOAD):
     signature memo), in its measured namespace. SchedulingBasic pods carry
     `app: <prefix>`; a gang workload's pods name their group,
     `<prefix>-group-<i>`, `size` consecutive pods a group; in a volume
-    workload pod `<name>` mounts its own claim `pvc-<name>` (create_pods
-    creates the claim and its PV)."""
+    workload pod `<name>` mounts its own claim `pvc-<name>`, in a claim
+    workload it names its resource claim `<name>-claim` (create_pods
+    creates the claims and PVs)."""
     w = WORKLOADS[workload]
     ns = "measure-ns-0" if w.namespaces is not None else "default"
     if workload == DEFAULT_WORKLOAD:
@@ -422,6 +466,9 @@ def make_pods(n: int, prefix: str, workload: str = DEFAULT_WORKLOAD):
     if w.volumes is not None:
         for p in pods:
             p.volumes = [Volume(name="data", pvc_name=f"pvc-{p.name}")]
+    if w.claims is not None:
+        for p in pods:
+            p.resource_claims = [f"{p.name}-claim"]
     return pods
 
 
@@ -443,7 +490,7 @@ def create_volume(sched: TorchScheduler, pod, vol: Volumes) -> None:
 def create_pods(sched: TorchScheduler, pods, workload: str) -> None:
     """Create `pods`; in a gang workload each group is created before its
     first member (createPodGroups), in a volume workload each pod's PV and
-    claim before the pod."""
+    claim before the pod, in a claim workload its resource claim."""
     w = WORKLOADS[workload]
     gang = w.gang
     made = set()
@@ -455,6 +502,10 @@ def create_pods(sched: TorchScheduler, pods, workload: str) -> None:
                 topology_keys=(gang.topology_key,) if gang.topology_key else ()))
         if w.volumes is not None:
             create_volume(sched, p, w.volumes)
+        for name in p.resource_claims:
+            sched.clientset.create_resource_claim(ResourceClaim(
+                name=name, namespace=p.namespace, requests=[DeviceRequest(
+                    name="req", count=w.claims.count, expression=w.claims.expression)]))
         sched.clientset.create_pod(p)
 
 
@@ -586,7 +637,7 @@ def measure(sched: TorchScheduler, n_pods: int, prefix: str = "bench",
     not the workload itself (other init pods, say): it heads the metric, and
     `vs_baseline` is None, since the upstream threshold is the workload's."""
     w = WORKLOADS[workload]
-    if w.volumes is not None:
+    if w.volumes is not None or w.claims is not None:
         # The harness schedules one measured pod, claim and PV included,
         # before the window opens (kubernetes_tpu/perf/harness.py:903-910).
         create_pods(sched, make_pods(1, f"{prefix}-first", workload), workload)

@@ -3,10 +3,12 @@
 Plays the role of client-go fake.Clientset + informers in the reference's unit
 layer: scheduler event handlers subscribe, API writes (bind, create, delete)
 synchronously fan out to them — the apiserver watch streams collapsed to
-function calls. Every pod and pod-group write passes the scope guard
+function calls. Every pod-group write passes the scope guard
 (core/scope.py). The storage objects (PersistentVolumes, claims, storage
-classes, CSINodes) fan out to `on_storage_event` handlers: the volume
-plugins' listers and the PV controller (core/pv_controller.py).
+classes, CSINodes) and the DRA objects (ResourceSlices, ResourceClaims,
+DeviceClasses) fan out to `on_storage_event` handlers: the volume and
+DynamicResources plugins' listers and the PV controller
+(core/pv_controller.py).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import itertools
 import time
 from typing import Callable, Dict, List, Optional
 
+from ..api.dra import DeviceClass, ResourceClaim, ResourceSlice
 from ..api.labels import IN, Requirement
 from ..api.storage import (
     BIND_COMPLETED,
@@ -26,7 +29,7 @@ from ..api.storage import (
     StorageClass,
 )
 from ..api.types import Namespace, Node, NodeSelector, NodeSelectorTerm, Pod, PodGroup
-from .scope import check_pod, check_pod_group
+from .scope import check_pod_group
 
 
 class FakeClientset:
@@ -42,6 +45,15 @@ class FakeClientset:
         self.csi_nodes: Dict[str, CSINode] = {}
         # The CSINode set's version: replacing a node's limits moves it too.
         self.csi_nodes_rv = 0
+        # DRA (api/dra.py): node -> its ResourceSlices, "ns/name" -> claim,
+        # name -> DeviceClass. The claims' revision moves on every claim
+        # write and out-of-band allocation (the in-use caches key on it);
+        # has_consuming_devices once any device consumes node allocatable.
+        self.resource_slices: Dict[str, List[ResourceSlice]] = {}
+        self.resource_claims: Dict[str, ResourceClaim] = {}
+        self.device_classes: Dict[str, DeviceClass] = {}
+        self.resource_claims_rv = 0
+        self.has_consuming_devices = False
         self._pod_handlers: List = []
         self._node_handlers: List = []
         self._namespace_handlers: List = []
@@ -79,9 +91,9 @@ class FakeClientset:
             handler(g)
 
     def on_storage_event(self, handler: Callable[[str, object], None]) -> None:
-        """handler(kind, obj) with kind in pv/pvc/storage_class/csi_node on
-        every storage write (the informer feed behind the Storage/Add
-        queueing hints)."""
+        """handler(kind, obj) with kind in pv/pvc/storage_class/csi_node/
+        resource_slice/resource_claim/device_class on every storage write
+        (the informer feed behind the Storage/Add queueing hints)."""
         self._storage_handlers.append(handler)
 
     def _fire_storage(self, kind: str, obj) -> None:
@@ -129,6 +141,32 @@ class FakeClientset:
         self.csi_nodes_rv += 1
         self._fire_storage("csi_node", cn)
         return cn
+
+    # -- DRA (the DynamicResources plugin's listers) ----------------------
+
+    def create_resource_slice(self, sl: ResourceSlice) -> ResourceSlice:
+        self.resource_slices.setdefault(sl.node_name, []).append(sl)
+        if any(d.consumes for d in sl.devices):
+            # Their allocation math is a second constraint the device's aux
+            # count does not model (ops/features.py dra_device_support).
+            self.has_consuming_devices = True
+        self._fire_storage("resource_slice", sl)
+        return sl
+
+    def create_resource_claim(self, claim: ResourceClaim) -> ResourceClaim:
+        self.resource_claims[claim.key] = claim
+        self.resource_claims_rv += 1
+        self._fire_storage("resource_claim", claim)
+        return claim
+
+    def bump_resource_claims_rv(self) -> None:
+        """Claims changed out of band (an allocation by a controller)."""
+        self.resource_claims_rv += 1
+
+    def create_device_class(self, dc: DeviceClass) -> DeviceClass:
+        self.device_classes[dc.name] = dc
+        self._fire_storage("device_class", dc)
+        return dc
 
     def attach_pv_controller(self, ctrl) -> None:
         """Register the PV controller (core/pv_controller.py): PreBind's
@@ -182,7 +220,6 @@ class FakeClientset:
                 h("delete", node, node)
 
     def create_pod(self, pod: Pod) -> Pod:
-        check_pod(pod)
         pod.resource_version = next(self._rv_counter)
         self.pods[pod.uid] = pod
         for h in self._pod_handlers:
@@ -190,7 +227,6 @@ class FakeClientset:
         return pod
 
     def update_pod(self, pod: Pod) -> Pod:
-        check_pod(pod)
         old = self.pods.get(pod.uid)
         pod.resource_version = next(self._rv_counter)
         # An in-place spec change on the same object drops the derived-spec

@@ -2,8 +2,9 @@
 CycleState, and the plugin-dispatch runtime, trimmed to the extension points
 the port's plugins implement (QueueSort, PreFilter with its AddPod/RemovePod
 extensions, Filter, PostFilter, PreScore, Score, NormalizeScore, Reserve,
-Unreserve, Permit, PreBind with its PreBindPreFlight, Bind, Sign, and the pod-group points PlacementGenerate,
-PlacementFeasible, PlacementScore and PodGroupPostFilter).
+Unreserve, Permit, PreBind with its PreBindPreFlight, Bind, PostBind, Sign,
+and the pod-group points PlacementGenerate, PlacementFeasible,
+PlacementScore and PodGroupPostFilter).
 
 Re-expresses staging/src/k8s.io/kube-scheduler/framework interface.go and
 pkg/scheduler/framework/runtime/framework.go (frameworkImpl :58). Plugins are
@@ -208,6 +209,7 @@ class Framework:
         self.permit_plugins = self._having("permit")
         self.pre_bind_plugins = self._having("pre_bind")
         self.bind_plugins = self._having("bind")
+        self.post_bind_plugins = self._having("post_bind")
         self.sign_plugins = self._having("sign")
         # Pod-group extension points (framework.go:2208, :2160, :1625, :1212).
         self.placement_generate_plugins = self._having("generate_placements")
@@ -489,6 +491,12 @@ class Framework:
                 return st
             return Status(st.code, st.reasons, p.name)
         return Status.error("no bind plugin bound the pod")
+
+    def run_post_bind_plugins(self, state: CycleState, pod: Pod, node_name: str) -> None:
+        """PostBind (framework.go RunPostBindPlugins): informational, after a
+        successful bind."""
+        for p in self.post_bind_plugins:
+            p.post_bind(state, pod, node_name)
 
     # -- signatures (kernel row-block batching) ----------------------------
 

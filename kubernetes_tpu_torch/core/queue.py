@@ -35,7 +35,6 @@ from typing import Callable, Dict, List, Optional, Set, Tuple, Union
 
 from ..api.types import Pod
 from .node_info import PodInfo
-from .scope import check_pod
 
 DEFAULT_POD_INITIAL_BACKOFF = 1.0
 DEFAULT_POD_MAX_BACKOFF = 10.0
@@ -47,7 +46,7 @@ EVENT_ASSIGNED_POD_ADD = "AssignedPod/Add"
 EVENT_ASSIGNED_POD_DELETE = "AssignedPod/Delete"
 EVENT_NODE_ADD = "Node/Add"
 EVENT_NODE_UPDATE = "Node/Update"
-EVENT_STORAGE_ADD = "Storage/Add"  # a PV, claim, storage class or CSINode written
+EVENT_STORAGE_ADD = "Storage/Add"  # a storage or DRA object written
 
 # Static QueueingHints for plugins that register no hint functions: which
 # events can unblock a pod a plugin rejected. Plugins absent from both this
@@ -61,6 +60,8 @@ QUEUEING_HINTS: Dict[str, Set[str]] = {
     "NodeVolumeLimits": {EVENT_NODE_ADD, EVENT_ASSIGNED_POD_DELETE, EVENT_POD_DELETE,
                          EVENT_STORAGE_ADD},
     "VolumeRestrictions": {EVENT_ASSIGNED_POD_DELETE, EVENT_POD_DELETE},
+    "DynamicResources": {EVENT_NODE_ADD, EVENT_NODE_UPDATE, EVENT_STORAGE_ADD,
+                         EVENT_ASSIGNED_POD_DELETE, EVENT_POD_DELETE},
     # A topology-constrained group with no feasible placement is charged to
     # no plugin it registered events for: nothing requeues it early.
     "TopologyPlacementGenerator": set(),
@@ -270,7 +271,6 @@ class PriorityQueue:
         """Add (scheduling_queue.go:858) — admission of a new pending pod: a
         pod a PreEnqueue plugin holds is parked gated; a gang member joins
         its group's buffer."""
-        check_pod(pod)
         qpi = QueuedPodInfo(pod_info=PodInfo.of(pod), timestamp=self.now())
         if self.framework.pre_enqueue_plugins:
             st = self.framework.run_pre_enqueue_plugins(pod)
@@ -347,7 +347,6 @@ class PriorityQueue:
             self._group_members[group_key] = [m for m in members if m.pod.uid not in uids]
 
     def update(self, old: Optional[Pod], new: Pod) -> None:
-        check_pod(new)
         uid = new.uid
         if new.pod_group:
             # A buffered gang member updates in place.

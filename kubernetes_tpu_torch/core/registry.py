@@ -13,12 +13,22 @@ no feature gates and always adds it.
 behind GenericWorkload (the JAX package's GANG_PLACEMENT_PLUGINS,
 core/registry.py:141-153): GangScheduling (the Permit barrier and the
 PlacementFeasible gate), TopologyPlacementGenerator and PodGroupPodsCount
-(weight 1); NodeResourcesFit scores placements too. `handle` gives the
+(weight 1); NodeResourcesFit scores placements too.
+`dra_profile` appends DynamicResources at weight 0, last (after
+NodeDeclaredFeatures): the JAX package's default profile has no
+DynamicResources (its DynamicResourceAllocation gate is off), and its perf
+harness builds DEFAULT_PLUGINS + DynamicResources for the DRA workloads
+(perf/harness.py:778-785), a list without NodeDeclaredFeatures. The port's
+dra_profile is that list with NodeDeclaredFeatures before DynamicResources,
+the JAX package's build_framework(h, plugins=DEFAULT_PLUGINS +
+(("NodeDeclaredFeatures", 0), ("DynamicResources", 0))). `handle` gives the
 plugins the clientset, the scheduler's snapshot, the namespaces' labels,
 the nominator, the placed-group-members index, the waiting pods, the
-storage listers and the device dry run (framework.Handle)."""
+storage and DRA listers and the device dry run (framework.Handle)."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 from ..plugins.basic import (
     DefaultBinder,
@@ -31,6 +41,7 @@ from ..plugins.basic import (
     SchedulingGates,
     TaintToleration,
 )
+from ..plugins.dynamicresources import DynamicResources
 from ..plugins.extras import NodeDeclaredFeatures
 from ..plugins.gang import GangScheduling
 from ..plugins.interpodaffinity import InterPodAffinity
@@ -43,8 +54,10 @@ from .framework import Framework
 
 
 def default_profile(handle, profile_name: str = "default-scheduler",
-                    gang_placement: bool = False) -> Framework:
+                    gang_placement: bool = False,
+                    dra: Optional[DynamicResources] = None) -> Framework:
     preemption = DefaultPreemption(handle)
+    fit = Fit()
     extra = [(GangScheduling(handle), 0), (TopologyPlacementGenerator(handle), 0),
              (PodGroupPodsCount(handle), 1)] if gang_placement else []
     fw = Framework(profile_name=profile_name, plugins=[
@@ -55,7 +68,7 @@ def default_profile(handle, profile_name: str = "default-scheduler",
         (TaintToleration(), 3),
         (NodeAffinity(), 2),
         (NodePorts(), 0),
-        (Fit(), 1),
+        (fit, 1),
         (VolumeRestrictions(handle), 0),
         (NodeVolumeLimits(handle), 0),
         (VolumeBinding(handle), 0),
@@ -66,11 +79,21 @@ def default_profile(handle, profile_name: str = "default-scheduler",
         (BalancedAllocation(), 1),
         (ImageLocality(handle), 1),
         (DefaultBinder(handle.clientset), 0),
-    ] + extra + [(NodeDeclaredFeatures(), 0)])
+    ] + extra + [(NodeDeclaredFeatures(), 0)] + ([(dra, 0)] if dra is not None else []))
     preemption.set_framework(fw)
+    fit.set_framework(fw)
     return fw
 
 
 def gang_placement_profile(handle) -> Framework:
     """The default profile with the pod-group placement plugins."""
     return default_profile(handle, gang_placement=True)
+
+
+def dra_profile(handle, extended_resources: bool = False,
+                node_allocatable: bool = False) -> Framework:
+    """The default profile with DynamicResources, its two gated branches
+    (extended resources backed by a DeviceClass, devices that consume node
+    allocatable) off unless asked for, as the JAX package's gates are."""
+    return default_profile(handle, dra=DynamicResources(
+        handle, extended_resources=extended_resources, node_allocatable=node_allocatable))

@@ -146,6 +146,19 @@ class Handle:
     def csi_nodes(self):
         return self.clientset.csi_nodes
 
+    # the DRA listers (plugins/dynamicresources.py)
+    @property
+    def resource_slices(self):
+        return self.clientset.resource_slices
+
+    @property
+    def resource_claims(self):
+        return self.clientset.resource_claims
+
+    @property
+    def device_classes(self):
+        return self.clientset.device_classes
+
     def allow_waiting_pod(self, uid: str) -> bool:
         return self._scheduler.allow_waiting_pod(uid)
 
@@ -364,11 +377,12 @@ class Scheduler:
 
     def _on_storage_event(self, kind: str, obj) -> None:
         # Only storage objects that change what a node offers (CSINode
-        # limits, PV topology, binding modes) can make a device session's
-        # plan stale. A claim is pod-side state: it unblocks waiting pods
-        # but changes no decision already made, and journaling each claim
-        # a measured pod creates would end a session a pod.
-        if kind != "pvc":
+        # limits, device pools, PV topology, binding modes) can make a
+        # device session's plan stale. A claim (a PVC or a ResourceClaim)
+        # is pod-side state: it unblocks waiting pods but changes no
+        # decision already made, and journaling each claim a measured pod
+        # creates would end a session a pod.
+        if kind not in ("pvc", "resource_claim"):
             self._record_event(EV_OTHER, kind)
         self.queue.move_all_to_active_or_backoff(EVENT_STORAGE_ADD, None, obj)
 
@@ -801,6 +815,8 @@ class Scheduler:
             return False
         self.queue.nominator.delete_nominated_pod(pod)
         self.scheduled += 1
+        if fw.post_bind_plugins:
+            fw.run_post_bind_plugins(state, pod, node_name)
         return True
 
     def _unwind_binding(self, fw: Framework, state: CycleState, qpi: QueuedPodInfo,

@@ -1,37 +1,25 @@
 """The port's scope guard: the port knows only the plugins in
 core/registry.py, so an object that needs anything else is refused with
 NotImplementedError naming the feature — never scheduled while ignoring a
-constraint. Called by FakeClientset on every pod and pod-group write and by
-the queue on admission.
+constraint. Every pod is in scope; FakeClientset calls check_pod_group on
+every pod-group write.
 
 In scope: resources, taints and tolerations (PreferNoSchedule included),
 node selectors and node affinity (required and preferred), host ports
 (NodePorts), volumes backed by PersistentVolumeClaims (VolumeBinding,
 NodeVolumeLimits, VolumeZone, VolumeRestrictions, with the PV controller),
-scheduling gates, required declared node features (NodeDeclaredFeatures),
-node images (ImageLocality), topology spread and pod (anti-)affinity, pod
-priority with DefaultPreemption, and pod groups (gangs, with or without a
-topology constraint, and pod-group preemption). Not in scope: resource
-claims (DynamicResources) and composite pod-group trees."""
+resource claims (DynamicResources under a profile that has it, such as
+core/registry.py dra_profile; under one without it claims are inert, as in
+the JAX package's default profile), scheduling gates, required declared
+node features (NodeDeclaredFeatures), node images (ImageLocality),
+topology spread and pod (anti-)affinity, pod priority with
+DefaultPreemption, and pod groups (gangs, with or without a topology
+constraint, and pod-group preemption). Not in scope: composite pod-group
+trees."""
 
 from __future__ import annotations
 
-from ..api.types import Pod, PodGroup
-
-
-def pod_unsupported(pod: Pod) -> str:
-    """The first out-of-scope feature `pod` uses, or "" when it is in scope."""
-    if pod.resource_claims:
-        return "resource claims"
-    return ""
-
-
-def check_pod(pod: Pod) -> None:
-    reason = pod_unsupported(pod)
-    if reason:
-        raise NotImplementedError(
-            f"pod {pod.namespace}/{pod.name}: {reason} is outside what "
-            "kubernetes_tpu_torch covers")
+from ..api.types import PodGroup
 
 
 def check_pod_group(group) -> None:

@@ -77,6 +77,28 @@ the host path through the volume plugins, as do a volume pod's preemption
 dry run and its placement evaluation, and a volume pod while pods are
 nominated.
 
+Resource claims (the JAX package's DRA path). Under a profile with
+DynamicResources (core/registry.py dra_profile), a claim-template pod (one
+unallocated, unshared claim of one request: ops/features.py
+dra_device_support) rides a session on the same aux_cnt lane: each row's
+room is its free devices that the request matches, a landing takes the
+request's count. The commit then runs DynamicResources' PreFilter and
+Filter on the chosen node alone and the full tail on that state, which
+allocates the devices; a miss sends the pod to the host path. A
+session's pods share the head's claim shape (_aux_shape is the pair of
+attach shape and claim shape) and no claim; the resume key holds the
+claims' revision. Under a profile without DynamicResources claims are
+inert and a claim pod batches as plain. Other claims take the host path,
+as do claim pods of a gang, of a placement group or while pods are
+nominated.
+
+The commit. A pod with no DRA state and no pod group, under a profile
+whose Reserve and PreBind plugins act only on the state their PreFilter
+wrote (`state_driven_tail`), whose Permit plugins act only on gang
+members (`gang_only`), with no PostBind plugin and DefaultBinder alone,
+takes the lean tail: assume and bind (_commit_fast_eligible, the JAX
+package's :2087-2165), which leaves what the full tail would.
+
 Node mesh (the JAX package's mesh code, :88-123, :1081-1116, :1233-1275,
 :1505-1565). With a NodeMesh (parallel/mesh.py make_mesh, passed as
 `mesh`; the default keeps one device) the mirror's resident state
@@ -141,6 +163,7 @@ from ..ops.features import (
     build_batch,
     build_preemption_victims,
     diagnose_unschedulable,
+    dra_device_support,
     volume_device_support,
 )
 from ..ops.kernel import (
@@ -156,6 +179,7 @@ from ..parallel.mesh import (
     shard_features,
     sharded_lap_schedule,
 )
+from ..plugins.basic import DefaultBinder
 from ..plugins.preemption import Candidate
 
 DEFAULT_MAX_BATCH = 1024  # the JAX package's config.max_batch
@@ -167,12 +191,12 @@ PIPELINE_DEPTH = 2        # batches in flight (double buffering)
 _GANG_SESSION = "gang device session"
 _PLACEMENT_GROUP = "placement group"
 
+_EMPTY_STATE = CycleState()  # the lean commit tail's state: no plugin reads or writes it
 
-def _aux_shape(volume) -> Optional[tuple]:
-    """The counted-constraint shape a plan models for a pod whose
-    volume_device_support triple is `volume`: (driver, attachments a pod)
-    of its attach-limited CSI claims, or None. Every pod of a session has
-    the head's: the plan counts one driver and one increment."""
+
+def _attach_shape(volume) -> Optional[tuple]:
+    """(driver, attachments a pod) of the attach-limited CSI claims of a pod
+    whose volume_device_support triple is `volume`, or None."""
     _r, driver, inc = volume
     return (driver, inc) if driver else None
 
@@ -284,12 +308,15 @@ class TorchScheduler(Scheduler):
         # The priority of the session's pods while pods are nominated (the
         # nominated lane is priority-thresholded), else None.
         self._session_nom_priority: Optional[int] = None
-        # The live session's attach shape (_aux_shape) and the claims of the
-        # pods it took: the kernels count attachments a landing, so a pod
+        # The live session's counted-constraint shape (_aux_shape) and the
+        # claims of the pods it took (PVC keys, "dra:" ResourceClaim keys):
+        # the kernels count a landing's attachments or devices, so a pod
         # sharing a claim with one of them must not join.
         self._session_volume = NO_VOLUMES  # the head's volume_device_support
-        self._session_aux_shape = None
+        self._session_aux_shape = (None, None)
         self._session_claims: set = set()
+        # _commit_fast_eligible's verdict a profile (id(fw) -> bool).
+        self._fast_tail: dict = {}
         # The drivers with any CSINode limit, at the CSINode set's version.
         self._limited_drivers = frozenset()
         self._limited_drivers_rv = -1
@@ -342,7 +369,7 @@ class TorchScheduler(Scheduler):
                     and self.framework_for_pod(nxt.pod) is fw
                     and self._sig_joins(fw, nxt.pod, sig)
                     and self._session_nom_priority in (None, nxt.pod.priority)
-                    and self._joins_session_volumes(nxt.pod)):
+                    and self._joins_session_claims(fw, nxt.pod)):
                 batch.append(nxt)
             else:
                 self._holdover = nxt
@@ -366,7 +393,9 @@ class TorchScheduler(Scheduler):
             return fw, [head], "pod group outside the gang device session"
         fw = self.framework_for_pod(head.pod)
         volume = self._volume_support(head.pod)
-        reason = (batch_supported(head.pod, volume)
+        # (The head's claims are checked against the previous session's,
+        # as the JAX package's _collect_batch checks them.)
+        reason = (batch_supported(head.pod, volume, self._dra_support(fw, head.pod))
                   or self._device_unsupported_profile(fw, head.pod)
                   or self._nominated_device_block(head.pod))
         sig = fw.sign_pod(head.pod) if reason is None else None
@@ -379,11 +408,11 @@ class TorchScheduler(Scheduler):
         self._session_nom_priority = head.pod.priority if nom.has_nominated_pods() else None
         self._session_claims = set(self._claims_of(head.pod))
         self._session_volume = volume
-        self._session_aux_shape = _aux_shape(volume)
+        self._session_aux_shape = self._aux_shape(head.pod, volume)
         self._session_neutral_sig = self._neutral_sig(fw, head.pod, sig)
         return fw, self._collect_session_batch(fw, sig, [head]), None
 
-    # -- volumes: the session's attach shape and claims ----------------------
+    # -- volumes and resource claims: the session's shape and claims ----------
 
     def limited_drivers(self) -> frozenset:
         """The CSI drivers with an attach limit on any CSINode."""
@@ -403,25 +432,63 @@ class TorchScheduler(Scheduler):
         return volume_device_support(pod, self.clientset, self.cache.pvc_refs,
                                      self.limited_drivers())
 
-    def _batch_supported(self, pod) -> Optional[str]:
-        """features.batch_supported with the storage context a pod with
-        volumes needs."""
-        return batch_supported(pod, self._volume_support(pod))
+    @staticmethod
+    def _dra_ctx(fw: Framework):
+        """The devices DynamicResources holds (allocated or assumed) under
+        `fw`, or None when the profile has no DynamicResources: claims are
+        then inert (the JAX package's :1643-1650)."""
+        dr = fw.plugin("DynamicResources")
+        return None if dr is None else dr._in_use()
+
+    def _dra_support(self, fw: Framework, pod):
+        """features.dra_device_support of `pod` against live claim state and
+        the session's claims, or None where claims are inert (no claim, or
+        no DynamicResources in `fw`)."""
+        if not pod.resource_claims or fw.plugin("DynamicResources") is None:
+            return None
+        return dra_device_support(pod, self.clientset, self._session_claims)
+
+    def _batch_supported(self, fw: Framework, pod) -> Optional[str]:
+        """features.batch_supported with the storage and claim context the
+        pod needs."""
+        return batch_supported(pod, self._volume_support(pod), self._dra_support(fw, pod))
+
+    def _claim_shape(self, pod) -> Optional[tuple]:
+        """The request shape of the pod's first resource claim: (device
+        class, count, selectors, expression); ("?",) for a missing or
+        multi-request claim; None without claims (the JAX package's
+        :1655-1665)."""
+        if not pod.resource_claims:
+            return None
+        claim = self.clientset.resource_claims.get(f"{pod.namespace}/{pod.resource_claims[0]}")
+        if claim is None or len(claim.requests) != 1:
+            return ("?",)
+        r = claim.requests[0]
+        return (r.device_class, r.count, tuple(sorted(r.selectors.items())), r.expression)
+
+    def _aux_shape(self, pod, volume) -> tuple:
+        """The counted-constraint shape a plan models for `pod` (its
+        volume_device_support triple `volume`): the attach shape and the
+        claim shape. Every pod of a session has the head's: the plan counts
+        one constraint and one increment."""
+        return (_attach_shape(volume), self._claim_shape(pod))
 
     @staticmethod
     def _claims_of(pod) -> list:
-        return [f"{pod.namespace}/{v.pvc_name}" for v in pod.volumes if v.pvc_name]
+        """The pod's PVC keys and its resource claims' "dra:" keys."""
+        return ([f"{pod.namespace}/{v.pvc_name}" for v in pod.volumes if v.pvc_name]
+                + [f"dra:{pod.namespace}/{n}" for n in pod.resource_claims])
 
-    def _joins_session_volumes(self, pod) -> bool:
-        """The kernels cover `pod`, it has the session's attach shape and it
-        shares no claim with a pod the session took; it is then recorded as
-        taken."""
-        if not pod.volumes:
-            return batch_supported(pod) is None and self._session_aux_shape is None
+    def _joins_session_claims(self, fw: Framework, pod) -> bool:
+        """The kernels cover `pod`, it has the session's counted-constraint
+        shape and it shares no claim with a pod the session took; it is then
+        recorded as taken."""
+        if not pod.volumes and not pod.resource_claims:
+            return batch_supported(pod) is None and self._session_aux_shape == (None, None)
         volume = self._volume_support(pod)
-        if batch_supported(pod, volume) is not None:
+        if batch_supported(pod, volume, self._dra_support(fw, pod)) is not None:
             return False
-        if _aux_shape(volume) != self._session_aux_shape:
+        if self._aux_shape(pod, volume) != self._session_aux_shape:
             return False
         claims = self._claims_of(pod)
         if claims:
@@ -483,15 +550,15 @@ class TorchScheduler(Scheduler):
             return "nominated pod carries required anti-affinity"
         return None
 
-    @staticmethod
-    def _device_unsupported_profile(fw: Framework, pod) -> Optional[str]:
+    def _device_unsupported_profile(self, fw: Framework, pod) -> Optional[str]:
         """Why `pod` takes the host path under `fw` (None: the device
         covers it): the kernels enforce a pod's spread constraints and
         affinity terms whatever the profile, while the host path ignores a
-        term whose plugin the profile lacks (the JAX package's :1044-1069;
-        its branches for plugin-level default constraints and for extended
-        resources backed by DRA wait for PodTopologySpread's arguments and
-        for DynamicResources)."""
+        term whose plugin the profile lacks; and the kernels' fit would
+        count an extended resource that a DeviceClass maps as a node scalar,
+        which DynamicResources may satisfy from ResourceSlices instead (the
+        JAX package's :1044-1069; its branch for plugin-level default
+        constraints waits for PodTopologySpread's arguments)."""
         names = {p.name for p in fw.filter_plugins}
         if pod.topology_spread_constraints and "PodTopologySpread" not in names:
             return "spread constraints without PodTopologySpread plugin"
@@ -499,6 +566,13 @@ class TorchScheduler(Scheduler):
         if (aff is not None and (aff.pod_affinity or aff.pod_anti_affinity)
                 and "InterPodAffinity" not in names):
             return "pod affinity without InterPodAffinity plugin"
+        if fw.plugin("DynamicResources") is not None:
+            req = pod.resource_request()
+            if req.scalar_resources and any(
+                    dc.extended_resource_name in req.scalar_resources
+                    for dc in self.clientset.device_classes.values()
+                    if dc.extended_resource_name):
+                return "extended resources backed by DRA"
         return None
 
     @staticmethod
@@ -508,7 +582,7 @@ class TorchScheduler(Scheduler):
         and the dry-run kernel model other pods (a nomination counted in, a
         victim removed) as request and count deltas, exact only for pods
         without these: a victim removed can also free a host port, an
-        attachment or a ReadWriteOncePod claim."""
+        attachment, a ReadWriteOncePod claim or a device."""
         if pod.topology_spread_constraints:
             return "spread constraints"
         aff = pod.affinity
@@ -516,7 +590,7 @@ class TorchScheduler(Scheduler):
             return "pod affinity"
         if pod.host_ports():
             return "host ports"
-        if any(v.pvc_name for v in pod.volumes):
+        if any(v.pvc_name for v in pod.volumes) or pod.resource_claims:
             return "counted claims"
         return None
 
@@ -569,7 +643,7 @@ class TorchScheduler(Scheduler):
             ignore_preferred_terms_of_existing_pods=getattr(
                 ipa, "ignore_preferred_terms_of_existing_pods", False),
             fit_plugin=fw.plugin("NodeResourcesFit"), clientset=self.clientset,
-            volume=volume, nominated=self._nominated_lane(pod))
+            volume=volume, dra_in_use=self._dra_ctx(fw), nominated=self._nominated_lane(pod))
         state = self.mirror.flush()
         if self.mesh is not None:
             plan.shards = shard_features(plan.features, self.mesh)
@@ -614,7 +688,7 @@ class TorchScheduler(Scheduler):
         nominated-lane variant of the plan, with an empty lane, is launched
         too (:1168-1180)."""
         fw = self.framework_for_pod(pod)
-        if self._batch_supported(pod) is not None:
+        if self._batch_supported(fw, pod) is not None:
             return
         state, plan = self.build_plan(fw, pod, self.max_batch)
         whole = state if self.mesh is None else gather(state)
@@ -768,19 +842,23 @@ class TorchScheduler(Scheduler):
     def _resume_or_rebuild(self, fw: Framework, head_pod, sig, nsig, volume):
         """A session's plan: the previous clean session's, resumed as it is
         or after the journal's row patches, else a full rebuild. The
-        signature covers no volume, so the key also holds the attach shape
-        of the head's volume_device_support triple `volume`: a volume plan
-        never resumes for plain pods, nor a plain plan for volume pods.
-        Returns (state, plan, carry, node_names, kind)."""
+        signature covers no volume or claim, so the key also holds the
+        head's counted-constraint shape (_aux_shape, from its
+        volume_device_support triple `volume`): a volume or claim plan never
+        resumes for plain pods, nor a plain plan for them; and the claims'
+        revision, since a plan's free-device counts are stale once a claim
+        is written or allocated out of band. Returns (state, plan, carry,
+        node_names, kind)."""
         t0 = time.perf_counter()
-        aux_shape = _aux_shape(volume)
+        aux_shape = self._aux_shape(head_pod, volume)
         resume, self._resume = self._resume, None
         kind = "full"
         state = plan = carry = node_names = None
         if resume is not None and self.resume:
             rkey, rseq, payload, rnom = resume
             sig_ok = rkey[1] == (sig if rkey[0] == "exact" else nsig)
-            if (sig_ok and rkey[2:] == (id(fw), aux_shape, self.attempts, self.state_unwinds)
+            if (sig_ok and rkey[2:] == (id(fw), aux_shape, self.clientset.resource_claims_rv,
+                                        self.attempts, self.state_unwinds)
                     and rnom == self._nom_resume_key(head_pod.priority)):
                 state, plan, carry, node_names = payload
                 if rseq == self.cluster_event_seq:
@@ -813,7 +891,8 @@ class TorchScheduler(Scheduler):
         `neutral`: gang sessions stay exact)."""
         nsig = self._neutral_sig(fw, head_pod, sig) if neutral else None
         mode = ("neutral", nsig) if nsig is not None else ("exact", sig)
-        self._resume = (mode + (id(fw), aux_shape, self.attempts, self.state_unwinds),
+        self._resume = (mode + (id(fw), aux_shape, self.clientset.resource_claims_rv,
+                                self.attempts, self.state_unwinds),
                         self.cluster_event_seq,
                         (state, plan, carry, node_names),
                         self._nom_resume_key(head_pod.priority))
@@ -826,7 +905,7 @@ class TorchScheduler(Scheduler):
         nsig = self._neutral_sig(fw, head, sig)
         self._session_neutral_sig = nsig
         volume = self._session_volume  # the head's, from _collect_batch
-        aux_shape = _aux_shape(volume)
+        aux_shape = self._aux_shape(head, volume)
         state, plan, carry, node_names, _kind = self._resume_or_rebuild(fw, head, sig, nsig,
                                                                         volume)
         sd = _SessionDelta(state, carry, self.cluster_event_seq)
@@ -992,7 +1071,9 @@ class TorchScheduler(Scheduler):
         """(fw, sig) when the whole group can ride a gang device session:
         the default algorithm, no nominated pods, members of one profile
         and one signature that the kernels cover, no more than max_batch of
-        them, one attach shape, and claims distinct among the members.
+        them, one attach shape, claims distinct among the members, and no
+        resource claims (a member's device allocation at the commit could
+        fail halfway through the group).
         `session`: the live session's (claims, attach shape), which the
         group must share the shape of (None, no attach limit, included) and
         none of the claims of. Else (None, None)."""
@@ -1010,15 +1091,16 @@ class TorchScheduler(Scheduler):
         if sig is None:
             return None, None
         volumes = [self._volume_support(m.pod) for m in qgpi.members]
-        aux_shape = _aux_shape(volumes[0])
+        aux_shape = self._aux_shape(p0, volumes[0])
         if session is not None and aux_shape != session[1]:
             return None, None  # the live session's plan models one shape
         group_claims: set = set()
         for m, volume in zip(qgpi.members, volumes):
             if (m.pod.scheduler_name != p0.scheduler_name or fw.sign_pod(m.pod) != sig
+                    or m.pod.resource_claims
                     or batch_supported(m.pod, volume) is not None
                     or self._device_unsupported_profile(fw, m.pod) is not None
-                    or _aux_shape(volume) != aux_shape):
+                    or self._aux_shape(m.pod, volume) != aux_shape):
                 return None, None
             for c in self._claims_of(m.pod):
                 if c in group_claims or (session is not None and c in session[0]):
@@ -1043,7 +1125,7 @@ class TorchScheduler(Scheduler):
         sig = fw.sign_pod(head)
         self._session_neutral_sig = None  # gang sessions stay exact-signature
         volume = self._volume_support(head)
-        aux_shape = _aux_shape(volume)
+        aux_shape = self._aux_shape(head, volume)
         self._session_claims = {c for m in first.members for c in self._claims_of(m.pod)}
         state, plan, carry, node_names, _kind = self._resume_or_rebuild(fw, head, sig, None,
                                                                         volume)
@@ -1250,15 +1332,19 @@ class TorchScheduler(Scheduler):
         nominated, for members of differing or uncovered specs or with
         PVC-backed volumes (the simulation does not count a claim two
         members share once), and for a plan outside the restriction
-        invariant."""
+        invariant, and for members with resource claims (the commit
+        allocates their devices from the simulation's DynamicResources
+        state)."""
         host = False
         if self.queue.nominator.has_nominated_pods():
             host = True
         p0 = members[0].pod
         sig = fw.sign_pod(p0)
-        if sig is None or any(fw.sign_pod(m.pod) != sig or self._batch_supported(m.pod) is not None
+        if sig is None or any(fw.sign_pod(m.pod) != sig
+                              or self._batch_supported(fw, m.pod) is not None
                               or self._device_unsupported_profile(fw, m.pod) is not None
-                              or any(v.pvc_name for v in m.pod.volumes) for m in members):
+                              or any(v.pvc_name for v in m.pod.volumes) or m.pod.resource_claims
+                              for m in members):
             host = True
         plan = None
         if not host:
@@ -1341,7 +1427,7 @@ class TorchScheduler(Scheduler):
         candidates will use, so that set-up lands outside a measured window
         (the JAX package's warm_for_placements, :1193-1228)."""
         fw = self.framework_for_pod(pod)
-        if self._batch_supported(pod) is not None:
+        if self._batch_supported(fw, pod) is not None:
             return
         state, plan = self.build_plan(fw, pod, group_size)
         if not self._placement_plan_restriction_invariant(plan):
@@ -1423,25 +1509,79 @@ class TorchScheduler(Scheduler):
                     break
         return out
 
+    def _commit_fast_eligible(self, fw: Framework) -> bool:
+        """True when `fw`'s commit tail is assume and bind for a device pod
+        without DRA state or pod group (the JAX package's :2087-2109): every
+        Reserve and PreBind plugin acts only on the state its PreFilter or
+        Filter wrote (`state_driven_tail`: a device pod's state is fresh, so
+        their runs do nothing), every Permit plugin acts only on gang members
+        (`gang_only`), no PostBind plugin, and DefaultBinder binds alone."""
+        ok = self._fast_tail.get(id(fw))
+        if ok is None:
+            ok = (all(getattr(p, "state_driven_tail", False) for p in fw.reserve_plugins)
+                  and all(getattr(p, "state_driven_tail", False) for p in fw.pre_bind_plugins)
+                  and all(getattr(p, "gang_only", False) for p in fw.permit_plugins)
+                  and not fw.post_bind_plugins
+                  and len(fw.bind_plugins) == 1
+                  and isinstance(fw.bind_plugins[0], DefaultBinder))
+            self._fast_tail[id(fw)] = ok
+        return ok
+
     def _commit(self, fw: Framework, qpi: QueuedPodInfo, node_name: str) -> bool:
         """assume → reserve → permit → bind: the host tail of the scheduling
-        cycle (schedule_one.go:315 onward). A pod a Permit plugin holds
-        (a gang member short of its group's count) parks assumed. False
-        when the host rejected the placement."""
+        cycle (schedule_one.go:315 onward; the JAX package's :2113-2165). A
+        claim pod first runs DynamicResources' PreFilter and Filter on the
+        chosen node alone, which picks its devices; a miss (the carry's
+        count diverged from the live devices) sends it to the host path. A
+        pod a Permit plugin holds (a gang member short of its group's count)
+        parks assumed. False when the host rejected the placement."""
         pod = qpi.pod
         self.attempts += 1
+        dra_state = None
+        if pod.resource_claims:
+            dr = fw.plugin("DynamicResources")
+            if dr is not None:
+                dra_state = CycleState()
+                ni = self.snapshot.get(node_name)
+                _r, st = dr.pre_filter(dra_state, pod, [ni] if ni is not None else [])
+                if st.is_success() and ni is not None:
+                    st = dr.filter(dra_state, pod, ni)
+                if ni is None or not st.is_success():
+                    self.host_path_pods += 1
+                    self.process_one(qpi)
+                    return False
+        if dra_state is None and not pod.pod_group and self._commit_fast_eligible(fw):
+            # The lean tail: what the full tail below leaves for this
+            # profile (the plugin runs it skips do nothing on a fresh state).
+            pod.node_name = node_name
+            self.cache.assume_pod(pod, qpi.pod_info)
+            st = fw.bind_plugins[0].bind(_EMPTY_STATE, pod, node_name)
+            if st.is_success():
+                nom = self.queue.nominator
+                if nom.has_nominated_pods():
+                    nom.delete_nominated_pod(pod)
+                self.scheduled += 1
+                self.device_scheduled += 1
+                self.queue.done(pod.uid)
+                return True
+            self._unwind_binding(fw, CycleState(), qpi, node_name, st)
+            self.queue.done(pod.uid)
+            return False
+        state = dra_state if dra_state is not None else CycleState()
         pod.node_name = node_name
         self.cache.assume_pod(pod, qpi.pod_info)
-        state = CycleState()
         st = fw.run_reserve_plugins_reserve(state, pod, node_name)
         if st.is_success():
             st = fw.run_permit_plugins(state, pod, node_name)
-        if st.code == WAIT:
-            # Parked assumed on the node: the carry stays right.
-            self.park_waiting_pod(fw, state, qpi, ScheduleResult(suggested_host=node_name))
-            self.queue.done(pod.uid)
-            return True
-        if st.is_rejected():
+            if st.code == WAIT:
+                # Parked assumed on the node: the carry stays right.
+                self.park_waiting_pod(fw, state, qpi, ScheduleResult(suggested_host=node_name))
+                self.queue.done(pod.uid)
+                return True
+            failed = st.is_rejected()  # a Permit error goes on to the binding cycle
+        else:
+            failed = True
+        if failed:
             fw.run_reserve_plugins_unreserve(state, pod, node_name)
             self.cache.forget_pod(pod)
             pod.node_name = ""

@@ -32,7 +32,11 @@ A pod whose PVC-backed volumes impose one counted CSI attach limit
 row, the attachments the driver's CSINode limit leaves (`AUX_BIG` on a row
 without a limit), `aux_inc` the attachments one pod adds, and the plan's
 `has_aux` turns on the kernels' `aux_cnt` lane, which counts each
-landing's attachments against the row's room.
+landing's attachments against the row's room. A claim-template pod under
+a profile with DynamicResources (dra_device_support: one unallocated,
+unshared claim of one request) rides the same lane: `aux_room` is the
+row's free devices that the request matches
+(count_free_matching_devices), `aux_inc` the request's count.
 
 `BatchFeatures` keeps every field of the JAX package's BatchFeatures, in its
 order and dtypes, so the two can be fed identical inputs.
@@ -42,12 +46,14 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..api import resource as res
+from ..api.dra import compile_device_expression
 from ..api.storage import RWOP
 from ..api.types import (
     DO_NOT_SCHEDULE,
@@ -61,6 +67,7 @@ from ..core.framework import Diagnosis, Status
 from ..core.node_info import NodeInfo, PodInfo
 from ..core.scheduler import num_feasible_nodes_to_find
 from ..plugins.basic import UNSCHED_TAINT, ImageLocality, host_ports_conflict
+from ..plugins.dynamicresources import class_selectors, matching_devices
 from ..plugins.extras import required_features
 from ..plugins.helpers import compile_terms
 from ..plugins.podtopologyspread import _compile_constraints, _count_pods_matching
@@ -282,16 +289,74 @@ def volume_device_support(pod: Pod, clientset, pvc_refs=None,
     return NO_VOLUMES
 
 
-def batch_supported(pod: Pod, volume=None) -> Optional[str]:
+NO_CLAIMS = (None, None, 0)  # dra_device_support of a pod without resource claims
+
+
+def dra_device_support(pod: Pod, clientset,
+                       session_claims=None) -> Tuple[Optional[str], Optional[tuple], int]:
+    """(reason, claim shape, devices) for a pod's resource claims (the JAX
+    package's :278-315). The reason is None for the claim-template shape:
+    exactly one claim, unallocated, reserved for no pod, with one request,
+    in a cluster without devices that consume node allocatable (a second
+    constraint the count cannot model), and not taken by a pod of the
+    session (`session_claims` holds "dra:<ns>/<name>" keys). The kernels
+    then count the row's free matching devices (the aux lane) and the host
+    commit picks the devices on the chosen node. The shape (device class,
+    count, selectors, expression) is what every pod of a session shares."""
+    names = pod.resource_claims
+    if not names:
+        return NO_CLAIMS
+    if clientset is None or len(names) != 1:
+        return "dynamic resource claims", None, 0
+    key = f"{pod.namespace}/{names[0]}"
+    claim = clientset.resource_claims.get(key)
+    if claim is None:
+        return "resource claim not found", None, 0
+    if claim.allocated or claim.reserved_for:
+        return "allocated resource claim", None, 0
+    if clientset.has_consuming_devices:
+        return "node-allocatable-consuming devices", None, 0
+    if session_claims is not None and f"dra:{key}" in session_claims:
+        return "claim shared within session", None, 0
+    if len(claim.requests) != 1:
+        return "multi-request claim", None, 0
+    r = claim.requests[0]
+    shape = (r.device_class, r.count, tuple(sorted(r.selectors.items())), r.expression)
+    return None, shape, int(r.count)
+
+
+def count_free_matching_devices(clientset, node_name: str, shape, dra_in_use) -> int:
+    """The devices on `node_name` that the claim shape matches and no
+    allocation or assumption holds: a row's aux_room under a DRA plan (the
+    per-device predicate of DynamicResources.filter)."""
+    device_class, _count, sel_items, expression = shape
+    return sum(1 for _ in matching_devices(
+        node_name, clientset.resource_slices.get(node_name, ()),
+        class_selectors(clientset, device_class, sel_items),
+        _compiled_expr(expression) if expression else None, dra_in_use))
+
+
+@lru_cache(maxsize=256)
+def _compiled_expr(expression: str):
+    """Compiled selectors by expression (bounded: a long-lived process may
+    see many claim shapes)."""
+    return compile_device_expression(expression)
+
+
+def batch_supported(pod: Pod, volume=None, dra=None) -> Optional[str]:
     """A reason string when the pod must take the host path, else None: a
     pod with a nominated node takes the host's fast path to it; matchFields
     metadata.name pins narrow the node list in PreFilter (node_affinity.go),
     which the kernels' full-cluster rotation cannot reproduce — and the
-    narrowed universe is tiny; and volumes that volume_device_support does
-    not admit need the stateful host plugins. `volume`: the pod's
+    narrowed universe is tiny; volumes that volume_device_support does
+    not admit need the stateful host plugins, and so do claims that
+    dra_device_support does not admit, or admits beside an attach limit
+    (the lane counts one constraint). `volume`: the pod's
     volume_device_support triple, which the caller computes against live
     claim state (None: no storage context, so PVC-backed volumes take the
-    host path)."""
+    host path). `dra`: its dra_device_support triple under a profile with
+    DynamicResources; None under one without, where claims are inert and
+    the pod batches as plain (the JAX package's :384-388)."""
     if pod.nominated_node_name:
         return "nominated node fast path"
     na = pod.affinity.node_affinity if pod.affinity is not None else None
@@ -299,7 +364,14 @@ def batch_supported(pod: Pod, volume=None) -> Optional[str]:
         if any(t.match_fields for t in na.required.terms):
             return "node-affinity metadata.name narrowing"
     if pod.volumes:
-        return (volume or volume_device_support(pod, None))[0]
+        volume = volume or volume_device_support(pod, None)
+        if volume[0] is not None:
+            return volume[0]
+    if dra is not None and pod.resource_claims:
+        if dra[0] is not None:
+            return dra[0]
+        if dra[2] and volume is not None and volume[1] and volume[2]:
+            return "volume and DRA counted constraints together"
     return None
 
 
@@ -330,7 +402,7 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
                 extra_filters: Optional[Dict[str, bool]] = None,
                 hard_pod_affinity_weight: int = 1,
                 ignore_preferred_terms_of_existing_pods: bool = False,
-                fit_plugin=None, clientset=None, volume=None,
+                fit_plugin=None, clientset=None, volume=None, dra_in_use=None,
                 nominated=None) -> BatchPlan:
     """Build kernel inputs for a batch of `batch_size` pods identical to
     `pod`. `mirror` must already be synced to `snapshot`; `ns_labels_fn(ns)`
@@ -340,13 +412,22 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
     `volume`: the pod's volume_device_support triple (None: no storage
     context); a pod with an attach-limited CSI driver gets its aux lane,
     whose room per row reads `clientset`'s CSINodes, claims and volumes.
+    `dra_in_use`: the devices DynamicResources holds allocated or assumed,
+    under a profile with the plugin (None: without, claims inert); a
+    claim-template pod gets the aux lane over the rows' free matching
+    devices in place of any attach limit.
     `nominated`: [(snapshot row, PodInfo)] of the nominated pods whose
     priority is at least `pod`'s (the caller filters them, and sends pods
     that a nominated pod could affect beyond resources to the host)."""
-    reason = batch_supported(pod, volume)
+    dra = (dra_device_support(pod, clientset)
+           if dra_in_use is not None and pod.resource_claims else None)
+    reason = batch_supported(pod, volume, dra)
     if reason:
         raise Unsupported(reason)
     _r, aux_driver, aux_inc = volume or NO_VOLUMES
+    dra_shape = dra[1] if dra is not None else None
+    if dra_shape is not None and dra[2]:
+        aux_driver, aux_inc = "", 0  # the DRA room replaces the attach room
     nodes: List[NodeInfo] = snapshot.node_info_list
     n = len(nodes)
     i32, i64 = np.int32, np.int64
@@ -667,10 +748,17 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
         nom_req[row] += _resource_vec(mirror, nr)
         nom_pods[row] += 1
 
-    # -- counted aux constraint: a CSI driver's attach room (csi.go) -------
+    # -- counted aux constraint: DRA free devices, or a CSI driver's attach
+    # room (csi.go) --------------------------------------------------------
     aux_room = np.full(npc, AUX_BIG, i32)
-    has_aux = bool(aux_driver and aux_inc)
+    has_aux = dra_shape is not None
     if has_aux:
+        for r_i, ni in enumerate(nodes):
+            aux_room[r_i] = count_free_matching_devices(clientset, ni.name, dra_shape,
+                                                        dra_in_use)
+        aux_inc = dra_shape[1]
+    if aux_driver and aux_inc:
+        has_aux = True
         driver_of: Dict[str, Optional[str]] = {}
 
         def claim_driver(key: str) -> Optional[str]:

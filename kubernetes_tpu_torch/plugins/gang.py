@@ -19,6 +19,9 @@ from ..core.framework import OK, WAIT, CycleState, Status
 
 class GangScheduling:
     name = "GangScheduling"
+    # Permit acts on pod-group members only: the device commit's lean tail
+    # (which pod-group members never take) may skip it.
+    gang_only = True
 
     def __init__(self, handle=None, timeout_seconds: float = 60.0, now=time.monotonic):
         self.handle = handle

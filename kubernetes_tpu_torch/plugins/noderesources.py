@@ -76,6 +76,7 @@ class Fit:
     scoring strategies."""
 
     name = "NodeResourcesFit"
+    _KEY = "PreFilterNodeResourcesFit"
 
     def __init__(self, scoring_strategy: str = LEAST_ALLOCATED,
                  resources: Sequence[Dict] = DEFAULT_RESOURCES):
@@ -85,6 +86,35 @@ class Fit:
                 "kubernetes_tpu_torch covers")
         self.scoring_strategy = scoring_strategy
         self.resources = tuple(resources)
+        self._dra = None  # set_framework: DynamicResources backing extended resources
+
+    def set_framework(self, fw) -> None:
+        """Extended resources that a DeviceClass maps are DynamicResources'
+        to satisfy when its extended-resources branch is on (fit.go with
+        extendeddynamicresources.go; the JAX package's DRAExtendedResource
+        gate): the fit request then leaves them out."""
+        dr = fw.plugin("DynamicResources")
+        self._dra = dr if dr is not None and dr.extended_resources else None
+
+    def _request(self, state: CycleState, pod: Pod) -> Resource:
+        req = state.read(self._KEY) if self._dra is not None else None
+        return pod.resource_request() if req is None else req
+
+    def _effective_request(self, pod: Pod) -> Resource:
+        """The pod's request without the extended resources a DeviceClass
+        maps (DynamicResources.filter checks the device plugin against DRA
+        split a node, so dropping them here is exact)."""
+        req = pod.resource_request()
+        if not req.scalar_resources:
+            return req
+        strip = {dc.extended_resource_name for dc in self._dra.handle.device_classes.values()
+                 if dc.extended_resource_name} & set(req.scalar_resources)
+        if not strip:
+            return req
+        eff = req.clone()
+        for name in strip:
+            eff.scalar_resources.pop(name, None)
+        return eff
 
     def events_to_register(self):
         """fit.go EventsToRegister: node add/update when the node could hold
@@ -106,10 +136,12 @@ class Fit:
 
     def pre_filter(self, state: CycleState, pod: Pod,
                    nodes) -> Tuple[Optional[PreFilterResult], Status]:
+        if self._dra is not None:
+            state.write(self._KEY, self._effective_request(pod))
         return None, OK
 
     def filter(self, state: CycleState, pod: Pod, node_info: NodeInfo) -> Status:
-        insufficient = fits_request(pod.resource_request(), node_info)
+        insufficient = fits_request(self._request(state, pod), node_info)
         if insufficient:
             reasons = tuple(f"Insufficient {name}" for name, _ in insufficient)
             if any(u for _, u in insufficient):
@@ -118,7 +150,7 @@ class Fit:
         return OK
 
     def score(self, state: CycleState, pod: Pod, node_info: NodeInfo) -> int:
-        req = pod.resource_request()
+        req = self._request(state, pod)
         node_score = 0
         weight_sum = 0
         for spec in self.resources:

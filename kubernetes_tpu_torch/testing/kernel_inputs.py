@@ -257,19 +257,21 @@ def with_nominated_lane(feats: tuple, lane: Tuple[np.ndarray, np.ndarray]) -> tu
     return tuple(f[name] for name in _F)
 
 
-def aux_lane(seed: int, np_cap: int, num_nodes: int,
-             unlimited: float = 0.1) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+def aux_lane(seed: int, np_cap: int, num_nodes: int, unlimited: float = 0.1,
+             max_room: int = 3, max_inc: int = 2) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(aux_room [np_cap] i32, aux_inc i32 scalar, aux_cnt [np_cap] i32) of
-    the counted attach-limit lane: a room of 0 to 3 attachments a live row
-    (about `unlimited` of them without a limit: 1 << 30), an increment of 1
-    or 2, and a carry count of 0 to 2 attachments already taken (a row may
-    start over its room)."""
+    the counted aux lane: a room of 0 to `max_room` a live row (about
+    `unlimited` of them without a limit: 1 << 30), an increment of 1 to
+    `max_inc`, and a carry count of 0 to 2 already taken (a row may start
+    over its room). The defaults draw a CSI attach limit's lane; rooms of 0
+    to 8 and increments of 1 to 4 with nothing unlimited draw a DRA claim
+    shape's (free matching devices, devices a pod)."""
     rng = np.random.default_rng(seed + 65537)
     live = np.arange(np_cap) < num_nodes
-    room = rng.integers(0, 4, np_cap)
+    room = rng.integers(0, max_room + 1, np_cap)
     room = np.where(live & (rng.random(np_cap) < unlimited), 1 << 30, room).astype(np.int32)
     cnt = np.where(live, rng.integers(0, 3, np_cap), 0).astype(np.int32)
-    return room, np.array(int(rng.integers(1, 3)), np.int32), cnt
+    return room, np.array(int(rng.integers(1, max_inc + 1)), np.int32), cnt
 
 
 def with_aux_lane(feats: tuple, room: np.ndarray, inc: np.ndarray) -> tuple:

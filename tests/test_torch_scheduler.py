@@ -201,23 +201,53 @@ class TestScope:
         # re-run on the host for its diagnosis).
         assert port.scheduled > 0 and port.device_scheduled == port.scheduled
 
-    @pytest.mark.parametrize("build", [
-        lambda b: b.resource_claim("gpu"),
-        lambda b: b.pod_group("gang"),
-    ], ids=["claims", "pod-groups"])
-    def test_out_of_scope_pod_refused(self, build):
-        # Pod groups are in scope since the gang slice; a group inside a
-        # composite tree (a parent composite group) is not, so the
-        # pod-groups case registers its pod's group as such a leaf. Volumes
-        # are in scope with the volume plugins; resource claims are not.
-        s = TorchScheduler(device="cpu")
-        pod = build(make_pod().name("p").req({"cpu": "1"})).obj()
-        with pytest.raises(NotImplementedError):
-            if pod.pod_group:
+    @pytest.mark.parametrize("case", ["claims", "pod-groups"])
+    def test_out_of_scope_pod_refused(self, case):
+        """A pod group inside a composite tree (a parent composite group) is
+        refused. Resource claims were refused too until DynamicResources
+        was ported: the claims case now holds a claim pod admitted and
+        scheduled as in the JAX package, under its default profile (claims
+        inert) and under one with DynamicResources (the claim allocated)."""
+        if case == "pod-groups":
+            s = TorchScheduler(device="cpu")
+            pod = make_pod().name("p").req({"cpu": "1"}).pod_group("gang").obj()
+            with pytest.raises(NotImplementedError):
                 s.clientset.create_pod_group(PodGroup(name=pod.pod_group, parent_name="tree"))
-            s.clientset.create_pod(pod)
-        assert not s.clientset.pods and s.queue.pending_counts() == (0, 0, 0)
-        assert not s.clientset.pod_groups
+                s.clientset.create_pod(pod)
+            assert not s.clientset.pods and s.queue.pending_counts() == (0, 0, 0)
+            assert not s.clientset.pod_groups
+            return
+        from kubernetes_tpu.api import dra as jax_dra
+        from kubernetes_tpu.core.registry import DEFAULT_PLUGINS, build_framework
+        from kubernetes_tpu_torch.api import dra
+        from kubernetes_tpu_torch.core.registry import dra_profile
+
+        plugins = DEFAULT_PLUGINS + (("NodeDeclaredFeatures", 0), ("DynamicResources", 0))
+        for with_dra in (False, True):
+            jax_s = TPUScheduler(mesh=None, **({"profile_factory": lambda h: {
+                "default-scheduler": build_framework(h, plugins=plugins)}} if with_dra else {}))
+            jax_s._hints.enabled = False
+            jax_s._hints.entry = None
+            port = TorchScheduler(device="cpu",
+                                  **({"profile_factory": dra_profile} if with_dra else {}))
+            for s, mk_node, mk_pod, api in ((jax_s, jax_make_node, jax_make_pod, jax_dra),
+                                            (port, make_node, make_pod, dra)):
+                for i in range(3):
+                    s.clientset.create_node(mk_node().name(f"n{i}").capacity(
+                        {"cpu": 4, "pods": 10}).obj())
+                s.clientset.create_resource_slice(api.ResourceSlice(
+                    node_name="n2", driver="gpu.x", devices=[api.Device(name="d0")]))
+                s.clientset.create_resource_claim(api.ResourceClaim(
+                    name="gpu", requests=[api.DeviceRequest(count=1)]))
+                pod = mk_pod().name("p").req({"cpu": "1"}).obj()
+                pod.resource_claims.append("gpu")
+                s.clientset.create_pod(pod)
+                s.run_until_idle()
+            _assert_same(jax_s, port)
+            claims = [s.clientset.resource_claims["default/gpu"] for s in (jax_s, port)]
+            assert [(c.allocated_node, len(c.allocations)) for c in claims] == [
+                ("n2", 1) if with_dra else ("", 0)] * 2
+            assert port.scheduled == port.device_scheduled == 1
 
     @pytest.mark.parametrize("build,bound,claim", [
         (lambda b: b.host_port(8080), 3, None),
