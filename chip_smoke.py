@@ -102,18 +102,26 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                cannot reach), each raising. Results must be
                exactly equal on every output and carry lane. It also times scan_general's first
                launch in the process against the next;
-  3. paths   — each through TorchScheduler on cuda at full width, the
-               launch counts zeroed just before each drive and read just
-               after:
+  3. paths   — each through TorchScheduler on cuda at full width, on the
+               port's default path there (score hints off on a card; each
+               cpu twin runs the same path), the launch counts zeroed just
+               before each drive and read just after:
                TopologySpreading/5000Nodes_5000Pods, the main path of the
                first slices (5000 nodes of 32 cpu / 256Gi / 110 pods across
                50 zones, 1000 warm pods, then 5000 pods under a hard zone
                spread): every pod bound, zone skew of the spread pods <= 1,
                no host-path pod, scan_general launched;
                SchedulingBasic/5000Nodes_10000Pods (1024 warm-up pods,
-               10000 measured): every pod bound, the lap launched, and a
-               small-batch drive (max_batch 64: 40 pods, the scan path)
-               that must launch scan_general;
+               10000 measured): every pod bound, the lap launched;
+               HomogeneousReplicaSurge/5000Nodes_10000Replicas (512 init
+               pods, then 10000 measured, all 100m/128Mi app: web-frontend,
+               with the score-hint walker on, the launch counts zeroed
+               before the init pods): every pod
+               bound, the seeding session's lap launched and each of its
+               dispatches timed on the card's clock, the window's hint hit
+               rate at least 0.9, pods/s, hits and the window's dispatches
+               printed; and a small-batch drive (max_batch 64: 40 pods, the
+               scan path) that must launch scan_general;
                PreferredTopologySpreading/5000Nodes_5000Pods: every pod
                bound;
                SchedulingPodAntiAffinity/5000Nodes_2000Pods: every pod
@@ -122,12 +130,16 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                all in one zone;
                PreemptionAsync/5000Nodes (5000 nodes of 4 cpu, 2000
                priority-1 pods, 1000 priority-100 pods, which find empty
-               nodes: nothing is preempted in this shape): every pod bound,
-               the lap launched, no host-path pod;
+               nodes: nothing is preempted in this shape):
+               every pod bound, the lap launched, no host-path pod;
                Unschedulable/5kNodes/100Init/10kPods with the churner run
                for CHURN_PODS 900-cpu priority-1000 pods: all 10000 measured
                pods bound, every churn pod unschedulable and not nominated,
-               dry_run_preemption launched once per churn pod's attempt;
+               each diagnosed with one dry_run_preemption launch or parked
+               from the failure memo; Unschedulable/5kNodes/20kInit/10kPods
+               the same with 20000 init pods, all but the first parked from
+               the memo, the init flood's seconds, the window's memo hits,
+               host-path pods and commit seconds printed;
                the preempting case (PreemptionAsync's templates with one
                priority-1 4-cpu pod on each of the 5000 nodes, then 256
                priority-100 4-cpu preemptors): every preemptor bound on the
@@ -320,7 +332,20 @@ Phases, in order; any error or mismatch exits non-zero before the result:
                20Nodes_40Pods cut and with more pods than devices (20 nodes
                of 2 devices, 60 pods): bindings, claim allocations, failure,
                queue, device-pod and host-path counts equal;
-  6. output  — a `{"kernels": [...]}` line, the card's name and power limit
+  6. hints   — the score-hint walker: the surge's 500Nodes_2000Replicas cut
+               and the churned replica drive (500 nodes, 128 seed replicas,
+               24 seeded rounds of replica waves, NoSchedule taints and
+               lifts, capacity drift, bound-pod deletes and floods of pods
+               that fit nowhere) on cuda with hints on, on cuda with hints
+               off and on the cpu with hints on: bindings, scheduled,
+               failure and queue counts identical; then
+               SchedulingBasic/5000Nodes_10000Pods and the surge at full
+               width with hints on and off in turns (HINT_TURNS rounds):
+               pods/s, window seconds, hits, dispatches, commit and walker
+               seconds of each run; Unschedulable/5kNodes/20kInit/10kPods
+               with hints on: memo and hint hits, commit and session-end
+               seconds (the init pods' entry resynced at every install);
+  7. output  — a `{"kernels": [...]}` line, the card's name and power limit
                as nvidia-smi prints them, and last
                `{"ok": true, "device": {...}}`.
 
@@ -342,6 +367,7 @@ than N), or without the rest of the repository beside it, it exits
 non-zero with no result.
 """
 
+import gc
 import json
 import os
 import random
@@ -358,10 +384,15 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
 PEAK_OPS_PER_S = 67e12      # H100 SXM fp32 rate outside the tensor cores; the
                             # integer ALU rate is no higher, so ops/this rate
                             # stays a lower bound on the time
-CHURN_PODS = 10             # churn pods of the Unschedulable drive
+CHURN_PODS = 10             # churn pods of the Unschedulable drives
 PREEMPTORS = 256            # preemptors of the full-width preempting case
 PREEMPT = "PreemptionAsync/5000Nodes"
 UNSCHED = "Unschedulable/5kNodes/100Init/10kPods"
+UNSCHED20K = "Unschedulable/5kNodes/20kInit/10kPods"
+SURGE = "HomogeneousReplicaSurge/5000Nodes_10000Replicas"
+SURGE_CUT = "HomogeneousReplicaSurge/500Nodes_2000Replicas"
+HINT_CHURN = "churned replica drive (500 nodes, 128 seed replicas, 24 seeded rounds)"
+HINT_TURNS = 2              # rounds of the hints-on / hints-off comparison
 GANGS = "SchedulingGangs/1000Nodes_250Groups"
 PLACE = "SchedulingGangsPlacement/5000Nodes_250Groups"
 PLACE1K = "SchedulingGangsPlacement/1000Nodes_250Groups"
@@ -1284,25 +1315,69 @@ def zone_of(node: str) -> int:
     return int(node.split("-")[1]) % 50
 
 
+def frozen(fn):
+    """fn() with everything alive before it moved out of the garbage
+    collector's reach (gc.freeze, as ab_windows.py --freeze does): a window
+    of a few hundred ms otherwise takes the full collections of every
+    object that earlier drives left alive. Returns (fn's result, seconds
+    the collector ran during it)."""
+    gc.collect()
+    gc.freeze()
+    spent = [0.0, 0.0]
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            spent[1] = time.perf_counter()
+        else:
+            spent[0] += time.perf_counter() - spent[1]
+    gc.callbacks.append(on_gc)
+    try:
+        return fn(), spent[0]
+    finally:
+        gc.callbacks.remove(on_gc)
+        gc.unfreeze()
+
+
+def card_path(device, score_hints=None) -> dict:
+    """TorchScheduler options for a drive on `device`: `score_hints` where
+    the drive sets it, else the card's default path on either device. The
+    default serves the score-hint walker on the cpu and dispatches on a card
+    (the faster of the two there), so a cpu twin of a card drive turns the
+    walker off to run the path it is held against."""
+    if score_hints is None and torch.device(device).type != "cuda":
+        score_hints = False
+    return {} if score_hints is None else {"score_hints": score_hints}
+
+
 def run_path(dev, workload: str, n_init=None, n_measure=None, max_batch=None,
-             churn_limit=None, label=None, mesh="auto"):
+             churn_limit=None, label=None, mesh="auto", score_hints=None, freeze=False):
     """Build the workload's 5000-node cluster, warm it (n_init init or
     warm-up pods), then run n_measure measured pods with the launch counts
     zeroed just before and read just after. A `label` names a run that is
-    not the workload itself (bench.measure)."""
+    not the workload itself (bench.measure). `score_hints` None takes the
+    card's default path on either device (card_path); `freeze` runs the window under
+    frozen() and adds its collector seconds (`gc_s`). The detail gains
+    `warm_s`, the seconds of the warm-up (init pods included), and
+    `warm_memo_hits`."""
     from kubernetes_tpu_torch import bench
     from kubernetes_tpu_torch.ops import kernel as K
 
     w = bench.WORKLOADS[workload]
     sched = bench.build_cluster(bench.NODES.get(workload, 5000), device=dev, max_batch=max_batch,
-                                node=w.node, mesh=mesh)
+                                node=w.node, mesh=mesh, **card_path(dev, score_hints))
+    t0 = time.perf_counter()
     bench.warm(sched, w.init_pods if n_init is None else n_init, workload)
+    warm_s, warm_memo = time.perf_counter() - t0, sched.memo_hits
     flushes0 = sched.mirror.scatter_flushes
     K.reset_launch_counts()
-    result = bench.measure(sched, w.measure_pods if n_measure is None else n_measure,
-                           workload=workload, churn_limit=churn_limit, label=label)
+
+    def window():
+        return bench.measure(sched, w.measure_pods if n_measure is None else n_measure,
+                             workload=workload, churn_limit=churn_limit, label=label)
+    result, gc_s = frozen(window) if freeze else (window(), None)
     launches = {k.__name__: k.launches for k in K.WRAPPERS}
     launches["scatter_flushes"] = sched.mirror.scatter_flushes - flushes0
+    result["detail"].update(warm_s=warm_s, warm_memo_hits=warm_memo, gc_s=gc_s)
     print(f"path {label or workload}: {json.dumps(result)}", flush=True)
     return sched, result, launches
 
@@ -1354,13 +1429,13 @@ def lane_drive(dev, n_nodes: int = 5000, n_pre: int = 64, n_free: int = 512, n_o
     on a nominated node (each is empty, so only the lane keeps them off),
     and leave n_over unschedulable. Then every preemptor binds on its
     nominated node. The launch counts are zeroed just before the
-    lower-priority session and read just after it. Returns the scheduler,
-    the counts and (device state, plan) of the lower-priority session."""
+    lower-priority session and read just after it. Returns the scheduler, the counts and
+    (device state, plan) of the lower-priority session."""
     from kubernetes_tpu_torch import bench
     from kubernetes_tpu_torch.ops import kernel as K
 
     w = bench.WORKLOADS[PREEMPT]
-    sched = bench.build_cluster(n_nodes, device=dev, node=w.node)
+    sched = bench.build_cluster(n_nodes, device=dev, node=w.node, **card_path(dev))
     bench.warm(sched, n_nodes, PREEMPT)
     clock, t_hold = sched.queue.now, sched.queue.now()
     sched.queue.now = lambda: t_hold
@@ -1450,7 +1525,7 @@ def wave_drive(dev, resume: bool = True, n_nodes: int = 5000, warm_pods: int = 1
     from kubernetes_tpu_torch.ops.device_state import patch_tier
 
     rng = random.Random(2024)
-    sched = bench.build_cluster(n_nodes, device=dev, resume=resume)
+    sched = bench.build_cluster(n_nodes, device=dev, resume=resume, **card_path(dev))
     bench.warm(sched, warm_pods)
     check(sched.plan_rebuilds_full == 1, f"{WAVES}: the warm pods took {sched.plan_rebuilds_full} "
           "full rebuilds, not 1")
@@ -1573,7 +1648,7 @@ def nsselector_drive(dev, n_nodes: int = 6000, resume: bool = True, init_only: b
     w = bench.WORKLOADS[NSSEL]
     n_init = w.init_pods if n_init is None else n_init
     n_measure = w.measure_pods if n_measure is None else n_measure
-    sched = bench.build_cluster(n_nodes, device=dev, resume=resume)
+    sched = bench.build_cluster(n_nodes, device=dev, resume=resume, **card_path(dev))
     bench.warm(sched, n_init, NSSEL)
     init_plans = sched.plan_rebuilds_full + sched.plan_rebuilds_delta + sched.plan_rebuilds_resume
     init = [p for p in sched.clientset.pods.values() if p.namespace.startswith("init-ns-")]
@@ -1624,7 +1699,8 @@ def gang_drive(dev, n_groups: int = 250, n_nodes: int = 1000, capture=None, max_
     from kubernetes_tpu_torch.ops import kernel as K
 
     w = bench.WORKLOADS[GANGS]
-    sched = bench.build_cluster(n_nodes, device=dev, node=w.node, max_batch=max_batch)
+    sched = bench.build_cluster(n_nodes, device=dev, node=w.node, max_batch=max_batch,
+                                **card_path(dev))
     bench.warm(sched, 0, GANGS)
     if capture is not None:
         capture_first_dispatch(sched, capture, path="scan")
@@ -1663,7 +1739,7 @@ def placement_drive(dev, n_groups: int = 250, capture=None, workload: str = PLAC
 
     w = bench.WORKLOADS[workload]
     sched = bench.build_cluster(bench.NODES.get(workload, 5000), device=dev, node=w.node,
-                                profile_factory=bench.profile_for(workload))
+                                profile_factory=bench.profile_for(workload), **card_path(dev))
     bench.warm(sched, 0, workload)
     launch = TS.schedule_placements
 
@@ -1784,11 +1860,240 @@ def check_preempting(sched, result, what: str) -> None:
     check(not sched.queue.nominator.has_nominated_pods(), f"{what}: nominations left")
 
 
+def lap_marks(sched) -> list:
+    """Bracket each of `sched`'s dispatches with CUDA events (on the card;
+    nothing on the CPU): the list gains (start, end, active pods) a
+    dispatch. Delete sched._dispatch to stop."""
+    marks = []
+    inner = sched._dispatch
+
+    def timed(state, plan, n_active, carry):
+        if sched.device.type != "cuda":
+            return inner(state, plan, n_active, carry)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = inner(state, plan, n_active, carry)
+        b.record()
+        marks.append((a, b, n_active))
+        return out
+    sched._dispatch = timed
+    return marks
+
+
+def surge_drive(dev, n_nodes: int = 5000, n_init: int = 512, n_measure: int = 10000,
+                score_hints: bool = True, label=None, quiet: bool = False, freeze: bool = False):
+    """HomogeneousReplicaSurge/5000Nodes_10000Replicas (bench.WORKLOADS[SURGE]:
+    5000 nodes of 32 cpu / 256Gi / 110 pods over 50 zones, n_init init pods
+    and n_measure measured pods, all 100m/128Mi labelled app: web-frontend).
+    The launch counts are zeroed before the init pods, whose session seeds
+    the score hint, and read after the measured window. Each dispatch of the
+    seeding session is timed on the card's clock (lap_marks). With hints on
+    every pod binds, none on the host path, and the window's hit rate is at
+    least the shape's floor (0.9). `score_hints` True by default here: the
+    drive measures the walker, which a card runs only when asked (the port's
+    default there is the dispatch path, which hints_phase runs beside it).
+    `freeze`: the window under frozen()."""
+    from kubernetes_tpu_torch import bench
+    from kubernetes_tpu_torch.ops import kernel as K
+
+    sched = bench.build_cluster(n_nodes, device=dev, score_hints=score_hints)
+    sched.warm_for(bench.make_pods(1, "warmshape", SURGE)[0])
+    marks = lap_marks(sched)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    bench.create_pods(sched, bench.init_pods(n_init, SURGE), SURGE)
+    sched.run_until_idle()
+    if sched.device.type == "cuda":
+        torch.cuda.synchronize(sched.device)
+    seed_s = time.perf_counter() - t0
+    del sched._dispatch
+    laps = [(a.elapsed_time(b), n) for a, b, n in marks if n]
+
+    def window():
+        return bench.measure(sched, n_measure, workload=SURGE, label=label)
+    result, gc_s = frozen(window) if freeze else (window(), None)
+    launches = {k.__name__: k.launches for k in K.WRAPPERS}
+    d = result["detail"]
+    d.update(seed_s=seed_s, seed_dispatch_ms=[ms for ms, _n in laps],
+             seed_dispatch_pods=[n for _ms, n in laps], gc_s=gc_s)
+    what = label or SURGE
+    if not quiet:
+        print(f"path {what}: {json.dumps(result)}", flush=True)
+    total = n_init + n_measure
+    check(len(sched.clientset.bindings) == len(sched.clientset.pods) == total
+          and d["failures"] == 0 and d["host_path_pods"] == 0,
+          f"{what}: {len(sched.clientset.bindings)} of {total} bound, failures "
+          f"{d['failures']}, host path {d['host_path_pods']}")
+    if score_hints:
+        floor = bench.WORKLOADS[SURGE].hint_floor
+        check(d["hint_hit_rate"] >= floor, f"{what}: hint hit rate {d['hint_hit_rate']:.4f} "
+              f"under the floor {floor}")
+        if sched.device.type == "cuda":
+            check(laps and launches["lap_schedule"] > 0 and launches["static_masks"] > 0,
+                  f"{what}: the seeding session launched no lap")
+    if not quiet:
+        print(f"{what}: {result['value']:.1f} pods/s (floor {bench_threshold(SURGE)}), window "
+              f"{d['elapsed_s']:.4f} s, hint hits {d['hint_hits']} of {d['scheduled']} "
+              f"(rate {d.get('hint_hit_rate', 0.0):.4f}, floor "
+              f"{bench.WORKLOADS[SURGE].hint_floor}), {d['device_batches']} device dispatches "
+              f"in the window, hint_s {d['hint_s']:.4f}; the seeding session: {len(laps)} "
+              f"dispatches of {[n for _ms, n in laps]} pods, "
+              f"{', '.join(f'{ms:.4f}' for ms, _n in laps)} ms on the card's clock, "
+              f"{seed_s:.3f} s in all", flush=True)
+    return sched, result, launches
+
+
+def check_unschedulable(name: str, sched, result, launches) -> None:
+    """An Unschedulable drive's window: every measured pod bound, every
+    churn pod unschedulable and not nominated, and each churn pod either
+    diagnosed (a PostFilter attempt with one dry_run_preemption launch) or
+    parked from the failure memo (an identical churn pod against the same
+    state before it)."""
+    d = result["detail"]
+    pods = list(sched.clientset.pods.values())
+    measured = [p for p in pods if p.name.startswith("bench-")]
+    churn = [p for p in pods if p.name.startswith("churn-")]
+    check(len(measured) == 10000 and all(p.node_name for p in measured),
+          f"{name}: not every measured pod bound")
+    check(len(churn) == CHURN_PODS == d["churn_pods"]
+          and not any(p.node_name or p.nominated_node_name for p in churn),
+          f"{name}: a churn pod was bound or nominated")
+    tries = d["preemption"]["attempts"]
+    print(f"{name}: {CHURN_PODS} churn pods, {tries} PostFilter attempts, "
+          f"{launches['dry_run_preemption']} dry_run_preemption launches, {d['memo_hits']} "
+          f"parked from the failure memo", flush=True)
+    check(tries + d["memo_hits"] == CHURN_PODS and tries >= 1
+          and tries == launches["dry_run_preemption"] == d["preemption"]["device_evals"],
+          f"{name}: dry_run_preemption not launched once per churn pod's attempt")
+    for k in ("static_masks", "resource_eval", "lap_schedule"):
+        check(launches[k] > 0, f"{k} was not launched on the {name} path")
+
+
+def replica_run(device, score_hints: bool, churn: bool):
+    """The surge's 500Nodes_2000Replicas cut (128 init pods, 2000 measured)
+    or, with `churn`, the churned replica drive: the 500 nodes and 128 seed
+    replicas, then 24 seeded rounds of replica waves, NoSchedule taints and
+    their lifts, capacity drift, bound-pod deletes and floods of 900-cpu
+    pods that fit nowhere, each round run to idle."""
+    from kubernetes_tpu_torch import bench
+
+    s = bench.build_cluster(500, device=device, score_hints=score_hints)
+    bench.warm(s, 128, SURGE)
+    if not churn:
+        bench.measure(s, 2000, workload=SURGE, label=SURGE_CUT)
+        return s
+    rng = random.Random(19)
+    tainted, wave = {}, 0
+    for _ in range(24):
+        action = rng.choice(["replicas"] * 4 + ["taint", "lift", "drift", "delete", "flood"])
+        wave += 1
+        if action == "replicas":
+            bench.create_pods(s, bench.make_pods(rng.randrange(20, 300), f"w{wave}", SURGE),
+                              SURGE)
+        elif action == "taint":
+            i = rng.randrange(500)
+            tainted[i] = ("maint", "", "NoSchedule")
+            s.clientset.update_node(bench.cluster_node(i, taint=tainted[i]))
+        elif action == "lift" and tainted:
+            i = rng.choice(sorted(tainted))
+            del tainted[i]
+            s.clientset.update_node(bench.cluster_node(i))
+        elif action == "drift":
+            i = rng.randrange(500)
+            node = bench.NodeTemplate(cpu=rng.choice([16, 32, 48]))
+            s.clientset.update_node(bench.cluster_node(i, node, taint=tainted.get(i)))
+        elif action == "delete":
+            bound = sorted(p.name for p in s.clientset.pods.values() if p.node_name)
+            by_name = {p.name: p for p in s.clientset.pods.values()}
+            for name in rng.sample(bound, min(10, len(bound))):
+                s.clientset.delete_pod(by_name[name])
+        elif action == "flood":
+            bench.create_pods(s, bench._clones(bench._big, 20, f"flood{wave}"), SURGE)
+        s.run_until_idle()
+    return s
+
+
+def hints_phase(dev) -> dict:
+    """The walker's exactness and cost on the card. Exactness: the surge's
+    500Nodes_2000Replicas cut and the churned replica drive, each on cuda
+    with hints on, on cuda with hints off and on the cpu with hints on:
+    bindings, scheduled and failure counts and queue counts identical.
+    Cost: SchedulingBasic/5000Nodes_10000Pods and the surge at full width,
+    hints on and off in turns (HINT_TURNS rounds, the order swapped each
+    round), each window under frozen(): pods/s, window seconds, hits,
+    dispatches and the collector's seconds of each run. Then
+    Unschedulable/5kNodes/20kInit/10kPods with hints on, where the init
+    pods' entry survives as a sibling of every measured session's: its
+    commit and session-end seconds."""
+    from kubernetes_tpu_torch import bench
+
+    def state(s):
+        return ({p.name: p.node_name for p in s.clientset.pods.values()}, s.scheduled,
+                s.failures, s.queue.pending_counts())
+
+    for what, churn in ((SURGE_CUT, False), (HINT_CHURN, True)):
+        t0 = time.perf_counter()
+        on, off, cpu = (replica_run(dev, True, churn), replica_run(dev, False, churn),
+                        replica_run("cpu", True, churn))
+        check(state(on) == state(off) == state(cpu),
+              f"{what}: hints on, hints off and the cpu run differ")
+        check(on.hint_hits > 0 and off.hint_hits == 0 and on.hint_hits == cpu.hint_hits,
+              f"{what}: hits {on.hint_hits} (cuda on), {off.hint_hits} (off), "
+              f"{cpu.hint_hits} (cpu)")
+        print(f"exactness ({what}): {len(state(on)[0])} pods, {on.scheduled} bound, "
+              f"{on.failures} failed attempts, queue {on.queue.pending_counts()}; identical "
+              f"on cuda with hints on and off and on the cpu; hits / misses / invalidations "
+              f"{on.hint_hits} / {on.hint_misses} / {on.hint_invalidations}, device batches "
+              f"{on.device_batches} (hints on) against {off.device_batches} (off), memo hits "
+              f"{on.memo_hits}; {time.perf_counter() - t0:.1f} s", flush=True)
+
+    rows = {}
+    for r in range(HINT_TURNS):
+        for hints in ((True, False) if r % 2 == 0 else (False, True)):
+            _s, res, _l = run_path(dev, BASIC, score_hints=hints, freeze=True,
+                                   label=f"{BASIC}, hints {'on' if hints else 'off'}")
+            rows.setdefault((BASIC, hints), []).append(res["detail"] | {"value": res["value"]})
+            _s, res, _l = surge_drive(dev, score_hints=hints, quiet=True, freeze=True,
+                                      label=f"{SURGE}, hints {'on' if hints else 'off'}")
+            rows.setdefault((SURGE, hints), []).append(res["detail"] | {"value": res["value"]})
+    out = {}
+    for (name, hints), runs in rows.items():
+        what = f"{name}, hints {'on' if hints else 'off'}"
+        out[what] = runs
+        pods_s = [round(r["value"], 1) for r in runs]
+        print(f"in turns ({what}, {len(runs)} runs): pods/s {pods_s}; window s "
+              f"{[round(r['elapsed_s'], 4) for r in runs]}; hits {[r['hint_hits'] for r in runs]}, "
+              f"device dispatches {[r['device_batches'] for r in runs]}, commit s "
+              f"{[round(r['host_commit_s'], 4) for r in runs]}, session end s "
+              f"{[round(r['session_end_s'], 4) for r in runs]}, hint s "
+              f"{[round(r['hint_s'], 4) for r in runs]}, collector s "
+              f"{[round(r['gc_s'], 4) for r in runs]}", flush=True)
+
+    what = f"{UNSCHED20K}, hints on"
+    sched, result, launches = run_path(dev, UNSCHED20K, churn_limit=CHURN_PODS, score_hints=True,
+                                       label=what)
+    check_unschedulable(what, sched, result, launches)
+    d = result["detail"]
+    print(f"{what}: {result['value']:.1f} pods/s; window {d['elapsed_s']:.4f} s: memo hits "
+          f"{d['memo_hits']}, hint hits {d['hint_hits']}, invalidations "
+          f"{d['hint_invalidations']}, device dispatches {d['device_batches']}, commit "
+          f"{d['host_commit_s']:.4f} s, session end {d['session_end_s']:.4f} s", flush=True)
+    out[what] = [d | {"value": result["value"]}]
+    return out
+
+
 def paths_phase(dev) -> dict:
     from kubernetes_tpu_torch import bench
     from kubernetes_tpu_torch.ops import kernel as K
 
     out = {}
+    mark = [time.perf_counter()]
+
+    def stamp(what):
+        now = time.perf_counter()
+        print(f"phase seconds: {what} {now - mark[0]:.1f} s", flush=True)
+        mark[0] = now
+
     # the main path
     name = "TopologySpreading/5000Nodes_5000Pods"
     sched, result, launches = drive(dev, name)
@@ -1801,14 +2106,19 @@ def paths_phase(dev) -> dict:
     for k in ("static_masks", "resource_eval", "scan_general"):
         check(launches[k] > 0, f"{k} was not launched on the {name} path")
     out[name] = (sched, result, launches)
+    stamp(name)
 
     name = "SchedulingBasic/5000Nodes_10000Pods"
     sched, result, launches = drive(dev, name)
     check_launched(name, launches, result["detail"], ("static_masks", "resource_eval",
                                                       "lap_schedule"))
     out[name] = (sched, result, launches)
+    stamp(name)
 
-    small = bench.build_cluster(5000, device=dev, max_batch=64)
+    out[SURGE] = surge_drive(dev)
+    stamp(SURGE)
+
+    small = bench.build_cluster(5000, device=dev, max_batch=64, **card_path(dev))
     K.reset_launch_counts()
     for p in bench.make_pods(40, "small"):
         small.clientset.create_pod(p)
@@ -1821,11 +2131,13 @@ def paths_phase(dev) -> dict:
     for k in ("static_masks", "resource_eval", "scan_general"):
         check(small_launches[k] > 0, f"{k} was not launched on the small-batch path")
     out["SchedulingBasic small batch (max_batch 64)"] = (small, None, small_launches)
+    stamp("small batch")
 
     name = "PreferredTopologySpreading/5000Nodes_5000Pods"
     sched, result, launches = drive(dev, name)
     check(launches["scan_general"] > 0, f"scan_general was not launched on the {name} path")
     out[name] = (sched, result, launches)
+    stamp(name)
 
     name = "SchedulingPodAntiAffinity/5000Nodes_2000Pods"
     sched, result, launches = drive(dev, name)
@@ -1835,6 +2147,7 @@ def paths_phase(dev) -> dict:
     check(max(per_node.values()) == 1, "two app: exclusive pods share a node")
     check(launches["lap_schedule"] > 0, f"the anti-lane lap was not launched on the {name} path")
     out[name] = (sched, result, launches)
+    stamp(name)
 
     name = "SchedulingPodAffinity/5000Nodes_5000Pods"
     sched, result, launches = drive(dev, name)
@@ -1843,31 +2156,35 @@ def paths_phase(dev) -> dict:
     check(len(zones_used) == 1, f"the affinity pods span {len(zones_used)} zones")
     check(launches["scan_general"] > 0, f"scan_general was not launched on the {name} path")
     out[name] = (sched, result, launches)
+    stamp(name)
 
     sched, result, launches = drive(dev, PREEMPT)
     check_launched(PREEMPT, launches, result["detail"], ("static_masks", "resource_eval",
                                                          "lap_schedule"))
     check(result["detail"]["preemption"]["attempts"] == 0, f"{PREEMPT} preempted")
     out[PREEMPT] = (sched, result, launches)
+    stamp(PREEMPT)
 
     sched, result, launches = run_path(dev, UNSCHED, churn_limit=CHURN_PODS)
-    d = result["detail"]
-    pods = list(sched.clientset.pods.values())
-    measured = [p for p in pods if p.name.startswith("bench-")]
-    churn = [p for p in pods if p.name.startswith("churn-")]
-    check(len(measured) == 10000 and all(p.node_name for p in measured),
-          f"{UNSCHED}: not every measured pod bound")
-    check(len(churn) == CHURN_PODS == d["churn_pods"]
-          and not any(p.node_name or p.nominated_node_name for p in churn),
-          f"{UNSCHED}: a churn pod was bound or nominated")
-    tries = d["preemption"]["attempts"]
-    print(f"{UNSCHED}: {CHURN_PODS} churn pods, {tries} PostFilter attempts, "
-          f"{launches['dry_run_preemption']} dry_run_preemption launches", flush=True)
-    check(tries == CHURN_PODS == launches["dry_run_preemption"] == d["preemption"]["device_evals"],
-          f"{UNSCHED}: dry_run_preemption not launched once per churn pod's attempt")
-    for k in ("static_masks", "resource_eval", "lap_schedule"):
-        check(launches[k] > 0, f"{k} was not launched on the {UNSCHED} path")
+    check_unschedulable(UNSCHED, sched, result, launches)
     out[UNSCHED] = (sched, result, launches)
+    stamp(UNSCHED)
+
+    sched, result, launches = run_path(dev, UNSCHED20K, churn_limit=CHURN_PODS)
+    check_unschedulable(UNSCHED20K, sched, result, launches)
+    d = result["detail"]
+    init = [p for p in sched.clientset.pods.values() if p.name.startswith("init-")]
+    check(len(init) == 20000 and not any(p.node_name for p in init)
+          and d["warm_memo_hits"] == 20000 - 1,
+          f"{UNSCHED20K}: {d['warm_memo_hits']} init pods parked from the memo")
+    print(f"{UNSCHED20K}: {result['value']:.1f} pods/s (floor {bench_threshold(UNSCHED20K)}); "
+          f"init flood of 20000 pods in {d['warm_s']:.3f} s, {d['warm_memo_hits']} parked from "
+          f"the failure memo; window {d['elapsed_s']:.4f} s: memo hits {d['memo_hits']}, "
+          f"host-path pods {d['host_path_pods']}, plan acquisition {d['plan_acquire_s']:.5f}, "
+          f"device wait {d['device_wait_s']:.4f}, commit {d['host_commit_s']:.4f}, session end "
+          f"{d['session_end_s']:.4f}, hint hits {d['hint_hits']}", flush=True)
+    out[UNSCHED20K] = (sched, result, launches)
+    stamp(UNSCHED20K)
 
     sched, result, launches = preempting_case(dev)
     check_preempting(sched, result, PREEMPTING)
@@ -1875,11 +2192,13 @@ def paths_phase(dev) -> dict:
                    ("static_masks", "resource_eval", "lap_schedule", "dry_run_preemption",
                     "scatter_rows"))
     out[PREEMPTING] = (sched, result, launches)
+    stamp(PREEMPTING)
 
     sched, launches, lane_inputs = lane_drive(dev)
     for k in ("static_masks", "resource_eval", "lap_schedule"):
         check(launches[k] > 0, f"{k} was not launched on the {LANE} path")
     out[LANE] = (sched, None, launches)
+    stamp(LANE)
 
     capture = {}
     sched, launches, per_wave = wave_drive(dev, capture=capture)
@@ -1891,6 +2210,7 @@ def paths_phase(dev) -> dict:
           f"{WAVES}: the assignments with resume off differ from those with resume")
     print(f"{WAVES}: the same assignments with resume off ({len(assignments(base))} pods)",
           flush=True)
+    stamp(f"{WAVES}, with and without resume")
     waves = dict(per_wave=per_wave, per_wave_without_resume=base_waves, capture=capture,
                  wave_mirror=sched.mirror)
 
@@ -1898,33 +2218,51 @@ def paths_phase(dev) -> dict:
     out[NSSEL] = (sched, result, launches)
     _s, _r, _l, base_plans = nsselector_drive(dev, resume=False, init_only=True)
     waves["nsselector_init_plans"] = (init_plans, base_plans)
+    stamp(f"{NSSEL}, with and without resume")
 
     out[GANGS] = gang_drive(dev)
+    stamp(GANGS)
     capture = {}
     out[PLACE] = placement_drive(dev, capture=capture)
+    stamp(PLACE)
     waves["placement_capture"] = capture
     out[PLACE1K] = placement_drive(dev, workload=PLACE1K)
+    stamp(PLACE1K)
     capture = {}
     rebal, launches = rebalance_drive(dev, capture=capture)
     out[REBAL] = (rebal["sched"], None, launches)
+    stamp(REBAL)
     waves["rebalance"], waves["whatif_capture"] = rebal, capture
     out[FEATURES] = features_drive(dev)
+    stamp(FEATURES)
     out[GATED] = gated_drive(dev)
+    stamp(GATED)
     caps = {"lap": {}, "scan": {}, "general": {}, "placements": {}}
     out[HOSTPORTS] = hostport_drive(dev, capture=caps["lap"])
+    stamp(HOSTPORTS)
     out[PORT_SCAN] = port_cut(dev, capture=caps["scan"])
+    stamp(PORT_SCAN)
     out[PORT_SPREAD] = port_cut(dev, spread=True, capture=caps["general"])
+    stamp(PORT_SPREAD)
     out[PORT_GANGS] = port_gangs(dev, capture=caps["placements"])
+    stamp(PORT_GANGS)
     waves["blocked_captures"] = caps
     caps = {"lap": {}, "scan": {}, "general": {}}
     out[CSIPVS] = volume_drive(dev, CSIPVS, capture=caps["lap"])
+    stamp(CSIPVS)
     out[INTREE] = volume_drive(dev, INTREE)
+    stamp(INTREE)
     out[ATTACH] = volume_drive(dev, ATTACH)
+    stamp(ATTACH)
     out[AUX_LAP] = aux_cut(dev)
+    stamp(AUX_LAP)
     out[AUX_SCAN] = aux_cut(dev, max_batch=64, capture=caps["scan"])
+    stamp(AUX_SCAN)
     out[AUX_SPREAD] = aux_cut(dev, max_batch=64, spread=True, capture=caps["general"])
+    stamp(AUX_SPREAD)
     waves["aux_captures"] = caps
     out[DRA] = dra_drive(dev)
+    stamp(DRA)
     return out, lane_inputs, waves
 
 
@@ -2941,7 +3279,7 @@ def parity_phase(dev, paths: dict):
 
     def mixed(device, max_batch):
         rng = random.Random(7)
-        s = TorchScheduler(device=device, max_batch=max_batch)
+        s = TorchScheduler(device=device, max_batch=max_batch, **card_path(device))
         for i in range(500):
             b = (make_node().name(f"node-{i}")
                  .capacity({"cpu": rng.choice([2, 4, 8, 16]),
@@ -2999,7 +3337,7 @@ def parity_phase(dev, paths: dict):
     name = "TopologySpreading/5000Nodes_5000Pods"
     runs = []
     for device in (dev, "cpu"):
-        s = bench.build_cluster(5000, device=device)
+        s = bench.build_cluster(5000, device=device, **card_path(device))
         bench.warm(s, bench.WORKLOADS[name].init_pods, name)
         bench.measure(s, 1024, workload=name)
         runs.append(s)
@@ -3023,7 +3361,8 @@ def parity_phase(dev, paths: dict):
 
     runs = []
     for device in (dev, "cpu"):
-        s = bench.build_cluster(50, device=device, node=bench.WORKLOADS[PREEMPT].node)
+        s = bench.build_cluster(50, device=device, node=bench.WORKLOADS[PREEMPT].node,
+                                **card_path(device))
         bench.warm(s, 40, PREEMPT)
         bench.measure(s, 20, workload=PREEMPT)
         runs.append(s)
@@ -3116,7 +3455,8 @@ def gang_parity(dev, paths: dict) -> None:
         min_count exceeds what z2 holds), one that fits nowhere, and groups
         whose members carry a hostname DoNotSchedule spread and a zone
         ScheduleAnyway spread (per-placement spread tables)."""
-        s = TorchScheduler(device=device, profile_factory=gang_placement_profile)
+        s = TorchScheduler(device=device, profile_factory=gang_placement_profile,
+                           **card_path(device))
         for i in range(60):
             z, cpu = (("z0", 8) if i < 30 else ("z1", 8)) if i < 55 else ("z2", 2)
             s.clientset.create_node(make_node().name(f"n{i}").capacity(
@@ -3136,7 +3476,8 @@ def gang_parity(dev, paths: dict) -> None:
         """8 full nodes of 4 cpu over 2 zones (priority-1 pods), then two
         priority-100 groups of 2 four-cpu members, one constrained to a
         zone: each fits only after lower-priority pods go."""
-        s = TorchScheduler(device=device, profile_factory=gang_placement_profile)
+        s = TorchScheduler(device=device, profile_factory=gang_placement_profile,
+                           **card_path(device))
         for i in range(8):
             s.clientset.create_node(make_node().name(f"n{i}").capacity(
                 {"cpu": 4, "memory": "32Gi", "pods": 110}).zone(f"z{i % 2}").obj())
@@ -3368,7 +3709,7 @@ def hostport_drive(dev, capture=None):
     from kubernetes_tpu_torch.ops import kernel as K
 
     w = bench.WORKLOADS[HOSTPORTS]
-    sched = bench.build_cluster(5000, device=dev, node=w.node)
+    sched = bench.build_cluster(5000, device=dev, node=w.node, **card_path(dev))
     bench.warm(sched, w.init_pods, HOSTPORTS)
     if capture is not None:
         capture_first_dispatch(sched, capture)
@@ -3414,7 +3755,8 @@ def port_cut(dev, spread: bool = False, n_nodes: int = 1000, n_init: int = 200,
     from kubernetes_tpu_torch.ops import kernel as K
 
     w = bench.WORKLOADS[HOSTPORTS]
-    sched = bench.build_cluster(n_nodes, device=dev, max_batch=64, node=w.node)
+    sched = bench.build_cluster(n_nodes, device=dev, max_batch=64, node=w.node,
+                                **card_path(dev))
     bench.warm(sched, n_init, HOSTPORTS)
     build = bench._agent
     if spread:
@@ -3450,7 +3792,7 @@ def port_gangs(dev, n_groups: int = 50, capture=None):
 
     w = bench.WORKLOADS[PLACE1K]
     sched = bench.build_cluster(1000, device=dev, node=w.node,
-                                profile_factory=bench.profile_for(PLACE1K))
+                                profile_factory=bench.profile_for(PLACE1K), **card_path(dev))
     member = lambda b: bench._gang_member(b).host_port(9000)  # noqa: E731
     sched.warm_for_placements(bench._clones(member, 1, "shape")[0], 4, 10)
     launch = TS.schedule_placements
@@ -3496,7 +3838,7 @@ def gated_short(dev):
     from kubernetes_tpu_torch.models import TorchScheduler
     from kubernetes_tpu_torch.testing import make_node, make_pod
 
-    s = TorchScheduler(device=dev)
+    s = TorchScheduler(device=dev, **card_path(dev))
     s.clientset.create_node(make_node().name("scheduler-perf-node").capacity(
         {"cpu": 1000, "memory": "4Ti", "pods": 90000}).obj())
     for i in range(10):
@@ -3525,7 +3867,7 @@ def features_cut(dev):
     from kubernetes_tpu_torch.models import TorchScheduler
     from kubernetes_tpu_torch.testing import make_pod
 
-    s = TorchScheduler(device=dev)
+    s = TorchScheduler(device=dev, **card_path(dev))
     for i in range(1000):
         n = bench.cluster_node(i)
         n.declared_features = {"gpu-x": bool(i % 2)}
@@ -3831,7 +4173,7 @@ def volume_drive(dev, workload: str, capture=None):
     from kubernetes_tpu_torch.ops import kernel as K
 
     w = bench.WORKLOADS[workload]
-    sched = bench.build_cluster(5000, device=dev, node=w.node)
+    sched = bench.build_cluster(5000, device=dev, node=w.node, **card_path(dev))
     bench.warm(sched, w.init_pods, workload)
     stats = watch_dispatches(sched, capture)
     K.reset_launch_counts()
@@ -3875,7 +4217,8 @@ def aux_cut(dev, max_batch=None, spread: bool = False, n_nodes: int = 1000, n_in
     from kubernetes_tpu_torch.ops import kernel as K
 
     node = bench.NodeTemplate(zones=10 if spread else 0, csi=(bench.EBS, 2))
-    sched = bench.build_cluster(n_nodes, device=dev, max_batch=max_batch, node=node)
+    sched = bench.build_cluster(n_nodes, device=dev, max_batch=max_batch, node=node,
+                                **card_path(dev))
     build = bench._basic
     if spread:
         def build(b):
@@ -3925,7 +4268,7 @@ def wffc_cut(dev, n_nodes: int = 500, n_pods: int = 200):
     from kubernetes_tpu_torch.api.types import NodeSelector, NodeSelectorTerm
     from kubernetes_tpu_torch.core.pv_controller import PVController
 
-    sched = bench.build_cluster(n_nodes, device=dev, node=bench.NO_ZONES)
+    sched = bench.build_cluster(n_nodes, device=dev, node=bench.NO_ZONES, **card_path(dev))
     cs = sched.clientset
     ctrl = PVController(cs)
     cs.create_storage_class(StorageClass(name="local",
@@ -4002,7 +4345,7 @@ def dra_drive(dev, n_nodes: int = 500, n_pods: int = 2000, devices: int = 8, cap
 
     w = bench.WORKLOADS[DRA]
     sched = bench.build_cluster(n_nodes, device=dev, node=w.node._replace(devices=devices),
-                                profile_factory=bench.profile_for(DRA))
+                                profile_factory=bench.profile_for(DRA), **card_path(dev))
     bench.warm(sched, w.init_pods, DRA)
     stats = watch_dispatches(sched, capture)
     K.reset_launch_counts()
@@ -4039,7 +4382,7 @@ def dra_cut(dev, n_nodes: int, n_pods: int, devices: int):
 
     w = bench.WORKLOADS[DRA]
     sched = bench.build_cluster(n_nodes, device=dev, node=w.node._replace(devices=devices),
-                                profile_factory=bench.profile_for(DRA))
+                                profile_factory=bench.profile_for(DRA), **card_path(dev))
     bench.warm(sched, 0, DRA)
     bench.measure(sched, n_pods, workload=DRA)
     held = check_claims(sched, f"DRA cut ({dev})")
@@ -4270,7 +4613,7 @@ def mesh_kernel_phase(dev, np_cap: int, n_nodes: int, errs: dict) -> None:
     from kubernetes_tpu_torch.testing.kernel_inputs import random_inputs
 
     first = "SchedulingBasic's first batch"
-    sched = bench.build_cluster(n_nodes, device=dev, mesh=None)
+    sched = bench.build_cluster(n_nodes, device=dev, mesh=None, **card_path(dev))
     pod = bench.make_pods(1, "first")[0]
     st, plan = sched.build_plan(sched.framework_for_pod(pod), pod, 1024)
     check(plan.row_local and plan.batch_pad == 1024 and st.valid.shape[0] == np_cap,
@@ -4333,7 +4676,7 @@ def cut_run(dev, workload: str, n_nodes: int, n_init: int, n_measure: int, mesh,
     from kubernetes_tpu_torch.ops import kernel as K
 
     w = bench.WORKLOADS[workload]
-    sched = bench.build_cluster(n_nodes, device=dev, node=w.node, mesh=mesh)
+    sched = bench.build_cluster(n_nodes, device=dev, node=w.node, mesh=mesh, **card_path(dev))
     bench.warm(sched, n_init, workload)
     K.reset_launch_counts()
     result = bench.measure(sched, n_measure, workload=workload, label=label)
@@ -4346,13 +4689,13 @@ def mesh_waves(dev, mesh, n_nodes: int = 1000, warm: int = 512, waves: int = 4,
     `warm` pods, then `waves` waves of `wave_pods` pods, each after
     `deletes` bound pods are deleted; wave 1 taints a node NoSchedule, wave
     2 another, wave 3 lifts the first. Every event is a row patch: one full
-    rebuild in all. `capture` receives the first patch_carry_rows_pinned
-    call's arguments."""
+    rebuild in all.
+    `capture` receives the first patch_carry_rows_pinned call's arguments."""
     from kubernetes_tpu_torch import bench
     from kubernetes_tpu_torch.ops import kernel as K
 
     rng = random.Random(77)
-    sched = bench.build_cluster(n_nodes, device=dev, mesh=mesh)
+    sched = bench.build_cluster(n_nodes, device=dev, mesh=mesh, **card_path(dev))
     bench.warm(sched, warm)
     pinned = K.patch_carry_rows_pinned
 
@@ -4671,8 +5014,10 @@ def main() -> int:
 
     t1 = time.perf_counter()
     paths, lane_inputs, waves = paths_phase(dev)
+    t2 = time.perf_counter()
     mesh_out, mesh_capture = mesh_paths(dev, paths)
     paths.update(mesh_out)
+    print(f"phase seconds: the mesh drives {time.perf_counter() - t2:.1f} s", flush=True)
     print(f"paths phase: {time.perf_counter() - t1:.1f} s", flush=True)
     t1 = time.perf_counter()
     rows = timing_phase(paths, errs, lane_inputs)
@@ -4704,6 +5049,10 @@ def main() -> int:
     t1 = time.perf_counter()
     parity_phase(dev, paths)
     print(f"parity phase: {time.perf_counter() - t1:.1f} s", flush=True)
+
+    t1 = time.perf_counter()
+    hints_phase(dev)
+    print(f"hints phase: {time.perf_counter() - t1:.1f} s", flush=True)
 
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(smi, flush=True)

@@ -7,6 +7,17 @@ of 32 cpu / 256Gi / 110 pods across 50 zones with 100m pods:
   SchedulingBasic/5000Nodes_10000Pods        (the default) 1024 warm-up pods
                                              of the measured shape, then
                                              10000 identical 100m/128Mi pods;
+  HomogeneousReplicaSurge/5000Nodes_10000Replicas
+                                             512 init pods, then 10000
+                                             measured ones, all 100m/128Mi
+                                             labelled app: web-frontend
+                                             (floors 680 pods/s and a hint
+                                             hit rate of 0.9): after the
+                                             init session the score-hint
+                                             walker binds the replicas
+                                             where it serves (by default
+                                             on the CPU, not on a card:
+                                             TorchScheduler score_hints);
   TopologySpreading/5000Nodes_5000Pods       1000 `app: warm` pods, then 5000
                                              pods under a hard zone spread
                                              (maxSkew 1, DoNotSchedule);
@@ -21,6 +32,9 @@ of 32 cpu / 256Gi / 110 pods across 50 zones with 100m pods:
                                              priority-1000 pod every 200 ms
                                              (each runs DefaultPreemption and
                                              finds no candidate).
+  Unschedulable/5kNodes/20kInit/10kPods      the same with 20000 init pods
+                                             (floor 600): the failure memo
+                                             parks the flood.
 
   PreemptionAsync/5000Nodes                  5000 nodes of 4 cpu / 16Gi / 32
                                              pods, no zones: 2000 priority-1
@@ -154,7 +168,13 @@ package's bench.py (`metric`, `value`, `unit`, `vs_baseline`, `detail`);
 reference's own pods/s floor, no target of the port), `detail.platform`
 names the card, `detail.preemption` counts the window's PostFilter
 attempts, device dry runs, victims and verification divergences,
-`detail.churn_pods` the churner's pods, `detail.placement_device_evals`
+`detail.churn_pods` the churner's pods, `detail.hint_hits`,
+`hint_misses`, `hint_invalidations` and `hint_s` the score-hint walker's
+binds, misses, invalidations and seconds, `detail.hint_hit_rate` the
+window's pods it bound over those scheduled (beside `hint_hit_rate_floor`,
+the shape's HintHitRate threshold where it has one), `detail.memo_hits` the
+pods parked from the failure memo,
+`detail.placement_device_evals`
 and `placement_eval_s` the group cycles whose placements the kernel
 evaluated and their seconds, and the plan acquisitions by kind
 (`plan_rebuilds_full` / `_delta` / `_resume`), the rows the delta patches
@@ -200,7 +220,8 @@ WINDOW_COUNTERS = ("scheduled", "failures", "device_batches", "device_scheduled"
                    "dispatch_s", "device_wait_s", "host_commit_s", "session_end_s",
                    "plan_rebuilds_full", "plan_rebuilds_delta", "plan_rebuilds_resume",
                    "delta_dirty_rows", "placement_device_evals", "placement_eval_s",
-                   "shard_map_dispatches")
+                   "shard_map_dispatches", "hint_hits", "hint_misses", "hint_invalidations",
+                   "hint_s", "memo_hits")
 
 
 class NodeTemplate(NamedTuple):
@@ -286,7 +307,8 @@ class Workload(NamedTuple):
     by a scheduling gate (created first, never released), the init pods'
     deletion during the window, whether init pod i is created bound to
     node i, the PV and claim each pod gets (None: no volume), and the
-    resource claim each pod gets (None: none)."""
+    resource claim each pod gets (None: none), and the shape's HintHitRate
+    floor (None: none)."""
 
     measure_pods: int
     build: Callable
@@ -302,6 +324,7 @@ class Workload(NamedTuple):
     bound_init: bool = False
     volumes: Optional[Volumes] = None
     claims: Optional[Claims] = None
+    hint_floor: Optional[float] = None
 
 
 AGENT_IMAGE = "registry.example/agent:1"
@@ -313,6 +336,10 @@ DRA_DRIVER = "gpu.example.com"
 
 def _basic(b):
     return b.req({"cpu": "100m", "memory": "128Mi"})
+
+
+def _replica(b):
+    return _basic(b).labels({"app": "web-frontend"})
 
 
 def _big(b):
@@ -333,6 +360,8 @@ def _agent(b):
 
 WORKLOADS = {
     "SchedulingBasic/5000Nodes_10000Pods": Workload(10000, _basic, 1024, None, 680.0),
+    "HomogeneousReplicaSurge/5000Nodes_10000Replicas": Workload(
+        10000, _replica, 512, None, 680.0, hint_floor=0.9),
     "TopologySpreading/5000Nodes_5000Pods": Workload(
         5000, lambda b: b.req({"cpu": "100m"}).labels({"app": "spread"})
         .spread_constraint(1, ZONE, "DoNotSchedule", {"app": "spread"}), 1000,
@@ -352,6 +381,9 @@ WORKLOADS = {
         node=NodeTemplate(cpu=4, memory="16Gi", pods=32, zones=0)),
     "Unschedulable/5kNodes/100Init/10kPods": Workload(
         10000, _basic, 100, _big, 590.0,
+        churn=Churn(lambda b: b.req({"cpu": 900, "memory": "1Gi"}).priority(1000), 0.2)),
+    "Unschedulable/5kNodes/20kInit/10kPods": Workload(
+        10000, _basic, 20000, _big, 600.0,
         churn=Churn(lambda b: b.req({"cpu": 900, "memory": "1Gi"}).priority(1000), 0.2)),
     "SchedulingRequiredPodAntiAffinityWithNSSelector/5000Nodes_2000Pods": Workload(
         2000, lambda b: b.req({"cpu": "100m"}).labels({"color": "green"})
@@ -425,9 +457,10 @@ def profile_for(workload: str):
 
 def build_cluster(n_nodes: int, device="cuda", max_batch=None,
                   node: NodeTemplate = NodeTemplate(), resume: bool = True,
-                  profile_factory=default_profile, mesh="auto") -> TorchScheduler:
+                  profile_factory=default_profile, mesh="auto",
+                  score_hints: Optional[bool] = None) -> TorchScheduler:
     sched = TorchScheduler(device=device, max_batch=max_batch, resume=resume,
-                           profile_factory=profile_factory, mesh=mesh)
+                           profile_factory=profile_factory, mesh=mesh, score_hints=score_hints)
     for i in range(n_nodes):
         sched.clientset.create_node(cluster_node(i, node))
         if node.csi is not None:
@@ -661,6 +694,10 @@ def measure(sched: TorchScheduler, n_pods: int, prefix: str = "bench",
     pods_per_sec = detail["scheduled"] / elapsed if elapsed > 0 else 0.0
     preemption = {k: v - pre0[k] for k, v in sched.preemption_counts().items()}
     preemption["device_evals"] = sched.preemption_device_evals - evals0
+    if detail["scheduled"]:
+        detail["hint_hit_rate"] = detail["hint_hits"] / detail["scheduled"]
+    if w.hint_floor is not None:
+        detail["hint_hit_rate_floor"] = w.hint_floor
     detail.update(workload=workload, elapsed_s=elapsed, platform=platform_name(sched),
                   launches={w.__name__: w.launches for w in kernel.WRAPPERS},
                   preemption=preemption,

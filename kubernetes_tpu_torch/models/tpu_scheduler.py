@@ -99,6 +99,17 @@ members (`gang_only`), with no PostBind plugin and DefaultBinder alone,
 takes the lean tail: assume and bind (_commit_fast_eligible, the JAX
 package's :2087-2165), which leaves what the full tail would.
 
+Host fast paths (the JAX package's :1950-2085, :2209-2321). A clean
+session on a row-local plan leaves a score hint (models/score_hints.py):
+its final carry on the host, keyed by signature, from which the next
+identical pods bind with no dispatch (_try_hint_binds, ahead of batch
+collection), each where the next lap would have put it (where the walker
+serves: `score_hints`, by default on the CPU and not on a card, where the
+dispatch is the faster path). A pod the device
+places nowhere is diagnosed once against a state; an identical pod against
+the same state parks from the failure memo (_fail_from_memo), and the
+session goes on.
+
 Node mesh (the JAX package's mesh code, :88-123, :1081-1116, :1233-1275,
 :1505-1565). With a NodeMesh (parallel/mesh.py make_mesh, passed as
 `mesh`; the default keeps one device) the mirror's resident state
@@ -149,6 +160,7 @@ from ..core.framework import (
     Framework,
     PlacementProgress,
     PodGroupAssignments,
+    Status,
 )
 from ..core.queue import QueuedPodGroupInfo, QueuedPodInfo
 from ..core.registry import default_profile
@@ -172,6 +184,7 @@ from ..ops.kernel import (
     schedule_batch,
     schedule_placements,
 )
+from ..ops.staging import Fetch
 from ..parallel.mesh import (
     Sharded,
     gather,
@@ -181,9 +194,11 @@ from ..parallel.mesh import (
 )
 from ..plugins.basic import DefaultBinder
 from ..plugins.preemption import Candidate
+from .score_hints import ScoreHintCache, hint_eligible
 
 DEFAULT_MAX_BATCH = 1024  # the JAX package's config.max_batch
 PIPELINE_DEPTH = 2        # batches in flight (double buffering)
+FAIL_MEMO_CAP = 64        # failure diagnoses kept (_memoize_failure)
 
 # _collect_batch's reasons for a group entity: it rides a gang device
 # session, or it is a topology-constrained group whose host cycle evaluates
@@ -199,26 +214,6 @@ def _attach_shape(volume) -> Optional[tuple]:
     whose volume_device_support triple is `volume`, or None."""
     _r, driver, inc = volume
     return (driver, inc) if driver else None
-
-
-class _Fetch:
-    """A batch's [2, B] results on their way to the host."""
-
-    def __init__(self, results: torch.Tensor):
-        if results.device.type == "cuda":
-            self._host = torch.empty(results.shape, dtype=results.dtype, pin_memory=True)
-            with torch.cuda.device(results.device):
-                self._host.copy_(results, non_blocking=True)
-                self._event = torch.cuda.Event()
-                self._event.record()
-        else:
-            self._host = results
-            self._event = None
-
-    def wait(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()
 
 
 class _SessionDelta:
@@ -248,11 +243,20 @@ class TorchScheduler(Scheduler):
     the scheduler's device; None keeps `device` alone. "auto" keeps
     `device` alone too, on any number of cards: where the JAX package
     shards over every device, a host with several cards opts in with
-    mesh=make_mesh()."""
+    mesh=make_mesh().
+    `score_hints` (the JAX package's TPU_SCHED_SCORE_HINTS): True lets a
+    clean session's final carry seed the host walker of
+    models/score_hints.py, which binds the next identical pods without a
+    dispatch; False keeps every pod on the dispatch path. None, the default,
+    takes the faster of the two on the device: on a CUDA card a lap dispatch
+    binds replicas for less host time a pod than the walk (PERF.md § 5), so
+    the dispatch path; on the CPU, where the lap runs its plain version,
+    the walker, as the JAX package's default."""
 
     def __init__(self, clientset=None, device="cuda", max_batch: Optional[int] = None,
                  percentage_of_nodes_to_score: int = 0, resume: bool = True,
-                 profile_factory=default_profile, mesh="auto"):
+                 profile_factory=default_profile, mesh="auto",
+                 score_hints: Optional[bool] = None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TorchScheduler: CUDA is not available "
@@ -331,6 +335,21 @@ class TorchScheduler(Scheduler):
         self.device_wait_s = 0.0
         self.host_commit_s = 0.0
         self.session_end_s = 0.0
+        # Failure diagnoses of pods that fit nowhere, keyed by everything the
+        # outcome depends on (_fail_state_key) -> (unschedulable plugins,
+        # message): an identical pod against the same state parks from here
+        # without a rerun. A small LRU, not one slot, so that floods of
+        # alternating signatures each stay memoized.
+        self._fail_memo: dict = {}
+        self.memo_hits = 0  # pods parked from it
+        # The score-hint walker (models/score_hints.py) and its counters.
+        if score_hints is None:
+            score_hints = device.type != "cuda"
+        self._hints = ScoreHintCache(self, enabled=score_hints)
+        self.hint_hits = 0
+        self.hint_misses = 0
+        self.hint_invalidations = 0
+        self.hint_s = 0.0  # seconds in the walker's bind loop
 
     @property
     def preemption_verify_divergences(self) -> int:
@@ -395,7 +414,7 @@ class TorchScheduler(Scheduler):
         volume = self._volume_support(head.pod)
         # (The head's claims are checked against the previous session's,
         # as the JAX package's _collect_batch checks them.)
-        reason = (batch_supported(head.pod, volume, self._dra_support(fw, head.pod))
+        reason = (self._batch_supported(fw, head.pod, volume)
                   or self._device_unsupported_profile(fw, head.pod)
                   or self._nominated_device_block(head.pod))
         sig = fw.sign_pod(head.pod) if reason is None else None
@@ -448,10 +467,24 @@ class TorchScheduler(Scheduler):
             return None
         return dra_device_support(pod, self.clientset, self._session_claims)
 
-    def _batch_supported(self, fw: Framework, pod) -> Optional[str]:
+    def _batch_supported(self, fw: Framework, pod, volume=None) -> Optional[str]:
         """features.batch_supported with the storage and claim context the
-        pod needs."""
-        return batch_supported(pod, self._volume_support(pod), self._dra_support(fw, pod))
+        pod needs (`volume`: its volume_device_support triple where the
+        caller has it), memoized on the template's shared holder a profile
+        (the JAX package's _batch_supported_memo, :1681-1713): clones never
+        change their spec, so a workload of N clones asks once. A nominated
+        pod is answered outside the memo, and a pod with a PVC or a resource
+        claim never from it: its verdict reads live claim state."""
+        if pod.nominated_node_name:
+            return "nominated node fast path"
+        shared = pod.__dict__.get("_sig_shared")
+        if shared is None or pod.resource_claims or any(v.pvc_name for v in pod.volumes):
+            return batch_supported(pod, volume or self._volume_support(pod),
+                                   self._dra_support(fw, pod))
+        key = ("_bsup", id(fw))
+        if key not in shared:
+            shared[key] = batch_supported(pod)
+        return shared[key]
 
     def _claim_shape(self, pod) -> Optional[tuple]:
         """The request shape of the pod's first resource claim: (device
@@ -484,7 +517,7 @@ class TorchScheduler(Scheduler):
         shape and it shares no claim with a pod the session took; it is then
         recorded as taken."""
         if not pod.volumes and not pod.resource_claims:
-            return batch_supported(pod) is None and self._session_aux_shape == (None, None)
+            return self._batch_supported(fw, pod) is None and self._session_aux_shape == (None, None)
         volume = self._volume_support(pod)
         if batch_supported(pod, volume, self._dra_support(fw, pod)) is not None:
             return False
@@ -704,13 +737,13 @@ class TorchScheduler(Scheduler):
         for v in variants:
             _results, carry = self._dispatch(state, v, 0, None)
             results, _ = self._dispatch(state, v, 0, carry)
-            _Fetch(results).wait()
+            Fetch(results).wait()
         self.shard_map_dispatches = dispatches
         if plan.facts.anti_rowlocal:
             fallback = dataclasses.replace(
                 plan, facts=plan.facts._replace(anti_rowlocal=False))
             results, _ = self._dispatch(state, fallback, 0, None)
-            _Fetch(results).wait()
+            Fetch(results).wait()
 
     # -- incremental session resume (typed event journal) --------------------
 
@@ -911,7 +944,8 @@ class TorchScheduler(Scheduler):
         sd = _SessionDelta(state, carry, self.cluster_event_seq)
         del state, carry
         start_nom = self.queue.nominator.version
-        inflight: List[Tuple[List[QueuedPodInfo], _Fetch]] = []
+        start_attempts = self.attempts
+        inflight: List[Tuple[List[QueuedPodInfo], Fetch]] = []
         ok_rows: List[int] = []
         dirty_rows: List[int] = []
         invalidated = False
@@ -947,7 +981,7 @@ class TorchScheduler(Scheduler):
                         break
                 t1 = time.perf_counter()
                 results, sd.carry = self._dispatch(sd.state, plan, len(batch), sd.carry)
-                inflight.append((batch, _Fetch(results)))
+                inflight.append((batch, Fetch(results)))
                 self.dispatch_s += time.perf_counter() - t1
                 self.device_batches += 1
                 batch = None
@@ -992,6 +1026,13 @@ class TorchScheduler(Scheduler):
             self._adopt(ok_rows, sd.carry, dirty_rows)
             if not dirty_rows:
                 self._save_resume(fw, head, sig, aux_shape, sd.state, plan, sd.carry, node_names)
+                # The last commit went through cleanly, so the carry is the
+                # kernel's truth for the next identical pod: seed the walker.
+                if self._hints.enabled and hint_eligible(
+                        plan, aux_shape, head, self.queue.nominator,
+                        self.cache.affinity_pod_refs):
+                    self._hints.install(fw, head, sig, nsig, plan, node_names, sd.carry,
+                                        landed=(start_attempts, ok_rows))
         self.session_end_s += time.perf_counter() - t3
 
     def _adopt(self, ok_rows: List[int], carry, dirty_rows: List[int]) -> None:
@@ -1020,14 +1061,23 @@ class TorchScheduler(Scheduler):
                 self.process_one(qpi)
                 continue
             if row < 0:
+                if self._fail_from_memo(fw, qpi):
+                    # An identical pod failed against this very state: park
+                    # it with that diagnosis. Nothing moved, so the session
+                    # goes on (an unschedulable flood does not end it).
+                    continue
                 if self._fail_with_vector_diagnosis(fw, qpi):
                     # Without a nomination no state moved and the session
                     # continues; a preemption ends it.
-                    invalidated = bool(qpi.pod.nominated_node_name)
+                    if qpi.pod.nominated_node_name or qpi.pod.node_name:
+                        invalidated = True
+                    else:
+                        self._memoize_failure(fw, qpi)
                     continue
                 # Exact host rerun for the diagnosis; the chain cannot go on.
                 self.host_path_pods += 1
                 self.process_one(qpi)
+                self._memoize_failure(fw, qpi)
                 invalidated = True
                 continue
             if self._commit(fw, qpi, node_names[row]):
@@ -1036,6 +1086,44 @@ class TorchScheduler(Scheduler):
                 dirty_rows.append(row)
                 invalidated = True  # the host rejected what the carry applied
         return invalidated
+
+    def _fail_state_key(self, fw: Framework, pod) -> tuple:
+        """Everything a pod's failure can depend on, versioned: its spec
+        (the signature), its priority (PostFilter's preemption reads it),
+        cluster events, our own binds, cache unwinds and the nominated set
+        (the JAX package's :2016-2026)."""
+        return (fw.sign_pod(pod), pod.priority, self.cluster_event_seq, self.scheduled,
+                self.state_unwinds, self.queue.nominator.version)
+
+    def _fail_from_memo(self, fw: Framework, qpi: QueuedPodInfo) -> bool:
+        """An identical pod was diagnosed unschedulable against this state
+        with no side effect (no nomination, no bind): a rerun would give the
+        same diagnosis, so park the pod with it. Counts an attempt and a
+        failure, as the rerun would."""
+        memo = self._fail_memo.get(self._fail_state_key(fw, qpi.pod))
+        if memo is None:
+            return False
+        plugins, message = memo
+        self.memo_hits += 1
+        self.attempts += 1
+        qpi.unschedulable_plugins |= plugins
+        self.handle_scheduling_failure(fw, qpi, Status.unschedulable(message), None)
+        self.queue.done(qpi.pod.uid)
+        return True
+
+    def _memoize_failure(self, fw: Framework, qpi: QueuedPodInfo) -> None:
+        """Keep a diagnosis that ended the attempt with no side effect, keyed
+        on the state after it. An attempt that moved state (a bind, a
+        nomination) changes the key, so a stale entry is never served; the
+        cap only bounds memory."""
+        pod = qpi.pod
+        if pod.node_name or pod.nominated_node_name:
+            return  # scheduled after all, or nominated: state moved
+        if len(self._fail_memo) >= FAIL_MEMO_CAP:
+            self._fail_memo.pop(next(iter(self._fail_memo)))
+        self._fail_memo[self._fail_state_key(fw, pod)] = (
+            frozenset(qpi.unschedulable_plugins),
+            f"0/{self.snapshot.num_nodes()} nodes are available")
 
     def _fail_with_vector_diagnosis(self, fw: Framework, qpi: QueuedPodInfo) -> bool:
         """The FitError tail for a device-infeasible pod, with the Diagnosis
@@ -1132,7 +1220,7 @@ class TorchScheduler(Scheduler):
         sd = _SessionDelta(state, carry, self.cluster_event_seq)
         del state, carry
         start_unwinds = self.state_unwinds
-        inflight: List[Tuple[List[QueuedPodGroupInfo], _Fetch]] = []
+        inflight: List[Tuple[List[QueuedPodGroupInfo], Fetch]] = []
         ok_rows: List[int] = []
         dirty_rows: List[int] = []
         invalidated = False
@@ -1183,7 +1271,7 @@ class TorchScheduler(Scheduler):
                 members = [m for g in pack for m in self._sorted_members(g)]
                 t1 = time.perf_counter()
                 results, sd.carry = self._dispatch(sd.state, plan, len(members), sd.carry)
-                inflight.append((pack, _Fetch(results)))
+                inflight.append((pack, Fetch(results)))
                 self.dispatch_s += time.perf_counter() - t1
                 self.device_batches += 1
                 pack = None
@@ -1373,7 +1461,7 @@ class TorchScheduler(Scheduler):
             if self.mesh is not None:
                 state = gather(state)
         if host:
-            self.host_path_pods += len(members)
+            self.host_path_pods += 1  # the group entity, once (as the JAX package counts it)
             return super()._evaluate_placements(fw, pg_state, group, members, placements)
         t0 = time.perf_counter()
         index = self.snapshot._index
@@ -1399,7 +1487,7 @@ class TorchScheduler(Scheduler):
         res = schedule_placements(
             state, plan.features, plan.batch_pad, plan.fit_strategy, plan.vmax, plan.facts,
             masks, len(members), self._placement_spread_overrides(plan, placements, index))
-        res = _Fetch(res).wait()  # [P, 2, B]
+        res = Fetch(res).wait()  # [P, 2, B]
         self.placement_device_evals += 1
         self.placement_eval_s += time.perf_counter() - t0
         node_names = [ni.name for ni in self.snapshot.node_info_list]
@@ -1447,7 +1535,7 @@ class TorchScheduler(Scheduler):
                          torch.zeros((p_pad, c2), dtype=torch.int64, device=dev))
         res = schedule_placements(state, f, plan.batch_pad, plan.fit_strategy, plan.vmax,
                                   plan.facts, masks, 0, overrides)
-        _Fetch(res).wait()
+        Fetch(res).wait()
 
     # -- device preemption dry run -------------------------------------------
 
@@ -1594,12 +1682,75 @@ class TorchScheduler(Scheduler):
             self.device_scheduled += 1
         return bound
 
+    # -- the score-hint walker (models/score_hints.py) -----------------------
+
+    def _try_hint_binds(self) -> int:
+        """Bind a run of identical replicas on the host off a live hint (the
+        JAX package's :2209-2300): for each pod a validation (counters and a
+        journal replay) and the lap's selection in numpy, then the usual
+        commit tail. The first miss (signature, validation, no feasible
+        node) leaves the pod in the holdover slot for the batch path.
+        Returns the pods it handled."""
+        hints = self._hints
+        handled = 0
+        while True:
+            qpi = self._pop()
+            if qpi is None:
+                if self._event_inbox:
+                    # Pods created off the scheduling thread: replay them so
+                    # that a creation burst does not end the run early.
+                    self.drain_event_inbox()
+                    qpi = self._pop()
+                if qpi is None:
+                    break
+            if isinstance(qpi, QueuedPodGroupInfo) or qpi.pod.scheduler_name not in self.profiles:
+                self._holdover = qpi
+                break
+            fw = self.framework_for_pod(qpi.pod)
+            served = hints.serve(fw, qpi.pod)
+            if served is None:
+                self._holdover = qpi
+                break
+            entry, kind = served
+            row, evaluated = entry.select(self.next_start_node_index)
+            if row < 0:
+                # No feasible node under the hint: the batch path owns the
+                # exact diagnosis.
+                hints._miss("infeasible")
+                self._holdover = qpi
+                break
+            node = entry.node_names[row]
+            committed = self._commit(fw, qpi, node)
+            hints.note_own_attempt(node if committed else "", entry)
+            handled += 1
+            if not committed:
+                break  # the rejection moved state that the next serve fences
+            entry.apply(row)
+            self.next_start_node_index = (self.next_start_node_index % entry.num
+                                          + evaluated) % entry.num
+            if qpi.pod.uid not in self.waiting_pods:
+                # Hits count binds. A pod a Permit plugin holds is assumed on
+                # the node (the walk applies it) but not bound yet.
+                hints._hit(kind)
+            if hints.entry is not entry:
+                break
+        return handled
+
     # -- run loop ------------------------------------------------------------
 
     def schedule_one(self) -> bool:
         # Events parked off the scheduling thread land before the next
         # session collects its pods.
         self.drain_event_inbox()
+        if self._hints.entry is not None:
+            # While a live hint matches the queue's head, identical replicas
+            # bind on the host with no dispatch; the first miss waits in the
+            # holdover slot for the batch path below.
+            t0 = time.perf_counter()
+            handled = self._try_hint_binds()
+            self.hint_s += time.perf_counter() - t0
+            if handled:
+                return True
         t0 = time.perf_counter()
         fw, batch, fallback_reason = self._collect_batch()
         self.collect_s += time.perf_counter() - t0
@@ -1613,9 +1764,9 @@ class TorchScheduler(Scheduler):
             return True
         for qpi in batch:
             if fallback_reason is not _PLACEMENT_GROUP:
-                # (A placement group's cycle counts its own host path:
+                # A pod, or a group entity once, as the JAX package counts
+                # them. (A placement group's cycle counts its own host path:
                 # _evaluate_placements.)
-                self.host_path_pods += (len(qpi.members) if isinstance(qpi, QueuedPodGroupInfo)
-                                        else 1)
+                self.host_path_pods += 1
             self.process_one(qpi)
         return True

@@ -220,6 +220,10 @@ class BatchPlan:
     # Under a node mesh: `features` cut over the mesh's shards
     # (parallel/mesh.py shard_features); None on one device.
     shards: Optional[object] = None
+    # The host arrays `features` were uploaded from, by field name: the
+    # score-hint walker (models/score_hints.py) reads the pod's facts there
+    # instead of copying them back from the device.
+    host: Optional[dict] = None
 
     @property
     def row_local(self) -> bool:
@@ -827,7 +831,8 @@ def build_batch(pod: Pod, batch_size: int, mirror: NodeStateMirror, snapshot,
         dns_node_counts=dns_node_counts, dns_node_elig=dns_node_elig,
         dns_min_domains=[c.min_domains for c in dns] if dns else None,
         sa_node_counts=sa_node_counts, sa_node_live=sa_node_live,
-        sa_hostname_axis=[c.topology_key == LABEL_HOSTNAME for c in sa] if sa else None)
+        sa_hostname_axis=[c.topology_key == LABEL_HOSTNAME for c in sa] if sa else None,
+        host=host)
 
 
 PREEMPT_K_CAP = 256  # victims per node beyond which the host dry run decides

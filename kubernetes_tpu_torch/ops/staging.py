@@ -13,6 +13,9 @@ long completed and `take` does not wait; behind a long kernel it does.
 
 On the CPU there is no copy to wait for: `upload` returns a copy of the
 bytes, and no event is recorded.
+
+A `Fetch` is the other direction: one non-blocking copy of a device tensor
+into pinned host memory, read only after the copy's event has completed.
 """
 
 from __future__ import annotations
@@ -89,3 +92,26 @@ class StagingRing:
         if self._record is not None:
             self._events[i] = self._record(self.device, self._spent[i])
         return out
+
+
+class Fetch:
+    """A device tensor on its way to the host: one non-blocking copy into a
+    new pinned buffer, on the current stream after the work that produced
+    the tensor, with an event after it. `wait()` waits on that event alone
+    and returns the host array; on the CPU the tensor is read as it is."""
+
+    def __init__(self, value: torch.Tensor):
+        if value.device.type == "cuda":
+            self._host = torch.empty(value.shape, dtype=value.dtype, pin_memory=True)
+            with torch.cuda.device(value.device):
+                self._host.copy_(value, non_blocking=True)
+                self._event = torch.cuda.Event()
+                self._event.record()
+        else:
+            self._host = value
+            self._event = None
+
+    def wait(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()

@@ -632,7 +632,14 @@ def test_evicting_clientset_contract():
 ZONES = 3
 
 
-def _skewed_side(pkg, seed=6):
+@pytest.fixture(params=[False, True], ids=["hints-off", "hints-on"])
+def hints(request):
+    """Score hints off (the dispatch path alone) and on (both packages'
+    defaults): each parity case runs both ways."""
+    return request.param
+
+
+def _skewed_side(pkg, seed=6, hints=False):
     """A seeded 60-node cluster over 3 zones, scheduled, then skewed: 40
     pods placed by the scheduler, 8 `app: api` replicas bound two by two
     onto 4 nodes, a 3-member gang bound onto one node; then every node
@@ -642,10 +649,9 @@ def _skewed_side(pkg, seed=6):
     cs = JaxEvictingClientset() if jax else EvictingClientset()
     if jax:
         sched = TPUScheduler(clientset=cs, mesh=None)
-        sched._hints.enabled = False
-        sched._hints.entry = None
+        sched._hints.enabled = hints
     else:
-        sched = TorchScheduler(clientset=cs, device="cpu")
+        sched = TorchScheduler(clientset=cs, device="cpu", score_hints=hints)
     kit = Kit(pkg, cs)
     rng = random.Random(seed)
     caps = [(rng.choice([8, 16, 32]), rng.choice([16, 32, 64])) for _ in range(60)]
@@ -680,13 +686,13 @@ def _skewed_side(pkg, seed=6):
     return kit, sched
 
 
-def test_skewed_cluster_rebalances_like_jax():
+def test_skewed_cluster_rebalances_like_jax(hints):
     """Four descheduler ticks (hysteresis 2, margin 0.02, the default
     strategies), each followed by a scheduler round that places the pods
     the tick evicted: the JAX controller over the JAX TPUScheduler and the
     port's over TorchScheduler(device="cpu") plan, evict and re-place the
     same pods, tick by tick."""
-    sides = [_skewed_side(pkg) for pkg in ("jax", "port")]
+    sides = [_skewed_side(pkg, hints=hints) for pkg in ("jax", "port")]
     ctrls = [kit.ctrl(hysteresis=2, strategies=kit.D.default_strategies(margin=0.02),
                       max_moves_per_tick=8) for kit, _s in sides]
     assert sides[1][0].placements() == sides[0][0].placements()

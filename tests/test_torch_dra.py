@@ -8,8 +8,9 @@ dra_device_support for each reason, count_free_matching_devices on each
 node, batch_supported's claim branch and build_batch's aux_room, aux_inc
 and has_aux for claim counts 1 and 2. Schedulers: each scenario of
 tests/test_dra.py through the JAX package's host Scheduler and the port's
-(`host`), and through TPUScheduler (CPU JAX, no mesh, score hints off: the
-port has no hint walker) and TorchScheduler(device="cpu") (`device`), with
+(`host`), and through TPUScheduler (CPU JAX, no mesh) and
+TorchScheduler(device="cpu"), score hints off in both (`device`) and on in
+both (`device-hints`), with
 the profile DEFAULT_PLUGINS + NodeDeclaredFeatures + DynamicResources
 (core/registry.py dra_profile), its gated branches off (the JAX defaults)
 and on: bindings, claim allocations, reservedFor, scheduled and failure
@@ -325,12 +326,19 @@ def _jax_factory(plugins=JAX_DRA_PLUGINS):
     return lambda h: {"default-scheduler": build_framework(h, plugins=plugins)}
 
 
-def _tpu(gates=False, plugins=JAX_DRA_PLUGINS, **kw):
+def _tpu(gates=False, plugins=JAX_DRA_PLUGINS, hints=False, **kw):
+    """TPUScheduler with the DRA profile, score hints on or off."""
     cfg = SchedulerConfiguration(feature_gates=dict(GATES)) if gates else None
     s = TPUScheduler(mesh=None, config=cfg, profile_factory=_jax_factory(plugins), **kw)
-    s._hints.enabled = False
-    s._hints.entry = None
+    s._hints.enabled = hints
     return s
+
+
+@pytest.fixture(params=[False, True], ids=["hints-off", "hints-on"])
+def hints(request):
+    """Score hints off (the dispatch path alone) and on (both packages'
+    defaults): each parity case runs both ways."""
+    return request.param
 
 
 def _port_profile(gates=False):
@@ -569,16 +577,18 @@ def _run_pair(scenario, kind: str, gates: bool):
                              profile_factory=_jax_factory())
         port_s = Scheduler(profile_factory=_port_profile(gates))
     else:
-        jax_s, port_s = _tpu(gates), TorchScheduler(device="cpu",
-                                                    profile_factory=_port_profile(gates))
+        hints = kind == "device-hints"
+        jax_s = _tpu(gates, hints=hints)
+        port_s = TorchScheduler(device="cpu", profile_factory=_port_profile(gates),
+                                score_hints=hints)
     for s, kit in ((jax_s, JAX), (port_s, PORT)):
         SCENARIOS[scenario](kit, s.clientset, s.run_until_idle)
-    got, want = _outcome(port_s, kind == "device"), _outcome(jax_s, kind == "device")
+    got, want = _outcome(port_s, kind != "host"), _outcome(jax_s, kind != "host")
     assert got == want
     return port_s
 
 
-@pytest.mark.parametrize("kind", ["host", "device"])
+@pytest.mark.parametrize("kind", ["host", "device", "device-hints"])
 @pytest.mark.parametrize("scenario,gates", [(n, False) for n in SCENARIOS]
                          + [(n, True) for n in GATED],
                          ids=[n for n in SCENARIOS] + [f"{n}-gates-on" for n in GATED])
@@ -599,7 +609,7 @@ def test_dra_scenario_like_jax(scenario, gates, kind):
         assert bound == ({"p": "", "p2": "n0"} if gates else {"p": "n0", "p2": ""})
     elif scenario == "claim-template-pods":
         assert sum(1 for v in bound.values() if v) == 16
-        if kind == "device":
+        if kind != "host":
             assert s.device_scheduled >= 14
         for p in cs.pods.values():
             claim = cs.resource_claims[f"default/{p.resource_claims[0]}"]
@@ -642,12 +652,13 @@ def test_alloc_claims_opcode_like_jax():
 # ---------------------------------------------------------------------------
 
 
-def test_claim_pods_inert_without_dynamic_resources_like_jax():
+def test_claim_pods_inert_without_dynamic_resources_like_jax(hints):
     """The JAX package's default profile has no DynamicResources: a pod's
     claims (even one that does not exist) are inert, and it binds on the
     device as a plain pod."""
     outs = []
-    for s, kit in ((_tpu(plugins=DEFAULT_PLUGINS), JAX), (TorchScheduler(device="cpu"), PORT)):
+    for s, kit in ((_tpu(plugins=DEFAULT_PLUGINS, hints=hints), JAX),
+                   (TorchScheduler(device="cpu", score_hints=hints), PORT)):
         cs = s.clientset
         for i in range(4):
             cs.create_node(kit.make_node().name(f"n{i}").capacity({"cpu": "4", "pods": 10}).obj())
@@ -663,12 +674,14 @@ def test_claim_pods_inert_without_dynamic_resources_like_jax():
     assert all(pods.values()) and counts[3] == 12 and claims["default/real"][0] == ""
 
 
-def test_claim_gangs_take_the_host_group_cycle_like_jax():
+def test_claim_gangs_take_the_host_group_cycle_like_jax(hints):
     """Gang members with claims never ride a gang device session: the host
-    group cycle allocates each member's devices, as in JAX."""
+    group cycle allocates each member's devices, as in JAX, and each group
+    counts once as a host-path entity."""
     outs = []
-    for s, kit in ((_tpu(), JAX), (TorchScheduler(device="cpu", profile_factory=dra_profile),
-                                   PORT)):
+    for s, kit in ((_tpu(hints=hints), JAX),
+                   (TorchScheduler(device="cpu", profile_factory=dra_profile, score_hints=hints),
+                    PORT)):
         _dra_cluster(s, kit)
         cs = s.clientset
         for g in range(3):
@@ -681,13 +694,12 @@ def test_claim_gangs_take_the_host_group_cycle_like_jax():
                 cs.create_pod(p)
         s.run_until_idle()
         outs.append(_outcome(s, True))
-    # The host path counts pods in the port, group entities in JAX.
-    (jpods, jclaims, jstatus, jcounts), (pods, claims, status, counts) = outs
-    assert (pods, claims, status, counts[:4]) == (jpods, jclaims, jstatus, jcounts[:4])
-    assert counts[3] == 0 and counts[4] == 9 and jcounts[4] == 3 and all(pods.values())
+    assert outs[0] == outs[1]
+    pods, _claims, _status, counts = outs[1]
+    assert counts[3] == 0 and counts[4] == 3 and all(pods.values())
 
 
-def test_claim_pods_under_a_node_mesh_like_jax():
+def test_claim_pods_under_a_node_mesh_like_jax(hints):
     """The claim-template scenario under a 2-shard NodeMesh on the CPU (the
     aux lane's plan is not row-local: the gathered schedule_batch) equals
     TPUScheduler under its mesh of the conftest's virtual devices."""
@@ -695,9 +707,8 @@ def test_claim_pods_under_a_node_mesh_like_jax():
     from kubernetes_tpu_torch.parallel import make_mesh
 
     jax_s = TPUScheduler(mesh=jax_make_mesh(n_cells=1), profile_factory=_jax_factory())
-    jax_s._hints.enabled = False
-    jax_s._hints.entry = None
-    port_s = TorchScheduler(device="cpu", profile_factory=dra_profile,
+    jax_s._hints.enabled = hints
+    port_s = TorchScheduler(device="cpu", profile_factory=dra_profile, score_hints=hints,
                             mesh=make_mesh(devices=["cpu"] * 2))
     for s, kit in ((jax_s, JAX), (port_s, PORT)):
         _claim_template(kit, s.clientset, s.run_until_idle)
@@ -708,7 +719,7 @@ def test_claim_pods_under_a_node_mesh_like_jax():
 W = "SchedulingWithResourceClaimTemplate/500Nodes_2000Pods"
 
 
-def test_bench_claim_template_cut_like_the_jax_harness(monkeypatch):
+def test_bench_claim_template_cut_like_the_jax_harness(monkeypatch, hints):
     """The bench shape at 50 nodes and 200 measured pods: the JAX perf
     harness's own workload (its createPods run synchronously, as the port's
     bench creates them) and the port's bench give the same scheduled,
@@ -731,10 +742,11 @@ def test_bench_claim_template_cut_like_the_jax_harness(monkeypatch):
             return False
 
     monkeypatch.setattr(harness, "_ThreadedCreator", Synchronous)
-    jax_s = _tpu(plugins=DEFAULT_PLUGINS + (("DynamicResources", 0),))
+    jax_s = _tpu(plugins=DEFAULT_PLUGINS + (("DynamicResources", 0),), hints=hints)
     harness.run_workload(wl, sched=jax_s)
     w = bench.WORKLOADS[W]
-    s = bench.build_cluster(50, device="cpu", node=w.node, profile_factory=bench.profile_for(W))
+    s = bench.build_cluster(50, device="cpu", node=w.node, profile_factory=bench.profile_for(W),
+                            score_hints=hints)
     bench.warm(s, w.init_pods, W)
     result = bench.measure(s, 200, workload=W)
     for c in ("scheduled", "failures", "device_scheduled", "host_path_pods", "device_batches"):
@@ -751,14 +763,14 @@ def test_bench_claim_template_cut_like_the_jax_harness(monkeypatch):
         held.add((p.node_name, dev.key()))
 
 
-def test_claim_session_never_resumes_after_a_claim_write():
+def test_claim_session_never_resumes_after_a_claim_write(hints):
     """The claims' revision is part of the resume key: a wave of claim pods
     after a claim was allocated out of band rebuilds its plan (its rooms
     would be stale), as in JAX."""
     outs = []
-    for s, kit, fn in ((_tpu(), JAX, jax_allocate_pending_claims),
-                       (TorchScheduler(device="cpu", profile_factory=dra_profile), PORT,
-                        allocate_pending_claims)):
+    for s, kit, fn in ((_tpu(hints=hints), JAX, jax_allocate_pending_claims),
+                       (TorchScheduler(device="cpu", profile_factory=dra_profile,
+                                       score_hints=hints), PORT, allocate_pending_claims)):
         cs = s.clientset
         for i in range(4):
             cs.create_node(kit.make_node().name(f"n{i}").capacity({"cpu": "8", "pods": 50}).obj())
@@ -898,13 +910,13 @@ def test_lean_commit_tail_leaves_what_the_full_tail_leaves(profile, monkeypatch)
 
 
 @pytest.mark.parametrize("profile", ["dra", "default"])
-def test_commit_drive_like_jax(profile):
+def test_commit_drive_like_jax(profile, hints):
     """The commit drive through TPUScheduler and TorchScheduler: bindings,
     claims, counters, queue counts and the journal's events equal."""
     plugins = JAX_DRA_PLUGINS if profile == "dra" else DEFAULT_PLUGINS + (
         ("NodeDeclaredFeatures", 0),)
-    jax_s = _tpu(plugins=plugins)
-    port_s = TorchScheduler(device="cpu", profile_factory=PROFILES[profile])
+    jax_s = _tpu(plugins=plugins, hints=hints)
+    port_s = TorchScheduler(device="cpu", profile_factory=PROFILES[profile], score_hints=hints)
     _commit_drive(JAX, jax_s)
     _commit_drive(PORT, port_s)
     assert _outcome(port_s, True) == _outcome(jax_s, True)

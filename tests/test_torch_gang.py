@@ -2,8 +2,8 @@
 
 The same cluster and pod groups go through three schedulers: the JAX
 package's host Scheduler (deterministic ties), its TPUScheduler (CPU JAX, no
-mesh, score hints off: the port has no hint walker) and the port's
-TorchScheduler on the CPU (the kernels' plain versions). Their bindings
+mesh) and the port's TorchScheduler on the CPU (the kernels' plain
+versions), the last two with score hints off in both and on in both. Their bindings
 must be identical pod for pod: gang device sessions (groups of the default
 algorithm), the placement algorithm with its stacked device evaluation
 (schedule_placements), pod-group preemption and the Permit barrier. The
@@ -41,14 +41,21 @@ def _one_torch_thread():
     torch.set_num_threads(before)
 
 
+@pytest.fixture(params=[False, True], ids=["hints-off", "hints-on"])
+def hints(request):
+    """Score hints off (the dispatch path alone) and on (both packages'
+    defaults): each parity case runs both ways."""
+    return request.param
+
+
 class Kit:
     """One scheduler with the builders of its package."""
 
-    def __init__(self, kind, placement=False, max_batch=None):
+    def __init__(self, kind, placement=False, max_batch=None, hints=False):
         self.kind = kind
         if kind == "port":
             self.sched = TorchScheduler(
-                device="cpu", max_batch=max_batch,
+                device="cpu", max_batch=max_batch, score_hints=hints,
                 profile_factory=gang_placement_profile if placement else default_profile)
             self.node, self.pod, self.group = make_node, make_pod, PodGroup
         else:
@@ -56,8 +63,7 @@ class Kit:
             kw = {"profile_factory": gang_placement_profiles} if placement else {}
             if kind == "jax":
                 self.sched = TPUScheduler(clientset=cs, mesh=None, max_batch=max_batch, **kw)
-                self.sched._hints.enabled = False
-                self.sched._hints.entry = None
+                self.sched._hints.enabled = hints
             else:
                 self.sched = JaxScheduler(clientset=cs, deterministic_ties=True, **kw)
             self.node, self.pod, self.group = jax_make_node, jax_make_pod, JaxPodGroup
@@ -99,12 +105,13 @@ class Kit:
                 if by_name[n].node_name}
 
 
-def trio(populate, placement=False, max_batch=None, kinds=("host", "jax", "port")):
-    """Run populate(kit) then run_until_idle on each scheduler kind; assert
-    identical bindings; return the kits by kind."""
+def trio(populate, placement=False, max_batch=None, kinds=("host", "jax", "port"), hints=False):
+    """Run populate(kit) then run_until_idle on each scheduler kind (`hints`:
+    score hints on in the JAX and port schedulers); assert identical
+    bindings; return the kits by kind."""
     kits = {}
     for kind in kinds:
-        kit = Kit(kind, placement, max_batch=None if kind == "host" else max_batch)
+        kit = Kit(kind, placement, max_batch=None if kind == "host" else max_batch, hints=hints)
         populate(kit)
         kit.sched.run_until_idle()
         kits[kind] = kit
@@ -119,9 +126,9 @@ def trio(populate, placement=False, max_batch=None, kinds=("host", "jax", "port"
 # -- gang device sessions (tests/test_gang_device.py) -------------------------
 
 @pytest.mark.parametrize("max_batch", [None, 8], ids=["one-pack", "packs-of-two-groups"])
-def test_gang_device_assignments_match_host_oracle(max_batch):
+def test_gang_device_assignments_match_host_oracle(max_batch, hints):
     kits = trio(lambda k: (k.nodes(40), [k.gang(f"g{g}", 4) for g in range(12)]),
-                max_batch=max_batch)
+                max_batch=max_batch, hints=hints)
     port, jax_s = kits["port"].sched, kits["jax"].sched
     assert all(kits["port"].bindings().values())
     assert port.device_scheduled == jax_s.device_scheduled == 48
@@ -129,7 +136,7 @@ def test_gang_device_assignments_match_host_oracle(max_batch):
     assert port.device_batches == jax_s.device_batches
 
 
-def test_gang_device_interleaved_with_plain_pods():
+def test_gang_device_interleaved_with_plain_pods(hints):
     def populate(k):
         k.nodes(40)
         for g in range(6):
@@ -137,36 +144,36 @@ def test_gang_device_interleaved_with_plain_pods():
         proto = k.pod().name("pp").req({"cpu": "250m"}).obj()
         for i in range(20):
             k.cs.create_pod(proto.clone_from_template(f"plain-{i}"))
-    kits = trio(populate)
+    kits = trio(populate, hints=hints)
     assert kits["port"].sched.scheduled == kits["jax"].sched.scheduled == 38
 
 
-def test_gang_device_infeasible_group_parks_and_session_recovers():
+def test_gang_device_infeasible_group_parks_and_session_recovers(hints):
     def populate(k):
         k.nodes(4)
         k.gang("ok1", 2, cpu="1")
         k.gang("nofit", 2, cpu="16")  # no node has 16 cpu
         k.sched.run_until_idle()
         k.gang("late", 2, cpu="1")
-    kits = trio(populate)
+    kits = trio(populate, hints=hints)
     b = kits["port"].bindings()
     assert all(b[f"ok1-{j}"] and b[f"late-{j}"] for j in range(2))
     assert not any(b[f"nofit-{j}"] for j in range(2))
     assert kits["port"].sched.failures == kits["jax"].sched.failures > 0
 
 
-def test_gang_member_anti_affinity_rides_the_device():
+def test_gang_member_anti_affinity_rides_the_device(hints):
     """Hostname anti-affinity is kernel-supported: the group still rides a
     gang session, and its members never share a node."""
     kits = trio(lambda k: (k.nodes(6), k.gang(
         "anti", 3, cpu="100m",
-        build=lambda b: b.labels({"app": "x"}).pod_affinity(HOSTNAME, {"app": "x"}, anti=True))))
+        build=lambda b: b.labels({"app": "x"}).pod_affinity(HOSTNAME, {"app": "x"}, anti=True))), hints=hints)
     nodes = list(kits["port"].bindings().values())
     assert None not in nodes and "" not in nodes and len(set(nodes)) == 3
     assert kits["port"].sched.device_scheduled == 3
 
 
-def test_gang_sessions_resume_like_the_reference():
+def test_gang_sessions_resume_like_the_reference(hints):
     """A second wave of gangs resumes the first wave's plan: the
     plan-acquisition counters equal the JAX package's."""
     def populate(k):
@@ -176,7 +183,7 @@ def test_gang_sessions_resume_like_the_reference():
         k.sched.run_until_idle()
         for g in range(4):
             k.gang(f"b{g}", 4)
-    kits = trio(populate, kinds=("jax", "port"))
+    kits = trio(populate, kinds=("jax", "port"), hints=hints)
     counters = ("plan_rebuilds_full", "plan_rebuilds_delta", "plan_rebuilds_resume")
     got = {c: getattr(kits["port"].sched, c) for c in counters}
     assert got == {c: getattr(kits["jax"].sched, c) for c in counters}
@@ -201,26 +208,28 @@ def _placement_with_affinity(k):
 @pytest.mark.parametrize("populate,placement", [
     (_mixed_members, False), (_placement_with_affinity, True)],
     ids=["mixed-members", "placement-with-anti-affinity"])
-def test_groups_outside_the_device_take_the_host_cycle(populate, placement):
+def test_groups_outside_the_device_take_the_host_cycle(populate, placement, hints):
     """A group whose members differ, and a placement group whose plan
     carries inter-pod-affinity tables (outside the placement restriction),
-    are scheduled by the host group cycle: the same bindings, their members
-    counted as host-path pods, no device placement evaluation."""
-    kits = trio(populate, placement=placement)
+    are scheduled by the host group cycle: the same bindings, the group
+    counted once as a host-path entity (as the JAX package counts it), no
+    device placement evaluation."""
+    kits = trio(populate, placement=placement, hints=hints)
     port = kits["port"].sched
     assert all(kits["port"].bindings().values())
-    assert port.host_path_pods == 3 and port.placement_device_evals == 0
+    assert port.host_path_pods == kits["jax"].sched.host_path_pods == 1
+    assert port.placement_device_evals == 0
     assert port.device_scheduled == 0
 
 
 # -- the placement algorithm (tests/test_placement_gang.py) -------------------
 
-def test_placement_gang_device_matches_host_oracle():
+def test_placement_gang_device_matches_host_oracle(hints):
     def populate(k):
         k.nodes(30, zones=3)
         for g in range(6):
             k.gang(f"g{g}", 3, keys=(ZONE,))
-    kits = trio(populate, placement=True)
+    kits = trio(populate, placement=True, hints=hints)
     port = kits["port"]
     assert port.sched.placement_device_evals == kits["jax"].sched.placement_device_evals == 6
     assert port.sched.host_path_pods == 0
@@ -289,9 +298,9 @@ PLACEMENT_CASES = {
 
 
 @pytest.mark.parametrize("case", list(PLACEMENT_CASES))
-def test_placement_algorithm(case):
+def test_placement_algorithm(case, hints):
     populate, check, zones = PLACEMENT_CASES[case]
-    kits = trio(populate, placement=True)
+    kits = trio(populate, placement=True, hints=hints)
     port = kits["port"]
     b = port.bindings()
     assert check(b), b
@@ -339,8 +348,8 @@ SPREAD_CASES = {
 
 
 @pytest.mark.parametrize("case", list(SPREAD_CASES))
-def test_placement_gang_with_spread_members(case):
-    kits = trio(SPREAD_CASES[case], placement=True)
+def test_placement_gang_with_spread_members(case, hints):
+    kits = trio(SPREAD_CASES[case], placement=True, hints=hints)
     port = kits["port"]
     b = port.bindings()
     assert all(b.values())
@@ -351,7 +360,7 @@ def test_placement_gang_with_spread_members(case):
 
 
 @pytest.mark.parametrize("seed", range(4))
-def test_fuzz_spread_placement_gangs(seed):
+def test_fuzz_spread_placement_gangs(seed, hints):
     def populate(k):
         rng = random.Random(seed)
         zones, per = rng.choice([2, 3, 4]), rng.choice([3, 4, 5])
@@ -359,7 +368,7 @@ def test_fuzz_spread_placement_gangs(seed):
         for g in range(3):
             _spread_gang(k, f"g{g}", rng.choice([2, 3]), max_skew=rng.choice([1, 2]),
                          key=rng.choice([HOSTNAME, ZONE]))
-    kits = trio(populate, placement=True)
+    kits = trio(populate, placement=True, hints=hints)
     assert kits["port"].sched.placement_device_evals == kits["jax"].sched.placement_device_evals
 
 
@@ -392,9 +401,9 @@ PREEMPTION_CASES = {
 
 
 @pytest.mark.parametrize("case", list(PREEMPTION_CASES))
-def test_pod_group_preemption(case):
+def test_pod_group_preemption(case, hints):
     populate, victims = PREEMPTION_CASES[case]
-    kits = trio(populate, placement=True)
+    kits = trio(populate, placement=True, hints=hints)
     port = kits["port"]
     b = port.bindings()
     assert sum(1 for n in b if n.startswith("low-")) == 4 - victims if victims else True
@@ -424,7 +433,7 @@ def _record_waiters(sched):
     return seen
 
 
-def test_permit_barrier_parks_members_until_the_group_is_complete():
+def test_permit_barrier_parks_members_until_the_group_is_complete(hints):
     """Under the placement profile a committed member waits at Permit until
     min_count members hold reservations; the last one releases the rest.
     The park/allow sequence and the bindings equal the JAX package's."""
@@ -434,13 +443,13 @@ def test_permit_barrier_parks_members_until_the_group_is_complete():
         seqs[k.kind] = _record_waiters(k.sched)
         k.nodes(9, zones=3)
         k.gang("g", 3, keys=(ZONE,))
-    kits = trio(populate, placement=True)
+    kits = trio(populate, placement=True, hints=hints)
     assert seqs["port"] == seqs["jax"] == seqs["host"]
     assert [e for e, _ in seqs["port"]] == ["park", "park", "allow", "allow"]
     assert not kits["port"].sched.waiting_pods and all(kits["port"].bindings().values())
 
 
-def test_members_parked_at_permit_are_released_by_a_late_member():
+def test_members_parked_at_permit_are_released_by_a_late_member(hints):
     """Three of four members fit (min_count 2): the first two pass the
     barrier, the third parks at Permit, assumed on its node and unbound.
     The fourth requeues alone; once a node is added it is placed, completes
@@ -455,7 +464,7 @@ def test_members_parked_at_permit_are_released_by_a_late_member():
                            for e in k.sched.waiting_pods.values()},
                           sorted(p.name for p in k.cs.pods.values() if p.uid in k.cs.bindings))
         _zoned(k, "extra", 1, 2, "z0")
-    kits = trio(populate, placement=True)
+    kits = trio(populate, placement=True, hints=hints)
     assert parked["port"] == parked["jax"] == parked["host"]
     waiting, bound = parked["port"]
     assert len(waiting) == 1 and len(bound) == 2
@@ -483,7 +492,7 @@ def test_pod_groups_are_in_scope_but_composite_trees_are_not():
     ("SchedulingGangs/1000Nodes_250Groups", 50),
     ("SchedulingGangsPlacement/5000Nodes_250Groups", 100),
 ], ids=["gangs", "placement"])
-def test_gang_bench_workloads_match_jax(workload, n_nodes):
+def test_gang_bench_workloads_match_jax(workload, n_nodes, hints):
     """bench.py's gang workloads at 10 groups (the shapes' nodes, fewer of
     them) bind as the JAX TPUScheduler binds the same cluster and groups;
     the placement workload evaluates each group cycle on the device path
@@ -493,10 +502,10 @@ def test_gang_bench_workloads_match_jax(workload, n_nodes):
 
     w = bench.WORKLOADS[workload]
     port = bench.build_cluster(n_nodes, device="cpu", node=w.node,
-                               profile_factory=bench.profile_for(workload))
+                               profile_factory=bench.profile_for(workload), score_hints=hints)
     bench.warm(port, 0, workload)
     result = bench.measure(port, 40, workload=workload)
-    jax_kit = Kit("jax", placement=bool(w.gang.topology_key))
+    jax_kit = Kit("jax", placement=bool(w.gang.topology_key), hints=hints)
     for i in range(n_nodes):
         jax_kit.cs.create_node(jax_make_node().name(f"node-{i}").capacity(
             {"cpu": w.node.cpu, "memory": w.node.memory, "pods": w.node.pods})

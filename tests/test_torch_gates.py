@@ -3,8 +3,8 @@ CPU: the PreEnqueue gate and the queue's gated pods — parked on admission,
 released by the update that lifts their gates, skipped by cluster-event
 moves (the pool's non-gated index) and by the leftover flush — with every
 queue count equal to the JAX package's, state for state; end to end
-through TPUScheduler (score hints off) and TorchScheduler(device="cpu"),
-and SchedulingWhileGated/1Node_10GatedPods at its upstream size."""
+through TPUScheduler and TorchScheduler(device="cpu"), score hints off in
+both and on in both, and SchedulingWhileGated/1Node_10GatedPods at its upstream size."""
 
 import pytest
 import torch
@@ -26,12 +26,19 @@ def _one_torch_thread():
     torch.set_num_threads(before)
 
 
-def _pair():
+@pytest.fixture(params=[False, True], ids=["hints-off", "hints-on"])
+def hints(request):
+    """Score hints off (the dispatch path alone) and on (both packages'
+    defaults): each parity case runs both ways."""
+    return request.param
+
+
+def _pair(hints=False):
+    """The JAX scheduler and the port's, score hints on or off in both."""
     jax_s = TPUScheduler(mesh=None)
-    jax_s._hints.enabled = False
-    jax_s._hints.entry = None
+    jax_s._hints.enabled = hints
     return ((jax_s, jax_make_node, jax_make_pod),
-            (TorchScheduler(device="cpu"), make_node, make_pod))
+            (TorchScheduler(device="cpu", score_hints=hints), make_node, make_pod))
 
 
 def _same(pair):
@@ -44,11 +51,11 @@ def _same(pair):
     return b.queue.pending_counts()
 
 
-def test_gated_pods_parked_released_and_skipped():
+def test_gated_pods_parked_released_and_skipped(hints):
     """Gated pods park in the unschedulable pool beside plain ones; a bound
     pod's deletion (a cluster event) moves nothing gated; an update that
     lifts one pod's gates releases it; one that keeps a gate does not."""
-    pair = _pair()
+    pair = _pair(hints=hints)
     for s, mk_node, mk_pod in pair:
         for i in range(3):
             s.clientset.create_node(mk_node().name(f"node-{i}")
@@ -80,12 +87,12 @@ def test_gated_pods_parked_released_and_skipped():
     assert counts[2] == 3 + len(port.queue.unschedulable.non_gated)
 
 
-def test_scheduling_while_gated_upstream_short():
+def test_scheduling_while_gated_upstream_short(hints):
     """SchedulingWhileGated/1Node_10GatedPods (performance-config.yaml:449):
     one node of 1000 cpu / 4Ti / 90000 pods, 10 gated pods, 10 pods in
     namespace `deleting` scheduled then deleted, 10 measured pods: the
     measured pods bind, the gated ones stay parked, as in JAX."""
-    pair = _pair()
+    pair = _pair(hints=hints)
     for s, mk_node, mk_pod in pair:
         s.clientset.create_node(mk_node().name("scheduler-perf-node")
                                 .capacity({"cpu": 1000, "memory": "4Ti", "pods": 90000}).obj())

@@ -21,9 +21,10 @@ exchanges as real copies).
 - The scheduler: TorchScheduler(device="cpu", mesh=...) against
   TPUScheduler(mesh=make_mesh(n_cells=1)) on tests/test_sharded_mesh.py's
   shapes (the gathered path's chained sessions, the sharded lap's
-  production dispatch, a spread and anti-affinity mix), two cells through
-  sharded_schedule_batch, and delta resume under the mesh
-  (tests/test_incremental_resume.py:194-322's counterparts).
+  production dispatch, a spread and anti-affinity mix; score hints off in
+  both and on in both), two cells through sharded_schedule_batch, and
+  delta resume under the mesh (tests/test_incremental_resume.py:194-322's
+  counterparts, hints off).
 
 Every comparison is exact: all of it is integer arithmetic."""
 
@@ -76,6 +77,13 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
+
+
+@pytest.fixture(params=[False, True], ids=["hints-off", "hints-on"])
+def hints(request):
+    """Score hints off (the dispatch path alone) and on (both packages'
+    defaults): each parity case runs both ways."""
+    return request.param
 
 
 # ---------------------------------------------------------------------------
@@ -522,17 +530,16 @@ def test_a_card_asked_for_more_shards_than_stay_resident_is_refused():
 # ---------------------------------------------------------------------------
 
 
-def _jax_sched(mesh=True, max_batch=64):
+def _jax_sched(mesh=True, max_batch=64, hints=False):
+    """The JAX mesh scheduler, score hints on or off (with them, a replica
+    after a clean session binds before any session starts)."""
     s = TPUScheduler(max_batch=max_batch, mesh=jax_make_mesh(n_cells=1) if mesh else None)
-    # The port has no score-hint walker; with it the JAX scheduler binds
-    # identical replicas before any session starts.
-    s._hints.enabled = False
-    s._hints.entry = None
+    s._hints.enabled = hints
     return s
 
 
-def _port_sched(max_batch=64, shards=8):
-    return TorchScheduler(device="cpu", max_batch=max_batch,
+def _port_sched(max_batch=64, shards=8, hints=False):
+    return TorchScheduler(device="cpu", max_batch=max_batch, score_hints=hints,
                           mesh=make_mesh(devices=["cpu"] * shards))
 
 
@@ -540,12 +547,14 @@ def _assignments(s):
     return {f"{p.namespace}/{p.name}": p.node_name for p in s.clientset.pods.values()}
 
 
-def _run_both(build, max_batch):
+def _run_both(build, max_batch, hints=False):
     """The same scripted cluster through the JAX mesh scheduler and the
-    port's, each with its package's builders."""
+    port's, each with its package's builders, score hints on or off in
+    both."""
     out = []
-    for sched, mk_node, mk_pod in ((_jax_sched(max_batch=max_batch), jax_make_node, jax_make_pod),
-                                   (_port_sched(max_batch), make_node, make_pod)):
+    for sched, mk_node, mk_pod in ((_jax_sched(max_batch=max_batch, hints=hints), jax_make_node,
+                                    jax_make_pod),
+                                   (_port_sched(max_batch, hints=hints), make_node, make_pod)):
         build(sched, mk_node, mk_pod)
         sched.run_until_idle()
         out.append(sched)
@@ -556,7 +565,7 @@ def _run_both(build, max_batch):
     return jax_s, port
 
 
-def test_chained_sessions_match_jax_under_mesh():
+def test_chained_sessions_match_jax_under_mesh(hints):
     """60 nodes, 90 spread pods, max_batch 32: three chained batches on the
     gathered path (a spread plan is not row-local)."""
     def build(s, mk_node, mk_pod):
@@ -567,11 +576,11 @@ def test_chained_sessions_match_jax_under_mesh():
             s.clientset.create_pod(mk_pod().name(f"p{i}").req({"cpu": "250m"}).label("app", "s")
                                    .spread_constraint(1, ZONE, "DoNotSchedule", {"app": "s"})
                                    .obj())
-    jax_s, port = _run_both(build, 32)
+    jax_s, port = _run_both(build, 32, hints=hints)
     assert port.device_batches >= 3 and port.shard_map_dispatches == 0
 
 
-def test_sharded_lap_is_the_production_dispatch_of_row_local_plans():
+def test_sharded_lap_is_the_production_dispatch_of_row_local_plans(hints):
     """96 nodes, 300 identical pods, max_batch 128: the row-local plan's
     dispatches take the sharded lap, as many as the JAX shard_map's."""
     def build(s, mk_node, mk_pod):
@@ -582,12 +591,12 @@ def test_sharded_lap_is_the_production_dispatch_of_row_local_plans():
             {"app": "rl"}).obj()
         for i in range(300):
             s.clientset.create_pod(proto.clone_from_template(f"p{i}"))
-    jax_s, port = _run_both(build, 128)
+    jax_s, port = _run_both(build, 128, hints=hints)
     assert port.shard_map_dispatches == jax_s.shard_map_dispatches >= 3
     assert port.scheduled == 300
 
 
-def test_spread_and_anti_affinity_mix_matches_jax_under_mesh():
+def test_spread_and_anti_affinity_mix_matches_jax_under_mesh(hints):
     def build(s, mk_node, mk_pod):
         for i in range(40):
             s.clientset.create_node(mk_node().name(f"n{i}").capacity(
@@ -602,7 +611,7 @@ def test_spread_and_anti_affinity_mix_matches_jax_under_mesh():
                                                  anti=True).obj())
         for i in range(80):
             s.clientset.create_pod(mk_pod().name(f"b{i}").req({"cpu": "100m"}).obj())
-    _run_both(build, 128)
+    _run_both(build, 128, hints=hints)
 
 
 @pytest.mark.parametrize("batch", [8, 128])
@@ -665,7 +674,8 @@ def _pod(mk, name, tolerate=None):
 
 
 class _Pair:
-    """The JAX mesh scheduler and the port's over identical clusters."""
+    """The JAX mesh scheduler and the port's over identical clusters, score
+    hints off in both: the cases are about the sessions' own delta path."""
 
     def __init__(self, n_nodes=24, max_batch=64, taints=None):
         self.sides = ((_jax_sched(max_batch=max_batch), jax_make_node, jax_make_pod),

@@ -1,6 +1,6 @@
 """NodeDeclaredFeatures and ImageLocality in the PyTorch port against the
-JAX reference, on the CPU, through TPUScheduler (score hints off) and
-TorchScheduler(device="cpu"): pods requiring declared features bind only
+JAX reference, on the CPU, through TPUScheduler and
+TorchScheduler(device="cpu"), score hints off in both and on in both: pods requiring declared features bind only
 on nodes that declare them, and their failures carry the plugin's
 diagnosis; a node update that drops a feature ends the resumable plan
 (the node-update classifier compares declared features); ImageLocality
@@ -30,12 +30,20 @@ def _one_torch_thread():
     torch.set_num_threads(before)
 
 
-def _pair(max_batch=None):
+@pytest.fixture(params=[False, True], ids=["hints-off", "hints-on"])
+def hints(request):
+    """Score hints off (the dispatch path alone) and on (both packages'
+    defaults): each parity case runs both ways."""
+    return request.param
+
+
+def _pair(max_batch=None, hints=False):
+    """The JAX scheduler and the port's, score hints on or off in both."""
     jax_s = TPUScheduler(mesh=None, max_batch=max_batch)
-    jax_s._hints.enabled = False
-    jax_s._hints.entry = None
+    jax_s._hints.enabled = hints
     return ((jax_s, jax_make_node, jax_make_pod),
-            (TorchScheduler(device="cpu", max_batch=max_batch), make_node, make_pod))
+            (TorchScheduler(device="cpu", max_batch=max_batch, score_hints=hints), make_node,
+             make_pod))
 
 
 def _each(pair, fn):
@@ -75,11 +83,11 @@ def _feature_pods(n, feats, prefix="p", cpu="500m"):
 
 
 @pytest.mark.parametrize("max_batch", [None, 64], ids=["lap", "scan"])
-def test_declared_features_bind_like_jax(max_batch):
+def test_declared_features_bind_like_jax(max_batch, hints):
     """Only odd nodes declare gpu-x: pods requiring it fill the odd nodes
     and the rest fail with NodeDeclaredFeatures' diagnosis; pods requiring
     a feature no node declares fail everywhere; plain pods go anywhere."""
-    pair = _pair(max_batch)
+    pair = _pair(max_batch, hints=hints)
     _each(pair, _feature_nodes(10, lambda i: {"gpu-x": True} if i % 2 else {"gpu-x": False}))
     _each(pair, _feature_pods(44, "gpu-x"))
     _each(pair, _feature_pods(3, "gpu-x, missing", prefix="none"))
@@ -95,13 +103,13 @@ def test_declared_features_bind_like_jax(max_batch):
     assert port.device_scheduled > 0 and port.failures > 0
 
 
-def test_dropping_a_declared_feature_is_not_a_delta_patch():
+def test_dropping_a_declared_feature_is_not_a_delta_patch(hints):
     """Fault 3: a node update that drops a feature leaves labels and images
     as they were, so a classifier that compared only those would
     delta-patch the row and keep the plan's extra_ok, which lets the
     feature pods onto the node. It must end the resumable plan instead:
     the next session rebuilds, as JAX's does, and the node stays empty."""
-    pair = _pair(max_batch=64)
+    pair = _pair(max_batch=64, hints=hints)
     _each(pair, _feature_nodes(6, lambda i: {"gpu-x": True}))
     _each(pair, _feature_pods(2, "gpu-x", prefix="w1"))
     port = pair[1][0]
@@ -120,14 +128,14 @@ def test_dropping_a_declared_feature_is_not_a_delta_patch():
     assert port.plan_rebuilds_full == full + 1
 
 
-def test_image_locality_scores_like_jax():
+def test_image_locality_scores_like_jax(hints):
     """Nodes hold a 900 MiB image `big` (3 of 12) or a 600 MiB image
     `small` (9 of 12): pods naming each score the nodes that hold it,
     discounted by the share of nodes that hold it, and bind as in JAX on
     the device (lap and scan) — the discount makes `small` nearly
     worthless."""
     for max_batch in (None, 64):
-        pair = _pair(max_batch)
+        pair = _pair(max_batch, hints=hints)
 
         def nodes(s, mk_node, _mk_pod):
             for i in range(12):

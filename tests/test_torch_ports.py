@@ -6,9 +6,9 @@ against the JAX package's schedule_batch and schedule_placements on seeded
 numpy draws, from a carry whose `blocked` lane is drawn at random, fresh
 and chained: results and every ScanCarry lane, `blocked` included, are
 equal. Scheduler: pods with host ports go
-through the JAX package's TPUScheduler (CPU JAX, no mesh, score hints off:
-the port has no hint walker) and the port's TorchScheduler(device="cpu")
-on each kernel path, against existing pods' ports (the 0.0.0.0 wildcard,
+through the JAX package's TPUScheduler (CPU JAX, no mesh) and the port's
+TorchScheduler(device="cpu"), score hints off in both and on in both, on
+each kernel path, against existing pods' ports (the 0.0.0.0 wildcard,
 TCP against UDP), through resume and through the four faults the slice
 repaired. Every comparison is exact."""
 
@@ -56,6 +56,13 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
+
+
+@pytest.fixture(params=[False, True], ids=["hints-off", "hints-on"])
+def hints(request):
+    """Score hints off (the dispatch path alone) and on (both packages'
+    defaults): each parity case runs both ways."""
+    return request.param
 
 
 # ---------------------------------------------------------------------------
@@ -213,14 +220,13 @@ class Pair:
     """The JAX package's TPUScheduler and the port's TorchScheduler, each
     with its package's builders."""
 
-    def __init__(self, max_batch=None, placement=False, resume=True):
+    def __init__(self, max_batch=None, placement=False, resume=True, hints=False):
         self.jax = TPUScheduler(mesh=None, max_batch=max_batch,
                                 **({"profile_factory": gang_placement_profiles}
                                    if placement else {}))
-        self.jax._hints.enabled = False
-        self.jax._hints.entry = None
+        self.jax._hints.enabled = hints
         self.port = TorchScheduler(
-            device="cpu", max_batch=max_batch, resume=resume,
+            device="cpu", max_batch=max_batch, resume=resume, score_hints=hints,
             profile_factory=gang_placement_profile if placement else default_profile)
         self.sides = ((self.jax, jax_make_node, jax_make_pod, JaxPodGroup),
                       (self.port, make_node, make_pod, PodGroup))
@@ -284,12 +290,12 @@ PORT_PATHS = {
 
 
 @pytest.mark.parametrize("case", list(PORT_PATHS))
-def test_host_port_pods_bind_like_jax(case, paths):
+def test_host_port_pods_bind_like_jax(case, paths, hints):
     """Pods holding one host port, more than the nodes: one a node (the
     node that already holds the port excluded), the rest unschedulable with
     a NodePorts diagnosis, exactly as the JAX package binds them."""
     max_batch, n, n_pods, build, kernel = PORT_PATHS[case]
-    pair = Pair(max_batch=max_batch)
+    pair = Pair(max_batch=max_batch, hints=hints)
     pair.each(_nodes(n))
     pair.each(_bound_port_pod("holder", "node-3"))
     pair.each(_port_pods(n_pods, build=build))
@@ -302,12 +308,12 @@ def test_host_port_pods_bind_like_jax(case, paths):
     assert bound["holder"] == "node-3"
 
 
-def test_host_port_gangs_with_placements():
+def test_host_port_gangs_with_placements(hints):
     """Pod groups whose members request hostPort 9000, constrained to a
     zone, under the placement plugins: the device evaluates every group's
     placements with the blocked lane, and the bindings equal JAX's (two
     groups a zone fit, the rest do not)."""
-    pair = Pair(placement=True)
+    pair = Pair(placement=True, hints=hints)
     pair.each(_nodes(24, zones=3))
 
     def groups(s, _mk_node, mk_pod, group):
@@ -332,12 +338,12 @@ def test_host_port_gangs_with_placements():
     (("10.0.0.2", "TCP"), False),    # the same address
     (("", "UDP"), True),             # another protocol: no conflict
 ], ids=["wildcard", "other-ip", "same-ip", "udp"])
-def test_conflicts_with_existing_pods(existing, want):
+def test_conflicts_with_existing_pods(existing, want, hints):
     """A pod asking for TCP 10.0.0.2:8080 against an existing pod's port on
     node-0: the conflicts of nodeports.go's fitsPorts, as in the JAX
     package."""
     host_ip, protocol = existing
-    pair = Pair()
+    pair = Pair(hints=hints)
     pair.each(_nodes(2, zones=1))
     pair.each(_bound_port_pod("holder", "node-0", protocol=protocol, host_ip=host_ip))
 
@@ -350,13 +356,13 @@ def test_conflicts_with_existing_pods(existing, want):
     assert ("node-0" in {bound["ip-0"], bound["ip-1"]}) == want
 
 
-def test_host_port_preemptor_takes_the_host_dry_run():
+def test_host_port_preemptor_takes_the_host_dry_run(hints):
     """Fault 1: a preemptor with host ports is sent to the host dry run (a
     victim's removal frees its port), with the JAX package's victims. On
     node-0 one low-priority pod holds the port (one victim frees it); the
     other nodes hold two pods each. The dry-run kernel, which sees node-0's
     port as static, would evict two pods elsewhere."""
-    pair = Pair()
+    pair = Pair(hints=hints)
     pair.each(_nodes(4, zones=1, cpu=4))
 
     def fill(s, _mk_node, mk_pod, _group):
@@ -382,12 +388,12 @@ def test_host_port_preemptor_takes_the_host_dry_run():
     assert pair.port.preemption_device_evals == 0
 
 
-def test_pod_ports_event_forces_a_rebuild():
+def test_pod_ports_event_forces_a_rebuild(hints):
     """Fault 2: a pod holding the port appears on a free node between two
     sessions of a port-aware plan. The plan's extra_ok is stale, so the
     next session rebuilds in full (JAX's classifier refuses the patch)
     and leaves that node alone."""
-    pair = Pair(max_batch=64)
+    pair = Pair(max_batch=64, hints=hints)
     pair.each(_nodes(10))
     pair.each(_port_pods(4, prefix="w1"))
     free = sorted({f"node-{i}" for i in range(10)}
@@ -401,12 +407,12 @@ def test_pod_ports_event_forces_a_rebuild():
     assert pair.port.plan_rebuilds_full == full + 1 and pair.port.failures > 0
 
 
-def test_resume_keeps_the_blocked_lane():
+def test_resume_keeps_the_blocked_lane(hints):
     """A second wave of the same port pods resumes the first wave's plan
     and carry (exact signature, then a namespace-erased one): only the
     carry's blocked lane keeps them off the rows the first wave took, and
     the bindings and plan acquisitions equal JAX's."""
-    pair = Pair(max_batch=64)
+    pair = Pair(max_batch=64, hints=hints)
     for s, ns in ((pair.jax, JaxNamespace), (pair.port, Namespace)):
         s.clientset.create_namespace(ns(name="other"))
     pair.each(_nodes(12))
@@ -421,12 +427,12 @@ def test_resume_keeps_the_blocked_lane():
         assert getattr(pair.port, c) == getattr(pair.jax, c), c
 
 
-def test_port_aware_placement_plan_is_not_cached():
+def test_port_aware_placement_plan_is_not_cached(hints):
     """Fault 4: consecutive group cycles of port-holding members. Our own
     binds move no cluster-event version, so a kept plan would keep the
     extra_ok of before the first group's binds and double-book its nodes;
     the port, like JAX, keeps no port-aware plan."""
-    pair = Pair(placement=True)
+    pair = Pair(placement=True, hints=hints)
     pair.each(_nodes(8, zones=2))
 
     def groups(s, _mk_node, mk_pod, group):
@@ -446,10 +452,10 @@ def test_port_aware_placement_plan_is_not_cached():
     assert pair.port.placement_device_evals == 4 and pair.port._placement_plan_cache is None
 
 
-def test_pods_differing_only_in_ports_never_share_a_batch():
+def test_pods_differing_only_in_ports_never_share_a_batch(hints):
     """NodePorts signs the pod's ports: two pods alike but for their port
     split into two batches (one session each), and bind as in JAX."""
-    pair = Pair()
+    pair = Pair(hints=hints)
     pair.each(_nodes(6))
     fw = pair.port.profiles["default-scheduler"]
     a = make_pod().name("a").req({"cpu": "500m"}).host_port(8080).obj()

@@ -29,6 +29,13 @@ def _one_torch_thread():
     torch.set_num_threads(before)
 
 
+@pytest.fixture(params=[False, True], ids=["hints-off", "hints-on"])
+def hints(request):
+    """Score hints off (the dispatch path alone) and on (both packages'
+    defaults): each parity case runs both ways."""
+    return request.param
+
+
 def _jax_without(name):
     def profiles(handle):
         return {"default-scheduler": build_framework(
@@ -51,12 +58,13 @@ def _port_fit_only(handle):
                               (DefaultBinder(handle.clientset), 0)])
 
 
-def _pair(jax_profiles, port_profile):
+def _pair(jax_profiles, port_profile, hints=False):
+    """The JAX scheduler and the port's, score hints on or off in both."""
     jax_s = TPUScheduler(mesh=None, profile_factory=jax_profiles)
-    jax_s._hints.enabled = False
-    jax_s._hints.entry = None
+    jax_s._hints.enabled = hints
     return ((jax_s, jax_make_node, jax_make_pod),
-            (TorchScheduler(device="cpu", profile_factory=port_profile), make_node, make_pod))
+            (TorchScheduler(device="cpu", profile_factory=port_profile, score_hints=hints),
+             make_node, make_pod))
 
 
 def _bindings(s):
@@ -76,11 +84,11 @@ def _run(pair, nodes, pods):
     return jax_s, port
 
 
-def test_fit_only_profile_binds_every_pod():
+def test_fit_only_profile_binds_every_pod(hints):
     """The BASELINE config[0] profile (PrioritySort, NodeResourcesFit,
     DefaultBinder) has no InterPodAffinity: the plan takes its defaults."""
     _jax, port = _run(
-        _pair(fit_only_profiles, _port_fit_only),
+        _pair(fit_only_profiles, _port_fit_only, hints=hints),
         lambda mk: [mk().name(f"node-{i}").capacity({"cpu": 4, "memory": "8Gi", "pods": 110})
                     for i in range(6)],
         lambda mk: [mk().name(f"pod-{i}").req({"cpu": "500m", "memory": "256Mi"})
@@ -89,12 +97,13 @@ def test_fit_only_profile_binds_every_pod():
     assert port.host_path_pods == 0
 
 
-def test_spread_without_pod_topology_spread_is_ignored():
+def test_spread_without_pod_topology_spread_is_ignored(hints):
     """Three nodes in zone-a, one in zone-b, eight pods under a hard zone
     spread of skew 1: without PodTopologySpread in the profile the spread
     binds nothing, so the pods fill zone-a's three nodes first."""
     _jax, port = _run(
-        _pair(_jax_without("PodTopologySpread"), _port_without("PodTopologySpread")),
+        _pair(_jax_without("PodTopologySpread"), _port_without("PodTopologySpread"),
+              hints=hints),
         lambda mk: [mk().name(f"node-{i}").label(ZONE, "zone-a" if i < 3 else "zone-b")
                     .capacity({"cpu": 8, "memory": "16Gi", "pods": 110}) for i in range(4)],
         lambda mk: [mk().name(f"pod-{i}").label("app", "web").req({"cpu": "1"})
@@ -104,12 +113,13 @@ def test_spread_without_pod_topology_spread_is_ignored():
     assert port.host_path_pods == 8
 
 
-def test_affinity_without_inter_pod_affinity_takes_the_host_path():
+def test_affinity_without_inter_pod_affinity_takes_the_host_path(hints):
     """Pods with required hostname anti-affinity against each other, under
     a profile without InterPodAffinity: the term binds nothing, and every
     pod takes the host path, as in the JAX package."""
     jax_s, port = _run(
-        _pair(_jax_without("InterPodAffinity"), _port_without("InterPodAffinity")),
+        _pair(_jax_without("InterPodAffinity"), _port_without("InterPodAffinity"),
+              hints=hints),
         lambda mk: [mk().name(f"node-{i}").capacity({"cpu": 8, "memory": "16Gi", "pods": 110})
                     for i in range(3)],
         lambda mk: [mk().name(f"pod-{i}").label("app", "db").req({"cpu": "1"})

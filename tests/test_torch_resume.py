@@ -4,14 +4,16 @@ on the CPU.
 Scheduler: the same scripted event streams — bound-pod deletes between
 sessions, taint lifts and adds, unclassifiable events, events parked in the
 inbox while a session runs, namespace sweeps, seeded churn — go through
-kubernetes_tpu's TPUScheduler(mesh=None) (score hints off: the port has no
-hint walker) and through TorchScheduler(device="cpu"). The assignments and
-the four plan-acquisition counters (plan_rebuilds_full / _delta / _resume,
-delta_dirty_rows) must be identical, and each stream must take the path it
-is about. Kernel: the JAX package's patch_carry_rows against the port's
-plain version on seeded numpy inputs, exact (int64 and bool, no
-tolerance). Also the journal's truncation, patch_tier's tiers, and that
-both patches write copies."""
+kubernetes_tpu's TPUScheduler(mesh=None) and through
+TorchScheduler(device="cpu"), with score hints off in both and on in both.
+The assignments, the four plan-acquisition counters (plan_rebuilds_full /
+_delta / _resume, delta_dirty_rows) and the hint counters must be
+identical, and with hints off each stream must take the path it is about
+(the cases about a session's own path run with hints off only). Kernel:
+the JAX package's patch_carry_rows against the port's plain version on
+seeded numpy inputs, exact (int64 and bool, no tolerance). Also the
+journal's truncation, patch_tier's tiers, and that both patches write
+copies."""
 
 import random
 
@@ -45,7 +47,7 @@ from kubernetes_tpu_torch.testing.kernel_inputs import (
 )
 
 COUNTERS = ("plan_rebuilds_full", "plan_rebuilds_delta", "plan_rebuilds_resume",
-            "delta_dirty_rows")
+            "delta_dirty_rows", "hint_hits", "hint_misses", "hint_invalidations")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -56,6 +58,13 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
+
+
+@pytest.fixture(params=[False, True], ids=["hints-off", "hints-on"])
+def hints(request):
+    """Score hints off (the dispatch path alone) and on (both packages'
+    defaults): each parity case runs both ways."""
+    return request.param
 
 
 # ---------------------------------------------------------------------------
@@ -95,15 +104,14 @@ class Side:
                       key=lambda p: (p.namespace, p.name))
 
 
-def _pair(n_nodes=24, max_batch=64, taints=None):
+def _pair(n_nodes=24, max_batch=64, taints=None, hints=False):
+    """The two schedulers with score hints on or off in both (with them, a
+    replica after a clean session binds before any session starts)."""
     jax_s = TPUScheduler(max_batch=max_batch, mesh=None)
-    # The port has no score-hint walker yet; with it the JAX scheduler binds
-    # identical replicas before any session starts.
-    jax_s._hints.enabled = False
-    jax_s._hints.entry = None
+    jax_s._hints.enabled = hints
     sides = (Side(jax_s, jax_make_node, jax_make_pod, JaxNamespace),
-             Side(TorchScheduler(device="cpu", max_batch=max_batch), make_node, make_pod,
-                  Namespace))
+             Side(TorchScheduler(device="cpu", max_batch=max_batch, score_hints=hints),
+                  make_node, make_pod, Namespace))
     taints = taints or {}
     for side in sides:
         for i in range(n_nodes):
@@ -199,10 +207,10 @@ def test_taint_lift_and_taint_add_take_delta_path():
 
 
 @pytest.mark.parametrize("event", ["node-add", "node-label", "node-delete"])
-def test_unclassified_event_falls_back_to_full_rebuild(event):
+def test_unclassified_event_falls_back_to_full_rebuild(event, hints):
     """A structural event (a node added or deleted) or a node's label change
     cannot be patched: the next session rebuilds its plan in full."""
-    sides = _pair(n_nodes=12)
+    sides = _pair(n_nodes=12, hints=hints)
     _both(sides, lambda x: [x.cs.create_pod(x.pod(f"a-{i}")) for i in range(6)])
     step = {"node-add": lambda x: x.cs.create_node(x.node("node-99")),
             "node-label": lambda x: x.cs.update_node(x.node("node-5", label=("rack", "r1"))),
@@ -213,10 +221,10 @@ def test_unclassified_event_falls_back_to_full_rebuild(event):
     assert sides[1].s.plan_rebuilds_full == 2 and sides[1].s.plan_rebuilds_delta == 0
 
 
-def test_prefer_no_schedule_taint_rebuilds_with_its_lane():
+def test_prefer_no_schedule_taint_rebuilds_with_its_lane(hints):
     """A PreferNoSchedule taint under a plan built without that lane cannot
     be patched in: the next plan is rebuilt and carries it."""
-    sides = _pair(n_nodes=12)
+    sides = _pair(n_nodes=12, hints=hints)
     _both(sides, lambda x: [x.cs.create_pod(x.pod(f"a-{i}")) for i in range(6)])
     _both(sides, lambda x: x.cs.update_node(x.node("node-2", taint=("soft", "", "PreferNoSchedule"))))
     _both(sides, lambda x: [x.cs.create_pod(x.pod(f"b-{i}")) for i in range(6)])
@@ -226,10 +234,10 @@ def test_prefer_no_schedule_taint_rebuilds_with_its_lane():
     assert port._resume[2][1].facts.has_pns
 
 
-def test_nomination_change_misses_the_resume_key():
+def test_nomination_change_misses_the_resume_key(hints):
     """The nominated set is part of the resume key: after a preemption
     nominates a pod, the next session does not resume the old plan."""
-    sides = _pair(n_nodes=4)
+    sides = _pair(n_nodes=4, hints=hints)
     for x in sides:
         for i in range(4):
             x.cs.update_node(x.node(f"node-{i}", cpu=2))
@@ -251,11 +259,11 @@ def test_nomination_change_misses_the_resume_key():
 
 
 @pytest.mark.parametrize("event", ["namespace", "foreign-pending-pod"])
-def test_session_continues_across_parked_benign_event(event):
+def test_session_continues_across_parked_benign_event(event, hints):
     """A namespace event (the plan has no inter-pod affinity) or a pending
     pod's delete (queue-only) parked while a session runs is consumed
     without ending it or dirtying a row."""
-    sides = _pair()
+    sides = _pair(hints=hints)
     foreign = {}
     if event == "foreign-pending-pod":
         def mk_foreign(x):
@@ -364,10 +372,10 @@ def test_parked_taint_add_ends_the_busy_session():
 # ---------------------------------------------------------------------------
 
 
-def test_cross_namespace_pods_share_one_session():
+def test_cross_namespace_pods_share_one_session(hints):
     """Pods identical but for labels and namespace (the *WithNSSelector
     init shape) ride one session while no pod carries affinity terms."""
-    sides = _pair()
+    sides = _pair(hints=hints)
 
     def create(x):
         for n in range(5):
@@ -380,10 +388,10 @@ def test_cross_namespace_pods_share_one_session():
     assert port.device_batches == 1
 
 
-def test_neutral_batching_disabled_when_affinity_pods_exist():
+def test_neutral_batching_disabled_when_affinity_pods_exist(hints):
     """One pod with affinity terms in the cluster makes labels and
     namespaces matter: one session per namespace again."""
-    sides = _pair()
+    sides = _pair(hints=hints)
 
     def create(x):
         x.cs.create_pod(x.mk_pod().name("anchor").req({"cpu": "100m"}).label("color", "red")
@@ -578,8 +586,9 @@ def test_patches_write_copies_and_resume_reads_them():
     """patch_rows scatters into a copy of the resident state and
     patch_carry_rows returns copied lanes: the saved plan's tensors keep
     their values, and the resumed session's state and carry hold the
-    patched rows."""
-    port = TorchScheduler(device="cpu", max_batch=64)
+    patched rows. (Hints off: the next pod must start a session, not bind
+    from the walker.)"""
+    port = TorchScheduler(device="cpu", max_batch=64, score_hints=False)
     for i in range(8):
         port.clientset.create_node(make_node().name(f"node-{i}")
                                    .capacity({"cpu": 4, "memory": "8Gi", "pods": 10}).obj())

@@ -201,15 +201,17 @@ class TestScope:
         # re-run on the host for its diagnosis).
         assert port.scheduled > 0 and port.device_scheduled == port.scheduled
 
+    @pytest.mark.parametrize("hints", [False, True], ids=["hints-off", "hints-on"])
     @pytest.mark.parametrize("case", ["claims", "pod-groups"])
-    def test_out_of_scope_pod_refused(self, case):
+    def test_out_of_scope_pod_refused(self, case, hints):
         """A pod group inside a composite tree (a parent composite group) is
         refused. Resource claims were refused too until DynamicResources
         was ported: the claims case now holds a claim pod admitted and
         scheduled as in the JAX package, under its default profile (claims
-        inert) and under one with DynamicResources (the claim allocated)."""
+        inert) and under one with DynamicResources (the claim allocated),
+        score hints off in both and on in both."""
         if case == "pod-groups":
-            s = TorchScheduler(device="cpu")
+            s = TorchScheduler(device="cpu", score_hints=hints)
             pod = make_pod().name("p").req({"cpu": "1"}).pod_group("gang").obj()
             with pytest.raises(NotImplementedError):
                 s.clientset.create_pod_group(PodGroup(name=pod.pod_group, parent_name="tree"))
@@ -226,9 +228,8 @@ class TestScope:
         for with_dra in (False, True):
             jax_s = TPUScheduler(mesh=None, **({"profile_factory": lambda h: {
                 "default-scheduler": build_framework(h, plugins=plugins)}} if with_dra else {}))
-            jax_s._hints.enabled = False
-            jax_s._hints.entry = None
-            port = TorchScheduler(device="cpu",
+            jax_s._hints.enabled = hints
+            port = TorchScheduler(device="cpu", score_hints=hints,
                                   **({"profile_factory": dra_profile} if with_dra else {}))
             for s, mk_node, mk_pod, api in ((jax_s, jax_make_node, jax_make_pod, jax_dra),
                                             (port, make_node, make_pod, dra)):

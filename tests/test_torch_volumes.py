@@ -8,8 +8,8 @@ ScanCarry lane, aux_cnt included, are equal. Features: build_batch's
 aux_room, aux_inc and has_aux equal the JAX package's on one cluster.
 Scheduler: each scenario of tests/test_volumes.py, and the attach-limit and
 host-path cuts of the volume drives, go through the JAX package's
-TPUScheduler (CPU JAX, no mesh, score hints off: the port has no hint
-walker) and the port's TorchScheduler(device="cpu"): bindings,
+TPUScheduler (CPU JAX, no mesh) and the port's TorchScheduler(device="cpu"),
+score hints off in both and on in both: bindings,
 device_scheduled, host_path_pods and queue counts are equal. Every
 comparison is exact."""
 
@@ -68,6 +68,13 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
+
+
+@pytest.fixture(params=[False, True], ids=["hints-off", "hints-on"])
+def hints(request):
+    """Score hints off (the dispatch path alone) and on (both packages'
+    defaults): each parity case runs both ways."""
+    return request.param
 
 
 # ---------------------------------------------------------------------------
@@ -267,11 +274,10 @@ def _bound_claim(kit, cs, name, driver="", modes=("ReadOnlyMany",), namespace="d
 class Pair:
     """The JAX package's TPUScheduler and the port's TorchScheduler."""
 
-    def __init__(self, max_batch=None, controller=False):
+    def __init__(self, max_batch=None, controller=False, hints=False):
         self.jax = TPUScheduler(mesh=None, max_batch=max_batch)
-        self.jax._hints.enabled = False
-        self.jax._hints.entry = None
-        self.port = TorchScheduler(device="cpu", max_batch=max_batch)
+        self.jax._hints.enabled = hints
+        self.port = TorchScheduler(device="cpu", max_batch=max_batch, score_hints=hints)
         self.sides = ((self.jax, JAX), (self.port, PORT))
         self.controllers = ([kit.PVController(s.clientset) for s, kit in self.sides]
                             if controller else None)
@@ -311,8 +317,8 @@ def _nodes(n, cpu="4", zones=0, pods=10):
 # ---------------------------------------------------------------------------
 
 
-def test_bound_pvc_node_affinity():
-    pair = Pair()
+def test_bound_pvc_node_affinity(hints):
+    pair = Pair(hints=hints)
     pair.each(_nodes(3))
 
     def w(s, kit):
@@ -325,8 +331,8 @@ def test_bound_pvc_node_affinity():
     assert pair.port.host_path_pods == 1
 
 
-def test_unbound_immediate_is_unresolvable():
-    pair = Pair()
+def test_unbound_immediate_is_unresolvable(hints):
+    pair = Pair(hints=hints)
     pair.each(_nodes(1))
 
     def w(s, kit):
@@ -338,8 +344,8 @@ def test_unbound_immediate_is_unresolvable():
     assert pair.port.failures >= 1 and pair.port.queue.pending_counts() == (0, 0, 1)
 
 
-def test_wait_for_first_consumer_binds_pv():
-    pair = Pair()
+def test_wait_for_first_consumer_binds_pv(hints):
+    pair = Pair(hints=hints)
     pair.each(_nodes(2))
 
     def w(s, kit):
@@ -354,8 +360,8 @@ def test_wait_for_first_consumer_binds_pv():
     assert pvc.volume_name == "pv-a" and pair.port.clientset.pvs["pv-a"].claim_ref == "default/c"
 
 
-def test_wffc_dynamic_provisioning():
-    pair = Pair()
+def test_wffc_dynamic_provisioning(hints):
+    pair = Pair(hints=hints)
     pair.each(_nodes(1))
 
     def w(s, kit):
@@ -369,9 +375,9 @@ def test_wffc_dynamic_provisioning():
     assert pair.port.clientset.pvcs["default/c"].volume_name.startswith("pvc-")
 
 
-def test_two_claims_one_pv_conflict():
+def test_two_claims_one_pv_conflict(hints):
     """The second pod must not reuse the PV the first pod's claim assumed."""
-    pair = Pair()
+    pair = Pair(hints=hints)
     pair.each(_nodes(2))
 
     def w(s, kit):
@@ -388,8 +394,8 @@ def test_two_claims_one_pv_conflict():
     assert sum(1 for v in bound.values() if v) == 1
 
 
-def test_zone_mismatch_rejected():
-    pair = Pair()
+def test_zone_mismatch_rejected(hints):
+    pair = Pair(hints=hints)
     pair.each(_nodes(2, zones=2))
 
     def w(s, kit):
@@ -402,10 +408,10 @@ def test_zone_mismatch_rejected():
     assert pair.check(device=False) == {"p": "n1"}
 
 
-def test_csi_attach_limit_with_provisioning():
+def test_csi_attach_limit_with_provisioning(hints):
     """Limit 1 volume a node for driver csi.x, two WaitForFirstConsumer
     claims of that class: one pod schedules."""
-    pair = Pair()
+    pair = Pair(hints=hints)
     pair.each(_nodes(1, cpu="8"))
 
     def w(s, kit):
@@ -421,8 +427,8 @@ def test_csi_attach_limit_with_provisioning():
     assert sum(1 for v in bound.values() if v) == 1
 
 
-def test_rwop_conflict():
-    pair = Pair()
+def test_rwop_conflict(hints):
+    pair = Pair(hints=hints)
     pair.each(_nodes(1, cpu="8"))
 
     def w(s, kit):
@@ -436,10 +442,10 @@ def test_rwop_conflict():
     assert sum(1 for v in bound.values() if v) == 1
 
 
-def test_rwop_conflict_resolved_by_preemption():
+def test_rwop_conflict_resolved_by_preemption(hints):
     """The RWOP count rides the cycle state: the host dry run evicts the
     claim's current user (volumerestrictions AddPod/RemovePod)."""
-    pair = Pair()
+    pair = Pair(hints=hints)
     pair.each(_nodes(1, cpu="8"))
 
     def w(s, kit):
@@ -460,8 +466,8 @@ def test_rwop_conflict_resolved_by_preemption():
     assert pair.port.preemption_device_evals == 0
 
 
-def test_pv_controller_binds_immediate_claims():
-    pair = Pair(controller=True)
+def test_pv_controller_binds_immediate_claims(hints):
+    pair = Pair(controller=True, hints=hints)
     pair.each(_nodes(1, cpu="8"))
 
     def w(s, kit):
@@ -478,8 +484,8 @@ def test_pv_controller_binds_immediate_claims():
     assert [c.binds for c in pair.controllers] == [1, 1]
 
 
-def test_pv_controller_wffc_provisions_on_selected_node():
-    pair = Pair(controller=True)
+def test_pv_controller_wffc_provisions_on_selected_node(hints):
+    pair = Pair(controller=True, hints=hints)
     pair.each(_nodes(3, cpu="8"))
 
     def w(s, kit):
@@ -499,10 +505,10 @@ def test_pv_controller_wffc_provisions_on_selected_node():
     assert pv.node_affinity.matches(cs.nodes[node])
 
 
-def test_bound_pvc_pods_ride_the_device():
+def test_bound_pvc_pods_ride_the_device(hints):
     """Bound claims without node affinity, zone labels or limits impose no
     per-node constraint: 60 pods on the device, none on the host path."""
-    pair = Pair()
+    pair = Pair(hints=hints)
     pair.each(_nodes(30, cpu="8", pods=110))
 
     def w(s, kit):
@@ -534,10 +540,10 @@ def _csi_pods(n, prefix="vp", build=None):
     return create
 
 
-def test_csi_attach_limits_enforced_on_the_device(paths):
+def test_csi_attach_limits_enforced_on_the_device(paths, hints):
     """The kernels' counted aux lane: limit 2 on 3 nodes, 6 of 8 pods bind,
     on the device, as in JAX."""
-    pair = Pair()
+    pair = Pair(hints=hints)
     pair.each(_csi_cluster(3, 2))
     pair.each(_csi_pods(8))
     bound = pair.check()
@@ -545,10 +551,10 @@ def test_csi_attach_limits_enforced_on_the_device(paths):
     assert pair.port.device_scheduled >= 6 and "lap_schedule" in paths
 
 
-def test_shared_claim_pods_fall_back_to_host():
+def test_shared_claim_pods_fall_back_to_host(hints):
     """Two pods sharing one bound claim: the kernels would count the claim
     twice, so the second takes the host path; both schedule."""
-    pair = Pair()
+    pair = Pair(hints=hints)
     pair.each(_csi_cluster(4, 5))
 
     def w(s, kit):
@@ -631,7 +637,7 @@ def test_build_batch_aux_lane_like_jax(claims):
     (64, False, "scan_general", 60),
     (64, True, "scan_general", 55),
 ], ids=["lap", "scan", "general-spread"])
-def test_attach_limit_cut_like_jax(max_batch, spread, kernel, want, paths):
+def test_attach_limit_cut_like_jax(max_batch, spread, kernel, want, paths, hints):
     """30 nodes with an attach limit of 2 and 10 init pods, then 55 pods
     (60 slots for 65): the last pods fail NodeVolumeLimits on the host
     rerun (with a zone spread over 10 zones, the full zones' pods fail it
@@ -642,7 +648,7 @@ def test_attach_limit_cut_like_jax(max_batch, spread, kernel, want, paths):
         def build(b):
             return b.labels({"app": "v"}).spread_constraint(1, ZONE, "DoNotSchedule",
                                                             {"app": "v"})
-    pair = Pair(max_batch=max_batch)
+    pair = Pair(max_batch=max_batch, hints=hints)
     pair.each(_csi_cluster(30, 2, zones=10 if spread else 0))
     pair.each(_csi_pods(10, prefix="init"))
     pair.each(_csi_pods(55, build=build))
@@ -654,12 +660,12 @@ def test_attach_limit_cut_like_jax(max_batch, spread, kernel, want, paths):
                            for q in pending.values())
 
 
-def test_volume_session_never_resumes_for_plain_pods():
+def test_volume_session_never_resumes_for_plain_pods(hints):
     """A wave of attach-limited volume pods, then a wave of plain pods of
     the same spec, then volume pods again: the attach shape in the resume
     key keeps each wave on its own plan, and the plan acquisitions equal
     JAX's."""
-    pair = Pair()
+    pair = Pair(hints=hints)
     pair.each(_csi_cluster(20, 3))
     pair.each(_csi_pods(30, prefix="w1"))
 
@@ -675,11 +681,11 @@ def test_volume_session_never_resumes_for_plain_pods():
     assert pair.port.plan_rebuilds_resume == 0
 
 
-def test_wffc_host_path_cut_like_jax():
+def test_wffc_host_path_cut_like_jax(hints):
     """The host-path cut: 20 pods with unbound WaitForFirstConsumer claims,
     half matched by available PVs pinned to nodes, half provisioned by the
     attached PV controller."""
-    pair = Pair(controller=True)
+    pair = Pair(controller=True, hints=hints)
     pair.each(_nodes(10, cpu="8", pods=110))
 
     def w(s, kit):
@@ -704,10 +710,10 @@ def test_wffc_host_path_cut_like_jax():
         assert cs.pvcs[f"default/w{i}"].volume_name.startswith("local-")
 
 
-def test_volume_gangs_ride_the_gang_session_like_jax():
+def test_volume_gangs_ride_the_gang_session_like_jax(hints):
     """Pod groups whose members each hold their own attach-limited claim
     ride gang device sessions, as in JAX."""
-    pair = Pair()
+    pair = Pair(hints=hints)
     pair.each(_csi_cluster(12, 2))
 
     def groups(s, kit):
@@ -740,13 +746,13 @@ def test_bench_csi_attach_limit_at_small_size():
     assert result["detail"]["host_path_pods"] == 0 and result["detail"]["failures"] == 0
 
 
-def test_volume_gang_never_joins_a_plain_gang_session_like_jax():
+def test_volume_gang_never_joins_a_plain_gang_session_like_jax(hints):
     """A gang session whose head group has no attach limit takes no group
     of attach-limited members: its plan has no aux lane, so they would land
     past the CSINode limit of 1. The plain gang binds; the six-member
     volume gang, which three attachment slots cannot hold, stays pending
     after its host group cycle, in both packages."""
-    pair = Pair()
+    pair = Pair(hints=hints)
     pair.each(_csi_cluster(3, 1))
 
     def groups(s, kit):
